@@ -25,7 +25,26 @@ error:
      zeroed just before and read just after; K1, K3 and K4 must have run,
      and the decrypted average must sit within 5e-6 of the same program's
      plaintext FedAvg mean (the repo's encrypted-average yardstick).
-  4. Print one JSON line {"kernels": [...]} and, last, the result line
+  4. Encrypted-inference serving, linear BSGS (the JAX package's
+     bench_inference.py configuration): N=4096, L=3, d=512 features, K=10
+     classes, 45 Galois keys. One query through `BsgsLinearScorer.score`
+     (hoisted) must decrypt within 0.05 of W x + b with the same argmax, be
+     bitwise equal to the "unhoisted" scorer's output and to the same
+     scorer run on CPU copies of the keys and query (the plain versions),
+     and launch exactly 23 K5 and 1 K6 (and at least one K1 and one K2).
+     Then 16 queries packed 4 per ciphertext through `score_many`, with the
+     same error and argmax checks. Warm latency (median, p95 of 20 calls)
+     and queries per second for both.
+  5. Encrypted-inference serving, depth-2 MLP BSGS: N=8192, L=5, d=64,
+     H=16, K=10, two rescales. `BsgsMlpScorer.score` with the same argmax
+     as the plaintext circuit and within MLP_ERR_LIMIT of it (see there),
+     at least one K5 launch in its eval-input mode (relinearization),
+     bitwise equal to the unhoisted scorer and to the same scorer on CPU
+     copies; warm latency. Phases 4 and 5 also print one warm score's
+     device time by kernel (torch.profiler).
+  6. Print one JSON line {"kernels": [...]} (launches: the sum over the
+     main-path runs of phases 3-5, each counted from zero) and, last, the
+     result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -40,19 +59,31 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth, and
-# the 32-bit non-tensor-core rate, which bounds the kernels' 32-bit integer work.
+# H100 SXM peaks at the 700 W limit: HBM3 bandwidth (NVIDIA data sheet), and
+# the 32-bit integer instruction rate that bounds the kernels' work: 132 SMs x
+# 64 INT32 lanes x 1.98 GHz boost clock (NVIDIA Hopper architecture white
+# paper) = 16.7e12 instructions/s. (The data sheet's 67 TFLOP/s float32 rate
+# counts an FMA as two operations and does not apply to integer code.)
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
+OPS_PER_S = 132 * 64 * 1.98e9
 # 32-bit integer instructions per element operation, as the kernels issue them:
 # a Shoup product is umulhi + 2 mul + sub + compare/select; a Montgomery product
 # a wide multiply (2) + mul + umulhi + 2 adds + compare/select; add/sub mod p
 # an add, a compare and a select.
 SHOUP_OPS, MONT_OPS, ADDMOD_OPS = 6, 8, 3
 BUTTERFLY_OPS = SHOUP_OPS + 2 * ADDMOD_OPS
+DIGIT_OPS = 2 + ADDMOD_OPS           # shift, mask, centre (sub mod p)
+DIGIT_BITS, NUM_DIGITS = 5, 6        # the default gadget at 27-bit primes
 PALLAS = "hefl_tpu/ckks/pallas_ntt.py"
 SOURCE = "hefl_tpu_torch/csrc/ntt.cu"
 ERR_LIMIT = 5e-6
+SCORE_ERR_LIMIT = 0.05               # the JAX package's serving tolerance
+# The depth-2 MLP at N=8192 carries more noise than the JAX tests' n=512 ring:
+# the baby rotations' key-switch noise grows with N and the square doubles
+# its relative size (0.174 on the H100 in chip_smoke.py, bitwise the same
+# integers as the plain versions). Its check is the repo's serving gate
+# (argmax agrees, run_perf_smoke.sh) plus this bound against broken decodes.
+MLP_ERR_LIMIT = 0.25
 
 
 def log(msg: str) -> None:
@@ -126,6 +157,69 @@ def kernel_cases(cuda_ntt, ntt_ctx, rows: int, enc_rows: int, device, seed: int)
     ]
 
 
+def serving_kernel_cases(cuda_ntt, ntt_mod, n: int, device, seed: int, shapes="slice"):
+    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K5 (both
+    modes) and K6. `shapes="slice"`: the serving path's shapes (K5 at
+    [1, 3, 4096] and [4, 3, 4096] with C=19, in eval-input mode at
+    [1, 5, 8192] with C=31; K6 with S=22, R=18, B=1 at N=4096); otherwise
+    the same kinds at ring size n."""
+    from hefl_tpu_torch.ckks.primes import find_ntt_primes
+
+    word = 4
+    cases = []
+
+    def ctx_of(num_l, ring):
+        return ntt_mod.NTTContext.build(find_ntt_primes(num_l, 27, 2 * ring), ring)
+
+    def keyswitch(b, num_l, ring, eval_input, k):
+        ctx = ctx_of(num_l, ring)
+        logn = ring.bit_length() - 1
+        r = num_l * NUM_DIGITS
+        c = r + 1
+        x = rand_residues(ctx, (b, num_l, ring), seed + k, device)
+        bk = rand_residues(ctx, (c, num_l, ring), seed + k + 1, device)
+        ak = rand_residues(ctx, (c, num_l, ring), seed + k + 2, device)
+        fwd_ops = (ring // 2) * logn * BUTTERFLY_OPS
+        inv_ops = fwd_ops + ring * SHOUP_OPS
+        words = 3 * b * num_l * ring + 2 * c * num_l * ring + (4 if eval_input else 2) * num_l * ring
+        ops = (b * r * num_l * (fwd_ops + ring * DIGIT_OPS)
+               + 2 * c * b * num_l * ring * (MONT_OPS + ADDMOD_OPS)
+               + (b * num_l * inv_ops if eval_input else 0))
+        name = "keyswitch_fused_eval" if eval_input else "keyswitch_fused"
+        return (name, f"{PALLAS}:527", [b, num_l, ring],
+                lambda: cuda_ntt.keyswitch_fused(ctx, x, bk, ak, DIGIT_BITS, NUM_DIGITS, eval_input),
+                lambda: cuda_ntt.keyswitch_fused_plain(ctx, x, bk, ak, DIGIT_BITS, NUM_DIGITS,
+                                                       eval_input),
+                words * word, ops)
+
+    def hoisted(s_steps, b, ring, k):
+        num_l = 3
+        ctx = ctx_of(num_l, ring)
+        r = num_l * NUM_DIGITS
+        c0 = rand_residues(ctx, (b, num_l, ring), seed + k, device)
+        d = rand_residues(ctx, (b, r, num_l, ring), seed + k + 1, device)
+        bk = rand_residues(ctx, (s_steps, r, num_l, ring), seed + k + 2, device)
+        ak = rand_residues(ctx, (s_steps, r, num_l, ring), seed + k + 3, device)
+        poly = num_l * ring
+        words = b * poly + b * r * poly + 2 * s_steps * r * poly + 2 * s_steps * b * poly
+        ops = s_steps * b * poly * (2 * r * (MONT_OPS + ADDMOD_OPS) + ADDMOD_OPS)
+        return ("hoisted_products", f"{PALLAS}:701", [s_steps, r, b, num_l, ring],
+                lambda: cuda_ntt.hoisted_products(ctx, c0, d, bk, ak),
+                lambda: cuda_ntt.hoisted_products_plain(ctx, c0, d, bk, ak),
+                words * word, ops)
+
+    if shapes == "slice":
+        cases.append(keyswitch(1, 3, 4096, False, 0))
+        cases.append(keyswitch(4, 3, 4096, False, 10))
+        cases.append(keyswitch(1, 5, 8192, True, 20))
+        cases.append(hoisted(22, 1, 4096, 30))
+    else:
+        cases.append(keyswitch(2, 3, n, False, 0))
+        cases.append(keyswitch(1, 5, n, True, 10))
+        cases.append(hoisted(22, 2, n, 20))
+    return cases
+
+
 def max_abs_err(got, want) -> int:
     if isinstance(got, tuple):
         return max(max_abs_err(g, w) for g, w in zip(got, want))
@@ -167,6 +261,35 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         }
+        log(f"  {name} {shape}: bitwise equal; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by}: {bytes_moved} B, {ops} int32 ops)")
+    for name, _, shape, kern, plain, _, _ in serving_kernel_cases(cuda_ntt, ntt_mod, 1024, device,
+                                                                   300, shapes="small"):
+        err = max_abs_err(kern(), plain())
+        torch.cuda.synchronize()
+        log(f"  N=1024 {name} {shape}: max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"{name} at N=1024 differs from its plain version")
+    for name, replaces, shape, kern, plain, bytes_moved, ops in serving_kernel_cases(
+            cuda_ntt, ntt_mod, 4096, device, 400):
+        err = max_abs_err(kern(), plain())
+        torch.cuda.synchronize()
+        if err != 0:
+            raise AssertionError(f"{name} at {shape} differs from its plain version")
+        ms = time_ms(kern, 30, flush)
+        plain_ms = time_ms(plain, 5, flush)
+        bound_ms, bound_by = bound(bytes_moved, ops)
+        rec = {
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "shape": shape, "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        }
+        if name in records:       # K5 at the packed batch: kept beside the B=1 row
+            records[name]["batch"] = {k: rec[k] for k in ("shape", "ms", "plain_ms",
+                                                          "bound_ms", "bound_by")}
+        else:
+            records[name] = rec
         log(f"  {name} {shape}: bitwise equal; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
             f"bound {bound_ms:.6f} ms ({bound_by}: {bytes_moved} B, {ops} int32 ops)")
     del flush
@@ -241,6 +364,187 @@ def main_path(device) -> dict:
     return counts
 
 
+def warm_latency(fn, calls: int = 20) -> tuple[float, float]:
+    """(median, p95) seconds of `fn` over `calls` warm calls, each ending in
+    torch.cuda.synchronize() (host clock)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), float(np.percentile(times, 95))
+
+
+def device_time_breakdown(label: str, fn) -> None:
+    """Device time of one warm call of `fn` by kernel (torch.profiler with
+    CUDA activity, kernel events only), beside its host-clock wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    ours = sum(r[1] for r in rows if "(anonymous namespace)::" in r[0])
+    log(f"  {label}: wall {wall_ms:.3f} ms (profiled), device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f} % of wall) in {sum(r[2] for r in rows)} kernels; "
+        f"the port's CUDA kernels {ours:.3f} ms, PyTorch's own {busy - ours:.3f} ms")
+    for key, ms, count in rows[:8]:
+        log(f"    {ms:9.4f} ms  x{count:<5d} {key[:90]}")
+
+
+def same_ciphertext(a, b) -> bool:
+    return (torch.equal(a.c0.cpu(), b.c0.cpu()) and torch.equal(a.c1.cpu(), b.c1.cpu())
+            and a.scale == b.scale)
+
+
+def check_scores(label: str, got, want, limit: float = SCORE_ERR_LIMIT) -> None:
+    err = float(np.max(np.abs(got - want)))
+    agree = bool(np.all(np.argmax(got, -1) == np.argmax(want, -1)))
+    log(f"  {label}: max |scores - reference| {err:.3e} (limit {limit}), "
+        f"argmax agrees: {agree}")
+    if not (np.all(np.isfinite(got)) and err <= limit and agree):
+        raise AssertionError(f"{label}: scores off the plaintext reference ({err}, argmax {agree})")
+
+
+def serving_linear(device, n: int = 4096) -> dict:
+    """Phase 4: linear BSGS serving at N=4096, L=3, d=N/8 = 512, K=10."""
+    from hefl_tpu_torch import he_inference as hei
+    from hefl_tpu_torch.ckks import cuda_ntt, encoding
+    from hefl_tpu_torch.ckks.keys import CkksContext, GaloisKey, keygen
+
+    times = {}
+    t = time.perf_counter()
+    ctx = CkksContext.create(n=n)
+    gen = torch.Generator().manual_seed(42)
+    sk, pk = keygen(ctx, gen, device=device)
+    slots = encoding.num_slots(ctx.ntt)
+    d, k = slots // 4, 10
+    rng = np.random.default_rng(42)
+    W, b = rng.normal(0, 0.3, (k, d)), rng.normal(0, 0.2, k)
+    plan = hei.bsgs_plan(slots, d, k)
+    if n == 4096 and (len(plan.baby_steps), len(plan.giant_steps)) != (22, 23):
+        raise AssertionError(f"unexpected plan {plan.baby_steps} / {plan.giant_steps}")
+    gks = hei.gen_rotation_keys_for_steps(ctx, sk, 2, plan.rotation_steps_needed)
+    torch.cuda.synchronize()
+    times["keygen_45_galois_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    scorer = hei.BsgsLinearScorer(ctx, W, b, gks)
+    torch.cuda.synchronize()
+    times["scorer_build_s"] = time.perf_counter() - t
+    x = rng.normal(0, 0.5, d)
+    ct = hei.encrypt_features(ctx, pk, x, gen)
+    torch.cuda.synchronize()
+
+    cuda_ntt.reset_launch_counts()
+    out = scorer.score(ct)
+    torch.cuda.synchronize()
+    counts = cuda_ntt.launch_counts()
+    log(f"  one score's launches: {counts}")
+    if counts["keyswitch_fused"] != len(plan.giant_steps) or counts["hoisted_products"] != 1:
+        raise AssertionError(f"a linear score must launch exactly {len(plan.giant_steps)} K5 "
+                             "(one per giant step) and 1 K6")
+    if counts["ntt_forward"] < 1 or counts["ntt_inverse"] < 1:
+        raise AssertionError("a linear score must launch K1 and K2")
+    check_scores("linear score (1 query)", hei.decrypt_class_scores(ctx, sk, out, k), x @ W.T + b)
+
+    unhoisted = hei.BsgsLinearScorer(ctx, W, b, gks, rotation_mode="unhoisted")
+    if not same_ciphertext(out, unhoisted.score(ct)):
+        raise AssertionError("hoisted and unhoisted linear scores differ")
+    log("  hoisted == unhoisted: bitwise")
+    t = time.perf_counter()
+    cpu_gks = {s: GaloisKey(g=v.g, b_mont=v.b_mont.cpu(), a_mont=v.a_mont.cpu())
+               for s, v in gks.items()}
+    cpu_out = hei.BsgsLinearScorer(ctx, W, b, cpu_gks, device="cpu").score(
+        hei.Ciphertext(ct.c0.cpu(), ct.c1.cpu(), ct.scale))
+    times["cpu_plain_score_s"] = time.perf_counter() - t
+    if not same_ciphertext(out, cpu_out):
+        raise AssertionError("the card's linear score differs from the CPU plain versions'")
+    log(f"  card == CPU plain versions: bitwise ({times['cpu_plain_score_s']:.3f} s on the CPU)")
+
+    med, p95 = warm_latency(lambda: scorer.score(ct))
+    lat = {"single_median_s": med, "single_p95_s": p95, "single_qps": 1.0 / med}
+    device_time_breakdown("one linear score", lambda: scorer.score(ct))
+
+    q, n_ct = 4, 4
+    packed = hei.BsgsLinearScorer(ctx, W, b, gks, queries_per_ct=q)
+    xs = rng.normal(0, 0.5, (n_ct, q, d))
+    cts = hei.encrypt_query_block(ctx, pk, xs, gen, q)
+    outs = packed.score_many(cts)
+    check_scores("linear score_many (16 queries, 4 per ciphertext)",
+                 hei.decrypt_class_scores(ctx, sk, outs, k, queries_per_ct=q), xs @ W.T + b)
+    med, p95 = warm_latency(lambda: packed.score_many(cts))
+    lat.update(packed_median_s=med, packed_p95_s=p95, packed_qps=q * n_ct / med)
+    log("  latency: " + json.dumps(lat))
+    log("  phase times (s): " + json.dumps(times))
+    return counts
+
+
+def serving_mlp(device, n: int = 8192) -> dict:
+    """Phase 5: depth-2 MLP BSGS serving at N=8192, L=5, d=64, H=16, K=10."""
+    from hefl_tpu_torch import he_inference as hei
+    from hefl_tpu_torch.ckks import cuda_ntt, encoding
+    from hefl_tpu_torch.ckks.keys import CkksContext, GaloisKey, RelinKey, gen_relin_key, keygen
+
+    t = time.perf_counter()
+    ctx = CkksContext.create(n=n, num_primes=5)
+    gen = torch.Generator().manual_seed(10)
+    sk, pk = keygen(ctx, gen, device=device)
+    rlk = gen_relin_key(ctx, sk, gen)
+    d, hidden, k = 64, 16, 10
+    rng = np.random.default_rng(43)
+    w1, b1 = rng.normal(0, 0.3, (hidden, d)), rng.normal(0, 0.2, hidden)
+    w2, b2 = rng.normal(0, 0.3, (k, hidden)), rng.normal(0, 0.2, k)
+    plan1, plan2 = hei.bsgs_mlp_plans(encoding.num_slots(ctx.ntt), d, hidden, k)
+    sub = hei.mlp_sub_context(ctx, 2)
+    sub_sk = hei.slice_secret_key(sk, sub.num_primes)
+    gks1 = hei.gen_rotation_keys_for_steps(ctx, sk, 13, plan1.rotation_steps_needed)
+    gks2 = hei.gen_rotation_keys_for_steps(sub, sub_sk, 14, plan2.rotation_steps_needed)
+    scorer = hei.BsgsMlpScorer(ctx, w1, b1, w2, b2, gks1, rlk, gks2)
+    x = rng.normal(0, 0.4, d)
+    ct = hei.encrypt_features(ctx, pk, x, gen)
+    torch.cuda.synchronize()
+    log(f"  keys + scorer build: {time.perf_counter() - t:.3f} s; plan 1 "
+        f"{len(plan1.baby_steps)} baby / {len(plan1.giant_steps)} giant steps, plan 2 "
+        f"{len(plan2.baby_steps)} / {len(plan2.giant_steps)}")
+
+    cuda_ntt.reset_launch_counts()
+    out = scorer.score(ct)
+    torch.cuda.synchronize()
+    counts = cuda_ntt.launch_counts()
+    log(f"  one score's launches: {counts}")
+    if counts["keyswitch_fused_eval"] < 1:
+        raise AssertionError("the MLP's relinearization did not launch K5 in eval-input mode")
+    want = ((x @ w1.T + b1) ** 2) @ w2.T + b2
+    check_scores("MLP score", hei.decrypt_class_scores(sub, sub_sk, out, k), want, MLP_ERR_LIMIT)
+    twin = hei.BsgsMlpScorer(ctx, w1, b1, w2, b2, gks1, rlk, gks2, rotation_mode="unhoisted")
+    if not same_ciphertext(out, twin.score(ct)):
+        raise AssertionError("hoisted and unhoisted MLP scores differ")
+    log("  hoisted == unhoisted: bitwise")
+    t = time.perf_counter()
+    cpu = lambda g: {s: GaloisKey(g=v.g, b_mont=v.b_mont.cpu(), a_mont=v.a_mont.cpu())  # noqa: E731
+                     for s, v in g.items()}
+    cpu_rlk = RelinKey(b_mont=rlk.b_mont.cpu(), a_mont=rlk.a_mont.cpu())
+    cpu_out = hei.BsgsMlpScorer(ctx, w1, b1, w2, b2, cpu(gks1), cpu_rlk, cpu(gks2),
+                                device="cpu").score(hei.Ciphertext(ct.c0.cpu(), ct.c1.cpu(), ct.scale))
+    if not same_ciphertext(out, cpu_out):
+        raise AssertionError("the card's MLP score differs from the CPU plain versions'")
+    log(f"  card == CPU plain versions: bitwise ({time.perf_counter() - t:.3f} s on the CPU)")
+    med, p95 = warm_latency(lambda: scorer.score(ct))
+    log("  latency: " + json.dumps({"median_s": med, "p95_s": p95, "qps": 1.0 / med}))
+    device_time_breakdown("one MLP score", lambda: scorer.score(ct))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -265,9 +569,15 @@ def main() -> int:
     records = check_kernels(cuda_ntt, ntt_mod, CkksContext.create(), device)
 
     log("phase 3: encrypted FedAvg round, MedCNN 256x256x3, N=4096 L=3, 2 clients")
-    counts = main_path(device)
+    counts = [main_path(device)]
+    log("phase 4: linear BSGS serving, N=4096 L=3, d=512, K=10")
+    counts.append(serving_linear(device))
+    log("phase 5: MLP BSGS serving, N=8192 L=5, d=64, H=16, K=10")
+    counts.append(serving_mlp(device))
     for name, rec in records.items():
-        rec["launches"] = counts[name]
+        rec["launches"] = sum(c[name] for c in counts)
+        if rec["launches"] < 1:
+            raise AssertionError(f"no main path launched {name}")
 
     log(smi)
     log(json.dumps({"kernels": list(records.values())}))

@@ -1,24 +1,28 @@
-"""Wrappers of the hand-written CUDA kernels K1-K4, and their plain versions.
+"""Wrappers of the hand-written CUDA kernels K1-K6, and their plain versions.
 
 The kernels live in `hefl_tpu_torch/csrc/ntt.cu` (see its header for the
-design and the bounds). They replace the four TPU kernels of the encrypted
-round in `hefl_tpu/ckks/pallas_ntt.py`:
+design and the bounds). They replace the TPU kernels of the encrypted round
+and of encrypted-inference serving in `hefl_tpu/ckks/pallas_ntt.py`:
 
-    K1 ntt_forward   <- ntt_forward_pallas   (pallas_ntt.py:413)
-    K2 ntt_inverse   <- ntt_inverse_pallas   (pallas_ntt.py:418)
-    K3 encrypt_fused <- encrypt_fused_pallas (pallas_ntt.py:480)
-    K4 decrypt_fused <- decrypt_fused_pallas (pallas_ntt.py:633)
+    K1 ntt_forward      <- ntt_forward_pallas       (pallas_ntt.py:413)
+    K2 ntt_inverse      <- ntt_inverse_pallas       (pallas_ntt.py:418)
+    K3 encrypt_fused    <- encrypt_fused_pallas     (pallas_ntt.py:480)
+    K4 decrypt_fused    <- decrypt_fused_pallas     (pallas_ntt.py:633)
+    K5 keyswitch_fused  <- keyswitch_fused_pallas   (pallas_ntt.py:527)
+    K6 hoisted_products <- hoisted_rotations_pallas (pallas_ntt.py:701)
 
-Build: at first use on a CUDA tensor, nvcc compiles the source for sm_90a
+Build: at first use on a CUDA tensor, nvcc compiles the sources for sm_90a
 into a shared library with a plain C interface under `hefl_tpu_torch/_build/`
-(keyed by a hash of the source), loaded with ctypes. A failed build raises;
-nothing falls back to the plain version.
+(keyed by a hash of every file under `csrc/`), loaded with ctypes. A failed
+build raises; nothing falls back to the plain version.
 
 Dispatch follows the tensor's device and nothing else: a CPU tensor goes to
 the plain PyTorch version beside each wrapper, a CUDA tensor to the kernel
 (or an exception). Each wrapper adds one to `LAUNCHES[name]` where it
 launches its kernel, so a run can show that its main path went through the
-kernels (`reset_launch_counts` / `launch_counts`).
+kernels (`reset_launch_counts` / `launch_counts`). K5 counts its
+evaluation-domain-input mode (relinearization) under its own name,
+"keyswitch_fused_eval".
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from pathlib import Path
 
 import torch
 
-from hefl_tpu_torch.ckks.modular import add_mod, mont_mul
+from hefl_tpu_torch.ckks.modular import add_mod, mont_mul, sub_mod
 from hefl_tpu_torch.ckks.ntt import (
     NTTContext,
     _inverse_stages_plain,
@@ -44,7 +48,8 @@ from hefl_tpu_torch.ckks.ntt import (
 )
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ntt.cu"
+CSRC = _PKG / "csrc"
+SOURCE = CSRC / "ntt.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,7 +57,10 @@ NVCC_FLAGS = (
 )
 SUPPORTED_N = (1024, 2048, 4096, 8192)
 
-LAUNCHES = {"ntt_forward": 0, "ntt_inverse": 0, "encrypt_fused": 0, "decrypt_fused": 0}
+LAUNCHES = {
+    "ntt_forward": 0, "ntt_inverse": 0, "encrypt_fused": 0, "decrypt_fused": 0,
+    "keyswitch_fused": 0, "keyswitch_fused_eval": 0, "hoisted_products": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +69,8 @@ _SIGNATURES = {
     "ntt_inverse": [_P] * 7 + [_I] * 3 + [_P],
     "encrypt_fused": [_P] * 12 + [_I] * 3 + [_P],
     "decrypt_fused": [_P] * 10 + [_I] * 3 + [_P],
+    "keyswitch_fused": [_P] * 15 + [_I] * 6 + [_P],
+    "hoisted_products": [_P] * 8 + [_I] * 5 + [_P],
 }
 _lib = None
 
@@ -86,8 +96,12 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libhefl_ntt_{digest[:16]}.so"
+    """The library's path, keyed by the bytes of every file under `csrc/`
+    (sources and headers) and the nvcc flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(f.relative_to(CSRC).as_posix().encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"libhefl_ntt_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -154,16 +168,18 @@ def _is_cpu(*ts: torch.Tensor) -> bool:
     return False
 
 
-def _launch(ctx: NTTContext, name: str, device: torch.device, rows: int, *ptrs) -> None:
+def _launch(ctx: NTTContext, name: str, device: torch.device, *args, count: str | None = None) -> None:
+    """Call the library's `name` with `args` and the current stream; raise on
+    a non-zero status, else add one to LAUNCHES[count or name]."""
     if ctx.n not in SUPPORTED_N:
         raise ValueError(f"{name}: the kernel supports N in {SUPPORTED_N}, not {ctx.n}")
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        status = getattr(lib, name)(*ptrs, rows, ctx.num_primes, ctx.logn, stream)
+        status = getattr(lib, name)(*args, stream)
     if status != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {status})")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
 
 
 # --- K1: forward NTT ---------------------------------------------------------
@@ -178,8 +194,9 @@ def ntt_forward(ctx: NTTContext, a: torch.Tensor) -> torch.Tensor:
     rows = a.numel() // ctx.n
     if rows:
         tabs = kernel_tables(ctx, a.device)
-        _launch(ctx, "ntt_forward", a.device, rows, a.data_ptr(), out.data_ptr(),
-                tabs.psi.data_ptr(), tabs.psi_shoup.data_ptr(), tabs.p.data_ptr())
+        _launch(ctx, "ntt_forward", a.device, a.data_ptr(), out.data_ptr(),
+                tabs.psi.data_ptr(), tabs.psi_shoup.data_ptr(), tabs.p.data_ptr(),
+                rows, ctx.num_primes, ctx.logn)
     return out
 
 
@@ -195,9 +212,9 @@ def ntt_inverse(ctx: NTTContext, a: torch.Tensor) -> torch.Tensor:
     rows = a.numel() // ctx.n
     if rows:
         tabs = kernel_tables(ctx, a.device)
-        _launch(ctx, "ntt_inverse", a.device, rows, a.data_ptr(), out.data_ptr(),
+        _launch(ctx, "ntt_inverse", a.device, a.data_ptr(), out.data_ptr(),
                 tabs.psi_inv.data_ptr(), tabs.psi_inv_shoup.data_ptr(), tabs.p.data_ptr(),
-                tabs.n_inv.data_ptr(), tabs.n_inv_shoup.data_ptr())
+                tabs.n_inv.data_ptr(), tabs.n_inv_shoup.data_ptr(), rows, ctx.num_primes, ctx.logn)
     return out
 
 
@@ -235,11 +252,11 @@ def encrypt_fused(ctx: NTTContext, m_res, u, e0, e1, b_mont, a_mont):
     rows = m_res.numel() // ctx.n
     if rows:
         tabs = kernel_tables(ctx, m_res.device)
-        _launch(ctx, "encrypt_fused", m_res.device, rows,
+        _launch(ctx, "encrypt_fused", m_res.device,
                 m_res.data_ptr(), u.data_ptr(), e0.data_ptr(), e1.data_ptr(),
                 b_mont.data_ptr(), a_mont.data_ptr(), c0.data_ptr(), c1.data_ptr(),
                 tabs.psi.data_ptr(), tabs.psi_shoup.data_ptr(), tabs.p.data_ptr(),
-                tabs.pinv_neg.data_ptr())
+                tabs.pinv_neg.data_ptr(), rows, ctx.num_primes, ctx.logn)
     return c0, c1
 
 
@@ -270,8 +287,127 @@ def decrypt_fused(ctx: NTTContext, c0, c1, s_mont):
     rows = c0.numel() // ctx.n
     if rows:
         tabs = kernel_tables(ctx, c0.device)
-        _launch(ctx, "decrypt_fused", c0.device, rows,
+        _launch(ctx, "decrypt_fused", c0.device,
                 c0.data_ptr(), c1.data_ptr(), s_mont.data_ptr(), out.data_ptr(),
                 tabs.psi_inv.data_ptr(), tabs.psi_inv_shoup.data_ptr(), tabs.p.data_ptr(),
-                tabs.pinv_neg.data_ptr(), tabs.n_inv.data_ptr(), tabs.n_inv_shoup.data_ptr())
+                tabs.pinv_neg.data_ptr(), tabs.n_inv.data_ptr(), tabs.n_inv_shoup.data_ptr(),
+                rows, ctx.num_primes, ctx.logn)
     return out
+
+
+# --- K5: fused gadget key-switch ---------------------------------------------
+
+
+def gadget_digits(coeff: torch.Tensor, digit_bits: int, num_digits: int) -> torch.Tensor:
+    """Base-2**w digits of every limb, lifted to every prime: int64
+    [..., L, N] -> [..., L*d, L, N] (component c = limb*d + k)."""
+    mask = (1 << digit_bits) - 1
+    c64 = coeff.to(torch.int64)
+    digits = torch.stack([(c64 >> (digit_bits * k)) & mask for k in range(num_digits)], dim=-2)
+    *batch, num_l, _, n = digits.shape
+    comp = digits.reshape(*batch, num_l * num_digits, n)
+    return comp[..., :, None, :].expand(*batch, num_l * num_digits, num_l, n)
+
+
+def keyswitch_fused_plain(ctx: NTTContext, x, b_mont, a_mont, digit_bits: int,
+                          num_digits: int, eval_input: bool = False):
+    """Plain version of K5 (any device): the JAX package's
+    `ops._keyswitch_coeff_xla` (hefl_tpu/ckks/ops.py:243), preceded by the
+    inverse NTT when `eval_input` (its `_keyswitch_d2`), in int64. Centered
+    digits d - 2**(w-1) under every output prime, forward NTT, Montgomery
+    inner product with the [C, L, N] key rows, plus the correction row."""
+    tabs = plain_tables(ctx, x.device)
+    p, pinv = tabs.p, tabs.pinv_neg
+    coeff = ntt_inverse_plain(ctx, x) if eval_input else x
+    lifted = sub_mod(gadget_digits(coeff, digit_bits, num_digits), 1 << (digit_bits - 1), p)
+    d_eval = ntt_forward_plain(ctx, lifted.to(torch.int32)).to(torch.int64)
+    num_r = d_eval.shape[-3]
+    accs = []
+    for key in (b_mont, a_mont):
+        k64 = key.to(torch.int64)
+        acc = mont_mul(1, k64[num_r], p, pinv).expand(d_eval.shape[:-3] + k64.shape[1:])
+        for c in range(num_r):
+            acc = add_mod(acc, mont_mul(d_eval[..., c, :, :], k64[c], p, pinv), p)
+        accs.append(acc.to(torch.int32))
+    return accs[0], accs[1]
+
+
+def keyswitch_fused(ctx: NTTContext, x, b_mont, a_mont, digit_bits: int, num_digits: int,
+                    eval_input: bool = False):
+    """Gadget key-switch of x int32[..., L, N] (coefficient domain, or
+    evaluation domain with `eval_input`) with the key rows int32[C, L, N],
+    C = L*num_digits + 1 -> evaluation-domain (c0, c1) [..., L, N]. One K5
+    call on CUDA (counted under "keyswitch_fused_eval" with `eval_input`)."""
+    if _is_cpu(x, b_mont, a_mont):
+        return keyswitch_fused_plain(ctx, x, b_mont, a_mont, digit_bits, num_digits, eval_input)
+    num_l = ctx.num_primes
+    num_c = num_l * num_digits + 1
+    _check(ctx, "keyswitch_fused(x)", x)
+    _check(ctx, "keyswitch_fused(b_mont)", b_mont, (num_c, num_l, ctx.n))
+    _check(ctx, "keyswitch_fused(a_mont)", a_mont, (num_c, num_l, ctx.n))
+    c0 = torch.empty_like(x)
+    c1 = torch.empty_like(x)
+    batch = x.numel() // (num_l * ctx.n)
+    if batch:
+        tabs = kernel_tables(ctx, x.device)
+        coeff = torch.empty_like(x) if eval_input else x
+        digits = torch.empty((batch, num_c - 1, num_l, ctx.n), dtype=torch.int32, device=x.device)
+        _launch(ctx, "keyswitch_fused", x.device,
+                x.data_ptr(), coeff.data_ptr(), digits.data_ptr(), b_mont.data_ptr(),
+                a_mont.data_ptr(), c0.data_ptr(), c1.data_ptr(), tabs.psi.data_ptr(),
+                tabs.psi_shoup.data_ptr(), tabs.psi_inv.data_ptr(), tabs.psi_inv_shoup.data_ptr(),
+                tabs.p.data_ptr(), tabs.pinv_neg.data_ptr(), tabs.n_inv.data_ptr(),
+                tabs.n_inv_shoup.data_ptr(), batch, num_l, num_digits, digit_bits,
+                int(eval_input), ctx.logn,
+                count="keyswitch_fused_eval" if eval_input else "keyswitch_fused")
+    return c0, c1
+
+
+# --- K6: hoisted-rotation products -------------------------------------------
+
+
+def hoisted_products_plain(ctx: NTTContext, c0, d_eval, b_mont, a_mont):
+    """Plain version of K6 (any device): the JAX package's
+    `ops._hoisted_products_xla` (hefl_tpu/ckks/ops.py:484) in int64 —
+    acc0[s] = c0 + sum_c D_c * B'[s, c], acc1[s] = sum_c D_c * A'[s, c]."""
+    tabs = plain_tables(ctx, c0.device)
+    p, pinv = tabs.p, tabs.pinv_neg
+    num_s, num_r = b_mont.shape[0], b_mont.shape[1]
+    batch = tuple(c0.shape[:-2])
+    out_shape = (num_s,) + batch + tuple(c0.shape[-2:])
+    kshape = (num_s,) + (1,) * len(batch) + tuple(b_mont.shape[2:])
+    d64 = d_eval.to(torch.int64)
+    accs = []
+    for key in (b_mont, a_mont):
+        k64 = key.to(torch.int64)
+        acc = torch.zeros(out_shape, dtype=torch.int64, device=c0.device)
+        for c in range(num_r):
+            acc = add_mod(acc, mont_mul(d64[..., c, :, :], k64[:, c].reshape(kshape), p, pinv), p)
+        accs.append(acc)
+    return add_mod(accs[0], c0.to(torch.int64), p).to(torch.int32), accs[1].to(torch.int32)
+
+
+def hoisted_products(ctx: NTTContext, c0, d_eval, b_mont, a_mont):
+    """The hoisted sweep's inner products: c0 int32[..., L, N], shared digits
+    d_eval int32[..., R, L, N], pre-permuted keys int32[S, R, L, N] ->
+    (acc0, acc1) int32[S, ..., L, N] before the per-step permutation. One K6
+    launch on CUDA; S = 0 gives empty tensors and no launch."""
+    if _is_cpu(c0, d_eval, b_mont, a_mont):
+        return hoisted_products_plain(ctx, c0, d_eval, b_mont, a_mont)
+    num_s, num_r = b_mont.shape[0], b_mont.shape[1]
+    batch = tuple(c0.shape[:-2])
+    _check(ctx, "hoisted_products(c0)", c0)
+    _check(ctx, "hoisted_products(d_eval)", d_eval, batch + (num_r, ctx.num_primes, ctx.n))
+    _check(ctx, "hoisted_products(b_mont)", b_mont, (num_s, num_r, ctx.num_primes, ctx.n))
+    _check(ctx, "hoisted_products(a_mont)", a_mont, (num_s, num_r, ctx.num_primes, ctx.n))
+    shape = (num_s,) + tuple(c0.shape)
+    out0 = torch.empty(shape, dtype=torch.int32, device=c0.device)
+    out1 = torch.empty(shape, dtype=torch.int32, device=c0.device)
+    nb = c0.numel() // (ctx.num_primes * ctx.n)
+    if num_s and nb:
+        tabs = kernel_tables(ctx, c0.device)
+        _launch(ctx, "hoisted_products", c0.device,
+                c0.data_ptr(), d_eval.data_ptr(), b_mont.data_ptr(), a_mont.data_ptr(),
+                out0.data_ptr(), out1.data_ptr(), tabs.p.data_ptr(), tabs.pinv_neg.data_ptr(),
+                num_s, nb, num_r, ctx.num_primes, ctx.logn)
+    return out0, out1

@@ -1,9 +1,12 @@
-"""CKKS coefficient encoding: float weight blocks <-> RNS residue polynomials.
+"""CKKS encoding: float weight blocks or slot vectors <-> RNS residue polynomials.
 
-Counterpart of `hefl_tpu.ckks.encoding` (`encode`, `decode`,
-`encode_overflow_count`). A whole N-coefficient block of weights is packed
-per polynomial: encode is round(w * scale) reduced mod each RNS prime,
-decode the mixed-radix CRT reconstruction divided by the tracked scale.
+Counterpart of `hefl_tpu.ckks.encoding`. Coefficient packing (`encode`,
+`decode`, `encode_overflow_count`) is the FedAvg wire format: a whole
+N-coefficient block of weights per polynomial, encode is round(w * scale)
+reduced mod each RNS prime, decode the mixed-radix CRT reconstruction
+divided by the tracked scale. Slot packing (`encode_slots`, `decode_slots`,
+`decode_exact`) is the serving format: host-side float64 numpy, copied from
+the JAX package, so the residues are the same words.
 
 Both keep the JAX package's float32 steps in the same order, so encode gives
 the same residues bit for bit, and decode agrees to about one float32 ulp
@@ -108,3 +111,86 @@ def decode(ctx: NTTContext, residues: torch.Tensor, scale: float) -> torch.Tenso
         radix *= float(int(primes[i - 1]))
         out = out + digits[i].to(torch.float32) * _f32(radix * inv_scale, dev)
     return out
+
+
+def decode_exact(ctx: NTTContext, residues: np.ndarray, scale: float) -> np.ndarray:
+    """Exact host-side decode (Python-bignum Garner CRT, centered mod q);
+    residues uint32 numpy [..., L, N] -> float64."""
+    res = np.asarray(residues)
+    p = [int(x) for x in np.asarray(ctx.p)[:, 0]]
+    q = 1
+    for pi in p:
+        q *= pi
+    v = res[..., 0, :].astype(object)
+    prefix = 1
+    for i in range(1, len(p)):
+        prefix *= p[i - 1]
+        inv = pow(prefix % p[i], p[i] - 2, p[i])
+        diff = (res[..., i, :].astype(object) - v) % p[i]
+        v = v + ((diff * inv) % p[i]) * prefix
+    v = np.where(v > q // 2, v - q, v)
+    return (v / float(scale)).astype(np.float64)
+
+
+# --- Slot (canonical-embedding) packing, host float64 ----------------------
+# Slot j's root is zeta^{5^j mod 2N} (the Galois-orbit ordering: X -> X^5
+# cyclically shifts slots, X -> X^{-1} conjugates them).
+
+
+def num_slots(ctx: NTTContext) -> int:
+    return ctx.n // 2
+
+
+def _orbit_positions(n: int) -> np.ndarray:
+    """pos[j] = (5^j mod 2n - 1) / 2: slot j's root among the odd powers."""
+    g = 1
+    pos = np.empty(n // 2, dtype=np.int64)
+    for j in range(n // 2):
+        pos[j] = (g - 1) // 2
+        g = (g * 5) % (2 * n)
+    return pos
+
+
+def encode_slots(ctx: NTTContext, z: np.ndarray, scale: float) -> np.ndarray:
+    """complex (or real) [..., N/2] slot values -> residues uint32[..., L, N]."""
+    n = ctx.n
+    z = np.asarray(z, dtype=np.complex128)
+    if z.shape[-1] != n // 2:
+        raise ValueError(f"expected {n // 2} slots, got {z.shape[-1]}")
+    pos = _orbit_positions(n)
+    ev = np.zeros(z.shape[:-1] + (n,), dtype=np.complex128)
+    ev[..., pos] = z
+    ev[..., n - 1 - pos] = np.conj(z)
+    tw = np.exp(-1j * np.pi * np.arange(n) / n)
+    a = np.real(np.fft.fft(ev, axis=-1) / n * tw)
+    coeffs = np.round(a * scale).astype(np.int64)
+    p = np.asarray(ctx.p)[:, 0].astype(np.int64)
+    res = np.mod(coeffs[..., None, :], p[:, None])
+    return res.astype(np.uint32)
+
+
+def encode_slots_const(ctx: NTTContext, c: float, scale: float) -> np.ndarray:
+    """Constant-in-every-slot plaintext: the constant polynomial
+    round(c*scale), written directly (no FFT)."""
+    p = np.asarray(ctx.p)[:, 0].astype(np.int64)
+    coeff = int(round(c * scale))
+    q = 1
+    for pi in p:
+        q *= int(pi)
+    if 2 * abs(coeff) >= q:
+        raise ValueError(
+            f"encode_slots_const saturates: |round(c*scale)|={abs(coeff):.3e} "
+            f"must stay below q/2~{q / 2:.3e}; lower the scale or add primes"
+        )
+    res = np.zeros((len(p), ctx.n), np.int64)
+    res[:, 0] = np.mod(coeff, p)
+    return res.astype(np.uint32)
+
+
+def decode_slots(ctx: NTTContext, residues: np.ndarray, scale: float) -> np.ndarray:
+    """Residues uint32[..., L, N] -> complex128 slot values [..., N/2]."""
+    n = ctx.n
+    coeffs = decode_exact(ctx, residues, 1.0)
+    tw = np.exp(1j * np.pi * np.arange(n) / n)
+    ev = np.fft.ifft(coeffs * tw, axis=-1) * n
+    return ev[..., _orbit_positions(n)] / float(scale)

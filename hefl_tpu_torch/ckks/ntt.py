@@ -69,6 +69,25 @@ class NTTContext:
     def num_primes(self) -> int:
         return int(self.p.shape[0])
 
+    def slice_limbs(self, lo: int, hi: int) -> "NTTContext":
+        """Sub-context over primes [lo, hi) (rescale, level drops). Cached on
+        this context, so the slice's device tables are built once."""
+        key = ("slice", lo, hi)
+        hit = self._device_cache.get(key)
+        if hit is None:
+            hit = NTTContext(
+                n=self.n,
+                logn=self.logn,
+                p=self.p[lo:hi],
+                pinv_neg=self.pinv_neg[lo:hi],
+                r2=self.r2[lo:hi],
+                psi_rev=self.psi_rev[lo:hi],
+                psi_inv_rev=self.psi_inv_rev[lo:hi],
+                n_inv_mont=self.n_inv_mont[lo:hi],
+            )
+            self._device_cache[key] = hit
+        return hit
+
     def __hash__(self):
         return hash((self.n, tuple(int(x) for x in self.p[:, 0]), self.psi_rev[:, :2].tobytes()))
 

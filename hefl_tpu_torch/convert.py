@@ -8,9 +8,11 @@ PyTorch tensors named like `MedCNN.named_parameters()`: "Conv_i.weight"
 `flax_leaf`/`torch_leaf` convert one tensor between the two layouts (used by
 `ckks.packing` to pack in the JAX package's ravel order and layout);
 `from_flax`/`to_flax` convert whole trees (numpy on the JAX side), and
-`keys_from_jax` turns the JAX package's uint32 key arrays into the port's
-int32 key tensors. The tests use these to make both packages compute on the
-same weights and keys.
+`keys_from_jax`, `relin_key_from_jax`, `galois_keys_from_jax` and
+`ciphertext_from_jax` turn the JAX package's uint32 arrays (keys,
+ciphertexts) into the port's int32 tensors with the same bits. The tests use
+these to make both packages compute on the same weights, keys and
+ciphertexts.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hefl_tpu_torch.ckks.keys import PublicKey, SecretKey
+from hefl_tpu_torch.ckks.keys import GaloisKey, PublicKey, RelinKey, SecretKey
 
 _LEAVES = ("bias", "kernel")          # flax leaf names in sorted (ravel) order
 
@@ -71,11 +73,35 @@ def to_flax(params: dict[str, torch.Tensor]) -> dict[str, dict[str, np.ndarray]]
     return out
 
 
+def _residues(a, device) -> torch.Tensor:
+    """uint32 array -> int32 tensor with the same bits."""
+    return torch.from_numpy(np.array(a, dtype=np.uint32).view(np.int32)).to(device)
+
+
 def keys_from_jax(sk, pk, device="cpu") -> tuple[SecretKey, PublicKey]:
     """The JAX package's SecretKey/PublicKey (uint32 arrays) -> int32 tensors."""
-    conv = lambda a: torch.from_numpy(  # noqa: E731
-        np.array(a, dtype=np.uint32).view(np.int32)
-    ).to(device)
-    return SecretKey(s_mont=conv(sk.s_mont)), PublicKey(
-        b_mont=conv(pk.b_mont), a_mont=conv(pk.a_mont)
+    return SecretKey(s_mont=_residues(sk.s_mont, device)), PublicKey(
+        b_mont=_residues(pk.b_mont, device), a_mont=_residues(pk.a_mont, device)
     )
+
+
+def relin_key_from_jax(rlk, device="cpu") -> RelinKey:
+    """The JAX package's RelinKey -> the port's."""
+    return RelinKey(b_mont=_residues(rlk.b_mont, device), a_mont=_residues(rlk.a_mont, device))
+
+
+def galois_keys_from_jax(gks: dict, device="cpu") -> dict:
+    """{step: JAX GaloisKey} -> {step: the port's GaloisKey}."""
+    return {
+        s: GaloisKey(g=int(k.g), b_mont=_residues(k.b_mont, device),
+                     a_mont=_residues(k.a_mont, device))
+        for s, k in gks.items()
+    }
+
+
+def ciphertext_from_jax(ct, device="cpu"):
+    """The JAX package's Ciphertext -> the port's (same scale)."""
+    from hefl_tpu_torch.ckks.ops import Ciphertext
+
+    return Ciphertext(c0=_residues(ct.c0, device), c1=_residues(ct.c1, device),
+                      scale=float(ct.scale))

@@ -51,6 +51,25 @@ def test_cpu_tensors_take_the_plain_versions():
     assert cuda_ntt.launch_counts() == dict.fromkeys(cuda_ntt.LAUNCHES, 0)
 
 
+def test_cpu_tensors_take_the_plain_keyswitch_and_hoisted_products():
+    # K5 (both modes) and K6 on CPU tensors: the plain versions, no launch.
+    ctx = _ctx(1024)
+    num_r = 3 * 6
+    cuda_ntt.reset_launch_counts()
+    x = _res(ctx, (2, 3, 1024), 20)
+    keys = _res(ctx, (num_r + 1, 3, 1024), 21), _res(ctx, (num_r + 1, 3, 1024), 22)
+    for eval_input in (False, True):
+        for got, want in zip(cuda_ntt.keyswitch_fused(ctx, x, *keys, 5, 6, eval_input),
+                             cuda_ntt.keyswitch_fused_plain(ctx, x, *keys, 5, 6, eval_input)):
+            assert torch.equal(got, want)
+    d = _res(ctx, (2, num_r, 3, 1024), 23)
+    hk = _res(ctx, (2, num_r, 3, 1024), 24), _res(ctx, (2, num_r, 3, 1024), 25)
+    for got, want in zip(cuda_ntt.hoisted_products(ctx, x, d, *hk),
+                         cuda_ntt.hoisted_products_plain(ctx, x, d, *hk)):
+        assert torch.equal(got, want)
+    assert cuda_ntt.launch_counts() == dict.fromkeys(cuda_ntt.LAUNCHES, 0)
+
+
 def test_plain_inverse_undoes_forward_at_every_kernel_size():
     # Exact round trip at each N the kernels support.
     for n in cuda_ntt.SUPPORTED_N:
@@ -74,6 +93,17 @@ def test_library_path_is_keyed_by_source_hash():
     path = cuda_ntt.library_path()
     assert path.parent == cuda_ntt.BUILD_DIR
     assert path.name.startswith("libhefl_ntt_") and path.suffix == ".so"
+    assert cuda_ntt.SOURCE.parent == cuda_ntt.CSRC
+
+
+def test_library_path_covers_every_file_under_csrc(tmp_path, monkeypatch):
+    # A changed header must change the library's name, not load a stale one.
+    for f in cuda_ntt.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(cuda_ntt, "CSRC", tmp_path)
+    before = cuda_ntt.library_path()
+    (tmp_path / "extra.cuh").write_text("// header\n")
+    assert cuda_ntt.library_path() != before
 
 
 @pytest.mark.cuda
@@ -95,7 +125,8 @@ def test_kernels_bitwise_vs_plain_on_card(cuda_device, n):
     assert torch.equal(cuda_ntt.decrypt_fused(ctx, m, u, b),
                        cuda_ntt.decrypt_fused_plain(ctx, m, u, b))
     torch.cuda.synchronize(dev)
-    assert cuda_ntt.launch_counts() == dict.fromkeys(cuda_ntt.LAUNCHES, 1)
+    k1_k4 = ("ntt_forward", "ntt_inverse", "encrypt_fused", "decrypt_fused")
+    assert cuda_ntt.launch_counts() == {k: int(k in k1_k4) for k in cuda_ntt.LAUNCHES}
 
 
 @pytest.mark.cuda
@@ -137,3 +168,74 @@ def test_round_on_card_runs_through_the_kernels(cuda_device):
     assert counts["ntt_forward"] == 2 and counts["encrypt_fused"] == 1
     assert counts["decrypt_fused"] == 1
     assert max((avg[k] - ref[k]).abs().max().item() for k in ref) <= 5e-6
+
+
+def _ks_cases(n, dev):
+    """(name, kernel fn, plain fn) for K5 in both modes and K6, at N=n."""
+    ctx = _ctx(n)
+    ctx5 = ntt.NTTContext.build(find_ntt_primes(5, 27, 2 * n), n)
+    x, x5 = _res(ctx, (4, 3, n), 30, dev), _res(ctx5, (1, 5, n), 31, dev)
+    k3 = _res(ctx, (19, 3, n), 32, dev), _res(ctx, (19, 3, n), 33, dev)
+    k5 = _res(ctx5, (31, 5, n), 34, dev), _res(ctx5, (31, 5, n), 35, dev)
+    d = _res(ctx, (2, 18, 3, n), 36, dev)
+    hk = _res(ctx, (22, 18, 3, n), 37, dev), _res(ctx, (22, 18, 3, n), 38, dev)
+    c0 = x[:2].contiguous()
+    return [
+        ("keyswitch_fused", lambda: cuda_ntt.keyswitch_fused(ctx, x, *k3, 5, 6),
+         lambda: cuda_ntt.keyswitch_fused_plain(ctx, x, *k3, 5, 6)),
+        ("keyswitch_fused_eval", lambda: cuda_ntt.keyswitch_fused(ctx5, x5, *k5, 5, 6, True),
+         lambda: cuda_ntt.keyswitch_fused_plain(ctx5, x5, *k5, 5, 6, True)),
+        ("hoisted_products", lambda: cuda_ntt.hoisted_products(ctx, c0, d, *hk),
+         lambda: cuda_ntt.hoisted_products_plain(ctx, c0, d, *hk)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 4096, 8192])
+def test_keyswitch_and_hoisted_products_bitwise_vs_plain_on_card(cuda_device, n):
+    # Bitwise: K5 (coefficient input at L=3, B=4; eval input at L=5) and K6
+    # (S=22, R=18, B=2) against their plain versions on the same card
+    # tensors; each wrapper call counted once, under its own name.
+    cuda_ntt.reset_launch_counts()
+    for name, kern, plain in _ks_cases(n, cuda_device):
+        for got, want in zip(kern(), plain()):
+            assert torch.equal(got, want), name
+        torch.cuda.synchronize(cuda_device)
+        assert cuda_ntt.launch_counts()[name] == 1
+    ctx = _ctx(n)
+    empty = cuda_ntt.hoisted_products(
+        ctx, _res(ctx, (3, n), 39, cuda_device), _res(ctx, (18, 3, n), 40, cuda_device),
+        *(torch.zeros((0, 18, 3, n), dtype=torch.int32, device=cuda_device),) * 2)
+    assert tuple(empty[0].shape) == (0, 3, n)
+    assert cuda_ntt.launch_counts()["hoisted_products"] == 1
+
+
+@pytest.mark.cuda
+def test_serving_on_card_equals_cpu(cuda_device):
+    # A small BSGS linear score (N=1024) on the card through K1, K2, K5 and
+    # K6 is bitwise the same score run on CPU copies (the plain versions).
+    from hefl_tpu_torch import he_inference as hei
+    from hefl_tpu_torch.ckks.keys import CkksContext, keygen
+
+    ctx = CkksContext.create(n=1024)
+    gen = torch.Generator().manual_seed(41)
+    sk, pk = keygen(ctx, gen, device=cuda_device)
+    rng = np.random.default_rng(42)
+    d, k = 40, 4
+    W, b, x = rng.normal(0, 0.3, (k, d)), rng.normal(0, 0.2, k), rng.normal(0, 0.5, d)
+    plan = hei.bsgs_plan(512, d, k)
+    gks = hei.gen_rotation_keys_for_steps(ctx, sk, 43, plan.rotation_steps_needed)
+    ct = hei.encrypt_features(ctx, pk, x, gen)
+    scorer = hei.BsgsLinearScorer(ctx, W, b, gks, device=cuda_device)
+    cuda_ntt.reset_launch_counts()
+    out = scorer.score(ct)
+    counts = cuda_ntt.launch_counts()
+    assert counts["keyswitch_fused"] == len(plan.giant_steps)
+    assert counts["hoisted_products"] == 1
+    cpu_gks = {s: hei.GaloisKey(g=v.g, b_mont=v.b_mont.cpu(), a_mont=v.a_mont.cpu())
+               for s, v in gks.items()}
+    ref = hei.BsgsLinearScorer(ctx, W, b, cpu_gks, device="cpu").score(
+        hei.Ciphertext(ct.c0.cpu(), ct.c1.cpu(), ct.scale))
+    assert torch.equal(out.c0.cpu(), ref.c0) and torch.equal(out.c1.cpu(), ref.c1)
+    got = hei.decrypt_class_scores(ctx, sk, out, k)
+    assert np.max(np.abs(got - (x @ W.T + b))) <= 0.05
