@@ -17,6 +17,8 @@ error:
      plain PyTorch version run on the same card tensors. Time kernel and
      plain version with CUDA events (median of repeats, L2 flushed before
      each timed launch) and compute the kernel's lower bound on this card.
+     The same for K5 and K6 (serving shapes) and K7, the fused transcipher,
+     at the HHE round's [8 clients x 19 rows, 3, 4096] and at N=1024.
   3. Drive the main path once through the port's entry points: MedCNN at
      full width (256x256x3, 222,722 parameters, random weights from a seed),
      the `medical` synthetic data, 2 clients of 96 images, 2 local epochs,
@@ -42,8 +44,25 @@ error:
      bitwise equal to the unhoisted scorer and to the same scorer on CPU
      copies; warm latency. Phases 4 and 5 also print one warm score's
      device time by kernel (torch.profiler).
-  6. Print one JSON line {"kernels": [...]} (launches: the sum over the
-     main-path runs of phases 3-5, each counted from zero) and, last, the
+  6. The hybrid-HE uplink round (the `hhe-smoke` preset's path at full
+     width): MedCNN, synthetic `medical` data, 8 clients of 48 images, 1
+     local epoch, `--pack-bits 8 --pack-clip 0.5` (guard 16, so k = 3: 19
+     packed rows per client instead of 55), N=4096, L=3, key seed 0.
+     (a) `cli.run` with `--hhe` for one round must launch exactly one K7 and
+     one K3 (the pads) and at least one K4, with expansion_hhe <= 1.1;
+     (b) the client-side upload (`hhe_encrypt_stack`) launches no kernel;
+     (c) on ONE set of trained weights, symmetric encrypt -> provision +
+     transcipher -> fold in a permuted order with one duplicate redelivery
+     -> `decrypt_average(hhe=True)` is BITWISE the direct packed path's
+     (`encrypt_stack_packed` -> sum -> decrypt) in its field sums and its
+     decoded average, both within `spec.error_budget` of the plaintext
+     mean, no saturation — at clip 0.5 (where one epoch's updates all
+     quantize to code 0) and at clip 0.02 (where about half do not). Phase
+     times (clip 0.5): train, upload, provision + transcipher, fold,
+     decrypt, evaluate; the device time of the upload and of provision +
+     transcipher by kernel (torch.profiler).
+  7. Print one JSON line {"kernels": [...]} (launches: the sum over the
+     main-path runs of phases 3-6, each counted from zero) and, last, the
      result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -73,6 +92,7 @@ OPS_PER_S = 132 * 64 * 1.98e9
 SHOUP_OPS, MONT_OPS, ADDMOD_OPS = 6, 8, 3
 BUTTERFLY_OPS = SHOUP_OPS + 2 * ADDMOD_OPS
 DIGIT_OPS = 2 + ADDMOD_OPS           # shift, mask, centre (sub mod p)
+BARRETT_OPS = 5                      # umulhi, mul, sub, compare, select
 DIGIT_BITS, NUM_DIGITS = 5, 6        # the default gadget at 27-bit primes
 PALLAS = "hefl_tpu/ckks/pallas_ntt.py"
 SOURCE = "hefl_tpu_torch/csrc/ntt.cu"
@@ -220,6 +240,23 @@ def serving_kernel_cases(cuda_ntt, ntt_mod, n: int, device, seed: int, shapes="s
     return cases
 
 
+def transcipher_case(cuda_ntt, ntt_ctx, rows: int, device, seed: int):
+    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K7 over
+    `rows` upload rows: words [rows, N] below 2**31, pads [rows, L, N]."""
+    n, logn, num_l = ntt_ctx.n, ntt_ctx.logn, ntt_ctx.num_primes
+    rng = np.random.default_rng(seed)
+    w_hi, w_lo = (torch.from_numpy(rng.integers(0, 2**31, (rows, n)).astype(np.int32)).to(device)
+                  for _ in range(2))
+    p0, p1 = (rand_residues(ntt_ctx, (rows, num_l, n), seed + i, device) for i in (1, 2))
+    fwd_ops = (n // 2) * logn * BUTTERFLY_OPS
+    words = 2 * rows * n + 4 * rows * num_l * n + 2 * num_l * n     # + twiddle tables
+    ops = rows * num_l * (fwd_ops + n * (2 * BARRETT_OPS + MONT_OPS + 3 * ADDMOD_OPS))
+    return ("transcipher_fused", f"{PALLAS}:423", [rows, num_l, n],
+            lambda: cuda_ntt.transcipher_fused(ntt_ctx, w_hi, w_lo, p0, p1),
+            lambda: cuda_ntt.transcipher_fused_plain(ntt_ctx, w_hi, w_lo, p0, p1),
+            words * 4, ops)
+
+
 def max_abs_err(got, want) -> int:
     if isinstance(got, tuple):
         return max(max_abs_err(g, w) for g, w in zip(got, want))
@@ -233,7 +270,9 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     records = {}
     small = ntt_mod.NTTContext.build(find_ntt_primes(3, 27, 2048), 1024)
-    for name, _, shape, kern, plain, _, _ in kernel_cases(cuda_ntt, small, 8, 8, device, 100):
+    small_cases = kernel_cases(cuda_ntt, small, 8, 8, device, 100)
+    for name, _, shape, kern, plain, _, _ in small_cases + [transcipher_case(cuda_ntt, small, 8,
+                                                                            device, 150)]:
         err = max_abs_err(kern(), plain())
         torch.cuda.synchronize()
         log(f"  N=1024 {name} {shape}: max_abs_err {err}")
@@ -247,6 +286,7 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
     if err != 0:
         raise AssertionError("ntt_forward at the keygen shape differs from its plain version")
     cases = kernel_cases(cuda_ntt, ckks_ctx.ntt, 55, 110, device, 200)
+    cases.append(transcipher_case(cuda_ntt, ckks_ctx.ntt, 8 * 19, device, 250))
     for name, replaces, shape, kern, plain, bytes_moved, ops in cases:
         err = max_abs_err(kern(), plain())
         torch.cuda.synchronize()
@@ -394,7 +434,9 @@ def device_time_breakdown(label: str, fn) -> None:
             if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    ours = sum(r[1] for r in rows if "(anonymous namespace)::" in r[0])
+    # The port's kernels live in csrc/ntt.cu's anonymous namespace; PyTorch's
+    # names start with their return type and at::native.
+    ours = sum(r[1] for r in rows if r[0].startswith("(anonymous namespace)::"))
     log(f"  {label}: wall {wall_ms:.3f} ms (profiled), device busy {busy:.3f} ms "
         f"({100 * busy / wall_ms:.1f} % of wall) in {sum(r[2] for r in rows)} kernels; "
         f"the port's CUDA kernels {ours:.3f} ms, PyTorch's own {busy - ours:.3f} ms")
@@ -545,6 +587,148 @@ def serving_mlp(device, n: int = 8192) -> dict:
     return counts
 
 
+def hhe_round(device) -> dict:
+    """Phase 6: the hybrid-HE uplink round of full-width MedCNN, 8 clients."""
+    from hefl_tpu_torch import cli
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.ckks.encoding import decode_int_center
+    from hefl_tpu_torch.ckks.keys import CkksContext, keygen
+    from hefl_tpu_torch.ckks.ops import Ciphertext, decrypt
+    from hefl_tpu_torch.ckks.packing import PackedSpec, flat_params
+    from hefl_tpu_torch.ckks.quantize import deinterleave_fields, quantize
+    from hefl_tpu_torch.data.partition import iid_contiguous, stack_federated
+    from hefl_tpu_torch.data.synthetic import make_dataset
+    from hefl_tpu_torch.fl.config import PackingConfig, TrainConfig
+    from hefl_tpu_torch.fl.fedavg import evaluate, train_clients
+    from hefl_tpu_torch.fl.secure import (
+        aggregate_encrypted, decrypt_average, encrypt_stack_packed, hhe_encrypt_stack, plain_mean,
+    )
+    from hefl_tpu_torch.fl.stream import OnlineAccumulator
+    from hefl_tpu_torch.hhe import (
+        derive_client_keys, hhe_bytes_on_wire_record, hhe_center_mod, transcipher_batch,
+    )
+    from hefl_tpu_torch.models import create_model
+
+    clients, per_client = 8, 48
+    # (a) The entry point: one round of `cli.run --hhe`, launches counted from 0.
+    args = cli.parse_args([
+        "--model", "medcnn", "--dataset", "medical", "--num-clients", str(clients),
+        "--epochs", "1", "--n-train", str(clients * per_client), "--n-test", "64",
+        "--pack-bits", "8", "--pack-clip", "0.5", "--hhe", "--hhe-key-seed", "0",
+    ])
+    cuda_ntt.reset_launch_counts()
+    t = time.perf_counter()
+    (rec,) = cli.run(args, say=lambda m: log(f"  cli: {m}"))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    counts = cuda_ntt.launch_counts()
+    log(f"  cli.run --hhe (1 round, {cli_s:.3f} s): launches {counts}")
+    if counts["transcipher_fused"] != 1 or counts["encrypt_fused"] != 1:
+        raise AssertionError("an HHE round must launch exactly one K7 and one K3 (the pads)")
+    if counts["decrypt_fused"] < 1:
+        raise AssertionError("the owner's decrypt did not launch K4")
+    geo, wire = rec["packing"], rec["hhe"]
+    log(f"  record: packing {json.dumps(geo)}; hhe {json.dumps(wire)}; stream "
+        f"{json.dumps(rec['stream'])}; accuracy {rec['accuracy']:.4f}; "
+        f"phases {json.dumps(rec['phases'])}")
+    if (geo["interleave"], geo["n_ct"], geo["n_ct_unpacked"]) != (3, 19, 55):
+        raise AssertionError(f"unexpected packed geometry {geo}")
+    if not wire["expansion_hhe"] <= 1.1 or rec["encode_overflow"] != 0:
+        raise AssertionError(f"expansion_hhe {wire['expansion_hhe']}, saturation "
+                             f"{rec['encode_overflow']}")
+    if not (rec["stream"]["committed"] and rec["stream"]["fresh"] == clients):
+        raise AssertionError(f"the round did not commit all uploads: {rec['stream']}")
+
+    # (b), (c) On one set of trained weights: the client upload, then the HHE
+    # and the direct packed paths side by side.
+    times = {}
+
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    (x, y), (xt, yt), _ = make_dataset("medical", seed=1, n_train=clients * per_client,
+                                       n_test=64)
+    xs, ys = stack_federated(x, y, iid_contiguous(len(y), clients))
+    xs_d, ys_d = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    gen = torch.Generator().manual_seed(1)
+    model = create_model("medcnn", gen=gen, device=device)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    ctx = CkksContext.create()
+    sk, pk = keygen(ctx, gen, device=device)
+    gens = lambda base: [torch.Generator(device=device).manual_seed(base + c)  # noqa: E731
+                         for c in range(clients)]
+    p_out, _ = phase("train_s", lambda: train_clients(
+        model, TrainConfig(epochs=1, num_classes=2), params, xs_d, ys_d, gens=gens(100)))
+    keys = derive_client_keys(0, clients)
+    base = flat_params(params)
+    # The `hhe-smoke` preset's grid (clip 0.5) first, timed; then a grid fine
+    # enough (clip 0.02) that one epoch's updates quantize to non-zero codes,
+    # so the averaged update itself is compared, not only offsets and noise.
+    for clip in (0.5, 0.02):
+        spec = PackedSpec.for_params(params, ctx, PackingConfig(bits=8, clip=clip), clients)
+        timed = phase if clip == 0.5 else (lambda _name, fn: fn())
+        nonzero = sum(int(torch.count_nonzero(quantize(flat_params(p) - base, spec.step, 8)))
+                      for p in p_out) / (clients * spec.total)
+        cuda_ntt.reset_launch_counts()
+        w_hi, w_lo, sat = timed("upload_s", lambda: hhe_encrypt_stack(p_out, params, keys, 0, spec))
+        if sum(cuda_ntt.launch_counts().values()) != 0:
+            raise AssertionError(f"the client-side upload launched {cuda_ntt.launch_counts()}")
+        tc, _ = timed("provision_transcipher_s", lambda: transcipher_batch(
+            ctx, spec, pk, w_hi, w_lo, keys, 0, gens(200)))
+
+        def fold():
+            acc = OnlineAccumulator(ctx.ntt.p)
+            order = np.random.default_rng(2).permutation(clients)
+            for c in order:
+                acc.fold((int(c), 0), tc.c0[c], tc.c1[c])
+            if acc.fold((int(order[0]), 0), tc.c0[order[0]], tc.c1[order[0]]):
+                raise AssertionError("a duplicate redelivery folded twice")
+            return Ciphertext(*acc.value(), scale=tc.scale)
+
+        hsum = timed("fold_s", fold)
+        h_avg = timed("decrypt_s", lambda: decrypt_average(ctx, sk, hsum, clients, packing=spec,
+                                                           base_params=params, hhe=True))
+        if clip == 0.5:
+            results = phase("evaluate_s", lambda: evaluate(
+                model, h_avg, torch.from_numpy(xt).to(device), yt))
+        direct, dsat = encrypt_stack_packed(ctx, pk, p_out, params, gens(200), spec)
+        dsum = aggregate_encrypted(ctx, direct)
+        d_avg = decrypt_average(ctx, sk, dsum, clients, packing=spec, base_params=params)
+        fields = [deinterleave_fields(v, spec.k, spec.field_bits, spec.guard) for v in (
+            hhe_center_mod(decode_int_center(ctx.ntt, decrypt(ctx, sk, hsum)), spec.guard),
+            decode_int_center(ctx.ntt, decrypt(ctx, sk, dsum)))]
+        if not np.array_equal(*fields) or not all(torch.equal(h_avg[k], d_avg[k]) for k in d_avg):
+            raise AssertionError(f"clip {clip}: HHE and direct packed decodes differ")
+        ref = plain_mean(p_out)
+        errs = [max((avg[k] - ref[k]).abs().max().item() for k in ref) for avg in (h_avg, d_avg)]
+        moved = max((h_avg[k] - params[k]).abs().max().item() for k in params)
+        log(f"  clip {clip} (step {spec.step:.3e}, {100 * nonzero:.2f} % non-zero codes): HHE == "
+            f"direct packed field sums and decoded average, bitwise (8 folds, 1 duplicate); "
+            f"vs the plaintext mean HHE {errs[0]:.3e}, direct {errs[1]:.3e} (budget "
+            f"{spec.error_budget:.3e}); average moved {moved:.3e}; saturation "
+            f"{int(sat.sum())} / {int(dsat.sum())}; upload words {tuple(w_hi.shape)}, no kernel")
+        if not max(errs) <= spec.error_budget or int(sat.sum()) or int(dsat.sum()):
+            raise AssertionError(f"clip {clip}: a packed average is off the plaintext mean "
+                                 "or saturated")
+        expansion = hhe_bytes_on_wire_record(spec, ctx.num_primes)["expansion_hhe"]
+        if not expansion <= 1.1:
+            raise AssertionError(f"expansion_hhe {expansion} > 1.1")
+        if clip == 0.5:
+            device_time_breakdown("the clients' upload (8 clients)", lambda: hhe_encrypt_stack(
+                p_out, params, keys, 0, spec))
+            device_time_breakdown("provision + transcipher (8 clients)", lambda: transcipher_batch(
+                ctx, spec, pk, w_hi, w_lo, keys, 0, gens(200)))
+    if not 0.0 <= results["accuracy"] <= 1.0:
+        raise AssertionError(f"bad evaluation {results}")
+    log(f"  expansion_hhe {expansion}; test accuracy {results['accuracy']:.4f} (clip 0.5)")
+    log("  phase times (s): " + json.dumps(times))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -574,6 +758,8 @@ def main() -> int:
     counts.append(serving_linear(device))
     log("phase 5: MLP BSGS serving, N=8192 L=5, d=64, H=16, K=10")
     counts.append(serving_mlp(device))
+    log("phase 6: hybrid-HE uplink round, MedCNN 256x256x3, 8 clients, b=8 k=3, N=4096 L=3")
+    counts.append(hhe_round(device))
     for name, rec in records.items():
         rec["launches"] = sum(c[name] for c in counts)
         if rec["launches"] < 1:

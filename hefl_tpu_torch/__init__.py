@@ -1,12 +1,14 @@
-"""PyTorch/CUDA port of `hefl_tpu`: encrypted FedAvg of CNNs and encrypted
-inference serving on one NVIDIA GPU.
+"""PyTorch/CUDA port of `hefl_tpu`: encrypted FedAvg of CNNs (float, packed
+quantized and hybrid-HE uplinks) and encrypted inference serving on one
+NVIDIA GPU.
 
 The package mirrors `hefl_tpu`'s module layout (ckks/, models/, data/, fl/,
 cli.py) so each function has an obvious counterpart, but it is written in
 PyTorch and imports nothing of JAX or of `hefl_tpu`. The TPU kernels of the
-encrypted round (forward/inverse NTT, fused encrypt, fused decrypt) and of
+encrypted round (forward/inverse NTT, fused encrypt, fused decrypt), of
 encrypted-inference serving (fused key-switch, hoisted-rotation products,
-`he_inference.py`) are hand-written CUDA C++ for Hopper in `csrc/ntt.cu`,
+`he_inference.py`) and of the hybrid-HE uplink (fused transcipher, `hhe/`)
+are hand-written CUDA C++ for Hopper in `csrc/ntt.cu`,
 built with nvcc at first use and called through ctypes (`ckks/cuda_ntt.py`).
 
 Residue tensors are `torch.int32` at every public function (canonical

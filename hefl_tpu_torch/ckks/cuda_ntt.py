@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written CUDA kernels K1-K6, and their plain versions.
+"""Wrappers of the hand-written CUDA kernels K1-K7, and their plain versions.
 
 The kernels live in `hefl_tpu_torch/csrc/ntt.cu` (see its header for the
 design and the bounds). They replace the TPU kernels of the encrypted round
@@ -10,6 +10,7 @@ and of encrypted-inference serving in `hefl_tpu/ckks/pallas_ntt.py`:
     K4 decrypt_fused    <- decrypt_fused_pallas     (pallas_ntt.py:633)
     K5 keyswitch_fused  <- keyswitch_fused_pallas   (pallas_ntt.py:527)
     K6 hoisted_products <- hoisted_rotations_pallas (pallas_ntt.py:701)
+    K7 transcipher_fused <- transcipher_fused_pallas (pallas_ntt.py:423)
 
 Build: at first use on a CUDA tensor, nvcc compiles the sources for sm_90a
 into a shared library with a plain C interface under `hefl_tpu_torch/_build/`
@@ -37,7 +38,8 @@ from pathlib import Path
 
 import torch
 
-from hefl_tpu_torch.ckks.modular import add_mod, mont_mul, sub_mod
+from hefl_tpu_torch.ckks.encoding import encode_packed
+from hefl_tpu_torch.ckks.modular import MASK32, add_mod, mont_mul, neg_mod, sub_mod
 from hefl_tpu_torch.ckks.ntt import (
     NTTContext,
     _inverse_stages_plain,
@@ -46,6 +48,7 @@ from hefl_tpu_torch.ckks.ntt import (
     ntt_inverse_plain,
     plain_tables,
 )
+from hefl_tpu_torch.ckks.primes import host_to_mont
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -60,6 +63,7 @@ SUPPORTED_N = (1024, 2048, 4096, 8192)
 LAUNCHES = {
     "ntt_forward": 0, "ntt_inverse": 0, "encrypt_fused": 0, "decrypt_fused": 0,
     "keyswitch_fused": 0, "keyswitch_fused_eval": 0, "hoisted_products": 0,
+    "transcipher_fused": 0,
 }
 
 _P = ctypes.c_void_p
@@ -71,6 +75,7 @@ _SIGNATURES = {
     "decrypt_fused": [_P] * 10 + [_I] * 3 + [_P],
     "keyswitch_fused": [_P] * 15 + [_I] * 6 + [_P],
     "hoisted_products": [_P] * 8 + [_I] * 5 + [_P],
+    "transcipher_fused": [_P] * 12 + [_I] * 3 + [_P],
 }
 _lib = None
 
@@ -411,3 +416,65 @@ def hoisted_products(ctx: NTTContext, c0, d_eval, b_mont, a_mont):
                 out0.data_ptr(), out1.data_ptr(), tabs.p.data_ptr(), tabs.pinv_neg.data_ptr(),
                 num_s, nb, num_r, ctx.num_primes, ctx.logn)
     return out0, out1
+
+
+# --- K7: fused hybrid-HE transcipher -----------------------------------------
+
+
+def _transcipher_consts(ctx: NTTContext, device):
+    """Per-prime int32 (uint32-bit) tensors [L] of K7: the Barrett constant
+    mu = floor((2**32 - 1) / p) and sh31 = host_to_mont(2**31 mod p), both
+    below p < 2**27."""
+    device = torch.device(device)
+    key = (str(device), "transcipher")
+    hit = ctx._device_cache.get(key)
+    if hit is None:
+        primes = [int(pi) for pi in ctx.p[:, 0]]
+        hit = (
+            torch.tensor([MASK32 // pi for pi in primes], dtype=torch.int32, device=device),
+            torch.tensor([host_to_mont((1 << 31) % pi, pi) for pi in primes],
+                         dtype=torch.int32, device=device),
+        )
+        ctx._device_cache[key] = hit
+    return hit
+
+
+def transcipher_fused_plain(ctx: NTTContext, w_hi, w_lo, pad_c0, pad_c1):
+    """Plain version of K7 (any device): the JAX package's
+    `hhe.transcipher._transcipher_core_xla` in int64 — `encode_packed` of
+    the word pairs, the forward NTT, then c0 = NTT(m) - pad_c0 and
+    c1 = -pad_c1."""
+    p = plain_tables(ctx, w_hi.device).p
+    m_eval = ntt_forward_plain(ctx, encode_packed(ctx, w_hi, w_lo)).to(torch.int64)
+    c0 = sub_mod(m_eval, pad_c0.to(torch.int64), p)
+    c1 = neg_mod(pad_c1.to(torch.int64), p)
+    return c0.to(torch.int32), c1.to(torch.int32)
+
+
+def transcipher_fused(ctx: NTTContext, w_hi, w_lo, pad_c0, pad_c1):
+    """trivial(w) - Enc(z): symmetric-ciphertext words w_hi/w_lo int32[..., N]
+    (each < 2**31) and the provisioned pad residues int32[..., L, N] ->
+    evaluation-domain (c0, c1) [..., L, N]. One K7 launch on CUDA."""
+    if _is_cpu(w_hi, w_lo, pad_c0, pad_c1):
+        return transcipher_fused_plain(ctx, w_hi, w_lo, pad_c0, pad_c1)
+    _check(ctx, "transcipher_fused(pad_c0)", pad_c0)
+    _check(ctx, "transcipher_fused(pad_c1)", pad_c1, pad_c0.shape)
+    words = tuple(pad_c0.shape[:-2]) + (ctx.n,)
+    for name, t in (("w_hi", w_hi), ("w_lo", w_lo)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != words:
+            raise ValueError(
+                f"transcipher_fused({name}): expected contiguous torch.int32 {words}, "
+                f"got {t.dtype} {tuple(t.shape)}"
+            )
+    c0 = torch.empty_like(pad_c0)
+    c1 = torch.empty_like(pad_c0)
+    rows = pad_c0.numel() // ctx.n
+    if rows:
+        tabs = kernel_tables(ctx, pad_c0.device)
+        mu, sh31 = _transcipher_consts(ctx, pad_c0.device)
+        _launch(ctx, "transcipher_fused", pad_c0.device,
+                w_hi.data_ptr(), w_lo.data_ptr(), pad_c0.data_ptr(), pad_c1.data_ptr(),
+                c0.data_ptr(), c1.data_ptr(), tabs.psi.data_ptr(), tabs.psi_shoup.data_ptr(),
+                tabs.p.data_ptr(), tabs.pinv_neg.data_ptr(), mu.data_ptr(), sh31.data_ptr(),
+                rows, ctx.num_primes, ctx.logn)
+    return c0, c1

@@ -12,6 +12,8 @@ Both keep the JAX package's float32 steps in the same order, so encode gives
 the same residues bit for bit, and decode agrees to about one float32 ulp
 (XLA may contract a multiply-add that PyTorch runs as two ops). `torch.round`
 rounds half to even, as `jnp.round` does. Integer steps compute in int64.
+The packed-integer codec (`encode_packed`, `decode_int_center`) is exact:
+it carries up-to-62-bit integers and never touches floats.
 """
 
 from __future__ import annotations
@@ -66,6 +68,20 @@ def encode(ctx: NTTContext, values: torch.Tensor, scale: float) -> torch.Tensor:
     return modular.add_mod(hi_shift, lo_res, p).to(torch.int32)
 
 
+def encode_packed(ctx: NTTContext, hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Exact integer encode of v = hi * 2**31 + lo (int32 words < 2**31)
+    -> canonical residues int32[..., L, N]: (hi mod p) * (2**31 mod p) +
+    (lo mod p), Barrett reductions and a Montgomery product, no floats."""
+    tabs = plain_tables(ctx, hi.device)
+    p = tabs.p
+    hi_res = modular.barrett_mod(hi.to(torch.int64)[..., None, :], p)
+    lo_res = modular.barrett_mod(lo.to(torch.int64)[..., None, :], p)
+    primes = [int(pi) for pi in np.asarray(ctx.p)[:, 0]]
+    shift_mont = _per_prime([host_to_mont((1 << 31) % pi, pi) for pi in primes], hi.device)
+    hi_shift = modular.mont_mul(hi_res, shift_mont, p, tabs.pinv_neg)
+    return modular.add_mod(hi_shift, lo_res, p).to(torch.int32)
+
+
 def encode_overflow_count(values: torch.Tensor, scale: float) -> torch.Tensor:
     """How many of `values` would saturate in `encode` at this scale."""
     scaled = torch.abs(values.to(torch.float32)) * _f32(scale, values.device)
@@ -111,6 +127,26 @@ def decode(ctx: NTTContext, residues: torch.Tensor, scale: float) -> torch.Tenso
         radix *= float(int(primes[i - 1]))
         out = out + digits[i].to(torch.float32) * _f32(radix * inv_scale, dev)
     return out
+
+
+def decode_int_center(ctx: NTTContext, residues: torch.Tensor) -> np.ndarray:
+    """Residues int32[..., L, N] -> the centered CRT value as EXACT int64
+    numpy (the packed decode's bit fields).
+
+    The digits come from `_mixed_radix_digits`; the recombination runs on
+    the host in uint64 two's complement, as the JAX package's does (numpy:
+    torch has no CPU uint64 multiply). It wraps mod 2**64, which is exact
+    for the |v| < 2**62 a packed payload respects."""
+    digits = _mixed_radix_digits(ctx, residues)
+    primes = np.asarray(ctx.p)[:, 0]
+    acc = None
+    prefix = 1
+    for i, d in enumerate(digits):
+        c = np.uint64(prefix & 0xFFFFFFFFFFFFFFFF)
+        term = d.cpu().numpy().astype(np.int64).astype(np.uint64) * c
+        acc = term if acc is None else acc + term
+        prefix *= int(primes[i])
+    return acc.astype(np.int64)
 
 
 def decode_exact(ctx: NTTContext, residues: np.ndarray, scale: float) -> np.ndarray:

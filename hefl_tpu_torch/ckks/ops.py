@@ -63,6 +63,24 @@ def encrypt_core(
     return Ciphertext(c0=c0, c1=c1, scale=ctx.scale)
 
 
+def encrypt_batch(
+    ctx: CkksContext, pk: PublicKey, m_res: torch.Tensor, gens=None, samples=None
+) -> Ciphertext:
+    """Encrypt residues int32[C, n_ct, L, N] in ONE encrypt core call (one
+    K3 launch on CUDA). Batch entry c draws its (u, e0, e1) from `gens[c]`,
+    or `samples` = (u, e0, e1) int32[C, n_ct, L, N] are given (a test
+    feeding the JAX package's samples)."""
+    c, n_ct = int(m_res.shape[0]), int(m_res.shape[1])
+    if samples is None:
+        draws = [encrypt_samples(ctx, g, (n_ct,), m_res.device) for g in gens]
+        samples = tuple(torch.stack([d[i] for d in draws]) for i in range(3))
+    rows = (c * n_ct, ctx.num_primes, ctx.n)
+    u, e0, e1 = (s.reshape(rows).contiguous() for s in samples)
+    ct = encrypt_core(ctx, pk, m_res.reshape(rows), u, e0, e1)
+    shape = (c, n_ct, ctx.num_primes, ctx.n)
+    return Ciphertext(c0=ct.c0.reshape(shape), c1=ct.c1.reshape(shape), scale=ct.scale)
+
+
 def encrypt(
     ctx: CkksContext, pk: PublicKey, m_res: torch.Tensor, gen: torch.Generator
 ) -> Ciphertext:

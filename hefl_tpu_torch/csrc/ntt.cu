@@ -1,16 +1,18 @@
 // Hand-written Hopper (sm_90a) kernels for the CKKS hot paths: forward NTT,
 // inverse NTT, fused encrypt and fused decrypt (the encrypted FedAvg round),
-// and the fused gadget key-switch and hoisted-rotation products (encrypted
-// inference serving). Plain C interface, built by nvcc into a shared library
-// and called through ctypes (hefl_tpu_torch/ckks/cuda_ntt.py).
+// the fused gadget key-switch and hoisted-rotation products (encrypted
+// inference serving), and the fused hybrid-HE transcipher (the HHE uplink).
+// Plain C interface, built by nvcc into a shared library and called through
+// ctypes (hefl_tpu_torch/ckks/cuda_ntt.py).
 //
 // Replaces the Pallas TPU kernels of hefl_tpu/ckks/pallas_ntt.py:
-//   ntt_forward      <- ntt_forward_pallas       (_fwd_kernel / _fwd_stages)
-//   ntt_inverse      <- ntt_inverse_pallas       (_inv_kernel / _inv_stages)
-//   encrypt_fused    <- encrypt_fused_pallas     (_enc_kernel)
-//   decrypt_fused    <- decrypt_fused_pallas     (_dec_kernel)
-//   keyswitch_fused  <- keyswitch_fused_pallas   (_keyswitch_kernel)
-//   hoisted_products <- hoisted_rotations_pallas (_hoist_products_kernel)
+//   ntt_forward       <- ntt_forward_pallas       (_fwd_kernel / _fwd_stages)
+//   ntt_inverse       <- ntt_inverse_pallas       (_inv_kernel / _inv_stages)
+//   encrypt_fused     <- encrypt_fused_pallas     (_enc_kernel)
+//   decrypt_fused     <- decrypt_fused_pallas     (_dec_kernel)
+//   keyswitch_fused   <- keyswitch_fused_pallas   (_keyswitch_kernel)
+//   hoisted_products  <- hoisted_rotations_pallas (_hoist_products_kernel)
+//   transcipher_fused <- transcipher_fused_pallas (_transcipher_kernel)
 //
 // Data layout is the JAX package's [B, L, N] residue tensor as is: row
 // r = b*L + l holds polynomial b mod prime l, N uint32 words (the port stores
@@ -27,7 +29,7 @@
 // in 4*N words of dynamic shared memory and runs their four transforms in one
 // stage loop, so a stage costs one barrier for four butterflies; c0 and c1
 // are written once. K4 forms d = c0 + c1*s while loading, then runs the
-// inverse stages. K5 and K6 are described above their kernels below.
+// inverse stages. K5, K6 and K7 are described above their kernels below.
 //
 // Bounds on the H100 (see PERF.md for the measured times): each kernel reads
 // every input word once and writes every output word once, so the byte
@@ -72,6 +74,13 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w, uint32_t w
                                               uint32_t p) {
   const uint32_t q = __umulhi(a, w_shoup);
   const uint32_t r = a * w - q * p;  // true value in [0, 2p), exact mod 2**32
+  return r >= p ? r - p : r;
+}
+
+// x mod p for any 32-bit x with mu = floor((2**32 - 1) / p): the quotient
+// estimate is at most one short, so one conditional subtract is canonical.
+__device__ __forceinline__ uint32_t barrett_mod(uint32_t x, uint32_t p, uint32_t mu) {
+  const uint32_t r = x - __umulhi(x, mu) * p;
   return r >= p ? r - p : r;
 }
 
@@ -253,6 +262,52 @@ decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict
              psi_inv_sh + static_cast<size_t>(l) * n, p);
   const uint32_t w = n_inv[l], ws = n_inv_sh[l];
   for (int k = threadIdx.x; k < n; k += blockDim.x) out[off + k] = shoup_mul(sm[k], w, ws, p);
+}
+
+// K7. Replaces transcipher_fused_pallas (pallas_ntt.py, _transcipher_kernel).
+// The hybrid-HE server step, trivial(w) - Enc(z): for upload row b and prime
+// l, m = (hi mod p) * (2**31 mod p) + (lo mod p) (Barrett reductions, one
+// Montgomery product with sh31 = host_to_mont(2**31 mod p)), the forward NTT
+// of m, then c0 = NTT(m) - pad_c0 and c1 = -pad_c1 (zero stays zero).
+// Words w_hi/w_lo [B, N] carry no limb axis; pads and outputs are [B, L, N].
+// One block per (row, prime), as K1: the block reads its row's word pair
+// once, embeds it while staging into shared memory, transforms it there and
+// writes c0 and c1 once. c1 needs no transform, so its words stream through.
+// Bound at [152, 3, 4096]: operations (456 transforms, 0.011 ms), the bytes
+// a close second (2 word rows in per row; 2 pad rows in and 2 rows out per
+// (row, prime): 34.9 MB, 0.010 ms). The word pair is read once per prime
+// (L times in all), which the L2 serves after the first prime's block.
+__global__ void __launch_bounds__(kThreads)
+transcipher_fused_kernel(const uint32_t* __restrict__ w_hi, const uint32_t* __restrict__ w_lo,
+                         const uint32_t* __restrict__ pad_c0,
+                         const uint32_t* __restrict__ pad_c1, uint32_t* __restrict__ c0,
+                         uint32_t* __restrict__ c1, const uint32_t* __restrict__ psi,
+                         const uint32_t* __restrict__ psi_sh,
+                         const uint32_t* __restrict__ primes,
+                         const uint32_t* __restrict__ pinv_neg,
+                         const uint32_t* __restrict__ mu, const uint32_t* __restrict__ sh31,
+                         int num_l, int logn) {
+  extern __shared__ uint32_t sm[];
+  const int n = 1 << logn;
+  const size_t row = blockIdx.x;                       // b*L + l
+  const int l = static_cast<int>(row % num_l);
+  const size_t b = row / num_l;
+  const uint32_t p = primes[l];
+  const uint32_t pinv = pinv_neg[l];
+  const uint32_t m = mu[l];
+  const uint32_t s = sh31[l];
+  const uint32_t* hi = w_hi + b * n;
+  const uint32_t* lo = w_lo + b * n;
+  const size_t off = row * n;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    sm[k] = add_mod(mont_mul(barrett_mod(hi[k], p, m), s, p, pinv), barrett_mod(lo[k], p, m), p);
+    const uint32_t v = pad_c1[off + k];
+    c1[off + k] = v == 0u ? 0u : p - v;
+  }
+  __syncthreads();
+  fwd_stages<1>(sm, logn, psi + static_cast<size_t>(l) * n,
+                psi_sh + static_cast<size_t>(l) * n, p);
+  for (int k = threadIdx.x; k < n; k += blockDim.x) c0[off + k] = sub_mod(sm[k], pad_c0[off + k], p);
 }
 
 
@@ -469,6 +524,27 @@ int decrypt_fused(const void* c0, const void* c1, const void* s_mont, void* out,
       static_cast<const uint32_t*>(primes), static_cast<const uint32_t*>(pinv_neg),
       static_cast<const uint32_t*>(n_inv), static_cast<const uint32_t*>(n_inv_sh), num_l,
       logn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7: words w_hi/w_lo [B, N] (< 2**31), pads pad_c0/pad_c1 [B, L, N] ->
+// c0/c1 [B, L, N], evaluation domain; rows = B*L. mu and sh31 are per prime.
+int transcipher_fused(const void* w_hi, const void* w_lo, const void* pad_c0,
+                      const void* pad_c1, void* c0, void* c1, const void* psi,
+                      const void* psi_sh, const void* primes, const void* pinv_neg,
+                      const void* mu, const void* sh31, int rows, int num_l, int logn,
+                      void* stream) {
+  size_t smem = 0;
+  cudaError_t err = prepare(transcipher_fused_kernel, rows, num_l, logn, 1, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows % num_l != 0) return static_cast<int>(cudaErrorInvalidValue);
+  transcipher_fused_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(w_hi), static_cast<const uint32_t*>(w_lo),
+      static_cast<const uint32_t*>(pad_c0), static_cast<const uint32_t*>(pad_c1),
+      static_cast<uint32_t*>(c0), static_cast<uint32_t*>(c1),
+      static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(psi_sh),
+      static_cast<const uint32_t*>(primes), static_cast<const uint32_t*>(pinv_neg),
+      static_cast<const uint32_t*>(mu), static_cast<const uint32_t*>(sh31), num_l, logn);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,16 +1,21 @@
-"""Training hyperparameters of the encrypted synchronous round.
+"""Configuration of the encrypted round: training, streaming, packing, HHE.
 
 The fields of the JAX package's `TrainConfig` (hefl_tpu/fl/config.py) that
 this path uses, with the same defaults, which reproduce the reference:
 Adam(lr=1e-3, decay=1e-4), 10 local epochs, batch 32,
 EarlyStopping(patience=5, restore_best_weights), ReduceLROnPlateau(
 patience=2, factor=0.3, min_lr=1e-6), validation_split=0.1, and the
-shear/zoom/flip augmentation.
+shear/zoom/flip augmentation. `StreamConfig` is the JAX package's; the
+packing and hybrid-HE configs live beside what they configure and are
+re-exported here, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from hefl_tpu_torch.ckks.quantize import PackingConfig  # noqa: F401  (re-export)
+from hefl_tpu_torch.hhe.cipher import HheConfig  # noqa: F401  (re-export)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,3 +36,59 @@ class TrainConfig:
     aug_zoom: float = 0.2
     aug_flip: bool = True
     num_classes: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Streaming quorum-aggregation knobs, the fields and defaults of the JAX
+    package's `StreamConfig` (hefl_tpu/fl/config.py). The port's engine
+    (`fl.stream.StreamEngine`) runs the full-cohort, quorum-1.0,
+    fault-free round of the `hhe-smoke` preset and refuses any other value
+    by name: cohort sampling, deadlines, retries, staleness, real-time
+    pacing and the hierarchical fold are not ported yet.
+
+    upload_kind: "ckks" (a float or packed CKKS ciphertext) or "hhe" (a
+    stream-cipher encryption of the PACKED quantized update, transciphered
+    into CKKS by the server; requires a PackingConfig).
+    """
+
+    cohort_size: int = 0
+    cohort_only: bool = True
+    quorum: float = 1.0
+    deadline_s: float = 0.0
+    max_retries: int = 0
+    retry_backoff_s: float = 0.25
+    retry_jitter: float = 0.25
+    staleness_rounds: int = 0
+    seed: int = 0
+    time_scale: float = 0.0
+    num_hosts: int = 0
+    host_quorum: float = 1.0
+    ship_deadline_s: float = 0.0
+    host_staleness_rounds: int = 0
+    upload_kind: str = "ckks"
+
+    def __post_init__(self):
+        if self.upload_kind not in ("ckks", "hhe"):
+            raise ValueError(
+                f"StreamConfig.upload_kind={self.upload_kind!r}: must be 'ckks' or 'hhe'"
+            )
+        if not 0.0 < self.quorum <= 1.0:
+            raise ValueError(f"StreamConfig.quorum={self.quorum}: must be in (0, 1]")
+        for name in ("cohort_size", "deadline_s", "max_retries", "retry_backoff_s",
+                     "staleness_rounds", "time_scale", "num_hosts", "ship_deadline_s",
+                     "host_staleness_rounds"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"StreamConfig.{name} must be >= 0")
+        if self.num_hosts == 1:
+            raise ValueError("StreamConfig.num_hosts=1: use 0 (flat) or >= 2")
+        if not 0.0 < self.host_quorum <= 1.0:
+            raise ValueError(f"StreamConfig.host_quorum={self.host_quorum}: must be in (0, 1]")
+        if self.num_hosts < 2 and (self.host_quorum != 1.0 or self.ship_deadline_s > 0
+                                   or self.host_staleness_rounds > 0):
+            raise ValueError(
+                "StreamConfig.host_quorum/ship_deadline_s/host_staleness_rounds need "
+                "num_hosts >= 2"
+            )
+        if not 0.0 <= self.retry_jitter <= 1.0:
+            raise ValueError(f"StreamConfig.retry_jitter={self.retry_jitter}: must be in [0, 1]")

@@ -1,12 +1,21 @@
 """Encrypted FedAvg on one device: train, encrypt, sum mod p, owner decrypt.
 
-Counterpart of the synchronous float path of `hefl_tpu.fl.secure`. Each
-client's trained weights are packed into [n_ct, N] coefficient blocks and
-encoded, and the whole [C*n_ct, L, N] stack goes through ONE encrypt core
-call (one fused-encrypt kernel launch on CUDA). The server's aggregation is
-the ciphertext sum mod p over the client axis; the 1/C of FedAvg costs
-nothing, since the owner's decode divides by scale * C.
+Counterpart of the synchronous paths of `hefl_tpu.fl.secure`. Each client's
+upload goes through ONE encrypt core call over the whole client stack (one
+fused-encrypt kernel launch on CUDA):
 
+  * float (`encrypt_stack`): the trained weights packed into [n_ct, N]
+    coefficient blocks and encoded; the 1/C of FedAvg costs nothing, since
+    the owner's decode divides by scale * C.
+  * packed (`encrypt_stack_packed`): the UPDATE (trained minus global
+    weights) quantized to b bits and interleaved k to a slot, [n_ct/k, N]
+    integers through the exact `encode_packed`; the owner decodes exact
+    field sums (`decrypt_average(packing=...)`).
+  * hybrid HE (`hhe_encrypt_stack`): the same packed integers under each
+    client's stream cipher — no CKKS work on the client at all; the server
+    transciphers them (`hhe.transcipher`) before the sum.
+
+The server's aggregation is the ciphertext sum mod p over the client axis.
 Trust split: the round touches only the `PublicKey`; the `SecretKey`
 appears only in `decrypt_average`, the model owner's step.
 """
@@ -19,9 +28,19 @@ from hefl_tpu_torch.ckks import encoding, ops
 from hefl_tpu_torch.ckks.keys import CkksContext, PublicKey, SecretKey
 from hefl_tpu_torch.ckks.ntt import plain_tables
 from hefl_tpu_torch.ckks.ops import Ciphertext
-from hefl_tpu_torch.ckks.packing import PackSpec, pack_params, unpack_blocks
+from hefl_tpu_torch.ckks.packing import (
+    PackedSpec,
+    PackSpec,
+    flat_params,
+    pack_params,
+    pack_quantized_flat,
+    unpack_blocks,
+    unpack_quantized,
+)
 from hefl_tpu_torch.fl.config import TrainConfig
+from hefl_tpu_torch.fl.faults import RoundMeta
 from hefl_tpu_torch.fl.fedavg import train_clients
+from hefl_tpu_torch.hhe import cipher
 
 
 def encode_stack(ctx: CkksContext, p_out: list[dict]) -> torch.Tensor:
@@ -34,22 +53,43 @@ def encode_stack(ctx: CkksContext, p_out: list[dict]) -> torch.Tensor:
 def encrypt_stack(
     ctx: CkksContext, pk: PublicKey, p_out: list[dict], enc_gens=None, samples=None
 ) -> Ciphertext:
-    """Encrypt C clients' parameter dicts into one [C, n_ct, L, N] Ciphertext.
+    """Encrypt C clients' parameter dicts into one [C, n_ct, L, N] Ciphertext
+    (client c's randomness from `enc_gens[c]`, or the given `samples`)."""
+    return ops.encrypt_batch(ctx, pk, encode_stack(ctx, p_out), enc_gens, samples)
 
-    Sampling is per client (`enc_gens[c]` draws client c's (u, e0, e1)), or
-    `samples` = (u, e0, e1) int32[C, n_ct, L, N] are given (a test feeding
-    the JAX package's samples). Then ONE encrypt core over the whole stack.
-    """
-    m_res = encode_stack(ctx, p_out)
-    c, n_ct = int(m_res.shape[0]), int(m_res.shape[1])
-    if samples is None:
-        draws = [ops.encrypt_samples(ctx, g, (n_ct,), m_res.device) for g in enc_gens]
-        samples = tuple(torch.stack([d[i] for d in draws]) for i in range(3))
-    rows = (c * n_ct, ctx.num_primes, ctx.n)
-    u, e0, e1 = (s.reshape(rows).contiguous() for s in samples)
-    ct = ops.encrypt_core(ctx, pk, m_res.reshape(rows), u, e0, e1)
-    shape = (c, n_ct, ctx.num_primes, ctx.n)
-    return Ciphertext(c0=ct.c0.reshape(shape), c1=ct.c1.reshape(shape), scale=ct.scale)
+
+def encrypt_stack_packed(
+    ctx: CkksContext, pk: PublicKey, p_out: list[dict], base_params: dict, enc_gens,
+    spec: PackedSpec, samples=None,
+) -> tuple[Ciphertext, torch.Tensor]:
+    """The packed twin of `encrypt_stack`: each client's UPDATE (trained
+    weights minus `base_params`, the round's global weights) quantized and
+    interleaved -> (Ciphertext [C, spec.n_ct, L, N] at the guard scale,
+    saturation int32[C], the packed analog of the encode overflow)."""
+    base = flat_params(base_params)
+    packed = [pack_quantized_flat(flat_params(prm) - base, spec) for prm in p_out]
+    m_res = torch.stack([encoding.encode_packed(ctx.ntt, hi, lo) for hi, lo, _ in packed])
+    ct = ops.encrypt_batch(ctx, pk, m_res, enc_gens, samples)
+    sat = torch.stack([s for _, _, s in packed])
+    return Ciphertext(c0=ct.c0, c1=ct.c1, scale=spec.guard_scale), sat
+
+
+def hhe_encrypt_stack(
+    p_out: list[dict], base_params: dict, hhe_keys, round_index: int, spec: PackedSpec
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The hybrid-HE twin of `encrypt_stack_packed`: each client's packed
+    update under its stream cipher (`hhe_keys[c]`, uint32[4]) instead of
+    CKKS — one keystream sweep and one add per slot, no NTT.
+    -> (w_hi, w_lo int32[C, spec.n_ct, N], saturation int32[C])."""
+    base = flat_params(base_params)
+    w_hi, w_lo, sat = [], [], []
+    for c, prm in enumerate(p_out):
+        hi, lo, s = pack_quantized_flat(flat_params(prm) - base, spec)
+        wh, wl = cipher.stream_encrypt(hi, lo, hhe_keys[c], round_index)
+        w_hi.append(wh)
+        w_lo.append(wl)
+        sat.append(s)
+    return torch.stack(w_hi), torch.stack(w_lo), torch.stack(sat)
 
 
 def lazy_sum_mod(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -74,6 +114,58 @@ def _client_generators(gen: torch.Generator, count: int, device) -> list[torch.G
     return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
 
 
+def client_uploads(
+    model, cfg: TrainConfig, ctx: CkksContext, pk: PublicKey, global_params: dict,
+    xs: torch.Tensor, ys: torch.Tensor, gen: torch.Generator, packing: PackedSpec | None = None,
+    hhe_keys=None, round_index: int = 0, streams=None,
+):
+    """The client half of a round: train every client, then encrypt each
+    upload — float CKKS, packed CKKS (`packing`), or the packed update under
+    the stream cipher (`hhe_keys`, requires `packing`).
+
+    `gen` seeds the per-client training generators, then the per-client
+    encryption generators (made on xs's device): the same draws on every
+    path, so a round trains the same weights whatever it uploads, and the
+    server's pad encryption (`hhe.transcipher.provision_pads`) uses the
+    encryption generators the direct upload would have.
+    -> (Ciphertext [C, n_ct, L, N] or the (w_hi, w_lo) word pair,
+    metrics float32[C, E, 4], overflow [C], trained params, enc_gens)."""
+    num_clients = int(xs.shape[0])
+    if packing is not None and packing.clients < num_clients:
+        raise ValueError(
+            f"packing spec sized for {packing.clients} clients cannot hold a "
+            f"carry-free sum over {num_clients} — rebuild PackedSpec.for_params "
+            "with the round's client count"
+        )
+    if hhe_keys is not None and packing is None:
+        raise ValueError(
+            "the hybrid-HE upload ships the PACKED quantized update under the "
+            "stream cipher; give a PackedSpec"
+        )
+    train_gens = _client_generators(gen, num_clients, xs.device)
+    enc_gens = _client_generators(gen, num_clients, xs.device)
+    p_out, mets = train_clients(
+        model, cfg, global_params, xs, ys,
+        gens=None if streams is not None else train_gens, streams=streams,
+    )
+    if hhe_keys is not None:
+        w_hi, w_lo, overflow = hhe_encrypt_stack(p_out, global_params, hhe_keys, round_index,
+                                                 packing)
+        return (w_hi, w_lo), mets, overflow, p_out, enc_gens
+    if packing is not None:
+        cts, overflow = encrypt_stack_packed(ctx, pk, p_out, global_params, enc_gens, packing)
+        return cts, mets, overflow, p_out, enc_gens
+    overflow = torch.stack([
+        encoding.encode_overflow_count(pack_params(prm, ctx.n), ctx.scale) for prm in p_out
+    ])
+    return encrypt_stack(ctx, pk, p_out, enc_gens), mets, overflow, p_out, enc_gens
+
+
+def plain_mean(p_out: list[dict]) -> dict:
+    """The plaintext FedAvg mean of the clients' trained weights."""
+    return {k: torch.stack([prm[k] for prm in p_out]).mean(dim=0) for k in p_out[0]}
+
+
 def secure_fedavg_round(
     model,
     cfg: TrainConfig,
@@ -85,42 +177,87 @@ def secure_fedavg_round(
     gen: torch.Generator,
     with_plain_reference: bool = False,
     streams=None,
+    packing: PackedSpec | None = None,
 ):
     """One encrypted FedAvg round on the device of `xs`.
 
     xs: uint8[C, m, H, W, ch], ys: int[C, m]. `gen` seeds the per-client
     training and encryption generators (made on xs's device); `streams`
-    optionally replaces the training streams. -> (Ciphertext sum
-    [n_ct, L, N], metrics float32[C, E, 4], encode_overflow int64[C]).
+    optionally replaces the training streams. `packing` (a PackedSpec)
+    uploads quantized interleaved updates; follow with
+    `decrypt_average(..., packing=, base_params=global_params)`.
+    -> (Ciphertext sum [n_ct, L, N], metrics float32[C, E, 4],
+    encode_overflow (or quantizer saturation) [C]).
 
     `with_plain_reference=True` is a MEASUREMENT-ONLY mode that appends the
     plaintext FedAvg mean of the same trained weights: it leaks what the
     encrypted path exists to hide, and exists only to check encode +
     encrypt + sum + decrypt against a plaintext reference in one program.
     """
-    num_clients = int(xs.shape[0])
-    train_gens = _client_generators(gen, num_clients, xs.device)
-    enc_gens = _client_generators(gen, num_clients, xs.device)
-    p_out, mets = train_clients(
-        model, cfg, global_params, xs, ys,
-        gens=None if streams is not None else train_gens, streams=streams,
+    cts, mets, overflow, p_out, _ = client_uploads(
+        model, cfg, ctx, pk, global_params, xs, ys, gen, packing=packing, streams=streams
     )
-    overflow = torch.stack([
-        encoding.encode_overflow_count(pack_params(prm, ctx.n), ctx.scale) for prm in p_out
-    ])
-    ct_sum = aggregate_encrypted(ctx, encrypt_stack(ctx, pk, p_out, enc_gens))
-    outs = (ct_sum, mets, overflow)
+    outs = (aggregate_encrypted(ctx, cts), mets, overflow)
     if with_plain_reference:
-        ref = {k: torch.stack([prm[k] for prm in p_out]).mean(dim=0) for k in p_out[0]}
-        outs = outs + (ref,)
+        outs = outs + (plain_mean(p_out),)
     return outs
 
 
 def decrypt_average(
-    ctx: CkksContext, sk: SecretKey, ct_sum: Ciphertext, num_clients: int, spec: PackSpec
+    ctx: CkksContext,
+    sk: SecretKey,
+    ct_sum: Ciphertext,
+    num_clients: int | None = None,
+    spec: PackSpec | None = None,
+    meta: RoundMeta | None = None,
+    packing: PackedSpec | None = None,
+    base_params: dict | None = None,
+    hhe: bool = False,
 ) -> dict:
     """Owner-side decrypt of the aggregated sum -> averaged parameter dict.
-    The division by the client count happens in the decode scale."""
+
+    Float path (`spec`): the division by the client count happens in the
+    decode scale. Packed path (`packing`, with `base_params` the round's
+    global weights): the integers are recovered EXACTLY (`decode_int_center`
+    and one guard-rounding shift), deinterleaved, offset-corrected and
+    averaged, and the average update is added onto `base_params`. `hhe`
+    marks a transciphered aggregate, whose cipher wrap multiples
+    `hhe_center_mod` removes first — bitwise the direct path's integers.
+    The denominator is `meta.surviving` when the round's RoundMeta is given
+    (cross-checked against `num_clients`), else `num_clients`.
+    """
+    if packing is None and spec is None:
+        raise TypeError("decrypt_average: spec (the PackSpec) is required")
+    if packing is not None and base_params is None:
+        raise TypeError(
+            "decrypt_average: the packed path decodes AVERAGE UPDATES — pass "
+            "base_params (the round's global weights) to add them to"
+        )
+    if hhe and packing is None:
+        raise TypeError("decrypt_average: hhe=True decodes a PACKED aggregate; pass packing")
+    if meta is not None:
+        if num_clients is not None and int(num_clients) != int(meta.num_clients):
+            raise ValueError(
+                f"decrypt_average: num_clients={num_clients} disagrees with the "
+                f"round metadata ({meta.num_clients} clients)"
+            )
+        surviving = int(meta.surviving)
+        if surviving <= 0:
+            raise ValueError(
+                "decrypt_average: round metadata reports 0 surviving clients — "
+                "the aggregate is an encryption of zero; skip the round"
+            )
+    elif num_clients is None:
+        raise TypeError("decrypt_average: need num_clients or the round's RoundMeta")
+    else:
+        surviving = int(num_clients)
     res = ops.decrypt(ctx, sk, ct_sum)
-    blocks = encoding.decode(ctx.ntt, res, ct_sum.scale * int(num_clients))
+    if packing is not None:
+        v = encoding.decode_int_center(ctx.ntt, res)
+        if hhe:
+            v = cipher.hhe_center_mod(v, packing.guard)
+        delta = unpack_quantized(v, packing, surviving)
+        base = flat_params(base_params)
+        return unpack_blocks(base + torch.from_numpy(delta).to(base.device), packing.base)
+    blocks = encoding.decode(ctx.ntt, res, ct_sum.scale * surviving)
     return unpack_blocks(blocks, spec)

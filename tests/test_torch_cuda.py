@@ -70,6 +70,29 @@ def test_cpu_tensors_take_the_plain_keyswitch_and_hoisted_products():
     assert cuda_ntt.launch_counts() == dict.fromkeys(cuda_ntt.LAUNCHES, 0)
 
 
+def _k7_inputs(ctx, rows, seed, device="cpu"):
+    """Word pairs int32[rows, N] below 2**31 and pad residues [rows, L, N]."""
+    rng = np.random.default_rng(seed)
+    words = [torch.from_numpy(rng.integers(0, 2**31, (rows, ctx.n)).astype(np.int32)).to(device)
+             for _ in range(2)]
+    return (*words, _res(ctx, (rows, 3, ctx.n), seed + 1, device),
+            _res(ctx, (rows, 3, ctx.n), seed + 2, device))
+
+
+def test_cpu_tensors_take_the_plain_transcipher():
+    # K7 on CPU tensors: the plain version, no launch; a zero pad_c1 word
+    # stays zero under the negation.
+    ctx = _ctx(1024)
+    w_hi, w_lo, p0, p1 = _k7_inputs(ctx, 4, 50)
+    p1[0, 0, :7] = 0
+    cuda_ntt.reset_launch_counts()
+    c0, c1 = cuda_ntt.transcipher_fused(ctx, w_hi, w_lo, p0, p1)
+    want = cuda_ntt.transcipher_fused_plain(ctx, w_hi, w_lo, p0, p1)
+    assert torch.equal(c0, want[0]) and torch.equal(c1, want[1])
+    assert torch.all(c1[0, 0, :7] == 0) and torch.all((c1 >= 0) & (c1 < 2**27))
+    assert cuda_ntt.launch_counts() == dict.fromkeys(cuda_ntt.LAUNCHES, 0)
+
+
 def test_plain_inverse_undoes_forward_at_every_kernel_size():
     # Exact round trip at each N the kernels support.
     for n in cuda_ntt.SUPPORTED_N:
@@ -239,3 +262,20 @@ def test_serving_on_card_equals_cpu(cuda_device):
     assert torch.equal(out.c0.cpu(), ref.c0) and torch.equal(out.c1.cpu(), ref.c1)
     got = hei.decrypt_class_scores(ctx, sk, out, k)
     assert np.max(np.abs(got - (x @ W.T + b))) <= 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows", [(1024, 8), (4096, 152)])
+def test_transcipher_bitwise_vs_plain_on_card(cuda_device, n, rows):
+    # Bitwise: K7 against its plain version on the same card tensors (at the
+    # HHE round's [8 clients x 19 rows, 3, 4096]), one launch counted.
+    ctx = _ctx(n)
+    args = _k7_inputs(ctx, rows, 60, cuda_device)
+    cuda_ntt.reset_launch_counts()
+    got = cuda_ntt.transcipher_fused(ctx, *args)
+    want = cuda_ntt.transcipher_fused_plain(ctx, *args)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert cuda_ntt.launch_counts()["transcipher_fused"] == 1
+    with pytest.raises(ValueError):
+        cuda_ntt.transcipher_fused(ctx, args[0][:, :-1].contiguous(), *args[1:])

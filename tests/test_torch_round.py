@@ -167,7 +167,7 @@ def test_cli_runs_end_to_end_on_cpu():
     assert 0.0 <= rec["accuracy"] <= 1.0 and len(rec["val_loss"]) == 2
 
 
-@pytest.mark.parametrize("flag", ["--stream", "--dp-noise=1.0", "--pack-bits"])
+@pytest.mark.parametrize("flag", ["--cohort-size", "--dp-noise=1.0", "--journal-path"])
 def test_cli_refuses_unported_flags_by_name(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.parse_args(["--device", "cpu", flag])
