@@ -14,11 +14,15 @@ error:
      decrypt): call its wrapper on card tensors at the shapes of the
      encrypted MedCNN round (N=4096, L=3: 55 ciphertexts per client, 2
      clients), and at N=1024, and require it to be BITWISE equal to its
-     plain PyTorch version run on the same card tensors. Time kernel and
-     plain version with CUDA events (median of repeats, L2 flushed before
-     each timed launch) and compute the kernel's lower bound on this card.
-     The same for K5 and K6 (serving shapes) and K7, the fused transcipher,
-     at the HHE round's [8 clients x 19 rows, 3, 4096] and at N=1024.
+     plain PyTorch version run on the same card tensors. Time it: `ms` is
+     device time (the kernel events of torch.profiler, median over 30
+     calls, L2 flushed before each), `call_ms` the wrapper's call between
+     two CUDA events (device time plus the host work the device waits
+     for), `plain_ms` the plain version's call; and compute the kernel's
+     lower bound on this card. The same for K5 and K6 (serving shapes) and
+     K7, the fused transcipher, at the HHE round's [8 clients x 19 rows, 3,
+     4096] and at N=1024; and K1 and K2 again at each of NTT_SHAPES, the
+     row counts the main paths launch them at.
   3. Drive the main path once through the port's entry points: MedCNN at
      full width (256x256x3, 222,722 parameters, random weights from a seed),
      the `medical` synthetic data, 2 clients of 96 images, 2 local epochs,
@@ -61,9 +65,11 @@ error:
      times (clip 0.5): train, upload, provision + transcipher, fold,
      decrypt, evaluate; the device time of the upload and of provision +
      transcipher by kernel (torch.profiler).
+  Phases 3-6 each print their launches by (kernel, rows x N).
   7. Print one JSON line {"kernels": [...]} (launches: the sum over the
-     main-path runs of phases 3-6, each counted from zero) and, last, the
-     result line
+     main-path runs of phases 3-6, each counted from zero; K1 and K2 carry
+     one "shapes" entry per timed shape with the launches at that shape)
+     and, last, the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -96,6 +102,14 @@ BARRETT_OPS = 5                      # umulhi, mul, sub, compare, select
 DIGIT_BITS, NUM_DIGITS = 5, 6        # the default gadget at 27-bit primes
 PALLAS = "hefl_tpu/ckks/pallas_ntt.py"
 SOURCE = "hefl_tpu_torch/csrc/ntt.cu"
+# [B, L, N] shapes at which phase 2 also times K1 and K2: the main paths
+# launch them on 3 to 54 rows (phases 3-6 print the count at each).
+NTT_SHAPES = ((1, 3, 4096), (2, 3, 4096), (18, 3, 4096), (55, 3, 4096),
+              (1, 1, 8192), (1, 3, 8192), (2, 3, 8192), (1, 5, 8192), (2, 5, 8192))
+# Row counts at which phase 2 holds K1 and K2 bitwise at every ring size:
+# every cluster plan of cuda_ntt.ntt_plan (8 blocks a row up to 16 rows, 4
+# up to 33, 2 up to 65, 1 from 66 on a 132-SM card).
+NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 165)
 ERR_LIMIT = 5e-6
 SCORE_ERR_LIMIT = 0.05               # the JAX package's serving tolerance
 # The depth-2 MLP at N=8192 carries more noise than the JAX tests' n=512 ring:
@@ -111,8 +125,12 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
-    """Median device time of `fn` over `reps` launches, L2 flushed before each
-    (after `reps` untimed warm-up calls, so the clocks have ramped up)."""
+    """Median time between two CUDA events recorded around one call of `fn`,
+    over `reps` calls, L2 flushed before each (after `reps` untimed warm-up
+    calls, so the clocks have ramped up). The host runs the call between the
+    two events, so this is the cost as a caller pays it: device time plus
+    the host work (argument checks, allocation, the ctypes call) the device
+    waits for. The plain versions are timed so; a kernel's `call_ms` too."""
     for _ in range(reps):
         fn()
     torch.cuda.synchronize()
@@ -127,6 +145,47 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def is_port_kernel(name: str) -> bool:
+    """The port's kernels live in csrc/ntt.cu's anonymous namespace (a
+    template's demangled name starts with its return type). PyTorch's own
+    kernels start with their return type and at::native; some of them hold
+    "(anonymous namespace)::" further in."""
+    return name.removeprefix("void ").startswith("(anonymous namespace)::")
+
+
+def device_ms(fn, reps: int, flush: torch.Tensor) -> float:
+    """Median device time of one call of `fn`: the summed durations of the
+    port's kernels that the call launched (torch.profiler with CUDA
+    activity; K5 launches 2 or 3 kernels a call), over `reps` calls with the
+    L2 flushed before each, after 3 untimed warm-up calls. The flush's own
+    device event separates one call's kernels from the next, so an event the
+    profiler drops (it happens, rarely) costs one call's sample, not the
+    grouping of the others."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    calls, current = [], None
+    for _, us, ours in sorted((e.time_range.start, e.time_range.elapsed_us(), is_port_kernel(e.name))
+                              for e in prof.events() if str(e.device_type).endswith("CUDA")):
+        if not ours:
+            current = None
+            continue
+        if current is None:
+            current = []
+            calls.append(current)
+        current.append(us)
+    if len(calls) < reps - 2:
+        raise AssertionError(f"the profiler saw the port's kernels in {len(calls)} of {reps} calls")
+    return statistics.median(sum(c) for c in calls) / 1e3
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -263,6 +322,51 @@ def max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
 
 
+def ntt_shape_cases(cuda_ntt, ntt_mod, device, seed: int):
+    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K1 and K2
+    at each of NTT_SHAPES."""
+    from hefl_tpu_torch.ckks.primes import find_ntt_primes
+
+    cases = []
+    for k, (b, num_l, n) in enumerate(NTT_SHAPES):
+        ctx = ntt_mod.NTTContext.build(find_ntt_primes(num_l, 27, 2 * n), n)
+        x = rand_residues(ctx, (b, num_l, n), seed + k, device)
+        rows, logn = b * num_l, n.bit_length() - 1
+        fwd_ops = (n // 2) * logn * BUTTERFLY_OPS
+        words = 2 * rows * n + 2 * num_l * n                    # row in, row out, tables
+        cases.append(("ntt_forward", f"{PALLAS}:413", [b, num_l, n],
+                      lambda ctx=ctx, x=x: cuda_ntt.ntt_forward(ctx, x),
+                      lambda ctx=ctx, x=x: cuda_ntt.ntt_forward_plain(ctx, x),
+                      4 * words, rows * fwd_ops))
+        cases.append(("ntt_inverse", f"{PALLAS}:418", [b, num_l, n],
+                      lambda ctx=ctx, x=x: cuda_ntt.ntt_inverse(ctx, x),
+                      lambda ctx=ctx, x=x: cuda_ntt.ntt_inverse_plain(ctx, x),
+                      4 * words, rows * (fwd_ops + n * SHOUP_OPS)))
+    return cases
+
+
+def kernel_record(case, flush, time_plain: bool = True) -> dict:
+    """Hold a kernel bitwise against its plain version on the same card
+    tensors, then time it: `ms` device time (device_ms), `call_ms` the
+    wrapper's call (time_ms), `plain_ms` the plain version (time_ms)."""
+    name, replaces, shape, kern, plain, bytes_moved, ops = case
+    err = max_abs_err(kern(), plain())
+    torch.cuda.synchronize()
+    if err != 0:
+        raise AssertionError(f"{name} at {shape} differs from its plain version")
+    ms, call_ms = device_ms(kern, 30, flush), time_ms(kern, 30, flush)
+    plain_ms = time_ms(plain, 5, flush) if time_plain else None
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    log(f"  {name} {shape}: bitwise equal; device {ms:.6f} ms, call {call_ms:.6f} ms, plain "
+        f"{'-' if plain_ms is None else f'{plain_ms:.6f}'} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}: {bytes_moved} B, {ops} int32 ops)")
+    return {
+        "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+        "shape": shape, "launches": None, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
 def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
     """Phase 2: bitwise checks at the slice's shapes and at N=1024; timings."""
     from hefl_tpu_torch.ckks.primes import find_ntt_primes
@@ -278,31 +382,33 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
         log(f"  N=1024 {name} {shape}: max_abs_err {err}")
         if err != 0:
             raise AssertionError(f"{name} at N=1024 differs from its plain version")
-    # The keygen shape of K1 (one polynomial, all primes) on the main path.
-    x = rand_residues(ckks_ctx.ntt, (ckks_ctx.num_primes, ckks_ctx.n), 99, device)
-    err = max_abs_err(cuda_ntt.ntt_forward(ckks_ctx.ntt, x), cuda_ntt.ntt_forward_plain(ckks_ctx.ntt, x))
-    log(f"  ntt_forward [3, 4096] (keygen shape): max_abs_err {err}, "
-        f"{time_ms(lambda: cuda_ntt.ntt_forward(ckks_ctx.ntt, x), 20, flush):.6f} ms")
-    if err != 0:
-        raise AssertionError("ntt_forward at the keygen shape differs from its plain version")
+    ctxs = {}
+    for n in cuda_ntt.SUPPORTED_N:
+        for rows in NTT_CHECK_ROWS:
+            num_l = 5 if rows % 5 == 0 else 3 if rows % 3 == 0 else 1
+            if (n, num_l) not in ctxs:
+                ctxs[n, num_l] = ntt_mod.NTTContext.build(find_ntt_primes(num_l, 27, 2 * n), n)
+            ctx = ctxs[n, num_l]
+            x = rand_residues(ctx, (rows // num_l, num_l, n), n + rows, device)
+            for kern, plain in ((cuda_ntt.ntt_forward, cuda_ntt.ntt_forward_plain),
+                                (cuda_ntt.ntt_inverse, cuda_ntt.ntt_inverse_plain)):
+                if max_abs_err(kern(ctx, x), plain(ctx, x)) != 0:
+                    raise AssertionError(f"{kern.__name__} on {rows} rows at N={n} differs from "
+                                         "its plain version")
+    torch.cuda.synchronize()
+    log(f"  ntt_forward, ntt_inverse at N in {cuda_ntt.SUPPORTED_N} x rows in {NTT_CHECK_ROWS} "
+        f"(cluster sizes {[cuda_ntt.ntt_plan(r, 4096) for r in NTT_CHECK_ROWS]}): bitwise equal")
     cases = kernel_cases(cuda_ntt, ckks_ctx.ntt, 55, 110, device, 200)
     cases.append(transcipher_case(cuda_ntt, ckks_ctx.ntt, 8 * 19, device, 250))
-    for name, replaces, shape, kern, plain, bytes_moved, ops in cases:
-        err = max_abs_err(kern(), plain())
-        torch.cuda.synchronize()
-        if err != 0:
-            raise AssertionError(f"{name} at {shape} differs from its plain version")
-        ms = time_ms(kern, 30, flush)
-        plain_ms = time_ms(plain, 5, flush)
-        bound_ms, bound_by = bound(bytes_moved, ops)
-        records[name] = {
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "shape": shape, "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
-        }
-        log(f"  {name} {shape}: bitwise equal; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-            f"bound {bound_ms:.6f} ms ({bound_by}: {bytes_moved} B, {ops} int32 ops)")
+    for case in cases:
+        records[case[0]] = kernel_record(case, flush)
+    # K1 and K2 at the shapes the main paths launch them at (phases 3-6 print
+    # their launches by (kernel, rows, N)); the [55, 3, 4096] rows above are
+    # kept for continuity with earlier runs.
+    for case in ntt_shape_cases(cuda_ntt, ntt_mod, device, 500):
+        rec = kernel_record(case, flush, time_plain=False)
+        records[rec["name"]].setdefault("shapes", []).append(
+            {k: rec[k] for k in ("shape", "ms", "call_ms", "bound_ms", "bound_by")})
     for name, _, shape, kern, plain, _, _ in serving_kernel_cases(cuda_ntt, ntt_mod, 1024, device,
                                                                    300, shapes="small"):
         err = max_abs_err(kern(), plain())
@@ -310,33 +416,26 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
         log(f"  N=1024 {name} {shape}: max_abs_err {err}")
         if err != 0:
             raise AssertionError(f"{name} at N=1024 differs from its plain version")
-    for name, replaces, shape, kern, plain, bytes_moved, ops in serving_kernel_cases(
-            cuda_ntt, ntt_mod, 4096, device, 400):
-        err = max_abs_err(kern(), plain())
-        torch.cuda.synchronize()
-        if err != 0:
-            raise AssertionError(f"{name} at {shape} differs from its plain version")
-        ms = time_ms(kern, 30, flush)
-        plain_ms = time_ms(plain, 5, flush)
-        bound_ms, bound_by = bound(bytes_moved, ops)
-        rec = {
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "shape": shape, "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
-        }
-        if name in records:       # K5 at the packed batch: kept beside the B=1 row
-            records[name]["batch"] = {k: rec[k] for k in ("shape", "ms", "plain_ms",
-                                                          "bound_ms", "bound_by")}
+    for case in serving_kernel_cases(cuda_ntt, ntt_mod, 4096, device, 400):
+        rec = kernel_record(case, flush)
+        if rec["name"] in records:       # K5 at the packed batch: kept beside the B=1 row
+            records[rec["name"]]["batch"] = {k: rec[k] for k in (
+                "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
         else:
-            records[name] = rec
-        log(f"  {name} {shape}: bitwise equal; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-            f"bound {bound_ms:.6f} ms ({bound_by}: {bytes_moved} B, {ops} int32 ops)")
+            records[rec["name"]] = rec
     del flush
     return records
 
 
-def main_path(device) -> dict:
+def log_launch_rows(rows: dict) -> None:
+    """One line: launches by kernel, then by 'rows x N' of its main input."""
+    by_name = {}
+    for (name, r, n), count in sorted(rows.items()):
+        by_name.setdefault(name, {})[f"{r}x{n}"] = count
+    log("  launches by (kernel, rows x N): " + json.dumps(by_name))
+
+
+def main_path(device) -> tuple[dict, dict]:
     """Phase 3: one encrypted FedAvg round of full-width MedCNN."""
     from hefl_tpu_torch.ckks import cuda_ntt
     from hefl_tpu_torch.ckks.keys import CkksContext, keygen
@@ -379,7 +478,8 @@ def main_path(device) -> dict:
     spec = PackSpec.for_params(params, ctx.n)
     avg = phase("decrypt_s", lambda: decrypt_average(ctx, sk, ct_sum, 2, spec))
     results = phase("evaluate_s", lambda: evaluate(model, avg, xt_d, yt))
-    counts = cuda_ntt.launch_counts()
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log_launch_rows(shapes)
 
     log(f"  main path launches: {counts}")
     for name in ("ntt_forward", "encrypt_fused", "decrypt_fused"):
@@ -401,7 +501,7 @@ def main_path(device) -> dict:
     log(f"  val_loss per client/epoch {mets[:, :, 0].tolist()}; test accuracy "
         f"{results['accuracy']:.4f} f1 {results['f1']:.4f}")
     log("  phase times (s): " + json.dumps(times))
-    return counts
+    return counts, shapes
 
 
 def warm_latency(fn, calls: int = 20) -> tuple[float, float]:
@@ -434,9 +534,7 @@ def device_time_breakdown(label: str, fn) -> None:
             if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    # The port's kernels live in csrc/ntt.cu's anonymous namespace; PyTorch's
-    # names start with their return type and at::native.
-    ours = sum(r[1] for r in rows if r[0].startswith("(anonymous namespace)::"))
+    ours = sum(r[1] for r in rows if is_port_kernel(r[0]))
     log(f"  {label}: wall {wall_ms:.3f} ms (profiled), device busy {busy:.3f} ms "
         f"({100 * busy / wall_ms:.1f} % of wall) in {sum(r[2] for r in rows)} kernels; "
         f"the port's CUDA kernels {ours:.3f} ms, PyTorch's own {busy - ours:.3f} ms")
@@ -458,7 +556,7 @@ def check_scores(label: str, got, want, limit: float = SCORE_ERR_LIMIT) -> None:
         raise AssertionError(f"{label}: scores off the plaintext reference ({err}, argmax {agree})")
 
 
-def serving_linear(device, n: int = 4096) -> dict:
+def serving_linear(device, n: int = 4096) -> tuple[dict, dict]:
     """Phase 4: linear BSGS serving at N=4096, L=3, d=N/8 = 512, K=10."""
     from hefl_tpu_torch import he_inference as hei
     from hefl_tpu_torch.ckks import cuda_ntt, encoding
@@ -490,7 +588,8 @@ def serving_linear(device, n: int = 4096) -> dict:
     cuda_ntt.reset_launch_counts()
     out = scorer.score(ct)
     torch.cuda.synchronize()
-    counts = cuda_ntt.launch_counts()
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log_launch_rows(shapes)
     log(f"  one score's launches: {counts}")
     if counts["keyswitch_fused"] != len(plan.giant_steps) or counts["hoisted_products"] != 1:
         raise AssertionError(f"a linear score must launch exactly {len(plan.giant_steps)} K5 "
@@ -528,10 +627,10 @@ def serving_linear(device, n: int = 4096) -> dict:
     lat.update(packed_median_s=med, packed_p95_s=p95, packed_qps=q * n_ct / med)
     log("  latency: " + json.dumps(lat))
     log("  phase times (s): " + json.dumps(times))
-    return counts
+    return counts, shapes
 
 
-def serving_mlp(device, n: int = 8192) -> dict:
+def serving_mlp(device, n: int = 8192) -> tuple[dict, dict]:
     """Phase 5: depth-2 MLP BSGS serving at N=8192, L=5, d=64, H=16, K=10."""
     from hefl_tpu_torch import he_inference as hei
     from hefl_tpu_torch.ckks import cuda_ntt, encoding
@@ -562,7 +661,8 @@ def serving_mlp(device, n: int = 8192) -> dict:
     cuda_ntt.reset_launch_counts()
     out = scorer.score(ct)
     torch.cuda.synchronize()
-    counts = cuda_ntt.launch_counts()
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log_launch_rows(shapes)
     log(f"  one score's launches: {counts}")
     if counts["keyswitch_fused_eval"] < 1:
         raise AssertionError("the MLP's relinearization did not launch K5 in eval-input mode")
@@ -584,10 +684,10 @@ def serving_mlp(device, n: int = 8192) -> dict:
     med, p95 = warm_latency(lambda: scorer.score(ct))
     log("  latency: " + json.dumps({"median_s": med, "p95_s": p95, "qps": 1.0 / med}))
     device_time_breakdown("one MLP score", lambda: scorer.score(ct))
-    return counts
+    return counts, shapes
 
 
-def hhe_round(device) -> dict:
+def hhe_round(device) -> tuple[dict, dict]:
     """Phase 6: the hybrid-HE uplink round of full-width MedCNN, 8 clients."""
     from hefl_tpu_torch import cli
     from hefl_tpu_torch.ckks import cuda_ntt
@@ -621,7 +721,8 @@ def hhe_round(device) -> dict:
     (rec,) = cli.run(args, say=lambda m: log(f"  cli: {m}"))
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t
-    counts = cuda_ntt.launch_counts()
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log_launch_rows(shapes)
     log(f"  cli.run --hhe (1 round, {cli_s:.3f} s): launches {counts}")
     if counts["transcipher_fused"] != 1 or counts["encrypt_fused"] != 1:
         raise AssertionError("an HHE round must launch exactly one K7 and one K3 (the pads)")
@@ -726,7 +827,7 @@ def hhe_round(device) -> dict:
         raise AssertionError(f"bad evaluation {results}")
     log(f"  expansion_hhe {expansion}; test accuracy {results['accuracy']:.4f} (clip 0.5)")
     log("  phase times (s): " + json.dumps(times))
-    return counts
+    return counts, shapes
 
 
 def main() -> int:
@@ -753,18 +854,38 @@ def main() -> int:
     records = check_kernels(cuda_ntt, ntt_mod, CkksContext.create(), device)
 
     log("phase 3: encrypted FedAvg round, MedCNN 256x256x3, N=4096 L=3, 2 clients")
-    counts = [main_path(device)]
+    runs = [main_path(device)]
     log("phase 4: linear BSGS serving, N=4096 L=3, d=512, K=10")
-    counts.append(serving_linear(device))
+    runs.append(serving_linear(device))
     log("phase 5: MLP BSGS serving, N=8192 L=5, d=64, H=16, K=10")
-    counts.append(serving_mlp(device))
+    runs.append(serving_mlp(device))
     log("phase 6: hybrid-HE uplink round, MedCNN 256x256x3, 8 clients, b=8 k=3, N=4096 L=3")
-    counts.append(hhe_round(device))
+    runs.append(hhe_round(device))
+    shapes = {}
+    for _, run_shapes in runs:
+        for key, count in run_shapes.items():
+            shapes[key] = shapes.get(key, 0) + count
+    log("phases 3-6 together:")
+    log_launch_rows(shapes)
     for name, rec in records.items():
-        rec["launches"] = sum(c[name] for c in counts)
+        rec["launches"] = sum(counts[name] for counts, _ in runs)
         if rec["launches"] < 1:
             raise AssertionError(f"no main path launched {name}")
+        for entry in rec.get("shapes", []):
+            b, num_l, n = entry["shape"]
+            entry["launches"] = shapes.get((name, b * num_l, n), 0)
 
+    # ROADMAP Queue 2's ranking: launches x (device time - bound); K1 and K2
+    # summed over their timed shapes (launches at untimed shapes left out).
+    ranking = []
+    for name, rec in records.items():
+        entries = [e for e in rec.get("shapes", [rec]) if e["launches"]]
+        ranking.append((sum(e["launches"] * (e["ms"] - e["bound_ms"]) for e in entries), name,
+                        sum(e["launches"] for e in entries), rec["launches"],
+                        [e["shape"] for e in entries]))
+    for loss, name, counted, launches, timed_at in sorted(ranking, reverse=True):
+        log(f"  launches x (ms - bound): {name} {loss:.6f} ms ({counted} of {launches} launches, "
+            f"timed at {timed_at})")
     log(smi)
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -21,9 +21,11 @@ Dispatch follows the tensor's device and nothing else: a CPU tensor goes to
 the plain PyTorch version beside each wrapper, a CUDA tensor to the kernel
 (or an exception). Each wrapper adds one to `LAUNCHES[name]` where it
 launches its kernel, so a run can show that its main path went through the
-kernels (`reset_launch_counts` / `launch_counts`). K5 counts its
-evaluation-domain-input mode (relinearization) under its own name,
-"keyswitch_fused_eval".
+kernels (`reset_launch_counts` / `launch_counts`), and one to
+`LAUNCH_ROWS[(name, rows, N)]`, where rows is the number of N-word rows of
+the kernel's main input (B*L), so a run can show at which shapes it launched
+them (`launch_rows`). K5 counts its evaluation-domain-input mode
+(relinearization) under its own name, "keyswitch_fused_eval".
 """
 
 from __future__ import annotations
@@ -65,12 +67,13 @@ LAUNCHES = {
     "keyswitch_fused": 0, "keyswitch_fused_eval": 0, "hoisted_products": 0,
     "transcipher_fused": 0,
 }
+LAUNCH_ROWS: dict[tuple[str, int, int], int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ntt_forward": [_P] * 5 + [_I] * 3 + [_P],
-    "ntt_inverse": [_P] * 7 + [_I] * 3 + [_P],
+    "ntt_forward": [_P] * 5 + [_I] * 4 + [_P],
+    "ntt_inverse": [_P] * 7 + [_I] * 4 + [_P],
     "encrypt_fused": [_P] * 12 + [_I] * 3 + [_P],
     "decrypt_fused": [_P] * 10 + [_I] * 3 + [_P],
     "keyswitch_fused": [_P] * 15 + [_I] * 6 + [_P],
@@ -78,15 +81,25 @@ _SIGNATURES = {
     "transcipher_fused": [_P] * 12 + [_I] * 3 + [_P],
 }
 _lib = None
+# The H100 SXM's streaming multiprocessors: ntt_plan's default without a card.
+DEFAULT_SM_COUNT = 132
+_sm_count = None
 
 
 def reset_launch_counts() -> None:
+    """Zero LAUNCHES and empty LAUNCH_ROWS."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_ROWS.clear()
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def launch_rows() -> dict:
+    """{(name, rows, N): launches} since the last reset."""
+    return dict(LAUNCH_ROWS)
 
 
 def _nvcc() -> str:
@@ -159,6 +172,14 @@ def _check(ctx: NTTContext, name: str, t: torch.Tensor, shape=None) -> None:
         )
 
 
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """K2's body (K2, and K5 with evaluation-domain input) loads its input
+    rows as 16-byte vectors."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel loads rows as 16-byte vectors; the tensor's "
+                         "data is not 16-byte aligned")
+
+
 def _is_cpu(*ts: torch.Tensor) -> bool:
     """True when every tensor is on the CPU; False when all are on one CUDA
     device; raises on a mix or on another device type."""
@@ -173,9 +194,11 @@ def _is_cpu(*ts: torch.Tensor) -> bool:
     return False
 
 
-def _launch(ctx: NTTContext, name: str, device: torch.device, *args, count: str | None = None) -> None:
+def _launch(ctx: NTTContext, name: str, device: torch.device, *args, rows: int,
+            count: str | None = None) -> None:
     """Call the library's `name` with `args` and the current stream; raise on
-    a non-zero status, else add one to LAUNCHES[count or name]."""
+    a non-zero status, else add one to LAUNCHES[count or name] and to
+    LAUNCH_ROWS[(count or name, rows, N)]."""
     if ctx.n not in SUPPORTED_N:
         raise ValueError(f"{name}: the kernel supports N in {SUPPORTED_N}, not {ctx.n}")
     lib = load_library()
@@ -184,43 +207,66 @@ def _launch(ctx: NTTContext, name: str, device: torch.device, *args, count: str 
         status = getattr(lib, name)(*args, stream)
     if status != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {status})")
-    LAUNCHES[count or name] += 1
+    key = count or name
+    LAUNCHES[key] += 1
+    LAUNCH_ROWS[(key, rows, ctx.n)] = LAUNCH_ROWS.get((key, rows, ctx.n), 0) + 1
 
 
-# --- K1: forward NTT ---------------------------------------------------------
+# --- K1 and K2: forward and inverse NTT --------------------------------------
+
+
+def ntt_plan(rows: int, n: int, sms: int | None = None) -> int:
+    """Cluster size C of K1/K2 on `rows` rows of N words: each row is split
+    over C thread blocks. The largest C in (1, 2, 4, 8) with rows * C <= the
+    card's SM count, so that few rows still spread over the SMs; 1 from half
+    the SM count of rows up (66 on an H100), where one block per row already
+    fills the card. `sms`: the SM count, by default read once from the
+    current CUDA device, DEFAULT_SM_COUNT without one."""
+    global _sm_count
+    if n not in SUPPORTED_N:
+        raise ValueError(f"the NTT kernels support N in {SUPPORTED_N}, not {n}")
+    if sms is None:
+        if _sm_count is None:
+            _sm_count = (torch.cuda.get_device_properties(torch.cuda.current_device())
+                         .multi_processor_count if torch.cuda.is_available() else DEFAULT_SM_COUNT)
+        sms = _sm_count
+    if 2 * rows >= sms:
+        return 1
+    c = 8
+    while c > 1 and rows * c > sms:
+        c //= 2
+    return c
+
+
+def _ntt_launch(ctx: NTTContext, name: str, a: torch.Tensor, *tables: torch.Tensor) -> torch.Tensor:
+    """Launch K1 ("ntt_forward") or K2 ("ntt_inverse") on every row of `a`
+    with the tables' pointers and ntt_plan's cluster size."""
+    _check(ctx, name, a)
+    out = torch.empty_like(a)
+    rows = a.numel() // ctx.n
+    if rows:
+        _launch(ctx, name, a.device, a.data_ptr(), out.data_ptr(),
+                *(t.data_ptr() for t in tables), rows, ctx.num_primes, ctx.logn,
+                ntt_plan(rows, ctx.n), rows=rows)
+    return out
 
 
 def ntt_forward(ctx: NTTContext, a: torch.Tensor) -> torch.Tensor:
     """Coefficient -> evaluation domain of int32[..., L, N] (K1 on CUDA)."""
     if _is_cpu(a):
         return ntt_forward_plain(ctx, a)
-    _check(ctx, "ntt_forward", a)
-    out = torch.empty_like(a)
-    rows = a.numel() // ctx.n
-    if rows:
-        tabs = kernel_tables(ctx, a.device)
-        _launch(ctx, "ntt_forward", a.device, a.data_ptr(), out.data_ptr(),
-                tabs.psi.data_ptr(), tabs.psi_shoup.data_ptr(), tabs.p.data_ptr(),
-                rows, ctx.num_primes, ctx.logn)
-    return out
-
-
-# --- K2: inverse NTT ---------------------------------------------------------
+    tabs = kernel_tables(ctx, a.device)
+    return _ntt_launch(ctx, "ntt_forward", a, tabs.psi, tabs.psi_shoup, tabs.p)
 
 
 def ntt_inverse(ctx: NTTContext, a: torch.Tensor) -> torch.Tensor:
     """Evaluation -> coefficient domain incl. N^-1 (K2 on CUDA)."""
     if _is_cpu(a):
         return ntt_inverse_plain(ctx, a)
-    _check(ctx, "ntt_inverse", a)
-    out = torch.empty_like(a)
-    rows = a.numel() // ctx.n
-    if rows:
-        tabs = kernel_tables(ctx, a.device)
-        _launch(ctx, "ntt_inverse", a.device, a.data_ptr(), out.data_ptr(),
-                tabs.psi_inv.data_ptr(), tabs.psi_inv_shoup.data_ptr(), tabs.p.data_ptr(),
-                tabs.n_inv.data_ptr(), tabs.n_inv_shoup.data_ptr(), rows, ctx.num_primes, ctx.logn)
-    return out
+    _check_aligned("ntt_inverse", a)
+    tabs = kernel_tables(ctx, a.device)
+    return _ntt_launch(ctx, "ntt_inverse", a, tabs.psi_inv, tabs.psi_inv_shoup, tabs.p,
+                       tabs.n_inv, tabs.n_inv_shoup)
 
 
 # --- K3: fused encrypt -------------------------------------------------------
@@ -261,7 +307,7 @@ def encrypt_fused(ctx: NTTContext, m_res, u, e0, e1, b_mont, a_mont):
                 m_res.data_ptr(), u.data_ptr(), e0.data_ptr(), e1.data_ptr(),
                 b_mont.data_ptr(), a_mont.data_ptr(), c0.data_ptr(), c1.data_ptr(),
                 tabs.psi.data_ptr(), tabs.psi_shoup.data_ptr(), tabs.p.data_ptr(),
-                tabs.pinv_neg.data_ptr(), rows, ctx.num_primes, ctx.logn)
+                tabs.pinv_neg.data_ptr(), rows, ctx.num_primes, ctx.logn, rows=rows)
     return c0, c1
 
 
@@ -296,7 +342,7 @@ def decrypt_fused(ctx: NTTContext, c0, c1, s_mont):
                 c0.data_ptr(), c1.data_ptr(), s_mont.data_ptr(), out.data_ptr(),
                 tabs.psi_inv.data_ptr(), tabs.psi_inv_shoup.data_ptr(), tabs.p.data_ptr(),
                 tabs.pinv_neg.data_ptr(), tabs.n_inv.data_ptr(), tabs.n_inv_shoup.data_ptr(),
-                rows, ctx.num_primes, ctx.logn)
+                rows, ctx.num_primes, ctx.logn, rows=rows)
     return out
 
 
@@ -350,6 +396,8 @@ def keyswitch_fused(ctx: NTTContext, x, b_mont, a_mont, digit_bits: int, num_dig
     _check(ctx, "keyswitch_fused(x)", x)
     _check(ctx, "keyswitch_fused(b_mont)", b_mont, (num_c, num_l, ctx.n))
     _check(ctx, "keyswitch_fused(a_mont)", a_mont, (num_c, num_l, ctx.n))
+    if eval_input:
+        _check_aligned("keyswitch_fused(x)", x)
     c0 = torch.empty_like(x)
     c1 = torch.empty_like(x)
     batch = x.numel() // (num_l * ctx.n)
@@ -363,7 +411,7 @@ def keyswitch_fused(ctx: NTTContext, x, b_mont, a_mont, digit_bits: int, num_dig
                 tabs.psi_shoup.data_ptr(), tabs.psi_inv.data_ptr(), tabs.psi_inv_shoup.data_ptr(),
                 tabs.p.data_ptr(), tabs.pinv_neg.data_ptr(), tabs.n_inv.data_ptr(),
                 tabs.n_inv_shoup.data_ptr(), batch, num_l, num_digits, digit_bits,
-                int(eval_input), ctx.logn,
+                int(eval_input), ctx.logn, rows=batch * num_l,
                 count="keyswitch_fused_eval" if eval_input else "keyswitch_fused")
     return c0, c1
 
@@ -414,7 +462,7 @@ def hoisted_products(ctx: NTTContext, c0, d_eval, b_mont, a_mont):
         _launch(ctx, "hoisted_products", c0.device,
                 c0.data_ptr(), d_eval.data_ptr(), b_mont.data_ptr(), a_mont.data_ptr(),
                 out0.data_ptr(), out1.data_ptr(), tabs.p.data_ptr(), tabs.pinv_neg.data_ptr(),
-                num_s, nb, num_r, ctx.num_primes, ctx.logn)
+                num_s, nb, num_r, ctx.num_primes, ctx.logn, rows=nb * ctx.num_primes)
     return out0, out1
 
 
@@ -476,5 +524,5 @@ def transcipher_fused(ctx: NTTContext, w_hi, w_lo, pad_c0, pad_c1):
                 w_hi.data_ptr(), w_lo.data_ptr(), pad_c0.data_ptr(), pad_c1.data_ptr(),
                 c0.data_ptr(), c1.data_ptr(), tabs.psi.data_ptr(), tabs.psi_shoup.data_ptr(),
                 tabs.p.data_ptr(), tabs.pinv_neg.data_ptr(), mu.data_ptr(), sh31.data_ptr(),
-                rows, ctx.num_primes, ctx.logn)
+                rows, ctx.num_primes, ctx.logn, rows=rows)
     return c0, c1

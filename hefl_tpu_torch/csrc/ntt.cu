@@ -8,6 +8,7 @@
 // Replaces the Pallas TPU kernels of hefl_tpu/ckks/pallas_ntt.py:
 //   ntt_forward       <- ntt_forward_pallas       (_fwd_kernel / _fwd_stages)
 //   ntt_inverse       <- ntt_inverse_pallas       (_inv_kernel / _inv_stages)
+//                        (both: ntt_kernel)
 //   encrypt_fused     <- encrypt_fused_pallas     (_enc_kernel)
 //   decrypt_fused     <- decrypt_fused_pallas     (_dec_kernel)
 //   keyswitch_fused   <- keyswitch_fused_pallas   (_keyswitch_kernel)
@@ -21,7 +22,22 @@
 // are Mosaic layout workarounds and are not carried over: twiddles are read
 // from the [L, N] plain-domain psi / psi_shoup tables at index m + j.
 //
-// Design of K1-K4 (first version: simple and exact, not yet fast). One
+// Design of K1 and K2 (redesigned for Hopper at the row counts the main
+// paths launch: 3 to 54 rows of N words, where one block per row would keep
+// 3 to 54 of the 132 SMs busy). One templated routine (ntt_kernel, above
+// the K1/K2 launchers) serves both: each thread holds 8 words of its row in
+// registers and runs up to three radix-2 stages there between two
+// shared-memory exchanges (4 passes and 3 block barriers at N = 4096
+// instead of 12 barriers), the exchange layout padded by one word every 32,
+// the last pass's store (K1) and the first pass's load (K2) 16-byte
+// vectors, each twiddle read once per group. When the row count leaves
+// most SMs idle the host (cuda_ntt.ntt_plan) splits each row over a
+// thread-block cluster of C = 2, 4 or 8 blocks: the stages whose
+// butterflies cross blocks run in one pass, from device memory (K1) or
+// through distributed shared memory (K2), and exchange their words with
+// the other blocks of the cluster through distributed shared memory.
+//
+// Design of K3 and K4 (first version: simple and exact, not yet fast). One
 // thread block per (polynomial, prime) row. The row is staged in shared
 // memory (16 KB at N = 4096), the N/2 butterflies of each stage are spread
 // over the block's threads with __syncthreads() between stages, and the
@@ -29,7 +45,8 @@
 // in 4*N words of dynamic shared memory and runs their four transforms in one
 // stage loop, so a stage costs one barrier for four butterflies; c0 and c1
 // are written once. K4 forms d = c0 + c1*s while loading, then runs the
-// inverse stages. K5, K6 and K7 are described above their kernels below.
+// inverse stages. K5, K6 and K7 are described above their kernels below;
+// K5's digit stage and K7 run the same stage loop as K3.
 //
 // Bounds on the H100 (see PERF.md for the measured times): each kernel reads
 // every input word once and writes every output word once, so the byte
@@ -38,11 +55,10 @@
 // per transform of about 12 32-bit integer instructions each, over the
 // card's 32-bit integer issue rate (132 SMs x 64 lanes x 1.98 GHz). At the
 // round's shapes the operations set the bound, the bytes a close second
-// (K3: 0.025 ms against 0.010 ms). This version is far from it: a block spends log2 N barriers per
-// row, shared-memory butterflies at stride t < 32 conflict, and a 4-byte
-// load per thread does not fill the memory pipe. Several rows per block,
-// register-resident radix-4 stages and 16-byte accesses are the later work
-// that closes the gap.
+// (K3: 0.025 ms against 0.010 ms). K3-K7 are far from it: a block spends
+// log2 N barriers per row, shared-memory butterflies at stride t < 32
+// conflict, and a 4-byte load per thread does not fill the memory pipe.
+// Moving them onto K1/K2's routine is the work that closes that gap.
 //
 // Arithmetic: Shoup products q = __umulhi(a, w_shoup), r = a*w - q*p (mod
 // 2**32), one conditional subtract; Montgomery products for key polynomials
@@ -50,8 +66,11 @@
 // is a canonical residue, so the kernels match the plain int64 PyTorch
 // versions and the JAX package's XLA path bit for bit.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -147,50 +166,282 @@ __device__ __forceinline__ void inv_stages(uint32_t* x, int logn, const uint32_t
   }
 }
 
-// K1. Replaces ntt_forward_pallas (hefl_tpu/ckks/pallas_ntt.py, _fwd_kernel /
-// _fwd_stages). Bound at [55, 3, 4096]: operations (165 transforms), the
-// bytes (row in, row out, twiddle tables: 5.5 MB) close. One block per row, so the row's reads and
-// writes are each done once and every stage stays in shared memory.
-__global__ void __launch_bounds__(kThreads)
-ntt_forward_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                   const uint32_t* __restrict__ psi, const uint32_t* __restrict__ psi_sh,
-                   const uint32_t* __restrict__ primes, int num_l, int logn) {
-  extern __shared__ uint32_t sm[];
-  const int n = 1 << logn;
-  const size_t row = blockIdx.x;
-  const int l = static_cast<int>(row % num_l);
-  const uint32_t p = primes[l];
-  const uint32_t* src = in + row * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) sm[k] = src[k];
-  __syncthreads();
-  fwd_stages<1>(sm, logn, psi + static_cast<size_t>(l) * n,
-                psi_sh + static_cast<size_t>(l) * n, p);
-  uint32_t* dst = out + row * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = sm[k];
+// K1 and K2: the register-resident, cluster-split transform.
+//
+// A row of N words is split over a cluster of C = 1, 2, 4 or 8 thread
+// blocks (the host's plan, cuda_ntt.ntt_plan: C > 1 only when the row count
+// leaves most SMs idle); block `rank` owns the N/C words [rank*N/C,
+// (rank+1)*N/C) of the row in shared memory, padded by one word after every
+// 32, and has N/(8C) threads, each holding kWords = 8 words in registers.
+// The log2 N stages run in passes of up to three radix-2 stages: a pass
+// loads a thread's 2**R-word groups, runs R stages on them in registers and
+// stores them back to the same places, so a pass needs no barrier inside it
+// and one between it and the next.
+//
+// Pass geometry (forward; the inverse runs the same passes in reverse, each
+// in reverse stage order): a pass over stages s..s+R-1 splits the row into
+// groups x_k = J*(N >> s) + i0 + k*u, k < 2**R, u = N >> (s+R), i0 < u;
+// stage s+r pairs k with k + 2**(R-1-r) under twiddle index
+// 2**(s+r) + (J << r) + (k >> (R-r)), so a group reads 2**r twiddles at
+// stage s+r, once each. Passes: 3 stages, then (log2 N - 3) mod 3 if
+// non-zero, then 3 at a time (log2 N = 12: 3+3+3+3, 13: 3+1+3+3+3).
+//
+// The first forward pass (stages 0-2, u = N/8) is the only one whose groups
+// cross block boundaries: its 8 words lie in all eighths of the row. Each
+// block runs it on its own N/(8C) groups straight from device memory
+// (coalesced 4-byte loads, consecutive threads on consecutive words) and
+// then stores word x_k into the shared memory of block x_k / (N/C) through
+// distributed shared memory (map_shared_rank), between two cluster.sync()s:
+// the first makes sure every block of the cluster runs, the second that
+// every word has landed. The later passes stay in the block. The last
+// forward pass (u = 1) holds 8 consecutive words and stores them as two
+// 16-byte vectors. The inverse mirrors it: its first pass loads 8
+// consecutive words as two 16-byte vectors, its last (stages 2..0) reads
+// its words from the owning blocks' shared memory after a cluster.sync(),
+// multiplies by N^-1 (Shoup) while storing, and ends with a cluster.sync()
+// so that no block exits while a neighbour still reads its shared memory.
+//
+// At N = 4096: 4 passes, 3 block barriers (plus 2 cluster barriers when
+// C > 1) instead of 12, and 3 rows keep 24 SMs busy at C = 8 instead of 3.
+constexpr int kWords = 8;
+
+// Shared-memory index of row word x: one spare word after every 32, so
+// strides of 8 and below between threads stop conflicting on banks.
+__host__ __device__ constexpr int pad(int x) { return x + (x >> 5); }
+
+// Stage s+r of a pass over stages s..s+R-1 on one group of 2**R words
+// v[k] = x_k, J the group's global block index: pairs k, k + 2**(R-1-r)
+// under twiddle 2**(s+r) + (J << r) + (k >> (R-r)), read once for the
+// 2**(R-r) words that share it. Forward: Cooley-Tukey; inverse:
+// Gentleman-Sande.
+template <int R, int r, bool kInverse>
+__device__ __forceinline__ void group_stage(uint32_t* v, int s, int j, const uint32_t* tw,
+                                            const uint32_t* tw_sh, uint32_t p) {
+  constexpr int kHalf = 1 << (R - 1 - r);
+  const int first = (1 << (s + r)) + (j << r);
+#pragma unroll
+  for (int g = 0; g < (1 << r); ++g) {
+    const uint32_t w = __ldg(tw + first + g);
+    const uint32_t ws = __ldg(tw_sh + first + g);
+#pragma unroll
+    for (int k0 = 0; k0 < kHalf; ++k0) {
+      const int lo = g * 2 * kHalf + k0;
+      const int hi = lo + kHalf;
+      const uint32_t a = v[lo];
+      if constexpr (kInverse) {
+        v[lo] = add_mod(a, v[hi], p);
+        v[hi] = shoup_mul(sub_mod(a, v[hi], p), w, ws, p);
+      } else {
+        const uint32_t t = shoup_mul(v[hi], w, ws, p);
+        v[lo] = add_mod(a, t, p);
+        v[hi] = sub_mod(a, t, p);
+      }
+    }
+  }
 }
 
-// K2. Replaces ntt_inverse_pallas (pallas_ntt.py, _inv_kernel / _inv_stages).
-// Bound as K1 (operations). The N^-1 Shoup multiply is folded into the store, so
-// the row still goes through device memory once each way.
-__global__ void __launch_bounds__(kThreads)
-ntt_inverse_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                   const uint32_t* __restrict__ psi_inv,
-                   const uint32_t* __restrict__ psi_inv_sh,
-                   const uint32_t* __restrict__ primes, const uint32_t* __restrict__ n_inv,
-                   const uint32_t* __restrict__ n_inv_sh, int num_l, int logn) {
-  extern __shared__ uint32_t sm[];
-  const int n = 1 << logn;
-  const size_t row = blockIdx.x;
+// All R stages of a group: in increasing order forward, decreasing inverse.
+template <int R, bool kInverse>
+__device__ __forceinline__ void group_stages(uint32_t* v, int s, int j, const uint32_t* tw,
+                                             const uint32_t* tw_sh, uint32_t p) {
+  if constexpr (!kInverse) {
+    group_stage<R, 0, false>(v, s, j, tw, tw_sh, p);
+    if constexpr (R > 1) group_stage<R, 1, false>(v, s, j, tw, tw_sh, p);
+    if constexpr (R > 2) group_stage<R, 2, false>(v, s, j, tw, tw_sh, p);
+  } else {
+    if constexpr (R > 2) group_stage<R, 2, true>(v, s, j, tw, tw_sh, p);
+    if constexpr (R > 1) group_stage<R, 1, true>(v, s, j, tw, tw_sh, p);
+    group_stage<R, 0, true>(v, s, j, tw, tw_sh, p);
+  }
+}
+
+// One pass of R stages from stage s inside the block's segment of SEG
+// words (segment offset seg in the row): each thread takes kWords >> R
+// groups, local group q*THREADS + tid, loads them from shared memory, runs
+// the stages and stores them back in place.
+template <int LOGN, int SEG, int R, bool kInverse>
+__device__ __forceinline__ void local_pass(uint32_t* sm, int s, int seg, const uint32_t* tw,
+                                           const uint32_t* tw_sh, uint32_t p) {
+  constexpr int kThreadsPerBlock = SEG / kWords;
+  constexpr int kGroup = 1 << R;
+  const int log_u = LOGN - s - R;
+  const int span = (1 << LOGN) >> s;
+  uint32_t v[kWords];
+#pragma unroll
+  for (int q = 0; q < kWords / kGroup; ++q) {
+    const int gl = q * kThreadsPerBlock + static_cast<int>(threadIdx.x);
+    const int jl = gl >> log_u;
+    const int x0 = jl * span + (gl & ((1 << log_u) - 1));
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) v[q * kGroup + k] = sm[pad(x0 + (k << log_u))];
+    group_stages<R, kInverse>(v + q * kGroup, s, seg / span + jl, tw, tw_sh, p);
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) sm[pad(x0 + (k << log_u))] = v[q * kGroup + k];
+  }
+}
+
+// K1 (kInverse = false) replaces ntt_forward_pallas (pallas_ntt.py,
+// _fwd_kernel / _fwd_stages); K2 (kInverse = true) replaces
+// ntt_inverse_pallas (_inv_kernel / _inv_stages), its N^-1 Shoup multiply
+// folded into the store. Grid: rows * C blocks, clusters of C along x.
+// Bound at the main paths' 3 to 54 rows: operations, then bytes (row in,
+// row out, the prime's twiddle tables); see PERF.md.
+template <int LOGN, int C, bool kInverse>
+__global__ void __launch_bounds__((1 << LOGN) / C / kWords)
+ntt_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+           const uint32_t* __restrict__ tw_all, const uint32_t* __restrict__ tw_sh_all,
+           const uint32_t* __restrict__ primes, const uint32_t* __restrict__ n_inv,
+           const uint32_t* __restrict__ n_inv_sh, int num_l) {
+  constexpr int N = 1 << LOGN;
+  constexpr int SEG = N / C;
+  constexpr int kThreadsPerBlock = SEG / kWords;
+  constexpr int kShort = (LOGN - 3) % 3;        // stages of the short pass, 0: none
+  extern __shared__ uint32_t sm[];              // pad(SEG) words
+  int rank = 0;
+  if constexpr (C > 1) rank = static_cast<int>(cg::this_cluster().block_rank());
+  const size_t row = blockIdx.x / C;
   const int l = static_cast<int>(row % num_l);
   const uint32_t p = primes[l];
-  const uint32_t* src = in + row * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) sm[k] = src[k];
-  __syncthreads();
-  inv_stages(sm, logn, psi_inv + static_cast<size_t>(l) * n,
-             psi_inv_sh + static_cast<size_t>(l) * n, p);
-  const uint32_t w = n_inv[l], ws = n_inv_sh[l];
-  uint32_t* dst = out + row * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = shoup_mul(sm[k], w, ws, p);
+  const uint32_t* tw = tw_all + static_cast<size_t>(l) * N;
+  const uint32_t* tw_sh = tw_sh_all + static_cast<size_t>(l) * N;
+  const int tid = threadIdx.x;
+  const int seg = rank * SEG;
+  const int g = rank * kThreadsPerBlock + tid;  // group of the cross-block pass
+  uint32_t v[kWords];
+  if constexpr (!kInverse) {
+    const uint32_t* src = in + row * N;
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) v[k] = src[g + k * (N / kWords)];
+    group_stages<3, false>(v, 0, 0, tw, tw_sh, p);
+    if constexpr (C > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) {
+        const int x = g + k * (N / kWords);
+        cluster.map_shared_rank(sm, x / SEG)[pad(x % SEG)] = v[k];
+      }
+      cluster.sync();
+    } else {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) sm[pad(g + k * (N / kWords))] = v[k];
+      __syncthreads();
+    }
+    if constexpr (kShort > 0) {
+      local_pass<LOGN, SEG, kShort, false>(sm, 3, seg, tw, tw_sh, p);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int s = 3 + kShort; s < LOGN - 3; s += 3) {
+      local_pass<LOGN, SEG, 3, false>(sm, s, seg, tw, tw_sh, p);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) v[k] = sm[pad(kWords * tid + k)];
+    group_stages<3, false>(v, LOGN - 3, (seg >> 3) + tid, tw, tw_sh, p);
+    uint4* dst = reinterpret_cast<uint4*>(out + row * N + seg + kWords * tid);
+    dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_uint4(v[4], v[5], v[6], v[7]);
+  } else {
+    const uint4* src = reinterpret_cast<const uint4*>(in + row * N + seg + kWords * tid);
+    const uint4 a = src[0], b = src[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    group_stages<3, true>(v, LOGN - 3, (seg >> 3) + tid, tw, tw_sh, p);
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) sm[pad(kWords * tid + k)] = v[k];
+    __syncthreads();
+#pragma unroll
+    for (int s = LOGN - 6; s >= 3 + kShort; s -= 3) {
+      local_pass<LOGN, SEG, 3, true>(sm, s, seg, tw, tw_sh, p);
+      __syncthreads();
+    }
+    if constexpr (kShort > 0) {
+      local_pass<LOGN, SEG, kShort, true>(sm, 3, seg, tw, tw_sh, p);
+      __syncthreads();
+    }
+    if constexpr (C > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) {
+        const int x = g + k * (N / kWords);
+        v[k] = cluster.map_shared_rank(sm, x / SEG)[pad(x % SEG)];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) v[k] = sm[pad(g + k * (N / kWords))];
+    }
+    group_stages<3, true>(v, 0, 0, tw, tw_sh, p);
+    const uint32_t w = n_inv[l], ws = n_inv_sh[l];
+    uint32_t* dst = out + row * N;
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) dst[g + k * (N / kWords)] = shoup_mul(v[k], w, ws, p);
+    if constexpr (C > 1) cg::this_cluster().sync();
+  }
+}
+
+// Device pointers and sizes of one K1/K2 launch (n_inv, n_inv_sh: K2 only).
+struct NttArgs {
+  const void* in;
+  void* out;
+  const void* tw;
+  const void* tw_sh;
+  const void* primes;
+  const void* n_inv;
+  const void* n_inv_sh;
+  int rows;
+  int num_l;
+};
+
+template <int LOGN, int C, bool kInverse>
+cudaError_t launch_ntt_kernel(const NttArgs& a, cudaStream_t stream) {
+  constexpr int SEG = (1 << LOGN) / C;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(a.rows) * C);
+  cfg.blockDim = dim3(SEG / kWords);
+  cfg.dynamicSmemBytes = static_cast<size_t>(pad(SEG)) * sizeof(uint32_t);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, ntt_kernel<LOGN, C, kInverse>,
+                            static_cast<const uint32_t*>(a.in), static_cast<uint32_t*>(a.out),
+                            static_cast<const uint32_t*>(a.tw),
+                            static_cast<const uint32_t*>(a.tw_sh),
+                            static_cast<const uint32_t*>(a.primes),
+                            static_cast<const uint32_t*>(a.n_inv),
+                            static_cast<const uint32_t*>(a.n_inv_sh), a.num_l);
+}
+
+template <int LOGN, bool kInverse>
+cudaError_t launch_ntt_logn(int cluster, const NttArgs& a, cudaStream_t stream) {
+  switch (cluster) {
+    case 1: return launch_ntt_kernel<LOGN, 1, kInverse>(a, stream);
+    case 2: return launch_ntt_kernel<LOGN, 2, kInverse>(a, stream);
+    case 4: return launch_ntt_kernel<LOGN, 4, kInverse>(a, stream);
+    case 8: return launch_ntt_kernel<LOGN, 8, kInverse>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Launch K1 or K2 on a.rows rows with cluster size `cluster` (1, 2, 4 or 8;
+// anything else, or an N outside 1024..8192, is refused with
+// cudaErrorInvalidValue before any launch).
+template <bool kInverse>
+cudaError_t launch_ntt(int logn, int cluster, const NttArgs& a, cudaStream_t stream) {
+  if (a.rows <= 0 || a.num_l <= 0) return cudaErrorInvalidValue;
+  switch (logn) {
+    case 10: return launch_ntt_logn<10, kInverse>(cluster, a, stream);
+    case 11: return launch_ntt_logn<11, kInverse>(cluster, a, stream);
+    case 12: return launch_ntt_logn<12, kInverse>(cluster, a, stream);
+    case 13: return launch_ntt_logn<13, kInverse>(cluster, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // K3. Replaces encrypt_fused_pallas (pallas_ntt.py, _enc_kernel).
@@ -467,29 +718,18 @@ extern "C" {
 // synchronise, and returns cudaGetLastError() (0 on success).
 
 int ntt_forward(const void* in, void* out, const void* psi, const void* psi_sh,
-                const void* primes, int rows, int num_l, int logn, void* stream) {
-  size_t smem = 0;
-  cudaError_t err = prepare(ntt_forward_kernel, rows, num_l, logn, 1, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_forward_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(psi_sh),
-      static_cast<const uint32_t*>(primes), num_l, logn);
-  return static_cast<int>(cudaGetLastError());
+                const void* primes, int rows, int num_l, int logn, int cluster, void* stream) {
+  const NttArgs a{in, out, psi, psi_sh, primes, nullptr, nullptr, rows, num_l};
+  cudaError_t err = launch_ntt<false>(logn, cluster, a, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int ntt_inverse(const void* in, void* out, const void* psi_inv, const void* psi_inv_sh,
                 const void* primes, const void* n_inv, const void* n_inv_sh, int rows,
-                int num_l, int logn, void* stream) {
-  size_t smem = 0;
-  cudaError_t err = prepare(ntt_inverse_kernel, rows, num_l, logn, 1, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_inverse_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(psi_inv), static_cast<const uint32_t*>(psi_inv_sh),
-      static_cast<const uint32_t*>(primes), static_cast<const uint32_t*>(n_inv),
-      static_cast<const uint32_t*>(n_inv_sh), num_l, logn);
-  return static_cast<int>(cudaGetLastError());
+                int num_l, int logn, int cluster, void* stream) {
+  const NttArgs a{in, out, psi_inv, psi_inv_sh, primes, n_inv, n_inv_sh, rows, num_l};
+  cudaError_t err = launch_ntt<true>(logn, cluster, a, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int encrypt_fused(const void* m_res, const void* u, const void* e0, const void* e1,
@@ -551,9 +791,9 @@ int transcipher_fused(const void* w_hi, const void* w_lo, const void* pad_c0,
 // K5: x [B, L, N] (coefficient domain, or evaluation domain with
 // eval_input = 1), keys bk/ak [R + 1, L, N] -> c0/c1 [B, L, N], evaluation
 // domain. Scratch: coeff_scratch [B, L, N] (used when eval_input: each limb
-// is first inverse-transformed ONCE under its own prime, by the K2 kernel
-// body) and digit_scratch [B, R, L, N]. Two or three launches on one
-// stream; the wrapper counts the call once.
+// is first inverse-transformed ONCE under its own prime, by K2's routine
+// ntt_kernel, one block a row) and digit_scratch [B, R, L, N]. Two or three
+// launches on one stream; the wrapper counts the call once.
 int keyswitch_fused(const void* x, void* coeff_scratch, void* digit_scratch, const void* bk,
                     const void* ak, void* c0, void* c1, const void* psi, const void* psi_sh,
                     const void* psi_inv, const void* psi_inv_sh, const void* primes,
@@ -569,14 +809,10 @@ int keyswitch_fused(const void* x, void* coeff_scratch, void* digit_scratch, con
   size_t smem = 0;
   cudaError_t err;
   if (eval_input) {
-    err = prepare(ntt_inverse_kernel, batch * num_l, num_l, logn, 1, &smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ntt_inverse_kernel<<<batch * num_l, kThreads, smem, st>>>(
-        coeff, static_cast<uint32_t*>(coeff_scratch), static_cast<const uint32_t*>(psi_inv),
-        static_cast<const uint32_t*>(psi_inv_sh), static_cast<const uint32_t*>(primes),
-        static_cast<const uint32_t*>(n_inv), static_cast<const uint32_t*>(n_inv_sh), num_l,
-        logn);
-    err = cudaGetLastError();
+    const NttArgs a{x, coeff_scratch, psi_inv, psi_inv_sh, primes, n_inv, n_inv_sh,
+                    batch * num_l, num_l};
+    err = launch_ntt<true>(logn, 1, a, st);
+    if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     coeff = static_cast<const uint32_t*>(coeff_scratch);
   }

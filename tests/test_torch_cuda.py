@@ -17,8 +17,8 @@ from hefl_tpu_torch.ckks.primes import find_ntt_primes
 torch.set_num_threads(2)
 
 
-def _ctx(n: int) -> ntt.NTTContext:
-    return ntt.NTTContext.build(find_ntt_primes(3, 27, 2 * n), n)
+def _ctx(n: int, num_l: int = 3) -> ntt.NTTContext:
+    return ntt.NTTContext.build(find_ntt_primes(num_l, 27, 2 * n), n)
 
 
 def _res(ctx, shape, seed, device="cpu") -> torch.Tensor:
@@ -130,18 +130,21 @@ def test_library_path_covers_every_file_under_csrc(tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3, 6, 54, 165])
 @pytest.mark.parametrize("n", [1024, 2048, 4096, 8192])
-def test_kernels_bitwise_vs_plain_on_card(cuda_device, n):
-    # Bitwise: K1-K4 against their plain versions on the same card tensors,
-    # and each launch counted once.
+def test_kernels_bitwise_vs_plain_on_card(cuda_device, n, rows):
+    # Bitwise: K1-K2 on `rows` rows (every cluster plan of ntt_plan: 8, 8,
+    # 8, 2 and 1 blocks a row) and K3-K4 against their plain versions on
+    # the same card tensors, each launch counted once at its shape.
     ctx = _ctx(n)
+    kctx = ctx if rows % 3 == 0 else _ctx(n, 1)
     dev = cuda_device
-    x = _res(ctx, (5, 3, n), 5, dev)
+    x = _res(kctx, (rows // kctx.num_primes, kctx.num_primes, n), 5, dev)
     m, u, e0, e1 = (_res(ctx, (7, 3, n), s, dev) for s in (6, 7, 8, 9))
     b, a = _res(ctx, (3, n), 10, dev), _res(ctx, (3, n), 11, dev)
     cuda_ntt.reset_launch_counts()
-    assert torch.equal(cuda_ntt.ntt_forward(ctx, x), cuda_ntt.ntt_forward_plain(ctx, x))
-    assert torch.equal(cuda_ntt.ntt_inverse(ctx, x), cuda_ntt.ntt_inverse_plain(ctx, x))
+    assert torch.equal(cuda_ntt.ntt_forward(kctx, x), cuda_ntt.ntt_forward_plain(kctx, x))
+    assert torch.equal(cuda_ntt.ntt_inverse(kctx, x), cuda_ntt.ntt_inverse_plain(kctx, x))
     for got, want in zip(cuda_ntt.encrypt_fused(ctx, m, u, e0, e1, b, a),
                          cuda_ntt.encrypt_fused_plain(ctx, m, u, e0, e1, b, a)):
         assert torch.equal(got, want)
@@ -150,6 +153,17 @@ def test_kernels_bitwise_vs_plain_on_card(cuda_device, n):
     torch.cuda.synchronize(dev)
     k1_k4 = ("ntt_forward", "ntt_inverse", "encrypt_fused", "decrypt_fused")
     assert cuda_ntt.launch_counts() == {k: int(k in k1_k4) for k in cuda_ntt.LAUNCHES}
+    assert cuda_ntt.launch_rows() == {("ntt_forward", rows, n): 1, ("ntt_inverse", rows, n): 1,
+                                      ("encrypt_fused", 21, n): 1, ("decrypt_fused", 21, n): 1}
+
+
+@pytest.mark.cuda
+def test_ntt_rejects_unaligned_rows_on_card(cuda_device):
+    # K1/K2 load rows as 16-byte vectors: a view 4 bytes off is refused.
+    ctx = _ctx(1024, 1)
+    flat = _res(ctx, (2, 1, 1024), 13, cuda_device).reshape(-1)
+    with pytest.raises(ValueError):
+        cuda_ntt.ntt_inverse(ctx, flat[1:1025].reshape(1, 1, 1024))
 
 
 @pytest.mark.cuda
@@ -233,23 +247,32 @@ def test_keyswitch_and_hoisted_products_bitwise_vs_plain_on_card(cuda_device, n)
     assert cuda_ntt.launch_counts()["hoisted_products"] == 1
 
 
-@pytest.mark.cuda
-def test_serving_on_card_equals_cpu(cuda_device):
-    # A small BSGS linear score (N=1024) on the card through K1, K2, K5 and
-    # K6 is bitwise the same score run on CPU copies (the plain versions).
+def _small_linear_score(dev):
+    """A small BSGS linear score (N=1024, d=40, K=4) on `dev`: (ctx, sk, W,
+    b, x, k, plan, Galois keys, ciphertext, scorer)."""
     from hefl_tpu_torch import he_inference as hei
     from hefl_tpu_torch.ckks.keys import CkksContext, keygen
 
     ctx = CkksContext.create(n=1024)
     gen = torch.Generator().manual_seed(41)
-    sk, pk = keygen(ctx, gen, device=cuda_device)
+    sk, pk = keygen(ctx, gen, device=dev)
     rng = np.random.default_rng(42)
     d, k = 40, 4
     W, b, x = rng.normal(0, 0.3, (k, d)), rng.normal(0, 0.2, k), rng.normal(0, 0.5, d)
     plan = hei.bsgs_plan(512, d, k)
     gks = hei.gen_rotation_keys_for_steps(ctx, sk, 43, plan.rotation_steps_needed)
     ct = hei.encrypt_features(ctx, pk, x, gen)
-    scorer = hei.BsgsLinearScorer(ctx, W, b, gks, device=cuda_device)
+    scorer = hei.BsgsLinearScorer(ctx, W, b, gks, device=dev)
+    return ctx, sk, W, b, x, k, plan, gks, ct, scorer
+
+
+@pytest.mark.cuda
+def test_serving_on_card_equals_cpu(cuda_device):
+    # A small BSGS linear score (N=1024) on the card through K1, K2, K5 and
+    # K6 is bitwise the same score run on CPU copies (the plain versions).
+    from hefl_tpu_torch import he_inference as hei
+
+    ctx, sk, W, b, x, k, plan, gks, ct, scorer = _small_linear_score(cuda_device)
     cuda_ntt.reset_launch_counts()
     out = scorer.score(ct)
     counts = cuda_ntt.launch_counts()
@@ -262,6 +285,24 @@ def test_serving_on_card_equals_cpu(cuda_device):
     assert torch.equal(out.c0.cpu(), ref.c0) and torch.equal(out.c1.cpu(), ref.c1)
     got = hei.decrypt_class_scores(ctx, sk, out, k)
     assert np.max(np.abs(got - (x @ W.T + b))) <= 0.05
+
+
+@pytest.mark.cuda
+def test_linear_score_launch_rows_on_card(cuda_device):
+    # One linear score launches K1 on 3 rows (one ciphertext) and on 54 (the
+    # hoisted digits, L*d = 18 components of 3 primes), K2 on 3 rows (c1)
+    # and on 6 (c0 and c1 of each giant step): the row counts ntt_plan
+    # spreads over clusters.
+    *_, plan, _, ct, scorer = _small_linear_score(cuda_device)
+    cuda_ntt.reset_launch_counts()
+    scorer.score(ct)
+    shapes = cuda_ntt.launch_rows()
+    assert shapes[("ntt_forward", 3, 1024)] >= 1
+    assert shapes[("ntt_forward", 54, 1024)] == 1
+    assert shapes[("ntt_inverse", 3, 1024)] == 1
+    assert shapes[("ntt_inverse", 6, 1024)] == len(plan.giant_steps)
+    assert sum(v for (name, _, _), v in shapes.items() if name == "ntt_forward") == \
+        cuda_ntt.launch_counts()["ntt_forward"]
 
 
 @pytest.mark.cuda
