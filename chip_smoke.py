@@ -19,10 +19,12 @@ error:
      calls, L2 flushed before each), `call_ms` the wrapper's call between
      two CUDA events (device time plus the host work the device waits
      for), `plain_ms` the plain version's call; and compute the kernel's
-     lower bound on this card. The same for K5 and K6 (serving shapes) and
-     K7, the fused transcipher, at the HHE round's [8 clients x 19 rows, 3,
-     4096] and at N=1024; and K1 and K2 again at each of NTT_SHAPES, the
-     row counts the main paths launch them at.
+     lower bound on this card. The same for K7, the fused transcipher, at
+     the HHE round's [8 clients x 19 rows, 3, 4096] and at N=1024; K1 and
+     K2 again at each of NTT_SHAPES, the row counts the main paths launch
+     them at; K5 (both modes) at each of KS_SHAPES, with the device time of
+     each of its two or three kernels (inverse, digit stage, inner
+     product) printed apart; and K6 at the linear score's shape.
   3. Drive the main path once through the port's entry points: MedCNN at
      full width (256x256x3, 222,722 parameters, random weights from a seed),
      the `medical` synthetic data, 2 clients of 96 images, 2 local epochs,
@@ -67,8 +69,9 @@ error:
      transcipher by kernel (torch.profiler).
   Phases 3-6 each print their launches by (kernel, rows x N).
   7. Print one JSON line {"kernels": [...]} (launches: the sum over the
-     main-path runs of phases 3-6, each counted from zero; K1 and K2 carry
-     one "shapes" entry per timed shape with the launches at that shape)
+     main-path runs of phases 3-6, each counted from zero; K1, K2 and K5
+     carry one "shapes" entry per timed shape with the launches at that
+     shape, K5's also its per-kernel "split")
      and, last, the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -103,9 +106,21 @@ DIGIT_BITS, NUM_DIGITS = 5, 6        # the default gadget at 27-bit primes
 PALLAS = "hefl_tpu/ckks/pallas_ntt.py"
 SOURCE = "hefl_tpu_torch/csrc/ntt.cu"
 # [B, L, N] shapes at which phase 2 also times K1 and K2: the main paths
-# launch them on 3 to 54 rows (phases 3-6 print the count at each).
+# launch them on 1 to 150 rows (phases 3-6 print the count at each).
 NTT_SHAPES = ((1, 3, 4096), (2, 3, 4096), (18, 3, 4096), (55, 3, 4096),
-              (1, 1, 8192), (1, 3, 8192), (2, 3, 8192), (1, 5, 8192), (2, 5, 8192))
+              (1, 1, 8192), (1, 3, 8192), (2, 3, 8192), (1, 4, 8192), (1, 5, 8192),
+              (2, 5, 8192), (18, 3, 8192), (30, 5, 8192))
+# (eval_input, B, L, N) at which phase 2 times K5: every shape phases 4-5
+# launch it at (their `launches by (kernel, rows x N)` lines): a linear
+# score's giant steps at [1, 3, 4096], the MLP's key switches at [1, 5, 8192]
+# and [1, 3, 8192] (after two rescales) and its relinearization (eval
+# input) at [1, 5, 8192]; and `score_many`'s 4 packed ciphertexts at
+# [4, 3, 4096], which phase 4 runs but does not count.
+KS_SHAPES = ((False, 1, 3, 4096), (False, 4, 3, 4096), (False, 1, 3, 8192),
+             (False, 1, 5, 8192), (True, 1, 5, 8192))
+# Prime counts at which phase 2 holds K5 bitwise at every ring size: every
+# cluster plan of its digit stage (cuda_ntt.keyswitch_plan).
+KS_CHECK_PRIMES = (1, 2, 3, 5)
 # Row counts at which phase 2 holds K1 and K2 bitwise at every ring size:
 # every cluster plan of cuda_ntt.ntt_plan (8 blocks a row up to 16 rows, 4
 # up to 33, 2 up to 65, 1 from 66 on a 132-SM card).
@@ -155,37 +170,68 @@ def is_port_kernel(name: str) -> bool:
     return name.removeprefix("void ").startswith("(anonymous namespace)::")
 
 
-def device_ms(fn, reps: int, flush: torch.Tensor) -> float:
+# Device idle time (us) that marks the start of a new call in device_ms:
+# the 64 MB flush before each call keeps the card busy for about 20 us.
+CALL_GAP_US = 10.0
+PROFILE_TRIES = 3
+
+
+def kernel_label(name: str) -> str:
+    """A port kernel's event name without its namespace and argument list,
+    e.g. "ntt_kernel<12, 2, false, DigitRows>"."""
+    return name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def device_ms(fn, reps: int, flush: torch.Tensor) -> tuple[float, list]:
     """Median device time of one call of `fn`: the summed durations of the
     port's kernels that the call launched (torch.profiler with CUDA
     activity; K5 launches 2 or 3 kernels a call), over `reps` calls with the
-    L2 flushed before each, after 3 untimed warm-up calls. The flush's own
-    device event separates one call's kernels from the next, so an event the
-    profiler drops (it happens, rarely) costs one call's sample, not the
-    grouping of the others."""
+    L2 flushed before each, after 3 untimed warm-up calls; and the split by
+    launch, [(kernel label, median ms)] in launch order. One call's kernels
+    are told from the next's by the flush between them: its own device
+    event, or, where the profiler dropped that event (it happens, at times
+    for a third of the calls), the idle gap the flush leaves on the port's
+    stream (at least CALL_GAP_US; a call's own launches follow each other
+    closely). A group with another kernel count than most (a dropped kernel
+    event) is left out; at least half of the calls must remain. The
+    profiler has also returned a window with none or few of the port's
+    kernel events, between two windows that had all of them; such a window
+    is measured again, up to PROFILE_TRIES windows in all."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    calls, current = [], None
-    for _, us, ours in sorted((e.time_range.start, e.time_range.elapsed_us(), is_port_kernel(e.name))
-                              for e in prof.events() if str(e.device_type).endswith("CUDA")):
-        if not ours:
-            current = None
-            continue
-        if current is None:
-            current = []
-            calls.append(current)
-        current.append(us)
-    if len(calls) < reps - 2:
-        raise AssertionError(f"the profiler saw the port's kernels in {len(calls)} of {reps} calls")
-    return statistics.median(sum(c) for c in calls) / 1e3
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        calls, current, last_end = [], None, 0.0
+        for start, end, name in sorted((e.time_range.start, e.time_range.end, e.name) for e in
+                                       prof.events() if str(e.device_type).endswith("CUDA")):
+            if not is_port_kernel(name):
+                current = None
+                continue
+            if current is None or start - last_end > CALL_GAP_US:
+                current = []
+                calls.append(current)
+            current.append((kernel_label(name), end - start))
+            last_end = end
+        width = statistics.mode(len(c) for c in calls) if calls else 0
+        whole = [c for c in calls if len(c) == width]
+        if len(whole) != reps:
+            log(f"    (profiler: {len(calls)} groups of kernel events for {reps} calls, "
+                f"{len(whole)} whole with {width} kernels)")
+        if len(whole) >= reps // 2:
+            break
+    else:
+        raise AssertionError(f"the profiler saw the port's kernels whole in fewer than {reps // 2} "
+                             f"of {reps} calls in each of {PROFILE_TRIES} windows")
+    split = [(whole[0][i][0], statistics.median(c[i][1] for c in whole) / 1e3)
+             for i in range(width)]
+    return statistics.median(sum(us for _, us in c) for c in whole) / 1e3, split
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -238,10 +284,9 @@ def kernel_cases(cuda_ntt, ntt_ctx, rows: int, enc_rows: int, device, seed: int)
 
 def serving_kernel_cases(cuda_ntt, ntt_mod, n: int, device, seed: int, shapes="slice"):
     """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K5 (both
-    modes) and K6. `shapes="slice"`: the serving path's shapes (K5 at
-    [1, 3, 4096] and [4, 3, 4096] with C=19, in eval-input mode at
-    [1, 5, 8192] with C=31; K6 with S=22, R=18, B=1 at N=4096); otherwise
-    the same kinds at ring size n."""
+    modes) and K6. `shapes="slice"`: the serving paths' shapes (K5 at each
+    of KS_SHAPES, with R+1 = 6L+1 key rows; K6 with S=22, R=18, B=1 at
+    N=4096); otherwise the same kinds at ring size n."""
     from hefl_tpu_torch.ckks.primes import find_ntt_primes
 
     word = 4
@@ -288,10 +333,9 @@ def serving_kernel_cases(cuda_ntt, ntt_mod, n: int, device, seed: int, shapes="s
                 words * word, ops)
 
     if shapes == "slice":
-        cases.append(keyswitch(1, 3, 4096, False, 0))
-        cases.append(keyswitch(4, 3, 4096, False, 10))
-        cases.append(keyswitch(1, 5, 8192, True, 20))
-        cases.append(hoisted(22, 1, 4096, 30))
+        for k, (eval_input, b, num_l, ring) in enumerate(KS_SHAPES):
+            cases.append(keyswitch(b, num_l, ring, eval_input, 10 * k))
+        cases.append(hoisted(22, 1, 4096, 100))
     else:
         cases.append(keyswitch(2, 3, n, False, 0))
         cases.append(keyswitch(1, 5, n, True, 10))
@@ -354,16 +398,19 @@ def kernel_record(case, flush, time_plain: bool = True) -> dict:
     torch.cuda.synchronize()
     if err != 0:
         raise AssertionError(f"{name} at {shape} differs from its plain version")
-    ms, call_ms = device_ms(kern, 30, flush), time_ms(kern, 30, flush)
+    (ms, split), call_ms = device_ms(kern, 30, flush), time_ms(kern, 30, flush)
     plain_ms = time_ms(plain, 5, flush) if time_plain else None
     bound_ms, bound_by = bound(bytes_moved, ops)
     log(f"  {name} {shape}: bitwise equal; device {ms:.6f} ms, call {call_ms:.6f} ms, plain "
         f"{'-' if plain_ms is None else f'{plain_ms:.6f}'} ms, bound {bound_ms:.6f} ms "
         f"({bound_by}: {bytes_moved} B, {ops} int32 ops)")
+    if len(split) > 1:
+        log("    by launch: " + "; ".join(f"{label} {t:.6f} ms" for label, t in split))
     return {
         "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
         "shape": shape, "launches": None, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "split": [{"kernel": label, "ms": t} for label, t in split],
     }
 
 
@@ -416,13 +463,34 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
         log(f"  N=1024 {name} {shape}: max_abs_err {err}")
         if err != 0:
             raise AssertionError(f"{name} at N=1024 differs from its plain version")
+    # K5 at every cluster plan of its digit stage: L = 1, 2, 3, 5 give 6, 24,
+    # 54 and 150 digit rows a ciphertext (C = 8, 4, 2, 1).
+    for n in cuda_ntt.SUPPORTED_N:
+        for num_l in KS_CHECK_PRIMES:
+            ctx = ntt_mod.NTTContext.build(find_ntt_primes(num_l, 27, 2 * n), n)
+            x = rand_residues(ctx, (1, num_l, n), n + num_l, device)
+            keys = [rand_residues(ctx, (6 * num_l + 1, num_l, n), n + num_l + i, device)
+                    for i in (1, 2)]
+            for eval_input in (False, True):
+                if max_abs_err(cuda_ntt.keyswitch_fused(ctx, x, *keys, DIGIT_BITS, NUM_DIGITS,
+                                                        eval_input),
+                               cuda_ntt.keyswitch_fused_plain(ctx, x, *keys, DIGIT_BITS,
+                                                              NUM_DIGITS, eval_input)) != 0:
+                    raise AssertionError(f"keyswitch_fused (eval_input={eval_input}) at L={num_l}, "
+                                         f"N={n} differs from its plain version")
+    torch.cuda.synchronize()
+    plans = [cuda_ntt.keyswitch_plan(1, find_ntt_primes(num_l, 27, 8192), NUM_DIGITS, DIGIT_BITS,
+                                     4096).digit_cluster for num_l in KS_CHECK_PRIMES]
+    log(f"  keyswitch_fused, both modes, at N in {cuda_ntt.SUPPORTED_N} x L in {KS_CHECK_PRIMES} "
+        f"(digit-stage cluster sizes {plans}): bitwise equal")
+    # K5 at each of KS_SHAPES (its record: the first shape of each mode, all
+    # of them under "shapes"), then K6.
     for case in serving_kernel_cases(cuda_ntt, ntt_mod, 4096, device, 400):
         rec = kernel_record(case, flush)
-        if rec["name"] in records:       # K5 at the packed batch: kept beside the B=1 row
-            records[rec["name"]]["batch"] = {k: rec[k] for k in (
-                "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
-        else:
-            records[rec["name"]] = rec
+        main = records.setdefault(rec["name"], rec)
+        if rec["name"].startswith("keyswitch_fused"):
+            main.setdefault("shapes", []).append({k: rec[k] for k in (
+                "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "split")})
     del flush
     return records
 
@@ -875,8 +943,8 @@ def main() -> int:
             b, num_l, n = entry["shape"]
             entry["launches"] = shapes.get((name, b * num_l, n), 0)
 
-    # ROADMAP Queue 2's ranking: launches x (device time - bound); K1 and K2
-    # summed over their timed shapes (launches at untimed shapes left out).
+    # ROADMAP Queue 2's ranking: launches x (device time - bound); K1, K2 and
+    # K5 summed over their timed shapes (launches at untimed shapes left out).
     ranking = []
     for name, rec in records.items():
         entries = [e for e in rec.get("shapes", [rec]) if e["launches"]]

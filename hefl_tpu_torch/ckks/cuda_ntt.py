@@ -26,11 +26,18 @@ kernels (`reset_launch_counts` / `launch_counts`), and one to
 the kernel's main input (B*L), so a run can show at which shapes it launched
 them (`launch_rows`). K5 counts its evaluation-domain-input mode
 (relinearization) under its own name, "keyswitch_fused_eval".
+
+Host-side launch plans, plain functions the CPU tests pin: `ntt_plan` gives
+the thread-block cluster size over which K1/K2 split each row;
+`keyswitch_plan` gives K5's (its digit stage is K1's transform on B*R*L
+rows, its eval-input inverse K2's on B*L rows) and refuses a gadget the
+kernel cannot compute exactly.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -76,7 +83,7 @@ _SIGNATURES = {
     "ntt_inverse": [_P] * 7 + [_I] * 4 + [_P],
     "encrypt_fused": [_P] * 12 + [_I] * 3 + [_P],
     "decrypt_fused": [_P] * 10 + [_I] * 3 + [_P],
-    "keyswitch_fused": [_P] * 15 + [_I] * 6 + [_P],
+    "keyswitch_fused": [_P] * 15 + [_I] * 8 + [_P],
     "hoisted_products": [_P] * 8 + [_I] * 5 + [_P],
     "transcipher_fused": [_P] * 12 + [_I] * 3 + [_P],
 }
@@ -174,7 +181,7 @@ def _check(ctx: NTTContext, name: str, t: torch.Tensor, shape=None) -> None:
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:
     """K2's body (K2, and K5 with evaluation-domain input) loads its input
-    rows as 16-byte vectors."""
+    rows as 16-byte vectors, and K5's inner product its key rows."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel loads rows as 16-byte vectors; the tensor's "
                          "data is not 16-byte aligned")
@@ -383,12 +390,53 @@ def keyswitch_fused_plain(ctx: NTTContext, x, b_mont, a_mont, digit_bits: int,
     return accs[0], accs[1]
 
 
+@dataclasses.dataclass(frozen=True)
+class KeyswitchPlan:
+    """K5's launch geometry: the digit stage transforms digit_rows = B*R*L
+    rows (R = L*d gadget components) split over digit_cluster blocks each;
+    with evaluation-domain input, the inverse first transforms
+    inverse_rows = B*L rows over inverse_cluster blocks each."""
+
+    digit_rows: int
+    digit_cluster: int
+    inverse_rows: int
+    inverse_cluster: int
+
+
+def keyswitch_plan(batch: int, primes, num_digits: int, digit_bits: int, n: int,
+                   sms: int | None = None) -> KeyswitchPlan:
+    """K5's plan for `batch` ciphertexts over `primes` (the L primes of the
+    ring) with a base-2**digit_bits gadget of num_digits digits: both
+    cluster sizes from `ntt_plan` (`sms` as there). Refuses, with
+    ValueError, a geometry whose words the kernel cannot compute exactly:
+    a digit shifted by 32 bits or more; a digit or its centre 2**(w-1) that
+    is not a canonical residue of every prime (2**w > p); a prime of 2**31
+    or more, where add_mod and the Montgomery product leave 32 bits."""
+    primes = [int(p) for p in primes]
+    if batch < 1 or not primes:
+        raise ValueError(f"K5 needs a batch and primes, got batch {batch}, {len(primes)} primes")
+    if num_digits < 1 or not 1 <= digit_bits <= 31 or digit_bits * (num_digits - 1) > 31:
+        raise ValueError(f"K5 cannot cut {num_digits} digits of {digit_bits} bits from a 32-bit "
+                         "word: the last digit's shift must stay below 32")
+    if (1 << digit_bits) > min(primes):
+        raise ValueError(f"K5's digits of {digit_bits} bits are not canonical residues of the "
+                         f"prime {min(primes)}")
+    if max(primes) >= 1 << 31:
+        raise ValueError(f"K5's modular arithmetic needs primes below 2**31, got {max(primes)}")
+    rows = batch * len(primes)
+    digit_rows = rows * len(primes) * num_digits
+    return KeyswitchPlan(digit_rows, ntt_plan(digit_rows, n, sms), rows, ntt_plan(rows, n, sms))
+
+
 def keyswitch_fused(ctx: NTTContext, x, b_mont, a_mont, digit_bits: int, num_digits: int,
                     eval_input: bool = False):
     """Gadget key-switch of x int32[..., L, N] (coefficient domain, or
     evaluation domain with `eval_input`) with the key rows int32[C, L, N],
     C = L*num_digits + 1 -> evaluation-domain (c0, c1) [..., L, N]. One K5
-    call on CUDA (counted under "keyswitch_fused_eval" with `eval_input`)."""
+    call on CUDA (counted under "keyswitch_fused_eval" with `eval_input`):
+    the inverse NTT when `eval_input` and the digit stage under
+    `keyswitch_plan`'s cluster sizes, then the inner product. The key rows
+    (and x with `eval_input`) must be 16-byte aligned."""
     if _is_cpu(x, b_mont, a_mont):
         return keyswitch_fused_plain(ctx, x, b_mont, a_mont, digit_bits, num_digits, eval_input)
     num_l = ctx.num_primes
@@ -396,12 +444,15 @@ def keyswitch_fused(ctx: NTTContext, x, b_mont, a_mont, digit_bits: int, num_dig
     _check(ctx, "keyswitch_fused(x)", x)
     _check(ctx, "keyswitch_fused(b_mont)", b_mont, (num_c, num_l, ctx.n))
     _check(ctx, "keyswitch_fused(a_mont)", a_mont, (num_c, num_l, ctx.n))
+    _check_aligned("keyswitch_fused(b_mont)", b_mont)
+    _check_aligned("keyswitch_fused(a_mont)", a_mont)
     if eval_input:
         _check_aligned("keyswitch_fused(x)", x)
     c0 = torch.empty_like(x)
     c1 = torch.empty_like(x)
     batch = x.numel() // (num_l * ctx.n)
     if batch:
+        plan = keyswitch_plan(batch, ctx.p[:, 0], num_digits, digit_bits, ctx.n)
         tabs = kernel_tables(ctx, x.device)
         coeff = torch.empty_like(x) if eval_input else x
         digits = torch.empty((batch, num_c - 1, num_l, ctx.n), dtype=torch.int32, device=x.device)
@@ -411,7 +462,8 @@ def keyswitch_fused(ctx: NTTContext, x, b_mont, a_mont, digit_bits: int, num_dig
                 tabs.psi_shoup.data_ptr(), tabs.psi_inv.data_ptr(), tabs.psi_inv_shoup.data_ptr(),
                 tabs.p.data_ptr(), tabs.pinv_neg.data_ptr(), tabs.n_inv.data_ptr(),
                 tabs.n_inv_shoup.data_ptr(), batch, num_l, num_digits, digit_bits,
-                int(eval_input), ctx.logn, rows=batch * num_l,
+                int(eval_input), ctx.logn, plan.digit_cluster, plan.inverse_cluster,
+                rows=batch * num_l,
                 count="keyswitch_fused_eval" if eval_input else "keyswitch_fused")
     return c0, c1
 

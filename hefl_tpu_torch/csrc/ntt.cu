@@ -37,6 +37,16 @@
 // through distributed shared memory (K2), and exchange their words with
 // the other blocks of the cluster through distributed shared memory.
 //
+// Design of K5 (redesigned on the same routine). Its digit stage is K1's
+// transform under a second load policy (DigitRows): the cross-block first
+// pass, which already reads device memory, takes each word straight from
+// the ciphertext's coefficient limb, cuts out the base-2**w digit and
+// centres it, so the digits are never written before their transform. Its
+// B*R*L rows get ntt_plan's cluster size (C = 2 at one ciphertext of L = 3,
+// R = 18), and the eval-input inverse too (C = 8 at 5 rows, not 1). The
+// digit x key inner product stays a second launch, now 16-byte loads with
+// the R components of a word group spread over 8 threads (see its kernel).
+//
 // Design of K3 and K4 (first version: simple and exact, not yet fast). One
 // thread block per (polynomial, prime) row. The row is staged in shared
 // memory (16 KB at N = 4096), the N/2 butterflies of each stage are spread
@@ -46,7 +56,7 @@
 // stage loop, so a stage costs one barrier for four butterflies; c0 and c1
 // are written once. K4 forms d = c0 + c1*s while loading, then runs the
 // inverse stages. K5, K6 and K7 are described above their kernels below;
-// K5's digit stage and K7 run the same stage loop as K3.
+// K7 runs the same stage loop as K3.
 //
 // Bounds on the H100 (see PERF.md for the measured times): each kernel reads
 // every input word once and writes every output word once, so the byte
@@ -55,10 +65,10 @@
 // per transform of about 12 32-bit integer instructions each, over the
 // card's 32-bit integer issue rate (132 SMs x 64 lanes x 1.98 GHz). At the
 // round's shapes the operations set the bound, the bytes a close second
-// (K3: 0.025 ms against 0.010 ms). K3-K7 are far from it: a block spends
-// log2 N barriers per row, shared-memory butterflies at stride t < 32
-// conflict, and a 4-byte load per thread does not fill the memory pipe.
-// Moving them onto K1/K2's routine is the work that closes that gap.
+// (K3: 0.025 ms against 0.010 ms). K3, K4 and K7 are far from it: a block
+// spends log2 N barriers per row, shared-memory butterflies at stride
+// t < 32 conflict, and a 4-byte load per thread does not fill the memory
+// pipe. Moving them onto K1/K2's routine is the work that closes that gap.
 //
 // Arithmetic: Shoup products q = __umulhi(a, w_shoup), r = a*w - q*p (mod
 // 2**32), one conditional subtract; Montgomery products for key polynomials
@@ -69,6 +79,7 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -280,18 +291,66 @@ __device__ __forceinline__ void local_pass(uint32_t* sm, int s, int seg, const u
   }
 }
 
-// K1 (kInverse = false) replaces ntt_forward_pallas (pallas_ntt.py,
-// _fwd_kernel / _fwd_stages); K2 (kInverse = true) replaces
-// ntt_inverse_pallas (_inv_kernel / _inv_stages), its N^-1 Shoup multiply
-// folded into the store. Grid: rows * C blocks, clusters of C along x.
-// Bound at the main paths' 3 to 54 rows: operations, then bytes (row in,
+// Load policies of the forward transform: where its first pass finds word
+// x of row r. row(r, num_l, n) does the per-row index work once; the
+// returned functor maps a word index and the row's prime to the word.
+// Plain loads: through __ldg (the read-only path) the first pass took about
+// 1 us longer on the H100 at 3 to 54 rows (PERF.md).
+//
+// PlainRows (K1, and K2's input): row r of the [rows, N] input itself.
+struct PlainRows {
+  const uint32_t* in;
+  struct Row {
+    const uint32_t* src;
+    __device__ __forceinline__ uint32_t operator()(int x, uint32_t) const {
+      return src[x];
+    }
+  };
+  __device__ __forceinline__ Row row(size_t r, int, int n) const { return {in + r * n}; }
+};
+
+// DigitRows (K5's digit stage): row r = (b*R + c)*L + j of the digit
+// tensor D[B, R, L, N], R = L*d, is digit k = c % d (bits w*k .. w*k+w-1)
+// of coefficient limb i = c / d of ciphertext b, centred by 2**(w-1) under
+// the output prime p_j = primes[r % L]. A limb is read d*L times, by d*L
+// rows; after the first the words come from the L2.
+struct DigitRows {
+  const uint32_t* coeff;   // [B, L, N] canonical coefficient residues
+  int num_digits;          // d
+  int digit_bits;          // w
+  struct Row {
+    const uint32_t* src;
+    int shift;
+    uint32_t mask, half;
+    __device__ __forceinline__ uint32_t operator()(int x, uint32_t p) const {
+      return sub_mod((src[x] >> shift) & mask, half, p);
+    }
+  };
+  __device__ __forceinline__ Row row(size_t r, int num_l, int n) const {
+    const int num_r = num_l * num_digits;
+    const size_t bc = r / num_l;
+    const int c = static_cast<int>(bc % num_r);
+    const size_t b = bc / num_r;
+    return {coeff + (b * num_l + c / num_digits) * n, digit_bits * (c % num_digits),
+            (1u << digit_bits) - 1u, 1u << (digit_bits - 1)};
+  }
+};
+
+// K1 (kInverse = false, PlainRows) replaces ntt_forward_pallas
+// (pallas_ntt.py, _fwd_kernel / _fwd_stages); K2 (kInverse = true)
+// replaces ntt_inverse_pallas (_inv_kernel / _inv_stages), its N^-1 Shoup
+// multiply folded into the store; K5's digit stage is the forward
+// transform with DigitRows. Grid: rows * C blocks, clusters of C along x.
+// Bound at the main paths' 3 to 150 rows: operations, then bytes (row in,
 // row out, the prime's twiddle tables); see PERF.md.
-template <int LOGN, int C, bool kInverse>
+template <int LOGN, int C, bool kInverse, typename Src>
 __global__ void __launch_bounds__((1 << LOGN) / C / kWords)
-ntt_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+ntt_kernel(Src src, uint32_t* __restrict__ out,
            const uint32_t* __restrict__ tw_all, const uint32_t* __restrict__ tw_sh_all,
            const uint32_t* __restrict__ primes, const uint32_t* __restrict__ n_inv,
            const uint32_t* __restrict__ n_inv_sh, int num_l) {
+  static_assert(!kInverse || std::is_same_v<Src, PlainRows>,
+                "the inverse loads its rows as 16-byte vectors of the input");
   constexpr int N = 1 << LOGN;
   constexpr int SEG = N / C;
   constexpr int kThreadsPerBlock = SEG / kWords;
@@ -309,9 +368,9 @@ ntt_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   const int g = rank * kThreadsPerBlock + tid;  // group of the cross-block pass
   uint32_t v[kWords];
   if constexpr (!kInverse) {
-    const uint32_t* src = in + row * N;
+    const auto load = src.row(row, num_l, N);
 #pragma unroll
-    for (int k = 0; k < kWords; ++k) v[k] = src[g + k * (N / kWords)];
+    for (int k = 0; k < kWords; ++k) v[k] = load(g + k * (N / kWords), p);
     group_stages<3, false>(v, 0, 0, tw, tw_sh, p);
     if constexpr (C > 1) {
       cg::cluster_group cluster = cg::this_cluster();
@@ -343,8 +402,8 @@ ntt_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
     dst[1] = make_uint4(v[4], v[5], v[6], v[7]);
   } else {
-    const uint4* src = reinterpret_cast<const uint4*>(in + row * N + seg + kWords * tid);
-    const uint4 a = src[0], b = src[1];
+    const uint4* in4 = reinterpret_cast<const uint4*>(src.in + row * N + seg + kWords * tid);
+    const uint4 a = in4[0], b = in4[1];
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
     group_stages<3, true>(v, LOGN - 3, (seg >> 3) + tid, tw, tw_sh, p);
@@ -381,9 +440,9 @@ ntt_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   }
 }
 
-// Device pointers and sizes of one K1/K2 launch (n_inv, n_inv_sh: K2 only).
+// Device pointers and sizes of one ntt_kernel launch besides its load
+// policy (n_inv, n_inv_sh: the inverse only).
 struct NttArgs {
-  const void* in;
   void* out;
   const void* tw;
   const void* tw_sh;
@@ -394,8 +453,8 @@ struct NttArgs {
   int num_l;
 };
 
-template <int LOGN, int C, bool kInverse>
-cudaError_t launch_ntt_kernel(const NttArgs& a, cudaStream_t stream) {
+template <int LOGN, int C, bool kInverse, typename Src>
+cudaError_t launch_ntt_kernel(const Src& src, const NttArgs& a, cudaStream_t stream) {
   constexpr int SEG = (1 << LOGN) / C;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(a.rows) * C);
@@ -409,8 +468,8 @@ cudaError_t launch_ntt_kernel(const NttArgs& a, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = C > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, ntt_kernel<LOGN, C, kInverse>,
-                            static_cast<const uint32_t*>(a.in), static_cast<uint32_t*>(a.out),
+  return cudaLaunchKernelEx(&cfg, ntt_kernel<LOGN, C, kInverse, Src>, src,
+                            static_cast<uint32_t*>(a.out),
                             static_cast<const uint32_t*>(a.tw),
                             static_cast<const uint32_t*>(a.tw_sh),
                             static_cast<const uint32_t*>(a.primes),
@@ -418,28 +477,30 @@ cudaError_t launch_ntt_kernel(const NttArgs& a, cudaStream_t stream) {
                             static_cast<const uint32_t*>(a.n_inv_sh), a.num_l);
 }
 
-template <int LOGN, bool kInverse>
-cudaError_t launch_ntt_logn(int cluster, const NttArgs& a, cudaStream_t stream) {
+template <int LOGN, bool kInverse, typename Src>
+cudaError_t launch_ntt_logn(int cluster, const Src& src, const NttArgs& a, cudaStream_t stream) {
   switch (cluster) {
-    case 1: return launch_ntt_kernel<LOGN, 1, kInverse>(a, stream);
-    case 2: return launch_ntt_kernel<LOGN, 2, kInverse>(a, stream);
-    case 4: return launch_ntt_kernel<LOGN, 4, kInverse>(a, stream);
-    case 8: return launch_ntt_kernel<LOGN, 8, kInverse>(a, stream);
+    case 1: return launch_ntt_kernel<LOGN, 1, kInverse>(src, a, stream);
+    case 2: return launch_ntt_kernel<LOGN, 2, kInverse>(src, a, stream);
+    case 4: return launch_ntt_kernel<LOGN, 4, kInverse>(src, a, stream);
+    case 8: return launch_ntt_kernel<LOGN, 8, kInverse>(src, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Launch K1 or K2 on a.rows rows with cluster size `cluster` (1, 2, 4 or 8;
-// anything else, or an N outside 1024..8192, is refused with
-// cudaErrorInvalidValue before any launch).
-template <bool kInverse>
-cudaError_t launch_ntt(int logn, int cluster, const NttArgs& a, cudaStream_t stream) {
+// Launch the transform on a.rows rows with cluster size `cluster` (1, 2, 4
+// or 8; anything else, or an N outside 1024..8192, is refused with
+// cudaErrorInvalidValue before any launch). Instantiated for K1 and K2
+// (PlainRows) and for K5's digit stage (DigitRows, forward only).
+template <bool kInverse, typename Src>
+cudaError_t launch_ntt(int logn, int cluster, const Src& src, const NttArgs& a,
+                       cudaStream_t stream) {
   if (a.rows <= 0 || a.num_l <= 0) return cudaErrorInvalidValue;
   switch (logn) {
-    case 10: return launch_ntt_logn<10, kInverse>(cluster, a, stream);
-    case 11: return launch_ntt_logn<11, kInverse>(cluster, a, stream);
-    case 12: return launch_ntt_logn<12, kInverse>(cluster, a, stream);
-    case 13: return launch_ntt_logn<13, kInverse>(cluster, a, stream);
+    case 10: return launch_ntt_logn<10, kInverse>(cluster, src, a, stream);
+    case 11: return launch_ntt_logn<11, kInverse>(cluster, src, a, stream);
+    case 12: return launch_ntt_logn<12, kInverse>(cluster, src, a, stream);
+    case 13: return launch_ntt_logn<13, kInverse>(cluster, src, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -562,80 +623,109 @@ transcipher_fused_kernel(const uint32_t* __restrict__ w_hi, const uint32_t* __re
 }
 
 
-// K5, stage 1 of 2. Replaces the decompose + forward-NTT half of
-// keyswitch_fused_pallas (pallas_ntt.py, _keyswitch_kernel). One block per
-// row of the digit tensor D[B, R, L, N] (R = L*d gadget components): block
-// (b, c = (i, k), j) reads coefficient limb i of ciphertext b, takes digit k
-// (bits w*k .. w*k+w-1 of the canonical residue), centres it by 2**(w-1)
-// under the OUTPUT prime p_j, runs the forward NTT under p_j in shared
-// memory and writes the row once.
+// K5. Replaces keyswitch_fused_pallas (pallas_ntt.py, _keyswitch_kernel):
+// (optional inverse NTT per limb) -> base-2**w digits -> centring -> forward
+// NTT under every output prime -> digit x key inner product + correction
+// row. On the TPU the grid is (L, B) and each step runs all R = L*d
+// transforms of its output prime in series; on Hopper that would be 3
+// blocks at a serving batch of 1. Here:
 //
-// Why this split: on the TPU the grid is (L, B) and each step runs all R
-// transforms of its output prime in series; on Hopper that is 3 blocks at a
-// serving batch of 1, leaving 129 of 132 SMs idle. Here every (b, c, j)
-// transform is its own block (54 at B = 1, L = 3: K1's [18, 3, 4096]
-// shape), and the inner product over c, a reduction across blocks, is a
-// second small elementwise pass (stage 2) instead of atomics.
+// Stage 1, the digit stage, is ntt_kernel with the DigitRows load policy:
+// one transform per row (b, c, j) of D[B, R, L, N] (54 rows at B = 1,
+// L = 3: K1's [18, 3, 4096] shape), split over ntt_plan(B*R*L, N) blocks,
+// the digit cut out and centred inside the first, cross-block pass, the
+// row stored as 16-byte vectors.
+//
+// Stage 2, the inner product (below): a reduction over c across the stage-1
+// rows, so a second launch. One thread per 4 consecutive output words per
+// share of the components: kReduceSplit threads split the R components of
+// one 4-word group (c = q, q + 8, ...), each with 16-byte loads of the
+// digits and both keys, so a thread waits for at most ceil(R / 8) rows of
+// loads instead of R in a row; the shares meet in shared memory.
 //
 // Bound: operations, the B*R*L transforms (0.0013 ms at [1, 3, 4096]); the
-// bytes (x, the [C, L, N] keys, c0 and c1) are 2.1 MB. The digit rows go
-// through device memory (L2) between the stages: the price of the split.
-__global__ void __launch_bounds__(kThreads)
-keyswitch_digits_kernel(const uint32_t* __restrict__ coeff, uint32_t* __restrict__ digits,
-                        const uint32_t* __restrict__ psi, const uint32_t* __restrict__ psi_sh,
-                        const uint32_t* __restrict__ primes, int num_l, int num_digits,
-                        int digit_bits, int logn) {
-  extern __shared__ uint32_t sm[];
-  const int n = 1 << logn;
-  const int num_r = num_l * num_digits;
-  const size_t row = blockIdx.x;                        // (b*R + c)*L + j
-  const int j = static_cast<int>(row % num_l);
-  const size_t bc = row / num_l;
-  const int c = static_cast<int>(bc % num_r);
-  const size_t b = bc / num_r;
-  const int limb = c / num_digits;
-  const int shift = digit_bits * (c % num_digits);
-  const uint32_t p = primes[j];
-  const uint32_t mask = (1u << digit_bits) - 1u;
-  const uint32_t half = 1u << (digit_bits - 1);
-  const uint32_t* src = coeff + (b * num_l + limb) * n;
-  for (int t = threadIdx.x; t < n; t += blockDim.x)
-    sm[t] = sub_mod((src[t] >> shift) & mask, half, p);
-  __syncthreads();
-  fwd_stages<1>(sm, logn, psi + static_cast<size_t>(j) * n,
-                psi_sh + static_cast<size_t>(j) * n, p);
-  uint32_t* dst = digits + row * n;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) dst[t] = sm[t];
+// bytes (x, the [R+1, L, N] keys, c0 and c1) are 2.1 MB. The digit rows
+// (0.88 MB at [1, 3, 4096]) go through the L2 between the two launches.
+constexpr int kReduceGroups = 32;   // 4-word output groups per block: one warp's worth
+constexpr int kReduceSplit = 8;     // threads sharing one group's R components
+
+// acc[i] += d[i] * k[i] mod p for the 4 words of a group (k Montgomery).
+__device__ __forceinline__ void mac4(uint32_t* acc, uint4 d, uint4 k, uint32_t p,
+                                     uint32_t pinv) {
+  acc[0] = add_mod(acc[0], mont_mul(d.x, k.x, p, pinv), p);
+  acc[1] = add_mod(acc[1], mont_mul(d.y, k.y, p, pinv), p);
+  acc[2] = add_mod(acc[2], mont_mul(d.z, k.z, p, pinv), p);
+  acc[3] = add_mod(acc[3], mont_mul(d.w, k.w, p, pinv), p);
 }
 
-// K5, stage 2 of 2: one thread per output word (b, j, x) of c0/c1 [B, L, N].
-// acc0 = sum_c D[b, c, j, x] * bk[c, j, x] + 1 * bk[R, j, x] (the correction
-// row: the constant-1 digit's evaluation form is all-ones), acc1 likewise
-// with ak; Montgomery products, exact add_mod in component order.
-// Neighbouring threads read neighbouring words of every row.
-__global__ void __launch_bounds__(256)
-keyswitch_reduce_kernel(const uint32_t* __restrict__ digits, const uint32_t* __restrict__ bk,
-                        const uint32_t* __restrict__ ak, uint32_t* __restrict__ c0,
-                        uint32_t* __restrict__ c1, const uint32_t* __restrict__ primes,
+__device__ __forceinline__ void add4(uint32_t* acc, uint4 v, uint32_t p) {
+  acc[0] = add_mod(acc[0], v.x, p);
+  acc[1] = add_mod(acc[1], v.y, p);
+  acc[2] = add_mod(acc[2], v.z, p);
+  acc[3] = add_mod(acc[3], v.w, p);
+}
+
+// K5, stage 2: thread (x, q) of block blk takes the 4-word group
+// g = blk*kReduceGroups + x of c0/c1 [B, L, N] and components c = q, q + 8,
+// ... < R; thread q = 0 adds the other shares and the correction row
+// 1 * k[R] (the constant-1 digit's evaluation form is all ones), and writes
+// 4 words of c0 and of c1. Every term is a canonical residue and add_mod is
+// exact, so the sum mod p does not depend on the order of the additions:
+// the words equal the plain version's, which adds in component order.
+// Warp x-lanes read 32 consecutive 16-byte vectors of every row.
+__global__ void __launch_bounds__(kReduceGroups * kReduceSplit)
+keyswitch_reduce_kernel(const uint4* __restrict__ digits, const uint4* __restrict__ bk,
+                        const uint4* __restrict__ ak, uint4* __restrict__ c0,
+                        uint4* __restrict__ c1, const uint32_t* __restrict__ primes,
                         const uint32_t* __restrict__ pinv_neg, int batch, int num_l,
                         int num_r, int logn) {
-  const size_t per = static_cast<size_t>(num_l) << logn;   // words of one [L, N]
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= batch * per) return;
-  const size_t b = idx / per;
-  const size_t ln = idx % per;
-  const int j = static_cast<int>(ln >> logn);
+  __shared__ uint4 share[2][kReduceSplit - 1][kReduceGroups];
+  const unsigned per = (static_cast<unsigned>(num_l) << logn) / 4;   // groups of one [L, N]
+  const unsigned g = blockIdx.x * kReduceGroups + threadIdx.x;
+  const int q = static_cast<int>(threadIdx.y);
+  const bool live = g < static_cast<unsigned>(batch) * per;
+  const unsigned ln = live ? g % per : 0u;
+  const int j = static_cast<int>((ln * 4) >> logn);
   const uint32_t p = primes[j];
   const uint32_t pinv = pinv_neg[j];
-  const uint32_t* d = digits + b * num_r * per + ln;
-  uint32_t a0 = 0, a1 = 0;
-  for (int c = 0; c < num_r; ++c) {
-    const uint32_t dc = d[c * per];
-    a0 = add_mod(a0, mont_mul(dc, bk[c * per + ln], p, pinv), p);
-    a1 = add_mod(a1, mont_mul(dc, ak[c * per + ln], p, pinv), p);
+  uint32_t a0[4] = {0u, 0u, 0u, 0u};
+  uint32_t a1[4] = {0u, 0u, 0u, 0u};
+  uint4 k0 = make_uint4(0u, 0u, 0u, 0u), k1 = k0;
+  if (live) {
+    if (q == 0) {
+      k0 = bk[num_r * per + ln];
+      k1 = ak[num_r * per + ln];
+    }
+    const uint4* d = digits + static_cast<size_t>(g / per) * num_r * per + ln;
+    // Unrolled, a thread's loads of several components are in flight at
+    // once (on the H100, 1.2 us less at [1, 3, 4096] than the rolled loop;
+    // PERF.md).
+#pragma unroll 4
+    for (int c = q; c < num_r; c += kReduceSplit) {
+      const uint4 dc = d[c * per];
+      mac4(a0, dc, bk[c * per + ln], p, pinv);
+      mac4(a1, dc, ak[c * per + ln], p, pinv);
+    }
   }
-  c0[idx] = add_mod(a0, mont_mul(1u, bk[num_r * per + ln], p, pinv), p);
-  c1[idx] = add_mod(a1, mont_mul(1u, ak[num_r * per + ln], p, pinv), p);
+  if (q > 0) {
+    share[0][q - 1][threadIdx.x] = make_uint4(a0[0], a0[1], a0[2], a0[3]);
+    share[1][q - 1][threadIdx.x] = make_uint4(a1[0], a1[1], a1[2], a1[3]);
+  }
+  __syncthreads();
+  if (q > 0 || !live) return;
+#pragma unroll
+  for (int s = 0; s < kReduceSplit - 1; ++s) {
+    add4(a0, share[0][s][threadIdx.x], p);
+    add4(a1, share[1][s][threadIdx.x], p);
+  }
+  c0[g] = make_uint4(add_mod(a0[0], mont_mul(1u, k0.x, p, pinv), p),
+                     add_mod(a0[1], mont_mul(1u, k0.y, p, pinv), p),
+                     add_mod(a0[2], mont_mul(1u, k0.z, p, pinv), p),
+                     add_mod(a0[3], mont_mul(1u, k0.w, p, pinv), p));
+  c1[g] = make_uint4(add_mod(a1[0], mont_mul(1u, k1.x, p, pinv), p),
+                     add_mod(a1[1], mont_mul(1u, k1.y, p, pinv), p),
+                     add_mod(a1[2], mont_mul(1u, k1.z, p, pinv), p),
+                     add_mod(a1[3], mont_mul(1u, k1.w, p, pinv), p));
 }
 
 // K6. Replaces hoisted_rotations_pallas (pallas_ntt.py,
@@ -719,16 +809,18 @@ extern "C" {
 
 int ntt_forward(const void* in, void* out, const void* psi, const void* psi_sh,
                 const void* primes, int rows, int num_l, int logn, int cluster, void* stream) {
-  const NttArgs a{in, out, psi, psi_sh, primes, nullptr, nullptr, rows, num_l};
-  cudaError_t err = launch_ntt<false>(logn, cluster, a, static_cast<cudaStream_t>(stream));
+  const NttArgs a{out, psi, psi_sh, primes, nullptr, nullptr, rows, num_l};
+  const PlainRows src{static_cast<const uint32_t*>(in)};
+  cudaError_t err = launch_ntt<false>(logn, cluster, src, a, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int ntt_inverse(const void* in, void* out, const void* psi_inv, const void* psi_inv_sh,
                 const void* primes, const void* n_inv, const void* n_inv_sh, int rows,
                 int num_l, int logn, int cluster, void* stream) {
-  const NttArgs a{in, out, psi_inv, psi_inv_sh, primes, n_inv, n_inv_sh, rows, num_l};
-  cudaError_t err = launch_ntt<true>(logn, cluster, a, static_cast<cudaStream_t>(stream));
+  const NttArgs a{out, psi_inv, psi_inv_sh, primes, n_inv, n_inv_sh, rows, num_l};
+  const PlainRows src{static_cast<const uint32_t*>(in)};
+  cudaError_t err = launch_ntt<true>(logn, cluster, src, a, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -792,43 +884,41 @@ int transcipher_fused(const void* w_hi, const void* w_lo, const void* pad_c0,
 // eval_input = 1), keys bk/ak [R + 1, L, N] -> c0/c1 [B, L, N], evaluation
 // domain. Scratch: coeff_scratch [B, L, N] (used when eval_input: each limb
 // is first inverse-transformed ONCE under its own prime, by K2's routine
-// ntt_kernel, one block a row) and digit_scratch [B, R, L, N]. Two or three
-// launches on one stream; the wrapper counts the call once.
+// with cluster size inverse_cluster) and digit_scratch [B, R, L, N] (the
+// digit stage, cluster size digit_cluster). bk, ak, c0, c1 and
+// digit_scratch must be 16-byte aligned (x too when eval_input). Two or
+// three launches on one stream; the wrapper counts the call once.
 int keyswitch_fused(const void* x, void* coeff_scratch, void* digit_scratch, const void* bk,
                     const void* ak, void* c0, void* c1, const void* psi, const void* psi_sh,
                     const void* psi_inv, const void* psi_inv_sh, const void* primes,
                     const void* pinv_neg, const void* n_inv, const void* n_inv_sh, int batch,
                     int num_l, int num_digits, int digit_bits, int eval_input, int logn,
-                    void* stream) {
-  if (num_digits <= 0 || digit_bits < 1 || digit_bits > 31 ||
+                    int digit_cluster, int inverse_cluster, void* stream) {
+  if (batch <= 0 || num_l <= 0 || num_digits <= 0 || digit_bits < 1 || digit_bits > 31 ||
       digit_bits * (num_digits - 1) > 31)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int num_r = num_l * num_digits;
   const uint32_t* coeff = static_cast<const uint32_t*>(x);
-  size_t smem = 0;
   cudaError_t err;
   if (eval_input) {
-    const NttArgs a{x, coeff_scratch, psi_inv, psi_inv_sh, primes, n_inv, n_inv_sh,
+    const NttArgs a{coeff_scratch, psi_inv, psi_inv_sh, primes, n_inv, n_inv_sh,
                     batch * num_l, num_l};
-    err = launch_ntt<true>(logn, 1, a, st);
+    err = launch_ntt<true>(logn, inverse_cluster, PlainRows{coeff}, a, st);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     coeff = static_cast<const uint32_t*>(coeff_scratch);
   }
-  const int rows = batch * num_r * num_l;
-  err = prepare(keyswitch_digits_kernel, rows, num_l, logn, 1, &smem);
+  const NttArgs a{digit_scratch, psi, psi_sh, primes, nullptr, nullptr,
+                  batch * num_r * num_l, num_l};
+  err = launch_ntt<false>(logn, digit_cluster, DigitRows{coeff, num_digits, digit_bits}, a, st);
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  keyswitch_digits_kernel<<<rows, kThreads, smem, st>>>(
-      coeff, static_cast<uint32_t*>(digit_scratch), static_cast<const uint32_t*>(psi),
-      static_cast<const uint32_t*>(psi_sh), static_cast<const uint32_t*>(primes), num_l,
-      num_digits, digit_bits, logn);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t words = static_cast<size_t>(batch) * num_l << logn;
-  keyswitch_reduce_kernel<<<static_cast<unsigned>((words + 255) / 256), 256, 0, st>>>(
-      static_cast<const uint32_t*>(digit_scratch), static_cast<const uint32_t*>(bk),
-      static_cast<const uint32_t*>(ak), static_cast<uint32_t*>(c0), static_cast<uint32_t*>(c1),
+  const size_t groups = (static_cast<size_t>(batch) * num_l << logn) / 4;
+  keyswitch_reduce_kernel<<<static_cast<unsigned>((groups + kReduceGroups - 1) / kReduceGroups),
+                            dim3(kReduceGroups, kReduceSplit), 0, st>>>(
+      static_cast<const uint4*>(digit_scratch), static_cast<const uint4*>(bk),
+      static_cast<const uint4*>(ak), static_cast<uint4*>(c0), static_cast<uint4*>(c1),
       static_cast<const uint32_t*>(primes), static_cast<const uint32_t*>(pinv_neg), batch, num_l,
       num_r, logn);
   return static_cast<int>(cudaGetLastError());

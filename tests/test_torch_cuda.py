@@ -207,44 +207,67 @@ def test_round_on_card_runs_through_the_kernels(cuda_device):
     assert max((avg[k] - ref[k]).abs().max().item() for k in ref) <= 5e-6
 
 
-def _ks_cases(n, dev):
-    """(name, kernel fn, plain fn) for K5 in both modes and K6, at N=n."""
-    ctx = _ctx(n)
-    ctx5 = ntt.NTTContext.build(find_ntt_primes(5, 27, 2 * n), n)
-    x, x5 = _res(ctx, (4, 3, n), 30, dev), _res(ctx5, (1, 5, n), 31, dev)
-    k3 = _res(ctx, (19, 3, n), 32, dev), _res(ctx, (19, 3, n), 33, dev)
-    k5 = _res(ctx5, (31, 5, n), 34, dev), _res(ctx5, (31, 5, n), 35, dev)
-    d = _res(ctx, (2, 18, 3, n), 36, dev)
-    hk = _res(ctx, (22, 18, 3, n), 37, dev), _res(ctx, (22, 18, 3, n), 38, dev)
-    c0 = x[:2].contiguous()
-    return [
-        ("keyswitch_fused", lambda: cuda_ntt.keyswitch_fused(ctx, x, *k3, 5, 6),
-         lambda: cuda_ntt.keyswitch_fused_plain(ctx, x, *k3, 5, 6)),
-        ("keyswitch_fused_eval", lambda: cuda_ntt.keyswitch_fused(ctx5, x5, *k5, 5, 6, True),
-         lambda: cuda_ntt.keyswitch_fused_plain(ctx5, x5, *k5, 5, 6, True)),
-        ("hoisted_products", lambda: cuda_ntt.hoisted_products(ctx, c0, d, *hk),
-         lambda: cuda_ntt.hoisted_products_plain(ctx, c0, d, *hk)),
+def _ks_cases(n, num_l, batch, dev):
+    """(name, kernel fn, plain fn) for K5 in both modes on [batch, num_l, n]
+    (R = 6 * num_l gadget components), and K6 (S=22, R=18, B=2) at L=3."""
+    ctx = _ctx(n, num_l)
+    num_c = 6 * num_l + 1
+    x = _res(ctx, (batch, num_l, n), 30 + num_l, dev)
+    keys = _res(ctx, (num_c, num_l, n), 32, dev), _res(ctx, (num_c, num_l, n), 33, dev)
+    cases = [
+        ("keyswitch_fused", lambda: cuda_ntt.keyswitch_fused(ctx, x, *keys, 5, 6),
+         lambda: cuda_ntt.keyswitch_fused_plain(ctx, x, *keys, 5, 6)),
+        ("keyswitch_fused_eval", lambda: cuda_ntt.keyswitch_fused(ctx, x, *keys, 5, 6, True),
+         lambda: cuda_ntt.keyswitch_fused_plain(ctx, x, *keys, 5, 6, True)),
     ]
+    if num_l == 3:
+        d = _res(ctx, (2, 18, 3, n), 36, dev)
+        hk = _res(ctx, (22, 18, 3, n), 37, dev), _res(ctx, (22, 18, 3, n), 38, dev)
+        c0 = _res(ctx, (2, 3, n), 39, dev)
+        cases.append(("hoisted_products", lambda: cuda_ntt.hoisted_products(ctx, c0, d, *hk),
+                      lambda: cuda_ntt.hoisted_products_plain(ctx, c0, d, *hk)))
+    return cases
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1024, 4096, 8192])
-def test_keyswitch_and_hoisted_products_bitwise_vs_plain_on_card(cuda_device, n):
-    # Bitwise: K5 (coefficient input at L=3, B=4; eval input at L=5) and K6
-    # (S=22, R=18, B=2) against their plain versions on the same card
-    # tensors; each wrapper call counted once, under its own name.
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("num_l", [1, 2, 3, 5])
+@pytest.mark.parametrize("n", [1024, 2048, 4096, 8192])
+def test_keyswitch_and_hoisted_products_bitwise_vs_plain_on_card(cuda_device, n, num_l, batch):
+    # Bitwise: K5 in both modes at [batch, num_l, n] (the digit stage on
+    # 6, 24, 54 or 150 rows a ciphertext: every cluster plan C = 8, 4, 2, 1
+    # of keyswitch_plan; the eval-input inverse on 1 to 20 rows) and, at
+    # L=3, K6 (S=22, R=18, B=2) against their plain versions on the same
+    # card tensors; each wrapper call counted once, under its own name, at
+    # its (rows, N).
     cuda_ntt.reset_launch_counts()
-    for name, kern, plain in _ks_cases(n, cuda_device):
+    for name, kern, plain in _ks_cases(n, num_l, batch, cuda_device):
         for got, want in zip(kern(), plain()):
             assert torch.equal(got, want), name
         torch.cuda.synchronize(cuda_device)
         assert cuda_ntt.launch_counts()[name] == 1
-    ctx = _ctx(n)
-    empty = cuda_ntt.hoisted_products(
-        ctx, _res(ctx, (3, n), 39, cuda_device), _res(ctx, (18, 3, n), 40, cuda_device),
-        *(torch.zeros((0, 18, 3, n), dtype=torch.int32, device=cuda_device),) * 2)
-    assert tuple(empty[0].shape) == (0, 3, n)
-    assert cuda_ntt.launch_counts()["hoisted_products"] == 1
+    rows = cuda_ntt.launch_rows()
+    assert rows[("keyswitch_fused", batch * num_l, n)] == 1
+    assert rows[("keyswitch_fused_eval", batch * num_l, n)] == 1
+    if num_l == 3:
+        ctx = _ctx(n)
+        empty = cuda_ntt.hoisted_products(
+            ctx, _res(ctx, (3, n), 39, cuda_device), _res(ctx, (18, 3, n), 40, cuda_device),
+            *(torch.zeros((0, 18, 3, n), dtype=torch.int32, device=cuda_device),) * 2)
+        assert tuple(empty[0].shape) == (0, 3, n)
+        assert cuda_ntt.launch_counts()["hoisted_products"] == 1
+
+
+@pytest.mark.cuda
+def test_keyswitch_rejects_unaligned_keys_on_card(cuda_device):
+    # K5's inner product loads the key rows as 16-byte vectors: a key view
+    # 4 bytes off is refused, as an unaligned eval-domain input is.
+    ctx = _ctx(1024, 1)
+    x = _res(ctx, (1, 1, 1024), 41, cuda_device)
+    flat = _res(ctx, (8, 1, 1024), 42, cuda_device).reshape(-1)
+    bad = flat[1:1 + 7 * 1024].reshape(7, 1, 1024)
+    with pytest.raises(ValueError):
+        cuda_ntt.keyswitch_fused(ctx, x, bad, bad, 5, 6)
 
 
 def _small_linear_score(dev):

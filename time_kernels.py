@@ -1,0 +1,52 @@
+#!/usr/bin/env python3
+"""Time the NTT pair and the key-switch (K1, K2, K5) of any checkout of the port.
+
+    python3 time_kernels.py [TREE]
+
+Holds K1 and K2 at every entry of this checkout's `chip_smoke.NTT_SHAPES`,
+and K5 at every entry of its `KS_SHAPES`, bitwise against their plain
+versions and times them with chip_smoke.py's timer (device time from
+torch.profiler kernel events, median of 30 calls, L2 flushed; K5's split by
+launch; the wrapper's call time), on the kernels of TREE (a directory
+holding `hefl_tpu_torch/`, by default this checkout). So two trees, e.g. a
+parent commit unpacked with `git archive` into an ignored directory and
+this one, can be compared at the same shapes on one card, run in turns.
+Needs one CUDA card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import sys
+from pathlib import Path
+
+
+def main() -> int:
+    here = Path(__file__).resolve().parent
+    tree = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else here
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("chip_smoke", here / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device available", file=sys.stderr)
+        return 1
+    from hefl_tpu_torch.ckks import cuda_ntt, ntt as ntt_mod
+
+    smoke.log(f"kernels of {Path(cuda_ntt.__file__).parents[2]}")
+    cuda_ntt.load_library()
+    device = torch.device("cuda", 0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    cases = smoke.ntt_shape_cases(cuda_ntt, ntt_mod, device, 500) + [
+        case for case in smoke.serving_kernel_cases(cuda_ntt, ntt_mod, 4096, device, 400)
+        if case[0].startswith("keyswitch_fused")]
+    for case in cases:
+        smoke.kernel_record(case, flush, time_plain=False)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
