@@ -8,23 +8,26 @@ the directory it sits in); it imports nothing of JAX or of `hefl_tpu`.
 Phases, each of which fails the run (non-zero exit, no result line) on any
 error:
 
-  1. Print the card's name and power limit (nvidia-smi) and build the
-     kernels from `hefl_tpu_torch/csrc/ntt.cu` with nvcc (timed).
+  1. Print the card's name and power limit (nvidia-smi), build the kernels
+     from `hefl_tpu_torch/csrc/ntt.cu` with nvcc (timed), and print ptxas's
+     registers and spills of every `ntt_kernel` instantiation (the build's
+     `-Xptxas -v` report).
   2. For each kernel K1-K4 (forward NTT, inverse NTT, fused encrypt, fused
-     decrypt): call its wrapper on card tensors at the shapes of the
-     encrypted MedCNN round (N=4096, L=3: 55 ciphertexts per client, 2
-     clients), and at N=1024, and require it to be BITWISE equal to its
-     plain PyTorch version run on the same card tensors. Time it: `ms` is
-     device time (the kernel events of torch.profiler, median over 30
-     calls, L2 flushed before each), `call_ms` the wrapper's call between
-     two CUDA events (device time plus the host work the device waits
-     for), `plain_ms` the plain version's call; and compute the kernel's
-     lower bound on this card. The same for K7, the fused transcipher, at
-     the HHE round's [8 clients x 19 rows, 3, 4096] and at N=1024; K1 and
-     K2 again at each of NTT_SHAPES, the row counts the main paths launch
-     them at; K5 (both modes) at each of KS_SHAPES, with the device time of
-     each of its two or three kernels (inverse, digit stage, inner
-     product) printed apart; and K6 at the linear score's shape.
+     decrypt): call its wrapper on card tensors and require it to be
+     BITWISE equal to its plain PyTorch version run on the same card
+     tensors, at N=1024 and at N=1024..8192 x NTT_CHECK_ROWS (every
+     cluster plan of `cuda_ntt.ntt_plan`). Time it: `ms` is device time
+     (the kernel events of torch.profiler, median over 30 calls, L2
+     flushed before each), `call_ms` the wrapper's call between two CUDA
+     events (device time plus the host work the device waits for),
+     `plain_ms` the plain version's call; and compute the kernel's lower
+     bound on this card. K1 and K2 are timed at the round's [55, 3, 4096]
+     and at each of NTT_SHAPES, K3 at each of ENC_SHAPES and K4 at each of
+     DEC_SHAPES: the shapes the main paths launch them at. The same for
+     K7, the fused transcipher, at the HHE round's [8 clients x 19 rows, 3,
+     4096] and at N=1024; K5 (both modes) at each of KS_SHAPES, with the
+     device time of each of its two or three kernels (inverse, digit stage,
+     inner product) printed apart; and K6 at the linear score's shape.
   3. Drive the main path once through the port's entry points: MedCNN at
      full width (256x256x3, 222,722 parameters, random weights from a seed),
      the `medical` synthetic data, 2 clients of 96 images, 2 local epochs,
@@ -68,10 +71,12 @@ error:
      decrypt, evaluate; the device time of the upload and of provision +
      transcipher by kernel (torch.profiler).
   Phases 3-6 each print their launches by (kernel, rows x N).
-  7. Print one JSON line {"kernels": [...]} (launches: the sum over the
-     main-path runs of phases 3-6, each counted from zero; K1, K2 and K5
+  7. Check that no `ntt_kernel` instantiation of K1-K4 that phases 3-6
+     launched spills registers. Print one JSON line {"kernels": [...]} (launches: the sum
+     over the main-path runs of phases 3-6, each counted from zero; K1-K5
      carry one "shapes" entry per timed shape with the launches at that
-     shape, K5's also its per-kernel "split")
+     shape, K5's also its per-kernel "split"; the ranking launches x
+     (ms - bound) prices each launch at its own shape)
      and, last, the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -79,6 +84,7 @@ error:
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -118,13 +124,21 @@ NTT_SHAPES = ((1, 3, 4096), (2, 3, 4096), (18, 3, 4096), (55, 3, 4096),
 # [4, 3, 4096], which phase 4 runs but does not count.
 KS_SHAPES = ((False, 1, 3, 4096), (False, 4, 3, 4096), (False, 1, 3, 8192),
              (False, 1, 5, 8192), (True, 1, 5, 8192))
+# [B, L, N] shapes at which phase 2 times K3 and K4: every shape phases 3
+# and 6 launch them at (their `launches by (kernel, rows x N)` lines). K3:
+# the round's 2 clients x 55 ciphertexts, the HHE round's pads for 8
+# clients x 19 packed rows. K4: the round's 55 ciphertexts, the HHE round's
+# 19 packed rows.
+ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096))
+DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096))
 # Prime counts at which phase 2 holds K5 bitwise at every ring size: every
 # cluster plan of its digit stage (cuda_ntt.keyswitch_plan).
 KS_CHECK_PRIMES = (1, 2, 3, 5)
-# Row counts at which phase 2 holds K1 and K2 bitwise at every ring size:
-# every cluster plan of cuda_ntt.ntt_plan (8 blocks a row up to 16 rows, 4
-# up to 33, 2 up to 65, 1 from 66 on a 132-SM card).
-NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 165)
+# Row counts at which phase 2 holds K1-K4 bitwise at every ring size: every
+# cluster plan of cuda_ntt.ntt_plan (8 blocks a row up to 16 rows, 4 up to
+# 33, 2 up to 65, 1 from 66 on a 132-SM card), and the row counts of
+# ENC_SHAPES and DEC_SHAPES.
+NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 57, 165, 330, 456)
 ERR_LIMIT = 5e-6
 SCORE_ERR_LIMIT = 0.05               # the JAX package's serving tolerance
 # The depth-2 MLP at N=8192 carries more noise than the JAX tests' n=512 ring:
@@ -137,6 +151,63 @@ MLP_ERR_LIMIT = 0.25
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# An ntt_kernel<LOGN, C, kInverse, Src, Dst> instantiation's mangled name.
+_NTT_KERNEL = re.compile(r"ntt_kernelILi(\d+)ELi(\d+)ELb([01])E.*?\d+([A-Za-z]+Rows)E"
+                         r".*?\d+([A-Za-z]+Store)E")
+# The load and store policies of K1-K4's ntt_kernel instantiations.
+NTT_POLICIES = {
+    "ntt_forward": ("false", "PlainRows", "PlainStore"),
+    "ntt_inverse": ("true", "PlainRows", "PlainStore"),
+    "encrypt_fused": ("false", "EncryptRows", "EncryptStore"),
+    "decrypt_fused": ("true", "DecryptRows", "PlainStore"),
+}
+
+
+def ntt_kernel_label(logn: int, cluster: int, inverse: str, src: str, dst: str) -> str:
+    """An ntt_kernel instantiation as kernel_label writes its profiler name."""
+    return f"ntt_kernel<{logn}, {cluster}, {inverse}, {src}, {dst}>"
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel label: (registers, spill store bytes, spill load bytes)} from
+    the build's `-Xptxas -v` report; ntt_kernel instantiations labelled as
+    ntt_kernel_label writes them, the other kernels by their name."""
+    report, name, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        if m := re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            if k := _NTT_KERNEL.search(name):
+                label = ntt_kernel_label(int(k.group(1)), int(k.group(2)),
+                                         "true" if k.group(3) == "1" else "false",
+                                         k.group(4), k.group(5))
+            else:
+                label = k.group(1) if (k := re.search(r"([a-z_]+_kernel)", name)) else name
+            report[label] = (int(m.group(1)), *spills)
+            name, spills = None, (0, 0)
+    return report
+
+
+def log_ptxas_report(report: dict) -> None:
+    """Phase 1: registers of every ntt_kernel instantiation by policy pair
+    ({"LOGN/C": registers}), and every kernel that spills."""
+    by_policy = {}
+    for label, (regs, _, _) in sorted(report.items()):
+        if label.startswith("ntt_kernel<"):
+            logn, cluster, *policy = label[len("ntt_kernel<"):-1].split(", ")
+            by_policy.setdefault(", ".join(policy), {})[f"{logn}/{cluster}"] = regs
+    for policy, regs in by_policy.items():
+        log(f"  ptxas registers, ntt_kernel<LOGN, C, {policy}> by LOGN/C: {json.dumps(regs)}")
+    log("  ptxas, other kernels (registers): " + json.dumps(
+        {k: v[0] for k, v in sorted(report.items()) if not k.startswith("ntt_kernel<")}))
+    spilled = {k: v[1:] for k, v in report.items() if v[1] or v[2]}
+    log(f"  ptxas spills (store, load bytes): {json.dumps(spilled) if spilled else 'none'}")
+    if not by_policy:
+        raise AssertionError("the ptxas report names no ntt_kernel instantiation")
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
@@ -247,39 +318,65 @@ def rand_residues(ntt_ctx, shape, seed: int, device) -> torch.Tensor:
     return torch.from_numpy(x.astype(np.int32)).to(device)
 
 
-def kernel_cases(cuda_ntt, ntt_ctx, rows: int, enc_rows: int, device, seed: int):
-    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K1-K4."""
+def ntt_cases(cuda_ntt, ntt_ctx, batch: int, device, seed: int):
+    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K1 and K2
+    on [batch, L, N]: row in, row out, the prime's twiddle tables."""
     n, logn, num_l = ntt_ctx.n, ntt_ctx.logn, ntt_ctx.num_primes
-    word = 4
-    poly = num_l * n
+    x = rand_residues(ntt_ctx, (batch, num_l, n), seed, device)
+    rows = batch * num_l
     fwd_ops = (n // 2) * logn * BUTTERFLY_OPS
-    inv_ops = fwd_ops + n * SHOUP_OPS
-    x = rand_residues(ntt_ctx, (rows, num_l, n), seed, device)
-    m, u, e0, e1 = (rand_residues(ntt_ctx, (enc_rows, num_l, n), seed + i, device)
-                    for i in range(1, 5))
-    c1 = rand_residues(ntt_ctx, (rows, num_l, n), seed + 5, device)
-    b, a, s = (rand_residues(ntt_ctx, (num_l, n), seed + i, device) for i in (6, 7, 8))
-    tables = 2 * poly * word                         # twiddles + Shoup quotients
+    words = 2 * rows * n + 2 * num_l * n
     return [
-        ("ntt_forward", f"{PALLAS}:413", [rows, num_l, n],
+        ("ntt_forward", f"{PALLAS}:413", [batch, num_l, n],
          lambda: cuda_ntt.ntt_forward(ntt_ctx, x),
          lambda: cuda_ntt.ntt_forward_plain(ntt_ctx, x),
-         2 * rows * poly * word + tables, rows * num_l * fwd_ops),
-        ("ntt_inverse", f"{PALLAS}:418", [rows, num_l, n],
+         4 * words, rows * fwd_ops),
+        ("ntt_inverse", f"{PALLAS}:418", [batch, num_l, n],
          lambda: cuda_ntt.ntt_inverse(ntt_ctx, x),
          lambda: cuda_ntt.ntt_inverse_plain(ntt_ctx, x),
-         2 * rows * poly * word + tables, rows * num_l * inv_ops),
-        ("encrypt_fused", f"{PALLAS}:480", [enc_rows, num_l, n],
-         lambda: cuda_ntt.encrypt_fused(ntt_ctx, m, u, e0, e1, b, a),
-         lambda: cuda_ntt.encrypt_fused_plain(ntt_ctx, m, u, e0, e1, b, a),
-         6 * enc_rows * poly * word + 2 * poly * word + tables,
-         enc_rows * num_l * (4 * fwd_ops + n * (2 * MONT_OPS + 3 * ADDMOD_OPS))),
-        ("decrypt_fused", f"{PALLAS}:633", [rows, num_l, n],
-         lambda: cuda_ntt.decrypt_fused(ntt_ctx, x, c1, s),
-         lambda: cuda_ntt.decrypt_fused_plain(ntt_ctx, x, c1, s),
-         3 * rows * poly * word + poly * word + tables,
-         rows * num_l * (inv_ops + n * (MONT_OPS + ADDMOD_OPS))),
+         4 * words, rows * (fwd_ops + n * SHOUP_OPS)),
     ]
+
+
+def encrypt_transforms_ops(shape, transforms: int) -> int:
+    """Operations of K3 on `shape` [B, L, N] counting `transforms` forward
+    transforms a row, plus the pointwise work: e0 + m and the epilogue's
+    two Montgomery products and two adds (3 add_mod, 2 Montgomery a word)."""
+    batch, num_l, n = shape
+    fwd_ops = (n // 2) * (n.bit_length() - 1) * BUTTERFLY_OPS
+    return batch * num_l * (transforms * fwd_ops + n * (2 * MONT_OPS + 3 * ADDMOD_OPS))
+
+
+def encrypt_case(cuda_ntt, ntt_ctx, batch: int, device, seed: int):
+    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K3 on
+    [batch, L, N]. Bytes: 6 words a coefficient (m, u, e0, e1 in; c0, c1
+    out), the key rows and the twiddle tables. Operations: the least work
+    that computes the function, three forward transforms a row (u, e0 + m,
+    e1), not the TPU kernel's four."""
+    n, num_l = ntt_ctx.n, ntt_ctx.num_primes
+    m, u, e0, e1 = (rand_residues(ntt_ctx, (batch, num_l, n), seed + i, device)
+                    for i in range(4))
+    b, a = (rand_residues(ntt_ctx, (num_l, n), seed + i, device) for i in (4, 5))
+    words = 6 * batch * num_l * n + 2 * num_l * n + 2 * num_l * n
+    return ("encrypt_fused", f"{PALLAS}:480", [batch, num_l, n],
+            lambda: cuda_ntt.encrypt_fused(ntt_ctx, m, u, e0, e1, b, a),
+            lambda: cuda_ntt.encrypt_fused_plain(ntt_ctx, m, u, e0, e1, b, a),
+            4 * words, encrypt_transforms_ops((batch, num_l, n), 3))
+
+
+def decrypt_case(cuda_ntt, ntt_ctx, batch: int, device, seed: int):
+    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K4 on
+    [batch, L, N]: c0, c1 in, one row out, the key row and the twiddle
+    tables; one inverse transform a row and c0 + c1*s."""
+    n, logn, num_l = ntt_ctx.n, ntt_ctx.logn, ntt_ctx.num_primes
+    c0, c1 = (rand_residues(ntt_ctx, (batch, num_l, n), seed + i, device) for i in range(2))
+    s = rand_residues(ntt_ctx, (num_l, n), seed + 2, device)
+    inv_ops = (n // 2) * logn * BUTTERFLY_OPS + n * SHOUP_OPS
+    words = 3 * batch * num_l * n + num_l * n + 2 * num_l * n
+    return ("decrypt_fused", f"{PALLAS}:633", [batch, num_l, n],
+            lambda: cuda_ntt.decrypt_fused(ntt_ctx, c0, c1, s),
+            lambda: cuda_ntt.decrypt_fused_plain(ntt_ctx, c0, c1, s),
+            4 * words, batch * num_l * (inv_ops + n * (MONT_OPS + ADDMOD_OPS)))
 
 
 def serving_kernel_cases(cuda_ntt, ntt_mod, n: int, device, seed: int, shapes="slice"):
@@ -374,19 +471,22 @@ def ntt_shape_cases(cuda_ntt, ntt_mod, device, seed: int):
     cases = []
     for k, (b, num_l, n) in enumerate(NTT_SHAPES):
         ctx = ntt_mod.NTTContext.build(find_ntt_primes(num_l, 27, 2 * n), n)
-        x = rand_residues(ctx, (b, num_l, n), seed + k, device)
-        rows, logn = b * num_l, n.bit_length() - 1
-        fwd_ops = (n // 2) * logn * BUTTERFLY_OPS
-        words = 2 * rows * n + 2 * num_l * n                    # row in, row out, tables
-        cases.append(("ntt_forward", f"{PALLAS}:413", [b, num_l, n],
-                      lambda ctx=ctx, x=x: cuda_ntt.ntt_forward(ctx, x),
-                      lambda ctx=ctx, x=x: cuda_ntt.ntt_forward_plain(ctx, x),
-                      4 * words, rows * fwd_ops))
-        cases.append(("ntt_inverse", f"{PALLAS}:418", [b, num_l, n],
-                      lambda ctx=ctx, x=x: cuda_ntt.ntt_inverse(ctx, x),
-                      lambda ctx=ctx, x=x: cuda_ntt.ntt_inverse_plain(ctx, x),
-                      4 * words, rows * (fwd_ops + n * SHOUP_OPS)))
+        cases += ntt_cases(cuda_ntt, ctx, b, device, seed + k)
     return cases
+
+
+def encdec_shape_cases(cuda_ntt, ntt_mod, device, seed: int):
+    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K3 at
+    each of ENC_SHAPES and K4 at each of DEC_SHAPES."""
+    from hefl_tpu_torch.ckks.primes import find_ntt_primes
+
+    def ctx_of(num_l, n):
+        return ntt_mod.NTTContext.build(find_ntt_primes(num_l, 27, 2 * n), n)
+
+    return ([encrypt_case(cuda_ntt, ctx_of(num_l, n), b, device, seed + 10 * k)
+             for k, (b, num_l, n) in enumerate(ENC_SHAPES)]
+            + [decrypt_case(cuda_ntt, ctx_of(num_l, n), b, device, seed + 100 + 10 * k)
+               for k, (b, num_l, n) in enumerate(DEC_SHAPES)])
 
 
 def kernel_record(case, flush, time_plain: bool = True) -> dict:
@@ -421,9 +521,10 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     records = {}
     small = ntt_mod.NTTContext.build(find_ntt_primes(3, 27, 2048), 1024)
-    small_cases = kernel_cases(cuda_ntt, small, 8, 8, device, 100)
-    for name, _, shape, kern, plain, _, _ in small_cases + [transcipher_case(cuda_ntt, small, 8,
-                                                                            device, 150)]:
+    small_cases = ntt_cases(cuda_ntt, small, 8, device, 100) + [
+        encrypt_case(cuda_ntt, small, 8, device, 110), decrypt_case(cuda_ntt, small, 8, device, 120),
+        transcipher_case(cuda_ntt, small, 8, device, 150)]
+    for name, _, shape, kern, plain, _, _ in small_cases:
         err = max_abs_err(kern(), plain())
         torch.cuda.synchronize()
         log(f"  N=1024 {name} {shape}: max_abs_err {err}")
@@ -436,26 +537,43 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
             if (n, num_l) not in ctxs:
                 ctxs[n, num_l] = ntt_mod.NTTContext.build(find_ntt_primes(num_l, 27, 2 * n), n)
             ctx = ctxs[n, num_l]
-            x = rand_residues(ctx, (rows // num_l, num_l, n), n + rows, device)
-            for kern, plain in ((cuda_ntt.ntt_forward, cuda_ntt.ntt_forward_plain),
-                                (cuda_ntt.ntt_inverse, cuda_ntt.ntt_inverse_plain)):
-                if max_abs_err(kern(ctx, x), plain(ctx, x)) != 0:
-                    raise AssertionError(f"{kern.__name__} on {rows} rows at N={n} differs from "
-                                         "its plain version")
+            batch = rows // num_l
+            m, u, e0, e1 = (rand_residues(ctx, (batch, num_l, n), n + rows + i, device)
+                            for i in range(4))
+            b, a = (rand_residues(ctx, (num_l, n), n + rows + i, device) for i in (4, 5))
+            for name, got, want in (
+                ("ntt_forward", cuda_ntt.ntt_forward(ctx, m), cuda_ntt.ntt_forward_plain(ctx, m)),
+                ("ntt_inverse", cuda_ntt.ntt_inverse(ctx, m), cuda_ntt.ntt_inverse_plain(ctx, m)),
+                ("encrypt_fused", cuda_ntt.encrypt_fused(ctx, m, u, e0, e1, b, a),
+                 cuda_ntt.encrypt_fused_plain(ctx, m, u, e0, e1, b, a)),
+                ("decrypt_fused", cuda_ntt.decrypt_fused(ctx, u, e1, a),
+                 cuda_ntt.decrypt_fused_plain(ctx, u, e1, a)),
+            ):
+                if max_abs_err(got, want) != 0:
+                    raise AssertionError(f"{name} on {rows} rows at N={n} differs from its plain "
+                                         "version")
     torch.cuda.synchronize()
-    log(f"  ntt_forward, ntt_inverse at N in {cuda_ntt.SUPPORTED_N} x rows in {NTT_CHECK_ROWS} "
-        f"(cluster sizes {[cuda_ntt.ntt_plan(r, 4096) for r in NTT_CHECK_ROWS]}): bitwise equal")
-    cases = kernel_cases(cuda_ntt, ckks_ctx.ntt, 55, 110, device, 200)
-    cases.append(transcipher_case(cuda_ntt, ckks_ctx.ntt, 8 * 19, device, 250))
-    for case in cases:
+    log(f"  ntt_forward, ntt_inverse, encrypt_fused, decrypt_fused at N in "
+        f"{cuda_ntt.SUPPORTED_N} x rows in {NTT_CHECK_ROWS} (cluster sizes "
+        f"{[cuda_ntt.ntt_plan(r, 4096) for r in NTT_CHECK_ROWS]}): bitwise equal")
+    for case in ntt_cases(cuda_ntt, ckks_ctx.ntt, 55, device, 200) + [
+            transcipher_case(cuda_ntt, ckks_ctx.ntt, 8 * 19, device, 250)]:
         records[case[0]] = kernel_record(case, flush)
-    # K1 and K2 at the shapes the main paths launch them at (phases 3-6 print
-    # their launches by (kernel, rows, N)); the [55, 3, 4096] rows above are
-    # kept for continuity with earlier runs.
-    for case in ntt_shape_cases(cuda_ntt, ntt_mod, device, 500):
-        rec = kernel_record(case, flush, time_plain=False)
-        records[rec["name"]].setdefault("shapes", []).append(
-            {k: rec[k] for k in ("shape", "ms", "call_ms", "bound_ms", "bound_by")})
+    # K1 and K2 at NTT_SHAPES, K3 at ENC_SHAPES, K4 at DEC_SHAPES: the shapes
+    # the main paths launch them at (phases 3-6 print their launches by
+    # (kernel, rows, N)). K1/K2's [55, 3, 4096] records above are kept for
+    # continuity with earlier runs; K3/K4's record is their first shape's.
+    # K3's bound counts three transforms a row; the TPU kernel's four are
+    # printed beside it, for comparison with earlier runs.
+    for case in ntt_shape_cases(cuda_ntt, ntt_mod, device, 500) + encdec_shape_cases(
+            cuda_ntt, ntt_mod, device, 600):
+        name = case[0]
+        rec = kernel_record(case, flush, time_plain=name in ("encrypt_fused", "decrypt_fused"))
+        entry = {k: rec[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
+        if name == "encrypt_fused":
+            entry["bound_4t_ms"] = bound(case[5], encrypt_transforms_ops(rec["shape"], 4))[0]
+            log(f"    bound on four transforms a row: {entry['bound_4t_ms']:.6f} ms")
+        records.setdefault(name, rec).setdefault("shapes", []).append(entry)
     for name, _, shape, kern, plain, _, _ in serving_kernel_cases(cuda_ntt, ntt_mod, 1024, device,
                                                                    300, shapes="small"):
         err = max_abs_err(kern(), plain())
@@ -917,6 +1035,8 @@ def main() -> int:
     t = time.perf_counter()
     cuda_ntt.load_library()
     log(f"phase 1: built {cuda_ntt.library_path().name} in {time.perf_counter() - t:.3f} s")
+    report = ptxas_report(cuda_ntt.ptxas_report_path().read_text())
+    log_ptxas_report(report)
 
     log("phase 2: kernels vs plain versions")
     records = check_kernels(cuda_ntt, ntt_mod, CkksContext.create(), device)
@@ -935,6 +1055,15 @@ def main() -> int:
             shapes[key] = shapes.get(key, 0) + count
     log("phases 3-6 together:")
     log_launch_rows(shapes)
+    # The ntt_kernel instantiations K1-K4 ran in phases 3-6 (ntt_plan's
+    # cluster size at each launched shape) must not spill registers.
+    launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),
+                                 *NTT_POLICIES[name])
+                for name, rows, n in shapes if name in NTT_POLICIES}
+    log(f"  ntt_kernel instantiations K1-K4 launched (registers, spill bytes): "
+        f"{json.dumps({k: report[k] for k in sorted(launched)})}")
+    if any(report[k][1] or report[k][2] for k in launched):
+        raise AssertionError("an ntt_kernel instantiation the main paths launch spills registers")
     for name, rec in records.items():
         rec["launches"] = sum(counts[name] for counts, _ in runs)
         if rec["launches"] < 1:
@@ -943,8 +1072,9 @@ def main() -> int:
             b, num_l, n = entry["shape"]
             entry["launches"] = shapes.get((name, b * num_l, n), 0)
 
-    # ROADMAP Queue 2's ranking: launches x (device time - bound); K1, K2 and
-    # K5 summed over their timed shapes (launches at untimed shapes left out).
+    # ROADMAP Queue 2's ranking: launches x (device time - bound); K1-K5
+    # summed over their timed shapes, each launch priced at its own shape
+    # (launches at untimed shapes left out).
     ranking = []
     for name, rec in records.items():
         entries = [e for e in rec.get("shapes", [rec]) if e["launches"]]

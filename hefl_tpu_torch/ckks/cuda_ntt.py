@@ -14,8 +14,10 @@ and of encrypted-inference serving in `hefl_tpu/ckks/pallas_ntt.py`:
 
 Build: at first use on a CUDA tensor, nvcc compiles the sources for sm_90a
 into a shared library with a plain C interface under `hefl_tpu_torch/_build/`
-(keyed by a hash of every file under `csrc/`), loaded with ctypes. A failed
-build raises; nothing falls back to the plain version.
+(keyed by a hash of every file under `csrc/`), loaded with ctypes, and keeps
+ptxas's report of every kernel's registers and spills beside it
+(`ptxas_report_path`). A failed build raises; nothing falls back to the
+plain version.
 
 Dispatch follows the tensor's device and nothing else: a CPU tensor goes to
 the plain PyTorch version beside each wrapper, a CUDA tensor to the kernel
@@ -28,7 +30,7 @@ them (`launch_rows`). K5 counts its evaluation-domain-input mode
 (relinearization) under its own name, "keyswitch_fused_eval".
 
 Host-side launch plans, plain functions the CPU tests pin: `ntt_plan` gives
-the thread-block cluster size over which K1/K2 split each row;
+the thread-block cluster size over which K1-K4 split each row;
 `keyswitch_plan` gives K5's (its digit stage is K1's transform on B*R*L
 rows, its eval-input inverse K2's on B*L rows) and refuses a gadget the
 kernel cannot compute exactly.
@@ -65,7 +67,7 @@ SOURCE = CSRC / "ntt.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SUPPORTED_N = (1024, 2048, 4096, 8192)
 
@@ -81,8 +83,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ntt_forward": [_P] * 5 + [_I] * 4 + [_P],
     "ntt_inverse": [_P] * 7 + [_I] * 4 + [_P],
-    "encrypt_fused": [_P] * 12 + [_I] * 3 + [_P],
-    "decrypt_fused": [_P] * 10 + [_I] * 3 + [_P],
+    "encrypt_fused": [_P] * 12 + [_I] * 4 + [_P],
+    "decrypt_fused": [_P] * 10 + [_I] * 4 + [_P],
     "keyswitch_fused": [_P] * 15 + [_I] * 8 + [_P],
     "hoisted_products": [_P] * 8 + [_I] * 5 + [_P],
     "transcipher_fused": [_P] * 12 + [_I] * 3 + [_P],
@@ -129,6 +131,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"libhefl_ntt_{h.hexdigest()[:16]}.so"
 
 
+def ptxas_report_path() -> Path:
+    """ptxas's `-v` report of the library's build: registers, shared memory
+    and spills of every kernel (written beside the library by `build`)."""
+    return library_path().with_suffix(".ptxas.txt")
+
+
 def build() -> Path:
     """Compile `csrc/ntt.cu` for sm_90a unless the hashed library exists."""
     so = library_path()
@@ -146,6 +154,7 @@ def build() -> Path:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}) building {SOURCE}:\n{proc.stderr}"
             )
+        ptxas_report_path().write_text(proc.stderr)
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
@@ -180,8 +189,9 @@ def _check(ctx: NTTContext, name: str, t: torch.Tensor, shape=None) -> None:
 
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:
-    """K2's body (K2, and K5 with evaluation-domain input) loads its input
-    rows as 16-byte vectors, and K5's inner product its key rows."""
+    """K2's body (K2, K4, and K5 with evaluation-domain input) loads its
+    input rows as 16-byte vectors, K3's epilogue its key rows, and K5's
+    inner product its key rows."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel loads rows as 16-byte vectors; the tensor's "
                          "data is not 16-byte aligned")
@@ -223,7 +233,7 @@ def _launch(ctx: NTTContext, name: str, device: torch.device, *args, rows: int,
 
 
 def ntt_plan(rows: int, n: int, sms: int | None = None) -> int:
-    """Cluster size C of K1/K2 on `rows` rows of N words: each row is split
+    """Cluster size C of K1-K4 on `rows` rows of N words: each row is split
     over C thread blocks. The largest C in (1, 2, 4, 8) with rows * C <= the
     card's SM count, so that few rows still spread over the SMs; 1 from half
     the SM count of rows up (66 on an H100), where one block per row already
@@ -297,7 +307,10 @@ def encrypt_fused_plain(ctx: NTTContext, m_res, u, e0, e1, b_mont, a_mont):
 def encrypt_fused(ctx: NTTContext, m_res, u, e0, e1, b_mont, a_mont):
     """Deterministic encrypt core: coefficient-domain m, u, e0, e1
     int32[..., L, N] and the Montgomery-form public key int32[L, N] ->
-    evaluation-domain (c0, c1). One K3 launch over all rows on CUDA."""
+    evaluation-domain (c0, c1). One K3 launch over all rows on CUDA, at
+    `ntt_plan`'s cluster size: three forward transforms a row (u, e0 + m,
+    e1), bitwise the plain version's four. The key rows must be 16-byte
+    aligned."""
     if _is_cpu(m_res, u, e0, e1, b_mont, a_mont):
         return encrypt_fused_plain(ctx, m_res, u, e0, e1, b_mont, a_mont)
     _check(ctx, "encrypt_fused(m)", m_res)
@@ -305,6 +318,7 @@ def encrypt_fused(ctx: NTTContext, m_res, u, e0, e1, b_mont, a_mont):
         _check(ctx, f"encrypt_fused({name})", t, m_res.shape)
     for name, t in (("b_mont", b_mont), ("a_mont", a_mont)):
         _check(ctx, f"encrypt_fused({name})", t, (ctx.num_primes, ctx.n))
+        _check_aligned(f"encrypt_fused({name})", t)
     c0 = torch.empty_like(m_res)
     c1 = torch.empty_like(m_res)
     rows = m_res.numel() // ctx.n
@@ -314,7 +328,8 @@ def encrypt_fused(ctx: NTTContext, m_res, u, e0, e1, b_mont, a_mont):
                 m_res.data_ptr(), u.data_ptr(), e0.data_ptr(), e1.data_ptr(),
                 b_mont.data_ptr(), a_mont.data_ptr(), c0.data_ptr(), c1.data_ptr(),
                 tabs.psi.data_ptr(), tabs.psi_shoup.data_ptr(), tabs.p.data_ptr(),
-                tabs.pinv_neg.data_ptr(), rows, ctx.num_primes, ctx.logn, rows=rows)
+                tabs.pinv_neg.data_ptr(), rows, ctx.num_primes, ctx.logn,
+                ntt_plan(rows, ctx.n), rows=rows)
     return c0, c1
 
 
@@ -335,12 +350,16 @@ def decrypt_fused_plain(ctx: NTTContext, c0, c1, s_mont):
 
 def decrypt_fused(ctx: NTTContext, c0, c1, s_mont):
     """c0 + c1*s then the inverse NTT -> coefficient residues int32[..., L, N]
-    (`s_mont`: the Montgomery-form secret key int32[L, N]). K4 on CUDA."""
+    (`s_mont`: the Montgomery-form secret key int32[L, N]). One K4 launch on
+    CUDA, at `ntt_plan`'s cluster size; c0, c1 and s_mont must be 16-byte
+    aligned."""
     if _is_cpu(c0, c1, s_mont):
         return decrypt_fused_plain(ctx, c0, c1, s_mont)
     _check(ctx, "decrypt_fused(c0)", c0)
     _check(ctx, "decrypt_fused(c1)", c1, c0.shape)
     _check(ctx, "decrypt_fused(s_mont)", s_mont, (ctx.num_primes, ctx.n))
+    for name, t in (("c0", c0), ("c1", c1), ("s_mont", s_mont)):
+        _check_aligned(f"decrypt_fused({name})", t)
     out = torch.empty_like(c0)
     rows = c0.numel() // ctx.n
     if rows:
@@ -349,7 +368,7 @@ def decrypt_fused(ctx: NTTContext, c0, c1, s_mont):
                 c0.data_ptr(), c1.data_ptr(), s_mont.data_ptr(), out.data_ptr(),
                 tabs.psi_inv.data_ptr(), tabs.psi_inv_shoup.data_ptr(), tabs.p.data_ptr(),
                 tabs.pinv_neg.data_ptr(), tabs.n_inv.data_ptr(), tabs.n_inv_shoup.data_ptr(),
-                rows, ctx.num_primes, ctx.logn, rows=rows)
+                rows, ctx.num_primes, ctx.logn, ntt_plan(rows, ctx.n), rows=rows)
     return out
 
 

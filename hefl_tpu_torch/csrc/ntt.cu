@@ -47,16 +47,28 @@
 // digit x key inner product stays a second launch, now 16-byte loads with
 // the R components of a word group spread over 8 threads (see its kernel).
 //
-// Design of K3 and K4 (first version: simple and exact, not yet fast). One
-// thread block per (polynomial, prime) row. The row is staged in shared
-// memory (16 KB at N = 4096), the N/2 butterflies of each stage are spread
-// over the block's threads with __syncthreads() between stages, and the
-// finished row is written once. K3 keeps all four polynomials (u, e0, e1, m)
-// in 4*N words of dynamic shared memory and runs their four transforms in one
-// stage loop, so a stage costs one barrier for four butterflies; c0 and c1
-// are written once. K4 forms d = c0 + c1*s while loading, then runs the
-// inverse stages. K5, K6 and K7 are described above their kernels below;
-// K7 runs the same stage loop as K3.
+// Design of K3 and K4 (redesigned on the same routine). K4 is K2's
+// transform under a third load policy (DecryptRows): the inverse's first
+// pass, which holds 8 consecutive words of its row, loads those words of
+// c0, c1 and the prime's row of s as 16-byte vectors and forms
+// d = c0 + c1*s in registers, so d is never written; the rest is K2's
+// (passes, the N^-1 Shoup multiply on the store, the cluster split). K3 runs
+// three forward transforms a row, not the TPU kernel's four: the transform
+// is linear mod p and every word is a canonical residue, so
+// NTT(e0) + NTT(m) = NTT((e0 + m) mod p) word for word, and
+// c0 = b*NTT(u) + NTT(e0 + m), c1 = a*NTT(u) + NTT(e1) are the four-transform
+// words bitwise. The routine takes the number of transforms T of a row from
+// its load policy (EncryptRows: T = 3, u, e0 + m and e1 read at the first
+// pass's indices); each pass runs all T transforms of the row between the
+// same two barriers, reading each twiddle once for the T groups that share
+// it; the last forward pass holds the same 8 consecutive words of every
+// transform, and a store policy (EncryptStore) forms c0 and c1 there from
+// 16-byte loads of the key rows and stores each as two 16-byte vectors. Both
+// follow ntt_plan: C = 1 at the rounds' 165 to 456 rows, C = 8 at serving's
+// one-ciphertext encrypt.
+//
+// K6 and K7 are described above their kernels below; K7 still runs one
+// block per row through fwd_stages.
 //
 // Bounds on the H100 (see PERF.md for the measured times): each kernel reads
 // every input word once and writes every output word once, so the byte
@@ -64,11 +76,8 @@
 // for K3 at [110, 3, 4096]; the operation count is (N/2) * log2 N butterflies
 // per transform of about 12 32-bit integer instructions each, over the
 // card's 32-bit integer issue rate (132 SMs x 64 lanes x 1.98 GHz). At the
-// round's shapes the operations set the bound, the bytes a close second
-// (K3: 0.025 ms against 0.010 ms). K3, K4 and K7 are far from it: a block
-// spends log2 N barriers per row, shared-memory butterflies at stride
-// t < 32 conflict, and a 4-byte load per thread does not fill the memory
-// pipe. Moving them onto K1/K2's routine is the work that closes that gap.
+// round's shapes the operations set the bound, the bytes second (K3, three
+// transforms a row: 0.019 ms against 0.010 ms).
 //
 // Arithmetic: Shoup products q = __umulhi(a, w_shoup), r = a*w - q*p (mod
 // 2**32), one conditional subtract; Montgomery products for key polynomials
@@ -79,13 +88,12 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;   // K7's block
 constexpr int kMinLogN = 10;   // N = 1024
 constexpr int kMaxLogN = 13;   // N = 8192
 
@@ -125,15 +133,13 @@ __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b, uint32_t p,
   return t >= p ? t - p : t;
 }
 
-// Forward Cooley-Tukey stages on K rows of n words each, held back to back in
-// shared memory. Stage s: m = 2**s blocks of half-width t = n >> (s+1);
-// butterfly k pairs lo = j*2t + i with hi = lo + t under twiddle psi[m + j].
-// Callers sync before; every stage ends with a barrier.
-template <int K>
+// Forward Cooley-Tukey stages on one row of n words in shared memory (K7).
+// Stage s: m = 2**s blocks of half-width t = n >> (s+1); butterfly k pairs
+// lo = j*2t + i with hi = lo + t under twiddle psi[m + j]. Callers sync
+// before; every stage ends with a barrier.
 __device__ __forceinline__ void fwd_stages(uint32_t* x, int logn, const uint32_t* psi,
                                            const uint32_t* psi_sh, uint32_t p) {
-  const int n = 1 << logn;
-  const int half = n >> 1;
+  const int half = (1 << logn) >> 1;
   for (int s = 0; s < logn; ++s) {
     const int log_t = logn - 1 - s;
     const int m = 1 << s;
@@ -141,43 +147,17 @@ __device__ __forceinline__ void fwd_stages(uint32_t* x, int logn, const uint32_t
       const int j = k >> log_t;
       const int lo = (j << (log_t + 1)) + (k & ((1 << log_t) - 1));
       const int hi = lo + (1 << log_t);
-      const uint32_t w = psi[m + j];
-      const uint32_t ws = psi_sh[m + j];
-#pragma unroll
-      for (int r = 0; r < K; ++r) {
-        uint32_t* y = x + r * n;
-        const uint32_t v = shoup_mul(y[hi], w, ws, p);
-        const uint32_t a = y[lo];
-        y[lo] = add_mod(a, v, p);
-        y[hi] = sub_mod(a, v, p);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Gentleman-Sande inverse stages (without the final N^-1): s from logn-1 down
-// to 0, h = 2**s, t = n / 2h; lo' = lo + hi, hi' = (lo - hi) * psi_inv[h + j].
-__device__ __forceinline__ void inv_stages(uint32_t* x, int logn, const uint32_t* psi_inv,
-                                           const uint32_t* psi_inv_sh, uint32_t p) {
-  const int half = (1 << logn) >> 1;
-  for (int s = logn - 1; s >= 0; --s) {
-    const int log_t = logn - 1 - s;
-    const int h = 1 << s;
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      const int j = k >> log_t;
-      const int lo = (j << (log_t + 1)) + (k & ((1 << log_t) - 1));
-      const int hi = lo + (1 << log_t);
+      const uint32_t v = shoup_mul(x[hi], psi[m + j], psi_sh[m + j], p);
       const uint32_t a = x[lo];
-      const uint32_t b = x[hi];
-      x[lo] = add_mod(a, b, p);
-      x[hi] = shoup_mul(sub_mod(a, b, p), psi_inv[h + j], psi_inv_sh[h + j], p);
+      x[lo] = add_mod(a, v, p);
+      x[hi] = sub_mod(a, v, p);
     }
     __syncthreads();
   }
 }
 
-// K1 and K2: the register-resident, cluster-split transform.
+// K1, K2, K3, K4 and K5's digit stage: the register-resident, cluster-split
+// transform.
 //
 // A row of N words is split over a cluster of C = 1, 2, 4 or 8 thread
 // blocks (the host's plan, cuda_ntt.ntt_plan: C > 1 only when the row count
@@ -205,27 +185,46 @@ __device__ __forceinline__ void inv_stages(uint32_t* x, int logn, const uint32_t
 // distributed shared memory (map_shared_rank), between two cluster.sync()s:
 // the first makes sure every block of the cluster runs, the second that
 // every word has landed. The later passes stay in the block. The last
-// forward pass (u = 1) holds 8 consecutive words and stores them as two
-// 16-byte vectors. The inverse mirrors it: its first pass loads 8
-// consecutive words as two 16-byte vectors, its last (stages 2..0) reads
-// its words from the owning blocks' shared memory after a cluster.sync(),
-// multiplies by N^-1 (Shoup) while storing, and ends with a cluster.sync()
-// so that no block exits while a neighbour still reads its shared memory.
+// forward pass (u = 1) holds 8 consecutive words and hands them to the
+// store policy (two 16-byte vectors). The inverse mirrors it: its first pass
+// takes 8 consecutive words from the load policy (16-byte vectors), its last
+// (stages 2..0) reads its words from the owning blocks' shared memory after
+// a cluster.sync(), multiplies by N^-1 (Shoup) while storing, and ends with
+// a cluster.sync() so that no block exits while a neighbour still reads its
+// shared memory.
+//
+// T transforms a row (K3: T = 3, the others 1): shared memory holds T
+// padded segments one after the other, a thread T groups of each shape, and
+// every pass runs the same stages on the T groups, sharing the twiddles and
+// the barriers.
 //
 // At N = 4096: 4 passes, 3 block barriers (plus 2 cluster barriers when
 // C > 1) instead of 12, and 3 rows keep 24 SMs busy at C = 8 instead of 3.
 constexpr int kWords = 8;
 
+__device__ __forceinline__ void load8(const uint32_t* src, uint32_t* v) {
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+  const uint4 a = s4[0], b = s4[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(uint32_t* dst, const uint32_t* v) {
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+  d4[0] = make_uint4(v[0], v[1], v[2], v[3]);
+  d4[1] = make_uint4(v[4], v[5], v[6], v[7]);
+}
+
 // Shared-memory index of row word x: one spare word after every 32, so
 // strides of 8 and below between threads stop conflicting on banks.
 __host__ __device__ constexpr int pad(int x) { return x + (x >> 5); }
 
-// Stage s+r of a pass over stages s..s+R-1 on one group of 2**R words
-// v[k] = x_k, J the group's global block index: pairs k, k + 2**(R-1-r)
-// under twiddle 2**(s+r) + (J << r) + (k >> (R-r)), read once for the
-// 2**(R-r) words that share it. Forward: Cooley-Tukey; inverse:
-// Gentleman-Sande.
-template <int R, int r, bool kInverse>
+// Stage s+r of a pass over stages s..s+R-1 on T groups of 2**R words,
+// group t at v + t*kWords, word k of it x_k, J the groups' global block
+// index: pairs k, k + 2**(R-1-r) under twiddle 2**(s+r) + (J << r) +
+// (k >> (R-r)), read once for the T * 2**(R-r) words that share it.
+// Forward: Cooley-Tukey; inverse: Gentleman-Sande.
+template <int R, int r, bool kInverse, int T>
 __device__ __forceinline__ void group_stage(uint32_t* v, int s, int j, const uint32_t* tw,
                                             const uint32_t* tw_sh, uint32_t p) {
   constexpr int kHalf = 1 << (R - 1 - r);
@@ -235,86 +234,104 @@ __device__ __forceinline__ void group_stage(uint32_t* v, int s, int j, const uin
     const uint32_t w = __ldg(tw + first + g);
     const uint32_t ws = __ldg(tw_sh + first + g);
 #pragma unroll
-    for (int k0 = 0; k0 < kHalf; ++k0) {
-      const int lo = g * 2 * kHalf + k0;
-      const int hi = lo + kHalf;
-      const uint32_t a = v[lo];
-      if constexpr (kInverse) {
-        v[lo] = add_mod(a, v[hi], p);
-        v[hi] = shoup_mul(sub_mod(a, v[hi], p), w, ws, p);
-      } else {
-        const uint32_t t = shoup_mul(v[hi], w, ws, p);
-        v[lo] = add_mod(a, t, p);
-        v[hi] = sub_mod(a, t, p);
+    for (int t = 0; t < T; ++t) {
+#pragma unroll
+      for (int k0 = 0; k0 < kHalf; ++k0) {
+        const int lo = t * kWords + g * 2 * kHalf + k0;
+        const int hi = lo + kHalf;
+        const uint32_t a = v[lo];
+        if constexpr (kInverse) {
+          v[lo] = add_mod(a, v[hi], p);
+          v[hi] = shoup_mul(sub_mod(a, v[hi], p), w, ws, p);
+        } else {
+          const uint32_t b = shoup_mul(v[hi], w, ws, p);
+          v[lo] = add_mod(a, b, p);
+          v[hi] = sub_mod(a, b, p);
+        }
       }
     }
   }
 }
 
-// All R stages of a group: in increasing order forward, decreasing inverse.
-template <int R, bool kInverse>
+// All R stages of T groups: in increasing order forward, decreasing inverse.
+template <int R, bool kInverse, int T>
 __device__ __forceinline__ void group_stages(uint32_t* v, int s, int j, const uint32_t* tw,
                                              const uint32_t* tw_sh, uint32_t p) {
   if constexpr (!kInverse) {
-    group_stage<R, 0, false>(v, s, j, tw, tw_sh, p);
-    if constexpr (R > 1) group_stage<R, 1, false>(v, s, j, tw, tw_sh, p);
-    if constexpr (R > 2) group_stage<R, 2, false>(v, s, j, tw, tw_sh, p);
+    group_stage<R, 0, false, T>(v, s, j, tw, tw_sh, p);
+    if constexpr (R > 1) group_stage<R, 1, false, T>(v, s, j, tw, tw_sh, p);
+    if constexpr (R > 2) group_stage<R, 2, false, T>(v, s, j, tw, tw_sh, p);
   } else {
-    if constexpr (R > 2) group_stage<R, 2, true>(v, s, j, tw, tw_sh, p);
-    if constexpr (R > 1) group_stage<R, 1, true>(v, s, j, tw, tw_sh, p);
-    group_stage<R, 0, true>(v, s, j, tw, tw_sh, p);
+    if constexpr (R > 2) group_stage<R, 2, true, T>(v, s, j, tw, tw_sh, p);
+    if constexpr (R > 1) group_stage<R, 1, true, T>(v, s, j, tw, tw_sh, p);
+    group_stage<R, 0, true, T>(v, s, j, tw, tw_sh, p);
   }
 }
 
 // One pass of R stages from stage s inside the block's segment of SEG
-// words (segment offset seg in the row): each thread takes kWords >> R
-// groups, local group q*THREADS + tid, loads them from shared memory, runs
-// the stages and stores them back in place.
-template <int LOGN, int SEG, int R, bool kInverse>
+// words (segment offset seg in the row) of each of the T transforms: each
+// thread takes kWords >> R groups of each, local group q*THREADS + tid,
+// loads them from shared memory (transform t's segment at t*pad(SEG)),
+// runs the stages and stores them back in place.
+template <int LOGN, int SEG, int R, bool kInverse, int T>
 __device__ __forceinline__ void local_pass(uint32_t* sm, int s, int seg, const uint32_t* tw,
                                            const uint32_t* tw_sh, uint32_t p) {
   constexpr int kThreadsPerBlock = SEG / kWords;
   constexpr int kGroup = 1 << R;
+  constexpr int kStride = pad(SEG);
   const int log_u = LOGN - s - R;
   const int span = (1 << LOGN) >> s;
-  uint32_t v[kWords];
+  uint32_t v[T * kWords];
 #pragma unroll
   for (int q = 0; q < kWords / kGroup; ++q) {
     const int gl = q * kThreadsPerBlock + static_cast<int>(threadIdx.x);
     const int jl = gl >> log_u;
     const int x0 = jl * span + (gl & ((1 << log_u) - 1));
 #pragma unroll
-    for (int k = 0; k < kGroup; ++k) v[q * kGroup + k] = sm[pad(x0 + (k << log_u))];
-    group_stages<R, kInverse>(v + q * kGroup, s, seg / span + jl, tw, tw_sh, p);
+    for (int t = 0; t < T; ++t)
 #pragma unroll
-    for (int k = 0; k < kGroup; ++k) sm[pad(x0 + (k << log_u))] = v[q * kGroup + k];
+      for (int k = 0; k < kGroup; ++k)
+        v[t * kWords + q * kGroup + k] = sm[t * kStride + pad(x0 + (k << log_u))];
+    group_stages<R, kInverse, T>(v + q * kGroup, s, seg / span + jl, tw, tw_sh, p);
+#pragma unroll
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k)
+        sm[t * kStride + pad(x0 + (k << log_u))] = v[t * kWords + q * kGroup + k];
   }
 }
 
-// Load policies of the forward transform: where its first pass finds word
-// x of row r. row(r, num_l, n) does the per-row index work once; the
-// returned functor maps a word index and the row's prime to the word.
-// Plain loads: through __ldg (the read-only path) the first pass took about
-// 1 us longer on the H100 at 3 to 54 rows (PERF.md).
+// Load policies: where the first pass finds its words. kTransforms is T,
+// the transforms a row; row(r, num_l, n) does the per-row index work once
+// and returns a functor. The forward's first pass calls it as (t, x, p):
+// word x of transform t of the row, p the row's prime; the inverse's first
+// pass as vec8(x0, p, v): the 8 words x0..x0+7 (x0 a multiple of 8) into v.
+// Plain loads in the forward: through __ldg (the read-only path) the first
+// pass took about 1 us longer on the H100 at 3 to 54 rows (PERF.md).
 //
-// PlainRows (K1, and K2's input): row r of the [rows, N] input itself.
+// PlainRows (K1, K2): row r of the [rows, N] input itself.
 struct PlainRows {
+  static constexpr int kTransforms = 1;
   const uint32_t* in;
   struct Row {
     const uint32_t* src;
-    __device__ __forceinline__ uint32_t operator()(int x, uint32_t) const {
+    __device__ __forceinline__ uint32_t operator()(int, int x, uint32_t) const {
       return src[x];
+    }
+    __device__ __forceinline__ void vec8(int x0, uint32_t, uint32_t* v) const {
+      load8(src + x0, v);
     }
   };
   __device__ __forceinline__ Row row(size_t r, int, int n) const { return {in + r * n}; }
 };
 
-// DigitRows (K5's digit stage): row r = (b*R + c)*L + j of the digit
-// tensor D[B, R, L, N], R = L*d, is digit k = c % d (bits w*k .. w*k+w-1)
-// of coefficient limb i = c / d of ciphertext b, centred by 2**(w-1) under
-// the output prime p_j = primes[r % L]. A limb is read d*L times, by d*L
-// rows; after the first the words come from the L2.
+// DigitRows (K5's digit stage, forward only): row r = (b*R + c)*L + j of
+// the digit tensor D[B, R, L, N], R = L*d, is digit k = c % d (bits
+// w*k .. w*k+w-1) of coefficient limb i = c / d of ciphertext b, centred by
+// 2**(w-1) under the output prime p_j = primes[r % L]. A limb is read d*L
+// times, by d*L rows; after the first the words come from the L2.
 struct DigitRows {
+  static constexpr int kTransforms = 1;
   const uint32_t* coeff;   // [B, L, N] canonical coefficient residues
   int num_digits;          // d
   int digit_bits;          // w
@@ -322,7 +339,7 @@ struct DigitRows {
     const uint32_t* src;
     int shift;
     uint32_t mask, half;
-    __device__ __forceinline__ uint32_t operator()(int x, uint32_t p) const {
+    __device__ __forceinline__ uint32_t operator()(int, int x, uint32_t p) const {
       return sub_mod((src[x] >> shift) & mask, half, p);
     }
   };
@@ -336,26 +353,121 @@ struct DigitRows {
   }
 };
 
+// EncryptRows (K3, forward only): three transforms of row r = b*L + l of
+// the coefficient-domain [B, L, N] inputs: u, (e0 + m) mod p and e1. The
+// words of m and e0 are added as they are loaded, so their sum is never
+// written.
+struct EncryptRows {
+  static constexpr int kTransforms = 3;
+  const uint32_t *u, *e0, *e1, *m;
+  struct Row {
+    const uint32_t *u, *e0, *e1, *m;
+    __device__ __forceinline__ uint32_t operator()(int t, int x, uint32_t p) const {
+      return t == 0 ? u[x] : t == 1 ? add_mod(e0[x], m[x], p) : e1[x];
+    }
+  };
+  __device__ __forceinline__ Row row(size_t r, int, int n) const {
+    const size_t o = r * n;
+    return {u + o, e0 + o, e1 + o, m + o};
+  }
+};
+
+// DecryptRows (K4, inverse only): row r = b*L + l is d = c0 + c1*s mod p,
+// s the Montgomery-form secret key's row of prime l, formed from 16-byte
+// loads of c0, c1 and s.
+struct DecryptRows {
+  static constexpr int kTransforms = 1;
+  const uint32_t *c0, *c1, *s_mont, *pinv_neg;
+  struct Row {
+    const uint32_t *c0, *c1, *s;
+    uint32_t pinv;
+    __device__ __forceinline__ void vec8(int x0, uint32_t p, uint32_t* v) const {
+      uint32_t a[kWords], b[kWords], k[kWords];
+      load8(c0 + x0, a);
+      load8(c1 + x0, b);
+      load8(s + x0, k);
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) v[i] = add_mod(a[i], mont_mul(b[i], k[i], p, pinv), p);
+    }
+  };
+  __device__ __forceinline__ Row row(size_t r, int num_l, int n) const {
+    const int l = static_cast<int>(r % num_l);
+    return {c0 + r * n, c1 + r * n, s_mont + static_cast<size_t>(l) * n, pinv_neg[l]};
+  }
+};
+
+// Store policies: where the last pass puts its words. row(r, l, n) returns
+// a functor; the forward's last pass calls vec8(x0, v, p) with the 8 words
+// x0..x0+7 of each of the T transforms (transform t at v + t*kWords), the
+// inverse's word(x, value) for each word.
+//
+// PlainStore (K1, K2, K4, K5): row r of the [rows, N] output.
+struct PlainStore {
+  uint32_t* out;
+  struct Row {
+    uint32_t* dst;
+    __device__ __forceinline__ void vec8(int x0, const uint32_t* v, uint32_t) const {
+      store8(dst + x0, v);
+    }
+    __device__ __forceinline__ void word(int x, uint32_t value) const { dst[x] = value; }
+  };
+  __device__ __forceinline__ Row row(size_t r, int, int n) const { return {out + r * n}; }
+};
+
+// EncryptStore (K3, after EncryptRows): from U = NTT(u), E = NTT(e0 + m)
+// and F = NTT(e1), c0 = b*U + E and c1 = a*U + F (b, a the Montgomery-form
+// public key's rows of prime l, 16-byte loads), each stored as two 16-byte
+// vectors.
+struct EncryptStore {
+  uint32_t *c0, *c1;
+  const uint32_t *b_mont, *a_mont, *pinv_neg;
+  struct Row {
+    uint32_t *c0, *c1;
+    const uint32_t *b, *a;
+    uint32_t pinv;
+    __device__ __forceinline__ void vec8(int x0, const uint32_t* v, uint32_t p) const {
+      uint32_t k[kWords], out[kWords];
+      load8(b + x0, k);
+#pragma unroll
+      for (int i = 0; i < kWords; ++i)
+        out[i] = add_mod(mont_mul(v[i], k[i], p, pinv), v[kWords + i], p);
+      store8(c0 + x0, out);
+      load8(a + x0, k);
+#pragma unroll
+      for (int i = 0; i < kWords; ++i)
+        out[i] = add_mod(mont_mul(v[i], k[i], p, pinv), v[2 * kWords + i], p);
+      store8(c1 + x0, out);
+    }
+  };
+  __device__ __forceinline__ Row row(size_t r, int l, int n) const {
+    const size_t key = static_cast<size_t>(l) * n;
+    return {c0 + r * n, c1 + r * n, b_mont + key, a_mont + key, pinv_neg[l]};
+  }
+};
+
 // K1 (kInverse = false, PlainRows) replaces ntt_forward_pallas
 // (pallas_ntt.py, _fwd_kernel / _fwd_stages); K2 (kInverse = true)
 // replaces ntt_inverse_pallas (_inv_kernel / _inv_stages), its N^-1 Shoup
 // multiply folded into the store; K5's digit stage is the forward
-// transform with DigitRows. Grid: rows * C blocks, clusters of C along x.
-// Bound at the main paths' 3 to 150 rows: operations, then bytes (row in,
-// row out, the prime's twiddle tables); see PERF.md.
-template <int LOGN, int C, bool kInverse, typename Src>
+// transform with DigitRows; K3 the forward with EncryptRows and
+// EncryptStore, K4 the inverse with DecryptRows. Grid: rows * C blocks,
+// clusters of C along x; T * pad(N/C) words of dynamic shared memory.
+// Bound at the main paths' 3 to 456 rows: operations, then bytes (rows in,
+// rows out, the prime's twiddle tables); see PERF.md.
+template <int LOGN, int C, bool kInverse, typename Src, typename Dst>
 __global__ void __launch_bounds__((1 << LOGN) / C / kWords)
-ntt_kernel(Src src, uint32_t* __restrict__ out,
-           const uint32_t* __restrict__ tw_all, const uint32_t* __restrict__ tw_sh_all,
-           const uint32_t* __restrict__ primes, const uint32_t* __restrict__ n_inv,
-           const uint32_t* __restrict__ n_inv_sh, int num_l) {
-  static_assert(!kInverse || std::is_same_v<Src, PlainRows>,
-                "the inverse loads its rows as 16-byte vectors of the input");
+ntt_kernel(Src src, Dst dst, const uint32_t* __restrict__ tw_all,
+           const uint32_t* __restrict__ tw_sh_all, const uint32_t* __restrict__ primes,
+           const uint32_t* __restrict__ n_inv, const uint32_t* __restrict__ n_inv_sh,
+           int num_l) {
+  constexpr int T = Src::kTransforms;
+  static_assert(!kInverse || T == 1, "the inverse runs one transform a row");
   constexpr int N = 1 << LOGN;
   constexpr int SEG = N / C;
+  constexpr int kStride = pad(SEG);              // shared words of one transform
   constexpr int kThreadsPerBlock = SEG / kWords;
-  constexpr int kShort = (LOGN - 3) % 3;        // stages of the short pass, 0: none
-  extern __shared__ uint32_t sm[];              // pad(SEG) words
+  constexpr int kShort = (LOGN - 3) % 3;         // stages of the short pass, 0: none
+  extern __shared__ uint32_t sm[];               // T * pad(SEG) words
   int rank = 0;
   if constexpr (C > 1) rank = static_cast<int>(cg::this_cluster().block_rank());
   const size_t row = blockIdx.x / C;
@@ -365,58 +477,62 @@ ntt_kernel(Src src, uint32_t* __restrict__ out,
   const uint32_t* tw_sh = tw_sh_all + static_cast<size_t>(l) * N;
   const int tid = threadIdx.x;
   const int seg = rank * SEG;
-  const int g = rank * kThreadsPerBlock + tid;  // group of the cross-block pass
-  uint32_t v[kWords];
+  const int g = rank * kThreadsPerBlock + tid;   // group of the cross-block pass
+  uint32_t v[T * kWords];
   if constexpr (!kInverse) {
     const auto load = src.row(row, num_l, N);
 #pragma unroll
-    for (int k = 0; k < kWords; ++k) v[k] = load(g + k * (N / kWords), p);
-    group_stages<3, false>(v, 0, 0, tw, tw_sh, p);
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) v[t * kWords + k] = load(t, g + k * (N / kWords), p);
+    group_stages<3, false, T>(v, 0, 0, tw, tw_sh, p);
     if constexpr (C > 1) {
       cg::cluster_group cluster = cg::this_cluster();
       cluster.sync();
 #pragma unroll
-      for (int k = 0; k < kWords; ++k) {
-        const int x = g + k * (N / kWords);
-        cluster.map_shared_rank(sm, x / SEG)[pad(x % SEG)] = v[k];
-      }
+      for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int k = 0; k < kWords; ++k) {
+          const int x = g + k * (N / kWords);
+          cluster.map_shared_rank(sm, x / SEG)[t * kStride + pad(x % SEG)] = v[t * kWords + k];
+        }
       cluster.sync();
     } else {
 #pragma unroll
-      for (int k = 0; k < kWords; ++k) sm[pad(g + k * (N / kWords))] = v[k];
+      for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int k = 0; k < kWords; ++k)
+          sm[t * kStride + pad(g + k * (N / kWords))] = v[t * kWords + k];
       __syncthreads();
     }
     if constexpr (kShort > 0) {
-      local_pass<LOGN, SEG, kShort, false>(sm, 3, seg, tw, tw_sh, p);
+      local_pass<LOGN, SEG, kShort, false, T>(sm, 3, seg, tw, tw_sh, p);
       __syncthreads();
     }
 #pragma unroll
     for (int s = 3 + kShort; s < LOGN - 3; s += 3) {
-      local_pass<LOGN, SEG, 3, false>(sm, s, seg, tw, tw_sh, p);
+      local_pass<LOGN, SEG, 3, false, T>(sm, s, seg, tw, tw_sh, p);
       __syncthreads();
     }
 #pragma unroll
-    for (int k = 0; k < kWords; ++k) v[k] = sm[pad(kWords * tid + k)];
-    group_stages<3, false>(v, LOGN - 3, (seg >> 3) + tid, tw, tw_sh, p);
-    uint4* dst = reinterpret_cast<uint4*>(out + row * N + seg + kWords * tid);
-    dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
-    dst[1] = make_uint4(v[4], v[5], v[6], v[7]);
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) v[t * kWords + k] = sm[t * kStride + pad(kWords * tid + k)];
+    group_stages<3, false, T>(v, LOGN - 3, (seg >> 3) + tid, tw, tw_sh, p);
+    dst.row(row, l, N).vec8(seg + kWords * tid, v, p);
   } else {
-    const uint4* in4 = reinterpret_cast<const uint4*>(src.in + row * N + seg + kWords * tid);
-    const uint4 a = in4[0], b = in4[1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-    group_stages<3, true>(v, LOGN - 3, (seg >> 3) + tid, tw, tw_sh, p);
+    src.row(row, num_l, N).vec8(seg + kWords * tid, p, v);
+    group_stages<3, true, 1>(v, LOGN - 3, (seg >> 3) + tid, tw, tw_sh, p);
 #pragma unroll
     for (int k = 0; k < kWords; ++k) sm[pad(kWords * tid + k)] = v[k];
     __syncthreads();
 #pragma unroll
     for (int s = LOGN - 6; s >= 3 + kShort; s -= 3) {
-      local_pass<LOGN, SEG, 3, true>(sm, s, seg, tw, tw_sh, p);
+      local_pass<LOGN, SEG, 3, true, 1>(sm, s, seg, tw, tw_sh, p);
       __syncthreads();
     }
     if constexpr (kShort > 0) {
-      local_pass<LOGN, SEG, kShort, true>(sm, 3, seg, tw, tw_sh, p);
+      local_pass<LOGN, SEG, kShort, true, 1>(sm, 3, seg, tw, tw_sh, p);
       __syncthreads();
     }
     if constexpr (C > 1) {
@@ -431,19 +547,18 @@ ntt_kernel(Src src, uint32_t* __restrict__ out,
 #pragma unroll
       for (int k = 0; k < kWords; ++k) v[k] = sm[pad(g + k * (N / kWords))];
     }
-    group_stages<3, true>(v, 0, 0, tw, tw_sh, p);
+    group_stages<3, true, 1>(v, 0, 0, tw, tw_sh, p);
     const uint32_t w = n_inv[l], ws = n_inv_sh[l];
-    uint32_t* dst = out + row * N;
+    const auto store = dst.row(row, l, N);
 #pragma unroll
-    for (int k = 0; k < kWords; ++k) dst[g + k * (N / kWords)] = shoup_mul(v[k], w, ws, p);
+    for (int k = 0; k < kWords; ++k) store.word(g + k * (N / kWords), shoup_mul(v[k], w, ws, p));
     if constexpr (C > 1) cg::this_cluster().sync();
   }
 }
 
-// Device pointers and sizes of one ntt_kernel launch besides its load
-// policy (n_inv, n_inv_sh: the inverse only).
+// Device pointers and sizes of one ntt_kernel launch besides its load and
+// store policies (n_inv, n_inv_sh: the inverse only).
 struct NttArgs {
-  void* out;
   const void* tw;
   const void* tw_sh;
   const void* primes;
@@ -453,13 +568,21 @@ struct NttArgs {
   int num_l;
 };
 
-template <int LOGN, int C, bool kInverse, typename Src>
-cudaError_t launch_ntt_kernel(const Src& src, const NttArgs& a, cudaStream_t stream) {
+template <int LOGN, int C, bool kInverse, typename Src, typename Dst>
+cudaError_t launch_ntt_kernel(const Src& src, const Dst& dst, const NttArgs& a,
+                              cudaStream_t stream) {
   constexpr int SEG = (1 << LOGN) / C;
+  const auto kernel = ntt_kernel<LOGN, C, kInverse, Src, Dst>;
+  const size_t smem = static_cast<size_t>(Src::kTransforms) * pad(SEG) * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(a.rows) * C);
   cfg.blockDim = dim3(SEG / kWords);
-  cfg.dynamicSmemBytes = static_cast<size_t>(pad(SEG)) * sizeof(uint32_t);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -468,22 +591,21 @@ cudaError_t launch_ntt_kernel(const Src& src, const NttArgs& a, cudaStream_t str
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = C > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, ntt_kernel<LOGN, C, kInverse, Src>, src,
-                            static_cast<uint32_t*>(a.out),
-                            static_cast<const uint32_t*>(a.tw),
+  return cudaLaunchKernelEx(&cfg, kernel, src, dst, static_cast<const uint32_t*>(a.tw),
                             static_cast<const uint32_t*>(a.tw_sh),
                             static_cast<const uint32_t*>(a.primes),
                             static_cast<const uint32_t*>(a.n_inv),
                             static_cast<const uint32_t*>(a.n_inv_sh), a.num_l);
 }
 
-template <int LOGN, bool kInverse, typename Src>
-cudaError_t launch_ntt_logn(int cluster, const Src& src, const NttArgs& a, cudaStream_t stream) {
+template <int LOGN, bool kInverse, typename Src, typename Dst>
+cudaError_t launch_ntt_logn(int cluster, const Src& src, const Dst& dst, const NttArgs& a,
+                            cudaStream_t stream) {
   switch (cluster) {
-    case 1: return launch_ntt_kernel<LOGN, 1, kInverse>(src, a, stream);
-    case 2: return launch_ntt_kernel<LOGN, 2, kInverse>(src, a, stream);
-    case 4: return launch_ntt_kernel<LOGN, 4, kInverse>(src, a, stream);
-    case 8: return launch_ntt_kernel<LOGN, 8, kInverse>(src, a, stream);
+    case 1: return launch_ntt_kernel<LOGN, 1, kInverse>(src, dst, a, stream);
+    case 2: return launch_ntt_kernel<LOGN, 2, kInverse>(src, dst, a, stream);
+    case 4: return launch_ntt_kernel<LOGN, 4, kInverse>(src, dst, a, stream);
+    case 8: return launch_ntt_kernel<LOGN, 8, kInverse>(src, dst, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -491,89 +613,19 @@ cudaError_t launch_ntt_logn(int cluster, const Src& src, const NttArgs& a, cudaS
 // Launch the transform on a.rows rows with cluster size `cluster` (1, 2, 4
 // or 8; anything else, or an N outside 1024..8192, is refused with
 // cudaErrorInvalidValue before any launch). Instantiated for K1 and K2
-// (PlainRows) and for K5's digit stage (DigitRows, forward only).
-template <bool kInverse, typename Src>
-cudaError_t launch_ntt(int logn, int cluster, const Src& src, const NttArgs& a,
+// (PlainRows, PlainStore), K5's digit stage (DigitRows, forward), K3
+// (EncryptRows, EncryptStore) and K4 (DecryptRows, inverse).
+template <bool kInverse, typename Src, typename Dst>
+cudaError_t launch_ntt(int logn, int cluster, const Src& src, const Dst& dst, const NttArgs& a,
                        cudaStream_t stream) {
   if (a.rows <= 0 || a.num_l <= 0) return cudaErrorInvalidValue;
   switch (logn) {
-    case 10: return launch_ntt_logn<10, kInverse>(cluster, src, a, stream);
-    case 11: return launch_ntt_logn<11, kInverse>(cluster, src, a, stream);
-    case 12: return launch_ntt_logn<12, kInverse>(cluster, src, a, stream);
-    case 13: return launch_ntt_logn<13, kInverse>(cluster, src, a, stream);
+    case 10: return launch_ntt_logn<10, kInverse>(cluster, src, dst, a, stream);
+    case 11: return launch_ntt_logn<11, kInverse>(cluster, src, dst, a, stream);
+    case 12: return launch_ntt_logn<12, kInverse>(cluster, src, dst, a, stream);
+    case 13: return launch_ntt_logn<13, kInverse>(cluster, src, dst, a, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// K3. Replaces encrypt_fused_pallas (pallas_ntt.py, _enc_kernel).
-// c0 = b*u + e0 + m, c1 = a*u + e1 (all evaluation domain; b, a Montgomery).
-// Bound at [110, 3, 4096]: operations (4 transforms a row), then bytes: 6
-// words per coefficient (4 in, 2 out), 32.6 MB. The four transformed polynomials never leave shared
-// memory: only c0 and c1 are written.
-__global__ void __launch_bounds__(kThreads)
-encrypt_fused_kernel(const uint32_t* __restrict__ m_res, const uint32_t* __restrict__ u,
-                     const uint32_t* __restrict__ e0, const uint32_t* __restrict__ e1,
-                     const uint32_t* __restrict__ b_mont,
-                     const uint32_t* __restrict__ a_mont, uint32_t* __restrict__ c0,
-                     uint32_t* __restrict__ c1, const uint32_t* __restrict__ psi,
-                     const uint32_t* __restrict__ psi_sh,
-                     const uint32_t* __restrict__ primes,
-                     const uint32_t* __restrict__ pinv_neg, int num_l, int logn) {
-  extern __shared__ uint32_t sm[];  // [u | e0 | e1 | m], n words each
-  const int n = 1 << logn;
-  const size_t row = blockIdx.x;
-  const int l = static_cast<int>(row % num_l);
-  const uint32_t p = primes[l];
-  const uint32_t pinv = pinv_neg[l];
-  const size_t off = row * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    sm[k] = u[off + k];
-    sm[n + k] = e0[off + k];
-    sm[2 * n + k] = e1[off + k];
-    sm[3 * n + k] = m_res[off + k];
-  }
-  __syncthreads();
-  fwd_stages<4>(sm, logn, psi + static_cast<size_t>(l) * n,
-                psi_sh + static_cast<size_t>(l) * n, p);
-  const uint32_t* bk = b_mont + static_cast<size_t>(l) * n;
-  const uint32_t* ak = a_mont + static_cast<size_t>(l) * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const uint32_t uk = sm[k];
-    c0[off + k] = add_mod(add_mod(mont_mul(uk, bk[k], p, pinv), sm[n + k], p),
-                          sm[3 * n + k], p);
-    c1[off + k] = add_mod(mont_mul(uk, ak[k], p, pinv), sm[2 * n + k], p);
-  }
-}
-
-// K4. Replaces decrypt_fused_pallas (pallas_ntt.py, _dec_kernel).
-// out = iNTT(c0 + c1*s) * N^-1 (s Montgomery), coefficient domain.
-// Bound at [55, 3, 4096]: operations, then bytes: 3 words per coefficient
-// (2 in, 1 out), 8.3 MB. d = c0 + c1*s is formed while loading, so it is never
-// written to device memory.
-__global__ void __launch_bounds__(kThreads)
-decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict__ c1,
-                     const uint32_t* __restrict__ s_mont, uint32_t* __restrict__ out,
-                     const uint32_t* __restrict__ psi_inv,
-                     const uint32_t* __restrict__ psi_inv_sh,
-                     const uint32_t* __restrict__ primes,
-                     const uint32_t* __restrict__ pinv_neg,
-                     const uint32_t* __restrict__ n_inv,
-                     const uint32_t* __restrict__ n_inv_sh, int num_l, int logn) {
-  extern __shared__ uint32_t sm[];
-  const int n = 1 << logn;
-  const size_t row = blockIdx.x;
-  const int l = static_cast<int>(row % num_l);
-  const uint32_t p = primes[l];
-  const uint32_t pinv = pinv_neg[l];
-  const size_t off = row * n;
-  const uint32_t* sk = s_mont + static_cast<size_t>(l) * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x)
-    sm[k] = add_mod(c0[off + k], mont_mul(c1[off + k], sk[k], p, pinv), p);
-  __syncthreads();
-  inv_stages(sm, logn, psi_inv + static_cast<size_t>(l) * n,
-             psi_inv_sh + static_cast<size_t>(l) * n, p);
-  const uint32_t w = n_inv[l], ws = n_inv_sh[l];
-  for (int k = threadIdx.x; k < n; k += blockDim.x) out[off + k] = shoup_mul(sm[k], w, ws, p);
 }
 
 // K7. Replaces transcipher_fused_pallas (pallas_ntt.py, _transcipher_kernel).
@@ -582,7 +634,7 @@ decrypt_fused_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict
 // Montgomery product with sh31 = host_to_mont(2**31 mod p)), the forward NTT
 // of m, then c0 = NTT(m) - pad_c0 and c1 = -pad_c1 (zero stays zero).
 // Words w_hi/w_lo [B, N] carry no limb axis; pads and outputs are [B, L, N].
-// One block per (row, prime), as K1: the block reads its row's word pair
+// One block per (row, prime): the block reads its row's word pair
 // once, embeds it while staging into shared memory, transforms it there and
 // writes c0 and c1 once. c1 needs no transform, so its words stream through.
 // Bound at [152, 3, 4096]: operations (456 transforms, 0.011 ms), the bytes
@@ -617,8 +669,7 @@ transcipher_fused_kernel(const uint32_t* __restrict__ w_hi, const uint32_t* __re
     c1[off + k] = v == 0u ? 0u : p - v;
   }
   __syncthreads();
-  fwd_stages<1>(sm, logn, psi + static_cast<size_t>(l) * n,
-                psi_sh + static_cast<size_t>(l) * n, p);
+  fwd_stages(sm, logn, psi + static_cast<size_t>(l) * n, psi_sh + static_cast<size_t>(l) * n, p);
   for (int k = threadIdx.x; k < n; k += blockDim.x) c0[off + k] = sub_mod(sm[k], pad_c0[off + k], p);
 }
 
@@ -788,17 +839,6 @@ hoisted_products_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restr
   }
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int rows, int num_l, int logn, int words_per_row,
-                    size_t* smem) {
-  if (rows <= 0 || num_l <= 0 || logn < kMinLogN || logn > kMaxLogN) return cudaErrorInvalidValue;
-  *smem = static_cast<size_t>(words_per_row) * (static_cast<size_t>(1) << logn) * sizeof(uint32_t);
-  if (*smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(*smem));
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -809,54 +849,61 @@ extern "C" {
 
 int ntt_forward(const void* in, void* out, const void* psi, const void* psi_sh,
                 const void* primes, int rows, int num_l, int logn, int cluster, void* stream) {
-  const NttArgs a{out, psi, psi_sh, primes, nullptr, nullptr, rows, num_l};
+  const NttArgs a{psi, psi_sh, primes, nullptr, nullptr, rows, num_l};
   const PlainRows src{static_cast<const uint32_t*>(in)};
-  cudaError_t err = launch_ntt<false>(logn, cluster, src, a, static_cast<cudaStream_t>(stream));
+  const PlainStore dst{static_cast<uint32_t*>(out)};
+  cudaError_t err = launch_ntt<false>(logn, cluster, src, dst, a,
+                                      static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int ntt_inverse(const void* in, void* out, const void* psi_inv, const void* psi_inv_sh,
                 const void* primes, const void* n_inv, const void* n_inv_sh, int rows,
                 int num_l, int logn, int cluster, void* stream) {
-  const NttArgs a{out, psi_inv, psi_inv_sh, primes, n_inv, n_inv_sh, rows, num_l};
+  const NttArgs a{psi_inv, psi_inv_sh, primes, n_inv, n_inv_sh, rows, num_l};
   const PlainRows src{static_cast<const uint32_t*>(in)};
-  cudaError_t err = launch_ntt<true>(logn, cluster, src, a, static_cast<cudaStream_t>(stream));
+  const PlainStore dst{static_cast<uint32_t*>(out)};
+  cudaError_t err = launch_ntt<true>(logn, cluster, src, dst, a,
+                                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// K3: coefficient-domain m_res, u, e0, e1 [B, L, N] and the Montgomery-form
+// public key b_mont/a_mont [L, N] -> evaluation-domain c0/c1 [B, L, N];
+// rows = B*L, split over `cluster` blocks each. b_mont, a_mont, c0 and c1
+// must be 16-byte aligned.
 int encrypt_fused(const void* m_res, const void* u, const void* e0, const void* e1,
                   const void* b_mont, const void* a_mont, void* c0, void* c1,
                   const void* psi, const void* psi_sh, const void* primes,
-                  const void* pinv_neg, int rows, int num_l, int logn, void* stream) {
-  size_t smem = 0;
-  cudaError_t err = prepare(encrypt_fused_kernel, rows, num_l, logn, 4, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  encrypt_fused_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(m_res), static_cast<const uint32_t*>(u),
-      static_cast<const uint32_t*>(e0), static_cast<const uint32_t*>(e1),
-      static_cast<const uint32_t*>(b_mont), static_cast<const uint32_t*>(a_mont),
-      static_cast<uint32_t*>(c0), static_cast<uint32_t*>(c1),
-      static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(psi_sh),
-      static_cast<const uint32_t*>(primes), static_cast<const uint32_t*>(pinv_neg), num_l,
-      logn);
-  return static_cast<int>(cudaGetLastError());
+                  const void* pinv_neg, int rows, int num_l, int logn, int cluster,
+                  void* stream) {
+  const NttArgs a{psi, psi_sh, primes, nullptr, nullptr, rows, num_l};
+  const EncryptRows src{static_cast<const uint32_t*>(u), static_cast<const uint32_t*>(e0),
+                        static_cast<const uint32_t*>(e1), static_cast<const uint32_t*>(m_res)};
+  const EncryptStore dst{static_cast<uint32_t*>(c0), static_cast<uint32_t*>(c1),
+                         static_cast<const uint32_t*>(b_mont),
+                         static_cast<const uint32_t*>(a_mont),
+                         static_cast<const uint32_t*>(pinv_neg)};
+  cudaError_t err = launch_ntt<false>(logn, cluster, src, dst, a,
+                                      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// K4: evaluation-domain c0/c1 [B, L, N] and the Montgomery-form secret key
+// s_mont [L, N] -> coefficient-domain out [B, L, N]; rows = B*L, split over
+// `cluster` blocks each. c0, c1 and s_mont must be 16-byte aligned.
 int decrypt_fused(const void* c0, const void* c1, const void* s_mont, void* out,
                   const void* psi_inv, const void* psi_inv_sh, const void* primes,
                   const void* pinv_neg, const void* n_inv, const void* n_inv_sh, int rows,
-                  int num_l, int logn, void* stream) {
-  size_t smem = 0;
-  cudaError_t err = prepare(decrypt_fused_kernel, rows, num_l, logn, 1, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decrypt_fused_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(c0), static_cast<const uint32_t*>(c1),
-      static_cast<const uint32_t*>(s_mont), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(psi_inv), static_cast<const uint32_t*>(psi_inv_sh),
-      static_cast<const uint32_t*>(primes), static_cast<const uint32_t*>(pinv_neg),
-      static_cast<const uint32_t*>(n_inv), static_cast<const uint32_t*>(n_inv_sh), num_l,
-      logn);
-  return static_cast<int>(cudaGetLastError());
+                  int num_l, int logn, int cluster, void* stream) {
+  const NttArgs a{psi_inv, psi_inv_sh, primes, n_inv, n_inv_sh, rows, num_l};
+  const DecryptRows src{static_cast<const uint32_t*>(c0), static_cast<const uint32_t*>(c1),
+                        static_cast<const uint32_t*>(s_mont),
+                        static_cast<const uint32_t*>(pinv_neg)};
+  const PlainStore dst{static_cast<uint32_t*>(out)};
+  cudaError_t err = launch_ntt<true>(logn, cluster, src, dst, a,
+                                     static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // K7: words w_hi/w_lo [B, N] (< 2**31), pads pad_c0/pad_c1 [B, L, N] ->
@@ -866,10 +913,9 @@ int transcipher_fused(const void* w_hi, const void* w_lo, const void* pad_c0,
                       const void* psi_sh, const void* primes, const void* pinv_neg,
                       const void* mu, const void* sh31, int rows, int num_l, int logn,
                       void* stream) {
-  size_t smem = 0;
-  cudaError_t err = prepare(transcipher_fused_kernel, rows, num_l, logn, 1, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows % num_l != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || num_l <= 0 || rows % num_l != 0 || logn < kMinLogN || logn > kMaxLogN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (static_cast<size_t>(1) << logn) * sizeof(uint32_t);   // one row
   transcipher_fused_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(w_hi), static_cast<const uint32_t*>(w_lo),
       static_cast<const uint32_t*>(pad_c0), static_cast<const uint32_t*>(pad_c1),
@@ -902,16 +948,16 @@ int keyswitch_fused(const void* x, void* coeff_scratch, void* digit_scratch, con
   const uint32_t* coeff = static_cast<const uint32_t*>(x);
   cudaError_t err;
   if (eval_input) {
-    const NttArgs a{coeff_scratch, psi_inv, psi_inv_sh, primes, n_inv, n_inv_sh,
-                    batch * num_l, num_l};
-    err = launch_ntt<true>(logn, inverse_cluster, PlainRows{coeff}, a, st);
+    const NttArgs a{psi_inv, psi_inv_sh, primes, n_inv, n_inv_sh, batch * num_l, num_l};
+    err = launch_ntt<true>(logn, inverse_cluster, PlainRows{coeff},
+                           PlainStore{static_cast<uint32_t*>(coeff_scratch)}, a, st);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     coeff = static_cast<const uint32_t*>(coeff_scratch);
   }
-  const NttArgs a{digit_scratch, psi, psi_sh, primes, nullptr, nullptr,
-                  batch * num_r * num_l, num_l};
-  err = launch_ntt<false>(logn, digit_cluster, DigitRows{coeff, num_digits, digit_bits}, a, st);
+  const NttArgs a{psi, psi_sh, primes, nullptr, nullptr, batch * num_r * num_l, num_l};
+  err = launch_ntt<false>(logn, digit_cluster, DigitRows{coeff, num_digits, digit_bits},
+                          PlainStore{static_cast<uint32_t*>(digit_scratch)}, a, st);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t groups = (static_cast<size_t>(batch) * num_l << logn) / 4;

@@ -130,31 +130,30 @@ def test_library_path_covers_every_file_under_csrc(tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 3, 6, 54, 165])
+@pytest.mark.parametrize("rows", [1, 3, 6, 54, 57, 165, 330, 456])
 @pytest.mark.parametrize("n", [1024, 2048, 4096, 8192])
 def test_kernels_bitwise_vs_plain_on_card(cuda_device, n, rows):
-    # Bitwise: K1-K2 on `rows` rows (every cluster plan of ntt_plan: 8, 8,
-    # 8, 2 and 1 blocks a row) and K3-K4 against their plain versions on
-    # the same card tensors, each launch counted once at its shape.
-    ctx = _ctx(n)
-    kctx = ctx if rows % 3 == 0 else _ctx(n, 1)
+    # Bitwise: K1-K4 on `rows` rows (every cluster plan of ntt_plan: 8, 8,
+    # 8, 2, 2 and 1 blocks a row; 330 and 456 rows are K3's launches in the
+    # round and the HHE round) against their plain versions on the same
+    # card tensors, each launch counted once at its shape.
+    ctx = _ctx(n) if rows % 3 == 0 else _ctx(n, 1)
     dev = cuda_device
-    x = _res(kctx, (rows // kctx.num_primes, kctx.num_primes, n), 5, dev)
-    m, u, e0, e1 = (_res(ctx, (7, 3, n), s, dev) for s in (6, 7, 8, 9))
-    b, a = _res(ctx, (3, n), 10, dev), _res(ctx, (3, n), 11, dev)
+    shape = (rows // ctx.num_primes, ctx.num_primes, n)
+    m, u, e0, e1 = (_res(ctx, shape, s, dev) for s in (5, 6, 7, 8))
+    b, a = _res(ctx, shape[1:], 10, dev), _res(ctx, shape[1:], 11, dev)
     cuda_ntt.reset_launch_counts()
-    assert torch.equal(cuda_ntt.ntt_forward(kctx, x), cuda_ntt.ntt_forward_plain(kctx, x))
-    assert torch.equal(cuda_ntt.ntt_inverse(kctx, x), cuda_ntt.ntt_inverse_plain(kctx, x))
+    assert torch.equal(cuda_ntt.ntt_forward(ctx, m), cuda_ntt.ntt_forward_plain(ctx, m))
+    assert torch.equal(cuda_ntt.ntt_inverse(ctx, m), cuda_ntt.ntt_inverse_plain(ctx, m))
     for got, want in zip(cuda_ntt.encrypt_fused(ctx, m, u, e0, e1, b, a),
                          cuda_ntt.encrypt_fused_plain(ctx, m, u, e0, e1, b, a)):
         assert torch.equal(got, want)
-    assert torch.equal(cuda_ntt.decrypt_fused(ctx, m, u, b),
-                       cuda_ntt.decrypt_fused_plain(ctx, m, u, b))
+    assert torch.equal(cuda_ntt.decrypt_fused(ctx, u, e1, b),
+                       cuda_ntt.decrypt_fused_plain(ctx, u, e1, b))
     torch.cuda.synchronize(dev)
     k1_k4 = ("ntt_forward", "ntt_inverse", "encrypt_fused", "decrypt_fused")
     assert cuda_ntt.launch_counts() == {k: int(k in k1_k4) for k in cuda_ntt.LAUNCHES}
-    assert cuda_ntt.launch_rows() == {("ntt_forward", rows, n): 1, ("ntt_inverse", rows, n): 1,
-                                      ("encrypt_fused", 21, n): 1, ("decrypt_fused", 21, n): 1}
+    assert cuda_ntt.launch_rows() == {(k, rows, n): 1 for k in k1_k4}
 
 
 @pytest.mark.cuda
@@ -164,6 +163,22 @@ def test_ntt_rejects_unaligned_rows_on_card(cuda_device):
     flat = _res(ctx, (2, 1, 1024), 13, cuda_device).reshape(-1)
     with pytest.raises(ValueError):
         cuda_ntt.ntt_inverse(ctx, flat[1:1025].reshape(1, 1, 1024))
+
+
+@pytest.mark.cuda
+def test_encrypt_decrypt_reject_unaligned_rows_on_card(cuda_device):
+    # K4 loads c0, c1 and the key row as 16-byte vectors, K3's epilogue the
+    # public key rows: a view 4 bytes off is refused, and nothing launches.
+    ctx = _ctx(1024, 1)
+    good = _res(ctx, (1, 1, 1024), 14, cuda_device)
+    bad = _res(ctx, (2, 1, 1024), 15, cuda_device).reshape(-1)[1:1025].reshape(1, 1, 1024)
+    cuda_ntt.reset_launch_counts()
+    for c0, c1, s in ((bad, good, good[0]), (good, bad, good[0]), (good, good, bad[0])):
+        with pytest.raises(ValueError):
+            cuda_ntt.decrypt_fused(ctx, c0, c1, s)
+    with pytest.raises(ValueError):
+        cuda_ntt.encrypt_fused(ctx, good, good, good, good, bad[0], good[0])
+    assert cuda_ntt.launch_counts() == dict.fromkeys(cuda_ntt.LAUNCHES, 0)
 
 
 @pytest.mark.cuda

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the NTT pair and the key-switch (K1, K2, K5) of any checkout of the port.
+"""Time the NTT pair, fused encrypt and decrypt, and the key-switch (K1-K5)
+of any checkout of the port.
 
     python3 time_kernels.py [TREE]
 
 Holds K1 and K2 at every entry of this checkout's `chip_smoke.NTT_SHAPES`,
-and K5 at every entry of its `KS_SHAPES`, bitwise against their plain
-versions and times them with chip_smoke.py's timer (device time from
-torch.profiler kernel events, median of 30 calls, L2 flushed; K5's split by
-launch; the wrapper's call time), on the kernels of TREE (a directory
+K3 at every entry of its `ENC_SHAPES`, K4 at every entry of `DEC_SHAPES`
+and K5 at every entry of `KS_SHAPES`, bitwise against their plain versions
+and times them with chip_smoke.py's timer (device time from torch.profiler
+kernel events, median of 30 calls, L2 flushed; K5's split by launch; the
+wrapper's call time), on the kernels of TREE (a directory
 holding `hefl_tpu_torch/`, by default this checkout). So two trees, e.g. a
 parent commit unpacked with `git archive` into an ignored directory and
 this one, can be compared at the same shapes on one card, run in turns.
@@ -40,9 +42,10 @@ def main() -> int:
     cuda_ntt.load_library()
     device = torch.device("cuda", 0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    cases = smoke.ntt_shape_cases(cuda_ntt, ntt_mod, device, 500) + [
-        case for case in smoke.serving_kernel_cases(cuda_ntt, ntt_mod, 4096, device, 400)
-        if case[0].startswith("keyswitch_fused")]
+    cases = (smoke.ntt_shape_cases(cuda_ntt, ntt_mod, device, 500)
+             + smoke.encdec_shape_cases(cuda_ntt, ntt_mod, device, 600)
+             + [case for case in smoke.serving_kernel_cases(cuda_ntt, ntt_mod, 4096, device, 400)
+                if case[0].startswith("keyswitch_fused")])
     for case in cases:
         smoke.kernel_record(case, flush, time_plain=False)
     return 0
