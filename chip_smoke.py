@@ -12,22 +12,23 @@ error:
      from `hefl_tpu_torch/csrc/ntt.cu` with nvcc (timed), and print ptxas's
      registers and spills of every `ntt_kernel` instantiation (the build's
      `-Xptxas -v` report).
-  2. For each kernel K1-K4 (forward NTT, inverse NTT, fused encrypt, fused
-     decrypt): call its wrapper on card tensors and require it to be
-     BITWISE equal to its plain PyTorch version run on the same card
-     tensors, at N=1024 and at N=1024..8192 x NTT_CHECK_ROWS (every
-     cluster plan of `cuda_ntt.ntt_plan`). Time it: `ms` is device time
+  2. For each kernel K1-K4 and K7 (forward NTT, inverse NTT, fused
+     encrypt, fused decrypt, fused transcipher): call its wrapper on card
+     tensors and require it to be BITWISE equal to its plain PyTorch
+     version run on the same card tensors, at N=1024 and at N=1024..8192 x
+     NTT_CHECK_ROWS (every cluster plan of `cuda_ntt.ntt_plan`; K7 on
+     rows // L upload rows of L primes). Time it: `ms` is device time
      (the kernel events of torch.profiler, median over 30 calls, L2
      flushed before each), `call_ms` the wrapper's call between two CUDA
      events (device time plus the host work the device waits for),
      `plain_ms` the plain version's call; and compute the kernel's lower
      bound on this card. K1 and K2 are timed at the round's [55, 3, 4096]
-     and at each of NTT_SHAPES, K3 at each of ENC_SHAPES and K4 at each of
-     DEC_SHAPES: the shapes the main paths launch them at. The same for
-     K7, the fused transcipher, at the HHE round's [8 clients x 19 rows, 3,
-     4096] and at N=1024; K5 (both modes) at each of KS_SHAPES, with the
-     device time of each of its two or three kernels (inverse, digit stage,
-     inner product) printed apart; and K6 at the linear score's shape.
+     and at each of NTT_SHAPES, K3 at each of ENC_SHAPES, K4 at each of
+     DEC_SHAPES and K7 at each of TC_SHAPES: the shapes the main paths
+     launch them at. The same for K5 (both modes) at each of KS_SHAPES,
+     with the device time of each of its two or three kernels (inverse,
+     digit stage, inner product) printed apart, and K6, checked at N=1024
+     too, at each of HOIST_SHAPES.
   3. Drive the main path once through the port's entry points: MedCNN at
      full width (256x256x3, 222,722 parameters, random weights from a seed),
      the `medical` synthetic data, 2 clients of 96 images, 2 local epochs,
@@ -71,12 +72,13 @@ error:
      decrypt, evaluate; the device time of the upload and of provision +
      transcipher by kernel (torch.profiler).
   Phases 3-6 each print their launches by (kernel, rows x N).
-  7. Check that no `ntt_kernel` instantiation of K1-K4 that phases 3-6
-     launched spills registers. Print one JSON line {"kernels": [...]} (launches: the sum
-     over the main-path runs of phases 3-6, each counted from zero; K1-K5
-     carry one "shapes" entry per timed shape with the launches at that
-     shape, K5's also its per-kernel "split"; the ranking launches x
-     (ms - bound) prices each launch at its own shape)
+  7. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-6 launched spills registers. Print one JSON line {"kernels": [...]}
+     (launches: the sum over the main-path runs of phases 3-6, each counted
+     from zero; every kernel carries one "shapes" entry per timed shape
+     with the launches at that shape, K5's also its per-kernel "split";
+     the ranking launches x (ms - bound) prices each launch at its own
+     shape)
      and, last, the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -131,13 +133,24 @@ KS_SHAPES = ((False, 1, 3, 4096), (False, 4, 3, 4096), (False, 1, 3, 8192),
 # 19 packed rows.
 ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096))
 DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096))
+# [B', L, N] (B' upload rows) at which phase 2 times K7: every shape phase 6
+# launches it at, the HHE round's 8 clients x 19 packed rows.
+TC_SHAPES = ((152, 3, 4096),)
+# (S, R, B, L, N) at which phase 2 times K6: every shape phases 4-5 launch it
+# at (S baby steps of the plan, R = L*NUM_DIGITS gadget components): the
+# linear score (bsgs_plan: 22 baby steps), `score_many`'s 4 packed
+# ciphertexts (run, not counted), the MLP's first layer at L=5 (8 baby
+# steps) and its second after two rescales (4). LAUNCH_ROWS keys K6 by
+# (B*L, N), distinct for these four.
+HOIST_SHAPES = ((22, 18, 1, 3, 4096), (22, 18, 4, 3, 4096), (8, 30, 1, 5, 8192),
+                (4, 18, 1, 3, 8192))
 # Prime counts at which phase 2 holds K5 bitwise at every ring size: every
 # cluster plan of its digit stage (cuda_ntt.keyswitch_plan).
 KS_CHECK_PRIMES = (1, 2, 3, 5)
-# Row counts at which phase 2 holds K1-K4 bitwise at every ring size: every
-# cluster plan of cuda_ntt.ntt_plan (8 blocks a row up to 16 rows, 4 up to
-# 33, 2 up to 65, 1 from 66 on a 132-SM card), and the row counts of
-# ENC_SHAPES and DEC_SHAPES.
+# Row counts at which phase 2 holds K1-K4 and K7 bitwise at every ring size:
+# every cluster plan of cuda_ntt.ntt_plan (8 blocks a row up to 16 rows, 4
+# up to 33, 2 up to 65, 1 from 66 on a 132-SM card), and the row counts of
+# ENC_SHAPES, DEC_SHAPES and TC_SHAPES.
 NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 57, 165, 330, 456)
 ERR_LIMIT = 5e-6
 SCORE_ERR_LIMIT = 0.05               # the JAX package's serving tolerance
@@ -156,12 +169,13 @@ def log(msg: str) -> None:
 # An ntt_kernel<LOGN, C, kInverse, Src, Dst> instantiation's mangled name.
 _NTT_KERNEL = re.compile(r"ntt_kernelILi(\d+)ELi(\d+)ELb([01])E.*?\d+([A-Za-z]+Rows)E"
                          r".*?\d+([A-Za-z]+Store)E")
-# The load and store policies of K1-K4's ntt_kernel instantiations.
+# The load and store policies of K1-K4's and K7's ntt_kernel instantiations.
 NTT_POLICIES = {
     "ntt_forward": ("false", "PlainRows", "PlainStore"),
     "ntt_inverse": ("true", "PlainRows", "PlainStore"),
     "encrypt_fused": ("false", "EncryptRows", "EncryptStore"),
     "decrypt_fused": ("true", "DecryptRows", "PlainStore"),
+    "transcipher_fused": ("false", "TranscipherRows", "TranscipherStore"),
 }
 
 
@@ -382,8 +396,8 @@ def decrypt_case(cuda_ntt, ntt_ctx, batch: int, device, seed: int):
 def serving_kernel_cases(cuda_ntt, ntt_mod, n: int, device, seed: int, shapes="slice"):
     """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K5 (both
     modes) and K6. `shapes="slice"`: the serving paths' shapes (K5 at each
-    of KS_SHAPES, with R+1 = 6L+1 key rows; K6 with S=22, R=18, B=1 at
-    N=4096); otherwise the same kinds at ring size n."""
+    of KS_SHAPES, with R+1 = 6L+1 key rows; K6 at each of HOIST_SHAPES,
+    shape [S, R, B, L, N]); otherwise the same kinds at ring size n."""
     from hefl_tpu_torch.ckks.primes import find_ntt_primes
 
     word = 4
@@ -413,10 +427,8 @@ def serving_kernel_cases(cuda_ntt, ntt_mod, n: int, device, seed: int, shapes="s
                                                        eval_input),
                 words * word, ops)
 
-    def hoisted(s_steps, b, ring, k):
-        num_l = 3
+    def hoisted(s_steps, r, b, num_l, ring, k):
         ctx = ctx_of(num_l, ring)
-        r = num_l * NUM_DIGITS
         c0 = rand_residues(ctx, (b, num_l, ring), seed + k, device)
         d = rand_residues(ctx, (b, r, num_l, ring), seed + k + 1, device)
         bk = rand_residues(ctx, (s_steps, r, num_l, ring), seed + k + 2, device)
@@ -432,17 +444,20 @@ def serving_kernel_cases(cuda_ntt, ntt_mod, n: int, device, seed: int, shapes="s
     if shapes == "slice":
         for k, (eval_input, b, num_l, ring) in enumerate(KS_SHAPES):
             cases.append(keyswitch(b, num_l, ring, eval_input, 10 * k))
-        cases.append(hoisted(22, 1, 4096, 100))
+        for k, (s_steps, r, b, num_l, ring) in enumerate(HOIST_SHAPES):
+            cases.append(hoisted(s_steps, r, b, num_l, ring, 100 + 10 * k))
     else:
         cases.append(keyswitch(2, 3, n, False, 0))
         cases.append(keyswitch(1, 5, n, True, 10))
-        cases.append(hoisted(22, 2, n, 20))
+        cases.append(hoisted(22, 3 * NUM_DIGITS, 2, 3, n, 20))
     return cases
 
 
 def transcipher_case(cuda_ntt, ntt_ctx, rows: int, device, seed: int):
     """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K7 over
-    `rows` upload rows: words [rows, N] below 2**31, pads [rows, L, N]."""
+    `rows` upload rows: words [rows, N] below 2**31, pads [rows, L, N].
+    Bytes: the word pair once (the L rows of an upload row re-read it from
+    the L2), both pads in, c0 and c1 out, the twiddle tables."""
     n, logn, num_l = ntt_ctx.n, ntt_ctx.logn, ntt_ctx.num_primes
     rng = np.random.default_rng(seed)
     w_hi, w_lo = (torch.from_numpy(rng.integers(0, 2**31, (rows, n)).astype(np.int32)).to(device)
@@ -477,7 +492,8 @@ def ntt_shape_cases(cuda_ntt, ntt_mod, device, seed: int):
 
 def encdec_shape_cases(cuda_ntt, ntt_mod, device, seed: int):
     """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K3 at
-    each of ENC_SHAPES and K4 at each of DEC_SHAPES."""
+    each of ENC_SHAPES, K4 at each of DEC_SHAPES and K7 at each of
+    TC_SHAPES."""
     from hefl_tpu_torch.ckks.primes import find_ntt_primes
 
     def ctx_of(num_l, n):
@@ -486,7 +502,9 @@ def encdec_shape_cases(cuda_ntt, ntt_mod, device, seed: int):
     return ([encrypt_case(cuda_ntt, ctx_of(num_l, n), b, device, seed + 10 * k)
              for k, (b, num_l, n) in enumerate(ENC_SHAPES)]
             + [decrypt_case(cuda_ntt, ctx_of(num_l, n), b, device, seed + 100 + 10 * k)
-               for k, (b, num_l, n) in enumerate(DEC_SHAPES)])
+               for k, (b, num_l, n) in enumerate(DEC_SHAPES)]
+            + [transcipher_case(cuda_ntt, ctx_of(num_l, n), b, device, seed + 200 + 10 * k)
+               for k, (b, num_l, n) in enumerate(TC_SHAPES)])
 
 
 def kernel_record(case, flush, time_plain: bool = True) -> dict:
@@ -541,6 +559,9 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
             m, u, e0, e1 = (rand_residues(ctx, (batch, num_l, n), n + rows + i, device)
                             for i in range(4))
             b, a = (rand_residues(ctx, (num_l, n), n + rows + i, device) for i in (4, 5))
+            rng = np.random.default_rng(n + rows)
+            w_hi, w_lo = (torch.from_numpy(rng.integers(0, 2**31, (batch, n)).astype(np.int32))
+                          .to(device) for _ in range(2))
             for name, got, want in (
                 ("ntt_forward", cuda_ntt.ntt_forward(ctx, m), cuda_ntt.ntt_forward_plain(ctx, m)),
                 ("ntt_inverse", cuda_ntt.ntt_inverse(ctx, m), cuda_ntt.ntt_inverse_plain(ctx, m)),
@@ -548,27 +569,30 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
                  cuda_ntt.encrypt_fused_plain(ctx, m, u, e0, e1, b, a)),
                 ("decrypt_fused", cuda_ntt.decrypt_fused(ctx, u, e1, a),
                  cuda_ntt.decrypt_fused_plain(ctx, u, e1, a)),
+                ("transcipher_fused", cuda_ntt.transcipher_fused(ctx, w_hi, w_lo, u, e1),
+                 cuda_ntt.transcipher_fused_plain(ctx, w_hi, w_lo, u, e1)),
             ):
                 if max_abs_err(got, want) != 0:
                     raise AssertionError(f"{name} on {rows} rows at N={n} differs from its plain "
                                          "version")
     torch.cuda.synchronize()
-    log(f"  ntt_forward, ntt_inverse, encrypt_fused, decrypt_fused at N in "
+    log(f"  ntt_forward, ntt_inverse, encrypt_fused, decrypt_fused, transcipher_fused at N in "
         f"{cuda_ntt.SUPPORTED_N} x rows in {NTT_CHECK_ROWS} (cluster sizes "
         f"{[cuda_ntt.ntt_plan(r, 4096) for r in NTT_CHECK_ROWS]}): bitwise equal")
-    for case in ntt_cases(cuda_ntt, ckks_ctx.ntt, 55, device, 200) + [
-            transcipher_case(cuda_ntt, ckks_ctx.ntt, 8 * 19, device, 250)]:
+    for case in ntt_cases(cuda_ntt, ckks_ctx.ntt, 55, device, 200):
         records[case[0]] = kernel_record(case, flush)
-    # K1 and K2 at NTT_SHAPES, K3 at ENC_SHAPES, K4 at DEC_SHAPES: the shapes
-    # the main paths launch them at (phases 3-6 print their launches by
-    # (kernel, rows, N)). K1/K2's [55, 3, 4096] records above are kept for
-    # continuity with earlier runs; K3/K4's record is their first shape's.
+    # K1 and K2 at NTT_SHAPES, K3 at ENC_SHAPES, K4 at DEC_SHAPES, K7 at
+    # TC_SHAPES: the shapes the main paths launch them at (phases 3-6 print
+    # their launches by (kernel, rows, N)). K1/K2's [55, 3, 4096] records
+    # above are kept for continuity with earlier runs; K3/K4/K7's record is
+    # their first shape's.
     # K3's bound counts three transforms a row; the TPU kernel's four are
     # printed beside it, for comparison with earlier runs.
     for case in ntt_shape_cases(cuda_ntt, ntt_mod, device, 500) + encdec_shape_cases(
             cuda_ntt, ntt_mod, device, 600):
         name = case[0]
-        rec = kernel_record(case, flush, time_plain=name in ("encrypt_fused", "decrypt_fused"))
+        rec = kernel_record(case, flush, time_plain=name in (
+            "encrypt_fused", "decrypt_fused", "transcipher_fused"))
         entry = {k: rec[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
         if name == "encrypt_fused":
             entry["bound_4t_ms"] = bound(case[5], encrypt_transforms_ops(rec["shape"], 4))[0]
@@ -601,14 +625,12 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
                                      4096).digit_cluster for num_l in KS_CHECK_PRIMES]
     log(f"  keyswitch_fused, both modes, at N in {cuda_ntt.SUPPORTED_N} x L in {KS_CHECK_PRIMES} "
         f"(digit-stage cluster sizes {plans}): bitwise equal")
-    # K5 at each of KS_SHAPES (its record: the first shape of each mode, all
-    # of them under "shapes"), then K6.
+    # K5 at each of KS_SHAPES, K6 at each of HOIST_SHAPES (the record: the
+    # first shape of each kind, all of them under "shapes").
     for case in serving_kernel_cases(cuda_ntt, ntt_mod, 4096, device, 400):
         rec = kernel_record(case, flush)
-        main = records.setdefault(rec["name"], rec)
-        if rec["name"].startswith("keyswitch_fused"):
-            main.setdefault("shapes", []).append({k: rec[k] for k in (
-                "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "split")})
+        records.setdefault(rec["name"], rec).setdefault("shapes", []).append({k: rec[k] for k in (
+            "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "split")})
     del flush
     return records
 
@@ -1055,12 +1077,13 @@ def main() -> int:
             shapes[key] = shapes.get(key, 0) + count
     log("phases 3-6 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 ran in phases 3-6 (ntt_plan's
-    # cluster size at each launched shape) must not spill registers.
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-6
+    # (ntt_plan's cluster size at each launched shape) must not spill
+    # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),
                                  *NTT_POLICIES[name])
                 for name, rows, n in shapes if name in NTT_POLICIES}
-    log(f"  ntt_kernel instantiations K1-K4 launched (registers, spill bytes): "
+    log(f"  ntt_kernel instantiations K1-K4, K7 launched (registers, spill bytes): "
         f"{json.dumps({k: report[k] for k in sorted(launched)})}")
     if any(report[k][1] or report[k][2] for k in launched):
         raise AssertionError("an ntt_kernel instantiation the main paths launch spills registers")
@@ -1068,16 +1091,26 @@ def main() -> int:
         rec["launches"] = sum(counts[name] for counts, _ in runs)
         if rec["launches"] < 1:
             raise AssertionError(f"no main path launched {name}")
-        for entry in rec.get("shapes", []):
-            b, num_l, n = entry["shape"]
+        for entry in rec["shapes"]:
+            *_, b, num_l, n = entry["shape"]         # [B, L, N]; K6 [S, R, B, L, N]
             entry["launches"] = shapes.get((name, b * num_l, n), 0)
+    # HOIST_SHAPES and TC_SHAPES claim every shape K6 and K7 run at: each
+    # main-path launch must fall on exactly one of them.
+    if len({(b * num_l, n) for *_, b, num_l, n in HOIST_SHAPES}) != len(HOIST_SHAPES):
+        raise AssertionError("two HOIST_SHAPES share one (B*L, N), so their launches cannot "
+                             "be told apart")
+    for name in ("hoisted_products", "transcipher_fused"):
+        timed = sum(e["launches"] for e in records[name]["shapes"])
+        if timed != records[name]["launches"]:
+            raise AssertionError(f"{records[name]['launches'] - timed} {name} launches at a shape "
+                                 "phase 2 does not time (HOIST_SHAPES / TC_SHAPES are stale)")
 
-    # ROADMAP Queue 2's ranking: launches x (device time - bound); K1-K5
-    # summed over their timed shapes, each launch priced at its own shape
-    # (launches at untimed shapes left out).
+    # ROADMAP Queue 2's ranking: launches x (device time - bound), summed
+    # over each kernel's timed shapes, each launch priced at its own shape
+    # (launches at untimed shapes left out; the line counts them).
     ranking = []
     for name, rec in records.items():
-        entries = [e for e in rec.get("shapes", [rec]) if e["launches"]]
+        entries = [e for e in rec["shapes"] if e["launches"]]
         ranking.append((sum(e["launches"] * (e["ms"] - e["bound_ms"]) for e in entries), name,
                         sum(e["launches"] for e in entries), rec["launches"],
                         [e["shape"] for e in entries]))

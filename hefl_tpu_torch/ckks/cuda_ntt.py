@@ -30,7 +30,7 @@ them (`launch_rows`). K5 counts its evaluation-domain-input mode
 (relinearization) under its own name, "keyswitch_fused_eval".
 
 Host-side launch plans, plain functions the CPU tests pin: `ntt_plan` gives
-the thread-block cluster size over which K1-K4 split each row;
+the thread-block cluster size over which K1-K4 and K7 split each row;
 `keyswitch_plan` gives K5's (its digit stage is K1's transform on B*R*L
 rows, its eval-input inverse K2's on B*L rows) and refuses a gadget the
 kernel cannot compute exactly.
@@ -87,7 +87,7 @@ _SIGNATURES = {
     "decrypt_fused": [_P] * 10 + [_I] * 4 + [_P],
     "keyswitch_fused": [_P] * 15 + [_I] * 8 + [_P],
     "hoisted_products": [_P] * 8 + [_I] * 5 + [_P],
-    "transcipher_fused": [_P] * 12 + [_I] * 3 + [_P],
+    "transcipher_fused": [_P] * 12 + [_I] * 4 + [_P],
 }
 _lib = None
 # The H100 SXM's streaming multiprocessors: ntt_plan's default without a card.
@@ -190,8 +190,8 @@ def _check(ctx: NTTContext, name: str, t: torch.Tensor, shape=None) -> None:
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:
     """K2's body (K2, K4, and K5 with evaluation-domain input) loads its
-    input rows as 16-byte vectors, K3's epilogue its key rows, and K5's
-    inner product its key rows."""
+    input rows as 16-byte vectors, K3's epilogue its key rows, K7's epilogue
+    its pad rows, and K5's inner product its key rows."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel loads rows as 16-byte vectors; the tensor's "
                          "data is not 16-byte aligned")
@@ -233,12 +233,12 @@ def _launch(ctx: NTTContext, name: str, device: torch.device, *args, rows: int,
 
 
 def ntt_plan(rows: int, n: int, sms: int | None = None) -> int:
-    """Cluster size C of K1-K4 on `rows` rows of N words: each row is split
-    over C thread blocks. The largest C in (1, 2, 4, 8) with rows * C <= the
-    card's SM count, so that few rows still spread over the SMs; 1 from half
-    the SM count of rows up (66 on an H100), where one block per row already
-    fills the card. `sms`: the SM count, by default read once from the
-    current CUDA device, DEFAULT_SM_COUNT without one."""
+    """Cluster size C of K1-K4 and K7 on `rows` rows of N words: each row is
+    split over C thread blocks. The largest C in (1, 2, 4, 8) with rows * C
+    <= the card's SM count, so that few rows still spread over the SMs; 1
+    from half the SM count of rows up (66 on an H100), where one block per
+    row already fills the card. `sms`: the SM count, by default read once
+    from the current CUDA device, DEFAULT_SM_COUNT without one."""
     global _sm_count
     if n not in SUPPORTED_N:
         raise ValueError(f"the NTT kernels support N in {SUPPORTED_N}, not {n}")
@@ -573,11 +573,16 @@ def transcipher_fused_plain(ctx: NTTContext, w_hi, w_lo, pad_c0, pad_c1):
 def transcipher_fused(ctx: NTTContext, w_hi, w_lo, pad_c0, pad_c1):
     """trivial(w) - Enc(z): symmetric-ciphertext words w_hi/w_lo int32[..., N]
     (each < 2**31) and the provisioned pad residues int32[..., L, N] ->
-    evaluation-domain (c0, c1) [..., L, N]. One K7 launch on CUDA."""
+    evaluation-domain (c0, c1) [..., L, N]. One K7 launch on CUDA over all
+    B*L rows, at `ntt_plan`'s cluster size: the forward transform with the
+    embedding in its first pass and the pads in its epilogue. The pad rows
+    must be 16-byte aligned."""
     if _is_cpu(w_hi, w_lo, pad_c0, pad_c1):
         return transcipher_fused_plain(ctx, w_hi, w_lo, pad_c0, pad_c1)
     _check(ctx, "transcipher_fused(pad_c0)", pad_c0)
     _check(ctx, "transcipher_fused(pad_c1)", pad_c1, pad_c0.shape)
+    _check_aligned("transcipher_fused(pad_c0)", pad_c0)
+    _check_aligned("transcipher_fused(pad_c1)", pad_c1)
     words = tuple(pad_c0.shape[:-2]) + (ctx.n,)
     for name, t in (("w_hi", w_hi), ("w_lo", w_lo)):
         if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != words:
@@ -595,5 +600,5 @@ def transcipher_fused(ctx: NTTContext, w_hi, w_lo, pad_c0, pad_c1):
                 w_hi.data_ptr(), w_lo.data_ptr(), pad_c0.data_ptr(), pad_c1.data_ptr(),
                 c0.data_ptr(), c1.data_ptr(), tabs.psi.data_ptr(), tabs.psi_shoup.data_ptr(),
                 tabs.p.data_ptr(), tabs.pinv_neg.data_ptr(), mu.data_ptr(), sh31.data_ptr(),
-                rows, ctx.num_primes, ctx.logn, rows=rows)
+                rows, ctx.num_primes, ctx.logn, ntt_plan(rows, ctx.n), rows=rows)
     return c0, c1

@@ -67,8 +67,19 @@
 // follow ntt_plan: C = 1 at the rounds' 165 to 456 rows, C = 8 at serving's
 // one-ciphertext encrypt.
 //
-// K6 and K7 are described above their kernels below; K7 still runs one
-// block per row through fwd_stages.
+// Design of K7 (redesigned on the same routine). The transcipher is K1's
+// transform under a fourth load policy and a second store policy. Its
+// load policy (TranscipherRows) embeds the word pair at the first pass's
+// indices: row r = b*L + l reads word x of upload row b's w_hi and w_lo and
+// returns m = (hi mod p)*(2**31 mod p) + (lo mod p) (two Barrett reductions
+// and a Montgomery product with the prime's constants, fetched once a row),
+// so m is never written. Its store policy (TranscipherStore) takes the last
+// forward pass's 8 consecutive words of NTT(m), loads the same 8 words of
+// both pad rows as 16-byte vectors, and stores c0 = NTT(m) - pad0 and
+// c1 = -pad1 (which needs no transform) as two 16-byte vectors each. It
+// follows ntt_plan: C = 1 at the HHE round's 456 rows, C = 8 at a few.
+//
+// K6 is described above its kernel below.
 //
 // Bounds on the H100 (see PERF.md for the measured times): each kernel reads
 // every input word once and writes every output word once, so the byte
@@ -93,7 +104,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;   // K7's block
 constexpr int kMinLogN = 10;   // N = 1024
 constexpr int kMaxLogN = 13;   // N = 8192
 
@@ -133,30 +143,7 @@ __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b, uint32_t p,
   return t >= p ? t - p : t;
 }
 
-// Forward Cooley-Tukey stages on one row of n words in shared memory (K7).
-// Stage s: m = 2**s blocks of half-width t = n >> (s+1); butterfly k pairs
-// lo = j*2t + i with hi = lo + t under twiddle psi[m + j]. Callers sync
-// before; every stage ends with a barrier.
-__device__ __forceinline__ void fwd_stages(uint32_t* x, int logn, const uint32_t* psi,
-                                           const uint32_t* psi_sh, uint32_t p) {
-  const int half = (1 << logn) >> 1;
-  for (int s = 0; s < logn; ++s) {
-    const int log_t = logn - 1 - s;
-    const int m = 1 << s;
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      const int j = k >> log_t;
-      const int lo = (j << (log_t + 1)) + (k & ((1 << log_t) - 1));
-      const int hi = lo + (1 << log_t);
-      const uint32_t v = shoup_mul(x[hi], psi[m + j], psi_sh[m + j], p);
-      const uint32_t a = x[lo];
-      x[lo] = add_mod(a, v, p);
-      x[hi] = sub_mod(a, v, p);
-    }
-    __syncthreads();
-  }
-}
-
-// K1, K2, K3, K4 and K5's digit stage: the register-resident, cluster-split
+// K1-K4, K5's digit stage and K7: the register-resident, cluster-split
 // transform.
 //
 // A row of N words is split over a cluster of C = 1, 2, 4 or 8 thread
@@ -396,6 +383,31 @@ struct DecryptRows {
   }
 };
 
+// TranscipherRows (K7, forward only): row r = b*L + l is the exact
+// embedding of upload row b's word pair under prime l,
+// m = (hi mod p) * (2**31 mod p) + (lo mod p): Barrett reductions with
+// mu = floor((2**32 - 1) / p), one Montgomery product with
+// sh31 = (2**31 mod p) in Montgomery form. The words [B, N] carry no limb
+// axis, so a pair is read by the L rows of its upload row (after the first,
+// from the L2).
+struct TranscipherRows {
+  static constexpr int kTransforms = 1;
+  const uint32_t *w_hi, *w_lo, *mu, *sh31, *pinv_neg;
+  struct Row {
+    const uint32_t *hi, *lo;
+    uint32_t mu, sh31, pinv;
+    __device__ __forceinline__ uint32_t operator()(int, int x, uint32_t p) const {
+      return add_mod(mont_mul(barrett_mod(hi[x], p, mu), sh31, p, pinv),
+                     barrett_mod(lo[x], p, mu), p);
+    }
+  };
+  __device__ __forceinline__ Row row(size_t r, int num_l, int n) const {
+    const int l = static_cast<int>(r % num_l);
+    const size_t o = r / num_l * n;
+    return {w_hi + o, w_lo + o, mu[l], sh31[l], pinv_neg[l]};
+  }
+};
+
 // Store policies: where the last pass puts its words. row(r, l, n) returns
 // a functor; the forward's last pass calls vec8(x0, v, p) with the 8 words
 // x0..x0+7 of each of the T transforms (transform t at v + t*kWords), the
@@ -445,15 +457,45 @@ struct EncryptStore {
   }
 };
 
+// TranscipherStore (K7, after TranscipherRows): from M = NTT(m),
+// c0 = M - pad0 and c1 = -pad1 (zero stays zero), the pad rows loaded and
+// both outputs stored as 16-byte vectors.
+struct TranscipherStore {
+  uint32_t *c0, *c1;
+  const uint32_t *pad0, *pad1;
+  struct Row {
+    uint32_t *c0, *c1;
+    const uint32_t *pad0, *pad1;
+    __device__ __forceinline__ void vec8(int x0, const uint32_t* v, uint32_t p) const {
+      uint32_t z[kWords], out[kWords];
+      load8(pad0 + x0, z);
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) out[i] = sub_mod(v[i], z[i], p);
+      store8(c0 + x0, out);
+      load8(pad1 + x0, z);
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) out[i] = z[i] == 0u ? 0u : p - z[i];
+      store8(c1 + x0, out);
+    }
+  };
+  __device__ __forceinline__ Row row(size_t r, int, int n) const {
+    const size_t o = r * n;
+    return {c0 + o, c1 + o, pad0 + o, pad1 + o};
+  }
+};
+
 // K1 (kInverse = false, PlainRows) replaces ntt_forward_pallas
 // (pallas_ntt.py, _fwd_kernel / _fwd_stages); K2 (kInverse = true)
 // replaces ntt_inverse_pallas (_inv_kernel / _inv_stages), its N^-1 Shoup
 // multiply folded into the store; K5's digit stage is the forward
 // transform with DigitRows; K3 the forward with EncryptRows and
-// EncryptStore, K4 the inverse with DecryptRows. Grid: rows * C blocks,
-// clusters of C along x; T * pad(N/C) words of dynamic shared memory.
-// Bound at the main paths' 3 to 456 rows: operations, then bytes (rows in,
-// rows out, the prime's twiddle tables); see PERF.md.
+// EncryptStore, K4 the inverse with DecryptRows; K7 (transcipher_fused_pallas,
+// _transcipher_kernel) the forward with TranscipherRows and
+// TranscipherStore. Grid: rows * C blocks, clusters of C along x;
+// T * pad(N/C) words of dynamic shared memory. Bound at the main paths' 3
+// to 456 rows: operations, then bytes (rows in, rows out, the prime's
+// twiddle tables; K7 at [152, 3, 4096]: the 456 transforms 0.011 ms, its
+// 34.9 MB 0.010 ms); see PERF.md.
 template <int LOGN, int C, bool kInverse, typename Src, typename Dst>
 __global__ void __launch_bounds__((1 << LOGN) / C / kWords)
 ntt_kernel(Src src, Dst dst, const uint32_t* __restrict__ tw_all,
@@ -614,7 +656,8 @@ cudaError_t launch_ntt_logn(int cluster, const Src& src, const Dst& dst, const N
 // or 8; anything else, or an N outside 1024..8192, is refused with
 // cudaErrorInvalidValue before any launch). Instantiated for K1 and K2
 // (PlainRows, PlainStore), K5's digit stage (DigitRows, forward), K3
-// (EncryptRows, EncryptStore) and K4 (DecryptRows, inverse).
+// (EncryptRows, EncryptStore), K4 (DecryptRows, inverse) and K7
+// (TranscipherRows, TranscipherStore).
 template <bool kInverse, typename Src, typename Dst>
 cudaError_t launch_ntt(int logn, int cluster, const Src& src, const Dst& dst, const NttArgs& a,
                        cudaStream_t stream) {
@@ -627,52 +670,6 @@ cudaError_t launch_ntt(int logn, int cluster, const Src& src, const Dst& dst, co
     default: return cudaErrorInvalidValue;
   }
 }
-
-// K7. Replaces transcipher_fused_pallas (pallas_ntt.py, _transcipher_kernel).
-// The hybrid-HE server step, trivial(w) - Enc(z): for upload row b and prime
-// l, m = (hi mod p) * (2**31 mod p) + (lo mod p) (Barrett reductions, one
-// Montgomery product with sh31 = host_to_mont(2**31 mod p)), the forward NTT
-// of m, then c0 = NTT(m) - pad_c0 and c1 = -pad_c1 (zero stays zero).
-// Words w_hi/w_lo [B, N] carry no limb axis; pads and outputs are [B, L, N].
-// One block per (row, prime): the block reads its row's word pair
-// once, embeds it while staging into shared memory, transforms it there and
-// writes c0 and c1 once. c1 needs no transform, so its words stream through.
-// Bound at [152, 3, 4096]: operations (456 transforms, 0.011 ms), the bytes
-// a close second (2 word rows in per row; 2 pad rows in and 2 rows out per
-// (row, prime): 34.9 MB, 0.010 ms). The word pair is read once per prime
-// (L times in all), which the L2 serves after the first prime's block.
-__global__ void __launch_bounds__(kThreads)
-transcipher_fused_kernel(const uint32_t* __restrict__ w_hi, const uint32_t* __restrict__ w_lo,
-                         const uint32_t* __restrict__ pad_c0,
-                         const uint32_t* __restrict__ pad_c1, uint32_t* __restrict__ c0,
-                         uint32_t* __restrict__ c1, const uint32_t* __restrict__ psi,
-                         const uint32_t* __restrict__ psi_sh,
-                         const uint32_t* __restrict__ primes,
-                         const uint32_t* __restrict__ pinv_neg,
-                         const uint32_t* __restrict__ mu, const uint32_t* __restrict__ sh31,
-                         int num_l, int logn) {
-  extern __shared__ uint32_t sm[];
-  const int n = 1 << logn;
-  const size_t row = blockIdx.x;                       // b*L + l
-  const int l = static_cast<int>(row % num_l);
-  const size_t b = row / num_l;
-  const uint32_t p = primes[l];
-  const uint32_t pinv = pinv_neg[l];
-  const uint32_t m = mu[l];
-  const uint32_t s = sh31[l];
-  const uint32_t* hi = w_hi + b * n;
-  const uint32_t* lo = w_lo + b * n;
-  const size_t off = row * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    sm[k] = add_mod(mont_mul(barrett_mod(hi[k], p, m), s, p, pinv), barrett_mod(lo[k], p, m), p);
-    const uint32_t v = pad_c1[off + k];
-    c1[off + k] = v == 0u ? 0u : p - v;
-  }
-  __syncthreads();
-  fwd_stages(sm, logn, psi + static_cast<size_t>(l) * n, psi_sh + static_cast<size_t>(l) * n, p);
-  for (int k = threadIdx.x; k < n; k += blockDim.x) c0[off + k] = sub_mod(sm[k], pad_c0[off + k], p);
-}
-
 
 // K5. Replaces keyswitch_fused_pallas (pallas_ntt.py, _keyswitch_kernel):
 // (optional inverse NTT per limb) -> base-2**w digits -> centring -> forward
@@ -907,23 +904,25 @@ int decrypt_fused(const void* c0, const void* c1, const void* s_mont, void* out,
 }
 
 // K7: words w_hi/w_lo [B, N] (< 2**31), pads pad_c0/pad_c1 [B, L, N] ->
-// c0/c1 [B, L, N], evaluation domain; rows = B*L. mu and sh31 are per prime.
+// c0/c1 [B, L, N], evaluation domain; rows = B*L, split over `cluster`
+// blocks each. mu and sh31 are per prime. pad_c0, pad_c1, c0 and c1 must be
+// 16-byte aligned.
 int transcipher_fused(const void* w_hi, const void* w_lo, const void* pad_c0,
                       const void* pad_c1, void* c0, void* c1, const void* psi,
                       const void* psi_sh, const void* primes, const void* pinv_neg,
                       const void* mu, const void* sh31, int rows, int num_l, int logn,
-                      void* stream) {
-  if (rows <= 0 || num_l <= 0 || rows % num_l != 0 || logn < kMinLogN || logn > kMaxLogN)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (static_cast<size_t>(1) << logn) * sizeof(uint32_t);   // one row
-  transcipher_fused_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(w_hi), static_cast<const uint32_t*>(w_lo),
-      static_cast<const uint32_t*>(pad_c0), static_cast<const uint32_t*>(pad_c1),
-      static_cast<uint32_t*>(c0), static_cast<uint32_t*>(c1),
-      static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(psi_sh),
-      static_cast<const uint32_t*>(primes), static_cast<const uint32_t*>(pinv_neg),
-      static_cast<const uint32_t*>(mu), static_cast<const uint32_t*>(sh31), num_l, logn);
-  return static_cast<int>(cudaGetLastError());
+                      int cluster, void* stream) {
+  if (rows <= 0 || num_l <= 0 || rows % num_l != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const NttArgs a{psi, psi_sh, primes, nullptr, nullptr, rows, num_l};
+  const TranscipherRows src{static_cast<const uint32_t*>(w_hi), static_cast<const uint32_t*>(w_lo),
+                            static_cast<const uint32_t*>(mu), static_cast<const uint32_t*>(sh31),
+                            static_cast<const uint32_t*>(pinv_neg)};
+  const TranscipherStore dst{static_cast<uint32_t*>(c0), static_cast<uint32_t*>(c1),
+                             static_cast<const uint32_t*>(pad_c0),
+                             static_cast<const uint32_t*>(pad_c1)};
+  cudaError_t err = launch_ntt<false>(logn, cluster, src, dst, a,
+                                      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // K5: x [B, L, N] (coefficient domain, or evaluation domain with

@@ -75,8 +75,8 @@ def _k7_inputs(ctx, rows, seed, device="cpu"):
     rng = np.random.default_rng(seed)
     words = [torch.from_numpy(rng.integers(0, 2**31, (rows, ctx.n)).astype(np.int32)).to(device)
              for _ in range(2)]
-    return (*words, _res(ctx, (rows, 3, ctx.n), seed + 1, device),
-            _res(ctx, (rows, 3, ctx.n), seed + 2, device))
+    return (*words, _res(ctx, (rows, ctx.num_primes, ctx.n), seed + 1, device),
+            _res(ctx, (rows, ctx.num_primes, ctx.n), seed + 2, device))
 
 
 def test_cpu_tensors_take_the_plain_transcipher():
@@ -344,17 +344,37 @@ def test_linear_score_launch_rows_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,rows", [(1024, 8), (4096, 152)])
+@pytest.mark.parametrize("rows", [1, 18, 24, 57, 456])
+@pytest.mark.parametrize("n", [1024, 4096, 8192])
 def test_transcipher_bitwise_vs_plain_on_card(cuda_device, n, rows):
-    # Bitwise: K7 against its plain version on the same card tensors (at the
-    # HHE round's [8 clients x 19 rows, 3, 4096]), one launch counted.
-    ctx = _ctx(n)
-    args = _k7_inputs(ctx, rows, 60, cuda_device)
+    # Bitwise: K7 on `rows` = upload rows x L rows (every cluster plan of
+    # ntt_plan: 8, 4, 4, 2 and 1 blocks a row; 456 is the HHE round's 8
+    # clients x 19 packed rows x 3 primes) against its plain version on the
+    # same card tensors, one launch counted at its shape; a zero pad_c1 word
+    # stays zero.
+    ctx = _ctx(n) if rows % 3 == 0 else _ctx(n, 1)
+    args = _k7_inputs(ctx, rows // ctx.num_primes, 60 + rows, cuda_device)
+    args[3][0, 0, :5] = 0
     cuda_ntt.reset_launch_counts()
     got = cuda_ntt.transcipher_fused(ctx, *args)
     want = cuda_ntt.transcipher_fused_plain(ctx, *args)
     torch.cuda.synchronize(cuda_device)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert cuda_ntt.launch_counts()["transcipher_fused"] == 1
+    assert cuda_ntt.launch_counts() == {k: int(k == "transcipher_fused") for k in cuda_ntt.LAUNCHES}
+    assert cuda_ntt.launch_rows() == {("transcipher_fused", rows, n): 1}
     with pytest.raises(ValueError):
         cuda_ntt.transcipher_fused(ctx, args[0][:, :-1].contiguous(), *args[1:])
+
+
+@pytest.mark.cuda
+def test_transcipher_rejects_unaligned_pads_on_card(cuda_device):
+    # K7's epilogue loads the pad rows as 16-byte vectors: a pad view 4
+    # bytes off is refused, and nothing launches.
+    ctx = _ctx(1024)
+    w_hi, w_lo, pad0, pad1 = _k7_inputs(ctx, 1, 61, cuda_device)
+    bad = _res(ctx, (2, 3, 1024), 62, cuda_device).reshape(-1)[1:1 + 3 * 1024].reshape(1, 3, 1024)
+    cuda_ntt.reset_launch_counts()
+    for pads in ((bad, pad1), (pad0, bad)):
+        with pytest.raises(ValueError):
+            cuda_ntt.transcipher_fused(ctx, w_hi, w_lo, *pads)
+    assert cuda_ntt.launch_counts() == dict.fromkeys(cuda_ntt.LAUNCHES, 0)

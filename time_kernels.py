@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Time the NTT pair, fused encrypt and decrypt, and the key-switch (K1-K5)
-of any checkout of the port.
+"""Time the kernels K1-K7 of any checkout of the port.
 
     python3 time_kernels.py [TREE]
 
 Holds K1 and K2 at every entry of this checkout's `chip_smoke.NTT_SHAPES`,
-K3 at every entry of its `ENC_SHAPES`, K4 at every entry of `DEC_SHAPES`
-and K5 at every entry of `KS_SHAPES`, bitwise against their plain versions
+K3 at every entry of its `ENC_SHAPES`, K4 at every entry of `DEC_SHAPES`,
+K7 at every entry of `TC_SHAPES`, K5 at every entry of `KS_SHAPES` and K6
+at every entry of `HOIST_SHAPES`, bitwise against their plain versions
 and times them with chip_smoke.py's timer (device time from torch.profiler
 kernel events, median of 30 calls, L2 flushed; K5's split by launch; the
 wrapper's call time), on the kernels of TREE (a directory
@@ -44,8 +44,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     cases = (smoke.ntt_shape_cases(cuda_ntt, ntt_mod, device, 500)
              + smoke.encdec_shape_cases(cuda_ntt, ntt_mod, device, 600)
-             + [case for case in smoke.serving_kernel_cases(cuda_ntt, ntt_mod, 4096, device, 400)
-                if case[0].startswith("keyswitch_fused")])
+             + smoke.serving_kernel_cases(cuda_ntt, ntt_mod, 4096, device, 400))
     for case in cases:
         smoke.kernel_record(case, flush, time_plain=False)
     return 0
