@@ -11,7 +11,8 @@ error:
   1. Print the card's name and power limit (nvidia-smi), build the kernels
      from `hefl_tpu_torch/csrc/ntt.cu` with nvcc (timed), and print ptxas's
      registers and spills of every `ntt_kernel` instantiation (the build's
-     `-Xptxas -v` report).
+     `-Xptxas -v` report), and K6's, with the SASS opcode counts of K6
+     (cuobjdump) that fix MAD64_OPS.
   2. For each kernel K1-K4 and K7 (forward NTT, inverse NTT, fused
      encrypt, fused decrypt, fused transcipher): call its wrapper on card
      tensors and require it to be BITWISE equal to its plain PyTorch
@@ -28,7 +29,10 @@ error:
      launch them at. The same for K5 (both modes) at each of KS_SHAPES,
      with the device time of each of its two or three kernels (inverse,
      digit stage, inner product) printed apart, and K6, checked at N=1024
-     too, at each of HOIST_SHAPES.
+     too, at N=1024..8192 x HOIST_CHECK_PRIMES at its plan's split Q and
+     at every other, and timed at each of HOIST_SHAPES with its bound on the lazy count,
+     the bound on a per-term Montgomery count, and `read_ms`, the
+     device time of PyTorch's torch.amax over the same key bytes.
   3. Drive the main path once through the port's entry points: MedCNN at
      full width (256x256x3, 222,722 parameters, random weights from a seed),
      the `medical` synthetic data, 2 clients of 96 images, 2 local epochs,
@@ -51,6 +55,7 @@ error:
      H=16, K=10, two rescales. `BsgsMlpScorer.score` with the same argmax
      as the plaintext circuit and within MLP_ERR_LIMIT of it (see there),
      at least one K5 launch in its eval-input mode (relinearization),
+     exactly 2 K6 (one a layer),
      bitwise equal to the unhoisted scorer and to the same scorer on CPU
      copies; warm latency. Phases 4 and 5 also print one warm score's
      device time by kernel (torch.profiler).
@@ -73,7 +78,7 @@ error:
      transcipher by kernel (torch.profiler).
   Phases 3-6 each print their launches by (kernel, rows x N).
   7. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-6 launched spills registers. Print one JSON line {"kernels": [...]}
+     3-6 launched, and not K6's kernel, spills registers. Print one JSON line {"kernels": [...]}
      (launches: the sum over the main-path runs of phases 3-6, each counted
      from zero; every kernel carries one "shapes" entry per timed shape
      with the launches at that shape, K5's also its per-kernel "split";
@@ -85,12 +90,15 @@ error:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -109,6 +117,11 @@ OPS_PER_S = 132 * 64 * 1.98e9
 SHOUP_OPS, MONT_OPS, ADDMOD_OPS = 6, 8, 3
 BUTTERFLY_OPS = SHOUP_OPS + 2 * ADDMOD_OPS
 DIGIT_OPS = 2 + ADDMOD_OPS           # shift, mask, centre (sub mod p)
+# K6 sums raw 32x32->64 products lazily: one wide multiply-add a term (SASS
+# IMAD.WIDE.U32 with a 64-bit addend; phase 1 prints the opcode counts of
+# its instantiations from cuobjdump), and one REDC at MONT_OPS per chunk of
+# at most K = cuda_ntt.lazy_terms terms.
+MAD64_OPS = 1
 BARRETT_OPS = 5                      # umulhi, mul, sub, compare, select
 DIGIT_BITS, NUM_DIGITS = 5, 6        # the default gadget at 27-bit primes
 PALLAS = "hefl_tpu/ckks/pallas_ntt.py"
@@ -147,6 +160,10 @@ HOIST_SHAPES = ((22, 18, 1, 3, 4096), (22, 18, 4, 3, 4096), (8, 30, 1, 5, 8192),
 # Prime counts at which phase 2 holds K5 bitwise at every ring size: every
 # cluster plan of its digit stage (cuda_ntt.keyswitch_plan).
 KS_CHECK_PRIMES = (1, 2, 3, 5)
+# Prime counts at which phase 2 holds K6 bitwise at every ring size and at
+# every split Q of cuda_ntt.HOIST_SPLITS (R = 6L: L = 6 runs two chunks of
+# K = 32 components), at S = 3 steps and B = 5 ciphertexts.
+HOIST_CHECK_PRIMES = (1, 2, 3, 5, 6)
 # Row counts at which phase 2 holds K1-K4 and K7 bitwise at every ring size:
 # every cluster plan of cuda_ntt.ntt_plan (8 blocks a row up to 16 rows, 4
 # up to 33, 2 up to 65, 1 from 66 on a 132-SM card), and the row counts of
@@ -177,6 +194,31 @@ NTT_POLICIES = {
     "decrypt_fused": ("true", "DecryptRows", "PlainStore"),
     "transcipher_fused": ("false", "TranscipherRows", "TranscipherStore"),
 }
+
+
+HOIST_KERNEL = "hoisted_lazy_kernel"
+
+
+def log_hoist_sass(cuda_ntt) -> None:
+    """Phase 1: the SASS opcode counts of K6's kernel (cuobjdump of the
+    built library), which fix MAD64_OPS; "not available" without
+    cuobjdump."""
+    try:
+        tool = shutil.which("cuobjdump") or str(Path(cuda_ntt._nvcc()).parent / "cuobjdump")
+        sass = subprocess.run([tool, "-sass", str(cuda_ntt.library_path())], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
+        log(f"  K6 SASS: not available ({e})")
+        return
+    ops, inside = {}, False
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            inside = HOIST_KERNEL in m.group(1)
+        elif inside and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                                        line)):
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    wide = {k: v for k, v in sorted(ops.items()) if k.startswith(("IMAD", "IADD", "LDG"))}
+    log(f"  K6 SASS {HOIST_KERNEL}: {sum(ops.values())} instructions; {json.dumps(wide)}")
 
 
 def ntt_kernel_label(logn: int, cluster: int, inverse: str, src: str, dst: str) -> str:
@@ -267,7 +309,7 @@ def kernel_label(name: str) -> str:
     return name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
 
 
-def device_ms(fn, reps: int, flush: torch.Tensor) -> tuple[float, list]:
+def device_ms(fn, reps: int, flush: torch.Tensor, own=is_port_kernel) -> tuple[float, list]:
     """Median device time of one call of `fn`: the summed durations of the
     port's kernels that the call launched (torch.profiler with CUDA
     activity; K5 launches 2 or 3 kernels a call), over `reps` calls with the
@@ -281,7 +323,8 @@ def device_ms(fn, reps: int, flush: torch.Tensor) -> tuple[float, list]:
     event) is left out; at least half of the calls must remain. The
     profiler has also returned a window with none or few of the port's
     kernel events, between two windows that had all of them; such a window
-    is measured again, up to PROFILE_TRIES windows in all."""
+    is measured again, up to PROFILE_TRIES windows in all. `own` picks the
+    kernels that count by their event name (the port's, by default)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -296,7 +339,7 @@ def device_ms(fn, reps: int, flush: torch.Tensor) -> tuple[float, list]:
         calls, current, last_end = [], None, 0.0
         for start, end, name in sorted((e.time_range.start, e.time_range.end, e.name) for e in
                                        prof.events() if str(e.device_type).endswith("CUDA")):
-            if not is_port_kernel(name):
+            if not own(name):
                 current = None
                 continue
             if current is None or start - last_end > CALL_GAP_US:
@@ -431,15 +474,37 @@ def serving_kernel_cases(cuda_ntt, ntt_mod, n: int, device, seed: int, shapes="s
         ctx = ctx_of(num_l, ring)
         c0 = rand_residues(ctx, (b, num_l, ring), seed + k, device)
         d = rand_residues(ctx, (b, r, num_l, ring), seed + k + 1, device)
-        bk = rand_residues(ctx, (s_steps, r, num_l, ring), seed + k + 2, device)
-        ak = rand_residues(ctx, (s_steps, r, num_l, ring), seed + k + 3, device)
+        # Both keys in one tensor, so that one reduction reads them (read()).
+        keys = rand_residues(ctx, (2, s_steps, r, num_l, ring), seed + k + 2, device)
+        bk, ak = keys[0], keys[1]
         poly = num_l * ring
         words = b * poly + b * r * poly + 2 * s_steps * r * poly + 2 * s_steps * b * poly
-        ops = s_steps * b * poly * (2 * r * (MONT_OPS + ADDMOD_OPS) + ADDMOD_OPS)
+        # The least work of the function: per output word pair 2R lazy
+        # multiply-adds, one REDC per K terms of each sum and the c0 add_mod
+        # (the per-term count below, a Montgomery product and an add_mod a
+        # term, is the earlier one-thread-a-word kernel's and is printed
+        # beside it).
+        # K = cuda_ntt.lazy_terms(primes), restated so that time_kernels.py
+        # can time a tree without it.
+        terms = min(((int(q) << 32) - 1) // (int(q) - 1) ** 2 for q in ctx.p[:, 0])
+        redcs = 2 * -(-r // terms)
+        ops = s_steps * b * poly * (2 * r * MAD64_OPS + redcs * MONT_OPS + ADDMOD_OPS)
+        ops_mont = s_steps * b * poly * (2 * r * (MONT_OPS + ADDMOD_OPS) + ADDMOD_OPS)
+
+        def read():
+            # One PyTorch read of the same key bytes, a yardstick for
+            # streaming them (not the same function, so not a library call):
+            # one max reduction over both keys reads the int32 words as they
+            # are (torch.sum to int64 first casts them to a new tensor).
+            return torch.amax(keys)
+
         return ("hoisted_products", f"{PALLAS}:701", [s_steps, r, b, num_l, ring],
                 lambda: cuda_ntt.hoisted_products(ctx, c0, d, bk, ak),
                 lambda: cuda_ntt.hoisted_products_plain(ctx, c0, d, bk, ak),
-                words * word, ops)
+                words * word, ops, {"ops_mont": ops_mont, "read": read,
+                                    "at": lambda **kw: cuda_ntt.hoisted_products(
+                                        ctx, c0, d, bk, ak, plan=cuda_ntt.hoisted_plan(
+                                            s_steps, b, r, ctx.p[:, 0], ring, **kw))})
 
     if shapes == "slice":
         for k, (eval_input, b, num_l, ring) in enumerate(KS_SHAPES):
@@ -507,11 +572,18 @@ def encdec_shape_cases(cuda_ntt, ntt_mod, device, seed: int):
                for k, (b, num_l, n) in enumerate(TC_SHAPES)])
 
 
+def is_torch_reduction(name: str) -> bool:
+    return "at::native::reduce_kernel" in name
+
+
 def kernel_record(case, flush, time_plain: bool = True) -> dict:
     """Hold a kernel bitwise against its plain version on the same card
     tensors, then time it: `ms` device time (device_ms), `call_ms` the
-    wrapper's call (time_ms), `plain_ms` the plain version (time_ms)."""
-    name, replaces, shape, kern, plain, bytes_moved, ops = case
+    wrapper's call (time_ms), `plain_ms` the plain version (time_ms). A
+    case's optional extras (K6's) add `bound_mont_ms`, the bound on the
+    per-term Montgomery count, and `read_ms`, the device time of PyTorch's
+    reduction over the same key bytes."""
+    name, replaces, shape, kern, plain, bytes_moved, ops, *extra = case
     err = max_abs_err(kern(), plain())
     torch.cuda.synchronize()
     if err != 0:
@@ -524,12 +596,18 @@ def kernel_record(case, flush, time_plain: bool = True) -> dict:
         f"({bound_by}: {bytes_moved} B, {ops} int32 ops)")
     if len(split) > 1:
         log("    by launch: " + "; ".join(f"{label} {t:.6f} ms" for label, t in split))
-    return {
+    rec = {
         "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
         "shape": shape, "launches": None, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "split": [{"kernel": label, "ms": t} for label, t in split],
     }
+    if extra:
+        rec["bound_mont_ms"] = bound(bytes_moved, extra[0]["ops_mont"])[0]
+        rec["read_ms"] = device_ms(extra[0]["read"], 30, flush, own=is_torch_reduction)[0]
+        log(f"    bound on a Montgomery product a term {rec['bound_mont_ms']:.6f} ms; PyTorch's "
+            f"read of the keys (torch.amax) {rec['read_ms']:.6f} ms")
+    return rec
 
 
 def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
@@ -542,7 +620,7 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
     small_cases = ntt_cases(cuda_ntt, small, 8, device, 100) + [
         encrypt_case(cuda_ntt, small, 8, device, 110), decrypt_case(cuda_ntt, small, 8, device, 120),
         transcipher_case(cuda_ntt, small, 8, device, 150)]
-    for name, _, shape, kern, plain, _, _ in small_cases:
+    for name, _, shape, kern, plain, *_ in small_cases:
         err = max_abs_err(kern(), plain())
         torch.cuda.synchronize()
         log(f"  N=1024 {name} {shape}: max_abs_err {err}")
@@ -598,8 +676,8 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
             entry["bound_4t_ms"] = bound(case[5], encrypt_transforms_ops(rec["shape"], 4))[0]
             log(f"    bound on four transforms a row: {entry['bound_4t_ms']:.6f} ms")
         records.setdefault(name, rec).setdefault("shapes", []).append(entry)
-    for name, _, shape, kern, plain, _, _ in serving_kernel_cases(cuda_ntt, ntt_mod, 1024, device,
-                                                                   300, shapes="small"):
+    for name, _, shape, kern, plain, *_ in serving_kernel_cases(cuda_ntt, ntt_mod, 1024, device,
+                                                                 300, shapes="small"):
         err = max_abs_err(kern(), plain())
         torch.cuda.synchronize()
         log(f"  N=1024 {name} {shape}: max_abs_err {err}")
@@ -625,12 +703,38 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
                                      4096).digit_cluster for num_l in KS_CHECK_PRIMES]
     log(f"  keyswitch_fused, both modes, at N in {cuda_ntt.SUPPORTED_N} x L in {KS_CHECK_PRIMES} "
         f"(digit-stage cluster sizes {plans}): bitwise equal")
+    # K6 at every ring size x HOIST_CHECK_PRIMES, at the plan's split and at
+    # every split Q (S = 3, B = 5).
+    for n in cuda_ntt.SUPPORTED_N:
+        for num_l in HOIST_CHECK_PRIMES:
+            ctx = ntt_mod.NTTContext.build(find_ntt_primes(num_l, 27, 2 * n), n)
+            r = num_l * NUM_DIGITS
+            c0 = rand_residues(ctx, (5, num_l, n), n + num_l, device)
+            d, bk, ak = (rand_residues(ctx, shape, n + num_l + i, device) for i, shape in (
+                (1, (5, r, num_l, n)), (2, (3, r, num_l, n)), (3, (3, r, num_l, n))))
+            want = cuda_ntt.hoisted_products_plain(ctx, c0, d, bk, ak)
+            for kw in ([{}] + [{"split": q} for q in cuda_ntt.HOIST_SPLITS]):
+                plan = cuda_ntt.hoisted_plan(3, 5, r, ctx.p[:, 0], n, **kw)
+                if max_abs_err(cuda_ntt.hoisted_products(ctx, c0, d, bk, ak, plan=plan),
+                               want) != 0:
+                    raise AssertionError(f"hoisted_products ({plan}) at L={num_l}, N={n} "
+                                         "differs from its plain version")
+    torch.cuda.synchronize()
+    log(f"  hoisted_products at N in {cuda_ntt.SUPPORTED_N} x L in {HOIST_CHECK_PRIMES} (S=3, "
+        f"B=5), at the plan's split and every split {cuda_ntt.HOIST_SPLITS}: bitwise equal")
     # K5 at each of KS_SHAPES, K6 at each of HOIST_SHAPES (the record: the
-    # first shape of each kind, all of them under "shapes").
+    # first shape of each kind, all of them under "shapes"; K6's with its
+    # plan, its per-term bound and PyTorch's read of its keys).
     for case in serving_kernel_cases(cuda_ntt, ntt_mod, 4096, device, 400):
         rec = kernel_record(case, flush)
-        records.setdefault(rec["name"], rec).setdefault("shapes", []).append({k: rec[k] for k in (
-            "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "split")})
+        entry = {k: rec[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "split", "bound_mont_ms", "read_ms") if k in rec}
+        if rec["name"] == "hoisted_products":
+            s_steps, r, b, num_l, n = rec["shape"]
+            plan = cuda_ntt.hoisted_plan(s_steps, b, r, find_ntt_primes(num_l, 27, 2 * n), n)
+            entry["plan"] = dataclasses.asdict(plan)
+            log(f"    plan: {entry['plan']}")
+        records.setdefault(rec["name"], rec).setdefault("shapes", []).append(entry)
     del flush
     return records
 
@@ -874,6 +978,8 @@ def serving_mlp(device, n: int = 8192) -> tuple[dict, dict]:
     log(f"  one score's launches: {counts}")
     if counts["keyswitch_fused_eval"] < 1:
         raise AssertionError("the MLP's relinearization did not launch K5 in eval-input mode")
+    if counts["hoisted_products"] != 2:
+        raise AssertionError("an MLP score must launch exactly 2 K6 (one a layer)")
     want = ((x @ w1.T + b1) ** 2) @ w2.T + b2
     check_scores("MLP score", hei.decrypt_class_scores(sub, sub_sk, out, k), want, MLP_ERR_LIMIT)
     twin = hei.BsgsMlpScorer(ctx, w1, b1, w2, b2, gks1, rlk, gks2, rotation_mode="unhoisted")
@@ -1059,6 +1165,7 @@ def main() -> int:
     log(f"phase 1: built {cuda_ntt.library_path().name} in {time.perf_counter() - t:.3f} s")
     report = ptxas_report(cuda_ntt.ptxas_report_path().read_text())
     log_ptxas_report(report)
+    log_hoist_sass(cuda_ntt)
 
     log("phase 2: kernels vs plain versions")
     records = check_kernels(cuda_ntt, ntt_mod, CkksContext.create(), device)
@@ -1087,6 +1194,10 @@ def main() -> int:
         f"{json.dumps({k: report[k] for k in sorted(launched)})}")
     if any(report[k][1] or report[k][2] for k in launched):
         raise AssertionError("an ntt_kernel instantiation the main paths launch spills registers")
+    # Nor K6's kernel, which phases 4-5 launch.
+    log(f"  {HOIST_KERNEL} (registers, spill bytes): {json.dumps(report[HOIST_KERNEL])}")
+    if report[HOIST_KERNEL][1] or report[HOIST_KERNEL][2]:
+        raise AssertionError(f"{HOIST_KERNEL}, which the serving paths launch, spills registers")
     for name, rec in records.items():
         rec["launches"] = sum(counts[name] for counts, _ in runs)
         if rec["launches"] < 1:

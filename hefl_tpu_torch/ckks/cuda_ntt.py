@@ -33,7 +33,9 @@ Host-side launch plans, plain functions the CPU tests pin: `ntt_plan` gives
 the thread-block cluster size over which K1-K4 and K7 split each row;
 `keyswitch_plan` gives K5's (its digit stage is K1's transform on B*R*L
 rows, its eval-input inverse K2's on B*L rows) and refuses a gadget the
-kernel cannot compute exactly.
+kernel cannot compute exactly; `hoisted_plan` gives K6's component split
+and its lazy-reduction chunk, and refuses primes whose 64-bit lazy sums
+the kernel cannot reduce exactly.
 """
 
 from __future__ import annotations
@@ -86,7 +88,7 @@ _SIGNATURES = {
     "encrypt_fused": [_P] * 12 + [_I] * 4 + [_P],
     "decrypt_fused": [_P] * 10 + [_I] * 4 + [_P],
     "keyswitch_fused": [_P] * 15 + [_I] * 8 + [_P],
-    "hoisted_products": [_P] * 8 + [_I] * 5 + [_P],
+    "hoisted_products": [_P] * 8 + [_I] * 7 + [_P],
     "transcipher_fused": [_P] * 12 + [_I] * 4 + [_P],
 }
 _lib = None
@@ -191,7 +193,7 @@ def _check(ctx: NTTContext, name: str, t: torch.Tensor, shape=None) -> None:
 def _check_aligned(name: str, t: torch.Tensor) -> None:
     """K2's body (K2, K4, and K5 with evaluation-domain input) loads its
     input rows as 16-byte vectors, K3's epilogue its key rows, K7's epilogue
-    its pad rows, and K5's inner product its key rows."""
+    its pad rows, K5's inner product its key rows, and K6 all its inputs."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel loads rows as 16-byte vectors; the tensor's "
                          "data is not 16-byte aligned")
@@ -232,6 +234,18 @@ def _launch(ctx: NTTContext, name: str, device: torch.device, *args, rows: int,
 # --- K1 and K2: forward and inverse NTT --------------------------------------
 
 
+def _sms(sms: int | None) -> int:
+    """`sms`, or the SM count of the current CUDA device (read once),
+    DEFAULT_SM_COUNT without one."""
+    global _sm_count
+    if sms is not None:
+        return sms
+    if _sm_count is None:
+        _sm_count = (torch.cuda.get_device_properties(torch.cuda.current_device())
+                     .multi_processor_count if torch.cuda.is_available() else DEFAULT_SM_COUNT)
+    return _sm_count
+
+
 def ntt_plan(rows: int, n: int, sms: int | None = None) -> int:
     """Cluster size C of K1-K4 and K7 on `rows` rows of N words: each row is
     split over C thread blocks. The largest C in (1, 2, 4, 8) with rows * C
@@ -239,14 +253,9 @@ def ntt_plan(rows: int, n: int, sms: int | None = None) -> int:
     from half the SM count of rows up (66 on an H100), where one block per
     row already fills the card. `sms`: the SM count, by default read once
     from the current CUDA device, DEFAULT_SM_COUNT without one."""
-    global _sm_count
     if n not in SUPPORTED_N:
         raise ValueError(f"the NTT kernels support N in {SUPPORTED_N}, not {n}")
-    if sms is None:
-        if _sm_count is None:
-            _sm_count = (torch.cuda.get_device_properties(torch.cuda.current_device())
-                         .multi_processor_count if torch.cuda.is_available() else DEFAULT_SM_COUNT)
-        sms = _sm_count
+    sms = _sms(sms)
     if 2 * rows >= sms:
         return 1
     c = 8
@@ -511,11 +520,70 @@ def hoisted_products_plain(ctx: NTTContext, c0, d_eval, b_mont, a_mont):
     return add_mod(accs[0], c0.to(torch.int64), p).to(torch.int32), accs[1].to(torch.int32)
 
 
-def hoisted_products(ctx: NTTContext, c0, d_eval, b_mont, a_mont):
+HOIST_SPLITS = (1, 2, 4, 8)
+# Threads a SM that K6 keeps resident: 4 blocks of ntt.cu's kHoistThreads
+# = 256 (the kernel takes at most 64 registers a thread).
+HOIST_THREADS_PER_SM = 1024
+
+
+def lazy_terms(primes) -> int:
+    """K: the most raw products d*k of canonical residues (each at most
+    (p-1)**2) whose sum stays below p * 2**32 under every prime, so one
+    Montgomery REDC reduces it exactly: min over p of
+    floor((p * 2**32 - 1) / (p - 1)**2), 32 at 27-bit primes."""
+    return min(((int(p) << 32) - 1) // (int(p) - 1) ** 2 for p in primes)
+
+
+@dataclasses.dataclass(frozen=True)
+class HoistedPlan:
+    """K6's launch geometry: `split` threads (Q) share one 4-word group's
+    components; each 64-bit lazy sum covers at most `chunk` components (a
+    multiple of Q, at most `terms` = lazy_terms of the primes) before its
+    REDC."""
+
+    split: int
+    chunk: int
+    terms: int
+
+
+def hoisted_plan(num_s: int, batch: int, num_r: int, primes, n: int, sms: int | None = None,
+                 split: int | None = None) -> HoistedPlan:
+    """K6's plan for S = num_s steps, `batch` ciphertexts and R = num_r
+    shared digits over `primes` (the L primes of the ring). Q is the largest
+    of (1, 2, 4, 8) whose S*B*L*N/4 groups x Q threads still fit the card in
+    one wave (HOIST_THREADS_PER_SM on each of `sms` SMs, as in `ntt_plan`),
+    at most R and at most K; `split` overrides it (timing sweeps, the card
+    tests). Refuses, with ValueError, an empty geometry, an unsupported
+    ring, and a prime of 2**31 or more (or below 3), whose sums REDC cannot
+    reduce exactly."""
+    primes = [int(p) for p in primes]
+    if num_s < 1 or batch < 1 or num_r < 1 or not primes:
+        raise ValueError(f"K6 needs steps, a batch, digits and primes, got S={num_s}, "
+                         f"B={batch}, R={num_r}, {len(primes)} primes")
+    if n not in SUPPORTED_N:
+        raise ValueError(f"K6 supports N in {SUPPORTED_N}, not {n}")
+    if max(primes) >= 1 << 31 or min(primes) < 3:
+        raise ValueError(f"K6's lazy Montgomery sums need primes in [3, 2**31), got {primes}")
+    terms = lazy_terms(primes)
+    if split is None:
+        threads = num_s * batch * len(primes) * n // 4
+        room = _sms(sms) * HOIST_THREADS_PER_SM
+        split = max([q for q in HOIST_SPLITS if threads * q <= room and q <= num_r
+                     and q <= terms], default=1)
+    elif split not in HOIST_SPLITS or split > terms:
+        raise ValueError(f"K6's split must be one of {HOIST_SPLITS} and at most K={terms}, "
+                         f"got {split}")
+    return HoistedPlan(split, split * (terms // split), terms)
+
+
+def hoisted_products(ctx: NTTContext, c0, d_eval, b_mont, a_mont,
+                     plan: HoistedPlan | None = None):
     """The hoisted sweep's inner products: c0 int32[..., L, N], shared digits
     d_eval int32[..., R, L, N], pre-permuted keys int32[S, R, L, N] ->
     (acc0, acc1) int32[S, ..., L, N] before the per-step permutation. One K6
-    launch on CUDA; S = 0 gives empty tensors and no launch."""
+    launch on CUDA under `plan` (default: `hoisted_plan`'s for the shapes);
+    S = 0 gives empty tensors and no launch. c0, d_eval and both keys must
+    be 16-byte aligned."""
     if _is_cpu(c0, d_eval, b_mont, a_mont):
         return hoisted_products_plain(ctx, c0, d_eval, b_mont, a_mont)
     num_s, num_r = b_mont.shape[0], b_mont.shape[1]
@@ -524,16 +592,20 @@ def hoisted_products(ctx: NTTContext, c0, d_eval, b_mont, a_mont):
     _check(ctx, "hoisted_products(d_eval)", d_eval, batch + (num_r, ctx.num_primes, ctx.n))
     _check(ctx, "hoisted_products(b_mont)", b_mont, (num_s, num_r, ctx.num_primes, ctx.n))
     _check(ctx, "hoisted_products(a_mont)", a_mont, (num_s, num_r, ctx.num_primes, ctx.n))
+    for name, t in (("c0", c0), ("d_eval", d_eval), ("b_mont", b_mont), ("a_mont", a_mont)):
+        _check_aligned(f"hoisted_products({name})", t)
     shape = (num_s,) + tuple(c0.shape)
     out0 = torch.empty(shape, dtype=torch.int32, device=c0.device)
     out1 = torch.empty(shape, dtype=torch.int32, device=c0.device)
     nb = c0.numel() // (ctx.num_primes * ctx.n)
     if num_s and nb:
+        plan = plan or hoisted_plan(num_s, nb, num_r, ctx.p[:, 0], ctx.n)
         tabs = kernel_tables(ctx, c0.device)
         _launch(ctx, "hoisted_products", c0.device,
                 c0.data_ptr(), d_eval.data_ptr(), b_mont.data_ptr(), a_mont.data_ptr(),
                 out0.data_ptr(), out1.data_ptr(), tabs.p.data_ptr(), tabs.pinv_neg.data_ptr(),
-                num_s, nb, num_r, ctx.num_primes, ctx.logn, rows=nb * ctx.num_primes)
+                num_s, nb, num_r, ctx.num_primes, ctx.logn, plan.split, plan.chunk,
+                rows=nb * ctx.num_primes)
     return out0, out1
 
 

@@ -79,7 +79,9 @@
 // c1 = -pad1 (which needs no transform) as two 16-byte vectors each. It
 // follows ntt_plan: C = 1 at the HHE round's 456 rows, C = 8 at a few.
 //
-// K6 is described above its kernel below.
+// Design of K6 (redesigned for Hopper: 16-byte groups with the gadget
+// components split over threads, one lazy Montgomery reduction per word,
+// streaming key loads) is described above its kernel below.
 //
 // Bounds on the H100 (see PERF.md for the measured times): each kernel reads
 // every input word once and writes every output word once, so the byte
@@ -779,59 +781,132 @@ keyswitch_reduce_kernel(const uint4* __restrict__ digits, const uint4* __restric
 // K6. Replaces hoisted_rotations_pallas (pallas_ntt.py,
 // _hoist_products_kernel): for every rotation step s, ciphertext b, prime l
 // and word x, acc0[s, b] = c0[b] + sum_c D[b, c] * B'[s, c] and
-// acc1[s, b] = sum_c D[b, c] * A'[s, c] over the R shared gadget digits
-// (Montgomery products, exact add_mod in component order). No NTT: the
-// digits were transformed once outside, and the per-step output permutation
-// is a gather the caller applies after.
+// acc1[s, b] = sum_c D[b, c] * A'[s, c] over the R shared gadget digits. No
+// NTT: the digits were transformed once outside, and the per-step output
+// permutation is a gather the caller applies after.
 //
-// Bound: bytes. The pre-permuted keys [S, R, L, N] dominate (38.9 MB for
-// both at S = 22, R = 18, L = 3, N = 4096, about 12 us at 3.35 TB/s). One
-// thread per key word (s, l, x) reads each key word once and serves up to
-// kBChunk ciphertexts of the batch from registers, so at serving batches
-// (B <= 4) the keys cross the memory bus once.
-constexpr int kBChunk = 4;
+// Bound: bytes at serving batches (B <= 4). The pre-permuted keys
+// [S, R, L, N] are read once and dominate (38.9 MB for both at S = 22,
+// R = 18, L = 3, N = 4096, about 12 us at 3.35 TB/s); the digits (0.9-4.9
+// MB) are re-read by every step, from the L2. A key word is used B times,
+// far below the ~295 operations a byte at which tensor cores would pay,
+// and 27-bit modular products are not exact in any tensor-core type, so
+// the kernel uses none. What the design does about the bytes:
+//  * 16-byte groups, components split over threads. Thread (x, q) of a
+//    block of kHoistThreads takes the 4-word group x of the block's tile of
+//    the [S, B, L, N/4] output space and the components c = q, q + Q, ...
+//    of each chunk, as 16-byte loads of the digit row and both key rows;
+//    warp lanes read 32 consecutive vectors of a row. The host's plan
+//    (cuda_ntt.hoisted_plan) picks Q so that the grid fills the card in one
+//    wave (the kernel fits 4 blocks an SM): more threads a group where the
+//    group count is small, none where it already fills the card. Blocks
+//    run the B ciphertexts of one step's tile next to each other, so the
+//    key lines the B - 1 others read are still in the L2.
+//  * Streaming key loads (evict-first in L1 and L2): the keys are read
+//    once and do not push the digits out of the L2.
+//  * One lazy Montgomery reduction per word. The raw products d * k
+//    (< 2**54) of a chunk of up to K components are summed in 64 bits (one
+//    IMAD.WIDE.U32 a term), the Q threads' partial sums combined in a tree
+//    through shared memory, and the sum reduced by one REDC. Since
+//    mont_mul(a, b) = a*b*2**-32 mod p, sum_c mont_mul(d_c, k_c) =
+//    (sum_c d_c*k_c) * 2**-32 mod p, and REDC returns exactly that,
+//    canonical, for any T < p * 2**32: the words equal the plain version's
+//    per-term products bitwise. K = floor((p*2**32 - 1) / (p-1)**2) over
+//    the primes (32 at 27-bit primes), so the serving shapes (R = 18, 30)
+//    take one REDC per word; R > K runs in chunks, each chunk's residue
+//    added mod p.
+// Variants that measured no faster on the H100 (PERF.md, section 6): several
+// components' loads staged in registers before the products, a per-thread
+// cp.async ring of up to 8 stages in shared memory, one thread serving up
+// to 4 ciphertexts (or steps) from each key (or digit) load, and warp lanes
+// that share one key load across ciphertexts.
+constexpr int kHoistThreads = 256;
 
-__global__ void __launch_bounds__(256)
-hoisted_products_kernel(const uint32_t* __restrict__ c0, const uint32_t* __restrict__ digits,
-                        const uint32_t* __restrict__ bk, const uint32_t* __restrict__ ak,
-                        uint32_t* __restrict__ out0, uint32_t* __restrict__ out1,
-                        const uint32_t* __restrict__ primes,
-                        const uint32_t* __restrict__ pinv_neg, int num_s, int batch,
-                        int num_r, int num_l, int logn) {
-  const size_t per = static_cast<size_t>(num_l) << logn;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= num_s * per) return;
-  const size_t s = idx / per;
-  const size_t ln = idx % per;
-  const int l = static_cast<int>(ln >> logn);
+// (t * 2**-32) mod p for t < p * 2**32 (Montgomery REDC of a lazy sum).
+__device__ __forceinline__ uint32_t redc(uint64_t t, uint32_t p, uint32_t pinv_neg) {
+  const uint32_t lo = static_cast<uint32_t>(t);
+  const uint32_t m = lo * pinv_neg;
+  const uint32_t u = static_cast<uint32_t>(t >> 32) + __umulhi(m, p) + (lo != 0u ? 1u : 0u);
+  return u >= p ? u - p : u;
+}
+
+__device__ __forceinline__ void mad4(uint64_t* t, uint4 d, uint4 k) {
+  t[0] += static_cast<uint64_t>(d.x) * k.x;
+  t[1] += static_cast<uint64_t>(d.y) * k.y;
+  t[2] += static_cast<uint64_t>(d.z) * k.z;
+  t[3] += static_cast<uint64_t>(d.w) * k.w;
+}
+
+__device__ __forceinline__ uint4 redc_add4(const uint64_t* t, uint4 a, uint32_t p,
+                                           uint32_t pinv) {
+  return make_uint4(add_mod(redc(t[0], p, pinv), a.x, p), add_mod(redc(t[1], p, pinv), a.y, p),
+                    add_mod(redc(t[2], p, pinv), a.z, p), add_mod(redc(t[3], p, pinv), a.w, p));
+}
+
+// K6: blockDim = (kHoistThreads / Q, Q). Block blk covers ciphertext
+// b = blk % B, tile blk / B % tiles of kHoistThreads / Q groups and step
+// s = blk / (B * tiles); lane x takes group x of the tile. Per component
+// chunk [base, base + chunk): thread (x, q) sums d * k over c = base + q,
+// base + q + Q, ... < min(R, base + chunk) in 64 bits (chunk <= K, so every
+// sum stays below p * 2**32); the tree halves the Q partial sums through
+// shared memory (q < h adds q + h's); thread q = 0 reduces the total and
+// writes out0 = c0 + REDC (first chunk) or out0 + REDC (later chunks, read
+// back from its own store), out1 likewise without c0.
+__global__ void __launch_bounds__(kHoistThreads)
+hoisted_lazy_kernel(const uint4* __restrict__ c0, const uint4* __restrict__ digits,
+                    const uint4* __restrict__ bk, const uint4* __restrict__ ak,
+                    uint4* __restrict__ out0, uint4* __restrict__ out1,
+                    const uint32_t* __restrict__ primes, const uint32_t* __restrict__ pinv_neg,
+                    int batch, int num_r, int num_l, int logn, int chunk) {
+  __shared__ uint64_t share[8][kHoistThreads / 2];
+  const int split = static_cast<int>(blockDim.y);
+  const int x = static_cast<int>(threadIdx.x);
+  const int q = static_cast<int>(threadIdx.y);
+  const size_t per = (static_cast<size_t>(num_l) << logn) / 4;   // groups of one [L, N]
+  const size_t tiles = per / blockDim.x;
+  const size_t b = blockIdx.x % batch;
+  const size_t ln = blockIdx.x / batch % tiles * blockDim.x + x;
+  const size_t s = blockIdx.x / (batch * tiles);
+  const int l = static_cast<int>((ln * 4) >> logn);
   const uint32_t p = primes[l];
   const uint32_t pinv = pinv_neg[l];
-  const uint32_t* kb = bk + s * num_r * per + ln;
-  const uint32_t* ka = ak + s * num_r * per + ln;
-  for (int b0 = 0; b0 < batch; b0 += kBChunk) {
-    const int nb = min(kBChunk, batch - b0);
-    uint32_t a0[kBChunk] = {0u, 0u, 0u, 0u};
-    uint32_t a1[kBChunk] = {0u, 0u, 0u, 0u};
-    for (int c = 0; c < num_r; ++c) {
-      const uint32_t k0 = kb[c * per];
-      const uint32_t k1 = ka[c * per];
+  const size_t row = static_cast<size_t>(num_r) * per;             // one step's keys
+  const uint4* kb = bk + s * row + ln;
+  const uint4* ka = ak + s * row + ln;
+  const uint4* d = digits + b * row + ln;
+  const size_t o = (s * batch + b) * per + ln;
+  for (int base = 0; base < num_r; base += chunk) {
+    uint64_t t[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};
+    const int end = min(num_r, base + chunk);
+    for (int c = base + q; c < end; c += split) {
+      const uint4 dv = d[c * per];
+      mad4(t[0], dv, __ldcs(kb + c * per));
+      mad4(t[1], dv, __ldcs(ka + c * per));
+    }
+    for (int h = split >> 1; h > 0; h >>= 1) {
+      const int slot = (q - h) * static_cast<int>(blockDim.x) + x;
+      if (q >= h && q < 2 * h) {
 #pragma unroll
-      for (int bb = 0; bb < kBChunk; ++bb) {
-        if (bb < nb) {
-          const uint32_t dc = digits[(static_cast<size_t>(b0 + bb) * num_r + c) * per + ln];
-          a0[bb] = add_mod(a0[bb], mont_mul(dc, k0, p, pinv), p);
-          a1[bb] = add_mod(a1[bb], mont_mul(dc, k1, p, pinv), p);
+        for (int i = 0; i < 4; ++i) {
+          share[i][slot] = t[0][i];
+          share[4 + i][slot] = t[1][i];
         }
       }
-    }
+      __syncthreads();
+      if (q < h) {
+        const int from = q * static_cast<int>(blockDim.x) + x;
 #pragma unroll
-    for (int bb = 0; bb < kBChunk; ++bb) {
-      if (bb < nb) {
-        const size_t b = b0 + bb;
-        const size_t o = (s * batch + b) * per + ln;
-        out0[o] = add_mod(a0[bb], c0[b * per + ln], p);
-        out1[o] = a1[bb];
+        for (int i = 0; i < 4; ++i) {
+          t[0][i] += share[i][from];
+          t[1][i] += share[4 + i][from];
+        }
       }
+      __syncthreads();
+    }
+    if (q == 0) {
+      const bool first = base == 0;
+      out0[o] = redc_add4(t[0], first ? c0[b * per + ln] : out0[o], p, pinv);
+      out1[o] = redc_add4(t[1], first ? make_uint4(0u, 0u, 0u, 0u) : out1[o], p, pinv);
     }
   }
 }
@@ -970,21 +1045,28 @@ int keyswitch_fused(const void* x, void* coeff_scratch, void* digit_scratch, con
 }
 
 // K6: c0 [B, L, N], digits [B, R, L, N], keys bk/ak [S, R, L, N] ->
-// out0/out1 [S, B, L, N] (before the per-step permutation).
+// out0/out1 [S, B, L, N] (before the per-step permutation); the host's plan
+// (cuda_ntt.hoisted_plan) gives split Q in (1, 2, 4, 8) and chunk (a
+// multiple of Q, at most K components a REDC). Every pointer must be
+// 16-byte aligned.
 int hoisted_products(const void* c0, const void* digits, const void* bk, const void* ak,
                      void* out0, void* out1, const void* primes, const void* pinv_neg,
-                     int num_s, int batch, int num_r, int num_l, int logn, void* stream) {
+                     int num_s, int batch, int num_r, int num_l, int logn, int split, int chunk,
+                     void* stream) {
   if (num_s <= 0 || batch <= 0 || num_r <= 0 || num_l <= 0 || logn < kMinLogN ||
-      logn > kMaxLogN)
+      logn > kMaxLogN || (split != 1 && split != 2 && split != 4 && split != 8) ||
+      chunk < split || chunk % split != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t words = static_cast<size_t>(num_s) * num_l << logn;
-  hoisted_products_kernel<<<static_cast<unsigned>((words + 255) / 256), 256, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(c0), static_cast<const uint32_t*>(digits),
-      static_cast<const uint32_t*>(bk), static_cast<const uint32_t*>(ak),
-      static_cast<uint32_t*>(out0), static_cast<uint32_t*>(out1),
-      static_cast<const uint32_t*>(primes), static_cast<const uint32_t*>(pinv_neg), num_s, batch,
-      num_r, num_l, logn);
+  // kHoistThreads / split divides the N/4 * L groups of a step (N >= 1024).
+  const unsigned per_block = kHoistThreads / split;
+  const size_t tiles = (static_cast<size_t>(num_l) << logn) / 4 / per_block;
+  hoisted_lazy_kernel<<<static_cast<unsigned>(num_s * batch * tiles),
+                        dim3(per_block, static_cast<unsigned>(split)), 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(c0), static_cast<const uint4*>(digits),
+      static_cast<const uint4*>(bk), static_cast<const uint4*>(ak), static_cast<uint4*>(out0),
+      static_cast<uint4*>(out1), static_cast<const uint32_t*>(primes),
+      static_cast<const uint32_t*>(pinv_neg), batch, num_r, num_l, logn, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 

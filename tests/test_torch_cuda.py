@@ -285,6 +285,52 @@ def test_keyswitch_rejects_unaligned_keys_on_card(cuda_device):
         cuda_ntt.keyswitch_fused(ctx, x, bad, bad, 5, 6)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_kw", [{}] + [{"split": q} for q in cuda_ntt.HOIST_SPLITS],
+                         ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()) or "plan")
+@pytest.mark.parametrize("num_s,batch,num_l,n", [
+    (1, 1, 3, 4096),      # one step
+    (1, 5, 6, 1024),      # R = 36 > K: two component chunks
+    (3, 5, 6, 8192),
+    (22, 4, 3, 4096),     # score_many's shape
+    (4, 1, 3, 8192),      # the MLP's second layer
+])
+def test_hoisted_products_bitwise_vs_plain_on_card(cuda_device, num_s, batch, num_l, n,
+                                                   plan_kw):
+    # K6 at the plan's split and at every split Q, against its plain
+    # version on the same card tensors; one launch counted at its (B*L, N).
+    ctx = _ctx(n, num_l)
+    r = 6 * num_l
+    c0 = _res(ctx, (batch, num_l, n), 50, cuda_device)
+    d = _res(ctx, (batch, r, num_l, n), 51, cuda_device)
+    hk = _res(ctx, (num_s, r, num_l, n), 52, cuda_device), _res(ctx, (num_s, r, num_l, n), 53,
+                                                               cuda_device)
+    cuda_ntt.reset_launch_counts()
+    plan = cuda_ntt.hoisted_plan(num_s, batch, r, ctx.p[:, 0], n, **plan_kw)
+    got = cuda_ntt.hoisted_products(ctx, c0, d, *hk, plan=plan)
+    for g, w in zip(got, cuda_ntt.hoisted_products_plain(ctx, c0, d, *hk)):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize(cuda_device)
+    assert cuda_ntt.launch_rows() == {("hoisted_products", batch * num_l, n): 1}
+
+
+@pytest.mark.cuda
+def test_hoisted_products_rejects_unaligned_inputs_on_card(cuda_device):
+    # K6 loads c0, the digits and both keys as 16-byte vectors: a view 4
+    # bytes off in any of them is refused before a launch.
+    ctx = _ctx(1024, 1)
+    good = [_res(ctx, shape, 60 + i, cuda_device) for i, shape in enumerate(
+        [(1, 1, 1024), (1, 6, 1, 1024), (2, 6, 1, 1024), (2, 6, 1, 1024)])]
+    cuda_ntt.reset_launch_counts()
+    for k in range(4):
+        flat = torch.cat([good[k].reshape(-1)[:1], good[k].reshape(-1)])
+        args = list(good)
+        args[k] = flat[1:].reshape(good[k].shape)
+        with pytest.raises(ValueError):
+            cuda_ntt.hoisted_products(ctx, *args)
+    assert cuda_ntt.launch_counts()["hoisted_products"] == 0
+
+
 def _small_linear_score(dev):
     """A small BSGS linear score (N=1024, d=40, K=4) on `dev`: (ctx, sk, W,
     b, x, k, plan, Galois keys, ciphertext, scorer)."""
