@@ -76,10 +76,25 @@ error:
      times (clip 0.5): train, upload, provision + transcipher, fold,
      decrypt, evaluate; the device time of the upload and of provision +
      transcipher by kernel (torch.profiler).
-  Phases 3-6 each print their launches by (kernel, rows x N).
-  7. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-6 launched, and not K6's kernel, spills registers. Print one JSON line {"kernels": [...]}
-     (launches: the sum over the main-path runs of phases 3-6, each counted
+  7. The experiment driver (`experiment.run_experiment`) on BASELINE.json's
+     presets at their full width, data and ring, cut in rounds and local
+     epochs only (DRIVER_RUNS): (a) medical-8, 2 rounds of 2 epochs; (b)
+     medical-8 round 0 with a round checkpoint, whose restored params must
+     equal the saved ones bitwise, then resumed to round 1; (c)
+     medical-skew (label skew, FedProx), 1 round of 1 epoch; (d) mnist-enc
+     and (e) mnist-plain, 1 round of 1 epoch. Each run's launches must be
+     exactly K1 twice in keygen and one K3 over all clients' ciphertexts
+     and one K4 a round ([440, 3, 4096] and [55, 3, 4096] for the medical
+     presets, [110, 3, 4096] for mnist-enc), none for mnist-plain; every
+     round's encode overflow 0, metrics finite, accuracy in [0, 1]; each
+     round of (a) decrypts within 5e-6 of the plaintext mean of the same
+     trained weights. Each run prints its phase times and launches.
+  Phases 3-7 each print their launches by (kernel, rows x N).
+  8. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-7 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-7 fell on a shape phase 2 timed.
+     Print one JSON line {"kernels": [...]}
+     (launches: the sum over the main-path runs of phases 3-7, each counted
      from zero; every kernel carries one "shapes" entry per timed shape
      with the launches at that shape, K5's also its per-kernel "split";
      the ranking launches x (ms - bound) prices each launch at its own
@@ -90,6 +105,7 @@ error:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -127,7 +143,7 @@ DIGIT_BITS, NUM_DIGITS = 5, 6        # the default gadget at 27-bit primes
 PALLAS = "hefl_tpu/ckks/pallas_ntt.py"
 SOURCE = "hefl_tpu_torch/csrc/ntt.cu"
 # [B, L, N] shapes at which phase 2 also times K1 and K2: the main paths
-# launch them on 1 to 150 rows (phases 3-6 print the count at each).
+# launch them on 1 to 150 rows (phases 3-7 print the count at each).
 NTT_SHAPES = ((1, 3, 4096), (2, 3, 4096), (18, 3, 4096), (55, 3, 4096),
               (1, 1, 8192), (1, 3, 8192), (2, 3, 8192), (1, 4, 8192), (1, 5, 8192),
               (2, 5, 8192), (18, 3, 8192), (30, 5, 8192))
@@ -139,12 +155,12 @@ NTT_SHAPES = ((1, 3, 4096), (2, 3, 4096), (18, 3, 4096), (55, 3, 4096),
 # [4, 3, 4096], which phase 4 runs but does not count.
 KS_SHAPES = ((False, 1, 3, 4096), (False, 4, 3, 4096), (False, 1, 3, 8192),
              (False, 1, 5, 8192), (True, 1, 5, 8192))
-# [B, L, N] shapes at which phase 2 times K3 and K4: every shape phases 3
-# and 6 launch them at (their `launches by (kernel, rows x N)` lines). K3:
-# the round's 2 clients x 55 ciphertexts, the HHE round's pads for 8
-# clients x 19 packed rows. K4: the round's 55 ciphertexts, the HHE round's
-# 19 packed rows.
-ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096))
+# [B, L, N] shapes at which phase 2 times K3 and K4: every shape phases 3,
+# 6 and 7 launch them at (their `launches by (kernel, rows x N)` lines). K3:
+# 2 clients x 55 ciphertexts (phase 3, mnist-enc), the HHE round's pads for
+# 8 clients x 19 packed rows, 8 clients x 55 (medical-8, medical-skew). K4:
+# the rounds' 55 ciphertexts, the HHE round's 19 packed rows.
+ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096), (440, 3, 4096))
 DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096))
 # [B', L, N] (B' upload rows) at which phase 2 times K7: every shape phase 6
 # launches it at, the HHE round's 8 clients x 19 packed rows.
@@ -168,7 +184,7 @@ HOIST_CHECK_PRIMES = (1, 2, 3, 5, 6)
 # every cluster plan of cuda_ntt.ntt_plan (8 blocks a row up to 16 rows, 4
 # up to 33, 2 up to 65, 1 from 66 on a 132-SM card), and the row counts of
 # ENC_SHAPES, DEC_SHAPES and TC_SHAPES.
-NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 57, 165, 330, 456)
+NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 57, 165, 330, 456, 1320)
 ERR_LIMIT = 5e-6
 SCORE_ERR_LIMIT = 0.05               # the JAX package's serving tolerance
 # The depth-2 MLP at N=8192 carries more noise than the JAX tests' n=512 ring:
@@ -660,7 +676,7 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
     for case in ntt_cases(cuda_ntt, ckks_ctx.ntt, 55, device, 200):
         records[case[0]] = kernel_record(case, flush)
     # K1 and K2 at NTT_SHAPES, K3 at ENC_SHAPES, K4 at DEC_SHAPES, K7 at
-    # TC_SHAPES: the shapes the main paths launch them at (phases 3-6 print
+    # TC_SHAPES: the shapes the main paths launch them at (phases 3-7 print
     # their launches by (kernel, rows, N)). K1/K2's [55, 3, 4096] records
     # above are kept for continuity with earlier runs; K3/K4/K7's record is
     # their first shape's.
@@ -1029,10 +1045,11 @@ def hhe_round(device) -> tuple[dict, dict]:
         "--model", "medcnn", "--dataset", "medical", "--num-clients", str(clients),
         "--epochs", "1", "--n-train", str(clients * per_client), "--n-test", "64",
         "--pack-bits", "8", "--pack-clip", "0.5", "--hhe", "--hhe-key-seed", "0",
+        "--no-save-model",
     ])
     cuda_ntt.reset_launch_counts()
     t = time.perf_counter()
-    (rec,) = cli.run(args, say=lambda m: log(f"  cli: {m}"))
+    (rec,) = cli.run(args)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t
     counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
@@ -1048,7 +1065,7 @@ def hhe_round(device) -> tuple[dict, dict]:
         f"phases {json.dumps(rec['phases'])}")
     if (geo["interleave"], geo["n_ct"], geo["n_ct_unpacked"]) != (3, 19, 55):
         raise AssertionError(f"unexpected packed geometry {geo}")
-    if not wire["expansion_hhe"] <= 1.1 or rec["encode_overflow"] != 0:
+    if not wire["expansion_hhe"] <= 1.1 or rec["encode_overflow"] != [0] * clients:
         raise AssertionError(f"expansion_hhe {wire['expansion_hhe']}, saturation "
                              f"{rec['encode_overflow']}")
     if not (rec["stream"]["committed"] and rec["stream"]["fresh"] == clients):
@@ -1144,6 +1161,152 @@ def hhe_round(device) -> tuple[dict, dict]:
     return counts, shapes
 
 
+# Phase 7's runs of `run_experiment`: (label, preset, rounds, epochs), each
+# preset at its own width, data and ring, cut in rounds and local epochs only.
+DRIVER_RUNS = (
+    ("a", "medical-8", 2, 2),
+    ("c", "medical-skew", 1, 1),
+    ("d", "mnist-enc", 1, 1),
+    ("e", "mnist-plain", 1, 1),
+)
+# Run (b): medical-8 as (a), round 0 with a checkpoint, then resumed to round 1.
+RESUME_RUN = ("b", "medical-8", 2, 2)
+
+
+def expected_launches(cfg, rounds_run: int) -> dict:
+    """{(kernel, rows, N): launches} of `rounds_run` rounds of an encrypted
+    preset on the float path: K1 twice in keygen (s and e, one [L, N] row
+    block each), then per round one K3 over every client's ciphertexts and
+    one K4 over the 55 of the sum; nothing for a plaintext preset."""
+    if not cfg.encrypted:
+        return {}
+    n, num_l, n_ct = cfg.he.n, cfg.he.num_primes, 55
+    return {("ntt_forward", num_l, n): 2,
+            ("encrypt_fused", cfg.num_clients * n_ct * num_l, n): rounds_run,
+            ("decrypt_fused", n_ct * num_l, n): rounds_run}
+
+
+def driver_runs(device) -> list[tuple[dict, dict]]:
+    """Phase 7: `experiment.run_experiment`, the port's experiment driver, on
+    BASELINE.json's presets at full width (medical-8, medical-skew: MedCNN
+    256x256x3, 8 clients x 200 images; mnist-enc, mnist-plain: SmallCNN, 2
+    clients x 4000 images; N=4096, L=3 primes of 27 bits, scale 2^30), cut
+    in rounds and epochs only (DRIVER_RUNS, RESUME_RUN). Each run's launches
+    are counted from zero and must be exactly `expected_launches`; every
+    round's encode overflow is 0, its metrics finite and its accuracy in
+    [0, 1], and the final parameters finite. Run (a) also asks each of its
+    rounds for the plaintext mean of the same trained weights
+    (`with_plain_reference`): the driver's decrypted average must sit
+    within ERR_LIMIT of it."""
+    import tempfile
+
+    from hefl_tpu_torch import experiment
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.experiment import run_experiment
+    from hefl_tpu_torch.models import count_params
+    from hefl_tpu_torch.presets import PRESETS
+    from hefl_tpu_torch.utils import load_checkpoint
+
+    def cut(name, rounds, epochs, **kw):
+        cfg = PRESETS[name]
+        return dataclasses.replace(cfg, rounds=rounds,
+                                   train=dataclasses.replace(cfg.train, epochs=epochs), **kw)
+
+    runs = []
+
+    @contextlib.contextmanager
+    def plain_references():
+        """During the block, every secure round of `run_experiment` also
+        returns its plaintext mean; yields the (mean, decrypted average)
+        pair of each round."""
+        real_round, real_decrypt = experiment.secure_fedavg_round, experiment.decrypt_average
+        refs, pairs = [], []
+
+        def round_with_reference(*a, **k):
+            ct_sum, mets, overflow, ref = real_round(*a, with_plain_reference=True, **k)
+            refs.append(ref)
+            return ct_sum, mets, overflow
+
+        def decrypt(*a, **k):
+            avg = real_decrypt(*a, **k)
+            pairs.append((refs[-1], avg))
+            return avg
+
+        experiment.secure_fedavg_round, experiment.decrypt_average = round_with_reference, decrypt
+        try:
+            yield pairs
+        finally:
+            experiment.secure_fedavg_round, experiment.decrypt_average = real_round, real_decrypt
+
+    def drive(label, cfg, rounds_run, resume=False, check_plain=False):
+        cuda_ntt.reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain_references() if check_plain else contextlib.nullcontext([]) as pairs:
+            out = run_experiment(cfg, resume=resume, verbose=False, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+        hist = out["history"]
+        log(f"  ({label}) {cfg.model} {cfg.num_clients} clients, {cfg.partition}, "
+            f"{'encrypted' if cfg.encrypted else 'plaintext'}, rounds "
+            f"{[r['round'] for r in hist]} of {cfg.rounds}, {cfg.train.epochs} epochs, "
+            f"{count_params(out['params']):,} params: {wall:.3f} s")
+        for rec in hist:
+            log(f"    round {rec['round']}: phases (s) {json.dumps(rec['phases'])}; accuracy "
+                f"{rec['accuracy']:.4f} f1 {rec['f1']:.4f}; val_loss {rec['val_loss']}; "
+                f"encode_overflow {rec.get('encode_overflow')}")
+        log_launch_rows(shapes)
+        want = expected_launches(cfg, rounds_run)
+        if shapes != want:
+            raise AssertionError(f"({label}) launched {shapes}, expected exactly {want}")
+        if len(hist) != rounds_run:
+            raise AssertionError(f"({label}) ran {len(hist)} rounds, expected {rounds_run}")
+        for rec in hist:
+            finite = np.isfinite(rec["val_loss"]).all() and np.isfinite(rec["val_acc"]).all()
+            if not finite or not 0.0 <= rec["accuracy"] <= 1.0:
+                raise AssertionError(f"({label}) bad round record {rec}")
+            if cfg.encrypted and rec["encode_overflow"] != [0] * cfg.num_clients:
+                raise AssertionError(f"({label}) encode overflow {rec['encode_overflow']}")
+            if not cfg.encrypted and "encode_overflow" in rec:
+                raise AssertionError(f"({label}) a plaintext round recorded encode_overflow")
+        if not all(torch.isfinite(v).all().item() for v in out["params"].values()):
+            raise AssertionError(f"({label}) non-finite parameters")
+        if check_plain:
+            errs = [max((avg[k] - ref[k]).abs().max().item() for k in ref) for ref, avg in pairs]
+            log(f"    decrypted average vs plaintext mean per round: max abs err {errs} "
+                f"(limit {ERR_LIMIT})")
+            if len(errs) != rounds_run or not all(e <= ERR_LIMIT for e in errs):
+                raise AssertionError(f"({label}) decrypted averages off the plaintext means: {errs}")
+        runs.append((counts, shapes))
+        return out
+
+    t = time.perf_counter()
+    outs = {}
+    for label, name, rounds, epochs in DRIVER_RUNS:
+        outs[label] = drive(label, cut(name, rounds, epochs), rounds, check_plain=label == "a")
+        if label == "a":
+            label_b, name_b, rounds_b, epochs_b = RESUME_RUN
+            with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                             prefix=".chip_smoke_") as tmp:
+                ck = str(Path(tmp) / "round.npz")
+                first = drive(f"{label_b}, round 0", cut(name_b, 1, epochs_b, checkpoint_path=ck), 1)
+                saved, next_round, _, _ = load_checkpoint(ck, first["params"])
+                if next_round != 1 or not all(torch.equal(saved[k], first["params"][k])
+                                              for k in saved):
+                    raise AssertionError("the round checkpoint does not restore round 0's params")
+                log("    checkpoint: next round 1, restored params == saved params, bitwise")
+                resumed = drive(f"{label_b}, resumed", cut(name_b, rounds_b, epochs_b,
+                                                           checkpoint_path=ck), 1, resume=True)
+            if resumed["history"][0]["round"] != 1:
+                raise AssertionError("the resumed run did not start at round 1")
+            diff = max((resumed["params"][k] - outs["a"]["params"][k]).abs().max().item()
+                       for k in resumed["params"])
+            log(f"    resumed round 1 vs (a)'s round 1: max |params diff| {diff:.3e} "
+                "(cuDNN's backward is not bitwise deterministic on the card; not checked)")
+    log(f"  phase 7 wall time: {time.perf_counter() - t:.3f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1178,13 +1341,16 @@ def main() -> int:
     runs.append(serving_mlp(device))
     log("phase 6: hybrid-HE uplink round, MedCNN 256x256x3, 8 clients, b=8 k=3, N=4096 L=3")
     runs.append(hhe_round(device))
+    log("phase 7: run_experiment on the presets medical-8 (2 rounds, and resumed), medical-skew, "
+        "mnist-enc, mnist-plain")
+    runs += driver_runs(device)
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-6 together:")
+    log("phases 3-7 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-6
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-7
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),
@@ -1205,16 +1371,19 @@ def main() -> int:
         for entry in rec["shapes"]:
             *_, b, num_l, n = entry["shape"]         # [B, L, N]; K6 [S, R, B, L, N]
             entry["launches"] = shapes.get((name, b * num_l, n), 0)
-    # HOIST_SHAPES and TC_SHAPES claim every shape K6 and K7 run at: each
-    # main-path launch must fall on exactly one of them.
-    if len({(b * num_l, n) for *_, b, num_l, n in HOIST_SHAPES}) != len(HOIST_SHAPES):
-        raise AssertionError("two HOIST_SHAPES share one (B*L, N), so their launches cannot "
-                             "be told apart")
-    for name in ("hoisted_products", "transcipher_fused"):
+    # ENC_SHAPES, DEC_SHAPES, HOIST_SHAPES and TC_SHAPES claim every shape
+    # K3, K4, K6 and K7 run at: each main-path launch must fall on exactly
+    # one of them.
+    for shape_list in (ENC_SHAPES, DEC_SHAPES, HOIST_SHAPES, TC_SHAPES):
+        if len({(b * num_l, n) for *_, b, num_l, n in shape_list}) != len(shape_list):
+            raise AssertionError("two timed shapes of one kernel share one (B*L, N), so their "
+                                 "launches cannot be told apart")
+    for name in ("encrypt_fused", "decrypt_fused", "hoisted_products", "transcipher_fused"):
         timed = sum(e["launches"] for e in records[name]["shapes"])
         if timed != records[name]["launches"]:
             raise AssertionError(f"{records[name]['launches'] - timed} {name} launches at a shape "
-                                 "phase 2 does not time (HOIST_SHAPES / TC_SHAPES are stale)")
+                                 "phase 2 does not time (ENC_SHAPES / DEC_SHAPES / HOIST_SHAPES / "
+                                 "TC_SHAPES are stale)")
 
     # ROADMAP Queue 2's ranking: launches x (device time - bound), summed
     # over each kernel's timed shapes, each launch priced at its own shape

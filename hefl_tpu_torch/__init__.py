@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of `hefl_tpu`: encrypted FedAvg of CNNs (float, packed
-quantized and hybrid-HE uplinks) and encrypted inference serving on one
-NVIDIA GPU.
+quantized and hybrid-HE uplinks) driven by the experiment driver and its
+presets, and encrypted inference serving on one NVIDIA GPU.
 
 The package mirrors `hefl_tpu`'s module layout (ckks/, models/, data/, fl/,
-cli.py) so each function has an obvious counterpart, but it is written in
+utils/, experiment.py, presets.py, cli.py) so each function has an obvious
+counterpart, but it is written in
 PyTorch and imports nothing of JAX or of `hefl_tpu`. The TPU kernels of the
 encrypted round (forward/inverse NTT, fused encrypt, fused decrypt), of
 encrypted-inference serving (fused key-switch, hoisted-rotation products,

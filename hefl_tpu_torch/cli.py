@@ -1,20 +1,26 @@
 """Command-line entry: `python -m hefl_tpu_torch.cli [flags]`.
 
-The encrypted FedAvg paths of `hefl_tpu.cli` on one GPU:
+The experiment driver of `hefl_tpu.cli` on one GPU: the flags build an
+`ExperimentConfig` and `experiment.run_experiment` runs it, e.g.
+`python -m hefl_tpu_torch.cli --preset medical-8 [--device cpu]` or
 `python -m hefl_tpu_torch.cli --model medcnn --dataset medical
 --num-clients 2 [--epochs E --n-train N --n-test M --device cpu]`.
 Each round trains every client, encrypts, sums the ciphertexts mod p, and
-the owner decrypts the average, which is then evaluated on the test split.
-`--pack-bits B` uploads b-bit quantized updates interleaved k to a slot;
-`--stream` folds the uploads online (full cohort, quorum 1.0); `--hhe`
-(with `--pack-bits`, implying `--stream`) has the clients encrypt their
-packed update under a stream cipher and the server transcipher it into
-CKKS before the fold.
+the owner decrypts the average, which is then evaluated on the test split;
+`--plaintext` averages in the clear, `--centralized` trains one model on
+the whole set. `--pack-bits B` uploads b-bit quantized updates interleaved
+k to a slot; `--stream` folds the uploads online (full cohort, quorum 1.0);
+`--hhe` (with `--pack-bits`, implying `--stream`) has the clients encrypt
+their packed update under a stream cipher and the server transcipher it
+into CKKS before the fold. `--preset NAME` runs a named configuration
+(`presets.PRESETS`) and ignores the other flags but `--resume`, `--json`
+and `--device`.
 
-The flags keep the JAX CLI's names and defaults. A flag of the JAX CLI that
-this port does not have yet (DP, faults, cohorts, journal, ...) is refused
-with an error naming it, never silently ignored; so is a value the port does
-not run (`--quorum` other than 1.0). `--device` is the one flag the JAX CLI
+The flags keep the JAX CLI's names and defaults (the final model is saved
+to agg_model.npz unless `--no-save-model`). A flag of the JAX CLI that this
+port does not have yet (DP, faults, cohorts, journal, ...) is refused with
+an error naming it, never silently ignored; so is a value the port does not
+run (`--quorum` other than 1.0). `--device` is the one flag the JAX CLI
 lacks: the run is on CUDA unless it names another device.
 """
 
@@ -22,28 +28,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
-import torch
 
-from hefl_tpu_torch import resolve_device
-from hefl_tpu_torch.ckks.keys import CkksContext, keygen
-from hefl_tpu_torch.ckks.packing import PackedSpec, PackSpec, bytes_on_wire_record
-from hefl_tpu_torch.data.partition import iid_contiguous, stack_federated
-from hefl_tpu_torch.data.synthetic import make_dataset
+from hefl_tpu_torch.experiment import ExperimentConfig, HEConfig, run_experiment
 from hefl_tpu_torch.fl.config import HheConfig, PackingConfig, StreamConfig, TrainConfig
-from hefl_tpu_torch.fl.fedavg import evaluate
-from hefl_tpu_torch.fl.secure import decrypt_average, secure_fedavg_round
-from hefl_tpu_torch.fl.stream import StreamEngine
-from hefl_tpu_torch.hhe.cipher import hhe_bytes_on_wire_record
-from hefl_tpu_torch.models import MODEL_REGISTRY, count_params, create_model
+from hefl_tpu_torch.models import MODEL_REGISTRY
+from hefl_tpu_torch.presets import PRESETS
 
 # Flags of `hefl_tpu.cli` that the port does not run yet.
 UNPORTED_FLAGS = (
-    "--preset", "--data-dir", "--image-size", "--plaintext", "--partition",
-    "--skew-alpha", "--prox-mu", "--client-fusion", "--checkpoint", "--resume",
-    "--save-model", "--no-save-model", "--centralized", "--profile", "--events",
+    "--data-dir", "--image-size", "--client-fusion", "--profile", "--events",
     "--no-events", "--span-trace", "--dp-noise", "--dp-clip", "--dp-delta",
     "--on-overflow", "--max-update-norm", "--drop-fraction", "--nan-clients",
     "--huge-clients", "--straggler-delay", "--fail-rounds", "--arrival-delay",
@@ -64,6 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="hefl_tpu_torch",
         description="Encrypted federated learning (CKKS FedAvg) on one GPU",
     )
+    p.add_argument("--preset", default=None,
+                   help="run a named BASELINE.json config (see "
+                        "hefl_tpu_torch.presets.PRESETS); other flags are ignored")
     p.add_argument("--model", default="medcnn", choices=sorted(MODEL_REGISTRY))
     p.add_argument("--dataset", default="medical", choices=["medical", "mnist", "cifar10"])
     p.add_argument("--num-clients", type=int, default=2)
@@ -75,6 +73,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="linear lr warmup steps (0 = reference behavior)")
     p.add_argument("--num-classes", type=int, default=None,
                    help="default: the model's registry default")
+    p.add_argument("--plaintext", action="store_true",
+                   help="plain FedAvg (no HE) — the cell-6 comparison path")
+    p.add_argument("--partition", default="iid", choices=["iid", "label_skew"])
+    p.add_argument("--skew-alpha", type=float, default=0.5)
+    p.add_argument("--prox-mu", type=float, default=0.0, help="FedProx strength")
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--he-n", type=int, default=4096, help="CKKS ring degree")
     p.add_argument("--he-primes", type=int, default=3, help="RNS limb count")
@@ -103,6 +106,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n-train", type=int, default=None)
     p.add_argument("--n-test", type=int, default=None)
+    p.add_argument("--checkpoint", default=None, help="checkpoint path (.npz)")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--save-model", default="agg_model.npz", metavar="PATH",
+                   dest="save_model",
+                   help="persist the final aggregated model (the reference's "
+                        "agg_model.hdf5, always written); --no-save-model "
+                        "to disable")
+    p.add_argument("--no-save-model", action="store_const", const=None,
+                   dest="save_model")
+    p.add_argument("--centralized", action="store_true",
+                   help="centralized (non-federated) baseline: train one "
+                        "model on the whole dataset (train_server analog)")
     p.add_argument("--json", action="store_true", help="emit history as JSON lines")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: CUDA; 'cpu' runs the "
@@ -113,6 +128,11 @@ def build_parser() -> argparse.ArgumentParser:
 def check_args(args: argparse.Namespace) -> None:
     """Refuse flag combinations that would be silently ignored, and values
     the port does not run, naming the flag (`hefl_tpu.cli`'s checks)."""
+    if args.preset is not None and args.preset not in PRESETS:
+        try:
+            PRESETS[args.preset]
+        except KeyError as exc:             # names the module an unported preset needs
+            raise ValueError(f"--preset: {exc.args[0]}") from None
     if args.pack_bits <= 0 and (args.pack_interleave or args.pack_clip is not None):
         raise ValueError("--pack-interleave/--pack-clip have no effect without "
                          "--pack-bits; add --pack-bits B to enable packing")
@@ -137,6 +157,40 @@ def _packing_config(args: argparse.Namespace) -> PackingConfig | None:
     )
 
 
+def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
+    """The flags as an ExperimentConfig (`hefl_tpu.cli.config_from_args`
+    over the ported flags); `--preset` yields PRESETS[name]."""
+    if args.preset is not None:
+        return PRESETS[args.preset]
+    num_classes = (args.num_classes if args.num_classes is not None
+                   else MODEL_REGISTRY[args.model][1])
+    return ExperimentConfig(
+        model=args.model,
+        dataset=args.dataset,
+        num_clients=args.num_clients,
+        rounds=args.rounds,
+        encrypted=not args.plaintext,
+        partition=args.partition,
+        skew_alpha=args.skew_alpha,
+        train=TrainConfig(
+            epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+            warmup_steps=args.warmup_steps, prox_mu=args.prox_mu,
+            augment=not args.no_augment, num_classes=num_classes,
+        ),
+        he=HEConfig(n=args.he_n, num_primes=args.he_primes),
+        packing=_packing_config(args),
+        seed=args.seed,
+        n_train=args.n_train,
+        n_test=args.n_test,
+        checkpoint_path=args.checkpoint,
+        save_model_path=args.save_model,
+        centralized=args.centralized,
+        stream=(StreamConfig(quorum=args.quorum, upload_kind="hhe" if args.hhe else "ckks")
+                if args.stream or args.hhe else None),
+        hhe=HheConfig(key_seed=args.hhe_key_seed) if args.hhe else None,
+    )
+
+
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser = build_parser()
     args, rest = parser.parse_known_args(argv)
@@ -153,96 +207,17 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return args
 
 
-def run(args: argparse.Namespace, say=print) -> list[dict]:
-    """Run `args.rounds` encrypted FedAvg rounds -> one record per round."""
+def run(args: argparse.Namespace, verbose: bool = True) -> list[dict]:
+    """Run the configured experiment -> one record per round."""
     check_args(args)
-    device = resolve_device(args.device)
-    num_classes = args.num_classes or MODEL_REGISTRY[args.model][1]
-    cfg = TrainConfig(
-        epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
-        warmup_steps=args.warmup_steps, augment=not args.no_augment,
-        num_classes=num_classes,
-    )
-    (x, y), (xt, yt), _ = make_dataset(
-        args.dataset, seed=args.seed, n_train=args.n_train, n_test=args.n_test
-    )
-    xs, ys = stack_federated(x, y, iid_contiguous(len(y), args.num_clients))
-    xs_d = torch.from_numpy(xs).to(device)
-    ys_d = torch.from_numpy(ys).to(device)
-    xt_d = torch.from_numpy(xt).to(device)
-    gen = torch.Generator().manual_seed(args.seed)
-    model = create_model(
-        args.model, num_classes=num_classes, input_shape=tuple(x.shape[1:]),
-        gen=gen, device=device,
-    )
-    params = {k: v.detach() for k, v in model.named_parameters()}
-    ctx = CkksContext.create(n=args.he_n, num_primes=args.he_primes)
-    sk, pk = keygen(ctx, gen, device=device)
-    spec = PackSpec.for_params(params, ctx.n)
-    say(f"CKKS context: N={ctx.n} L={ctx.num_primes} -> {spec.n_ct} ciphertexts "
-        f"for {count_params(params):,} params on {device}")
-    packing = _packing_config(args)
-    pspec = None
-    if packing is not None:
-        pspec = PackedSpec.for_params(params, ctx, packing, args.num_clients)
-        say(f"packing: b={pspec.bits} k={pspec.k} (guard {pspec.guard}, clip {pspec.clip}) "
-            f"-> {pspec.n_ct} packed ciphertexts, error budget {pspec.error_budget:.2e}")
-    engine = hhe = None
-    if args.stream or args.hhe:
-        engine = StreamEngine(StreamConfig(quorum=args.quorum,
-                                           upload_kind="hhe" if args.hhe else "ckks"))
-        hhe = HheConfig(key_seed=args.hhe_key_seed) if args.hhe else None
-    history = []
-    for r in range(args.rounds):
-        t0 = time.perf_counter()
-        meta = smeta = None
-        if engine is not None:
-            ct_sum, metrics, overflow, smeta = engine.run_round(
-                model, cfg, ctx, pk, params, xs_d, ys_d, gen, r, packing=pspec, hhe=hhe
-            )
-            meta = smeta.meta
-        else:
-            ct_sum, metrics, overflow = secure_fedavg_round(
-                model, cfg, ctx, pk, params, xs_d, ys_d, gen, packing=pspec
-            )
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        params = decrypt_average(ctx, sk, ct_sum, args.num_clients, spec, meta=meta,
-                                 packing=pspec, base_params=params, hhe=args.hhe)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t2 = time.perf_counter()
-        results = evaluate(model, params, xt_d, yt)
-        t3 = time.perf_counter()
-        mets = metrics.numpy()
-        record = {
-            "round": r,
-            "phases": {"train+encrypt+aggregate": t1 - t0, "decrypt": t2 - t1,
-                       "evaluate": t3 - t2},
-            "val_loss": mets[:, -1, 0].tolist(),
-            "val_acc": mets[:, -1, 1].tolist(),
-            "encode_overflow": int(overflow.sum()),
-            **{k: float(results[k]) for k in ("accuracy", "precision", "recall", "f1")},
-        }
-        if pspec is not None:
-            record["packing"] = pspec.geometry_record()
-            record["bytes_on_wire"] = bytes_on_wire_record(pspec, ctx.num_primes)
-        if smeta is not None:
-            record["stream"] = smeta.record()
-        if args.hhe:
-            record["hhe"] = {"key_seed": args.hhe_key_seed,
-                             **hhe_bytes_on_wire_record(pspec, ctx.num_primes)}
-        history.append(record)
-        say(f"round {r}: acc {record['accuracy']:.4f} f1 {record['f1']:.4f} "
-            f"(train+encrypt+aggregate {t1 - t0:.2f}s, decrypt {t2 - t1:.2f}s, "
-            f"evaluate {t3 - t2:.2f}s)")
-    return history
+    out = run_experiment(config_from_args(args), resume=args.resume, verbose=verbose,
+                         device=args.device)
+    return out["history"]
 
 
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
-    history = run(args, say=(lambda *_: None) if args.json else print)
+    history = run(args, verbose=not args.json)
     if args.json:
         for rec in history:
             print(json.dumps(rec, default=lambda o: np.asarray(o).tolist()))

@@ -5,7 +5,11 @@ Python loop: E*S SGD steps over precomputed shuffles and augment params,
 and at the last step of each epoch the validation pass and the callback
 transition (`_epoch_update`): early stopping on val loss, ReduceLROnPlateau,
 and the best-val-loss restore, which the shipped weights take only when the
-client actually stopped early (`client_shipped_params`).
+client actually stopped early (`client_shipped_params`). The loss carries
+the FedProx term against the round's global weights when
+`TrainConfig.prox_mu > 0`. `train_centralized` runs the same loop on the
+whole training set and restores the best-by-accuracy weights (the
+reference's `train_server` baseline).
 
 Validation is the HEAD `val_fraction` of the client's samples (Keras
 `validation_split`). Once a client has stopped, the JAX package still runs
@@ -29,7 +33,7 @@ from torch.func import functional_call
 
 from hefl_tpu_torch.data.augment import apply_affine, draw_affine_params, rescale
 from hefl_tpu_torch.fl.config import TrainConfig
-from hefl_tpu_torch.fl.loss import accuracy, cross_entropy
+from hefl_tpu_torch.fl.loss import accuracy, cross_entropy, loss_fn
 from hefl_tpu_torch.fl.optimizer import AdamState, adam_init, adam_update
 
 
@@ -68,7 +72,9 @@ class ClientState:
     params: dict
     opt: AdamState
     lr_scale: np.float32           # ReduceLROnPlateau multiplier
+    best_params: dict              # ModelCheckpoint best-by-val-acc (centralized only)
     best_loss_params: dict         # EarlyStopping best-by-val-loss (restore target)
+    best_val_acc: np.float32
     best_val_loss: np.float32
     wait_es: int                   # epochs since val-loss improvement (early stop)
     wait_plateau: int              # epochs since val-loss improvement (LR plateau)
@@ -80,7 +86,9 @@ def init_client_state(global_params: dict) -> ClientState:
         params=global_params,
         opt=adam_init(global_params),
         lr_scale=np.float32(1.0),
+        best_params=global_params,
         best_loss_params=global_params,
+        best_val_acc=np.float32(-np.inf),
         best_val_loss=np.float32(np.inf),
         wait_es=0,
         wait_plateau=0,
@@ -88,16 +96,18 @@ def init_client_state(global_params: dict) -> ClientState:
     )
 
 
-def _epoch_update(cfg: TrainConfig, state: ClientState, params, opt, val_loss, val_acc):
+def _epoch_update(cfg: TrainConfig, state: ClientState, params, opt, val_loss, val_acc,
+                  track_best_acc: bool = False):
     """The Keras-callback transition at an epoch boundary (the JAX package's
-    `_epoch_update`, client.py:175-240, minus the best-by-accuracy copy that
-    clients never read) -> (next state, metrics row [val_loss, val_acc,
-    lr_scale, stopped])."""
+    `_epoch_update`, client.py:175-240; the best-by-accuracy copy only with
+    `track_best_acc`, since clients never read it) -> (next state, metrics
+    row [val_loss, val_acc, lr_scale, stopped])."""
     f32 = np.float32
     if state.stopped:                       # frozen: nothing moves
         row = [val_loss, val_acc, state.lr_scale, f32(1.0)]
         return state, np.array(row, dtype=np.float32)
     loss_improved = bool(val_loss < state.best_val_loss - f32(cfg.min_delta))
+    acc_improved = bool(val_acc > state.best_val_acc)
     wait_es = 0 if loss_improved else state.wait_es + 1
     wait_pl = 0 if loss_improved else state.wait_plateau + 1
     lr_scale = state.lr_scale
@@ -109,7 +119,9 @@ def _epoch_update(cfg: TrainConfig, state: ClientState, params, opt, val_loss, v
         params=params,
         opt=opt,
         lr_scale=f32(lr_scale),
+        best_params=params if track_best_acc and acc_improved else state.best_params,
         best_loss_params=params if loss_improved else state.best_loss_params,
+        best_val_acc=max(val_acc, state.best_val_acc),
         best_val_loss=min(val_loss, state.best_val_loss),
         wait_es=wait_es,
         wait_plateau=wait_pl,
@@ -132,22 +144,10 @@ def _eval_metrics(model, params, x_u8, onehot):
         return cross_entropy(logits, onehot), accuracy(logits, onehot)
 
 
-def local_train(
-    model: torch.nn.Module,
-    cfg: TrainConfig,
-    global_params: dict,
-    x: torch.Tensor,
-    y: torch.Tensor,
-    gen: torch.Generator | None = None,
-    streams=None,
-):
-    """Train one client from the global weights.
-
-    x: uint8[m, H, W, C]; y: int[m] (both on the training device);
-    `global_params` a parameter dict of `model` (`model.named_parameters()`
-    names). -> (shipped params dict, metrics float32[E, 4] with columns
-    val_loss, val_acc, lr_scale, stopped).
-    """
+def _fit(model, cfg: TrainConfig, global_params: dict, x, y, gen, streams,
+         track_best_acc: bool) -> tuple[ClientState, torch.Tensor]:
+    """The E*S-step loop shared by `local_train` and `train_centralized`
+    -> (final ClientState, metrics float32[E, 4])."""
     n_tr, grp, steps = train_batch_geometry(cfg, int(x.shape[0]))
     if n_tr < 1:
         raise ValueError(
@@ -179,8 +179,7 @@ def local_train(
             if cfg.augment:
                 xb = apply_affine(xb, *(a[step] for a in aug))
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-            logits = functional_call(model, leaves, (xb,))
-            loss = cross_entropy(logits, oh_tr[idx])
+            loss, _ = loss_fn(model, leaves, xb, oh_tr[idx], global_params, cfg.prox_mu)
             grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
             with torch.no_grad():
                 params, opt = adam_update(
@@ -193,8 +192,46 @@ def local_train(
             val_loss, val_acc = _eval_metrics(model, eval_params, x_va, oh_va)
             state, row = _epoch_update(
                 cfg, state, params, opt,
-                np.float32(val_loss.item()), np.float32(val_acc.item()),
+                np.float32(val_loss.item()), np.float32(val_acc.item()), track_best_acc,
             )
             params, opt = state.params, state.opt
             rows.append(row)
-    return client_shipped_params(state), torch.from_numpy(np.stack(rows))
+    return state, torch.from_numpy(np.stack(rows))
+
+
+def local_train(
+    model: torch.nn.Module,
+    cfg: TrainConfig,
+    global_params: dict,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    gen: torch.Generator | None = None,
+    streams=None,
+):
+    """Train one client from the global weights.
+
+    x: uint8[m, H, W, C]; y: int[m] (both on the training device);
+    `global_params` a parameter dict of `model` (`model.named_parameters()`
+    names), also the FedProx anchor. -> (shipped params dict, metrics
+    float32[E, 4] with columns val_loss, val_acc, lr_scale, stopped).
+    """
+    state, metrics = _fit(model, cfg, global_params, x, y, gen, streams, track_best_acc=False)
+    return client_shipped_params(state), metrics
+
+
+def train_centralized(
+    model: torch.nn.Module,
+    cfg: TrainConfig,
+    params: dict,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    gen: torch.Generator | None = None,
+    streams=None,
+):
+    """Centralized (non-federated) baseline trainer — `train_server`
+    (FLPyfhelin.py:161-177): the whole dataset, one model, the same
+    callback semantics, and after fit the best-by-ACCURACY weights (its
+    ModelCheckpoint reload), unlike a client's upload.
+    -> (best params dict, metrics float32[E, 4])."""
+    state, metrics = _fit(model, cfg, params, x, y, gen, streams, track_best_acc=True)
+    return state.best_params, metrics

@@ -5,7 +5,11 @@ this path uses, with the same defaults, which reproduce the reference:
 Adam(lr=1e-3, decay=1e-4), 10 local epochs, batch 32,
 EarlyStopping(patience=5, restore_best_weights), ReduceLROnPlateau(
 patience=2, factor=0.3, min_lr=1e-6), validation_split=0.1, and the
-shear/zoom/flip augmentation. `StreamConfig` is the JAX package's; the
+shear/zoom/flip augmentation; `prox_mu > 0` adds the FedProx term.
+`client_fusion`, `on_overflow` and `max_update_norm` carry the JAX
+defaults so a config reads the same in both packages; `run_experiment`
+refuses the values the port does not run (fused training, exclusion,
+the norm bound). `StreamConfig` is the JAX package's; the
 packing and hybrid-HE configs live beside what they configure and are
 re-exported here, as in the JAX package.
 """
@@ -31,11 +35,29 @@ class TrainConfig:
     plateau_factor: float = 0.3
     min_lr: float = 1e-6
     min_delta: float = 0.0
+    prox_mu: float = 0.0            # FedProx; 0 = plain FedAvg
     augment: bool = True
     aug_shear: float = 0.2
     aug_zoom: float = 0.2
     aug_flip: bool = True
     num_classes: int = 2
+    client_fusion: str = "auto"     # cross-client fused training (not ported)
+    # Encode saturation (encode_overflow > 0): "warn" aggregates and logs,
+    # "raise" aborts the run, "exclude" drops the client (not ported).
+    on_overflow: str = "warn"
+    max_update_norm: float = 0.0    # L2 bound on a client's update (not ported)
+
+    def __post_init__(self):
+        if self.on_overflow not in ("warn", "exclude", "raise"):
+            raise ValueError(
+                f"on_overflow={self.on_overflow!r}: must be one of "
+                "'warn' | 'exclude' | 'raise'"
+            )
+        if self.client_fusion not in ("auto", "fused", "vmap"):
+            raise ValueError(
+                f"client_fusion={self.client_fusion!r}: must be one of "
+                "'auto' | 'fused' | 'vmap'"
+            )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -63,3 +63,12 @@ class RoundMeta:
                       for name, flag in EXCLUSION_CAUSES.items()},
             sanitized=sanitized,
         )
+
+    def record(self) -> dict:
+        """JSON-ready summary for a round's history record."""
+        return {
+            "participation": list(self.participation),
+            "surviving": self.surviving,
+            "excluded": dict(self.excluded),
+            "sanitized": self.sanitized,
+        }

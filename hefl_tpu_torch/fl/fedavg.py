@@ -1,8 +1,12 @@
-"""Client training across a round, and evaluation, on one device.
+"""Client training across a round, the plaintext FedAvg round, and
+evaluation, on one device.
 
-Counterpart of the parts of `hefl_tpu.fl.fedavg` the encrypted round uses.
+Counterpart of `hefl_tpu.fl.fedavg` for the all-clients-present round.
 The JAX package lays clients out on a "clients" mesh axis; on one GPU the
 clients of a round are a loop over the leading axis of the federated arrays.
+The participation-masked engine (participation masks, poisoning, padded
+client slots) is not ported (ROADMAP M10): `fedavg_round` is the
+all-clients-present round only.
 """
 
 from __future__ import annotations
@@ -35,6 +39,36 @@ def train_clients(
         p_out.append(prm)
         mets.append(met)
     return p_out, torch.stack(mets)
+
+
+def client_generators(gen: torch.Generator, count: int, device) -> list[torch.Generator]:
+    """`count` generators on `device`, seeded by draws from `gen`."""
+    seeds = torch.randint(0, 2**62, (count,), generator=gen, device=gen.device).tolist()
+    return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
+
+
+def plain_mean(p_out: list[dict]) -> dict:
+    """The plaintext FedAvg mean of the clients' trained weights (the JAX
+    package's all-kept `masked_mean_tree`)."""
+    return {k: torch.stack([prm[k] for prm in p_out]).mean(dim=0) for k in p_out[0]}
+
+
+def fedavg_round(
+    model, cfg: TrainConfig, global_params: dict, xs, ys, gen: torch.Generator,
+    streams=None,
+):
+    """One synchronous plaintext FedAvg round: every client trains from the
+    global weights (its generator drawn from `gen`, as the encrypted round
+    draws its training generators, so both train the same weights), then
+    the weights are averaged; `streams` (one (perms, aug) pair per client)
+    replaces the drawn training streams.
+    -> (new global params, metrics float32[C, E, 4])."""
+    gens = client_generators(gen, int(xs.shape[0]), xs.device)
+    p_out, mets = train_clients(
+        model, cfg, global_params, xs, ys,
+        gens=None if streams is not None else gens, streams=streams,
+    )
+    return plain_mean(p_out), mets
 
 
 def evaluate(model, params: dict, x, y, batch_size: int = 32) -> dict:

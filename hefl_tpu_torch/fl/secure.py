@@ -39,7 +39,7 @@ from hefl_tpu_torch.ckks.packing import (
 )
 from hefl_tpu_torch.fl.config import TrainConfig
 from hefl_tpu_torch.fl.faults import RoundMeta
-from hefl_tpu_torch.fl.fedavg import train_clients
+from hefl_tpu_torch.fl.fedavg import client_generators, plain_mean, train_clients
 from hefl_tpu_torch.hhe import cipher
 
 
@@ -109,11 +109,6 @@ def aggregate_encrypted(ctx: CkksContext, cts: Ciphertext) -> Ciphertext:
     )
 
 
-def _client_generators(gen: torch.Generator, count: int, device) -> list[torch.Generator]:
-    seeds = torch.randint(0, 2**62, (count,), generator=gen, device=gen.device).tolist()
-    return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
-
-
 def client_uploads(
     model, cfg: TrainConfig, ctx: CkksContext, pk: PublicKey, global_params: dict,
     xs: torch.Tensor, ys: torch.Tensor, gen: torch.Generator, packing: PackedSpec | None = None,
@@ -142,8 +137,8 @@ def client_uploads(
             "the hybrid-HE upload ships the PACKED quantized update under the "
             "stream cipher; give a PackedSpec"
         )
-    train_gens = _client_generators(gen, num_clients, xs.device)
-    enc_gens = _client_generators(gen, num_clients, xs.device)
+    train_gens = client_generators(gen, num_clients, xs.device)
+    enc_gens = client_generators(gen, num_clients, xs.device)
     p_out, mets = train_clients(
         model, cfg, global_params, xs, ys,
         gens=None if streams is not None else train_gens, streams=streams,
@@ -159,11 +154,6 @@ def client_uploads(
         encoding.encode_overflow_count(pack_params(prm, ctx.n), ctx.scale) for prm in p_out
     ])
     return encrypt_stack(ctx, pk, p_out, enc_gens), mets, overflow, p_out, enc_gens
-
-
-def plain_mean(p_out: list[dict]) -> dict:
-    """The plaintext FedAvg mean of the clients' trained weights."""
-    return {k: torch.stack([prm[k] for prm in p_out]).mean(dim=0) for k in p_out[0]}
 
 
 def secure_fedavg_round(

@@ -5,12 +5,13 @@ from __future__ import annotations
 import torch
 
 from hefl_tpu_torch import resolve_device
-from hefl_tpu_torch.models.cnn import MedCNN, SmallCNN, count_params
+from hefl_tpu_torch.models.cnn import LogReg, MedCNN, SmallCNN, count_params
 
 # name -> (module class, default num_classes, default input shape NHWC-less)
 MODEL_REGISTRY: dict[str, tuple[type, int, tuple[int, int, int]]] = {
     "medcnn": (MedCNN, 2, (256, 256, 3)),
     "smallcnn": (SmallCNN, 10, (28, 28, 1)),
+    "logreg": (LogReg, 10, (28, 28, 1)),
 }
 
 
@@ -35,4 +36,4 @@ def create_model(
     return model.to(device)
 
 
-__all__ = ["MedCNN", "SmallCNN", "create_model", "count_params", "MODEL_REGISTRY"]
+__all__ = ["LogReg", "MedCNN", "SmallCNN", "create_model", "count_params", "MODEL_REGISTRY"]

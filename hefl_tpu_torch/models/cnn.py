@@ -3,7 +3,8 @@
 Counterpart of `hefl_tpu.models.cnn`. `MedCNN` is six [Conv 3x3 VALID ->
 ReLU -> MaxPool 2x2] stages with filters (32, 32, 32, 64, 64, 128), then
 Flatten -> Dense 128 ReLU -> Dense 64 ReLU -> Dense num_classes: 222,722
-parameters at 256x256x3. `SmallCNN` is the 2-conv MNIST variant.
+parameters at 256x256x3. `SmallCNN` is the 2-conv MNIST variant, `LogReg`
+one Dense layer over the flattened image.
 
 What is kept from the flax modules so weights carry across unchanged:
   * the input is NHWC float, as in the JAX package; it is permuted to NCHW
@@ -96,6 +97,19 @@ class SmallCNN(MedCNN):
         input_shape: tuple[int, int, int] = (28, 28, 1),
     ):
         super().__init__(num_classes, features, dense, input_shape)
+
+
+class LogReg(MedCNN):
+    """Multinomial logistic regression (flatten -> one Dense), the flax
+    `LogReg`: a MedCNN without convolutions or hidden layers, so the
+    flatten stays in NHWC order and the Dense computes in bfloat16."""
+
+    def __init__(
+        self,
+        num_classes: int = 10,
+        input_shape: tuple[int, int, int] = (28, 28, 1),
+    ):
+        super().__init__(num_classes, (), (), input_shape)
 
 
 def count_params(model_or_params) -> int:

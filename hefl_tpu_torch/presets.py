@@ -1,0 +1,86 @@
+"""The five BASELINE.json benchmark configurations as named presets, and the
+CPU-sized hybrid-HE smoke preset, over the port's configs
+(`hefl_tpu.presets`, restated: the JAX module builds the JAX package's
+`ExperimentConfig`).
+
+  1. mnist-plain     2-client plaintext FedAvg, 2-conv CNN, MNIST
+  2. mnist-enc       2-client CKKS-encrypted FedAvg, MNIST
+  3. medical-8       8-client encrypted FedAvg, medical images, IID split
+  4. medical-skew    8-client non-IID (label-skew) encrypted FedAvg + FedProx
+  5. cifar-resnet16  16-client encrypted FedAvg, ResNet-20, CIFAR-10
+
+Every preset keeps the reference's local-training recipe (10 epochs, batch
+32, Adam 1e-3 with Keras decay, EarlyStopping/ReduceLROnPlateau) and runs 3
+rounds. Three presets of the JAX package need modules the port does not
+have yet (`UNPORTED_PRESETS`); looking one up raises a KeyError naming the
+module, never a silent miss. `hhe-smoke` uses a ring of N = 256, which the
+port's kernels do not take: it runs with `device="cpu"` (the plain
+versions), and on a CUDA device the first kernel call refuses N = 256.
+"""
+
+from __future__ import annotations
+
+from hefl_tpu_torch.experiment import ExperimentConfig, HEConfig
+from hefl_tpu_torch.fl.config import HheConfig, PackingConfig, StreamConfig, TrainConfig
+
+# The five reference-derived benchmark configurations (BASELINE.json).
+BASELINE_PRESET_NAMES = (
+    "mnist-plain", "mnist-enc", "medical-8", "medical-skew", "cifar-resnet16",
+)
+
+# Presets of the JAX package that need a module the port does not have yet.
+UNPORTED_PRESETS = {
+    "cifar-resnet16": "models/resnet.py (ResNet20; ROADMAP M9)",
+    "chaos-smoke": "fl/faults.py fault schedules and on_overflow='exclude' (ROADMAP M10)",
+    "fusion-smoke": "fl/fusion.py, TrainConfig.client_fusion='fused' (ROADMAP M9)",
+}
+
+
+class _Presets(dict):
+    def __missing__(self, name):
+        if name in UNPORTED_PRESETS:
+            raise KeyError(f"preset {name!r} needs {UNPORTED_PRESETS[name]}, which "
+                           "hefl_tpu_torch does not have yet")
+        raise KeyError(f"unknown preset {name!r}; available: {sorted(self)}")
+
+
+_MNIST_TRAIN = TrainConfig(num_classes=10, warmup_steps=0)
+# Warmup ~= 2 epochs of steps: 8 clients x 200 images -> 180 train, bs 32
+# -> 5 steps/epoch, so 10 warmup steps.
+_MED_TRAIN = TrainConfig(num_classes=2, warmup_steps=10)
+
+PRESETS: dict[str, ExperimentConfig] = _Presets({
+    "mnist-plain": ExperimentConfig(
+        model="smallcnn", dataset="mnist", num_clients=2, rounds=3,
+        encrypted=False, train=_MNIST_TRAIN, seed=0,
+    ),
+    "mnist-enc": ExperimentConfig(
+        model="smallcnn", dataset="mnist", num_clients=2, rounds=3,
+        encrypted=True, train=_MNIST_TRAIN, he=HEConfig(), seed=0,
+    ),
+    "medical-8": ExperimentConfig(
+        model="medcnn", dataset="medical", num_clients=8, rounds=3,
+        encrypted=True, train=_MED_TRAIN, he=HEConfig(), seed=0,
+    ),
+    "medical-skew": ExperimentConfig(
+        model="medcnn", dataset="medical", num_clients=8, rounds=3,
+        encrypted=True, partition="label_skew", skew_alpha=0.5,
+        train=TrainConfig(num_classes=2, warmup_steps=10, prox_mu=0.01),
+        he=HEConfig(), seed=0,
+    ),
+    # Hybrid-HE uplink smoke (CPU-sized): a streaming run with
+    # upload_kind=hhe, clients shipping stream-cipher word pairs and the
+    # server transciphering into CKKS before the fold.
+    "hhe-smoke": ExperimentConfig(
+        model="smallcnn", dataset="mnist", num_clients=8, rounds=2,
+        encrypted=True, he=HEConfig(n=256), seed=0,
+        n_train=512, n_test=128,
+        train=TrainConfig(
+            num_classes=10, epochs=1, batch_size=8, augment=False,
+            val_fraction=0.25,
+        ),
+        packing=PackingConfig(bits=8, clip=0.5),
+        stream=StreamConfig(quorum=1.0, upload_kind="hhe"),
+        hhe=HheConfig(key_seed=0),
+    ),
+})

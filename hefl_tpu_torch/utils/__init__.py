@@ -1,0 +1,19 @@
+"""Runtime utilities of the port: phase timing and checkpoint/resume."""
+
+from hefl_tpu_torch.utils.checkpoint import (
+    CheckpointError,
+    load_checkpoint,
+    load_params,
+    save_checkpoint,
+    save_params,
+)
+from hefl_tpu_torch.utils.timers import PhaseTimer
+
+__all__ = [
+    "PhaseTimer",
+    "CheckpointError",
+    "save_checkpoint",
+    "load_checkpoint",
+    "save_params",
+    "load_params",
+]

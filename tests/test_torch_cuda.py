@@ -424,3 +424,31 @@ def test_transcipher_rejects_unaligned_pads_on_card(cuda_device):
         with pytest.raises(ValueError):
             cuda_ntt.transcipher_fused(ctx, w_hi, w_lo, *pads)
     assert cuda_ntt.launch_counts() == dict.fromkeys(cuda_ntt.LAUNCHES, 0)
+
+
+@pytest.mark.cuda
+def test_encrypt_fused_at_the_medical_round_shape_on_card(cuda_device):
+    # K3 at [440, 3, 4096]: one medical-8 / medical-skew round's 8 clients x
+    # 55 ciphertexts (1,320 rows), bitwise against its plain version, one
+    # launch counted at its shape.
+    ctx = _ctx(4096)
+    m, u, e0, e1 = (_res(ctx, (440, 3, 4096), 70 + i, cuda_device) for i in range(4))
+    b, a = (_res(ctx, (3, 4096), 74 + i, cuda_device) for i in range(2))
+    cuda_ntt.reset_launch_counts()
+    got = cuda_ntt.encrypt_fused(ctx, m, u, e0, e1, b, a)
+    want = cuda_ntt.encrypt_fused_plain(ctx, m, u, e0, e1, b, a)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert cuda_ntt.launch_rows() == {("encrypt_fused", 1320, 4096): 1}
+
+
+@pytest.mark.cuda
+def test_n256_preset_on_cuda_raises_naming_n(cuda_device):
+    # The hhe-smoke preset's ring (N = 256) is below what the kernels take:
+    # on the card the run refuses it by name instead of falling back to the
+    # plain versions.
+    from hefl_tpu_torch.experiment import run_experiment
+    from hefl_tpu_torch.presets import PRESETS
+
+    with pytest.raises(ValueError, match="not 256"):
+        run_experiment(PRESETS["hhe-smoke"], verbose=False)

@@ -159,11 +159,11 @@ def test_cli_runs_end_to_end_on_cpu():
     cmd = [sys.executable, "-m", "hefl_tpu_torch.cli", "--model", "smallcnn",
            "--dataset", "mnist", "--num-clients", "2", "--epochs", "1",
            "--n-train", "40", "--n-test", "8", "--he-n", "1024", "--no-augment",
-           "--json", "--device", "cpu"]
+           "--json", "--no-save-model", "--device", "cpu"]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert rec["round"] == 0 and rec["encode_overflow"] == 0
+    assert rec["round"] == 0 and rec["encode_overflow"] == [0, 0]
     assert 0.0 <= rec["accuracy"] <= 1.0 and len(rec["val_loss"]) == 2
 
 
