@@ -16,9 +16,10 @@ error:
   2. For each kernel K1-K4 and K7 (forward NTT, inverse NTT, fused
      encrypt, fused decrypt, fused transcipher): call its wrapper on card
      tensors and require it to be BITWISE equal to its plain PyTorch
-     version run on the same card tensors, at N=1024 and at N=1024..8192 x
-     NTT_CHECK_ROWS (every cluster plan of `cuda_ntt.ntt_plan`; K7 on
-     rows // L upload rows of L primes). Time it: `ms` is device time
+     version run on the same card tensors, at N=1024 and at every ring
+     size of `cuda_ntt.SUPPORTED_N` (N=256..16384) x NTT_CHECK_ROWS (every
+     cluster plan of `cuda_ntt.ntt_plan`; K7 on rows // L upload rows of L
+     primes). Time it: `ms` is device time
      (the kernel events of torch.profiler, median over 30 calls, L2
      flushed before each), `call_ms` the wrapper's call between two CUDA
      events (device time plus the host work the device waits for),
@@ -28,8 +29,9 @@ error:
      DEC_SHAPES and K7 at each of TC_SHAPES: the shapes the main paths
      launch them at. The same for K5 (both modes) at each of KS_SHAPES,
      with the device time of each of its two or three kernels (inverse,
-     digit stage, inner product) printed apart, and K6, checked at N=1024
-     too, at N=1024..8192 x HOIST_CHECK_PRIMES at its plan's split Q and
+     digit stage, inner product) printed apart (held bitwise at every ring
+     size x KS_CHECK_PRIMES), and K6, checked at N=1024 too, at every ring
+     size x HOIST_CHECK_PRIMES at its plan's split Q and
      at every other, and timed at each of HOIST_SHAPES with its bound on the lazy count,
      the bound on a per-term Montgomery count, and `read_ms`, the
      device time of PyTorch's torch.amax over the same key bytes.
@@ -82,13 +84,23 @@ error:
      medical-8 round 0 with a round checkpoint, whose restored params must
      equal the saved ones bitwise, then resumed to round 1; (c)
      medical-skew (label skew, FedProx), 1 round of 1 epoch; (d) mnist-enc
-     and (e) mnist-plain, 1 round of 1 epoch. Each run's launches must be
+     and (e) mnist-plain, 1 round of 1 epoch; (f) cifar-resnet16 at full
+     width (ResNet-20, 272,474 parameters, 16 clients x 500 images) with
+     the fused training backend, 1 round of 2 epochs; (g) medical-8's round
+     0 (2 epochs) under the vmap and the fused backend from one seed, whose
+     decrypted global models must agree within 2e-2 (each backend's warm
+     round profiled: device busy share and top kernels; then what "auto"
+     resolves to on this card, with its probe times); (h) fusion-smoke and
+     hhe-smoke (N=256) at their own sizes. Each run's launches must be
      exactly K1 twice in keygen and one K3 over all clients' ciphertexts
      and one K4 a round ([440, 3, 4096] and [55, 3, 4096] for the medical
-     presets, [110, 3, 4096] for mnist-enc), none for mnist-plain; every
-     round's encode overflow 0, metrics finite, accuracy in [0, 1]; each
-     round of (a) decrypts within 5e-6 of the plaintext mean of the same
-     trained weights. Each run prints its phase times and launches.
+     presets, [110, 3, 4096] for mnist-enc, [1072, 3, 4096] and
+     [67, 3, 4096] for cifar-resnet16; hhe-smoke: one K3 and one K7 at
+     [2352, 3, 256], one K4 at [294, 3, 256]), none for the plaintext
+     presets; every round's encode overflow 0, metrics finite, accuracy in
+     [0, 1]; each round of (a), (f) and (g) decrypts within 5e-6 of the
+     plaintext mean of the same trained weights. Each run prints its phase
+     times and launches.
   Phases 3-7 each print their launches by (kernel, rows x N).
   8. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
      3-7 launched, and not K6's kernel, spills registers, and that every
@@ -146,7 +158,7 @@ SOURCE = "hefl_tpu_torch/csrc/ntt.cu"
 # launch them on 1 to 150 rows (phases 3-7 print the count at each).
 NTT_SHAPES = ((1, 3, 4096), (2, 3, 4096), (18, 3, 4096), (55, 3, 4096),
               (1, 1, 8192), (1, 3, 8192), (2, 3, 8192), (1, 4, 8192), (1, 5, 8192),
-              (2, 5, 8192), (18, 3, 8192), (30, 5, 8192))
+              (2, 5, 8192), (18, 3, 8192), (30, 5, 8192), (1, 3, 256))
 # (eval_input, B, L, N) at which phase 2 times K5: every shape phases 4-5
 # launch it at (their `launches by (kernel, rows x N)` lines): a linear
 # score's giant steps at [1, 3, 4096], the MLP's key switches at [1, 5, 8192]
@@ -158,13 +170,16 @@ KS_SHAPES = ((False, 1, 3, 4096), (False, 4, 3, 4096), (False, 1, 3, 8192),
 # [B, L, N] shapes at which phase 2 times K3 and K4: every shape phases 3,
 # 6 and 7 launch them at (their `launches by (kernel, rows x N)` lines). K3:
 # 2 clients x 55 ciphertexts (phase 3, mnist-enc), the HHE round's pads for
-# 8 clients x 19 packed rows, 8 clients x 55 (medical-8, medical-skew). K4:
-# the rounds' 55 ciphertexts, the HHE round's 19 packed rows.
-ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096), (440, 3, 4096))
-DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096))
-# [B', L, N] (B' upload rows) at which phase 2 times K7: every shape phase 6
-# launches it at, the HHE round's 8 clients x 19 packed rows.
-TC_SHAPES = ((152, 3, 4096),)
+# 8 clients x 19 packed rows, 8 clients x 55 (medical-8, medical-skew), 16
+# clients x 67 (cifar-resnet16's ResNet-20), and hhe-smoke's pads for 8
+# clients x 294 packed rows at N = 256. K4: the rounds' 55 ciphertexts, the
+# HHE round's 19 packed rows, ResNet-20's 67, hhe-smoke's 294.
+ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096), (440, 3, 4096), (1072, 3, 4096), (2352, 3, 256))
+DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096), (67, 3, 4096), (294, 3, 256))
+# [B', L, N] (B' upload rows) at which phase 2 times K7: every shape phases 6
+# and 7 launch it at, the HHE round's 8 clients x 19 packed rows and
+# hhe-smoke's 8 x 294 at N = 256.
+TC_SHAPES = ((152, 3, 4096), (2352, 3, 256))
 # (S, R, B, L, N) at which phase 2 times K6: every shape phases 4-5 launch it
 # at (S baby steps of the plan, R = L*NUM_DIGITS gadget components): the
 # linear score (bsgs_plan: 22 baby steps), `score_many`'s 4 packed
@@ -180,11 +195,12 @@ KS_CHECK_PRIMES = (1, 2, 3, 5)
 # every split Q of cuda_ntt.HOIST_SPLITS (R = 6L: L = 6 runs two chunks of
 # K = 32 components), at S = 3 steps and B = 5 ciphertexts.
 HOIST_CHECK_PRIMES = (1, 2, 3, 5, 6)
-# Row counts at which phase 2 holds K1-K4 and K7 bitwise at every ring size:
-# every cluster plan of cuda_ntt.ntt_plan (8 blocks a row up to 16 rows, 4
-# up to 33, 2 up to 65, 1 from 66 on a 132-SM card), and the row counts of
-# ENC_SHAPES, DEC_SHAPES and TC_SHAPES.
-NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 57, 165, 330, 456, 1320)
+# Row counts at which phase 2 holds K1-K4 and K7 bitwise at every ring size
+# (N = 256 to 16384): every cluster plan of cuda_ntt.ntt_plan (8 blocks a
+# row up to 16 rows, 4 up to 33, 2 up to 65, 1 from 66 on a 132-SM card;
+# one block a row below N = 1024, at least 2 at N = 16384), and the row
+# counts of ENC_SHAPES, DEC_SHAPES and TC_SHAPES at N = 4096.
+NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 57, 165, 201, 330, 456, 1320, 3216)
 ERR_LIMIT = 5e-6
 SCORE_ERR_LIMIT = 0.05               # the JAX package's serving tolerance
 # The depth-2 MLP at N=8192 carries more noise than the JAX tests' n=512 ring:
@@ -685,8 +701,7 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
     for case in ntt_shape_cases(cuda_ntt, ntt_mod, device, 500) + encdec_shape_cases(
             cuda_ntt, ntt_mod, device, 600):
         name = case[0]
-        rec = kernel_record(case, flush, time_plain=name in (
-            "encrypt_fused", "decrypt_fused", "transcipher_fused"))
+        rec = kernel_record(case, flush)
         entry = {k: rec[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
         if name == "encrypt_fused":
             entry["bound_4t_ms"] = bound(case[5], encrypt_transforms_ops(rec["shape"], 4))[0]
@@ -846,9 +861,10 @@ def warm_latency(fn, calls: int = 20) -> tuple[float, float]:
     return statistics.median(times), float(np.percentile(times, 95))
 
 
-def device_time_breakdown(label: str, fn) -> None:
+def device_time_breakdown(label: str, fn, top: int = 8) -> None:
     """Device time of one warm call of `fn` by kernel (torch.profiler with
-    CUDA activity, kernel events only), beside its host-clock wall time."""
+    CUDA activity, kernel events only), beside its host-clock wall time, and
+    the `top` kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -866,7 +882,7 @@ def device_time_breakdown(label: str, fn) -> None:
     log(f"  {label}: wall {wall_ms:.3f} ms (profiled), device busy {busy:.3f} ms "
         f"({100 * busy / wall_ms:.1f} % of wall) in {sum(r[2] for r in rows)} kernels; "
         f"the port's CUDA kernels {ours:.3f} ms, PyTorch's own {busy - ours:.3f} ms")
-    for key, ms, count in rows[:8]:
+    for key, ms, count in rows[:top]:
         log(f"    {ms:9.4f} ms  x{count:<5d} {key[:90]}")
 
 
@@ -1171,58 +1187,111 @@ DRIVER_RUNS = (
 )
 # Run (b): medical-8 as (a), round 0 with a checkpoint, then resumed to round 1.
 RESUME_RUN = ("b", "medical-8", 2, 2)
+# Run (f): cifar-resnet16 at full width (ResNet-20, 16 clients x 500 images),
+# the fused backend, rounds 3 -> 1 and epochs 10 -> 2.
+RESNET_RUN = ("f", "cifar-resnet16", 1, 2)
+# Run (g): medical-8's round 0 under each training backend, from one seed.
+# Their decrypted global models may differ by the JAX package's fused-vs-vmap
+# tolerance (tests/test_perf.py): float reduction order, not semantics.
+FUSION_RUN = ("g", "medical-8", 1, 2)
+FUSED_VS_VMAP_TOL = 2e-2
+# Runs (h): the CPU-sized smoke presets at their own sizes (hhe-smoke's ring
+# is N = 256).
+SMOKE_RUNS = (("h", "fusion-smoke"), ("h", "hhe-smoke"))
 
 
-def expected_launches(cfg, rounds_run: int) -> dict:
+def expected_launches(cfg, out: dict, rounds_run: int) -> dict:
     """{(kernel, rows, N): launches} of `rounds_run` rounds of an encrypted
-    preset on the float path: K1 twice in keygen (s and e, one [L, N] row
-    block each), then per round one K3 over every client's ciphertexts and
-    one K4 over the 55 of the sum; nothing for a plaintext preset."""
+    preset: K1 twice in keygen (s and e, one [L, N] row block each), then
+    per round on the float path one K3 over every client's n_ct ciphertexts
+    (n_ct = ceil(params / N)) and one K4 over the n_ct of the sum; on the
+    hybrid-HE path one K3 (the pads) and one K7 over every client's packed
+    rows, and one K4 over the packed rows of the sum. Nothing for a
+    plaintext preset."""
     if not cfg.encrypted:
         return {}
-    n, num_l, n_ct = cfg.he.n, cfg.he.num_primes, 55
-    return {("ntt_forward", num_l, n): 2,
-            ("encrypt_fused", cfg.num_clients * n_ct * num_l, n): rounds_run,
-            ("decrypt_fused", n_ct * num_l, n): rounds_run}
+    n, num_l = cfg.he.n, cfg.he.num_primes
+    want = {("ntt_forward", num_l, n): 2}
+    if out["hhe"] is not None:
+        rows = out["packing"]["n_ct"] * num_l
+        want.update({("encrypt_fused", cfg.num_clients * rows, n): rounds_run,
+                     ("transcipher_fused", cfg.num_clients * rows, n): rounds_run,
+                     ("decrypt_fused", rows, n): rounds_run})
+        return want
+    n_ct = -(-sum(v.numel() for v in out["params"].values()) // n)
+    want.update({("encrypt_fused", cfg.num_clients * n_ct * num_l, n): rounds_run,
+                 ("decrypt_fused", n_ct * num_l, n): rounds_run})
+    return want
 
 
 def driver_runs(device) -> list[tuple[dict, dict]]:
     """Phase 7: `experiment.run_experiment`, the port's experiment driver, on
     BASELINE.json's presets at full width (medical-8, medical-skew: MedCNN
     256x256x3, 8 clients x 200 images; mnist-enc, mnist-plain: SmallCNN, 2
-    clients x 4000 images; N=4096, L=3 primes of 27 bits, scale 2^30), cut
-    in rounds and epochs only (DRIVER_RUNS, RESUME_RUN). Each run's launches
-    are counted from zero and must be exactly `expected_launches`; every
-    round's encode overflow is 0, its metrics finite and its accuracy in
-    [0, 1], and the final parameters finite. Run (a) also asks each of its
-    rounds for the plaintext mean of the same trained weights
-    (`with_plain_reference`): the driver's decrypted average must sit
-    within ERR_LIMIT of it."""
+    clients x 4000 images; cifar-resnet16: ResNet-20 32x32x3, 16 clients x
+    500 images; N=4096, L=3 primes of 27 bits, scale 2^30), cut in rounds
+    and epochs only (DRIVER_RUNS, RESUME_RUN, RESNET_RUN, FUSION_RUN), and
+    the smoke presets fusion-smoke and hhe-smoke (N = 256) at their own
+    sizes (SMOKE_RUNS). Each run's launches are counted from zero and must
+    be exactly `expected_launches`; every round's encode overflow is 0, its
+    metrics finite and its accuracy in [0, 1], and the final parameters
+    finite. Runs (a), (f) and (g) also ask each of their rounds for the
+    plaintext mean of the same trained weights (`with_plain_reference`):
+    the driver's decrypted average must sit within ERR_LIMIT of it. (g)'s
+    fused and vmap global models must agree within FUSED_VS_VMAP_TOL, and
+    each backend's warm round is profiled (torch.profiler)."""
+    import os
     import tempfile
 
     from hefl_tpu_torch import experiment
     from hefl_tpu_torch.ckks import cuda_ntt
     from hefl_tpu_torch.experiment import run_experiment
-    from hefl_tpu_torch.models import count_params
+    from hefl_tpu_torch.fl import fusion
+    from hefl_tpu_torch.fl.client import train_batch_geometry
+    from hefl_tpu_torch.models import count_params, create_model
     from hefl_tpu_torch.presets import PRESETS
     from hefl_tpu_torch.utils import load_checkpoint
 
-    def cut(name, rounds, epochs, **kw):
+    def cut(name, rounds, epochs, fusion_backend=None, **kw):
         cfg = PRESETS[name]
-        return dataclasses.replace(cfg, rounds=rounds,
-                                   train=dataclasses.replace(cfg.train, epochs=epochs), **kw)
+        train = dataclasses.replace(cfg.train, epochs=epochs)
+        if fusion_backend is not None:
+            train = dataclasses.replace(train, client_fusion=fusion_backend)
+        return dataclasses.replace(cfg, rounds=rounds, train=train, **kw)
 
     runs = []
+    datasets = {}
+
+    @contextlib.contextmanager
+    def datasets_once():
+        """During the block, `run_experiment` makes each synthetic dataset,
+        a pure function of (name, seed, sizes), once for the whole phase:
+        the host takes ~15 s for medical's 2,000 images at 256x256x3, and
+        seven runs use the same one."""
+        real = experiment.make_dataset
+
+        def make_dataset(*a, **k):
+            key = (a, tuple(sorted(k.items())))
+            if key not in datasets:
+                datasets[key] = real(*a, **k)
+            return datasets[key]
+
+        experiment.make_dataset = make_dataset
+        try:
+            yield
+        finally:
+            experiment.make_dataset = real
 
     @contextlib.contextmanager
     def plain_references():
         """During the block, every secure round of `run_experiment` also
         returns its plaintext mean; yields the (mean, decrypted average)
-        pair of each round."""
+        pair of each round, and the arguments of the last round call."""
         real_round, real_decrypt = experiment.secure_fedavg_round, experiment.decrypt_average
-        refs, pairs = [], []
+        refs, pairs, calls = [], [], []
 
         def round_with_reference(*a, **k):
+            calls[:] = [(a, k)]
             ct_sum, mets, overflow, ref = real_round(*a, with_plain_reference=True, **k)
             refs.append(ref)
             return ct_sum, mets, overflow
@@ -1234,29 +1303,30 @@ def driver_runs(device) -> list[tuple[dict, dict]]:
 
         experiment.secure_fedavg_round, experiment.decrypt_average = round_with_reference, decrypt
         try:
-            yield pairs
+            yield pairs, calls
         finally:
             experiment.secure_fedavg_round, experiment.decrypt_average = real_round, real_decrypt
 
     def drive(label, cfg, rounds_run, resume=False, check_plain=False):
         cuda_ntt.reset_launch_counts()
         t0 = time.perf_counter()
-        with plain_references() if check_plain else contextlib.nullcontext([]) as pairs:
+        with datasets_once(), plain_references() if check_plain else contextlib.nullcontext(
+                ([], [])) as (pairs, calls):
             out = run_experiment(cfg, resume=resume, verbose=False, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
         hist = out["history"]
-        log(f"  ({label}) {cfg.model} {cfg.num_clients} clients, {cfg.partition}, "
-            f"{'encrypted' if cfg.encrypted else 'plaintext'}, rounds "
+        log(f"  ({label}) {cfg.model} {cfg.num_clients} clients, {cfg.partition}, {'encrypted' if cfg.encrypted else 'plaintext'}, rounds "
             f"{[r['round'] for r in hist]} of {cfg.rounds}, {cfg.train.epochs} epochs, "
-            f"{count_params(out['params']):,} params: {wall:.3f} s")
+            f"{count_params(out['params']):,} params, training backend "
+            f"{out['client_fusion']['backend']}: {wall:.3f} s")
         for rec in hist:
             log(f"    round {rec['round']}: phases (s) {json.dumps(rec['phases'])}; accuracy "
                 f"{rec['accuracy']:.4f} f1 {rec['f1']:.4f}; val_loss {rec['val_loss']}; "
                 f"encode_overflow {rec.get('encode_overflow')}")
         log_launch_rows(shapes)
-        want = expected_launches(cfg, rounds_run)
+        want = expected_launches(cfg, out, rounds_run)
         if shapes != want:
             raise AssertionError(f"({label}) launched {shapes}, expected exactly {want}")
         if len(hist) != rounds_run:
@@ -1271,6 +1341,8 @@ def driver_runs(device) -> list[tuple[dict, dict]]:
                 raise AssertionError(f"({label}) a plaintext round recorded encode_overflow")
         if not all(torch.isfinite(v).all().item() for v in out["params"].values()):
             raise AssertionError(f"({label}) non-finite parameters")
+        if out["hhe"] is not None and not out["hhe"]["expansion_hhe"] <= 1.1:
+            raise AssertionError(f"({label}) expansion_hhe {out['hhe']['expansion_hhe']} > 1.1")
         if check_plain:
             errs = [max((avg[k] - ref[k]).abs().max().item() for k in ref) for ref, avg in pairs]
             log(f"    decrypted average vs plaintext mean per round: max abs err {errs} "
@@ -1278,32 +1350,82 @@ def driver_runs(device) -> list[tuple[dict, dict]]:
             if len(errs) != rounds_run or not all(e <= ERR_LIMIT for e in errs):
                 raise AssertionError(f"({label}) decrypted averages off the plaintext means: {errs}")
         runs.append((counts, shapes))
-        return out
+        return out, calls
 
+    load = os.getloadavg()
+    log(f"  host: {os.cpu_count()} CPUs, load average {load[0]:.2f} / {load[1]:.2f} / "
+        f"{load[2]:.2f} (1 / 5 / 15 min)")
     t = time.perf_counter()
     outs = {}
     for label, name, rounds, epochs in DRIVER_RUNS:
-        outs[label] = drive(label, cut(name, rounds, epochs), rounds, check_plain=label == "a")
+        outs[label], _ = drive(label, cut(name, rounds, epochs), rounds, check_plain=label == "a")
         if label == "a":
             label_b, name_b, rounds_b, epochs_b = RESUME_RUN
             with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
                                              prefix=".chip_smoke_") as tmp:
                 ck = str(Path(tmp) / "round.npz")
-                first = drive(f"{label_b}, round 0", cut(name_b, 1, epochs_b, checkpoint_path=ck), 1)
+                first, _ = drive(f"{label_b}, round 0", cut(name_b, 1, epochs_b,
+                                                            checkpoint_path=ck), 1)
                 saved, next_round, _, _ = load_checkpoint(ck, first["params"])
                 if next_round != 1 or not all(torch.equal(saved[k], first["params"][k])
                                               for k in saved):
                     raise AssertionError("the round checkpoint does not restore round 0's params")
                 log("    checkpoint: next round 1, restored params == saved params, bitwise")
-                resumed = drive(f"{label_b}, resumed", cut(name_b, rounds_b, epochs_b,
-                                                           checkpoint_path=ck), 1, resume=True)
+                resumed, _ = drive(f"{label_b}, resumed", cut(name_b, rounds_b, epochs_b,
+                                                              checkpoint_path=ck), 1, resume=True)
             if resumed["history"][0]["round"] != 1:
                 raise AssertionError("the resumed run did not start at round 1")
             diff = max((resumed["params"][k] - outs["a"]["params"][k]).abs().max().item()
                        for k in resumed["params"])
             log(f"    resumed round 1 vs (a)'s round 1: max |params diff| {diff:.3e} "
                 "(cuDNN's backward is not bitwise deterministic on the card; not checked)")
-    log(f"  phase 7 wall time: {time.perf_counter() - t:.3f} s")
+    log(f"  phase 7 (a)-(e) wall time: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    label, name, rounds, epochs = RESNET_RUN
+    out, _ = drive(label, cut(name, rounds, epochs, "fused"), rounds, check_plain=True)
+    if count_params(out["params"]) != 272_474:
+        raise AssertionError(f"ResNet-20 has {count_params(out['params'])} params, expected 272,474")
+    log(f"  phase 7 (f) wall time: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    label, name, rounds, epochs = FUSION_RUN
+    by_backend = {}
+    for backend in ("vmap", "fused"):
+        cfg = cut(name, rounds, epochs, backend)
+        out, calls = drive(f"{label}, {backend}", cfg, rounds, check_plain=True)
+        (a, k), = calls
+        _, grp, steps = train_batch_geometry(cfg.train, int(a[5].shape[1]))
+        n_steps = cfg.train.epochs * steps * (cfg.num_clients if backend == "vmap" else 1)
+        train_s = out["history"][0]["phases"]["train+encrypt+aggregate"]
+        log(f"    {backend}: train+encrypt+aggregate {train_s:.4f} s for {n_steps} training steps "
+            f"({1e3 * train_s / n_steps:.2f} ms a step; batch {grp} a client)")
+        device_time_breakdown(f"warm medical-8 round ({backend}, {n_steps} steps)",
+                              lambda: experiment.secure_fedavg_round(*a, **k), top=12)
+        by_backend[backend] = out
+    diff = max((by_backend["fused"]["params"][k] - by_backend["vmap"]["params"][k]).abs().max()
+               .item() for k in by_backend["vmap"]["params"])
+    log(f"    fused vs vmap decrypted global models: max abs diff {diff:.3e} "
+        f"(limit {FUSED_VS_VMAP_TOL})")
+    if not diff <= FUSED_VS_VMAP_TOL:
+        raise AssertionError(f"fused and vmap rounds differ by {diff}")
+    saved_env = os.environ.pop("HEFL_CLIENT_FUSION", None)
+    try:
+        probe_model = create_model("smallcnn", device=device)
+        chosen = fusion.resolve_fusion_backend("auto", probe_model, device)
+    finally:
+        if saved_env is not None:
+            os.environ["HEFL_CLIENT_FUSION"] = saved_env
+    log(f"    auto resolved to {chosen!r} on this card: {json.dumps(fusion.fusion_report())}")
+    log(f"  phase 7 (g) wall time: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    for label, name in SMOKE_RUNS:
+        cfg = PRESETS[name]
+        out, _ = drive(f"{label}, {name}", cfg, cfg.rounds)
+        if out["hhe"] is not None:
+            log(f"    hhe record: {json.dumps(out['hhe'])}")
+    log(f"  phase 7 (h) wall time: {time.perf_counter() - t:.3f} s")
     return runs
 
 
@@ -1342,7 +1464,8 @@ def main() -> int:
     log("phase 6: hybrid-HE uplink round, MedCNN 256x256x3, 8 clients, b=8 k=3, N=4096 L=3")
     runs.append(hhe_round(device))
     log("phase 7: run_experiment on the presets medical-8 (2 rounds, and resumed), medical-skew, "
-        "mnist-enc, mnist-plain")
+        "mnist-enc, mnist-plain, cifar-resnet16 (fused), medical-8 (vmap and fused), fusion-smoke, "
+        "hhe-smoke (N=256)")
     runs += driver_runs(device)
     shapes = {}
     for _, run_shapes in runs:

@@ -71,7 +71,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SUPPORTED_N = (1024, 2048, 4096, 8192)
+# Ring sizes the kernels take: every power of two from 256 to 16384. Smaller
+# rings (the JAX package's math tests at n = 32..128; no configuration of
+# either package) are refused by name.
+SUPPORTED_N = (256, 512, 1024, 2048, 4096, 8192, 16384)
+# The smallest cluster a row of N words may take, where it is more than 1:
+# at N = 16384 one block a row would need 2048 threads, over the card's 1024.
+MIN_CLUSTER = {16384: 2}
 
 LAUNCHES = {
     "ntt_forward": 0, "ntt_inverse": 0, "encrypt_fused": 0, "decrypt_fused": 0,
@@ -248,20 +254,25 @@ def _sms(sms: int | None) -> int:
 
 def ntt_plan(rows: int, n: int, sms: int | None = None) -> int:
     """Cluster size C of K1-K4 and K7 on `rows` rows of N words: each row is
-    split over C thread blocks. The largest C in (1, 2, 4, 8) with rows * C
-    <= the card's SM count, so that few rows still spread over the SMs; 1
-    from half the SM count of rows up (66 on an H100), where one block per
-    row already fills the card. `sms`: the SM count, by default read once
-    from the current CUDA device, DEFAULT_SM_COUNT without one."""
+    split over C thread blocks. Below N = 1024, 1: a row is one block of N/8
+    threads (one warp at N = 256) and a cluster would cut it finer than the
+    kernel's 32-word padded segments. Otherwise the largest C in (1, 2, 4,
+    8) with rows * C <= the card's SM count, so that few rows still spread
+    over the SMs; 1 from half the SM count of rows up (66 on an H100), where
+    one block per row already fills the card; never below MIN_CLUSTER[N]
+    (2 at N = 16384). `sms`: the SM count, by default read once from the
+    current CUDA device, DEFAULT_SM_COUNT without one."""
     if n not in SUPPORTED_N:
         raise ValueError(f"the NTT kernels support N in {SUPPORTED_N}, not {n}")
-    sms = _sms(sms)
-    if 2 * rows >= sms:
+    if n < 1024:
         return 1
+    sms = _sms(sms)
     c = 8
+    if 2 * rows >= sms:
+        c = 1
     while c > 1 and rows * c > sms:
         c //= 2
-    return c
+    return max(c, MIN_CLUSTER.get(n, 1))
 
 
 def _ntt_launch(ctx: NTTContext, name: str, a: torch.Tensor, *tables: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ The experiment driver of `hefl_tpu.cli` on one GPU: the flags build an
 Each round trains every client, encrypts, sums the ciphertexts mod p, and
 the owner decrypts the average, which is then evaluated on the test split;
 `--plaintext` averages in the clear, `--centralized` trains one model on
-the whole set. `--pack-bits B` uploads b-bit quantized updates interleaved
+the whole set; `--client-fusion fused|vmap|auto` picks how a round's
+clients train (`fl.fusion`). `--pack-bits B` uploads b-bit quantized updates interleaved
 k to a slot; `--stream` folds the uploads online (full cohort, quorum 1.0);
 `--hhe` (with `--pack-bits`, implying `--stream`) has the clients encrypt
 their packed update under a stream cipher and the server transcipher it
@@ -38,7 +39,7 @@ from hefl_tpu_torch.presets import PRESETS
 
 # Flags of `hefl_tpu.cli` that the port does not run yet.
 UNPORTED_FLAGS = (
-    "--data-dir", "--image-size", "--client-fusion", "--profile", "--events",
+    "--data-dir", "--image-size", "--profile", "--events",
     "--no-events", "--span-trace", "--dp-noise", "--dp-clip", "--dp-delta",
     "--on-overflow", "--max-update-norm", "--drop-fraction", "--nan-clients",
     "--huge-clients", "--straggler-delay", "--fail-rounds", "--arrival-delay",
@@ -49,8 +50,7 @@ UNPORTED_FLAGS = (
     "--full-cohort-train", "--num-hosts", "--host-quorum", "--ship-deadline",
     "--host-staleness", "--mesh-ct", "--serve",
     "--journal-path", "--fsync-policy", "--crash-round", "--crash-at",
-    "--crash-after-folds", "--dp-min-surviving", "--max-round-retries",
-    "--retry-backoff",
+    "--crash-after-folds", "--dp-min-surviving",
 )
 
 
@@ -79,6 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skew-alpha", type=float, default=0.5)
     p.add_argument("--prox-mu", type=float, default=0.0, help="FedProx strength")
     p.add_argument("--no-augment", action="store_true")
+    p.add_argument("--client-fusion", default="auto",
+                   choices=["auto", "fused", "vmap"],
+                   help="cross-client training backend: 'fused' folds the "
+                        "client axis into every conv/dense GEMM batch "
+                        "(fl.fusion), 'vmap' is the per-client reference, "
+                        "'auto' micro-times both once per device (the "
+                        "winner is not persisted across processes yet)")
     p.add_argument("--he-n", type=int, default=4096, help="CKKS ring degree")
     p.add_argument("--he-primes", type=int, default=3, help="RNS limb count")
     p.add_argument("--pack-bits", type=int, default=0, metavar="B",
@@ -119,6 +126,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="centralized (non-federated) baseline: train one "
                         "model on the whole dataset (train_server analog)")
     p.add_argument("--json", action="store_true", help="emit history as JSON lines")
+    p.add_argument("--max-round-retries", type=int, default=0,
+                   help="retry a failed round this many times with "
+                        "exponential backoff, auto-resuming from the "
+                        "--checkpoint when one matches the round")
+    p.add_argument("--retry-backoff", type=float, default=0.5, metavar="S",
+                   help="base backoff between round retries (doubles per "
+                        "attempt)")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: CUDA; 'cpu' runs the "
                         "plain PyTorch versions of the kernels)")
@@ -176,6 +190,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
             epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
             warmup_steps=args.warmup_steps, prox_mu=args.prox_mu,
             augment=not args.no_augment, num_classes=num_classes,
+            client_fusion=args.client_fusion,
         ),
         he=HEConfig(n=args.he_n, num_primes=args.he_primes),
         packing=_packing_config(args),
@@ -188,6 +203,8 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         stream=(StreamConfig(quorum=args.quorum, upload_kind="hhe" if args.hhe else "ckks")
                 if args.stream or args.hhe else None),
         hhe=HheConfig(key_seed=args.hhe_key_seed) if args.hhe else None,
+        max_round_retries=args.max_round_retries,
+        retry_backoff_s=args.retry_backoff,
     )
 
 

@@ -106,8 +106,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMinLogN = 10;   // N = 1024
-constexpr int kMaxLogN = 13;   // N = 8192
+constexpr int kMinLogN = 8;    // N = 256
+constexpr int kMaxLogN = 14;   // N = 16384
 
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
   const uint32_t t = a + b;
@@ -642,33 +642,56 @@ cudaError_t launch_ntt_kernel(const Src& src, const Dst& dst, const NttArgs& a,
                             static_cast<const uint32_t*>(a.n_inv_sh), a.num_l);
 }
 
+// Cluster sizes instantiated at LOGN: one block a row below N = 1024 (at
+// N = 256 a block is one warp, N/8 = 32 threads, and a cluster of C would
+// cut a row into segments of fewer words than one padded 32-word stretch);
+// 2, 4 and 8 at N = 16384, where one block a row would need 2048 threads;
+// 1, 2, 4 and 8 from 1024 to 8192. cuda_ntt.ntt_plan asks only for these.
+template <int LOGN>
+constexpr bool cluster_ok(int c) {
+  return LOGN < 10 ? c == 1 : LOGN > 13 ? c > 1 : true;
+}
+
+template <int LOGN, int C, bool kInverse, typename Src, typename Dst>
+cudaError_t launch_ntt_if(const Src& src, const Dst& dst, const NttArgs& a, cudaStream_t stream) {
+  if constexpr (cluster_ok<LOGN>(C)) {
+    return launch_ntt_kernel<LOGN, C, kInverse>(src, dst, a, stream);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
 template <int LOGN, bool kInverse, typename Src, typename Dst>
 cudaError_t launch_ntt_logn(int cluster, const Src& src, const Dst& dst, const NttArgs& a,
                             cudaStream_t stream) {
   switch (cluster) {
-    case 1: return launch_ntt_kernel<LOGN, 1, kInverse>(src, dst, a, stream);
-    case 2: return launch_ntt_kernel<LOGN, 2, kInverse>(src, dst, a, stream);
-    case 4: return launch_ntt_kernel<LOGN, 4, kInverse>(src, dst, a, stream);
-    case 8: return launch_ntt_kernel<LOGN, 8, kInverse>(src, dst, a, stream);
+    case 1: return launch_ntt_if<LOGN, 1, kInverse>(src, dst, a, stream);
+    case 2: return launch_ntt_if<LOGN, 2, kInverse>(src, dst, a, stream);
+    case 4: return launch_ntt_if<LOGN, 4, kInverse>(src, dst, a, stream);
+    case 8: return launch_ntt_if<LOGN, 8, kInverse>(src, dst, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Launch the transform on a.rows rows with cluster size `cluster` (1, 2, 4
-// or 8; anything else, or an N outside 1024..8192, is refused with
-// cudaErrorInvalidValue before any launch). Instantiated for K1 and K2
-// (PlainRows, PlainStore), K5's digit stage (DigitRows, forward), K3
+// Launch the transform on a.rows rows with cluster size `cluster` (one of
+// cluster_ok's at log2 N; anything else, or an N outside 256..16384, is
+// refused with cudaErrorInvalidValue before any launch). Instantiated for K1
+// and K2 (PlainRows, PlainStore), K5's digit stage (DigitRows, forward), K3
 // (EncryptRows, EncryptStore), K4 (DecryptRows, inverse) and K7
-// (TranscipherRows, TranscipherStore).
+// (TranscipherRows, TranscipherStore). The pass schedule covers every size:
+// 3 + 2 + 3 stages at N = 256, 3 + 3 + 3 at 512, 3 + 2 + 3 + 3 + 3 at 16384.
 template <bool kInverse, typename Src, typename Dst>
 cudaError_t launch_ntt(int logn, int cluster, const Src& src, const Dst& dst, const NttArgs& a,
                        cudaStream_t stream) {
   if (a.rows <= 0 || a.num_l <= 0) return cudaErrorInvalidValue;
   switch (logn) {
+    case 8: return launch_ntt_logn<8, kInverse>(cluster, src, dst, a, stream);
+    case 9: return launch_ntt_logn<9, kInverse>(cluster, src, dst, a, stream);
     case 10: return launch_ntt_logn<10, kInverse>(cluster, src, dst, a, stream);
     case 11: return launch_ntt_logn<11, kInverse>(cluster, src, dst, a, stream);
     case 12: return launch_ntt_logn<12, kInverse>(cluster, src, dst, a, stream);
     case 13: return launch_ntt_logn<13, kInverse>(cluster, src, dst, a, stream);
+    case 14: return launch_ntt_logn<14, kInverse>(cluster, src, dst, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1057,8 +1080,11 @@ int hoisted_products(const void* c0, const void* digits, const void* bk, const v
       logn > kMaxLogN || (split != 1 && split != 2 && split != 4 && split != 8) ||
       chunk < split || chunk % split != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // kHoistThreads / split divides the N/4 * L groups of a step (N >= 1024).
-  const unsigned per_block = kHoistThreads / split;
+  // A block's groups divide the N/4 * L groups of a step: kHoistThreads /
+  // split from N = 1024 up, at most N/4 (64 at N = 256) below.
+  const unsigned quarter = (1u << logn) / 4u;
+  const unsigned full = static_cast<unsigned>(kHoistThreads / split);
+  const unsigned per_block = full < quarter ? full : quarter;
   const size_t tiles = (static_cast<size_t>(num_l) << logn) / 4 / per_block;
   hoisted_lazy_kernel<<<static_cast<unsigned>(num_s * batch * tiles),
                         dim3(per_block, static_cast<unsigned>(split)), 0,

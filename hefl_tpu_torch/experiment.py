@@ -45,6 +45,7 @@ from hefl_tpu_torch.data.synthetic import make_dataset
 from hefl_tpu_torch.fl.client import train_batch_geometry, train_centralized
 from hefl_tpu_torch.fl.config import HheConfig, PackingConfig, StreamConfig, TrainConfig
 from hefl_tpu_torch.fl.fedavg import evaluate, fedavg_round
+from hefl_tpu_torch.fl.fusion import fusion_report, resolve_fusion_backend
 from hefl_tpu_torch.fl.secure import decrypt_average, secure_fedavg_round
 from hefl_tpu_torch.fl.stream import StreamEngine
 from hefl_tpu_torch.hhe.cipher import hhe_bytes_on_wire_record
@@ -198,7 +199,6 @@ def check_config(cfg: ExperimentConfig) -> None:
         ("exact_final_decode", cfg.exact_final_decode, "M14, native/crt.cpp"),
         ("profile_dir", cfg.profile_dir is not None, "M15, the profiler trace of a round"),
         ("mesh_ct", cfg.mesh_ct > 1, "one GPU runs no 2-D round mesh"),
-        ("train.client_fusion", t.client_fusion != "auto", "M9, fl/fusion.py"),
         ("train.on_overflow='exclude'", t.on_overflow == "exclude", "M10, the masked round"),
         ("train.max_update_norm", t.max_update_norm != 0.0, "M10, the masked round"),
     ]
@@ -256,7 +256,9 @@ def run_experiment(
     cfg: ExperimentConfig, resume: bool = False, verbose: bool = True, device=None
 ) -> dict[str, Any]:
     """Run R federated rounds on `device` (CUDA unless given) ->
-    {history, final_metrics, params, packing, stream, hhe}.
+    {history, final_metrics, params, augment_backend, client_fusion,
+    he_backend, packing, stream, mesh, hhe} (a centralized run: history,
+    final_metrics, params and None for packing, stream and hhe).
 
     `history[r]` = {round, phases (seconds per phase), phase_roofline,
     val_loss and val_acc (per client), accuracy, precision, recall, f1,
@@ -311,6 +313,10 @@ def run_experiment(
 
     xs, ys = stack_federated(x, y, _partition(cfg, y))
     xs_d, ys_d = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    # The training backend, resolved once a run ("auto" times both on the
+    # device here) and pinned for every round.
+    train_cfg = dataclasses.replace(train_cfg, client_fusion=resolve_fusion_backend(
+        train_cfg.client_fusion, model, device))
 
     ctx = sk = pk = spec = pspec = None
     if cfg.encrypted:
@@ -449,8 +455,18 @@ def run_experiment(
         "history": history,
         "final_metrics": history[-1] if history else None,
         "params": params,
+        # The records of what this run ran, with the JAX driver's keys: the
+        # augment warp, the client-training backend, the HE kernels (the
+        # CUDA kernels on a card, their plain versions on the CPU) and the
+        # round topology (one device).
+        "augment_backend": {"requested": "gather", "backend": "gather",
+                            "auto_timings_ms": None, "auto_persisted": False},
+        "client_fusion": fusion_report(),
+        "he_backend": {"requested": "auto", "backend": "cuda" if device.type == "cuda" else "plain",
+                       "auto_timings_ms": None, "auto_persisted": False},
         "packing": pspec.geometry_record() if pspec is not None else None,
         "stream": dataclasses.asdict(cfg.stream) if cfg.stream is not None else None,
+        "mesh": {"axes": ["clients"], "clients": 1, "ct": 1},
         "hhe": _hhe_record(cfg, pspec, ctx) if hhe_on else None,
     }
 

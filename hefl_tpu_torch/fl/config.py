@@ -5,11 +5,11 @@ this path uses, with the same defaults, which reproduce the reference:
 Adam(lr=1e-3, decay=1e-4), 10 local epochs, batch 32,
 EarlyStopping(patience=5, restore_best_weights), ReduceLROnPlateau(
 patience=2, factor=0.3, min_lr=1e-6), validation_split=0.1, and the
-shear/zoom/flip augmentation; `prox_mu > 0` adds the FedProx term.
-`client_fusion`, `on_overflow` and `max_update_norm` carry the JAX
-defaults so a config reads the same in both packages; `run_experiment`
-refuses the values the port does not run (fused training, exclusion,
-the norm bound). `StreamConfig` is the JAX package's; the
+shear/zoom/flip augmentation; `prox_mu > 0` adds the FedProx term; `client_fusion`
+picks the training backend (`fl.fusion`). `on_overflow` and
+`max_update_norm` carry the JAX defaults so a config reads the same in both
+packages; `run_experiment` refuses the values the port does not run
+(exclusion, the norm bound). `StreamConfig` is the JAX package's; the
 packing and hybrid-HE configs live beside what they configure and are
 re-exported here, as in the JAX package.
 """
@@ -41,7 +41,7 @@ class TrainConfig:
     aug_zoom: float = 0.2
     aug_flip: bool = True
     num_classes: int = 2
-    client_fusion: str = "auto"     # cross-client fused training (not ported)
+    client_fusion: str = "auto"     # "fused" | "vmap" | "auto" (fl.fusion)
     # Encode saturation (encode_overflow > 0): "warn" aggregates and logs,
     # "raise" aborts the run, "exclude" drops the client (not ported).
     on_overflow: str = "warn"

@@ -2,11 +2,15 @@
 evaluation, on one device.
 
 Counterpart of `hefl_tpu.fl.fedavg` for the all-clients-present round.
-The JAX package lays clients out on a "clients" mesh axis; on one GPU the
-clients of a round are a loop over the leading axis of the federated arrays.
-The participation-masked engine (participation masks, poisoning, padded
-client slots) is not ported (ROADMAP M10): `fedavg_round` is the
-all-clients-present round only.
+The JAX package lays clients out on a "clients" mesh axis; on one GPU a
+round's clients train through `train_block`, the one training body of the
+plaintext round, the encrypted round (`secure.client_uploads`) and the
+streaming round, under the configured backend
+(`TrainConfig.client_fusion`, `fl.fusion`): "vmap", the per-client loop
+`train_clients` over the leading axis of the federated arrays, or "fused",
+`fusion.fused_train`. The participation-masked engine (participation
+masks, poisoning, padded client slots) is not ported (ROADMAP M10):
+`fedavg_round` is the all-clients-present round only.
 """
 
 from __future__ import annotations
@@ -18,13 +22,16 @@ from torch.func import functional_call
 from hefl_tpu_torch.data.augment import rescale
 from hefl_tpu_torch.fl.client import local_train
 from hefl_tpu_torch.fl.config import TrainConfig
+from hefl_tpu_torch.fl.fusion import fused_train, resolve_fusion_backend
 from hefl_tpu_torch.fl.metrics import classification_metrics
 
 
 def train_clients(
     model, cfg: TrainConfig, global_params: dict, xs, ys, gens=None, streams=None
 ):
-    """Train every client from the global weights.
+    """Train every client from the global weights, one after another: the
+    "vmap" backend of `train_block`, and the semantics reference of the
+    fused one.
 
     xs: uint8[C, m, H, W, ch], ys: int[C, m]; `gens` one generator per
     client, or `streams` one (perms, aug) pair per client.
@@ -39,6 +46,18 @@ def train_clients(
         p_out.append(prm)
         mets.append(met)
     return p_out, torch.stack(mets)
+
+
+def train_block(
+    model, cfg: TrainConfig, global_params: dict, xs, ys, gens=None, streams=None
+):
+    """Train a round's clients under `cfg.client_fusion` (resolved on xs's
+    device; a run resolves "auto" once and passes the pin): the fused
+    backend (`fusion.fused_train`) or the per-client loop (`train_clients`).
+    Same arguments and result as `train_clients`."""
+    if resolve_fusion_backend(cfg.client_fusion, model, xs.device) == "fused":
+        return fused_train(model, cfg, global_params, xs, ys, gens=gens, streams=streams)
+    return train_clients(model, cfg, global_params, xs, ys, gens=gens, streams=streams)
 
 
 def client_generators(gen: torch.Generator, count: int, device) -> list[torch.Generator]:
@@ -64,7 +83,7 @@ def fedavg_round(
     replaces the drawn training streams.
     -> (new global params, metrics float32[C, E, 4])."""
     gens = client_generators(gen, int(xs.shape[0]), xs.device)
-    p_out, mets = train_clients(
+    p_out, mets = train_block(
         model, cfg, global_params, xs, ys,
         gens=None if streams is not None else gens, streams=streams,
     )

@@ -39,11 +39,13 @@ def adam_update(
     eps: float = 1e-7,
     warmup_steps: int = 0,
 ) -> tuple[dict, AdamState]:
-    """-> (new_params, new_state); nothing is updated in place."""
+    """-> (new_params, new_state); nothing is updated in place. `lr_scale`
+    is a scalar, or float32[C] for parameters stacked over C clients (the
+    fused trainer), each client's scale broadcast along the leading axis."""
     step = state.step + 1
     f32 = np.float32
     t = f32(step)
-    lr_t = f32(lr) / (f32(1.0) + f32(decay) * t) * f32(lr_scale)
+    lr_t = f32(lr) / (f32(1.0) + f32(decay) * t) * np.asarray(lr_scale, dtype=f32)
     if warmup_steps > 0:
         lr_t = lr_t * min(f32(1.0), t / f32(warmup_steps))
     bc1 = f32(1.0) - f32(b1) ** t
@@ -53,5 +55,7 @@ def adam_update(
         g = grads[k]
         mu[k] = b1 * state.mu[k] + (1 - b1) * g
         nu[k] = b2 * state.nu[k] + (1 - b2) * g * g
-        new[k] = p - float(lr_t) * (mu[k] / float(bc1)) / (torch.sqrt(nu[k] / float(bc2)) + eps)
+        lr_k = (float(lr_t) if lr_t.ndim == 0 else
+                torch.from_numpy(lr_t).to(p.device).reshape((-1,) + (1,) * (p.dim() - 1)))
+        new[k] = p - lr_k * (mu[k] / float(bc1)) / (torch.sqrt(nu[k] / float(bc2)) + eps)
     return new, AdamState(mu=mu, nu=nu, step=step)

@@ -39,7 +39,7 @@ from hefl_tpu_torch.ckks.packing import (
 )
 from hefl_tpu_torch.fl.config import TrainConfig
 from hefl_tpu_torch.fl.faults import RoundMeta
-from hefl_tpu_torch.fl.fedavg import client_generators, plain_mean, train_clients
+from hefl_tpu_torch.fl.fedavg import client_generators, plain_mean, train_block
 from hefl_tpu_torch.hhe import cipher
 
 
@@ -139,7 +139,7 @@ def client_uploads(
         )
     train_gens = client_generators(gen, num_clients, xs.device)
     enc_gens = client_generators(gen, num_clients, xs.device)
-    p_out, mets = train_clients(
+    p_out, mets = train_block(
         model, cfg, global_params, xs, ys,
         gens=None if streams is not None else train_gens, streams=streams,
     )

@@ -1,4 +1,4 @@
-"""Model zoo of the port: the reference CNNs as PyTorch modules."""
+"""Model zoo of the port: the reference CNNs and ResNet-20 as PyTorch modules."""
 
 from __future__ import annotations
 
@@ -6,12 +6,14 @@ import torch
 
 from hefl_tpu_torch import resolve_device
 from hefl_tpu_torch.models.cnn import LogReg, MedCNN, SmallCNN, count_params
+from hefl_tpu_torch.models.resnet import ResNet20
 
 # name -> (module class, default num_classes, default input shape NHWC-less)
 MODEL_REGISTRY: dict[str, tuple[type, int, tuple[int, int, int]]] = {
     "medcnn": (MedCNN, 2, (256, 256, 3)),
     "smallcnn": (SmallCNN, 10, (28, 28, 1)),
     "logreg": (LogReg, 10, (28, 28, 1)),
+    "resnet20": (ResNet20, 10, (32, 32, 3)),
 }
 
 
@@ -36,4 +38,5 @@ def create_model(
     return model.to(device)
 
 
-__all__ = ["LogReg", "MedCNN", "SmallCNN", "create_model", "count_params", "MODEL_REGISTRY"]
+__all__ = ["LogReg", "MedCNN", "ResNet20", "SmallCNN", "create_model", "count_params",
+           "MODEL_REGISTRY"]

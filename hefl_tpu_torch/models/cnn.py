@@ -16,6 +16,10 @@ What is kept from the flax modules so weights carry across unchanged:
     are cast to bf16, and the bias is added to the bf16 conv/matmul output;
   * parameters are named `Conv_i` / `Dense_i` like the flax scopes and
     initialized as flax does: LeCun-normal (truncated) kernels, zero biases.
+
+`folded_apply` is the client-folded forward of the fused trainer
+(`fl.fusion`, `models.folded`): the same network over a round's C clients
+at once, with per-client weights.
 """
 
 from __future__ import annotations
@@ -26,6 +30,14 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from hefl_tpu_torch.models.folded import (
+    conv_bf16,
+    flatten_clients,
+    folded_conv,
+    folded_dense,
+    to_channels,
+)
 
 # flax's lecun_normal is variance_scaling(1, fan_in, "truncated_normal"): a
 # normal truncated to [-2, 2] rescaled by this constant to unit variance.
@@ -75,8 +87,7 @@ class MedCNN(nn.Module):
         x = x.permute(0, 3, 1, 2).to(bf)
         for i in range(len(self.features)):
             conv = getattr(self, f"Conv_{i}")
-            x = F.conv2d(x, conv.weight.to(bf)) + conv.bias.to(bf)[:, None, None]
-            x = F.max_pool2d(F.relu(x), 2, 2)
+            x = F.max_pool2d(F.relu(conv_bf16(x, conv.weight, conv.bias)), 2, 2)
         x = x.permute(0, 2, 3, 1).flatten(1)
         for j in range(len(self.dense) + 1):
             lin = getattr(self, f"Dense_{j}")
@@ -84,6 +95,28 @@ class MedCNN(nn.Module):
             if j < len(self.dense):
                 x = F.relu(x)
         return x.to(torch.float32)
+
+    def folded_apply(self, stacked: dict, x: torch.Tensor, num_clients: int) -> torch.Tensor:
+        """The client-folded forward (`TrainConfig.client_fusion="fused"`):
+        the architecture and compute dtypes of `forward` over a round's C
+        clients at once, each with its own weights.
+
+        x: float [C*B, H, W, ch], client c owning rows [c*B, (c+1)*B);
+        `stacked`: this model's parameter dict with a leading client axis on
+        every tensor (`models.folded.stack_params`). Every conv is one
+        grouped conv over the clients folded into channels, every dense one
+        batched GEMM. -> float32 logits [C*B, num_classes]."""
+        c = num_clients
+        x = to_channels(x, c).to(torch.bfloat16)
+        for i in range(len(self.features)):
+            x = folded_conv(x, stacked[f"Conv_{i}.weight"], stacked[f"Conv_{i}.bias"])
+            x = F.max_pool2d(F.relu(x), 2, 2)
+        x = flatten_clients(x, c)
+        for j in range(len(self.dense) + 1):
+            x = folded_dense(x, stacked[f"Dense_{j}.weight"], stacked[f"Dense_{j}.bias"])
+            if j < len(self.dense):
+                x = F.relu(x)
+        return x.to(torch.float32).reshape(-1, self.num_classes)
 
 
 class SmallCNN(MedCNN):

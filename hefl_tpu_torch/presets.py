@@ -1,5 +1,5 @@
 """The five BASELINE.json benchmark configurations as named presets, and the
-CPU-sized hybrid-HE smoke preset, over the port's configs
+CPU-sized fusion and hybrid-HE smoke presets, over the port's configs
 (`hefl_tpu.presets`, restated: the JAX module builds the JAX package's
 `ExperimentConfig`).
 
@@ -11,11 +11,10 @@ CPU-sized hybrid-HE smoke preset, over the port's configs
 
 Every preset keeps the reference's local-training recipe (10 epochs, batch
 32, Adam 1e-3 with Keras decay, EarlyStopping/ReduceLROnPlateau) and runs 3
-rounds. Three presets of the JAX package need modules the port does not
-have yet (`UNPORTED_PRESETS`); looking one up raises a KeyError naming the
+rounds. One preset of the JAX package needs modules the port does not have
+yet (`UNPORTED_PRESETS`); looking it up raises a KeyError naming the
 module, never a silent miss. `hhe-smoke` uses a ring of N = 256, which the
-port's kernels do not take: it runs with `device="cpu"` (the plain
-versions), and on a CUDA device the first kernel call refuses N = 256.
+kernels take like any other.
 """
 
 from __future__ import annotations
@@ -30,9 +29,7 @@ BASELINE_PRESET_NAMES = (
 
 # Presets of the JAX package that need a module the port does not have yet.
 UNPORTED_PRESETS = {
-    "cifar-resnet16": "models/resnet.py (ResNet20; ROADMAP M9)",
     "chaos-smoke": "fl/faults.py fault schedules and on_overflow='exclude' (ROADMAP M10)",
-    "fusion-smoke": "fl/fusion.py, TrainConfig.client_fusion='fused' (ROADMAP M9)",
 }
 
 
@@ -67,6 +64,21 @@ PRESETS: dict[str, ExperimentConfig] = _Presets({
         encrypted=True, partition="label_skew", skew_alpha=0.5,
         train=TrainConfig(num_classes=2, warmup_steps=10, prox_mu=0.01),
         he=HEConfig(), seed=0,
+    ),
+    "cifar-resnet16": ExperimentConfig(
+        model="resnet20", dataset="cifar10", num_clients=16, rounds=3,
+        encrypted=True, train=TrainConfig(num_classes=10), he=HEConfig(),
+        seed=0,
+    ),
+    # Cross-client fusion smoke (CPU-sized): a plaintext 8-client run with
+    # the fused backend pinned.
+    "fusion-smoke": ExperimentConfig(
+        model="smallcnn", dataset="mnist", num_clients=8, rounds=2,
+        encrypted=False, seed=0, n_train=512, n_test=128,
+        train=TrainConfig(
+            num_classes=10, epochs=2, batch_size=8, val_fraction=0.25,
+            client_fusion="fused",
+        ),
     ),
     # Hybrid-HE uplink smoke (CPU-sized): a streaming run with
     # upload_kind=hhe, clients shipping stream-cipher word pairs and the

@@ -3,8 +3,8 @@
 Two artifacts, both plain `.npz`, written atomically (tmp + rename):
 
   * params file — the parameters under `param:<Layer>/<leaf>` keys in the
-    JAX package's layout (flax names, HWIO / (in, out) kernels, through
-    `convert.to_flax` / `from_flax`), so a params file written by either
+    JAX package's layout (flax scope paths and names, HWIO / (in, out)
+    kernels, through `convert`), so a params file written by either
     package loads in the other with the same bits.
   * round checkpoint — params + round index + the run's `torch.Generator`
     state (`rng_state`) + a JSON header with a content sha256 over every
@@ -70,22 +70,24 @@ def _content_sha256(arrays: dict[str, np.ndarray]) -> str:
 
 
 def _named(params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    """The port's parameter dict -> {"param:Layer/leaf": JAX-layout array}."""
-    return {f"param:{layer}/{leaf}": arr
-            for layer, leaves in convert.to_flax(params).items()
-            for leaf, arr in leaves.items()}
+    """The port's parameter dict -> {"param:Layer/leaf": JAX-layout array},
+    Layer the scope path ("BasicBlock_0/Conv_0"), as the JAX package names
+    its leaves."""
+    return {f"param:{layer}/{leaf}": convert.flax_leaf(
+                layer, leaf, params[convert.torch_name(layer, leaf)].detach()).cpu().contiguous().numpy()
+            for layer, leaf in convert.ravel_order(params)}
 
 
 def _restore_into(template: dict[str, torch.Tensor], arrays: dict[str, np.ndarray]) -> dict:
     """JAX-layout arrays -> a parameter dict shaped and placed like `template`."""
-    tree: dict[str, dict[str, np.ndarray]] = {}
+    named = {}
     for layer, leaf in convert.ravel_order(template):
         key = f"param:{layer}/{leaf}"
         if key not in arrays:
             raise KeyError(f"checkpoint missing parameter {key[len('param:'):]!r}")
-        tree.setdefault(layer, {})[leaf] = arrays[key]
+        named[layer, leaf] = arrays[key]
     device = next(iter(template.values())).device
-    out = convert.from_flax(tree, device=device)
+    out = convert.from_named(named, device=device)
     for name, t in template.items():
         if tuple(out[name].shape) != tuple(t.shape):
             raise ValueError(f"shape mismatch for {name!r}: checkpoint "

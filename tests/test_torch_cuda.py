@@ -183,9 +183,10 @@ def test_encrypt_decrypt_reject_unaligned_rows_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_reject_unsupported_ring_on_card(cuda_device):
-    ctx = _ctx(256)
-    with pytest.raises(ValueError):
-        cuda_ntt.ntt_forward(ctx, _res(ctx, (1, 3, 256), 12, cuda_device))
+    # N = 128 is below the kernels' rings (256..16384): refused by name.
+    ctx = _ctx(128)
+    with pytest.raises(ValueError, match="not 128"):
+        cuda_ntt.ntt_forward(ctx, _res(ctx, (1, 3, 128), 12, cuda_device))
 
 
 @pytest.mark.cuda
@@ -443,12 +444,87 @@ def test_encrypt_fused_at_the_medical_round_shape_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_n256_preset_on_cuda_raises_naming_n(cuda_device):
-    # The hhe-smoke preset's ring (N = 256) is below what the kernels take:
-    # on the card the run refuses it by name instead of falling back to the
-    # plain versions.
-    from hefl_tpu_torch.experiment import run_experiment
+@pytest.mark.parametrize("n", [256, 512, 16384])
+def test_k1_to_k7_bitwise_vs_plain_at_the_smallest_and_largest_rings_on_card(cuda_device, n):
+    # The rings beside 1024..8192: one block a row at N = 256 and 512, at
+    # least two at 16384 (18 rows take C = 4, 3 rows C = 8). K1-K4 and K7 on
+    # 3, 18, 57 and 456 rows, K5 in both modes at L = 1 and 3, K6 at every
+    # split, each bitwise against its plain version on the same card tensors.
+    dev = cuda_device
+    for rows in (3, 18, 57, 456):
+        ctx = _ctx(n)
+        shape = (rows // 3, 3, n)
+        m, u, e0, e1 = (_res(ctx, shape, rows + s, dev) for s in (5, 6, 7, 8))
+        b, a = _res(ctx, shape[1:], 10, dev), _res(ctx, shape[1:], 11, dev)
+        w_hi, w_lo, pad0, pad1 = _k7_inputs(ctx, rows // 3, rows, dev)
+        assert torch.equal(cuda_ntt.ntt_forward(ctx, m), cuda_ntt.ntt_forward_plain(ctx, m))
+        assert torch.equal(cuda_ntt.ntt_inverse(ctx, m), cuda_ntt.ntt_inverse_plain(ctx, m))
+        for got, want in zip(cuda_ntt.encrypt_fused(ctx, m, u, e0, e1, b, a),
+                             cuda_ntt.encrypt_fused_plain(ctx, m, u, e0, e1, b, a)):
+            assert torch.equal(got, want)
+        assert torch.equal(cuda_ntt.decrypt_fused(ctx, u, e1, b),
+                           cuda_ntt.decrypt_fused_plain(ctx, u, e1, b))
+        for got, want in zip(cuda_ntt.transcipher_fused(ctx, w_hi, w_lo, pad0, pad1),
+                             cuda_ntt.transcipher_fused_plain(ctx, w_hi, w_lo, pad0, pad1)):
+            assert torch.equal(got, want)
+    for num_l in (1, 3):
+        ctx = _ctx(n, num_l)
+        x = _res(ctx, (1, num_l, n), 30 + num_l, dev)
+        keys = [_res(ctx, (6 * num_l + 1, num_l, n), 31 + i, dev) for i in range(2)]
+        for eval_input in (False, True):
+            for got, want in zip(cuda_ntt.keyswitch_fused(ctx, x, *keys, 5, 6, eval_input),
+                                 cuda_ntt.keyswitch_fused_plain(ctx, x, *keys, 5, 6, eval_input)):
+                assert torch.equal(got, want)
+    ctx = _ctx(n)
+    c0 = _res(ctx, (2, 3, n), 40, dev)
+    d, bk, ak = (_res(ctx, shape, 41 + i, dev) for i, shape in enumerate(
+        ((2, 18, 3, n), (3, 18, 3, n), (3, 18, 3, n))))
+    want = cuda_ntt.hoisted_products_plain(ctx, c0, d, bk, ak)
+    for q in cuda_ntt.HOIST_SPLITS:
+        plan = cuda_ntt.hoisted_plan(3, 2, 18, ctx.p[:, 0], n, split=q)
+        for g, w in zip(cuda_ntt.hoisted_products(ctx, c0, d, bk, ak, plan=plan), want):
+            assert torch.equal(g, w)
+    torch.cuda.synchronize(dev)
+    assert {n_ for _, _, n_ in cuda_ntt.launch_rows()} >= {n}
+
+
+@pytest.mark.cuda
+def test_hhe_smoke_preset_runs_on_the_card(cuda_device, monkeypatch):
+    # hhe-smoke's first round at its own ring (N = 256) through the kernels:
+    # the decrypted average within the packed spec's error budget of the
+    # plaintext mean of the same trained weights, expansion_hhe <= 1.1, and
+    # exactly K1 twice (keygen), one K3 and one K7 over 8 clients x 294
+    # packed rows and one K4 over 294.
+    import dataclasses
+
+    from hefl_tpu_torch import experiment
+    from hefl_tpu_torch.fl import secure, stream
     from hefl_tpu_torch.presets import PRESETS
 
-    with pytest.raises(ValueError, match="not 256"):
-        run_experiment(PRESETS["hhe-smoke"], verbose=False)
+    trained, avgs = [], []
+    real_uploads, real_decrypt = stream.client_uploads, experiment.decrypt_average
+
+    def uploads(*a, **k):
+        out = real_uploads(*a, **k)
+        trained.append(out[3])
+        return out
+
+    def decrypt(*a, **k):
+        avgs.append((real_decrypt(*a, **k), k["packing"]))
+        return avgs[-1][0]
+
+    monkeypatch.setattr(stream, "client_uploads", uploads)
+    monkeypatch.setattr(experiment, "decrypt_average", decrypt)
+    cuda_ntt.reset_launch_counts()
+    out = experiment.run_experiment(dataclasses.replace(PRESETS["hhe-smoke"], rounds=1),
+                                    verbose=False)
+    torch.cuda.synchronize(cuda_device)
+    (avg, spec), = avgs
+    ref = secure.plain_mean(trained[0])
+    assert max((avg[k] - ref[k]).abs().max().item() for k in ref) <= spec.error_budget
+    assert out["hhe"]["expansion_hhe"] <= 1.1
+    assert out["history"][0]["encode_overflow"] == [0] * 8
+    rows = 3 * out["packing"]["n_ct"]
+    assert cuda_ntt.launch_rows() == {
+        ("ntt_forward", 3, 256): 2, ("encrypt_fused", 8 * rows, 256): 1,
+        ("transcipher_fused", 8 * rows, 256): 1, ("decrypt_fused", rows, 256): 1}

@@ -237,6 +237,23 @@ def test_emulated_k4_bitwise_at_every_cluster_size(n, cluster):
     assert torch.equal(got, cuda_ntt.decrypt_fused_plain(ctx, c0, c1, s))
 
 
+# The rings beside 1024..8192, at the clusters ntt_plan gives them: one
+# block a row at N = 256 (a short pass of 2 stages; one warp a block) and 512
+# (no short pass), two and eight at N = 16384 (a short pass of 2 stages).
+NEW_RINGS = [(256, 1), (512, 1), (16384, 2), (16384, 8)]
+
+
+@pytest.mark.parametrize("n,cluster", NEW_RINGS)
+def test_emulated_k3_k4_bitwise_at_the_smallest_and_largest_rings(n, cluster):
+    ctx = _ctx(n, 3)
+    (m, u, e0, e1), (b, a, s) = _inputs(ctx, 2, 7 * n + cluster)
+    for g, w in zip(_emulate_encrypt(ctx, m, u, e0, e1, b, a, cluster),
+                    cuda_ntt.encrypt_fused_plain(ctx, m, u, e0, e1, b, a)):
+        assert torch.equal(g, w)
+    assert torch.equal(_emulate_decrypt(ctx, m, u, s, cluster),
+                       cuda_ntt.decrypt_fused_plain(ctx, m, u, s))
+
+
 @pytest.mark.parametrize("cluster", [1, 8])
 def test_emulated_k3_k4_bitwise_vs_jax(cluster):
     # The slice as a whole at N = 1024 (the short pass of 1 stage): the
@@ -287,6 +304,12 @@ def test_three_transforms_equal_the_plain_encrypt(n):
     (57, 4096, 2),      # the HHE round's decrypt: 19 packed rows
     (3, 4096, 8),       # serving's one-ciphertext encrypt, L = 3
     (5, 8192, 8),       # the MLP's encrypt, L = 5
+    (3216, 4096, 1),    # cifar-resnet16's encrypt: 16 clients x 67 ciphertexts
+    (201, 4096, 1),     # its decrypt: 67 ciphertexts
+    (7056, 256, 1),     # hhe-smoke's pads: 8 clients x 294 packed rows, N = 256
+    (882, 256, 1),      # its decrypt
+    (3, 16384, 8),
+    (456, 16384, 2),    # never one block a row at N = 16384
 ])
 def test_encrypt_decrypt_follow_ntt_plan(rows, n, cluster):
     # K3 and K4 launch at ntt_plan(rows, N), as K1 and K2 do.

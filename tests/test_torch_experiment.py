@@ -319,7 +319,7 @@ def _assert_same_config(port, ref, path="cfg"):
 
 
 @pytest.mark.parametrize("name", ["mnist-plain", "mnist-enc", "medical-8", "medical-skew",
-                                  "hhe-smoke"])
+                                  "hhe-smoke", "cifar-resnet16", "fusion-smoke"])
 def test_presets_equal_jax_field_by_field(name):
     _assert_same_config(presets.PRESETS[name], jpresets.PRESETS[name], name)
 
@@ -330,9 +330,7 @@ def test_preset_names_cover_the_jax_presets():
     assert not set(presets.PRESETS) & set(presets.UNPORTED_PRESETS)
 
 
-@pytest.mark.parametrize("name,module", [("cifar-resnet16", "models/resnet.py"),
-                                         ("chaos-smoke", "fl/faults.py"),
-                                         ("fusion-smoke", "fl/fusion.py")])
+@pytest.mark.parametrize("name,module", [("chaos-smoke", "fl/faults.py")])
 def test_unported_presets_raise_naming_their_module(name, module, capsys):
     with pytest.raises(KeyError, match=module):
         presets.PRESETS[name]
@@ -373,6 +371,14 @@ def test_run_experiment_matches_jax_schema(kind, monkeypatch):
     assert {"history", "final_metrics", "params"} <= set(want)
     for key in ("packing", "stream", "hhe"):
         assert got[key] is None and want.get(key) is None
+    if not tcfg.centralized:
+        # What the run ran: the JAX records' keys, the port's values.
+        for key in ("augment_backend", "client_fusion", "he_backend", "mesh"):
+            assert got[key].keys() == want[key].keys(), key
+        assert got["mesh"] == {"axes": ["clients"], "clients": 1, "ct": 1}
+        assert got["he_backend"]["backend"] == "plain"
+        assert got["augment_backend"]["backend"] == "gather"
+        assert got["client_fusion"]["backend"] in ("fused", "vmap")
     assert got["final_metrics"] is got["history"][-1]
     (x, y), _, _ = synthetic.make_dataset("mnist", seed=3, n_train=64, n_test=32)
     if not tcfg.centralized:
@@ -433,6 +439,55 @@ def test_driver_rounds_decrypt_within_yardstick_of_their_plain_mean(mode, monkey
         limit = 5e-6 if pspec is None else pspec.error_budget
         assert _max_diff(avg, ref) <= limit
     assert pairs[-1][2] is out["params"]
+
+
+def test_fusion_smoke_preset_runs_on_the_cpu():
+    # The fused backend pinned by the preset, through the driver: two
+    # plaintext rounds of 8 clients.
+    out = experiment.run_experiment(presets.PRESETS["fusion-smoke"], verbose=False, device="cpu")
+    assert out["client_fusion"]["backend"] == "fused" and len(out["history"]) == 2
+    for rec in out["history"]:
+        assert len(rec["val_loss"]) == 8 and np.isfinite(rec["val_loss"]).all()
+        assert "encode_overflow" not in rec and 0.0 <= rec["accuracy"] <= 1.0
+    assert all(torch.isfinite(v).all() for v in out["params"].values())
+
+
+def test_tiny_cifar_resnet16_decrypts_within_yardstick(monkeypatch):
+    # cifar-resnet16's configuration (16 clients, fused, encrypted) with a
+    # small ResNet-20 (one block a stage, widths 8/16/16), N = 256, 1 round
+    # of 1 epoch: the driver's decrypted average within 5e-6 of the plaintext
+    # mean of the same trained weights.
+    import functools
+
+    from hefl_tpu_torch import models
+
+    small = functools.partial(models.ResNet20, stage_sizes=(1, 1, 1), widths=(8, 16, 16))
+    monkeypatch.setitem(models.MODEL_REGISTRY, "resnet20", (small, 10, (32, 32, 3)))
+    real_round, real_decrypt = experiment.secure_fedavg_round, experiment.decrypt_average
+    pairs = []
+
+    def round_with_reference(*a, **k):
+        ct_sum, mets, overflow, ref = real_round(*a, with_plain_reference=True, **k)
+        pairs.append([ref])
+        return ct_sum, mets, overflow
+
+    def decrypt(*a, **k):
+        pairs[-1].append(real_decrypt(*a, **k))
+        return pairs[-1][-1]
+
+    monkeypatch.setattr(experiment, "secure_fedavg_round", round_with_reference)
+    monkeypatch.setattr(experiment, "decrypt_average", decrypt)
+    base = presets.PRESETS["cifar-resnet16"]
+    cfg = dataclasses.replace(base, rounds=1, n_train=16 * 8, n_test=16,
+                              he=experiment.HEConfig(n=256),
+                              train=dataclasses.replace(base.train, epochs=1,
+                                                        client_fusion="fused"))
+    out = experiment.run_experiment(cfg, verbose=False, device="cpu")
+    (ref, avg), = pairs
+    assert _max_diff(avg, ref) <= 5e-6
+    assert out["history"][0]["encode_overflow"] == [0] * 16
+    assert out["client_fusion"]["backend"] == "fused"
+    assert "BasicBlock_2.Conv_2.weight" in out["params"]
 
 
 def test_hhe_smoke_preset_runs_on_the_cpu():
@@ -516,7 +571,6 @@ REFUSED = [
     ("exact_final_decode", dict(exact_final_decode=True)),
     ("profile_dir", dict(profile_dir="prof")),
     ("mesh_ct", dict(mesh_ct=2)),
-    ("client_fusion", dict(train=TrainConfig(client_fusion="fused"))),
     ("on_overflow='exclude'", dict(train=TrainConfig(on_overflow="exclude"))),
     ("max_update_norm", dict(train=TrainConfig(max_update_norm=50.0))),
 ]
@@ -558,10 +612,13 @@ ARGV = [
     ["--centralized", "--no-save-model", "--n-train", "40", "--epochs", "2"],
     ["--save-model", "m.npz", "--pack-bits", "8", "--hhe", "--hhe-key-seed", "2", "--lr", "0.01"],
     [],
+    ["--client-fusion", "fused", "--max-round-retries", "2", "--retry-backoff", "0.1",
+     "--model", "resnet20", "--dataset", "cifar10", "--num-clients", "16"],
 ]
 
 
-@pytest.mark.parametrize("argv", ARGV, ids=["plaintext_skew", "centralized", "hhe", "defaults"])
+@pytest.mark.parametrize("argv", ARGV, ids=["plaintext_skew", "centralized", "hhe", "defaults",
+                                            "fusion_retries"])
 def test_cli_flags_map_to_the_jax_config(argv):
     port = cli.config_from_args(cli.parse_args(argv + ["--device", "cpu"]))
     ref = jcli.config_from_args(jcli.build_parser().parse_args(argv))
@@ -590,7 +647,10 @@ def test_cli_preset_yields_the_preset(name):
 @pytest.mark.parametrize("rel", ["hefl_tpu_torch/experiment.py", "hefl_tpu_torch/presets.py",
                                  "hefl_tpu_torch/utils/__init__.py",
                                  "hefl_tpu_torch/utils/checkpoint.py",
-                                 "hefl_tpu_torch/utils/timers.py"])
+                                 "hefl_tpu_torch/utils/timers.py",
+                                 "hefl_tpu_torch/fl/fusion.py",
+                                 "hefl_tpu_torch/models/folded.py",
+                                 "hefl_tpu_torch/models/resnet.py"])
 def test_new_modules_are_scanned_and_import_no_jax(rel):
     path = REPO / rel
     assert path in sorted((REPO / "hefl_tpu_torch").rglob("*.py"))

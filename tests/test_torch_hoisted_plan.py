@@ -63,7 +63,7 @@ def _emulate_k6(primes, c0, d_eval, b_mont, a_mont, plan):
     split, chunk = plan.split, plan.chunk
     logn = n.bit_length() - 1
     per = (num_l << logn) // 4                       # 4-word groups of one [L, N]
-    per_block = THREADS // split
+    per_block = min(THREADS // split, n // 4)      # at most N/4 groups below N = 1024
     assert per % per_block == 0
     tiles = per // per_block
     blocks = num_s * batch * tiles
@@ -169,6 +169,18 @@ def test_emulated_k6_bitwise_vs_plain(num_l, split):
         assert torch.equal(gw, ww)
 
 
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("n,num_l", [(256, 1), (256, 3), (512, 3)])
+def test_emulated_k6_bitwise_vs_plain_at_small_rings(n, num_l, split):
+    # Below N = 1024 a block takes at most N/4 groups (64 at N = 256), which
+    # divide the L*N/4 groups of a step at any L.
+    ctx, primes, args = _case(n, num_l, 2, 3, 7 * num_l + split + n)
+    plan = cuda_ntt.hoisted_plan(2, 3, 6 * num_l, primes, n, split=split)
+    want = cuda_ntt.hoisted_products_plain(ctx, *args)
+    for gw, ww in zip(_emulate_k6(primes, *args, plan), want):
+        assert torch.equal(gw, ww)
+
+
 @pytest.mark.parametrize("num_s,batch,num_l,split", [
     (3, 1, 3, None),    # the linear score's ring: the plan's own Q
     (2, 4, 3, 2),       # score_many's batch of 4
@@ -243,7 +255,7 @@ def test_hoisted_plan_follows_the_sm_count():
     ((1, 1, 18, [], 4096), {}),                        # no primes
     ((1, 1, 18, [(1 << 31) + 11], 4096), {}),          # past the 32-bit REDC
     ((1, 1, 18, [2], 4096), {}),                       # p - 1 = 1: no Montgomery inverse
-    ((1, 1, 18, None, 512), {}),                       # an unsupported ring
+    ((1, 1, 18, None, 128), {}),                       # a ring below 256
     ((1, 1, 18, None, 4096), {"split": 3}),            # not a power of two
     ((1, 1, 18, None, 4096), {"split": 16}),           # more than 8 threads a group
     ((1, 1, 18, [(1 << 31) - 1], 4096), {"split": 4}),  # Q above K = 2

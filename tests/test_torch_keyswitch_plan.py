@@ -201,6 +201,16 @@ def test_emulated_digit_stage_bitwise_at_every_cluster_size(n, cluster):
     assert torch.equal(d_eval, ntt.ntt_forward_plain(ctx, lifted.to(torch.int32)).to(torch.int64))
 
 
+@pytest.mark.parametrize("n,cluster", [(256, 1), (512, 1), (16384, 2), (16384, 8)])
+def test_emulated_digit_stage_bitwise_at_the_smallest_and_largest_rings(n, cluster):
+    ctx = _ctx(n, 1)
+    x = _res(ctx, (1, 1, n), 5 * n + cluster)
+    d_eval = _emulate_digit_stage(ctx, x, DIGIT_BITS, NUM_DIGITS, cluster)
+    p = ntt.plain_tables(ctx, "cpu").p
+    lifted = sub_mod(cuda_ntt.gadget_digits(x, DIGIT_BITS, NUM_DIGITS), 1 << (DIGIT_BITS - 1), p)
+    assert torch.equal(d_eval, ntt.ntt_forward_plain(ctx, lifted.to(torch.int32)).to(torch.int64))
+
+
 @pytest.mark.parametrize("batch,num_l,n,digit,inverse", [
     (1, 3, 4096, (54, 2), (3, 8)),       # a linear score's giant steps
     (4, 3, 4096, (216, 1), (12, 8)),     # score_many, 4 ciphertexts
@@ -208,6 +218,9 @@ def test_emulated_digit_stage_bitwise_at_every_cluster_size(n, cluster):
     (1, 5, 8192, (150, 1), (5, 8)),      # the MLP's first layer and relinearization
     (1, 1, 1024, (6, 8), (1, 8)),
     (1, 2, 1024, (24, 4), (2, 8)),
+    (1, 3, 256, (54, 1), (3, 1)),        # one block a row below N = 1024
+    (1, 3, 16384, (54, 2), (3, 8)),
+    (4, 3, 16384, (216, 2), (12, 8)),    # at least two blocks a row at N = 16384
 ])
 def test_keyswitch_plan_cluster_sizes(batch, num_l, n, digit, inverse):
     plan = cuda_ntt.keyswitch_plan(batch, find_ntt_primes(num_l, 27, 2 * n), 6, 5, n)
@@ -242,5 +255,5 @@ def test_keyswitch_plan_refuses_an_empty_batch_and_unsupported_rings():
     primes = find_ntt_primes(3, 27, 2048)
     with pytest.raises(ValueError):
         cuda_ntt.keyswitch_plan(0, primes, 6, 5, 1024)
-    with pytest.raises(ValueError):
-        cuda_ntt.keyswitch_plan(1, find_ntt_primes(3, 27, 512), 6, 5, 256)
+    with pytest.raises(ValueError, match="not 128"):      # below the kernels' 256..16384
+        cuda_ntt.keyswitch_plan(1, find_ntt_primes(3, 27, 256), 6, 5, 128)

@@ -28,9 +28,16 @@ def _extern_c_signatures() -> dict:
 @pytest.mark.parametrize("n", cuda_ntt.SUPPORTED_N)
 def test_ntt_plan_spreads_few_rows_over_clusters(n):
     # The largest C in (1, 2, 4, 8) with rows * C <= 132 SMs: the main
-    # paths' 3-, 6-, 18- and 54-row launches get 24 to 108 blocks.
-    assert {rows: cuda_ntt.ntt_plan(rows, n) for rows in (1, 3, 6, 18, 54)} == {
-        1: 8, 3: 8, 6: 8, 18: 4, 54: 2}
+    # paths' 3-, 6-, 18- and 54-row launches get 24 to 108 blocks. Below
+    # N = 1024 a row is one block (N/8 threads, one warp at N = 256), and at
+    # N = 16384 never fewer than two (one block would need 2048 threads).
+    plan = {rows: cuda_ntt.ntt_plan(rows, n) for rows in (1, 3, 6, 18, 54, 66, 1000)}
+    if n < 1024:
+        assert set(plan.values()) == {1}
+    else:
+        assert plan == {1: 8, 3: 8, 6: 8, 18: 4, 54: 2, 66: cuda_ntt.MIN_CLUSTER.get(n, 1),
+                        1000: cuda_ntt.MIN_CLUSTER.get(n, 1)}
+    assert all(n // c // 8 <= 1024 for c in plan.values())      # threads a block
 
 
 def test_ntt_plan_is_one_block_a_row_from_66_rows():
@@ -48,8 +55,11 @@ def test_ntt_plan_follows_the_sm_count():
 
 
 def test_ntt_plan_refuses_unsupported_rings():
-    with pytest.raises(ValueError):
-        cuda_ntt.ntt_plan(3, 512)
+    # Every power of two from 256 to 16384 is taken; anything else is not.
+    assert cuda_ntt.SUPPORTED_N == tuple(1 << k for k in range(8, 15))
+    for n in (128, 1000, 32768):
+        with pytest.raises(ValueError, match=f"not {n}"):
+            cuda_ntt.ntt_plan(3, n)
 
 
 def test_every_signature_has_a_c_launcher():

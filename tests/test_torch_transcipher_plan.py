@@ -89,6 +89,17 @@ def test_emulated_k7_bitwise_at_every_cluster_size(n, cluster):
     assert torch.all(got[1][0, :, 8:13] == 0)
 
 
+@pytest.mark.parametrize("n,cluster", [(256, 1), (512, 1), (16384, 2), (16384, 8)])
+def test_emulated_k7_bitwise_at_the_smallest_and_largest_rings(n, cluster):
+    # The clusters ntt_plan gives these rings: one block a row below 1024,
+    # at least two at 16384.
+    ctx = _ctx(n, 3)
+    args = _k7_inputs(ctx, 2, 3 * n + cluster)
+    for g, w in zip(_emulate_transcipher(ctx, *args, cluster),
+                    cuda_ntt.transcipher_fused_plain(ctx, *args)):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("cluster", [1, 8])
 def test_emulated_k7_bitwise_vs_jax(cluster):
     # The slice's kernel at N = 1024 (the short pass of 1 stage) against the
@@ -108,6 +119,7 @@ def test_emulated_k7_bitwise_vs_jax(cluster):
     (57, 4096, 2),      # one client's 19 packed rows
     (18, 8192, 4),
     (3, 4096, 8),       # one packed row
+    (7056, 256, 1),     # hhe-smoke: 8 clients x 294 packed rows at N = 256
 ])
 def test_transcipher_follows_ntt_plan(rows, n, cluster):
     # K7 launches at ntt_plan(B*L, N), as K1-K4 do.
