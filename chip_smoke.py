@@ -42,7 +42,10 @@ error:
      sum mod p), `decrypt_average`, `evaluate`. The kernel launch counts are
      zeroed just before and read just after; K1, K3 and K4 must have run,
      and the decrypted average must sit within 5e-6 of the same program's
-     plaintext FedAvg mean (the repo's encrypted-average yardstick).
+     plaintext FedAvg mean (the repo's encrypted-average yardstick). Then
+     the wire files (`utils.serialization`): (ctx, pk), sk and the round's
+     ciphertext sum saved, loaded back and decrypted: bitwise the
+     in-memory decrypt.
   4. Encrypted-inference serving, linear BSGS (the JAX package's
      bench_inference.py configuration): N=4096, L=3, d=512 features, K=10
      classes, 45 Galois keys. One query through `BsgsLinearScorer.score`
@@ -101,12 +104,26 @@ error:
      [0, 1]; each round of (a), (f) and (g) decrypts within 5e-6 of the
      plaintext mean of the same trained weights. Each run prints its phase
      times and launches.
-  Phases 3-7 each print their launches by (kernel, rows x N).
-  8. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-7 launched, and not K6's kernel, spills registers, and that every
-     K3, K4, K6 and K7 launch of phases 3-7 fell on a shape phase 2 timed.
+  8. Robust and private rounds through `run_experiment` at full width
+     (`robust_runs`): (i) medical-8 under a fault schedule (2 clients
+     dropped, one NaN- and one +1e15-poisoned, stragglers, a device loss on
+     round 1's first attempt) with the norm bound and overflow exclusion,
+     2 rounds of 1 epoch: each round's exclusions exactly the schedule's
+     and the predicates', 4 surviving, one retry on round 1, the decrypt
+     within 5e-6 of the masked plaintext mean; beside its unmasked twin and
+     the sanitizer's time; (j) medical-8 with DP-FedAvg under 25 % dropout,
+     1 round: the noise floor recalibrated to 6, the decrypt within 5e-6 of
+     the masked mean of the sanitized weights, the accountant's epsilon,
+     and the noise's moments on the card; (k) chaos-smoke (N=256), 4
+     rounds: its rounds equal CHAOS_SMOKE.json's surviving, excluded and
+     retries, with its clean twin's accuracy beside it. Launches exactly
+     as phase 7's rule: masked rounds encrypt every client's rows.
+  Phases 3-8 each print their launches by (kernel, rows x N).
+  9. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-8 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-8 fell on a shape phase 2 timed.
      Print one JSON line {"kernels": [...]}
-     (launches: the sum over the main-path runs of phases 3-7, each counted
+     (launches: the sum over the main-path runs of phases 3-8, each counted
      from zero; every kernel carries one "shapes" entry per timed shape
      with the launches at that shape, K5's also its per-kernel "split";
      the ranking launches x (ms - bound) prices each launch at its own
@@ -155,7 +172,7 @@ DIGIT_BITS, NUM_DIGITS = 5, 6        # the default gadget at 27-bit primes
 PALLAS = "hefl_tpu/ckks/pallas_ntt.py"
 SOURCE = "hefl_tpu_torch/csrc/ntt.cu"
 # [B, L, N] shapes at which phase 2 also times K1 and K2: the main paths
-# launch them on 1 to 150 rows (phases 3-7 print the count at each).
+# launch them on 1 to 150 rows (phases 3-8 print the count at each).
 NTT_SHAPES = ((1, 3, 4096), (2, 3, 4096), (18, 3, 4096), (55, 3, 4096),
               (1, 1, 8192), (1, 3, 8192), (2, 3, 8192), (1, 4, 8192), (1, 5, 8192),
               (2, 5, 8192), (18, 3, 8192), (30, 5, 8192), (1, 3, 256))
@@ -168,14 +185,17 @@ NTT_SHAPES = ((1, 3, 4096), (2, 3, 4096), (18, 3, 4096), (55, 3, 4096),
 KS_SHAPES = ((False, 1, 3, 4096), (False, 4, 3, 4096), (False, 1, 3, 8192),
              (False, 1, 5, 8192), (True, 1, 5, 8192))
 # [B, L, N] shapes at which phase 2 times K3 and K4: every shape phases 3,
-# 6 and 7 launch them at (their `launches by (kernel, rows x N)` lines). K3:
+# 6, 7 and 8 launch them at (their `launches by (kernel, rows x N)` lines). K3:
 # 2 clients x 55 ciphertexts (phase 3, mnist-enc), the HHE round's pads for
 # 8 clients x 19 packed rows, 8 clients x 55 (medical-8, medical-skew), 16
 # clients x 67 (cifar-resnet16's ResNet-20), and hhe-smoke's pads for 8
 # clients x 294 packed rows at N = 256. K4: the rounds' 55 ciphertexts, the
 # HHE round's 19 packed rows, ResNet-20's 67, hhe-smoke's 294.
-ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096), (440, 3, 4096), (1072, 3, 4096), (2352, 3, 256))
-DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096), (67, 3, 4096), (294, 3, 256))
+# Phase 8's chaos-smoke adds K3 over 8 clients x 880 ciphertexts (SmallCNN's
+# 225,034 parameters at N = 256) and K4 over 880.
+ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096), (440, 3, 4096), (1072, 3, 4096), (2352, 3, 256),
+              (7040, 3, 256))
+DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096), (67, 3, 4096), (294, 3, 256), (880, 3, 256))
 # [B', L, N] (B' upload rows) at which phase 2 times K7: every shape phases 6
 # and 7 launch it at, the HHE round's 8 clients x 19 packed rows and
 # hhe-smoke's 8 x 294 at N = 256.
@@ -199,8 +219,9 @@ HOIST_CHECK_PRIMES = (1, 2, 3, 5, 6)
 # (N = 256 to 16384): every cluster plan of cuda_ntt.ntt_plan (8 blocks a
 # row up to 16 rows, 4 up to 33, 2 up to 65, 1 from 66 on a 132-SM card;
 # one block a row below N = 1024, at least 2 at N = 16384), and the row
-# counts of ENC_SHAPES, DEC_SHAPES and TC_SHAPES at N = 4096.
-NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 57, 165, 201, 330, 456, 1320, 3216)
+# counts of ENC_SHAPES, DEC_SHAPES and TC_SHAPES (chaos-smoke's 21,120 and
+# 2,640 rows among them).
+NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 57, 165, 201, 330, 456, 1320, 2640, 3216, 21120)
 ERR_LIMIT = 5e-6
 SCORE_ERR_LIMIT = 0.05               # the JAX package's serving tolerance
 # The depth-2 MLP at N=8192 carries more noise than the JAX tests' n=512 ring:
@@ -692,7 +713,7 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
     for case in ntt_cases(cuda_ntt, ckks_ctx.ntt, 55, device, 200):
         records[case[0]] = kernel_record(case, flush)
     # K1 and K2 at NTT_SHAPES, K3 at ENC_SHAPES, K4 at DEC_SHAPES, K7 at
-    # TC_SHAPES: the shapes the main paths launch them at (phases 3-7 print
+    # TC_SHAPES: the shapes the main paths launch them at (phases 3-8 print
     # their launches by (kernel, rows, N)). K1/K2's [55, 3, 4096] records
     # above are kept for continuity with earlier runs; K3/K4/K7's record is
     # their first shape's.
@@ -823,6 +844,7 @@ def main_path(device) -> tuple[dict, dict]:
     results = phase("evaluate_s", lambda: evaluate(model, avg, xt_d, yt))
     counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
     log_launch_rows(shapes)
+    wire_round_trip(ctx, sk, pk, ct_sum, device)
 
     log(f"  main path launches: {counts}")
     for name in ("ntt_forward", "encrypt_fused", "decrypt_fused"):
@@ -845,6 +867,39 @@ def main_path(device) -> tuple[dict, dict]:
         f"{results['accuracy']:.4f} f1 {results['f1']:.4f}")
     log("  phase times (s): " + json.dumps(times))
     return counts, shapes
+
+
+def wire_round_trip(ctx, sk, pk, ct_sum, device) -> None:
+    """Phase 3's wire files: (ctx, pk), sk and the round's ciphertext sum
+    saved through `utils.serialization` into a temporary directory, loaded
+    back, and decrypted on the card: bitwise the in-memory decrypt."""
+    import tempfile
+
+    from hefl_tpu_torch.ckks import ops
+    from hefl_tpu_torch.ckks.keys import PublicKey, SecretKey
+    from hefl_tpu_torch.utils import serialization as ser
+
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_") as tmp:
+        paths = {k: str(Path(tmp) / f"{k}.npz") for k in ("public", "secret", "ct_sum")}
+        ser.save_public_material(paths["public"], ctx, pk)
+        ser.save_secret_key(paths["secret"], sk)
+        ser.save_ciphertext(paths["ct_sum"], ct_sum)
+        sizes = {k: Path(p).stat().st_size for k, p in paths.items()}
+        ctx2, pk2 = ser.load_public_material(paths["public"])
+        sk2 = ser.load_secret_key(paths["secret"])
+        ct2 = ser.load_ciphertext(paths["ct_sum"])
+    pk2 = PublicKey(b_mont=pk2.b_mont.to(device), a_mont=pk2.a_mont.to(device))
+    sk2 = SecretKey(s_mont=sk2.s_mont.to(device))
+    same_keys = torch.equal(pk2.b_mont, pk.b_mont) and torch.equal(pk2.a_mont, pk.a_mont)
+    got = ops.decrypt(ctx2, sk2, dataclasses.replace(ct2, c0=ct2.c0.to(device),
+                                                     c1=ct2.c1.to(device)))
+    want = ops.decrypt(ctx, sk, ct_sum)
+    torch.cuda.synchronize()
+    log(f"  wire files (bytes) {json.dumps(sizes)}: loaded public key equal {same_keys}, "
+        f"decrypt of the loaded sum bitwise the in-memory one {torch.equal(got, want)}")
+    if not (same_keys and torch.equal(got, want) and ctx2.ntt.n == ctx.n):
+        raise AssertionError("the wire files' round trip does not decrypt bitwise")
 
 
 def warm_latency(fn, calls: int = 20) -> tuple[float, float]:
@@ -1224,6 +1279,142 @@ def expected_launches(cfg, out: dict, rounds_run: int) -> dict:
     return want
 
 
+def cut(name: str, rounds: int, epochs: int, fusion_backend=None, train_kw=None, **kw):
+    """PRESETS[name] cut to `rounds` rounds of `epochs` local epochs, the
+    training backend optionally pinned, other fields replaced by `kw` and
+    TrainConfig fields by `train_kw`."""
+    from hefl_tpu_torch.presets import PRESETS
+
+    cfg = PRESETS[name]
+    train = dataclasses.replace(cfg.train, epochs=epochs, **(train_kw or {}))
+    if fusion_backend is not None:
+        train = dataclasses.replace(train, client_fusion=fusion_backend)
+    return dataclasses.replace(cfg, rounds=rounds, train=train, **kw)
+
+
+# Synthetic datasets of phases 7-8, each made once: `make_dataset` is a pure
+# function of (name, seed, sizes), and the host takes ~15 s for medical's
+# 2,000 images at 256x256x3, which ten runs use.
+_DATASETS: dict = {}
+
+
+@contextlib.contextmanager
+def datasets_once():
+    """During the block, `run_experiment` makes each synthetic dataset once
+    for the whole script."""
+    from hefl_tpu_torch import experiment
+
+    real = experiment.make_dataset
+
+    def make_dataset(*a, **k):
+        key = (a, tuple(sorted(k.items())))
+        if key not in _DATASETS:
+            _DATASETS[key] = real(*a, **k)
+        return _DATASETS[key]
+
+    experiment.make_dataset = make_dataset
+    try:
+        yield
+    finally:
+        experiment.make_dataset = real
+
+
+@contextlib.contextmanager
+def plain_references():
+    """During the block, every secure round of `run_experiment` also returns
+    its plaintext mean (the masked mean over the kept clients on the masked
+    engine, whose return carries the RoundMeta after the overflow); yields
+    the (mean, decrypted average) pair of each decrypted round, and the
+    arguments of the last round call."""
+    from hefl_tpu_torch import experiment
+
+    real_round, real_decrypt = experiment.secure_fedavg_round, experiment.decrypt_average
+    refs, pairs, calls = [], [], []
+
+    def round_with_reference(*a, **k):
+        calls[:] = [(a, k)]
+        *outs, ref = real_round(*a, with_plain_reference=True, **k)
+        refs.append(ref)
+        return tuple(outs)
+
+    def decrypt(*a, **k):
+        avg = real_decrypt(*a, **k)
+        pairs.append((refs[-1], avg))
+        return avg
+
+    experiment.secure_fedavg_round, experiment.decrypt_average = round_with_reference, decrypt
+    try:
+        yield pairs, calls
+    finally:
+        experiment.secure_fedavg_round, experiment.decrypt_average = real_round, real_decrypt
+
+
+def drive(label: str, cfg, rounds_run: int, device, resume: bool = False,
+          check_plain: bool = False, robust: bool = False):
+    """One `run_experiment` run with its launches counted from zero, which
+    must be exactly `expected_launches`; every round's metrics finite (on a
+    robust run: every non-finite per-client metric belongs to an excluded
+    client), its encode overflow 0 (not on a robust run, whose poisoned
+    clients saturate), its accuracy in [0, 1], and the final parameters
+    finite. `check_plain`: each decrypted round within ERR_LIMIT of its
+    plaintext (masked) mean. The run's printed lines are captured and
+    returned. -> (out, last round call, (counts, shapes), printed text)."""
+    import io
+
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.experiment import run_experiment
+    from hefl_tpu_torch.models import count_params
+
+    cuda_ntt.reset_launch_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with datasets_once(), plain_references() if check_plain else contextlib.nullcontext(
+            ([], [])) as (pairs, calls), contextlib.redirect_stdout(printed):
+        out = run_experiment(cfg, resume=resume, verbose=True, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    hist = out["history"]
+    log(f"  ({label}) {cfg.model} {cfg.num_clients} clients, {cfg.partition}, "
+        f"{'encrypted' if cfg.encrypted else 'plaintext'}, rounds "
+        f"{[r['round'] for r in hist]} of {cfg.rounds}, {cfg.train.epochs} epochs, "
+        f"{count_params(out['params']):,} params, training backend "
+        f"{out['client_fusion']['backend']}: {wall:.3f} s")
+    for rec in hist:
+        log(f"    round {rec['round']}: phases (s) {json.dumps(rec['phases'])}; accuracy "
+            f"{rec['accuracy']:.4f} f1 {rec['f1']:.4f}; val_loss {rec['val_loss']}; "
+            f"encode_overflow {rec.get('encode_overflow')}"
+            + (f"; robust {json.dumps(rec['robust'])}" if "robust" in rec else "")
+            + (f"; dp_epsilon {rec['dp_epsilon']}" if "dp_epsilon" in rec else ""))
+    log_launch_rows(shapes)
+    want = expected_launches(cfg, out, rounds_run)
+    if shapes != want:
+        raise AssertionError(f"({label}) launched {shapes}, expected exactly {want}")
+    if len(hist) != rounds_run:
+        raise AssertionError(f"({label}) ran {len(hist)} rounds, expected {rounds_run}")
+    for rec in hist:
+        finite = np.isfinite(rec["val_loss"]) & np.isfinite(rec["val_acc"])
+        kept = (np.asarray(rec["robust"]["participation"]) == 1 if robust
+                else np.ones(len(finite), bool))
+        if not finite[kept].all() or not 0.0 <= rec["accuracy"] <= 1.0:
+            raise AssertionError(f"({label}) bad round record {rec}")
+        if cfg.encrypted and not robust and rec["encode_overflow"] != [0] * cfg.num_clients:
+            raise AssertionError(f"({label}) encode overflow {rec['encode_overflow']}")
+        if not cfg.encrypted and "encode_overflow" in rec:
+            raise AssertionError(f"({label}) a plaintext round recorded encode_overflow")
+    if not all(torch.isfinite(v).all().item() for v in out["params"].values()):
+        raise AssertionError(f"({label}) non-finite parameters")
+    if out["hhe"] is not None and not out["hhe"]["expansion_hhe"] <= 1.1:
+        raise AssertionError(f"({label}) expansion_hhe {out['hhe']['expansion_hhe']} > 1.1")
+    if check_plain:
+        errs = [max((avg[k] - ref[k]).abs().max().item() for k in ref) for ref, avg in pairs]
+        log(f"    decrypted average vs plaintext mean per round: max abs err {errs} "
+            f"(limit {ERR_LIMIT})")
+        if len(errs) != rounds_run or not all(e <= ERR_LIMIT for e in errs):
+            raise AssertionError(f"({label}) decrypted averages off the plaintext means: {errs}")
+    return out, calls, (counts, shapes), printed.getvalue()
+
+
 def driver_runs(device) -> list[tuple[dict, dict]]:
     """Phase 7: `experiment.run_experiment`, the port's experiment driver, on
     BASELINE.json's presets at full width (medical-8, medical-skew: MedCNN
@@ -1232,124 +1423,27 @@ def driver_runs(device) -> list[tuple[dict, dict]]:
     500 images; N=4096, L=3 primes of 27 bits, scale 2^30), cut in rounds
     and epochs only (DRIVER_RUNS, RESUME_RUN, RESNET_RUN, FUSION_RUN), and
     the smoke presets fusion-smoke and hhe-smoke (N = 256) at their own
-    sizes (SMOKE_RUNS). Each run's launches are counted from zero and must
-    be exactly `expected_launches`; every round's encode overflow is 0, its
-    metrics finite and its accuracy in [0, 1], and the final parameters
-    finite. Runs (a), (f) and (g) also ask each of their rounds for the
-    plaintext mean of the same trained weights (`with_plain_reference`):
-    the driver's decrypted average must sit within ERR_LIMIT of it. (g)'s
-    fused and vmap global models must agree within FUSED_VS_VMAP_TOL, and
-    each backend's warm round is profiled (torch.profiler)."""
+    sizes (SMOKE_RUNS); each run through `drive`. Runs (a), (f) and (g)
+    also ask each of their rounds for the plaintext mean of the same
+    trained weights (`with_plain_reference`): the driver's decrypted
+    average must sit within ERR_LIMIT of it. (g)'s fused and vmap global
+    models must agree within FUSED_VS_VMAP_TOL, and each backend's warm
+    round is profiled (torch.profiler)."""
     import os
     import tempfile
 
     from hefl_tpu_torch import experiment
-    from hefl_tpu_torch.ckks import cuda_ntt
-    from hefl_tpu_torch.experiment import run_experiment
     from hefl_tpu_torch.fl import fusion
     from hefl_tpu_torch.fl.client import train_batch_geometry
     from hefl_tpu_torch.models import count_params, create_model
     from hefl_tpu_torch.presets import PRESETS
     from hefl_tpu_torch.utils import load_checkpoint
 
-    def cut(name, rounds, epochs, fusion_backend=None, **kw):
-        cfg = PRESETS[name]
-        train = dataclasses.replace(cfg.train, epochs=epochs)
-        if fusion_backend is not None:
-            train = dataclasses.replace(train, client_fusion=fusion_backend)
-        return dataclasses.replace(cfg, rounds=rounds, train=train, **kw)
-
     runs = []
-    datasets = {}
 
-    @contextlib.contextmanager
-    def datasets_once():
-        """During the block, `run_experiment` makes each synthetic dataset,
-        a pure function of (name, seed, sizes), once for the whole phase:
-        the host takes ~15 s for medical's 2,000 images at 256x256x3, and
-        seven runs use the same one."""
-        real = experiment.make_dataset
-
-        def make_dataset(*a, **k):
-            key = (a, tuple(sorted(k.items())))
-            if key not in datasets:
-                datasets[key] = real(*a, **k)
-            return datasets[key]
-
-        experiment.make_dataset = make_dataset
-        try:
-            yield
-        finally:
-            experiment.make_dataset = real
-
-    @contextlib.contextmanager
-    def plain_references():
-        """During the block, every secure round of `run_experiment` also
-        returns its plaintext mean; yields the (mean, decrypted average)
-        pair of each round, and the arguments of the last round call."""
-        real_round, real_decrypt = experiment.secure_fedavg_round, experiment.decrypt_average
-        refs, pairs, calls = [], [], []
-
-        def round_with_reference(*a, **k):
-            calls[:] = [(a, k)]
-            ct_sum, mets, overflow, ref = real_round(*a, with_plain_reference=True, **k)
-            refs.append(ref)
-            return ct_sum, mets, overflow
-
-        def decrypt(*a, **k):
-            avg = real_decrypt(*a, **k)
-            pairs.append((refs[-1], avg))
-            return avg
-
-        experiment.secure_fedavg_round, experiment.decrypt_average = round_with_reference, decrypt
-        try:
-            yield pairs, calls
-        finally:
-            experiment.secure_fedavg_round, experiment.decrypt_average = real_round, real_decrypt
-
-    def drive(label, cfg, rounds_run, resume=False, check_plain=False):
-        cuda_ntt.reset_launch_counts()
-        t0 = time.perf_counter()
-        with datasets_once(), plain_references() if check_plain else contextlib.nullcontext(
-                ([], [])) as (pairs, calls):
-            out = run_experiment(cfg, resume=resume, verbose=False, device=device)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
-        hist = out["history"]
-        log(f"  ({label}) {cfg.model} {cfg.num_clients} clients, {cfg.partition}, {'encrypted' if cfg.encrypted else 'plaintext'}, rounds "
-            f"{[r['round'] for r in hist]} of {cfg.rounds}, {cfg.train.epochs} epochs, "
-            f"{count_params(out['params']):,} params, training backend "
-            f"{out['client_fusion']['backend']}: {wall:.3f} s")
-        for rec in hist:
-            log(f"    round {rec['round']}: phases (s) {json.dumps(rec['phases'])}; accuracy "
-                f"{rec['accuracy']:.4f} f1 {rec['f1']:.4f}; val_loss {rec['val_loss']}; "
-                f"encode_overflow {rec.get('encode_overflow')}")
-        log_launch_rows(shapes)
-        want = expected_launches(cfg, out, rounds_run)
-        if shapes != want:
-            raise AssertionError(f"({label}) launched {shapes}, expected exactly {want}")
-        if len(hist) != rounds_run:
-            raise AssertionError(f"({label}) ran {len(hist)} rounds, expected {rounds_run}")
-        for rec in hist:
-            finite = np.isfinite(rec["val_loss"]).all() and np.isfinite(rec["val_acc"]).all()
-            if not finite or not 0.0 <= rec["accuracy"] <= 1.0:
-                raise AssertionError(f"({label}) bad round record {rec}")
-            if cfg.encrypted and rec["encode_overflow"] != [0] * cfg.num_clients:
-                raise AssertionError(f"({label}) encode overflow {rec['encode_overflow']}")
-            if not cfg.encrypted and "encode_overflow" in rec:
-                raise AssertionError(f"({label}) a plaintext round recorded encode_overflow")
-        if not all(torch.isfinite(v).all().item() for v in out["params"].values()):
-            raise AssertionError(f"({label}) non-finite parameters")
-        if out["hhe"] is not None and not out["hhe"]["expansion_hhe"] <= 1.1:
-            raise AssertionError(f"({label}) expansion_hhe {out['hhe']['expansion_hhe']} > 1.1")
-        if check_plain:
-            errs = [max((avg[k] - ref[k]).abs().max().item() for k in ref) for ref, avg in pairs]
-            log(f"    decrypted average vs plaintext mean per round: max abs err {errs} "
-                f"(limit {ERR_LIMIT})")
-            if len(errs) != rounds_run or not all(e <= ERR_LIMIT for e in errs):
-                raise AssertionError(f"({label}) decrypted averages off the plaintext means: {errs}")
-        runs.append((counts, shapes))
+    def run(label, cfg, rounds_run, **kw):
+        out, calls, launched, _ = drive(label, cfg, rounds_run, device, **kw)
+        runs.append(launched)
         return out, calls
 
     load = os.getloadavg()
@@ -1358,21 +1452,21 @@ def driver_runs(device) -> list[tuple[dict, dict]]:
     t = time.perf_counter()
     outs = {}
     for label, name, rounds, epochs in DRIVER_RUNS:
-        outs[label], _ = drive(label, cut(name, rounds, epochs), rounds, check_plain=label == "a")
+        outs[label], _ = run(label, cut(name, rounds, epochs), rounds, check_plain=label == "a")
         if label == "a":
             label_b, name_b, rounds_b, epochs_b = RESUME_RUN
             with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
                                              prefix=".chip_smoke_") as tmp:
                 ck = str(Path(tmp) / "round.npz")
-                first, _ = drive(f"{label_b}, round 0", cut(name_b, 1, epochs_b,
-                                                            checkpoint_path=ck), 1)
+                first, _ = run(f"{label_b}, round 0", cut(name_b, 1, epochs_b,
+                                                          checkpoint_path=ck), 1)
                 saved, next_round, _, _ = load_checkpoint(ck, first["params"])
                 if next_round != 1 or not all(torch.equal(saved[k], first["params"][k])
                                               for k in saved):
                     raise AssertionError("the round checkpoint does not restore round 0's params")
                 log("    checkpoint: next round 1, restored params == saved params, bitwise")
-                resumed, _ = drive(f"{label_b}, resumed", cut(name_b, rounds_b, epochs_b,
-                                                              checkpoint_path=ck), 1, resume=True)
+                resumed, _ = run(f"{label_b}, resumed", cut(name_b, rounds_b, epochs_b,
+                                                            checkpoint_path=ck), 1, resume=True)
             if resumed["history"][0]["round"] != 1:
                 raise AssertionError("the resumed run did not start at round 1")
             diff = max((resumed["params"][k] - outs["a"]["params"][k]).abs().max().item()
@@ -1383,7 +1477,7 @@ def driver_runs(device) -> list[tuple[dict, dict]]:
 
     t = time.perf_counter()
     label, name, rounds, epochs = RESNET_RUN
-    out, _ = drive(label, cut(name, rounds, epochs, "fused"), rounds, check_plain=True)
+    out, _ = run(label, cut(name, rounds, epochs, "fused"), rounds, check_plain=True)
     if count_params(out["params"]) != 272_474:
         raise AssertionError(f"ResNet-20 has {count_params(out['params'])} params, expected 272,474")
     log(f"  phase 7 (f) wall time: {time.perf_counter() - t:.3f} s")
@@ -1393,7 +1487,7 @@ def driver_runs(device) -> list[tuple[dict, dict]]:
     by_backend = {}
     for backend in ("vmap", "fused"):
         cfg = cut(name, rounds, epochs, backend)
-        out, calls = drive(f"{label}, {backend}", cfg, rounds, check_plain=True)
+        out, calls = run(f"{label}, {backend}", cfg, rounds, check_plain=True)
         (a, k), = calls
         _, grp, steps = train_batch_geometry(cfg.train, int(a[5].shape[1]))
         n_steps = cfg.train.epochs * steps * (cfg.num_clients if backend == "vmap" else 1)
@@ -1422,10 +1516,195 @@ def driver_runs(device) -> list[tuple[dict, dict]]:
     t = time.perf_counter()
     for label, name in SMOKE_RUNS:
         cfg = PRESETS[name]
-        out, _ = drive(f"{label}, {name}", cfg, cfg.rounds)
+        out, _ = run(f"{label}, {name}", cfg, cfg.rounds)
         if out["hhe"] is not None:
             log(f"    hhe record: {json.dumps(out['hhe'])}")
     log(f"  phase 7 (h) wall time: {time.perf_counter() - t:.3f} s")
+    return runs
+
+
+# Phase 8, run (i): medical-8's fault schedule — 2 of 8 clients dropped, one
+# NaN-poisoned, one +1e15-poisoned, 2 stragglers of up to 0.2 s, a device
+# loss on round 1's first attempt — with the norm bound and overflow
+# exclusion on; run (j): DP-FedAvg under 25 % dropout (derived floor 6).
+ROBUST_FAULTS = dict(seed=0, drop_fraction=0.25, nan_clients=1, huge_clients=1,
+                     straggler_fraction=0.25, straggler_delay_s=0.2, fail_rounds=(1,))
+ROBUST_TRAIN = dict(on_overflow="exclude", max_update_norm=50.0)
+DP_RUN = dict(clip_norm=1.0, noise_multiplier=1.0, delta=1e-5)
+DP_STD_TOL = 0.02                    # the noise's std within 2 % of sigma*C/sqrt(K_cal)
+
+
+@contextlib.contextmanager
+def timed_calls(module, names):
+    """During the block, each call of `module.<name>` for `names` is timed
+    (host clock around the call, synchronized before and after): yields
+    {name: [(seconds, args, result), ...]}."""
+    real = {n: getattr(module, n) for n in names}
+    calls = {n: [] for n in names}
+
+    def timed(n):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real[n](*a, **k)
+            torch.cuda.synchronize()
+            calls[n].append((time.perf_counter() - t0, a, res))
+            return res
+        return wrapper
+
+    for n in names:
+        setattr(module, n, timed(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(module, n, fn)
+
+
+def robust_runs(device) -> list[tuple[dict, dict]]:
+    """Phase 8: robust and private rounds through `run_experiment` at full
+    width (MedCNN 256x256x3, 222,722 parameters, medical-8's 8 clients x 200
+    images, N=4096, L=3, scale 2^30), cut in rounds and epochs only, each
+    run through `drive` (launches exactly `expected_launches`: every
+    client's rows are encrypted, so K3 keeps its unmasked shape).
+
+    (i) medical-8, 2 rounds x 1 epoch, fused, under ROBUST_FAULTS with
+    ROBUST_TRAIN and one retry: each round's `robust` record must be what
+    `schedule_for_round` and the sanitizing predicates give (2 scheduled, 1
+    non-finite, the huge client under norm and overflow; 4 surviving; one
+    retry on round 1 only) and its decrypted average within ERR_LIMIT of
+    the masked plaintext mean; beside it the unmasked twin (same cut), and
+    the sanitizer's time (exclusion bits, the masked select of the rows).
+    (j) medical-8, 1 round x 1 epoch, DP_RUN under 25 % dropout: the floor
+    recalibrated to 6, the decrypt within ERR_LIMIT of the masked mean of
+    the sanitized weights, `dp_epsilon` the accountant's, and each client's
+    noise (sanitized - global - clipped delta, 222,722 coordinates) with a
+    standard deviation within DP_STD_TOL of sigma*C/sqrt(6) and a mean
+    within 4 standard errors of 0; the time of DP sanitizing 8 clients and
+    the kernels it launches. (k) chaos-smoke at its own size (SmallCNN,
+    N=256, 8 clients, 4 rounds): each round's surviving count, exclusions
+    and retries equal CHAOS_SMOKE.json's; the clean twin's accuracy is
+    printed beside it, ungated (its streams are not the JAX run's)."""
+    from hefl_tpu_torch.fl import secure
+    from hefl_tpu_torch.fl.dp import DpConfig, clip_by_global_norm, epsilon_spent
+    from hefl_tpu_torch.fl.faults import (
+        EXCLUDED_NONFINITE,
+        EXCLUDED_NORM,
+        EXCLUDED_OVERFLOW,
+        EXCLUDED_SCHEDULED,
+        POISON_HUGE,
+        POISON_NAN,
+        FaultConfig,
+        RoundMeta,
+        schedule_for_round,
+    )
+    from hefl_tpu_torch.models import count_params
+    from hefl_tpu_torch.presets import PRESETS
+
+    runs = []
+
+    def run(label, cfg, rounds_run, **kw):
+        out, calls, launched, printed = drive(label, cfg, rounds_run, device, **kw)
+        runs.append(launched)
+        return out, calls, printed
+
+    def train_s(out):
+        return [rec["phases"]["train+encrypt+aggregate"] for rec in out["history"]]
+
+    t = time.perf_counter()
+    clean, _, _ = run("i, unmasked twin", cut("medical-8", 2, 1, "fused"), 2, check_plain=True)
+    faults = FaultConfig(**ROBUST_FAULTS)
+    cfg = cut("medical-8", 2, 1, "fused", train_kw=ROBUST_TRAIN, faults=faults,
+              max_round_retries=1, retry_backoff_s=0.1)
+    with timed_calls(secure, ("exclusion_bits", "zero_excluded")) as san:
+        out, _, printed = run("i", cfg, 2, check_plain=True, robust=True)
+    if count_params(out["params"]) != 222_722:
+        raise AssertionError(f"MedCNN has {count_params(out['params'])} params")
+    for line in printed.splitlines():
+        if "failed" in line or "excluded" in line:
+            log(f"    | {line}")
+    for rec in out["history"]:
+        sched = schedule_for_round(faults, rec["round"], cfg.num_clients)
+        bits = (np.where(sched.dropped, EXCLUDED_SCHEDULED, 0)
+                | np.where(sched.poison == POISON_NAN, EXCLUDED_NONFINITE, 0)
+                | np.where(sched.poison == POISON_HUGE, EXCLUDED_NORM | EXCLUDED_OVERFLOW, 0))
+        want = RoundMeta.from_bits(bits).record()
+        got = {k: rec["robust"][k] for k in want}
+        retries = 1 if rec["round"] in faults.fail_rounds else 0
+        if got != want or want["surviving"] != 4 or rec["robust"]["round_retries"] != retries:
+            raise AssertionError(f"(i) round {rec['round']}: robust {rec['robust']}, expected "
+                                 f"{want} with {retries} retries")
+    san_s = [sum(s for s, *_ in calls) for calls in zip(san["exclusion_bits"],
+                                                        san["zero_excluded"])]
+    masked_s, clean_s = train_s(out), train_s(clean)
+    strag = [rec["robust"]["faults"]["straggler_s"] for rec in out["history"]]
+    log(f"    (i) train+encrypt+aggregate a round: masked {masked_s} s (straggler waits "
+        f"{strag} s: {[round(m - w, 4) for m, w in zip(masked_s, strag)]} s without), "
+        f"unmasked twin {clean_s} s; sanitizer (exclusion bits + masked select of the rows) "
+        f"{[round(s, 6) for s in san_s]} s, "
+        f"{[round(100 * s / (m - w), 3) for s, m, w in zip(san_s, masked_s, strag)]} % of the "
+        "round without its straggler wait")
+
+    with timed_calls(secure, ("dp_sanitize",)) as dps:
+        cfg = cut("medical-8", 1, 1, "fused", dp=DpConfig(**DP_RUN),
+                  faults=FaultConfig(seed=0, drop_fraction=0.25))
+        out, _, printed = run("j", cfg, 1, check_plain=True, robust=True)
+    floor_line = "dp: noise shares recalibrated to a surviving-cohort floor of 6/8 clients"
+    if floor_line not in printed:
+        raise AssertionError(f"(j) did not recalibrate the noise floor to 6: {printed!r}")
+    log(f"    | {floor_line} ...")
+    rec, = out["history"]
+    if rec["dp_epsilon"] != epsilon_spent(1, DP_RUN["noise_multiplier"], DP_RUN["delta"]):
+        raise AssertionError(f"(j) dp_epsilon {rec['dp_epsilon']}")
+    if rec["robust"]["surviving"] != 6:
+        raise AssertionError(f"(j) robust {rec['robust']}")
+    share = DP_RUN["noise_multiplier"] * DP_RUN["clip_norm"] / np.sqrt(6)
+    stats = []
+    for _, (_, gp, trained, dp_cfg, k_cal), (sane, _) in dps["dp_sanitize"]:
+        if k_cal != 6:
+            raise AssertionError(f"(j) shares calibrated to {k_cal} clients, expected 6")
+        clipped, _ = clip_by_global_norm({k: trained[k] - gp[k] for k in trained},
+                                         dp_cfg.clip_norm)
+        noise = torch.cat([(sane[k] - gp[k] - clipped[k]).flatten() for k in gp]).double()
+        std, mean = noise.std().item(), noise.mean().item()
+        stats.append((round(std, 6), round(mean, 8)))
+        if noise.numel() != 222_722 or not (abs(std - share) <= DP_STD_TOL * share
+                                            and abs(mean) <= 4 * std / np.sqrt(noise.numel())):
+            raise AssertionError(f"(j) noise std {std} / mean {mean} against share {share:.6f}")
+    dp_s = sum(s for s, *_ in dps["dp_sanitize"])
+    log(f"    (j) noise (std, mean) per client {stats}; share sigma*C/sqrt(6) = {share:.6f} "
+        f"(std within {DP_STD_TOL:.0%}, mean within 4 standard errors); dp_sanitize of 8 x "
+        f"222,722 weights {dp_s:.6f} s of the {train_s(out)[0]} s round")
+    args = [a for _, a, _ in dps["dp_sanitize"]]
+    gens = [torch.Generator(device=device).manual_seed(i) for i in range(len(args))]
+    device_time_breakdown("dp_sanitize x 8 clients (one warm call each)", lambda: [
+        secure.dp_sanitize(g, *a[1:]) for g, a in zip(gens, args)], top=6)
+    log(f"  phase 8 (i)-(j) wall time: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    gate = json.loads((Path(__file__).resolve().parent / "CHAOS_SMOKE.json").read_text())
+    cfg = PRESETS["chaos-smoke"]
+    out, _, printed = run("k, chaos-smoke", cfg, cfg.rounds, robust=True)
+    for line in printed.splitlines():
+        if "failed" in line:
+            log(f"    | {line}")
+    for rec, ref in zip(out["history"], gate["rounds"]):
+        rob = rec["robust"]
+        got = {"round": rec["round"], "surviving": rob["surviving"],
+               "excluded": {k: rob["excluded"][k] for k in ref["excluded"]},
+               "retries": rob["round_retries"]}
+        want = {k: ref[k] for k in got}
+        extra = {k: v for k, v in rob["excluded"].items() if k not in ref["excluded"] and v}
+        if got != want or extra:
+            raise AssertionError(f"(k) round {rec['round']}: {got} {extra}, CHAOS_SMOKE.json "
+                                 f"has {want}")
+    twin, _, _ = run("k, chaos-smoke clean twin", dataclasses.replace(cfg, faults=None),
+                     cfg.rounds)
+    log(f"    (k) rounds equal CHAOS_SMOKE.json's surviving / excluded / retries; accuracy by "
+        f"round {[rec['accuracy'] for rec in out['history']]}, clean twin "
+        f"{[rec['accuracy'] for rec in twin['history']]} (not gated); train+encrypt+aggregate "
+        f"{train_s(out)} s a round")
+    log(f"  phase 8 (k) wall time: {time.perf_counter() - t:.3f} s")
     return runs
 
 
@@ -1467,13 +1746,16 @@ def main() -> int:
         "mnist-enc, mnist-plain, cifar-resnet16 (fused), medical-8 (vmap and fused), fusion-smoke, "
         "hhe-smoke (N=256)")
     runs += driver_runs(device)
+    log("phase 8: robust and private rounds: medical-8 faulted (and its unmasked twin), "
+        "medical-8 with DP, chaos-smoke (N=256) and its clean twin")
+    runs += robust_runs(device)
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-7 together:")
+    log("phases 3-8 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-7
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-8
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),

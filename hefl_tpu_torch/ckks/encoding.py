@@ -55,8 +55,13 @@ def encode(ctx: NTTContext, values: torch.Tensor, scale: float) -> torch.Tensor:
     s_hi = _f32(scale / _SPLIT, dev)
     hi_f = torch.clamp(torch.round(v * s_hi), -_HI_BOUND, _HI_BOUND)
     r = v * s_hi - hi_f
-    lo = torch.clamp(torch.round(r * _f32(_SPLIT, dev)), -_SPLIT, _SPLIT).to(torch.int64)
-    hi = hi_f.to(torch.int64)
+    lo_f = torch.clamp(torch.round(r * _f32(_SPLIT, dev)), -_SPLIT, _SPLIT)
+    # A NaN coefficient (a diverged or poisoned client's weight) encodes to
+    # 0, as XLA's float->int conversion gives in the JAX package; the int64
+    # cast of NaN is not defined, so select before casting.
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    lo = torch.where(torch.isnan(lo_f), zero, lo_f).to(torch.int64)
+    hi = torch.where(torch.isnan(hi_f), zero, hi_f).to(torch.int64)
     tabs = plain_tables(ctx, dev)
     p = tabs.p
     hi_res = modular.barrett_mod_signed(hi[..., None, :], p)

@@ -13,16 +13,21 @@ clients train (`fl.fusion`). `--pack-bits B` uploads b-bit quantized updates int
 k to a slot; `--stream` folds the uploads online (full cohort, quorum 1.0);
 `--hhe` (with `--pack-bits`, implying `--stream`) has the clients encrypt
 their packed update under a stream cipher and the server transcipher it
-into CKKS before the fold. `--preset NAME` runs a named configuration
-(`presets.PRESETS`) and ignores the other flags but `--resume`, `--json`
-and `--device`.
+into CKKS before the fold. `--dp-noise SIGMA` (with `--dp-clip`,
+`--dp-delta`, `--dp-min-surviving`) runs DP-FedAvg; `--drop-fraction`,
+`--nan-clients`, `--huge-clients`, `--straggler-delay`, `--fail-rounds` and
+`--fault-seed` inject a deterministic fault schedule, and `--on-overflow
+exclude` / `--max-update-norm` sanitize the uploads (`fl.faults`, `fl.dp`).
+`--preset NAME` runs a named configuration (`presets.PRESETS`) and ignores
+the other flags but `--resume`, `--json` and `--device`.
 
 The flags keep the JAX CLI's names and defaults (the final model is saved
 to agg_model.npz unless `--no-save-model`). A flag of the JAX CLI that this
-port does not have yet (DP, faults, cohorts, journal, ...) is refused with
-an error naming it, never silently ignored; so is a value the port does not
-run (`--quorum` other than 1.0). `--device` is the one flag the JAX CLI
-lacks: the run is on CUDA unless it names another device.
+port does not have yet (the streaming engine's arrival, outage and link
+faults, cohorts, the journal, ...; ROADMAP M12) is refused with an error
+naming it, never silently ignored; so is a value the port does not run
+(`--quorum` other than 1.0). `--device` is the one flag the JAX CLI lacks:
+the run is on CUDA unless it names another device.
 """
 
 from __future__ import annotations
@@ -34,23 +39,23 @@ import numpy as np
 
 from hefl_tpu_torch.experiment import ExperimentConfig, HEConfig, run_experiment
 from hefl_tpu_torch.fl.config import HheConfig, PackingConfig, StreamConfig, TrainConfig
+from hefl_tpu_torch.fl.dp import DpConfig
+from hefl_tpu_torch.fl.faults import FaultConfig
 from hefl_tpu_torch.models import MODEL_REGISTRY
 from hefl_tpu_torch.presets import PRESETS
 
 # Flags of `hefl_tpu.cli` that the port does not run yet.
 UNPORTED_FLAGS = (
     "--data-dir", "--image-size", "--profile", "--events",
-    "--no-events", "--span-trace", "--dp-noise", "--dp-clip", "--dp-delta",
-    "--on-overflow", "--max-update-norm", "--drop-fraction", "--nan-clients",
-    "--huge-clients", "--straggler-delay", "--fail-rounds", "--arrival-delay",
+    "--no-events", "--span-trace", "--arrival-delay",
     "--duplicate-clients", "--transient-clients", "--permanent-clients",
     "--outage-hosts", "--link-loss", "--link-dark", "--link-delay", "--link-dup",
-    "--fault-seed", "--cohort-size", "--deadline",
+    "--cohort-size", "--deadline",
     "--staleness", "--stream-retries", "--stream-backoff", "--stream-seed",
     "--full-cohort-train", "--num-hosts", "--host-quorum", "--ship-deadline",
     "--host-staleness", "--mesh-ct", "--serve",
     "--journal-path", "--fsync-policy", "--crash-round", "--crash-at",
-    "--crash-after-folds", "--dp-min-surviving",
+    "--crash-after-folds",
 )
 
 
@@ -126,6 +131,47 @@ def build_parser() -> argparse.ArgumentParser:
                    help="centralized (non-federated) baseline: train one "
                         "model on the whole dataset (train_server analog)")
     p.add_argument("--json", action="store_true", help="emit history as JSON lines")
+    p.add_argument("--dp-noise", type=float, default=0.0, metavar="SIGMA",
+                   help="DP-FedAvg central noise multiplier (0 = off): clip "
+                        "client deltas and add distributed Gaussian noise "
+                        "inside the encrypted round (fl/dp.py); per-round "
+                        "epsilon is reported in the history")
+    p.add_argument("--dp-clip", type=float, default=1.0, metavar="C",
+                   help="DP-FedAvg L2 clip bound on a client's model delta")
+    p.add_argument("--dp-delta", type=float, default=1e-5,
+                   help="target delta for the (epsilon, delta) accountant")
+    p.add_argument("--on-overflow", default="warn", choices=["warn", "exclude", "raise"],
+                   help="when a client's update saturates the CKKS encode "
+                        "envelope: warn (reference behavior), exclude the "
+                        "client from the round, or raise")
+    p.add_argument("--max-update-norm", type=float, default=0.0, metavar="L2",
+                   help="exclude clients whose update L2 norm (vs the "
+                        "round's global weights) exceeds this bound "
+                        "(0 = no bound)")
+    p.add_argument("--drop-fraction", type=float, default=0.0,
+                   help="fault injection: fraction of clients scheduled "
+                        "out of each round (deterministic, --fault-seed)")
+    p.add_argument("--nan-clients", type=int, default=0, metavar="K",
+                   help="fault injection: clients per round whose update "
+                        "is NaN-poisoned before aggregation")
+    p.add_argument("--huge-clients", type=int, default=0, metavar="K",
+                   help="fault injection: clients per round whose update "
+                        "gets +1e15 on every weight")
+    p.add_argument("--straggler-delay", type=float, default=0.0, metavar="S",
+                   help="fault injection: max per-round straggler delay "
+                        "in seconds (25%% of clients straggle)")
+    p.add_argument("--fail-rounds", default="", metavar="R,R,...",
+                   help="fault injection: comma-separated round indices "
+                        "whose first attempt simulates a device loss "
+                        "(exercises --max-round-retries)")
+    p.add_argument("--fault-seed", type=int, default=0,
+                   help="PRNG seed of the fault schedule")
+    p.add_argument("--dp-min-surviving", type=int, default=0, metavar="K",
+                   help="dp noise floor: calibrate each client's noise "
+                        "share to K surviving clients (conservative "
+                        "over-noising for partial participation; 0 = "
+                        "full-participation calibration, auto-derived "
+                        "from the schedule under faults)")
     p.add_argument("--max-round-retries", type=int, default=0,
                    help="retry a failed round this many times with "
                         "exponential backoff, auto-resuming from the "
@@ -159,7 +205,30 @@ def check_args(args: argparse.Namespace) -> None:
     if args.hhe_key_seed and not args.hhe:
         raise ValueError("--hhe-key-seed has no effect without --hhe; add --hhe to "
                          "enable the hybrid-HE uplink")
+    if args.dp_min_surviving > 0 and args.dp_noise <= 0:
+        raise ValueError("--dp-min-surviving has no effect without --dp-noise; add "
+                         "--dp-noise SIGMA to enable dp")
     _packing_config(args)
+    _fault_config(args)
+
+
+def _fault_config(args: argparse.Namespace) -> FaultConfig | None:
+    """The fault flags as a FaultConfig (None when no fault is set), as
+    `hefl_tpu.cli` builds it: a straggler delay makes 25% of the clients
+    straggle."""
+    fail_rounds = tuple(int(r) for r in args.fail_rounds.split(",") if r.strip())
+    if not (args.drop_fraction > 0 or args.nan_clients > 0 or args.huge_clients > 0
+            or args.straggler_delay > 0 or fail_rounds):
+        return None
+    return FaultConfig(
+        seed=args.fault_seed,
+        drop_fraction=args.drop_fraction,
+        nan_clients=args.nan_clients,
+        huge_clients=args.huge_clients,
+        straggler_fraction=0.25 if args.straggler_delay > 0 else 0.0,
+        straggler_delay_s=args.straggler_delay,
+        fail_rounds=fail_rounds,
+    )
 
 
 def _packing_config(args: argparse.Namespace) -> PackingConfig | None:
@@ -190,7 +259,8 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
             epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
             warmup_steps=args.warmup_steps, prox_mu=args.prox_mu,
             augment=not args.no_augment, num_classes=num_classes,
-            client_fusion=args.client_fusion,
+            client_fusion=args.client_fusion, on_overflow=args.on_overflow,
+            max_update_norm=args.max_update_norm,
         ),
         he=HEConfig(n=args.he_n, num_primes=args.he_primes),
         packing=_packing_config(args),
@@ -200,6 +270,10 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         checkpoint_path=args.checkpoint,
         save_model_path=args.save_model,
         centralized=args.centralized,
+        dp=(DpConfig(clip_norm=args.dp_clip, noise_multiplier=args.dp_noise,
+                     delta=args.dp_delta, min_surviving=args.dp_min_surviving)
+            if args.dp_noise > 0 else None),
+        faults=_fault_config(args),
         stream=(StreamConfig(quorum=args.quorum, upload_kind="hhe" if args.hhe else "ckks")
                 if args.stream or args.hhe else None),
         hhe=HheConfig(key_seed=args.hhe_key_seed) if args.hhe else None,

@@ -9,6 +9,15 @@ FedAvg rounds, the centralized baseline, the streaming fold (full cohort,
 quorum 1.0; CKKS or hybrid-HE uploads), a checkpoint after every round,
 resume, retries with backoff, and the final model artifact.
 
+Robust and private rounds: a fault schedule (`faults`, `fl.faults`) drops
+clients, poisons others with NaN or +1e15 weights, delays stragglers and
+loses the device on a round's first attempt; the sanitizing knobs
+(`train.max_update_norm`, `train.on_overflow="exclude"`) exclude diverged
+or poisoned uploads; `dp` (`fl.dp`) clips each client's delta and adds its
+noise share before encryption, and every round records the epsilon spent.
+Such rounds run on the masked engine and record `robust` (participation,
+surviving, excluded by cause, retries, the injected faults).
+
 Randomness: the model starts from the registry's seed-0 initialization
 (as the JAX driver's `create_model` default), and one CPU `torch.Generator`
 seeded with `cfg.seed` draws the keys, then one seed a round; a round's
@@ -44,7 +53,15 @@ from hefl_tpu_torch.data.partition import iid_contiguous, label_skew, stack_fede
 from hefl_tpu_torch.data.synthetic import make_dataset
 from hefl_tpu_torch.fl.client import train_batch_geometry, train_centralized
 from hefl_tpu_torch.fl.config import HheConfig, PackingConfig, StreamConfig, TrainConfig
-from hefl_tpu_torch.fl.fedavg import evaluate, fedavg_round
+from hefl_tpu_torch.fl.dp import DpConfig, epsilon_spent
+from hefl_tpu_torch.fl.faults import (
+    POISON_HUGE,
+    POISON_NAN,
+    DeviceLost,
+    FaultConfig,
+    schedule_for_round,
+)
+from hefl_tpu_torch.fl.fedavg import evaluate, fedavg_round, masked_mode
 from hefl_tpu_torch.fl.fusion import fusion_report, resolve_fusion_backend
 from hefl_tpu_torch.fl.secure import decrypt_average, secure_fedavg_round
 from hefl_tpu_torch.fl.stream import StreamEngine
@@ -75,7 +92,10 @@ class ExperimentConfig:
     """Everything notebook cells 0-3 hard-code, as one declarative config:
     the JAX package's fields and defaults (see `hefl_tpu.experiment` for
     each field's meaning). The fields typed `Any` hold configs of modules
-    the port does not have yet and must stay None (`run_experiment`)."""
+    the port does not have yet and must stay None (`run_experiment`).
+
+    dp: DP-FedAvg (`fl.dp.DpConfig`) on the encrypted rounds. faults: the
+    fault schedule (`fl.faults.FaultConfig`) of the synchronous rounds."""
 
     model: str = "medcnn"
     dataset: str = "medical"
@@ -96,8 +116,8 @@ class ExperimentConfig:
     profile_dir: str | None = None
     save_model_path: str | None = None
     centralized: bool = False
-    dp: Any = None
-    faults: Any = None
+    dp: DpConfig | None = None
+    faults: FaultConfig | None = None
     stream: StreamConfig | None = None
     max_round_retries: int = 0
     retry_backoff_s: float = 0.5
@@ -185,10 +205,11 @@ def check_config(cfg: ExperimentConfig) -> None:
             "dp cannot be combined with a staleness budget: set "
             "StreamConfig.staleness_rounds=0 and host_staleness_rounds=0 for dp runs"
         )
-    t = cfg.train
     unported = [
-        ("dp", cfg.dp is not None, "M10, fl/dp.py"),
-        ("faults", cfg.faults is not None, "M10, fl/faults.py schedules"),
+        ("dp with a stream config", cfg.dp is not None and cfg.stream is not None,
+         "M12, the streaming engine's dp floor"),
+        ("faults with a stream config", cfg.faults is not None and cfg.stream is not None,
+         "M12, the streaming engine's arrival faults"),
         ("journal_path", cfg.journal_path is not None, "M12, fl/journal.py"),
         ("fsync_policy", cfg.fsync_policy is not None, "M12, fl/journal.py"),
         ("serve", cfg.serve, "M12, fl/server.py"),
@@ -199,8 +220,6 @@ def check_config(cfg: ExperimentConfig) -> None:
         ("exact_final_decode", cfg.exact_final_decode, "M14, native/crt.cpp"),
         ("profile_dir", cfg.profile_dir is not None, "M15, the profiler trace of a round"),
         ("mesh_ct", cfg.mesh_ct > 1, "one GPU runs no 2-D round mesh"),
-        ("train.on_overflow='exclude'", t.on_overflow == "exclude", "M10, the masked round"),
-        ("train.max_update_norm", t.max_update_norm != 0.0, "M10, the masked round"),
     ]
     for name, is_set, where in unported:
         if is_set:
@@ -272,6 +291,18 @@ def run_experiment(
         say("note: no events.jsonl beside the checkpoint (the JAX driver's default); "
             "the event log is not ported yet (ROADMAP M12)")
     hhe_on = cfg.stream is not None and cfg.stream.upload_kind == "hhe"
+    # DP under partial participation: each share is calibrated to the
+    # surviving-cohort floor (`fl.dp`). With faults on and no floor
+    # declared, derive the schedule's worst-case surviving count; the round
+    # still fails loudly if it survives below it.
+    dp_cfg = cfg.dp
+    if dp_cfg is not None and dp_cfg.min_surviving <= 0 and cfg.faults is not None:
+        floor = max(1, cfg.num_clients - cfg.faults.max_scheduled_exclusions(cfg.num_clients))
+        dp_cfg = dataclasses.replace(dp_cfg, min_surviving=floor)
+    if cfg.dp is not None and dp_cfg.min_surviving != cfg.dp.min_surviving:
+        say(f"dp: noise shares recalibrated to a surviving-cohort floor of "
+            f"{dp_cfg.min_surviving}/{cfg.num_clients} clients (conservative over-noising; "
+            "effective noise never below the full-participation calibration)")
     train_cfg = cfg.train
     (x, y), (xt, yt), _ = make_dataset(
         cfg.dataset, seed=cfg.seed, n_train=cfg.n_train, n_test=cfg.n_test
@@ -343,20 +374,33 @@ def run_experiment(
     train_phase = "train+encrypt+aggregate" if cfg.encrypted else "train+aggregate"
     train_images = _train_images(train_cfg, int(xs.shape[1]), cfg.num_clients)
     engine = StreamEngine(cfg.stream) if cfg.stream is not None else None
+    # The masked engine (fault schedule or sanitizing knobs) returns a
+    # RoundMeta a round: the same predicate the round functions use for
+    # their return arity.
+    robust = masked_mode(train_cfg, cfg.num_clients, 1, explicit=cfg.faults is not None,
+                         secure=cfg.encrypted)
     history: list[dict[str, Any]] = []
     for r in range(start_round, cfg.rounds):
+        sched = (schedule_for_round(cfg.faults, r, cfg.num_clients)
+                 if cfg.faults is not None else None)
+        part = sched.participation() if sched is not None else None
+        pois = sched.poison if sched is not None else None
+        straggler_s = float(np.max(sched.straggler_s)) if sched is not None else 0.0
         k_round = _round_seed(gen)
         attempt = 0
         while True:
-            # A round whose execution dies (a device or runtime error) is
-            # retried with exponential backoff, from the round checkpoint's
-            # (params, generator) when it holds this round's entry state, else
-            # as-is; a retried round redraws its first attempt's randomness.
-            # Configuration errors (ValueError/TypeError) are never retried.
+            # A round whose execution dies (a device or runtime error, or a
+            # scheduled DeviceLost) is retried with exponential backoff, from
+            # the round checkpoint's (params, generator) when it holds this
+            # round's entry state, else as-is; a retried round redraws its
+            # first attempt's randomness. Configuration errors
+            # (ValueError/TypeError) are never retried.
             try:
+                if sched is not None and sched.device_loss and attempt == 0:
+                    raise DeviceLost(f"fault injection: scheduled device loss at round {r}")
                 timer = PhaseTimer(device)
                 round_gen = torch.Generator().manual_seed(k_round)
-                smeta = None
+                meta = smeta = None
                 if cfg.encrypted:
                     with timer.phase(train_phase):
                         if engine is not None:
@@ -364,22 +408,42 @@ def run_experiment(
                                 model, train_cfg, ctx, pk, params, xs_d, ys_d, round_gen, r,
                                 packing=pspec, hhe=cfg.hhe,
                             )
+                            meta = smeta.meta
+                        elif robust:
+                            ct_sum, metrics, overflow, meta = secure_fedavg_round(
+                                model, train_cfg, ctx, pk, params, xs_d, ys_d, round_gen,
+                                packing=pspec, dp=dp_cfg, participation=part, poison=pois,
+                            )
                         else:
                             ct_sum, metrics, overflow = secure_fedavg_round(
                                 model, train_cfg, ctx, pk, params, xs_d, ys_d, round_gen,
-                                packing=pspec,
+                                packing=pspec, dp=dp_cfg,
                             )
+                        _straggler_wait(straggler_s, device)
                     with timer.phase("decrypt"):
-                        new_params = decrypt_average(
-                            ctx, sk, ct_sum, cfg.num_clients, spec,
-                            meta=smeta.meta if smeta is not None else None,
-                            packing=pspec, base_params=params, hhe=hhe_on,
-                        )
+                        if meta is not None and meta.surviving == 0:
+                            # Nobody made the round: the sum is an encryption
+                            # of zero. Keep the global model, as the plaintext
+                            # masked mean does.
+                            say(f"round {r}: every client excluded ({meta.excluded}); "
+                                "keeping previous global model")
+                            new_params = params
+                        else:
+                            new_params = decrypt_average(
+                                ctx, sk, ct_sum, cfg.num_clients, spec, meta=meta,
+                                packing=pspec, base_params=params, hhe=hhe_on,
+                            )
                 else:
                     overflow = None
                     with timer.phase(train_phase):
-                        new_params, metrics = fedavg_round(
-                            model, train_cfg, params, xs_d, ys_d, round_gen)
+                        if robust:
+                            new_params, metrics, meta = fedavg_round(
+                                model, train_cfg, params, xs_d, ys_d, round_gen,
+                                participation=part, poison=pois)
+                        else:
+                            new_params, metrics = fedavg_round(
+                                model, train_cfg, params, xs_d, ys_d, round_gen)
+                        _straggler_wait(straggler_s, device)
                 params = new_params
                 break
             except RuntimeError as e:
@@ -407,6 +471,8 @@ def run_experiment(
         mets = metrics.numpy()
         record: dict[str, Any] = {
             "round": r,
+            **({"dp_epsilon": epsilon_spent(r + 1, dp_cfg.noise_multiplier, dp_cfg.delta)}
+               if cfg.dp is not None else {}),
             "phases": phases,
             "phase_roofline": {
                 train_phase: _phase_stats(phases[train_phase], train_images),
@@ -430,19 +496,40 @@ def run_experiment(
                 if train_cfg.on_overflow == "raise":
                     raise RuntimeError(
                         f"round {r}: {overflow_total} weights saturated the {envelope} "
-                        f"and on_overflow='raise' — {remedy}"
+                        f"and on_overflow='raise' — {remedy} or switch to "
+                        "on_overflow='exclude'"
                     )
-                say(f"WARNING: round {r} clipped {overflow_total} weights at the "
-                    f"{envelope}; {remedy}")
+                if meta is not None and meta.excluded.get("overflow", 0) > 0:
+                    say(f"round {r}: excluded {meta.excluded['overflow']} client(s) whose "
+                        f"updates saturated the {envelope}")
+                else:
+                    say(f"WARNING: round {r} clipped {overflow_total} weights at the "
+                        f"{envelope}; {remedy}")
         if pspec is not None:
             record["packing"] = pspec.geometry_record()
         if smeta is not None:
             record["stream"] = smeta.record()
-            record["robust"] = {**smeta.meta.record(), "round_retries": attempt}
+        if meta is not None:
+            # The round's robustness record: the participation mask applied,
+            # the surviving count (the decode denominator), exclusions by
+            # cause, retries, and the injected faults.
+            rob: dict[str, Any] = {**meta.record(), "round_retries": attempt}
+            if sched is not None:
+                rob["faults"] = {
+                    "dropped": np.flatnonzero(sched.dropped).tolist(),
+                    "nan": np.flatnonzero(sched.poison == POISON_NAN).tolist(),
+                    "huge": np.flatnonzero(sched.poison == POISON_HUGE).tolist(),
+                    "straggler_s": round(straggler_s, 4),
+                    "device_loss": bool(sched.device_loss),
+                }
+            record["robust"] = rob
         if hhe_on:
             record["hhe"] = _hhe_record(cfg, pspec, ctx)
         history.append(record)
-        say(f"round {r}: acc {record['accuracy']:.4f} f1 {record['f1']:.4f} ({timer})")
+        say(f"round {r}: acc {record['accuracy']:.4f} f1 {record['f1']:.4f} "
+            + (f"dp_eps {record['dp_epsilon']:.2f} " if "dp_epsilon" in record else "")
+            + (f"surviving {meta.surviving}/{meta.num_clients} " if meta is not None else "")
+            + f"({timer})")
         if cfg.checkpoint_path:
             save_checkpoint(cfg.checkpoint_path, params, r + 1, gen,
                             meta={"model": cfg.model, "dataset": cfg.dataset,
@@ -469,6 +556,16 @@ def run_experiment(
         "mesh": {"axes": ["clients"], "clients": 1, "ct": 1},
         "hhe": _hhe_record(cfg, pspec, ctx) if hhe_on else None,
     }
+
+
+def _straggler_wait(seconds: float, device) -> None:
+    """The synchronous round waits for its slowest scheduled straggler: the
+    device's work first, then the scheduled delay, inside the timed phase
+    (as a real straggler would show in the round's wall time)."""
+    if seconds > 0:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        time.sleep(seconds)
 
 
 def _hhe_record(cfg: ExperimentConfig, pspec: PackedSpec, ctx: CkksContext) -> dict:

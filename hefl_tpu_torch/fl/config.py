@@ -6,10 +6,9 @@ Adam(lr=1e-3, decay=1e-4), 10 local epochs, batch 32,
 EarlyStopping(patience=5, restore_best_weights), ReduceLROnPlateau(
 patience=2, factor=0.3, min_lr=1e-6), validation_split=0.1, and the
 shear/zoom/flip augmentation; `prox_mu > 0` adds the FedProx term; `client_fusion`
-picks the training backend (`fl.fusion`). `on_overflow` and
-`max_update_norm` carry the JAX defaults so a config reads the same in both
-packages; `run_experiment` refuses the values the port does not run
-(exclusion, the norm bound). `StreamConfig` is the JAX package's; the
+picks the training backend (`fl.fusion`); `on_overflow="exclude"` and
+`max_update_norm > 0` route a round through the masked engine
+(`fl.faults.exclusion_bits`). `StreamConfig` is the JAX package's; the
 packing and hybrid-HE configs live beside what they configure and are
 re-exported here, as in the JAX package.
 """
@@ -43,9 +42,9 @@ class TrainConfig:
     num_classes: int = 2
     client_fusion: str = "auto"     # "fused" | "vmap" | "auto" (fl.fusion)
     # Encode saturation (encode_overflow > 0): "warn" aggregates and logs,
-    # "raise" aborts the run, "exclude" drops the client (not ported).
+    # "raise" aborts the run, "exclude" drops the client from the round.
     on_overflow: str = "warn"
-    max_update_norm: float = 0.0    # L2 bound on a client's update (not ported)
+    max_update_norm: float = 0.0    # L2 bound on a client's update (0 = none)
 
     def __post_init__(self):
         if self.on_overflow not in ("warn", "exclude", "raise"):

@@ -27,8 +27,11 @@ Per-client semantics are kept (the JAX module's list):
     each epoch boundary, the validation pass evaluating a stopped client's
     frozen weights;
   * a stopped client's rows still flow through the step, but its update is
-    discarded at the next boundary, where it takes its frozen weights back.
-Participation masks (the masked round engine) are not ported (ROADMAP M10).
+    discarded at the next boundary, where it takes its frozen weights back;
+  * participation masks (the masked round engine): a scheduled-out client's
+    rows also keep flowing through the folded step, but its parameter and
+    Adam updates are selected away at every step, so it ships the round's
+    global weights unchanged.
 
 Backend selection (`resolve_fusion_backend`): "fused" and "vmap" pin a
 backend; "auto" reads the HEFL_CLIENT_FUSION environment variable, then
@@ -94,13 +97,25 @@ def _client_view(params: dict, opt: AdamState, c: int) -> tuple[dict, AdamState]
                       nu={k: v[c] for k, v in opt.nu.items()}, step=opt.step))
 
 
+def _mask_select(keep: torch.Tensor, new: dict, old: dict) -> dict:
+    """Per-client select over stacked leaves: keep[c] picks new over old
+    for client c's slice."""
+    return {k: torch.where(keep.reshape((-1,) + (1,) * (v.dim() - 1)), v, old[k])
+            for k, v in new.items()}
+
+
 def fused_train(model, cfg: TrainConfig, global_params: dict, xs: torch.Tensor, ys: torch.Tensor,
-                gens=None, streams=None):
+                gens=None, streams=None, participation=None):
     """Train a round's clients through the client-folded path.
 
     The contract of `fedavg.train_clients`: xs uint8[C, m, H, W, ch], ys
     int[C, m] on the training device; `gens` one generator per client, or
     `streams` one (perms, aug) pair per client (`client.epoch_index_streams`).
+    `participation` (int[C], 0 = scheduled out; the masked round's mask):
+    a 0-masked client's rows still flow through every folded step, but its
+    parameter and Adam updates are no-ops, so it ships the global weights
+    bit for bit (its callback transitions run on them, as in the JAX
+    package's fused backend).
     -> (list of C shipped parameter dicts, metrics float32[C, E, 4] with
     columns val_loss, val_acc, lr_scale, stopped)."""
     num_c, m = int(xs.shape[0]), int(xs.shape[1])
@@ -127,6 +142,8 @@ def fused_train(model, cfg: TrainConfig, global_params: dict, xs: torch.Tensor, 
     rows_c = torch.arange(num_c, device=dev)[:, None]
 
     gp = {k: v.detach() for k, v in global_params.items()}
+    keep = (None if participation is None else
+            torch.as_tensor(np.asarray(participation), device=dev) > 0)
     states = [init_client_state(gp) for _ in range(num_c)]
     params = stack_params(gp, num_c)
     opt = adam_init(params)
@@ -145,10 +162,16 @@ def fused_train(model, cfg: TrainConfig, global_params: dict, xs: torch.Tensor, 
         grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
         lr_scale = np.array([s.lr_scale for s in states], dtype=np.float32)
         with torch.no_grad():
-            params, opt = adam_update(
+            new_params, new_opt = adam_update(
                 grads, opt, {k: v.detach() for k, v in leaves.items()}, cfg.lr, cfg.lr_decay,
                 lr_scale, warmup_steps=cfg.warmup_steps,
             )
+            if keep is not None:
+                # Scheduled-out clients flow through the step but update nothing.
+                new_params = _mask_select(keep, new_params, params)
+                new_opt = AdamState(mu=_mask_select(keep, new_opt.mu, opt.mu),
+                                    nu=_mask_select(keep, new_opt.nu, opt.nu), step=new_opt.step)
+            params, opt = new_params, new_opt
         if step % steps != steps - 1:
             continue
         # Epoch boundary: validate (a stopped client its frozen weights),

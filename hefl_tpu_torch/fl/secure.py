@@ -18,10 +18,19 @@ fused-encrypt kernel launch on CUDA):
 The server's aggregation is the ciphertext sum mod p over the client axis.
 Trust split: the round touches only the `PublicKey`; the `SecretKey`
 appears only in `decrypt_average`, the model owner's step.
+
+Robust and private rounds (the JAX package's masked engine): a client's
+trained weights are DP-sanitized (`fl.dp`, clip and a distributed noise
+share), then poisoned (`fl.faults` fault injection), then encrypted; the
+sanitizing predicates give each client an exclusion bit, and an excluded
+client's ciphertext rows are zeroed before the sum (every client is still
+encrypted, so the encrypt launch keeps its shape). The owner decodes by the
+surviving count (`decrypt_average(meta=)`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from hefl_tpu_torch.ckks import encoding, ops
@@ -38,8 +47,17 @@ from hefl_tpu_torch.ckks.packing import (
     unpack_quantized,
 )
 from hefl_tpu_torch.fl.config import TrainConfig
-from hefl_tpu_torch.fl.faults import RoundMeta
-from hefl_tpu_torch.fl.fedavg import client_generators, plain_mean, train_block
+from hefl_tpu_torch.fl.dp import DpConfig, calibration_clients, dp_sanitize
+from hefl_tpu_torch.fl.faults import RoundMeta, exclusion_bits, poison_tree
+from hefl_tpu_torch.fl.fedavg import (
+    _trivial_mask,
+    client_generators,
+    masked_mean_tree,
+    masked_mode,
+    participation_mask,
+    plain_mean,
+    train_block,
+)
 from hefl_tpu_torch.hhe import cipher
 
 
@@ -109,22 +127,40 @@ def aggregate_encrypted(ctx: CkksContext, cts: Ciphertext) -> Ciphertext:
     )
 
 
+def zero_excluded(cts: Ciphertext, keep: torch.Tensor) -> Ciphertext:
+    """Zero the ciphertext rows [C, n_ct, L, N] of the clients with
+    keep[c] False: zero residues are the additive identity mod p, so the
+    sum that follows holds only the kept clients."""
+    sel = keep.to(cts.c0.device).reshape((-1, 1, 1, 1))
+    zero = torch.zeros((), dtype=cts.c0.dtype, device=cts.c0.device)
+    return Ciphertext(c0=torch.where(sel, cts.c0, zero), c1=torch.where(sel, cts.c1, zero),
+                      scale=cts.scale)
+
+
 def client_uploads(
     model, cfg: TrainConfig, ctx: CkksContext, pk: PublicKey, global_params: dict,
     xs: torch.Tensor, ys: torch.Tensor, gen: torch.Generator, packing: PackedSpec | None = None,
-    hhe_keys=None, round_index: int = 0, streams=None,
+    hhe_keys=None, round_index: int = 0, streams=None, dp: DpConfig | None = None,
+    participation=None, poison=None, want_bits: bool = False,
 ):
-    """The client half of a round: train every client, then encrypt each
+    """The client half of a round, in the JAX package's order: train ->
+    DP-sanitize (`dp`, shares calibrated to `calibration_clients`) ->
+    poison (`poison`, fault injection corrupts the upload) -> encrypt each
     upload — float CKKS, packed CKKS (`packing`), or the packed update under
-    the stream cipher (`hhe_keys`, requires `packing`).
+    the stream cipher (`hhe_keys`, requires `packing`) — with its overflow
+    count -> the exclusion bits (`want_bits`).
 
     `gen` seeds the per-client training generators, then the per-client
-    encryption generators (made on xs's device): the same draws on every
-    path, so a round trains the same weights whatever it uploads, and the
-    server's pad encryption (`hhe.transcipher.provision_pads`) uses the
-    encryption generators the direct upload would have.
+    encryption generators (made on xs's device), then, with `dp`, the
+    per-client DP generators: the same draws on every path, so a round
+    trains the same weights whatever it uploads, the server's pad
+    encryption (`hhe.transcipher.provision_pads`) uses the encryption
+    generators the direct upload would have, and a round without DP draws
+    what it always drew. `participation` (int[C], 0 = scheduled out)
+    reaches the fused trainer and the exclusion bits.
     -> (Ciphertext [C, n_ct, L, N] or the (w_hi, w_lo) word pair,
-    metrics float32[C, E, 4], overflow [C], trained params, enc_gens)."""
+    metrics float32[C, E, 4], overflow [C], uploaded params, enc_gens,
+    exclusion bits int32[C] or None)."""
     num_clients = int(xs.shape[0])
     if packing is not None and packing.clients < num_clients:
         raise ValueError(
@@ -139,21 +175,32 @@ def client_uploads(
         )
     train_gens = client_generators(gen, num_clients, xs.device)
     enc_gens = client_generators(gen, num_clients, xs.device)
+    dp_gens = client_generators(gen, num_clients, xs.device) if dp is not None else None
+    part = participation_mask(num_clients, participation)
     p_out, mets = train_block(
         model, cfg, global_params, xs, ys,
         gens=None if streams is not None else train_gens, streams=streams,
+        participation=part if want_bits else None,
     )
+    if dp is not None:
+        dp_k = calibration_clients(dp, num_clients)
+        p_out = [dp_sanitize(g, global_params, prm, dp, dp_k)[0]
+                 for g, prm in zip(dp_gens, p_out)]
+    if poison is not None:
+        p_out = [poison_tree(prm, int(code)) for prm, code in zip(p_out, np.asarray(poison))]
     if hhe_keys is not None:
         w_hi, w_lo, overflow = hhe_encrypt_stack(p_out, global_params, hhe_keys, round_index,
                                                  packing)
-        return (w_hi, w_lo), mets, overflow, p_out, enc_gens
-    if packing is not None:
+        cts = (w_hi, w_lo)
+    elif packing is not None:
         cts, overflow = encrypt_stack_packed(ctx, pk, p_out, global_params, enc_gens, packing)
-        return cts, mets, overflow, p_out, enc_gens
-    overflow = torch.stack([
-        encoding.encode_overflow_count(pack_params(prm, ctx.n), ctx.scale) for prm in p_out
-    ])
-    return encrypt_stack(ctx, pk, p_out, enc_gens), mets, overflow, p_out, enc_gens
+    else:
+        overflow = torch.stack([
+            encoding.encode_overflow_count(pack_params(prm, ctx.n), ctx.scale) for prm in p_out
+        ])
+        cts = encrypt_stack(ctx, pk, p_out, enc_gens)
+    bits = exclusion_bits(cfg, global_params, p_out, part, overflow) if want_bits else None
+    return cts, mets, overflow, p_out, enc_gens, bits
 
 
 def secure_fedavg_round(
@@ -168,28 +215,72 @@ def secure_fedavg_round(
     with_plain_reference: bool = False,
     streams=None,
     packing: PackedSpec | None = None,
+    dp: DpConfig | None = None,
+    participation=None,
+    poison=None,
 ):
     """One encrypted FedAvg round on the device of `xs`.
 
     xs: uint8[C, m, H, W, ch], ys: int[C, m]. `gen` seeds the per-client
-    training and encryption generators (made on xs's device); `streams`
-    optionally replaces the training streams. `packing` (a PackedSpec)
-    uploads quantized interleaved updates; follow with
-    `decrypt_average(..., packing=, base_params=global_params)`.
+    training, encryption and (with `dp`) DP generators (made on xs's
+    device); `streams` optionally replaces the training streams. `packing`
+    (a PackedSpec) uploads quantized interleaved updates; follow with
+    `decrypt_average(..., packing=, base_params=global_params)`. `dp` (a
+    DpConfig) clips each client's delta and adds its noise share before
+    encryption.
     -> (Ciphertext sum [n_ct, L, N], metrics float32[C, E, 4],
     encode_overflow (or quantizer saturation) [C]).
 
+    A participation mask (int[C], 0 = scheduled out), poison codes
+    (`faults.POISON_*`[C]), `max_update_norm` > 0 or on_overflow="exclude"
+    route the round through the masked engine (`fedavg.masked_mode`): every
+    client is encrypted, the excluded clients' rows are zeroed before the
+    sum, and the return gains the round's `RoundMeta` after the overflow,
+    whose `surviving` is the owner's decode denominator. A clean schedule
+    without sanitizing knobs is the unmasked round bit for bit, with a
+    full-participation meta. A DP round that survives below its
+    calibration floor raises ValueError: its release would carry less
+    noise than `epsilon_spent` accounts.
+
     `with_plain_reference=True` is a MEASUREMENT-ONLY mode that appends the
-    plaintext FedAvg mean of the same trained weights: it leaks what the
-    encrypted path exists to hide, and exists only to check encode +
-    encrypt + sum + decrypt against a plaintext reference in one program.
+    plaintext FedAvg mean of the same uploaded weights (the masked mean over
+    the kept clients on the masked engine): it leaks what the encrypted
+    path exists to hide, and exists only to check encode + encrypt + sum +
+    decrypt against a plaintext reference in one program.
     """
-    cts, mets, overflow, p_out, _ = client_uploads(
-        model, cfg, ctx, pk, global_params, xs, ys, gen, packing=packing, streams=streams
+    num_clients = int(xs.shape[0])
+    sanitizing = cfg.on_overflow == "exclude" or cfg.max_update_norm > 0
+    explicit = participation is not None or poison is not None
+    masked = masked_mode(cfg, num_clients, 1, explicit, secure=True)
+    trivial = masked and not sanitizing and _trivial_mask(participation, poison)
+    want_bits = masked and not trivial
+    cts, mets, overflow, p_out, _, bits = client_uploads(
+        model, cfg, ctx, pk, global_params, xs, ys, gen, packing=packing, streams=streams,
+        dp=dp, participation=participation if want_bits else None,
+        poison=poison if want_bits else None, want_bits=want_bits,
     )
-    outs = (aggregate_encrypted(ctx, cts), mets, overflow)
+    if not want_bits:
+        outs = (aggregate_encrypted(ctx, cts), mets, overflow)
+        if masked:
+            outs = outs + (RoundMeta.full_participation(num_clients),)
+        if with_plain_reference:
+            outs = outs + (plain_mean(p_out),)
+        return outs
+    keep = bits == 0
+    ct_sum = aggregate_encrypted(ctx, zero_excluded(cts, keep))
+    meta = RoundMeta.from_bits(bits)
+    if dp is not None and meta.surviving < calibration_clients(dp, num_clients):
+        raise ValueError(
+            f"dp round survived {meta.surviving} clients, below the "
+            f"declared noise-calibration floor "
+            f"{calibration_clients(dp, num_clients)} of {num_clients} "
+            f"({meta.excluded}); the release would carry less noise than "
+            "epsilon_spent accounts — raise DpConfig.min_surviving (more "
+            "over-noising headroom) or reduce the fault pressure"
+        )
+    outs = (ct_sum, mets, overflow, meta)
     if with_plain_reference:
-        outs = outs + (plain_mean(p_out),)
+        outs = outs + (masked_mean_tree(global_params, p_out, keep, num_clients)[0],)
     return outs
 
 

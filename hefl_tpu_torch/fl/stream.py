@@ -218,7 +218,7 @@ class StreamEngine:
         qcount = quorum_count(self.stream, len(cohort))
         hhe = (hhe or HheConfig()) if hhe_mode else None
         keys = cipher.derive_client_keys(hhe.key_seed, num_clients) if hhe_mode else None
-        uploads, mets, overflow, _, enc_gens = client_uploads(
+        uploads, mets, overflow, _, enc_gens, _ = client_uploads(
             model, cfg, ctx, pk, global_params, xs, ys, gen, packing=packing,
             hhe_keys=keys, round_index=round_index,
         )

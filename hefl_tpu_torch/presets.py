@@ -11,26 +11,25 @@ CPU-sized fusion and hybrid-HE smoke presets, over the port's configs
 
 Every preset keeps the reference's local-training recipe (10 epochs, batch
 32, Adam 1e-3 with Keras decay, EarlyStopping/ReduceLROnPlateau) and runs 3
-rounds. One preset of the JAX package needs modules the port does not have
-yet (`UNPORTED_PRESETS`); looking it up raises a KeyError naming the
-module, never a silent miss. `hhe-smoke` uses a ring of N = 256, which the
-kernels take like any other.
+rounds. Every preset of the JAX package is here (`UNPORTED_PRESETS` is
+empty); an unknown name raises a KeyError listing them. `hhe-smoke` and
+`chaos-smoke` use a ring of N = 256, which the kernels take like any other.
 """
 
 from __future__ import annotations
 
 from hefl_tpu_torch.experiment import ExperimentConfig, HEConfig
 from hefl_tpu_torch.fl.config import HheConfig, PackingConfig, StreamConfig, TrainConfig
+from hefl_tpu_torch.fl.faults import FaultConfig
 
 # The five reference-derived benchmark configurations (BASELINE.json).
 BASELINE_PRESET_NAMES = (
     "mnist-plain", "mnist-enc", "medical-8", "medical-skew", "cifar-resnet16",
 )
 
-# Presets of the JAX package that need a module the port does not have yet.
-UNPORTED_PRESETS = {
-    "chaos-smoke": "fl/faults.py fault schedules and on_overflow='exclude' (ROADMAP M10)",
-}
+# Presets of the JAX package that need a module the port does not have yet
+# (none since the robust rounds were ported).
+UNPORTED_PRESETS: dict[str, str] = {}
 
 
 class _Presets(dict):
@@ -69,6 +68,21 @@ PRESETS: dict[str, ExperimentConfig] = _Presets({
         model="resnet20", dataset="cifar10", num_clients=16, rounds=3,
         encrypted=True, train=TrainConfig(num_classes=10), he=HEConfig(),
         seed=0,
+    ),
+    # Robustness smoke (CPU-sized): an encrypted run under a fault schedule —
+    # 25% scheduled dropout and one NaN-poisoned client every round, one
+    # simulated device loss at round 2 — that must exclude exactly the
+    # scheduled and poisoned clients (CHAOS_SMOKE.json's rounds).
+    "chaos-smoke": ExperimentConfig(
+        model="smallcnn", dataset="mnist", num_clients=8, rounds=4,
+        encrypted=True, he=HEConfig(n=256), seed=0,
+        n_train=512, n_test=128,
+        train=TrainConfig(
+            num_classes=10, epochs=1, batch_size=8, augment=False,
+            val_fraction=0.25, on_overflow="exclude",
+        ),
+        faults=FaultConfig(seed=0, drop_fraction=0.25, nan_clients=1, fail_rounds=(2,)),
+        max_round_retries=1, retry_backoff_s=0.1,
     ),
     # Cross-client fusion smoke (CPU-sized): a plaintext 8-client run with
     # the fused backend pinned.

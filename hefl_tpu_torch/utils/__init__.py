@@ -1,4 +1,5 @@
-"""Runtime utilities of the port: phase timing and checkpoint/resume."""
+"""Runtime utilities of the port: phase timing, checkpoint/resume, and the
+key/ciphertext wire files (`utils.serialization`)."""
 
 from hefl_tpu_torch.utils.checkpoint import (
     CheckpointError,

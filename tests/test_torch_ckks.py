@@ -155,6 +155,25 @@ def test_encode_bitwise(ctxs):
     ) == 2
 
 
+@pytest.mark.parametrize("n", [256, 4096])
+def test_encode_of_nan_and_saturated_values_bitwise(n):
+    # A poisoned upload: NaN encodes to residue 0 in every prime (XLA's
+    # float->int conversion in the JAX package), +-1e15 saturates at the
+    # envelope, +-inf too; every residue canonical (< p). The overflow count
+    # is JAX's: NaN is not counted (5: +-1e15, +-inf, and _weights' -9.9e4).
+    jctx, tctx = jkeys.CkksContext.create(n=n), keys.CkksContext.create(n=n)
+    w = _weights((2, n), 9)
+    w[0, :7] = [np.nan, 1e15, -1e15, 0.5, np.inf, -np.inf, np.nan]
+    w[1, 100:] = np.nan
+    got = encoding.encode(tctx.ntt, torch.from_numpy(w), tctx.scale)
+    want = np.asarray(jenc.encode(jctx.ntt, jnp.asarray(w), jctx.scale))
+    np.testing.assert_array_equal(_u(got), want)
+    assert np.all(_u(got) < np.asarray(tctx.ntt.p)[None, :, :])
+    assert np.all(_u(got)[0, :, 0] == 0) and np.all(_u(got)[1, :, 100:] == 0)
+    count = int(encoding.encode_overflow_count(torch.from_numpy(w), tctx.scale))
+    assert count == int(jenc.encode_overflow_count(jnp.asarray(w), jctx.scale)) == 5
+
+
 def test_decode_within_one_ulp(ctxs):
     # Tolerance: 1 float32 ulp of the JAX result. The integer digits are
     # bitwise equal; only the float32 recombination may round differently

@@ -528,3 +528,66 @@ def test_hhe_smoke_preset_runs_on_the_card(cuda_device, monkeypatch):
     assert cuda_ntt.launch_rows() == {
         ("ntt_forward", 3, 256): 2, ("encrypt_fused", 8 * rows, 256): 1,
         ("transcipher_fused", 8 * rows, 256): 1, ("decrypt_fused", rows, 256): 1}
+
+
+def _masked_half(device):
+    """The masked round's HE half on `device` with CPU-drawn keys and
+    samples: six clients (clean, NaN-poisoned, +1e15-poisoned, scheduled
+    out, two clean), poison -> overflow -> exclusion bits -> encrypt every
+    client's rows (one K3 on a card) -> zero the excluded rows -> sum ->
+    decrypt (one K4)."""
+    from hefl_tpu_torch.ckks import encoding, ops
+    from hefl_tpu_torch.ckks.keys import CkksContext, PublicKey, SecretKey, keygen
+    from hefl_tpu_torch.ckks.packing import PackSpec, pack_params
+    from hefl_tpu_torch.fl import faults, secure
+    from hefl_tpu_torch.fl.config import TrainConfig
+
+    ctx = CkksContext.create(n=1024)
+    sk, pk = keygen(ctx, torch.Generator().manual_seed(70), device="cpu")
+    gen = torch.Generator().manual_seed(71)
+    gp = {"a.weight": torch.randn(3000, generator=gen) * 0.2,
+          "b.bias": torch.randn(40, generator=gen) * 0.2}
+    clients = [{k: v + 0.01 * torch.randn(v.shape, generator=gen) for k, v in gp.items()}
+               for _ in range(6)]
+    codes, mask = [0, 1, 2, 0, 0, 0], [1, 1, 1, 0, 1, 1]
+    spec = PackSpec.for_params(gp, ctx.n)
+    samples = ops.encrypt_samples(ctx, gen, (6, spec.n_ct), "cpu")
+    to = lambda d: {k: v.to(device) for k, v in d.items()}  # noqa: E731
+    sk = SecretKey(s_mont=sk.s_mont.to(device))
+    pk = PublicKey(b_mont=pk.b_mont.to(device), a_mont=pk.a_mont.to(device))
+    p_out = [faults.poison_tree(to(c), code) for c, code in zip(clients, codes)]
+    overflow = torch.stack([encoding.encode_overflow_count(pack_params(prm, ctx.n), ctx.scale)
+                            for prm in p_out])
+    bits = faults.exclusion_bits(TrainConfig(max_update_norm=50.0, on_overflow="exclude"),
+                                 to(gp), p_out, mask, overflow)
+    ct = secure.encrypt_stack(ctx, pk, p_out, samples=tuple(s.to(device) for s in samples))
+    ct_sum = secure.aggregate_encrypted(ctx, secure.zero_excluded(ct, bits == 0))
+    meta = faults.RoundMeta.from_bits(bits)
+    res = ops.decrypt(ctx, sk, ct_sum)
+    avg = secure.decrypt_average(ctx, sk, ct_sum, 6, spec, meta=meta)
+    return dict(bits=bits, ct=ct, ct_sum=ct_sum, res=res, avg=avg, meta=meta,
+                kept=[c for c, b in zip(clients, bits.tolist()) if b == 0])
+
+
+@pytest.mark.cuda
+def test_masked_he_half_on_card_equals_cpu(cuda_device):
+    # Bitwise: the bits, every client's ciphertext rows (the NaN client's,
+    # encoded to 0, and the saturated client's included), the masked sum
+    # and its decrypt; K3 once over all six clients' rows, K4 once for the
+    # decrypt and once inside decrypt_average. The decoded average within
+    # the 5e-6 yardstick of the kept clients' mean.
+    want = _masked_half("cpu")
+    cuda_ntt.reset_launch_counts()
+    got = _masked_half(cuda_device)
+    torch.cuda.synchronize(cuda_device)
+    rows = cuda_ntt.launch_rows()
+    assert rows[("encrypt_fused", 6 * 3 * 3, 1024)] == 1 and rows[("decrypt_fused", 9, 1024)] == 2
+    assert torch.equal(got["bits"].cpu(), want["bits"])
+    assert got["meta"].surviving == 3 and got["meta"].bits == want["meta"].bits
+    for key in ("c0", "c1"):
+        assert torch.equal(getattr(got["ct"], key).cpu(), getattr(want["ct"], key))
+        assert torch.equal(getattr(got["ct_sum"], key).cpu(), getattr(want["ct_sum"], key))
+    assert torch.equal(got["res"].cpu(), want["res"])
+    for k, v in got["avg"].items():
+        mean = torch.stack([c[k] for c in want["kept"]]).mean(0)
+        assert (v.cpu() - mean).abs().max().item() <= 5e-6

@@ -15,6 +15,7 @@ R1); the run itself is unchanged.
 
 import ast
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +33,8 @@ from hefl_tpu.data import partition as jpart
 from hefl_tpu.data import synthetic as jsyn
 from hefl_tpu.fl import client as jclient
 from hefl_tpu.fl import config as jconfig
+from hefl_tpu.fl import dp as jdp
+from hefl_tpu.fl import faults as jfaults
 from hefl_tpu.fl import loss as jloss
 from hefl_tpu.models import create_model as jcreate_model
 
@@ -42,6 +45,8 @@ from hefl_tpu_torch.data import partition, synthetic
 from hefl_tpu_torch.data.augment import rescale
 from hefl_tpu_torch.fl import client, fedavg, loss, secure
 from hefl_tpu_torch.fl.config import TrainConfig
+from hefl_tpu_torch.fl.dp import DpConfig, epsilon_spent
+from hefl_tpu_torch.fl.faults import FaultConfig
 from hefl_tpu_torch.models import LogReg, SmallCNN, count_params, create_model
 
 torch.set_num_threads(2)
@@ -330,13 +335,14 @@ def test_preset_names_cover_the_jax_presets():
     assert not set(presets.PRESETS) & set(presets.UNPORTED_PRESETS)
 
 
-@pytest.mark.parametrize("name,module", [("chaos-smoke", "fl/faults.py")])
-def test_unported_presets_raise_naming_their_module(name, module, capsys):
-    with pytest.raises(KeyError, match=module):
-        presets.PRESETS[name]
-    with pytest.raises(SystemExit):
-        cli.parse_args(["--preset", name, "--device", "cpu"])
-    assert module in capsys.readouterr().err
+def test_chaos_smoke_preset_builds_the_jax_fields():
+    # Its FaultConfig field by field too; no preset is refused any more.
+    port, ref = presets.PRESETS["chaos-smoke"], jpresets.PRESETS["chaos-smoke"]
+    _assert_same_config(port, ref, "chaos-smoke")
+    assert isinstance(port.faults, FaultConfig) and port.train.on_overflow == "exclude"
+    assert presets.UNPORTED_PRESETS == {}
+    with pytest.raises(KeyError, match="unknown preset"):
+        presets.PRESETS["no-such-preset"]
 
 
 # --- the driver against the JAX driver -----------------------------------------------
@@ -561,9 +567,88 @@ def test_round_retry_auto_resumes_from_the_round_checkpoint(tmp_path, monkeypatc
     assert all(torch.equal(out["params"][k], clean["params"][k]) for k in clean["params"])
 
 
+# --- robust and private rounds ---------------------------------------------------------
+
+ROBUST_FAULTS = dict(seed=1, drop_fraction=0.25, nan_clients=1, huge_clients=1,
+                     straggler_fraction=0.25, straggler_delay_s=0.05, fail_rounds=(1,))
+
+
+def _robust(pkg, faults_cls, dp_cls):
+    """A tiny 8-client encrypted run under a fault schedule with DP: the
+    derived noise floor is 8 - (2 + 1 + 1) = 4, which the round meets."""
+    train = pkg.TrainConfig(**TINY_TRAIN, on_overflow="exclude")
+    return _tiny(pkg, num_clients=8, n_train=128, train=train, faults=faults_cls(**ROBUST_FAULTS),
+                 dp=dp_cls(clip_norm=1.0, noise_multiplier=1.0), max_round_retries=1,
+                 retry_backoff_s=0.0)
+
+
+def test_robust_dp_run_matches_the_jax_drivers_records(monkeypatch, capsys):
+    # The robust records (participation, surviving, exclusions by cause,
+    # retries, injected faults) and the epsilon spent are equal; the
+    # decrypted models are not compared (jax.random streams).
+    monkeypatch.setattr(janalysis, "check_experiment", lambda *a, **k: None)
+    want = jexp.run_experiment(_robust(_J, jfaults.FaultConfig, jdp.DpConfig), verbose=False)
+    got = experiment.run_experiment(_robust(_T, FaultConfig, DpConfig), device="cpu")
+    out = capsys.readouterr().out
+    assert "dp: noise shares recalibrated to a surviving-cohort floor of 4/8 clients" in out
+    assert "round 1 failed (DeviceLost: fault injection: scheduled device loss at round 1)" in out
+    assert len(got["history"]) == len(want["history"]) == 2
+    for g, w in zip(got["history"], want["history"]):
+        assert g.keys() == w.keys()
+        assert g["robust"] == w["robust"]
+        assert g["dp_epsilon"] == w["dp_epsilon"] == epsilon_spent(g["round"] + 1, 1.0, 1e-5)
+        assert g["robust"]["surviving"] == 4
+        assert g["robust"]["round_retries"] == (1 if g["round"] == 1 else 0)
+        assert g["phases"]["train+encrypt+aggregate"] >= g["robust"]["faults"]["straggler_s"]
+    assert all(torch.isfinite(v).all() for v in got["params"].values())
+
+
+def test_plaintext_masked_run_keeps_the_model_when_nobody_survives(capsys):
+    # Every client dropped (drop_fraction 1.0): each round keeps the
+    # previous global model; the records say so.
+    cfg = _tiny(_T, encrypted=False, rounds=1, faults=FaultConfig(drop_fraction=1.0))
+    out = experiment.run_experiment(cfg, device="cpu", verbose=False)
+    init = {k: v.detach() for k, v in create_model("smallcnn", device="cpu").named_parameters()}
+    assert all(torch.equal(out["params"][k], init[k]) for k in init)
+    rob = out["history"][0]["robust"]
+    assert rob["surviving"] == 0 and rob["excluded"]["scheduled"] == 2
+
+
+def test_encrypted_round_with_nobody_surviving_keeps_the_model(capsys):
+    cfg = _tiny(_T, rounds=1, faults=FaultConfig(drop_fraction=1.0))
+    out = experiment.run_experiment(cfg, device="cpu")
+    assert "round 0: every client excluded" in capsys.readouterr().out
+    init = {k: v.detach() for k, v in create_model("smallcnn", device="cpu").named_parameters()}
+    assert all(torch.equal(out["params"][k], init[k]) for k in init)
+
+
+def test_chaos_smoke_rounds_equal_the_committed_gate():
+    # The preset cut to 3 rounds (its retried round 2 included): each
+    # round's surviving count, exclusions and retries are CHAOS_SMOKE.json's
+    # (the JAX run's record), every non-finite per-client metric belongs to
+    # an excluded client, and the final parameters are finite.
+    gate = json.loads((REPO / "CHAOS_SMOKE.json").read_text())
+    cfg = dataclasses.replace(presets.PRESETS["chaos-smoke"], rounds=3)
+    out = experiment.run_experiment(cfg, verbose=False, device="cpu")
+    for rec, ref in zip(out["history"], gate["rounds"][:3]):
+        rob = rec["robust"]
+        assert rec["round"] == ref["round"]
+        assert rob["surviving"] == ref["surviving"] == 5
+        assert {k: rob["excluded"][k] for k in ref["excluded"]} == ref["excluded"]
+        assert not any(v for k, v in rob["excluded"].items() if k not in ref["excluded"])
+        assert rob["round_retries"] == ref["retries"]
+        bad = [c for c, (lo, ac) in enumerate(zip(rec["val_loss"], rec["val_acc"]))
+               if not (np.isfinite(lo) and np.isfinite(ac))]
+        assert all(rob["participation"][c] == 0 for c in bad)
+    assert len(out["history"]) == 3
+    assert all(torch.isfinite(v).all() for v in out["params"].values())
+
+
 REFUSED = [
-    ("dp", dict(dp=object())),
-    ("faults", dict(faults=object())),
+    # DP and fault schedules run on the synchronous rounds; the streaming
+    # engine's dp floor and arrival faults are M12's.
+    ("dp", dict(dp=DpConfig(), stream=experiment.StreamConfig())),
+    ("faults", dict(faults=FaultConfig(drop_fraction=0.5), stream=experiment.StreamConfig())),
     ("journal_path", dict(journal_path="j.wal", stream=experiment.StreamConfig())),
     ("span_trace_path", dict(span_trace_path="t.json")),
     ("events_path", dict(events_path="e.jsonl")),
@@ -571,8 +656,6 @@ REFUSED = [
     ("exact_final_decode", dict(exact_final_decode=True)),
     ("profile_dir", dict(profile_dir="prof")),
     ("mesh_ct", dict(mesh_ct=2)),
-    ("on_overflow='exclude'", dict(train=TrainConfig(on_overflow="exclude"))),
-    ("max_update_norm", dict(train=TrainConfig(max_update_norm=50.0))),
 ]
 
 
@@ -614,11 +697,16 @@ ARGV = [
     [],
     ["--client-fusion", "fused", "--max-round-retries", "2", "--retry-backoff", "0.1",
      "--model", "resnet20", "--dataset", "cifar10", "--num-clients", "16"],
+    ["--num-clients", "8", "--dp-noise", "1.1", "--dp-clip", "0.5", "--dp-delta", "1e-6",
+     "--dp-min-surviving", "3", "--on-overflow", "exclude", "--max-update-norm", "50",
+     "--drop-fraction", "0.25", "--nan-clients", "1", "--huge-clients", "1",
+     "--straggler-delay", "0.2", "--fail-rounds", "1,3", "--fault-seed", "7"],
+    ["--straggler-delay", "0.5", "--on-overflow", "raise"],
 ]
 
 
 @pytest.mark.parametrize("argv", ARGV, ids=["plaintext_skew", "centralized", "hhe", "defaults",
-                                            "fusion_retries"])
+                                            "fusion_retries", "dp_faults", "stragglers"])
 def test_cli_flags_map_to_the_jax_config(argv):
     port = cli.config_from_args(cli.parse_args(argv + ["--device", "cpu"]))
     ref = jcli.config_from_args(jcli.build_parser().parse_args(argv))
@@ -644,13 +732,21 @@ def test_cli_preset_yields_the_preset(name):
 # --- the package boundary ------------------------------------------------------------
 
 
+def test_cli_refuses_a_dp_floor_without_dp(capsys):
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--dp-min-surviving", "3", "--device", "cpu"])
+    assert "--dp-min-surviving has no effect without --dp-noise" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("rel", ["hefl_tpu_torch/experiment.py", "hefl_tpu_torch/presets.py",
                                  "hefl_tpu_torch/utils/__init__.py",
                                  "hefl_tpu_torch/utils/checkpoint.py",
                                  "hefl_tpu_torch/utils/timers.py",
                                  "hefl_tpu_torch/fl/fusion.py",
                                  "hefl_tpu_torch/models/folded.py",
-                                 "hefl_tpu_torch/models/resnet.py"])
+                                 "hefl_tpu_torch/models/resnet.py",
+                                 "hefl_tpu_torch/fl/faults.py", "hefl_tpu_torch/fl/dp.py",
+                                 "hefl_tpu_torch/utils/serialization.py"])
 def test_new_modules_are_scanned_and_import_no_jax(rel):
     path = REPO / rel
     assert path in sorted((REPO / "hefl_tpu_torch").rglob("*.py"))

@@ -11,6 +11,8 @@ package's and against the port's per-client loop.
     fixture that exercises the LR plateau and early stopping: equal
     learning-rate ladders and stopped flags, metrics and weights within the
     JAX package's fused-vs-vmap tolerance 2e-2 (`tests/test_perf.py`);
+    with a participation mask, a scheduled-out client ships the global
+    weights bit for bit and its metrics rows are the JAX fused backend's;
   * backend resolution: pins, the environment, the error on a model without
     `folded_apply`, and "auto" timing once and caching.
 """
@@ -263,6 +265,42 @@ def test_fused_train_matches_jax_fused_train_on_its_streams(block):
     want = [convert.from_flax({k: jax.tree_util.tree_map(lambda a: np.asarray(a)[c], v)
                                for k, v in pj.items()}) for c in range(len(xs))]
     _assert_same_training(np.asarray(mj), want, mt, pt)
+
+
+def _jax_streams(jcfg, xs, seed):
+    keys = jax.random.split(jax.random.key(seed), len(xs))
+    perms, aug_keys = jclient.epoch_index_streams(jcfg, keys, xs.shape[1])
+    grp = perms.shape[-1]
+    affines = jax.vmap(jax.vmap(lambda k: jaug.draw_affine_params(
+        k, grp, jcfg.aug_shear, jcfg.aug_zoom, jcfg.aug_flip)))(aug_keys)
+    streams = [(torch.from_numpy(np.asarray(perms[c]).astype(np.int64)),
+                tuple(torch.from_numpy(np.array(a[c])) for a in affines))
+               for c in range(len(xs))]
+    return keys, (perms, aug_keys), streams
+
+
+def test_fused_participation_ships_global_weights_and_matches_jax(block):
+    # The masked round's mask: client 1 scheduled out. Its rows flow through
+    # every folded step, its updates are no-ops: it ships the global weights
+    # bit for bit, its callback rows are JAX's, and the other clients train
+    # as the JAX fused backend's within the fused tolerance.
+    module, params, model, xs, ys = block
+    part = np.array([1, 0, 1, 1], np.int32)
+    jcfg = jconfig.TrainConfig(**FUSE_KW, aug_backend="gather")
+    keys, streams_blk, streams = _jax_streams(jcfg, xs, 8)
+    pj, mj = jax.jit(lambda p: jfusion.fused_train(
+        module, jcfg, p, jnp.asarray(xs), jnp.asarray(ys), keys,
+        participation=jnp.asarray(part), streams_blk=streams_blk))(params)
+    gp = convert.from_flax(params)
+    pt, mt = fusion.fused_train(model, TrainConfig(**FUSE_KW), gp, torch.from_numpy(xs),
+                                torch.from_numpy(ys), streams=streams, participation=part)
+    assert all(torch.equal(pt[1][k], gp[k]) for k in gp)
+    want = [convert.from_flax({k: jax.tree_util.tree_map(lambda a: np.asarray(a)[c], v)
+                               for k, v in pj.items()}) for c in range(len(xs))]
+    assert all(torch.equal(want[1][k], gp[k]) for k in gp)
+    _assert_same_training(np.asarray(mj), want, mt, pt)
+    moved = [max((pt[c][k] - gp[k]).abs().max().item() for k in gp) for c in (0, 2, 3)]
+    assert min(moved) > 1e-4
 
 
 @pytest.mark.parametrize("backend", ["fused", "vmap"])
