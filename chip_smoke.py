@@ -12,7 +12,8 @@ error:
      from `hefl_tpu_torch/csrc/ntt.cu` with nvcc (timed), and print ptxas's
      registers and spills of every `ntt_kernel` instantiation (the build's
      `-Xptxas -v` report), and K6's, with the SASS opcode counts of K6
-     (cuobjdump) that fix MAD64_OPS.
+     (cuobjdump) that fix MAD64_OPS and the pipe mix of K3's instantiation
+     at [440, 3, 4096] (bound()'s two-pipe rate).
   2. For each kernel K1-K4 and K7 (forward NTT, inverse NTT, fused
      encrypt, fused decrypt, fused transcipher): call its wrapper on card
      tensors and require it to be BITWISE equal to its plain PyTorch
@@ -118,12 +119,29 @@ error:
      rounds: its rounds equal CHAOS_SMOKE.json's surviving, excluded and
      retries, with its clean twin's accuracy beside it. Launches exactly
      as phase 7's rule: masked rounds encrypt every client's rows.
-  Phases 3-8 each print their launches by (kernel, rows x N).
-  9. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-8 launched, and not K6's kernel, spills registers, and that every
-     K3, K4, K6 and K7 launch of phases 3-8 fell on a shape phase 2 timed.
+  9. The durable streaming aggregation service through `run_experiment`
+     (`stream_runs`): (l) medical-8 at full width streaming under a cohort
+     of 4 of 8, quorum 0.75, a 2 s deadline, one retry and the chaos-smoke
+     stream faults, 2 rounds x 1 epoch, fused: each round's stream record
+     equals what the schedules give (`host_stream_record`), K3 at [220, 3,
+     4096], each decrypt within 5e-6 of the released clients' plaintext
+     mean, the stream.* counters the sums over the rounds; (m) (l) with
+     tau = 1 and a write-ahead journal: the uninterrupted twin, a crash
+     mid-append at round 1's 2nd fold, the recovery: the report's 24-byte
+     torn tail and open round 1, the commit sum_sha chain and the final
+     parameters bitwise the twin's; the journal's cost, the recovery
+     latency, the cost of deterministic algorithms; (n) chaos-smoke's
+     streaming twin equals CHAOS_SMOKE.json's stream_check; (o) its
+     cohort-only and full-C twins end bitwise equal; (p) hhe-smoke
+     journaled, crashed and recovered, the persisted symmetric uploads
+     re-transciphered through K7 at [294, 3, 256], the chain bitwise the
+     twin's.
+  Phases 3-9 each print their launches by (kernel, rows x N).
+  10. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-9 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-9 fell on a shape phase 2 timed.
      Print one JSON line {"kernels": [...]}
-     (launches: the sum over the main-path runs of phases 3-8, each counted
+     (launches: the sum over the main-path runs of phases 3-9, each counted
      from zero; every kernel carries one "shapes" entry per timed shape
      with the launches at that shape, K5's also its per-kernel "split";
      the ranking launches x (ms - bound) prices each launch at its own
@@ -136,6 +154,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import re
 import shutil
@@ -149,25 +168,74 @@ import numpy as np
 import torch
 
 # H100 SXM peaks at the 700 W limit: HBM3 bandwidth (NVIDIA data sheet), and
-# the 32-bit integer instruction rate that bounds the kernels' work: 132 SMs x
-# 64 INT32 lanes x 1.98 GHz boost clock (NVIDIA Hopper architecture white
-# paper) = 16.7e12 instructions/s. (The data sheet's 67 TFLOP/s float32 rate
-# counts an FMA as two operations and does not apply to integer code.)
+# the rate of the 32-bit integer instructions that bound the kernels' work
+# (NVIDIA Hopper architecture white paper, 1.98 GHz boost clock): each of an
+# SM's 4 sub-partitions issues one warp instruction a clock (128 lanes a
+# clock an SM) to one of two integer pipes of 16 lanes, the multiply pipe
+# (IMAD, IMAD.HI, IMAD.WIDE: umulhi, mul, mad) and the ALU pipe (ISETP, SEL,
+# LOP3, SHF: compare, select, logic, shift); an add runs on either (IADD3 on
+# the ALU pipe, IMAD.IADD on the multiply pipe: phase 1 prints K3's SASS,
+# where the compiler puts 759 of its ~980 adds on the multiply pipe). So m
+# multiplies, a ALU-only operations and d adds take at least
+# max(m / 64, a / 64, (m + a + d) / 128) lane-clocks an SM, at 132 SMs x
+# 1.98e9 clocks a second. (A model with every instruction on one 64-lane
+# pipe stands too high for the NTT kernels: K3 was once timed below it. The
+# data sheet's 67 TFLOP/s float32 rate counts an FMA as two operations and
+# does not apply to integer code.)
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 132 * 64 * 1.98e9
-# 32-bit integer instructions per element operation, as the kernels issue them:
-# a Shoup product is umulhi + 2 mul + sub + compare/select; a Montgomery product
-# a wide multiply (2) + mul + umulhi + 2 adds + compare/select; add/sub mod p
-# an add, a compare and a select.
-SHOUP_OPS, MONT_OPS, ADDMOD_OPS = 6, 8, 3
+PIPE_OPS_PER_S = 132 * 64 * 1.98e9
+ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
+
+
+@dataclasses.dataclass(frozen=True)
+class Ops:
+    """A count of 32-bit integer instructions by the pipes that can run
+    them: `mul` only the multiply pipe, `alu` only the ALU pipe, `add`
+    either. Adds to another count, multiplies by an int."""
+
+    mul: int = 0
+    alu: int = 0
+    add: int = 0
+
+    def __add__(self, other):
+        if isinstance(other, int) and other == 0:
+            return self
+        return Ops(self.mul + other.mul, self.alu + other.alu, self.add + other.add)
+
+    __radd__ = __add__
+
+    def __mul__(self, k: int):
+        return Ops(self.mul * k, self.alu * k, self.add * k)
+
+    __rmul__ = __mul__
+
+    @property
+    def total(self) -> int:
+        return self.mul + self.alu + self.add
+
+    def __str__(self) -> str:
+        return f"{self.total} ({self.mul} mul + {self.alu} alu + {self.add} add)"
+
+
+# The fewest 32-bit integer instructions per element operation that compute
+# it, whatever the kernel issues (so that a bound can show waste in the
+# kernel's own choice: K3's SASS in phase 1 reduces with a compare and a
+# select, two ALU instructions where one unsigned min does). A conditional
+# subtract of p from a value below 2p is r - p and min(r, r - p) as
+# unsigned: one add, one ALU instruction (IMNMX.U32). So a Shoup product
+# is umulhi, mul, mad (a*w - q*p) and the conditional subtract; a
+# Montgomery product a wide multiply (2), mul, umulhi, 2 adds and the
+# min; add/sub mod p a + b, a + b - p (IADD3) and the min; a Barrett
+# reduction umulhi, mad, the subtract and the min.
+SHOUP_OPS, MONT_OPS, ADDMOD_OPS = Ops(3, 1, 1), Ops(4, 1, 2), Ops(0, 1, 2)
 BUTTERFLY_OPS = SHOUP_OPS + 2 * ADDMOD_OPS
-DIGIT_OPS = 2 + ADDMOD_OPS           # shift, mask, centre (sub mod p)
+DIGIT_OPS = Ops(0, 2) + ADDMOD_OPS   # shift, mask, centre (sub mod p)
 # K6 sums raw 32x32->64 products lazily: one wide multiply-add a term (SASS
 # IMAD.WIDE.U32 with a 64-bit addend; phase 1 prints the opcode counts of
 # its instantiations from cuobjdump), and one REDC at MONT_OPS per chunk of
 # at most K = cuda_ntt.lazy_terms terms.
-MAD64_OPS = 1
-BARRETT_OPS = 5                      # umulhi, mul, sub, compare, select
+MAD64_OPS = Ops(1, 0)
+BARRETT_OPS = Ops(2, 1, 1)           # umulhi, mad; the min; the subtract
 DIGIT_BITS, NUM_DIGITS = 5, 6        # the default gadget at 27-bit primes
 PALLAS = "hefl_tpu/ckks/pallas_ntt.py"
 SOURCE = "hefl_tpu_torch/csrc/ntt.cu"
@@ -193,13 +261,16 @@ KS_SHAPES = ((False, 1, 3, 4096), (False, 4, 3, 4096), (False, 1, 3, 8192),
 # HHE round's 19 packed rows, ResNet-20's 67, hhe-smoke's 294.
 # Phase 8's chaos-smoke adds K3 over 8 clients x 880 ciphertexts (SmallCNN's
 # 225,034 parameters at N = 256) and K4 over 880.
+# Phase 9's medical-8 streaming rounds sample a cohort of 4 of 8 clients,
+# which trains and encrypts fedavg.cohort_bucket(4, 8) = 4 clients x 55.
 ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096), (440, 3, 4096), (1072, 3, 4096), (2352, 3, 256),
-              (7040, 3, 256))
+              (7040, 3, 256), (220, 3, 4096))
 DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096), (67, 3, 4096), (294, 3, 256), (880, 3, 256))
-# [B', L, N] (B' upload rows) at which phase 2 times K7: every shape phases 6
-# and 7 launch it at, the HHE round's 8 clients x 19 packed rows and
-# hhe-smoke's 8 x 294 at N = 256.
-TC_SHAPES = ((152, 3, 4096), (2352, 3, 256))
+# [B', L, N] (B' upload rows) at which phase 2 times K7: every shape phases 6,
+# 7 and 9 launch it at, the HHE round's 8 clients x 19 packed rows,
+# hhe-smoke's 8 x 294 at N = 256, and phase 9's journal replay of one
+# hhe-smoke upload (294 rows) at a time.
+TC_SHAPES = ((152, 3, 4096), (2352, 3, 256), (294, 3, 256))
 # (S, R, B, L, N) at which phase 2 times K6: every shape phases 4-5 launch it
 # at (S baby steps of the plan, R = L*NUM_DIGITS gadget components): the
 # linear score (bsgs_plan: 22 baby steps), `score_many`'s 4 packed
@@ -221,7 +292,8 @@ HOIST_CHECK_PRIMES = (1, 2, 3, 5, 6)
 # one block a row below N = 1024, at least 2 at N = 16384), and the row
 # counts of ENC_SHAPES, DEC_SHAPES and TC_SHAPES (chaos-smoke's 21,120 and
 # 2,640 rows among them).
-NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 57, 165, 201, 330, 456, 1320, 2640, 3216, 21120)
+NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 57, 165, 201, 330, 456, 660, 882, 1320, 2640, 3216,
+                  21120)
 ERR_LIMIT = 5e-6
 SCORE_ERR_LIMIT = 0.05               # the JAX package's serving tolerance
 # The depth-2 MLP at N=8192 carries more noise than the JAX tests' n=512 ring:
@@ -252,26 +324,51 @@ NTT_POLICIES = {
 HOIST_KERNEL = "hoisted_lazy_kernel"
 
 
-def log_hoist_sass(cuda_ntt) -> None:
-    """Phase 1: the SASS opcode counts of K6's kernel (cuobjdump of the
-    built library), which fix MAD64_OPS; "not available" without
-    cuobjdump."""
+# The instantiation of K3 at the medical presets' [440, 3, 4096] (1,320 rows:
+# ntt_plan gives one block a row), whose SASS mix phase 1 prints.
+K3_MEDICAL = "ntt_kernel<12, 1, false, EncryptRows, EncryptStore>"
+MUL_PIPE = ("IMAD", "IMUL")
+ALU_PIPE = ("IADD", "ISETP", "SEL", "LOP", "SHF", "IMNMX", "VIMNMX", "PRMT", "MOV", "IABS",
+            "FLO", "POPC", "BMSK", "SGXT", "LEA")
+
+
+def log_sass(cuda_ntt) -> None:
+    """Phase 1: the SASS opcode counts (cuobjdump of the built library) of
+    K6's kernel, which fix MAD64_OPS, and the multiply-pipe / ALU-pipe /
+    memory / other split of K3's instantiation K3_MEDICAL, the mix behind
+    bound()'s two-pipe rate (static counts; its loops are unrolled); "not
+    available" without cuobjdump."""
     try:
         tool = shutil.which("cuobjdump") or str(Path(cuda_ntt._nvcc()).parent / "cuobjdump")
         sass = subprocess.run([tool, "-sass", str(cuda_ntt.library_path())], capture_output=True,
                               text=True, check=True).stdout
     except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
-        log(f"  K6 SASS: not available ({e})")
+        log(f"  SASS: not available ({e})")
         return
-    ops, inside = {}, False
+    funcs, current = {}, None
     for line in sass.splitlines():
         if m := re.search(r"Function : (\S+)", line):
-            inside = HOIST_KERNEL in m.group(1)
-        elif inside and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                                        line)):
+            name = m.group(1)
+            k = _NTT_KERNEL.search(name)
+            current = (HOIST_KERNEL if HOIST_KERNEL in name else ntt_kernel_label(
+                int(k.group(1)), int(k.group(2)), "true" if k.group(3) == "1" else "false",
+                k.group(4), k.group(5)) if k else None)
+        elif current and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                                         line)):
+            ops = funcs.setdefault(current, {})
             ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    ops = funcs.get(HOIST_KERNEL, {})
     wide = {k: v for k, v in sorted(ops.items()) if k.startswith(("IMAD", "IADD", "LDG"))}
     log(f"  K6 SASS {HOIST_KERNEL}: {sum(ops.values())} instructions; {json.dumps(wide)}")
+    ops = funcs.get(K3_MEDICAL, {})
+    split = {"mul": 0, "alu": 0, "memory": 0, "other": 0}
+    for op, count in ops.items():
+        kind = ("mul" if op.startswith(MUL_PIPE) else "alu" if op.startswith(ALU_PIPE)
+                else "memory" if op.startswith(("LD", "ST", "RED", "ATOM")) else "other")
+        split[kind] += count
+    log(f"  K3 SASS {K3_MEDICAL}: {sum(ops.values())} instructions, by pipe {json.dumps(split)} "
+        f"(adds on the multiply pipe: IMAD.IADD; bound()'s count a butterfly: {BUTTERFLY_OPS}); opcodes "
+        f"{json.dumps(dict(sorted(ops.items(), key=lambda kv: -kv[1])[:16]))}")
 
 
 def ntt_kernel_label(logn: int, cluster: int, inverse: str, src: str, dst: str) -> str:
@@ -353,7 +450,7 @@ def is_port_kernel(name: str) -> bool:
 # Device idle time (us) that marks the start of a new call in device_ms:
 # the 64 MB flush before each call keeps the card busy for about 20 us.
 CALL_GAP_US = 10.0
-PROFILE_TRIES = 3
+PROFILE_TRIES = 5
 
 
 def kernel_label(name: str) -> str:
@@ -376,7 +473,9 @@ def device_ms(fn, reps: int, flush: torch.Tensor, own=is_port_kernel) -> tuple[f
     event) is left out; at least half of the calls must remain. The
     profiler has also returned a window with none or few of the port's
     kernel events, between two windows that had all of them; such a window
-    is measured again, up to PROFILE_TRIES windows in all. `own` picks the
+    is measured again, up to PROFILE_TRIES windows in all, and the run fails
+    when none of them holds the calls' kernels (a time from another clock
+    never stands in for the device time). `own` picks the
     kernels that count by their event name (the port's, by default)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -407,6 +506,7 @@ def device_ms(fn, reps: int, flush: torch.Tensor, own=is_port_kernel) -> tuple[f
                 f"{len(whole)} whole with {width} kernels)")
         if len(whole) >= reps // 2:
             break
+        time.sleep(0.5)
     else:
         raise AssertionError(f"the profiler saw the port's kernels whole in fewer than {reps // 2} "
                              f"of {reps} calls in each of {PROFILE_TRIES} windows")
@@ -415,9 +515,12 @@ def device_ms(fn, reps: int, flush: torch.Tensor, own=is_port_kernel) -> tuple[f
     return statistics.median(sum(us for _, us in c) for c in whole) / 1e3, split
 
 
-def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+def bound(bytes_moved: int, ops: Ops) -> tuple[float, str]:
+    """The least time (ms) for `bytes_moved` bytes and `ops` instructions:
+    the larger of the bytes over HBM's rate and the instructions over each
+    pipe's rate and over the issue rate; and which of the two it is."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / OPS_PER_S
+    t_ops = max(max(ops.mul, ops.alu) / PIPE_OPS_PER_S, ops.total / ISSUE_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1257,26 +1360,22 @@ SMOKE_RUNS = (("h", "fusion-smoke"), ("h", "hhe-smoke"))
 
 def expected_launches(cfg, out: dict, rounds_run: int) -> dict:
     """{(kernel, rows, N): launches} of `rounds_run` rounds of an encrypted
-    preset: K1 twice in keygen (s and e, one [L, N] row block each), then
-    per round on the float path one K3 over every client's n_ct ciphertexts
-    (n_ct = ceil(params / N)) and one K4 over the n_ct of the sum; on the
-    hybrid-HE path one K3 (the pads) and one K7 over every client's packed
-    rows, and one K4 over the packed rows of the sum. Nothing for a
-    plaintext preset."""
+    preset (`round_launches`): on the synchronous engine every round trains
+    every client and decrypts; a streaming run's rounds are read from its
+    history (cohort size, decrypted or degraded), and a recovered hybrid-HE
+    run adds one K7 a refolded upload. n_ct is ceil(params / N) on the float
+    path, the packed rows on the hybrid-HE path. Nothing for a plaintext
+    preset."""
     if not cfg.encrypted:
         return {}
-    n, num_l = cfg.he.n, cfg.he.num_primes
-    want = {("ntt_forward", num_l, n): 2}
     if out["hhe"] is not None:
-        rows = out["packing"]["n_ct"] * num_l
-        want.update({("encrypt_fused", cfg.num_clients * rows, n): rounds_run,
-                     ("transcipher_fused", cfg.num_clients * rows, n): rounds_run,
-                     ("decrypt_fused", rows, n): rounds_run})
-        return want
-    n_ct = -(-sum(v.numel() for v in out["params"].values()) // n)
-    want.update({("encrypt_fused", cfg.num_clients * n_ct * num_l, n): rounds_run,
-                 ("decrypt_fused", n_ct * num_l, n): rounds_run})
-    return want
+        n_ct = out["packing"]["n_ct"]
+        replays = out["obs"]["metrics"].get("recovery.refolded_uploads", 0)
+    else:
+        n_ct, replays = -(-sum(v.numel() for v in out["params"].values()) // cfg.he.n), 0
+    rounds = (history_rounds(out) if cfg.stream is not None
+              else [(cfg.num_clients, True)] * rounds_run)
+    return round_launches(cfg, rounds, n_ct, replays)
 
 
 def cut(name: str, rounds: int, epochs: int, fusion_backend=None, train_kw=None, **kw):
@@ -1352,11 +1451,11 @@ def plain_references():
 def drive(label: str, cfg, rounds_run: int, device, resume: bool = False,
           check_plain: bool = False, robust: bool = False):
     """One `run_experiment` run with its launches counted from zero, which
-    must be exactly `expected_launches`; every round's metrics finite (on a
-    robust run: every non-finite per-client metric belongs to an excluded
-    client), its encode overflow 0 (not on a robust run, whose poisoned
-    clients saturate), its accuracy in [0, 1], and the final parameters
-    finite. `check_plain`: each decrypted round within ERR_LIMIT of its
+    must be exactly `expected_launches`; every round's metrics finite (on
+    a robust run: every non-finite per-client metric belongs to an
+    excluded client), its encode overflow 0 (not on a robust run, whose
+    poisoned clients saturate), its accuracy in [0, 1], and the final
+    parameters finite. `check_plain`: each decrypted round within ERR_LIMIT of its
     plaintext (masked) mean. The run's printed lines are captured and
     returned. -> (out, last round call, (counts, shapes), printed text)."""
     import io
@@ -1561,7 +1660,7 @@ def timed_calls(module, names):
             setattr(module, n, fn)
 
 
-def robust_runs(device) -> list[tuple[dict, dict]]:
+def robust_runs(device) -> tuple[list[tuple[dict, dict]], list]:
     """Phase 8: robust and private rounds through `run_experiment` at full
     width (MedCNN 256x256x3, 222,722 parameters, medical-8's 8 clients x 200
     images, N=4096, L=3, scale 2^30), cut in rounds and epochs only, each
@@ -1584,7 +1683,10 @@ def robust_runs(device) -> list[tuple[dict, dict]]:
     the kernels it launches. (k) chaos-smoke at its own size (SmallCNN,
     N=256, 8 clients, 4 rounds): each round's surviving count, exclusions
     and retries equal CHAOS_SMOKE.json's; the clean twin's accuracy is
-    printed beside it, ungated (its streams are not the JAX run's)."""
+    printed beside it, ungated (its streams are not the JAX run's).
+    -> (the runs' launches, the train + encrypt + aggregate seconds of each
+    round of (i)'s unmasked twin, the synchronous full-cohort round that
+    phase 9 prints beside its streaming one)."""
     from hefl_tpu_torch.fl import secure
     from hefl_tpu_torch.fl.dp import DpConfig, clip_by_global_norm, epsilon_spent
     from hefl_tpu_torch.fl.faults import (
@@ -1705,6 +1807,367 @@ def robust_runs(device) -> list[tuple[dict, dict]]:
         f"{[rec['accuracy'] for rec in twin['history']]} (not gated); train+encrypt+aggregate "
         f"{train_s(out)} s a round")
     log(f"  phase 8 (k) wall time: {time.perf_counter() - t:.3f} s")
+    return runs, clean_s
+
+
+# Phase 9: the streaming service. (l)'s stream knobs and the chaos-smoke
+# stream faults (run_chaos_smoke.sh's streaming twin), at medical-8's width.
+STREAM_KNOBS = dict(cohort_size=4, quorum=0.75, deadline_s=2.0, max_retries=1, seed=0)
+STREAM_FAULTS = dict(straggler_fraction=0.25, straggler_delay_s=6.0, arrival_delay_s=0.5,
+                     duplicate_clients=1, transient_fail_clients=1)
+
+
+def host_stream_record(stream, faults, round_index: int, num_clients: int) -> dict:
+    """The `stream` record of a flat round without staleness carries or
+    sanitizer rejects, from the schedules alone: `sample_cohort`, the fault
+    schedule's dropouts and `schedule_arrivals`, the engine's
+    `_retry_times`, then the deliveries in (t, seq) order against the
+    dedup set, the deadline and the quorum."""
+    from hefl_tpu_torch.fl.faults import schedule_arrivals, schedule_for_round
+    from hefl_tpu_torch.fl.stream import StreamEngine, quorum_count, sample_cohort
+
+    cohort = sample_cohort(stream, round_index, num_clients)
+    sched = schedule_for_round(faults, round_index, num_clients)
+    arr = schedule_arrivals(faults, round_index, num_clients)
+    retry_times = StreamEngine(stream)._retry_times
+    events, retries, unreachable = [], 0, 0
+    for c in cohort:
+        if sched.dropped[c]:
+            continue
+        t0 = float(arr.arrival_s[c])
+        if arr.permanent[c] or arr.transient[c]:
+            times = retry_times(round_index, int(c), t0)
+            retries += len(times) if arr.permanent[c] else min(len(times), 1)
+            if arr.permanent[c] or not times:
+                unreachable += 1
+            else:
+                events.append((times[0], True, int(c)))
+            continue
+        events.append((t0, False, int(c)))
+        if arr.duplicate[c]:
+            events.append((t0 + max(stream.retry_backoff_s * 0.5, 1e-6), False, int(c)))
+    deadline = stream.deadline_s if stream.deadline_s > 0 else float("inf")
+    quorum = quorum_count(stream, len(cohort))
+    fresh = dups = 0
+    seen, committed_at, last_t = set(), None, 0.0
+    for _, (t, retried, c) in sorted(enumerate(events), key=lambda e: (e[1][0], e[0])):
+        last_t = max(last_t, t)
+        if c in seen:
+            dups += 1
+            continue
+        seen.add(c)
+        if committed_at is None and (t <= deadline or retried):
+            fresh += 1
+            if fresh >= quorum:
+                committed_at = t
+    commit_s = (committed_at if committed_at is not None
+                else min(max(last_t, 0.0), deadline) if events else 0.0)
+    return {"cohort": [int(c) for c in cohort], "quorum": quorum,
+            "committed": committed_at is not None,
+            "degraded_reason": None if committed_at is not None else "quorum",
+            "fresh": fresh, "stale_folded": 0, "carried": 0, "stale_excluded": 0,
+            "unreachable": unreachable, "arrivals": len(events), "duplicates": dups,
+            "rejected": 0, "retries": retries, "commit_s": round(commit_s, 6)}
+
+
+def round_launches(cfg, rounds, n_ct: int, replays: int = 0) -> dict:
+    """{(kernel, rows, N): launches} of an encrypted run's `rounds`, each a
+    (cohort size, decrypted) pair: K1 twice in keygen (s and e, one [L, N]
+    row block each); per round one K3 over the trained slots' n_ct
+    ciphertexts each — fedavg.cohort_bucket's slots on a cohort-only
+    sampled streaming round, every client's otherwise — or, on the
+    hybrid-HE path, one K3 (the pads) and one K7 over the slots' packed
+    rows; one K4 over the sum's n_ct a decrypted round; and one K7 a
+    journal-replayed hybrid-HE upload (`replays`)."""
+    from hefl_tpu_torch.fl.fedavg import cohort_bucket
+
+    n, num_l, c = cfg.he.n, cfg.he.num_primes, cfg.num_clients
+    hhe = cfg.stream is not None and cfg.stream.upload_kind == "hhe"
+    want = {("ntt_forward", num_l, n): 2}
+
+    def add(key, count=1):
+        if count:
+            want[key] = want.get(key, 0) + count
+
+    for size, decrypted in rounds:
+        sampled = cfg.stream is not None and cfg.stream.cohort_only and size < c
+        slots = size if (hhe and sampled) else cohort_bucket(size, c) if sampled else c
+        add(("encrypt_fused", slots * n_ct * num_l, n))
+        if hhe:
+            add(("transcipher_fused", slots * n_ct * num_l, n))
+        add(("decrypt_fused", n_ct * num_l, n), int(decrypted))
+    add(("transcipher_fused", n_ct * num_l, n), replays)
+    return want
+
+
+def history_rounds(out) -> list:
+    return [(len(rec["stream"]["cohort"]), rec["robust"]["surviving"] > 0)
+            for rec in out["history"]]
+
+
+@contextlib.contextmanager
+def stream_references():
+    """During the block, each streaming round's trained weights (the
+    cohort-rowed uploads' plaintexts, `client_uploads`' fourth output) and
+    each decrypted average are captured; yields the (plaintext mean of the
+    clients the round released, decrypted average) pair of each decrypted
+    round."""
+    from hefl_tpu_torch import experiment
+    from hefl_tpu_torch.fl import stream as stream_mod
+
+    real_up, real_dec = stream_mod.client_uploads, experiment.decrypt_average
+    last, pairs = {}, []
+
+    def uploads(*a, **k):
+        out = real_up(*a, **k)
+        cohort = k.get("cohort")
+        last["rows"] = list(cohort) if cohort is not None else list(range(int(a[5].shape[0])))
+        last["p_out"] = out[3]
+        return out
+
+    def decrypt(*a, **k):
+        avg = real_dec(*a, **k)
+        kept = [c for c, on in enumerate(k["meta"].participation) if on]
+        rows = [last["rows"].index(c) for c in kept]
+        ref = {name: torch.stack([last["p_out"][r][name] for r in rows]).mean(dim=0)
+               for name in avg}
+        pairs.append((ref, avg))
+        return avg
+
+    stream_mod.client_uploads, experiment.decrypt_average = uploads, decrypt
+    try:
+        yield pairs
+    finally:
+        stream_mod.client_uploads, experiment.decrypt_average = real_up, real_dec
+
+
+def journal_commits(path) -> dict:
+    from hefl_tpu_torch.fl import journal as jr
+
+    return {r["round"]: r["sum_sha"] for r in jr.read_journal(path) if r["kind"] == "commit"}
+
+
+def crash_run(label: str, cfg, device, want: dict) -> None:
+    """`run_experiment` with a CrashConfig: it must raise SimulatedCrash,
+    with exactly `want` launched before."""
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.experiment import run_experiment
+    from hefl_tpu_torch.fl.faults import SimulatedCrash
+
+    cuda_ntt.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with datasets_once():
+            run_experiment(cfg, verbose=False, device=device)
+    except SimulatedCrash as e:
+        log(f"  ({label}) {cfg.crash}: SimulatedCrash ({e}) after {time.perf_counter() - t0:.3f} s")
+    else:
+        raise AssertionError(f"({label}) ran to its end through {cfg.crash}")
+    torch.cuda.synchronize()
+    shapes = cuda_ntt.launch_rows()
+    log_launch_rows(shapes)
+    if shapes != want:
+        raise AssertionError(f"({label}) launched {shapes}, expected exactly {want}")
+    return cuda_ntt.launch_counts(), shapes
+
+
+def stream_runs(device, sync_twin_s: list) -> list[tuple[dict, dict]]:
+    """Phase 9: the durable streaming aggregation service through
+    `run_experiment`, each run through `drive` (launches exactly
+    `expected_launches`). (l) medical-8 at full width (MedCNN 256x256x3,
+    222,722 parameters, N=4096, L=3), 2 rounds x 1 epoch, fused, under
+    STREAM_KNOBS (a cohort of 4 of 8: K3 at [220, 3, 4096]) and the
+    chaos-smoke stream faults: each round's `stream` record equals
+    `host_stream_record`, each decrypted average sits within ERR_LIMIT of
+    the plaintext mean of the released clients' trained weights, and the
+    run's stream.* counters are the sums over its rounds. (m) (l) with
+    tau = 1 and a write-ahead journal three ways — the uninterrupted
+    journaled twin, the same run crashed by CrashConfig(round=1,
+    at="mid_append", after_folds=2) (a 24-byte torn tail), and the
+    recovery run (the journal's sealed round 0 and open round 1 replayed):
+    the recovered report, the commit sum_sha chain and the final
+    parameters bitwise the twin's, recovery.refolded_uploads the fold
+    records the crash left; the journal's appends, bytes and fsyncs a
+    round, the host seconds of its fold records (ct_body: the device-to-host
+    copy; sha256), the recovery latency, and the cost of the deterministic
+    algorithms a journaled run trains under (client_uploads of (l) against
+    (m)'s twin). (n) chaos-smoke's streaming twin (N=256, 8 clients, 4
+    rounds, quorum 3/8, deadline 2 s, one retry, tau = 1): its rounds and
+    stream.* counters equal CHAOS_SMOKE.json's stream_check. (o) its
+    cohort-only twin and full-C twin (cohort 6 of 8): final parameters
+    bitwise equal. (p) hhe-smoke journaled, crashed after round 1's 2nd
+    fold, recovered: the replay re-transciphers each persisted symmetric
+    upload through K7 at [294, 3, 256], and the sum_sha chain equals the
+    uninterrupted journaled twin's."""
+    import tempfile
+
+    from hefl_tpu_torch.fl import journal as jr
+    from hefl_tpu_torch.fl import stream as stream_mod
+    from hefl_tpu_torch.fl.config import StreamConfig
+    from hefl_tpu_torch.fl.faults import CrashConfig, FaultConfig
+    from hefl_tpu_torch.presets import PRESETS
+
+    runs = []
+
+    def run(label, cfg, rounds_run):
+        out, _, launched, printed = drive(label, cfg, rounds_run, device, robust=True)
+        runs.append(launched)
+        return out, printed
+
+    def train_s(out):
+        return [rec["phases"]["train+encrypt+aggregate"] for rec in out["history"]]
+
+    stream_keys = ("stream.arrivals", "stream.duplicates", "stream.retries", "stream.folds",
+                   "stream.late_carried", "stream.stale_excluded", "stream.rejected")
+
+    def counters_are_round_sums(label, out):
+        hist = [rec["stream"] for rec in out["history"]]
+        want = {"stream.arrivals": sum(h["arrivals"] for h in hist),
+                "stream.duplicates": sum(h["duplicates"] for h in hist),
+                "stream.retries": sum(h["retries"] for h in hist),
+                "stream.folds": sum(h["fresh"] + h["stale_folded"] for h in hist),
+                "stream.late_carried": sum(h["carried"] for h in hist),
+                "stream.stale_excluded": sum(h["stale_excluded"] for h in hist),
+                "stream.rejected": sum(h["rejected"] for h in hist)}
+        got = {k: out["obs"]["metrics"].get(k) for k in stream_keys}
+        if got != want:
+            raise AssertionError(f"({label}) stream counters {got}, round sums {want}")
+
+    t = time.perf_counter()
+    stream = StreamConfig(**STREAM_KNOBS)
+    faults = FaultConfig(seed=0, **STREAM_FAULTS)
+    cfg_l = cut("medical-8", 2, 1, "fused", stream=stream, faults=faults)
+    with stream_references() as pairs, timed_calls(stream_mod, ("client_uploads",)) as up_l:
+        out_l, _ = run("l", cfg_l, 2)
+    for rec in out_l["history"]:
+        want = host_stream_record(stream, faults, rec["round"], cfg_l.num_clients)
+        if rec["stream"] != want:
+            raise AssertionError(f"(l) round {rec['round']}: stream {rec['stream']}, the "
+                                 f"schedules give {want}")
+        log(f"    (l) round {rec['round']}: stream {json.dumps(rec['stream'])}")
+    errs = [max((avg[k] - ref[k]).abs().max().item() for k in ref) for ref, avg in pairs]
+    log(f"    (l) decrypted average vs the released clients' plaintext mean: max abs err {errs} "
+        f"(limit {ERR_LIMIT})")
+    if len(errs) != sum(d for _, d in history_rounds(out_l)) or not errs or max(errs) > ERR_LIMIT:
+        raise AssertionError(f"(l) decrypted averages off their plaintext means: {errs}")
+    counters_are_round_sums("l", out_l)
+    log(f"    (l) train+encrypt+aggregate a round: {train_s(out_l)} s (cohort 4 of 8, streaming); "
+        f"the synchronous full-cohort round at the same cut (phase 8 (i)'s unmasked twin): "
+        f"{sync_twin_s} s")
+
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix="chip_smoke_journal_") as tmp:
+        cfg_m = dataclasses.replace(cfg_l, stream=dataclasses.replace(stream, staleness_rounds=1),
+                                    fsync_policy="commit")
+        twin_path, crash_path = f"{tmp}/twin.wal", f"{tmp}/crash.wal"
+        with (timed_calls(stream_mod, ("client_uploads",)) as up_m,
+              timed_calls(jr, ("ct_body",)) as bodies,
+              timed_calls(jr.RoundSession, ("fold",)) as folds):
+            twin, _ = run("m, journaled twin", dataclasses.replace(cfg_m, journal_path=twin_path),
+                          2)
+        m = twin["obs"]["metrics"]
+        body = bodies["ct_body"][0][2]
+        t_sha = time.perf_counter()
+        hashlib.sha256(body).hexdigest()
+        sha_s = time.perf_counter() - t_sha
+        log(f"    (m) journal a round: {m['journal.appends'] / 2} appends, "
+            f"{m['journal.bytes_written'] / 2:.0f} bytes, {m['journal.fsyncs'] / 2} fsyncs "
+            f"(policy commit); {len(bodies['ct_body'])} persisted bodies of {len(body)} bytes: "
+            f"ct_body (device-to-host copy) {[round(x[0], 6) for x in bodies['ct_body']]} s, "
+            f"RoundSession.fold (ct_body + sha256 + append) "
+            f"{[round(x[0], 6) for x in folds['fold']]} s, sha256 of one body {sha_s:.6f} s")
+        log(f"    (m) client_uploads (train + encrypt a cohort of 4): {[round(x[0], 4) for x in up_l['client_uploads']]} s "
+            f"in (l) without, {[round(x[0], 4) for x in up_m['client_uploads']]} s in (m) "
+            "under torch.use_deterministic_algorithms; train+encrypt+aggregate a round "
+            f"{train_s(twin)} s")
+        crash_cfg = dataclasses.replace(cfg_m, journal_path=crash_path,
+                                        crash=CrashConfig(round=1, at="mid_append", after_folds=2))
+        want_crash = round_launches(cfg_m, history_rounds(twin)[:1] + [(4, False)], 55)
+        runs.append(crash_run("m, crashed", crash_cfg, device, want_crash))
+        scan = jr.scan_journal(crash_path)
+        folds_before = sum(r["kind"] == "fold" for r in scan.records)
+        if scan.torn_bytes != 24:
+            raise AssertionError(f"(m) the crash left a torn tail of {scan.torn_bytes} bytes")
+        rec_out, _ = run("m, recovery", dataclasses.replace(crash_cfg, crash=None), 2)
+        rep = rec_out["journal"]["recovered"]
+        log(f"    (m) recovered: {json.dumps(rep)}; recovery.latency_s "
+            f"{rec_out['obs']['metrics']['recovery.latency_s']['sum']} s, refolded uploads "
+            f"{rec_out['obs']['metrics']['recovery.refolded_uploads']} (fold records the crash "
+            f"left: {folds_before})")
+        if (rep["torn_bytes_truncated"], rep["open_round"]) != (24, 1):
+            raise AssertionError(f"(m) recovery report {rep}")
+        chain, twin_chain = journal_commits(crash_path), journal_commits(twin_path)
+        if chain != twin_chain or len(chain) != 2:
+            raise AssertionError(f"(m) commit chain {chain}, the twin's {twin_chain}")
+        if not all(torch.equal(rec_out["params"][k], twin["params"][k]) for k in twin["params"]):
+            raise AssertionError("(m) the recovered parameters differ from the twin's")
+        if rec_out["obs"]["metrics"]["recovery.refolded_uploads"] != folds_before:
+            raise AssertionError("(m) recovery did not refold every journaled upload")
+        log(f"    (m) commit sum_sha chain bitwise the twin's: {chain}")
+    log(f"  phase 9 (l)-(m) wall time: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    gate = json.loads((Path(__file__).resolve().parent / "CHAOS_SMOKE.json").read_text())
+    chaos = PRESETS["chaos-smoke"]
+    cfg_n = dataclasses.replace(
+        chaos, faults=dataclasses.replace(chaos.faults, **STREAM_FAULTS),
+        stream=StreamConfig(quorum=0.375, deadline_s=2.0, max_retries=1, staleness_rounds=1,
+                            seed=0))
+    out_n, _ = run("n, chaos-smoke streaming twin", cfg_n, cfg_n.rounds)
+    ref = gate["stream_check"]
+    for rec, want in zip(out_n["history"], ref["rounds"]):
+        got = {k: rec["round"] if k == "round" else rec["stream"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"(n) round {rec['round']}: {got}, CHAOS_SMOKE.json has {want}")
+    got = {k: out_n["obs"]["metrics"].get(k) for k in ref["counters"]}
+    if got != ref["counters"]:
+        raise AssertionError(f"(n) counters {got}, CHAOS_SMOKE.json has {ref['counters']}")
+    log(f"    (n) rounds and counters equal CHAOS_SMOKE.json's stream_check: {json.dumps(got)}")
+    cohort = StreamConfig(cohort_size=6, quorum=0.3, deadline_s=2.0, max_retries=1,
+                          staleness_rounds=1, seed=0)
+    outs = {}
+    for only in (True, False):
+        cfg_o = dataclasses.replace(cfg_n, stream=dataclasses.replace(cohort, cohort_only=only))
+        outs[only], _ = run(f"o, cohort {'only' if only else 'full-C'}", cfg_o, cfg_o.rounds)
+        # Unsampled clients are attributed "unsampled" unless a carried
+        # upload of theirs folded this round.
+        if not all(rec["stream"]["committed"] and rec["robust"]["excluded"]["unsampled"] == sum(
+                c not in rec["stream"]["cohort"] and not on
+                for c, on in enumerate(rec["robust"]["participation"]))
+                   for rec in outs[only]["history"]):
+            raise AssertionError(f"(o) rounds {[rec['stream'] for rec in outs[only]['history']]}")
+    if not all(torch.equal(outs[True]["params"][k], outs[False]["params"][k])
+               for k in outs[True]["params"]):
+        raise AssertionError("(o) the cohort-only run's parameters differ from the full-C run's")
+    log("    (o) cohort-only and full-C final parameters bitwise equal")
+    log(f"  phase 9 (n)-(o) wall time: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix="chip_smoke_journal_") as tmp:
+        hhe = dataclasses.replace(PRESETS["hhe-smoke"], fsync_policy="commit")
+        twin, _ = run("p, hhe-smoke journaled twin",
+                      dataclasses.replace(hhe, journal_path=f"{tmp}/twin.wal"), hhe.rounds)
+        crash_cfg = dataclasses.replace(hhe, journal_path=f"{tmp}/crash.wal",
+                                        crash=CrashConfig(round=1, at="post_fold", after_folds=2))
+        runs.append(crash_run("p, crashed", crash_cfg, device, round_launches(
+            hhe, history_rounds(twin)[:1] + [(8, False)], 294)))
+        bodies = sum(r["kind"] == "fold" and "body" in r
+                     for r in jr.scan_journal(f"{tmp}/crash.wal").records)
+        # One K7 a refolded upload (expected_launches reads the count from
+        # the run's recovery.refolded_uploads): every persisted body.
+        rec_out, _ = run("p, recovery", dataclasses.replace(crash_cfg, crash=None), hhe.rounds)
+        if rec_out["obs"]["metrics"].get("recovery.refolded_uploads") != bodies:
+            raise AssertionError(f"(p) recovery refolded {rec_out['obs']['metrics'].get('recovery.refolded_uploads')} "
+                                 f"uploads, the journal holds {bodies} bodies")
+        chain, twin_chain = journal_commits(f"{tmp}/crash.wal"), journal_commits(f"{tmp}/twin.wal")
+        if chain != twin_chain or len(chain) != hhe.rounds:
+            raise AssertionError(f"(p) commit chain {chain}, the twin's {twin_chain}")
+        if not all(torch.equal(rec_out["params"][k], twin["params"][k]) for k in twin["params"]):
+            raise AssertionError("(p) the recovered parameters differ from the twin's")
+        log(f"    (p) {bodies} persisted symmetric uploads re-transciphered (K7 at "
+            f"[294, 3, 256] each); commit sum_sha chain bitwise the twin's: {chain}")
+    log(f"  phase 9 (p) wall time: {time.perf_counter() - t:.3f} s")
     return runs
 
 
@@ -1729,7 +2192,7 @@ def main() -> int:
     log(f"phase 1: built {cuda_ntt.library_path().name} in {time.perf_counter() - t:.3f} s")
     report = ptxas_report(cuda_ntt.ptxas_report_path().read_text())
     log_ptxas_report(report)
-    log_hoist_sass(cuda_ntt)
+    log_sass(cuda_ntt)
 
     log("phase 2: kernels vs plain versions")
     records = check_kernels(cuda_ntt, ntt_mod, CkksContext.create(), device)
@@ -1748,14 +2211,19 @@ def main() -> int:
     runs += driver_runs(device)
     log("phase 8: robust and private rounds: medical-8 faulted (and its unmasked twin), "
         "medical-8 with DP, chaos-smoke (N=256) and its clean twin")
-    runs += robust_runs(device)
+    robust, sync_twin_s = robust_runs(device)
+    runs += robust
+    log("phase 9: the streaming service: medical-8 streaming (cohort 4 of 8) and journaled with a "
+        "crash and its recovery, chaos-smoke's streaming, cohort-only and full-C twins, "
+        "hhe-smoke journaled with a crash and its recovery (N=256)")
+    runs += stream_runs(device, sync_twin_s)
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-8 together:")
+    log("phases 3-9 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-8
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-9
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),

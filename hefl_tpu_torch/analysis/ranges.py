@@ -170,3 +170,43 @@ def certify_transciphering(modulus: int, bits: int, k: int, clients: int,
         fbits=b.fbits, guard=b.guard, clients=int(clients),
         findings=tuple(findings), checks=tuple(checks),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldCertificate:
+    """Proof (or refutation) of the streaming fold's invariant at one prime
+    (and, for a packed round, one packing geometry)."""
+
+    ok: bool
+    prime: int
+    findings: tuple
+    checks: tuple
+
+    def summary(self) -> str:
+        head = f"online fold at p={self.prime}"
+        if self.ok:
+            return f"{head}: CERTIFIED — " + "; ".join(self.checks)
+        return f"{head}: UNSAFE — " + "; ".join(self.findings)
+
+
+def certify_fold(prime: int, spec=None, modulus: int | None = None) -> FoldCertificate:
+    """The closed-form counterpart of the JAX package's
+    `certify_fold_inductive` (M15 ports its interval analysis): the
+    `OnlineAccumulator` folds a canonical row into a canonical sum as
+    (acc + row) mod p in int64, so the invariant "acc in [0, p - 1]" is
+    closed under any number of folds iff p - 1 plus a canonical residue
+    fits int64 (and the primes are positive). With a packed `spec` and the
+    ciphertext modulus, the headroom-capped `spec.clients`-summand packed
+    sum is certified by `certify_packing` at the spec's geometry."""
+    prime = int(prime)
+    findings: list[str] = []
+    checks: list[str] = []
+    _check(findings, checks, "prime", prime, prime, 2, (1 << 62) - 1)
+    _check(findings, checks, "fold carrier (p - 1) + canonical residue",
+           0, 2 * (prime - 1), 0, (1 << 63) - 1)
+    if spec is not None and modulus is not None:
+        guard_bits = spec.guard - max(spec.clients - 1, 0).bit_length()
+        cert = certify_packing(int(modulus), spec.bits, spec.k, spec.clients, guard_bits)
+        (checks if cert.ok else findings).append(cert.summary())
+    return FoldCertificate(ok=not findings, prime=prime, findings=tuple(findings),
+                           checks=tuple(checks))

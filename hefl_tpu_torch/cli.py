@@ -9,25 +9,33 @@ Each round trains every client, encrypts, sums the ciphertexts mod p, and
 the owner decrypts the average, which is then evaluated on the test split;
 `--plaintext` averages in the clear, `--centralized` trains one model on
 the whole set; `--client-fusion fused|vmap|auto` picks how a round's
-clients train (`fl.fusion`). `--pack-bits B` uploads b-bit quantized updates interleaved
-k to a slot; `--stream` folds the uploads online (full cohort, quorum 1.0);
-`--hhe` (with `--pack-bits`, implying `--stream`) has the clients encrypt
-their packed update under a stream cipher and the server transcipher it
-into CKKS before the fold. `--dp-noise SIGMA` (with `--dp-clip`,
+clients train (`fl.fusion`). `--pack-bits B` uploads b-bit quantized
+updates interleaved k to a slot; `--stream` folds the uploads online
+(`fl.stream`: `--cohort-size`, `--quorum`, `--deadline`, `--staleness`,
+`--stream-retries`, `--stream-backoff`, `--stream-seed`,
+`--full-cohort-train`); `--hhe` (with `--pack-bits`, implying `--stream`)
+has the clients encrypt their packed update under a stream cipher and the
+server transcipher it into CKKS before the fold. `--serve` /
+`--journal-path` (with `--fsync-policy` and the `--crash-*` injection)
+run the durable aggregation service (`fl.server`); `--events`,
+`--no-events` and `--span-trace` route the run's event log and span
+trees. `--dp-noise SIGMA` (with `--dp-clip`,
 `--dp-delta`, `--dp-min-surviving`) runs DP-FedAvg; `--drop-fraction`,
-`--nan-clients`, `--huge-clients`, `--straggler-delay`, `--fail-rounds` and
-`--fault-seed` inject a deterministic fault schedule, and `--on-overflow
+`--nan-clients`, `--huge-clients`, `--straggler-delay`, `--fail-rounds`,
+`--fault-seed` and the streaming engine's `--arrival-delay`,
+`--duplicate-clients`, `--transient-clients` and `--permanent-clients`
+inject a deterministic fault schedule, and `--on-overflow
 exclude` / `--max-update-norm` sanitize the uploads (`fl.faults`, `fl.dp`).
 `--preset NAME` runs a named configuration (`presets.PRESETS`) and ignores
 the other flags but `--resume`, `--json` and `--device`.
 
-The flags keep the JAX CLI's names and defaults (the final model is saved
-to agg_model.npz unless `--no-save-model`). A flag of the JAX CLI that this
-port does not have yet (the streaming engine's arrival, outage and link
-faults, cohorts, the journal, ...; ROADMAP M12) is refused with an error
-naming it, never silently ignored; so is a value the port does not run
-(`--quorum` other than 1.0). `--device` is the one flag the JAX CLI lacks:
-the run is on CUDA unless it names another device.
+The flags keep the JAX CLI's names, defaults and guards (the final model is
+saved to agg_model.npz unless `--no-save-model`). A flag of the JAX CLI
+that this port does not have yet (the hierarchical fold's `--num-hosts`,
+its tier knobs and outage and link faults, `--data-dir`, `--profile`,
+`--mesh-ct`; ROADMAP) is refused with an error naming it, never silently
+ignored. `--device` is the one flag the JAX CLI lacks: the run is on CUDA
+unless it names another device.
 """
 
 from __future__ import annotations
@@ -40,22 +48,15 @@ import numpy as np
 from hefl_tpu_torch.experiment import ExperimentConfig, HEConfig, run_experiment
 from hefl_tpu_torch.fl.config import HheConfig, PackingConfig, StreamConfig, TrainConfig
 from hefl_tpu_torch.fl.dp import DpConfig
-from hefl_tpu_torch.fl.faults import FaultConfig
+from hefl_tpu_torch.fl.faults import CRASH_POINTS, CrashConfig, FaultConfig
 from hefl_tpu_torch.models import MODEL_REGISTRY
 from hefl_tpu_torch.presets import PRESETS
 
 # Flags of `hefl_tpu.cli` that the port does not run yet.
 UNPORTED_FLAGS = (
-    "--data-dir", "--image-size", "--profile", "--events",
-    "--no-events", "--span-trace", "--arrival-delay",
-    "--duplicate-clients", "--transient-clients", "--permanent-clients",
+    "--data-dir", "--image-size", "--profile",
     "--outage-hosts", "--link-loss", "--link-dark", "--link-delay", "--link-dup",
-    "--cohort-size", "--deadline",
-    "--staleness", "--stream-retries", "--stream-backoff", "--stream-seed",
-    "--full-cohort-train", "--num-hosts", "--host-quorum", "--ship-deadline",
-    "--host-staleness", "--mesh-ct", "--serve",
-    "--journal-path", "--fsync-policy", "--crash-round", "--crash-at",
-    "--crash-after-folds",
+    "--num-hosts", "--host-quorum", "--ship-deadline", "--host-staleness", "--mesh-ct",
 )
 
 
@@ -103,11 +104,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="symmetric clip bound on a client's update (default 0.5); "
                         "|update| > C saturates (counted in encode_overflow)")
     p.add_argument("--stream", action="store_true",
-                   help="streaming aggregation: uploads fold online into a running "
-                        "modular sum (full cohort, quorum 1.0)")
+                   help="streaming quorum aggregation: arriving encrypted "
+                        "updates fold online into a running modular sum; "
+                        "rounds commit at --quorum, stragglers carry under "
+                        "--staleness instead of stalling the round")
+    p.add_argument("--cohort-size", type=int, default=0, metavar="K",
+                   help="clients sampled into each round's cohort "
+                        "(0 = all; implies --stream semantics)")
     p.add_argument("--quorum", type=float, default=1.0, metavar="Q",
-                   help="fraction of the cohort whose arrivals commit the round "
-                        "(the port runs 1.0 only)")
+                   help="fraction of the cohort whose arrivals commit the "
+                        "round; below it the round degrades gracefully "
+                        "(model carried forward, loud event)")
+    p.add_argument("--deadline", type=float, default=0.0, metavar="S",
+                   help="per-client arrival deadline in simulated seconds "
+                        "(0 = none)")
+    p.add_argument("--staleness", type=int, default=0, metavar="T",
+                   help="bounded-staleness budget: rounds a missed upload "
+                        "may carry forward before exclusion as stale")
+    p.add_argument("--stream-retries", type=int, default=0, metavar="N",
+                   help="redelivery attempts for a lost upload "
+                        "(exponential backoff + jitter)")
+    p.add_argument("--stream-backoff", type=float, default=0.25, metavar="S",
+                   help="base backoff between delivery retries")
+    p.add_argument("--stream-seed", type=int, default=0,
+                   help="PRNG seed of cohort sampling and retry jitter")
+    p.add_argument("--full-cohort-train", action="store_true",
+                   help="disable cohort-only training: every registered "
+                        "client slot trains each round with unsampled "
+                        "clients masked (the historical full-C producer; "
+                        "the cohort-only default gathers just the sampled "
+                        "cohort's slots, bitwise the same aggregate)")
     p.add_argument("--hhe", action="store_true",
                    help="hybrid-HE uplink: clients encrypt their packed update under "
                         "a per-client stream cipher (~1x wire bytes, no client-side "
@@ -130,6 +156,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--centralized", action="store_true",
                    help="centralized (non-federated) baseline: train one "
                         "model on the whole dataset (train_server analog)")
+    p.add_argument("--events", default=None, metavar="PATH", dest="events",
+                   help="structured run-event JSONL (obs.events). Default: "
+                        "events.jsonl next to --checkpoint (else ./); "
+                        "--no-events or HEFL_EVENTS=0 disables")
+    p.add_argument("--no-events", action="store_const", const="",
+                   dest="events")
+    p.add_argument("--span-trace", default=None, metavar="PATH",
+                   dest="span_trace",
+                   help="write every streaming round's lifecycle span tree "
+                        "(obs.spans: arrival/fold/ship/commit/recovery on "
+                        "the engine's virtual clock) as Chrome trace-viewer "
+                        "JSON (.gz honored); streaming runs only")
     p.add_argument("--json", action="store_true", help="emit history as JSON lines")
     p.add_argument("--dp-noise", type=float, default=0.0, metavar="SIGMA",
                    help="DP-FedAvg central noise multiplier (0 = off): clip "
@@ -164,14 +202,58 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fault injection: comma-separated round indices "
                         "whose first attempt simulates a device loss "
                         "(exercises --max-round-retries)")
+    p.add_argument("--arrival-delay", type=float, default=0.0, metavar="S",
+                   help="fault injection: max base dispersion of upload "
+                        "arrival times consumed by the streaming engine "
+                        "(stragglers add their delay on top)")
+    p.add_argument("--duplicate-clients", type=int, default=0, metavar="K",
+                   help="fault injection: clients per round whose upload "
+                        "is delivered twice (streaming dedups by nonce)")
+    p.add_argument("--transient-clients", type=int, default=0, metavar="K",
+                   help="fault injection: clients per round whose first "
+                        "delivery is lost (recovered by streaming retries)")
+    p.add_argument("--permanent-clients", type=int, default=0, metavar="K",
+                   help="fault injection: clients per round for whom every "
+                        "delivery fails (excluded as unreachable)")
     p.add_argument("--fault-seed", type=int, default=0,
                    help="PRNG seed of the fault schedule")
+    p.add_argument("--serve", action="store_true",
+                   help="recover-then-serve lifecycle: wrap the streaming "
+                        "engine in a write-ahead round journal (default "
+                        "path next to --checkpoint) and auto-resume from "
+                        "an existing checkpoint — re-running the same "
+                        "command after a crash recovers exactly")
+    p.add_argument("--journal-path", default=None, metavar="PATH",
+                   help="write-ahead round journal (fl.journal): every "
+                        "engine transition is durable and a restarted "
+                        "server replays it to the bitwise state of an "
+                        "uninterrupted run; requires a streaming knob")
+    p.add_argument("--fsync-policy", default=None,
+                   choices=["always", "commit", "never"],
+                   help="journal fsync policy: every append / transaction "
+                        "boundaries (commit, degrade, round_close) / "
+                        "OS-paced. Default: HEFL_JOURNAL_FSYNC, else "
+                        "'commit'")
+    p.add_argument("--crash-round", type=int, default=None, metavar="R",
+                   help="crash injection: simulate a server process crash "
+                        "during round R (requires the journal). Re-running "
+                        "WITHOUT the crash flags always recovers; an armed "
+                        "mid_append/pre_commit crash (whose record never "
+                        "landed) fires again on every run")
+    p.add_argument("--crash-at", default="post_fold", choices=list(CRASH_POINTS),
+                   help="crash injection boundary: mid-journal-append "
+                        "(leaves a REAL torn record), after the Nth fold, "
+                        "before/after the commit record, or after the "
+                        "round seals (before its checkpoint)")
+    p.add_argument("--crash-after-folds", type=int, default=1, metavar="N",
+                   help="which fold (1-based) triggers "
+                        "mid_append/post_fold crashes")
     p.add_argument("--dp-min-surviving", type=int, default=0, metavar="K",
                    help="dp noise floor: calibrate each client's noise "
                         "share to K surviving clients (conservative "
                         "over-noising for partial participation; 0 = "
                         "full-participation calibration, auto-derived "
-                        "from the schedule under faults)")
+                        "from the schedule/quorum under faults/streaming)")
     p.add_argument("--max-round-retries", type=int, default=0,
                    help="retry a failed round this many times with "
                         "exponential backoff, auto-resuming from the "
@@ -196,20 +278,59 @@ def check_args(args: argparse.Namespace) -> None:
     if args.pack_bits <= 0 and (args.pack_interleave or args.pack_clip is not None):
         raise ValueError("--pack-interleave/--pack-clip have no effect without "
                          "--pack-bits; add --pack-bits B to enable packing")
-    if args.quorum != 1.0:
-        raise ValueError(f"--quorum {args.quorum}: hefl_tpu_torch runs quorum 1.0 only "
-                         "(partial quorums are not supported yet)")
     if args.hhe and args.pack_bits <= 0:
         raise ValueError("--hhe ships the PACKED quantized update under the stream "
                          "cipher; add --pack-bits B to enable packing")
     if args.hhe_key_seed and not args.hhe:
         raise ValueError("--hhe-key-seed has no effect without --hhe; add --hhe to "
                          "enable the hybrid-HE uplink")
+    want_stream = _want_stream(args)
+    if (args.arrival_delay > 0 or args.duplicate_clients > 0 or args.transient_clients > 0
+            or args.permanent_clients > 0) and not want_stream:
+        raise ValueError("--arrival-delay/--duplicate-clients/--transient-clients/"
+                         "--permanent-clients are consumed by the streaming engine; "
+                         "add --stream (or another streaming knob) to enable it")
+    if (args.journal_path or args.serve) and not want_stream:
+        raise ValueError("--journal-path/--serve wrap the streaming engine; add "
+                         "--stream (or another streaming knob) to enable it")
+    if args.crash_round is not None and not (args.journal_path or args.serve):
+        raise ValueError("--crash-round without a write-ahead journal is just data "
+                         "loss; add --journal-path PATH or --serve")
+    if args.crash_round is None and (args.crash_at != "post_fold"
+                                     or args.crash_after_folds != 1):
+        raise ValueError("--crash-at/--crash-after-folds have no effect without "
+                         "--crash-round R; add it to arm the crash injection")
     if args.dp_min_surviving > 0 and args.dp_noise <= 0:
         raise ValueError("--dp-min-surviving has no effect without --dp-noise; add "
                          "--dp-noise SIGMA to enable dp")
+    if args.full_cohort_train and not want_stream:
+        raise ValueError("--full-cohort-train has no effect without a streaming knob; "
+                         "add --stream (or --cohort-size K) to enable the engine")
     _packing_config(args)
     _fault_config(args)
+    _stream_config(args)
+
+
+def _want_stream(args: argparse.Namespace) -> bool:
+    """Any streaming knob turns the streaming engine on (`hefl_tpu.cli`)."""
+    return (args.stream or args.hhe or args.cohort_size > 0 or args.quorum < 1.0
+            or args.deadline > 0 or args.staleness > 0 or args.stream_retries > 0)
+
+
+def _stream_config(args: argparse.Namespace) -> StreamConfig | None:
+    if not _want_stream(args):
+        return None
+    return StreamConfig(
+        cohort_size=args.cohort_size,
+        cohort_only=not args.full_cohort_train,
+        quorum=args.quorum,
+        deadline_s=args.deadline,
+        max_retries=args.stream_retries,
+        retry_backoff_s=args.stream_backoff,
+        staleness_rounds=args.staleness,
+        seed=args.stream_seed,
+        upload_kind="hhe" if args.hhe else "ckks",
+    )
 
 
 def _fault_config(args: argparse.Namespace) -> FaultConfig | None:
@@ -218,7 +339,9 @@ def _fault_config(args: argparse.Namespace) -> FaultConfig | None:
     straggle."""
     fail_rounds = tuple(int(r) for r in args.fail_rounds.split(",") if r.strip())
     if not (args.drop_fraction > 0 or args.nan_clients > 0 or args.huge_clients > 0
-            or args.straggler_delay > 0 or fail_rounds):
+            or args.straggler_delay > 0 or args.arrival_delay > 0
+            or args.duplicate_clients > 0 or args.transient_clients > 0
+            or args.permanent_clients > 0 or fail_rounds):
         return None
     return FaultConfig(
         seed=args.fault_seed,
@@ -228,6 +351,10 @@ def _fault_config(args: argparse.Namespace) -> FaultConfig | None:
         straggler_fraction=0.25 if args.straggler_delay > 0 else 0.0,
         straggler_delay_s=args.straggler_delay,
         fail_rounds=fail_rounds,
+        arrival_delay_s=args.arrival_delay,
+        duplicate_clients=args.duplicate_clients,
+        transient_fail_clients=args.transient_clients,
+        permanent_fail_clients=args.permanent_clients,
     )
 
 
@@ -274,11 +401,18 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
                      delta=args.dp_delta, min_surviving=args.dp_min_surviving)
             if args.dp_noise > 0 else None),
         faults=_fault_config(args),
-        stream=(StreamConfig(quorum=args.quorum, upload_kind="hhe" if args.hhe else "ckks")
-                if args.stream or args.hhe else None),
+        stream=_stream_config(args),
         hhe=HheConfig(key_seed=args.hhe_key_seed) if args.hhe else None,
+        journal_path=args.journal_path,
+        fsync_policy=args.fsync_policy,
+        serve=args.serve,
+        crash=(CrashConfig(round=args.crash_round, at=args.crash_at,
+                           after_folds=args.crash_after_folds)
+               if args.crash_round is not None else None),
         max_round_retries=args.max_round_retries,
         retry_backoff_s=args.retry_backoff,
+        events_path=args.events,
+        span_trace_path=args.span_trace,
     )
 
 

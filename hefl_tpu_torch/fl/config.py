@@ -61,12 +61,13 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class StreamConfig:
-    """Streaming quorum-aggregation knobs, the fields and defaults of the JAX
-    package's `StreamConfig` (hefl_tpu/fl/config.py). The port's engine
-    (`fl.stream.StreamEngine`) runs the full-cohort, quorum-1.0,
-    fault-free round of the `hhe-smoke` preset and refuses any other value
-    by name: cohort sampling, deadlines, retries, staleness, real-time
-    pacing and the hierarchical fold are not ported yet.
+    """Streaming quorum-aggregation knobs, the fields, defaults and
+    validation messages of the JAX package's `StreamConfig`
+    (hefl_tpu/fl/config.py). The port's engine (`fl.stream.StreamEngine`)
+    runs every knob of the flat engine — cohort sampling, cohort-only
+    training, quorum, deadlines, retries with backoff and jitter, bounded
+    staleness, real-time pacing — and refuses the hierarchical fold
+    (`num_hosts >= 2` and its tier knobs) by name.
 
     upload_kind: "ckks" (a float or packed CKKS ciphertext) or "hhe" (a
     stream-cipher encryption of the PACKED quantized update, transciphered
@@ -92,24 +93,41 @@ class StreamConfig:
     def __post_init__(self):
         if self.upload_kind not in ("ckks", "hhe"):
             raise ValueError(
-                f"StreamConfig.upload_kind={self.upload_kind!r}: must be 'ckks' or 'hhe'"
+                f"StreamConfig.upload_kind={self.upload_kind!r}: must be "
+                "'ckks' or 'hhe'"
             )
         if not 0.0 < self.quorum <= 1.0:
-            raise ValueError(f"StreamConfig.quorum={self.quorum}: must be in (0, 1]")
+            raise ValueError(
+                f"StreamConfig.quorum={self.quorum}: must be in (0, 1]"
+            )
         for name in ("cohort_size", "deadline_s", "max_retries", "retry_backoff_s",
                      "staleness_rounds", "time_scale", "num_hosts", "ship_deadline_s",
                      "host_staleness_rounds"):
             if getattr(self, name) < 0:
                 raise ValueError(f"StreamConfig.{name} must be >= 0")
         if self.num_hosts == 1:
-            raise ValueError("StreamConfig.num_hosts=1: use 0 (flat) or >= 2")
-        if not 0.0 < self.host_quorum <= 1.0:
-            raise ValueError(f"StreamConfig.host_quorum={self.host_quorum}: must be in (0, 1]")
-        if self.num_hosts < 2 and (self.host_quorum != 1.0 or self.ship_deadline_s > 0
-                                   or self.host_staleness_rounds > 0):
             raise ValueError(
-                "StreamConfig.host_quorum/ship_deadline_s/host_staleness_rounds need "
-                "num_hosts >= 2"
+                "StreamConfig.num_hosts=1: one host IS the flat fold — "
+                "use 0 (flat) or >= 2 (hierarchical)"
+            )
+        if not 0.0 < self.host_quorum <= 1.0:
+            raise ValueError(
+                f"StreamConfig.host_quorum={self.host_quorum}: must be in "
+                "(0, 1] (a fraction of the round's shipping hosts)"
+            )
+        if self.num_hosts < 2 and (
+            self.host_quorum != 1.0
+            or self.ship_deadline_s > 0
+            or self.host_staleness_rounds > 0
+        ):
+            raise ValueError(
+                "StreamConfig.host_quorum/ship_deadline_s/"
+                "host_staleness_rounds describe the tier->root uplink of "
+                "the hierarchical fold tree and would be silent no-ops on "
+                "the flat engine — set num_hosts >= 2 to define the tiers"
             )
         if not 0.0 <= self.retry_jitter <= 1.0:
-            raise ValueError(f"StreamConfig.retry_jitter={self.retry_jitter}: must be in [0, 1]")
+            raise ValueError(
+                f"StreamConfig.retry_jitter={self.retry_jitter}: must be "
+                "in [0, 1] (a fraction of the backoff)"
+            )

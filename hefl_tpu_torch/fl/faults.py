@@ -8,9 +8,9 @@ Counterpart of `hefl_tpu.fl.faults`:
     and by how long, which rounds lose their device on the first attempt).
     Host numpy keyed by `np.random.default_rng([seed, round, ...])`, the
     JAX package's streams, so the port's schedules are the same arrays bit
-    for bit; `schedule_arrivals` and `schedule_links` likewise (the
-    streaming and hierarchical engines that consume them are not ported
-    yet, ROADMAP M12).
+    for bit; `schedule_arrivals` (consumed by the streaming engine,
+    `fl.stream`) and `schedule_links` (the hierarchical engine's, not
+    ported yet) likewise.
   * `poison_tree` / `exclusion_bits` — the in-round halves, as PyTorch on
     the port's parameter dicts: the poison applied to a client's trained
     weights (a pure `where` select, so POISON_NONE leaves every value
@@ -19,14 +19,16 @@ Counterpart of `hefl_tpu.fl.faults`:
     on_overflow="exclude") that give the round its exclusion bitmask.
   * `RoundMeta` — who made the round's released sum, and why the others
     did not; `surviving` is the decode denominator of
-    `fl.secure.decrypt_average`.
+    `fl.secure.decrypt_average`. `record_round_meta` publishes it to the
+    obs layer (exclusion counters by cause, one `round_robust` event).
+  * `CrashConfig` / `SimulatedCrash` — deterministic process-crash
+    injection for the durable aggregation server (`fl.journal`,
+    `fl.server`), at one of `CRASH_POINTS`.
 
 Exclusion causes are bits of one int32 per client (a client can be both
 scheduled out and poisoned): bit 0 scheduled, 1 non-finite, 2 norm, 3
 overflow; bits 4-10 are the streaming and hierarchical engines' arrival
-and tier causes. `CrashConfig` (the journal's crash injection) and the
-event-log half of `record_round_meta` wait for the journal and obs ports
-(ROADMAP M12).
+and tier causes.
 """
 
 from __future__ import annotations
@@ -75,6 +77,55 @@ _HUGE = 1e15
 class DeviceLost(RuntimeError):
     """Simulated device loss (FaultConfig.fail_rounds): raised by the driver
     before the round runs, exercising the retry/backoff path."""
+
+
+class SimulatedCrash(RuntimeError):
+    """Deterministic process-crash injection (CrashConfig): raised by the
+    journal session (fl.journal.RoundSession) at the configured boundary,
+    after any configured torn-frame prefix has been written — the
+    in-memory server state is then abandoned exactly as a SIGKILL would
+    abandon it, and only the write-ahead journal survives."""
+
+
+# The injectable crash boundaries, in round-lifecycle order. "mid_append"
+# kills the process MID-write of the Nth fold's journal frame, leaving a
+# REAL torn record on disk (the recovery path must truncate it);
+# "post_fold" kills after that frame landed; "pre_commit"/"post_commit"
+# bracket the round's commit record; "post_close" lands between the
+# sealed round and its checkpoint.
+CRASH_POINTS = (
+    "mid_append", "post_fold", "pre_commit", "post_commit", "post_close"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class CrashConfig:
+    """Deterministic process-crash injection for the durable aggregation
+    server (fl.server / fl.journal). One crash per process: the journal
+    session raises SimulatedCrash at the configured boundary of the
+    configured round; a recovering process runs with crash=None and must
+    reach the bitwise state of an uninterrupted run.
+
+    round:        round index whose lifecycle hosts the crash.
+    at:           one of CRASH_POINTS (see above).
+    after_folds:  which fold (1-based) triggers mid_append/post_fold.
+    torn_bytes:   prefix length of the torn frame mid_append leaves.
+    """
+
+    round: int = 0
+    at: str = "post_fold"
+    after_folds: int = 1
+    torn_bytes: int = 24
+
+    def __post_init__(self):
+        if self.at not in CRASH_POINTS:
+            raise ValueError(
+                f"CrashConfig.at={self.at!r}: must be one of {CRASH_POINTS}"
+            )
+        if self.after_folds < 1:
+            raise ValueError("CrashConfig.after_folds must be >= 1")
+        if self.torn_bytes < 1:
+            raise ValueError("CrashConfig.torn_bytes must be >= 1")
 
 
 def host_of_clients(num_clients: int, num_hosts: int) -> np.ndarray:
@@ -432,3 +483,24 @@ class RoundMeta:
             "excluded": dict(self.excluded),
             "sanitized": self.sanitized,
         }
+
+
+def record_round_meta(meta: RoundMeta, round_index: int | None = None) -> RoundMeta:
+    """Publish one masked round's outcome to the observability layer
+    (obs.events / obs.metrics): per-cause exclusion counters and one
+    `round_robust` event line. The driver calls this once per masked round.
+    Returns `meta` so call sites can thread it through."""
+    from hefl_tpu_torch.obs import events, metrics
+
+    for cause, n in meta.excluded.items():
+        if n:
+            metrics.counter(f"exclusions.{cause}").inc(n)
+    metrics.counter("rounds.masked").inc()
+    if meta.surviving < meta.num_clients:
+        metrics.counter("clients.excluded").inc(meta.num_clients - meta.surviving)
+    events.emit(
+        "round_robust",
+        **({"round": round_index} if round_index is not None else {}),
+        **meta.record(),
+    )
+    return meta

@@ -74,10 +74,53 @@ def train_block(
     return train_clients(model, cfg, global_params, xs, ys, gens=gens, streams=streams)
 
 
-def client_generators(gen: torch.Generator, count: int, device) -> list[torch.Generator]:
-    """`count` generators on `device`, seeded by draws from `gen`."""
+def client_generators(gen: torch.Generator, count: int, device,
+                      index=None) -> list[torch.Generator]:
+    """`count` generators on `device`, seeded by draws from `gen`. With
+    `index` (a gather index into the `count` clients) the draws are the
+    same and one NEW generator is made per entry of `index`, seeded as
+    client index[i]'s: a cohort row's stream is the full round's, and a
+    repeated client (bucket padding) gets its own copy of the stream."""
     seeds = torch.randint(0, 2**62, (count,), generator=gen, device=gen.device).tolist()
+    if index is not None:
+        seeds = [seeds[int(i)] for i in index]
     return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
+
+
+def cohort_bucket(cohort_size: int, num_clients: int, n_dev: int = 1) -> int:
+    """Client-slot count a cohort of `cohort_size` trains at, as the JAX
+    package computes it (`hefl_tpu.fl.fedavg.cohort_bucket`): the next power
+    of two, rounded to a multiple of `n_dev`, at least 2 * n_dev when the
+    full registry trains >= 2 slots a device, capped at the full registry.
+    The port runs one device (n_dev = 1), so its buckets — and with them
+    the shape of the fused-encrypt launch (bucket * n_ct rows) — are the
+    JAX package's on one device. An oversized cohort fails loudly."""
+    if cohort_size < 1:
+        raise ValueError(
+            f"cohort_bucket: cohort_size={cohort_size} must be >= 1"
+        )
+    if cohort_size > num_clients:
+        raise ValueError(
+            f"cohort_bucket: cohort of {cohort_size} exceeds the "
+            f"{num_clients} registered clients — the sampler cannot have "
+            "produced this; refusing to train phantom slots"
+        )
+    bucket = 1 << (int(cohort_size) - 1).bit_length()   # next power of two
+    bucket = -(-bucket // n_dev) * n_dev                # mesh-divisible
+    full = -(-num_clients // n_dev) * n_dev             # full-C padded shape
+    if full > n_dev:
+        bucket = max(bucket, 2 * n_dev)
+    return min(bucket, full)
+
+
+def cohort_gather_index(cohort, bucket: int) -> np.ndarray:
+    """Gather index [bucket] into the client rows: the sampled cohort
+    first, then client 0's slot repeated for the bucket padding (padding
+    slots are scheduled out and never fold)."""
+    cohort = np.asarray(cohort, dtype=np.int64)
+    idx = np.zeros(int(bucket), np.int64)
+    idx[: len(cohort)] = cohort
+    return idx
 
 
 def plain_mean(p_out: list[dict]) -> dict:

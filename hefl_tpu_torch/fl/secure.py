@@ -52,6 +52,8 @@ from hefl_tpu_torch.fl.faults import RoundMeta, exclusion_bits, poison_tree
 from hefl_tpu_torch.fl.fedavg import (
     _trivial_mask,
     client_generators,
+    cohort_bucket,
+    cohort_gather_index,
     masked_mean_tree,
     masked_mode,
     participation_mask,
@@ -141,7 +143,7 @@ def client_uploads(
     model, cfg: TrainConfig, ctx: CkksContext, pk: PublicKey, global_params: dict,
     xs: torch.Tensor, ys: torch.Tensor, gen: torch.Generator, packing: PackedSpec | None = None,
     hhe_keys=None, round_index: int = 0, streams=None, dp: DpConfig | None = None,
-    participation=None, poison=None, want_bits: bool = False,
+    participation=None, poison=None, want_bits: bool = False, cohort=None,
 ):
     """The client half of a round, in the JAX package's order: train ->
     DP-sanitize (`dp`, shares calibrated to `calibration_clients`) ->
@@ -158,6 +160,17 @@ def client_uploads(
     generators the direct upload would have, and a round without DP draws
     what it always drew. `participation` (int[C], 0 = scheduled out)
     reaches the fused trainer and the exclusion bits.
+
+    `cohort` (sorted client indices, fewer than C) trains and encrypts only
+    the cohort, as the JAX package's `fl.stream.produce_uploads` does: the
+    cohort's rows (data, mask, poison, symmetric keys) are gathered and
+    padded up to `fedavg.cohort_bucket` with client 0's slot, scheduled out;
+    the per-client generators are drawn at the full count C and then
+    gathered, so a cohort row's training, DP noise and ciphertext are
+    bitwise what the full-C round computes for that client. The outputs
+    are then cohort-rowed ([len(cohort), ...], cohort order); the padding
+    rows are encrypted (the launch keeps the bucket's shape) and dropped.
+
     -> (Ciphertext [C, n_ct, L, N] or the (w_hi, w_lo) word pair,
     metrics float32[C, E, 4], overflow [C], uploaded params, enc_gens,
     exclusion bits int32[C] or None)."""
@@ -173,10 +186,35 @@ def client_uploads(
             "the hybrid-HE upload ships the PACKED quantized update under the "
             "stream cipher; give a PackedSpec"
         )
-    train_gens = client_generators(gen, num_clients, xs.device)
-    enc_gens = client_generators(gen, num_clients, xs.device)
-    dp_gens = client_generators(gen, num_clients, xs.device) if dp is not None else None
+    gidx = None
+    if cohort is not None:
+        cohort = np.asarray(cohort, dtype=np.int64)
+        if len(cohort) > num_clients or (
+                len(cohort) and (int(cohort.min()) < 0 or int(cohort.max()) >= num_clients)):
+            raise ValueError(
+                f"client_uploads: cohort of {len(cohort)} with indices in "
+                f"[{cohort.min() if len(cohort) else 0}, "
+                f"{cohort.max() if len(cohort) else 0}] does not fit the "
+                f"{num_clients} registered clients"
+            )
+        if len(cohort) < num_clients:
+            gidx = cohort_gather_index(cohort, cohort_bucket(len(cohort), num_clients))
+    train_gens = client_generators(gen, num_clients, xs.device, gidx)
+    enc_gens = client_generators(gen, num_clients, xs.device, gidx)
+    dp_gens = client_generators(gen, num_clients, xs.device, gidx) if dp is not None else None
     part = participation_mask(num_clients, participation)
+    rows = num_clients
+    if gidx is not None:
+        rows = len(cohort)
+        part = part[gidx].copy()
+        part[rows:] = 0                    # bucket padding: scheduled out, never ships
+        if poison is not None:
+            poison = np.asarray(poison).astype(np.int32).reshape(num_clients)[gidx].copy()
+            poison[rows:] = 0
+        idx = torch.from_numpy(gidx).to(xs.device)
+        xs, ys = xs.index_select(0, idx), ys.index_select(0, idx)
+        if hhe_keys is not None:
+            hhe_keys = np.asarray(hhe_keys)[gidx]
     p_out, mets = train_block(
         model, cfg, global_params, xs, ys,
         gens=None if streams is not None else train_gens, streams=streams,
@@ -191,7 +229,7 @@ def client_uploads(
     if hhe_keys is not None:
         w_hi, w_lo, overflow = hhe_encrypt_stack(p_out, global_params, hhe_keys, round_index,
                                                  packing)
-        cts = (w_hi, w_lo)
+        cts = (w_hi[:rows], w_lo[:rows])
     elif packing is not None:
         cts, overflow = encrypt_stack_packed(ctx, pk, p_out, global_params, enc_gens, packing)
     else:
@@ -200,6 +238,11 @@ def client_uploads(
         ])
         cts = encrypt_stack(ctx, pk, p_out, enc_gens)
     bits = exclusion_bits(cfg, global_params, p_out, part, overflow) if want_bits else None
+    if gidx is not None:
+        if hhe_keys is None:
+            cts = Ciphertext(c0=cts.c0[:rows], c1=cts.c1[:rows], scale=cts.scale)
+        mets, overflow, p_out, enc_gens = mets[:rows], overflow[:rows], p_out[:rows], enc_gens[:rows]
+        bits = bits[:rows] if bits is not None else None
     return cts, mets, overflow, p_out, enc_gens, bits
 
 

@@ -1,0 +1,306 @@
+"""Durable aggregation server: recover-then-serve around `StreamEngine`.
+
+Counterpart of `hefl_tpu.fl.server` for the flat engine. The
+`StreamEngine` lives inside `run_experiment`'s round loop and dies with
+it; `AggregationServer` is the same engine wrapped in a
+write-ahead-journal lifecycle (fl.journal):
+
+  1. **Recover.** On construction the server opens the journal (torn-tail
+     repair; CRC/chain damage fails loudly), verifies the stream-config
+     echo in the header, and rebuilds the engine's cross-round state —
+     carried uploads (payloads from `carry` records) and the dedup nonce
+     window (from the last `round_close`) — as of the last sealed round.
+     A round left OPEN by the crash is kept as a replay script.
+
+  2. **Serve.** `run_round` mirrors `StreamEngine.run_round` exactly, but
+     threads a `fl.journal.RoundSession` through it. A round the journal
+     already knows (the open round, or a sealed round the driver re-runs
+     because the crash landed between seal and checkpoint) re-executes
+     with the journal as its script: every re-derived transition is
+     VERIFIED against the journaled record, folds re-fold the journal's
+     persisted bytes through the same `OnlineAccumulator`, and the round
+     completes from wherever the records run dry. The recovered round's
+     canonical-sum sha256 is therefore bitwise-equal to an uninterrupted
+     run — checked against the journaled commit record on every replay.
+     Because the dedup window and processed-delivery records survive the
+     restart, a redelivered upload is rejected across the crash and no
+     client's contribution is ever double-folded (nor double-counted by
+     dp accounting: the accountant's round count is unchanged by replay).
+
+  3. **Compact.** After the driver persists a round checkpoint,
+     `compact_to(next_round)` drops journal records the checkpoint makes
+     dead weight (everything before the previous round's carries/close),
+     keeping the file bounded for long-lived service runs.
+
+Observability: `journal.*` counters (appends, bytes, fsyncs, torn-tail
+truncations, compactions) and `recovery.*` counters (replayed records,
+re-folded uploads, resumed/sealed rounds) plus the `recovery.latency_s`
+histogram ride the obs registry into every artifact's metrics snapshot.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+from hefl_tpu_torch.fl import journal as jr
+from hefl_tpu_torch.fl.stream import DedupWindow, PendingUpload, StreamEngine
+from hefl_tpu_torch.obs import events as obs_events
+from hefl_tpu_torch.obs import metrics as obs_metrics
+
+# Recovery-latency histogram bounds (seconds): the journal's scan and
+# state rebuild are host work, so sub-second is the healthy regime.
+_RECOVERY_BUCKETS = (0.1, 0.5, 2.0, 10.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecoveryReport:
+    """What recovery found in the journal (embedded in run_experiment's
+    result and the `journal_recovered` event)."""
+
+    journal_path: str
+    records: int                  # intact records replayed from disk
+    torn_bytes_truncated: int     # bytes of a torn tail removed (0 = clean)
+    sealed_rounds: tuple[int, ...]  # rounds with a round_close on disk
+    open_round: int | None        # round left mid-flight by the crash
+    carried_uploads: int          # pending uploads rebuilt from carries
+    seen_nonces: int              # dedup-window nonces rebuilt
+    fresh_journal: bool           # True = no prior journal existed
+    carried_tier_partials: int = 0  # the hierarchical engine's pending host
+                                    # partials (always 0 on the flat engine)
+
+    def record(self) -> dict:
+        return {
+            "journal_path": self.journal_path,
+            "records": self.records,
+            "torn_bytes_truncated": self.torn_bytes_truncated,
+            "sealed_rounds": list(self.sealed_rounds),
+            "open_round": self.open_round,
+            "carried_uploads": self.carried_uploads,
+            "carried_tier_partials": self.carried_tier_partials,
+            "seen_nonces": self.seen_nonces,
+            "fresh_journal": self.fresh_journal,
+        }
+
+
+def _pending_from_carries(carries: list[dict]) -> list[PendingUpload]:
+    out = []
+    for rec in carries:
+        c0, c1 = jr.ct_from_body(rec["body"], rec["shape"])
+        out.append(PendingUpload(
+            client=int(rec["client"]),
+            origin_round=int(rec["origin_round"]),
+            nonce=tuple(rec["nonce"]),
+            c0=c0, c1=c1,
+            lands_at=float(rec["lands_at"]),
+            lateness=int(rec["lateness"]),
+        ))
+    return out
+
+
+class AggregationServer:
+    """The persistent-process half of the streaming aggregation service.
+
+    Construction IS recovery: the journal at `journal_path` is opened
+    (repairing a torn tail), its history replayed into engine state, and
+    the server is ready to serve the next round — fresh, resumed
+    mid-round, or re-sealing a round the checkpoint missed. `run_round`
+    is signature-compatible with `StreamEngine.run_round`, so the driver
+    swaps one for the other.
+    """
+
+    def __init__(
+        self,
+        stream,
+        faults=None,
+        *,
+        journal_path: str,
+        fsync_policy: str | None = None,
+        crash=None,
+    ):
+        self.engine = StreamEngine(stream, faults)
+        self.crash = crash
+        self.journal_path = journal_path
+        t0 = time.perf_counter()
+        echo = dataclasses.asdict(stream)
+        self.writer, records, torn = jr.open_journal(
+            journal_path, fsync_policy, meta={"stream": echo}
+        )
+        fresh = not records
+        for rec in records:
+            if rec.get("kind") == "journal_open":
+                got = (rec.get("meta") or {}).get("stream")
+                if got is not None and got != echo:
+                    raise jr.JournalError(
+                        f"{journal_path}: journal belongs to a different "
+                        f"stream config ({got!r} != {echo!r}) — recovery "
+                        "across config changes would silently alter round "
+                        "semantics; use a fresh journal path"
+                    )
+                break
+        self._recover(records, torn, fresh)
+        dt = time.perf_counter() - t0
+        if not fresh:
+            # A fresh journal is a cold start, not a recovery: counting it
+            # would make every healthy boot indistinguishable from a
+            # crash-recover cycle on a recovery.count dashboard.
+            obs_metrics.histogram(
+                "recovery.latency_s", bounds=_RECOVERY_BUCKETS
+            ).observe(round(dt, 6))
+            obs_metrics.counter("recovery.count").inc()
+            obs_events.emit(
+                "journal_recovered", seconds=round(dt, 6),
+                **self.recovered.record(),
+            )
+
+    # -- recovery ----------------------------------------------------------
+
+    def _recover(self, records: list[dict], torn: int, fresh: bool) -> None:
+        """Rebuild engine state + per-round replay scripts from the
+        journaled history. A repeated `round_open` for the same round
+        supersedes the earlier attempt (the driver's in-process retry
+        path: the aborted attempt's records are dead)."""
+        by_round: dict[int, list[dict]] = {}
+        for rec in records:
+            kind = rec.get("kind")
+            if kind not in jr.ROUND_KINDS:
+                continue
+            r = int(rec["round"])
+            if kind == "round_open":
+                by_round[r] = [rec]     # supersede any aborted attempt
+            else:
+                by_round.setdefault(r, []).append(rec)
+
+        sealed: list[int] = []
+        open_round = None
+        # Walk rounds in order, tracking the engine state each round
+        # STARTS from (so a sealed round the driver re-runs can be
+        # replayed against its true entry state).
+        state_pending: list[PendingUpload] = []
+        state_seen: set = set()
+        self._pre_state: dict[int, tuple[list, set]] = {}
+        self._replay: dict[int, list[dict]] = {}
+        for r in sorted(by_round):
+            recs = by_round[r]
+            self._pre_state[r] = (list(state_pending), set(state_seen))
+            close = next(
+                (x for x in recs if x["kind"] == "round_close"), None
+            )
+            # Replay-usable only when the round's records start at its
+            # open (compaction keeps a sealed round's carries/close alone
+            # — enough for state, not for re-execution).
+            if recs[0]["kind"] == "round_open":
+                self._replay[r] = recs
+            if close is not None:
+                sealed.append(r)
+                state_pending = _pending_from_carries(
+                    [x for x in recs if x["kind"] == "carry"]
+                )
+                state_seen = {tuple(n) for n in close["seen"]}
+            else:
+                open_round = r
+        self.engine._pending = state_pending
+        self.engine._seen = DedupWindow(state_seen)
+        replayable = sum(len(v) for v in self._replay.values())
+        if not fresh:
+            obs_metrics.counter("recovery.replayed_records").inc(
+                replayable
+            )
+            if open_round is not None:
+                obs_metrics.counter("recovery.resumed_rounds").inc()
+        self.recovered = RecoveryReport(
+            journal_path=self.journal_path,
+            records=len(records),
+            torn_bytes_truncated=torn,
+            sealed_rounds=tuple(sealed),
+            open_round=open_round,
+            carried_uploads=len(state_pending),
+            seen_nonces=len(state_seen),
+            fresh_journal=fresh,
+        )
+
+    def committed_sum_sha(self, round_index: int) -> str | None:
+        """The journaled canonical-sum sha256 of a round's commit record
+        (None when the round degraded or is unknown) — the gate currency
+        of the crash-recovery twins."""
+        for rec in self._replay.get(round_index, ()):
+            if rec["kind"] == "commit":
+                return rec["sum_sha"]
+        return None
+
+    # -- serving -----------------------------------------------------------
+
+    def run_round(self, model, cfg, ctx, pk, params, xs, ys, gen,
+                  round_index, **kw):
+        """One journaled round; signature-compatible with
+        `StreamEngine.run_round`. A round the journal already knows is
+        re-executed against its records (verification + re-fold); a new
+        round runs live with WAL appends (and the configured crash
+        injection, if any)."""
+        r = int(round_index)
+        replay = self._replay.pop(r, None)
+        if replay is not None and r in self._pre_state:
+            pend, seen = self._pre_state[r]
+            self.engine._pending = list(pend)
+            self.engine._seen = DedupWindow(seen)
+        sess = jr.RoundSession(self.writer, crash=self.crash, replay=replay)
+        try:
+            out = self.engine.run_round(
+                model, cfg, ctx, pk, params, xs, ys, gen, r,
+                session=sess, **kw,
+            )
+        except jr.SimulatedCrash:
+            # Abandon the process state the way a SIGKILL would: only the
+            # journal survives. (The handle is closed so a same-process
+            # recovery — the tests' harness — reopens cleanly.)
+            self.writer.close()
+            raise
+        if replay is not None:
+            obs_metrics.counter("recovery.refolded_uploads").inc(
+                sess.replayed_folds
+            )
+            obs_metrics.counter("recovery.rounds_replayed").inc()
+            tracer = self.engine.last_spans
+            if tracer is not None:
+                # The replay marker (== recovery.rounds_replayed), wall
+                # clock: its presence is exactly what `tree_signature`
+                # ignores when a replayed round is compared against its
+                # uninterrupted twin.
+                tracer.add(
+                    "recovery_replay", 0.0, tracer.wall(), clock="wall",
+                    records=len(replay), refolded=int(sess.replayed_folds),
+                )
+        return out
+
+    def compact_to(self, round_index: int) -> tuple[int, int]:
+        """Drop journal records a round checkpoint has made dead weight:
+        keep rounds >= round_index plus round_index-1's carries/close.
+        Call after `save_checkpoint(..., round_index, ...)`.
+
+        The reopen re-scans the compacted file before trusting it — a
+        deliberate verify-after-write (CRC + chain over every surviving
+        frame) so a compaction that wrote damage is caught HERE, while
+        the pre-compaction history is still reconstructible from the
+        checkpoint, not at the next crash's recovery."""
+        self.writer.close()
+        kept, dropped = jr.compact(
+            self.journal_path, int(round_index), self.writer.fsync_policy
+        )
+        self.writer, _, _ = jr.open_journal(
+            self.journal_path, self.writer.fsync_policy
+        )
+        return kept, dropped
+
+    def close(self) -> None:
+        self.writer.close()
+
+    def report(self) -> dict:
+        """JSON-ready server record for run_experiment's result."""
+        return {
+            "journal_path": self.journal_path,
+            "fsync_policy": self.writer.fsync_policy,
+            "recovered": self.recovered.record(),
+        }
+
+
+__all__ = ["AggregationServer", "RecoveryReport"]

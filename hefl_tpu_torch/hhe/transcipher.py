@@ -13,11 +13,14 @@ fused transcipher kernel K7 over every (upload row, prime), on the CPU the
 plain version. `provision_pads` is one fused-encrypt launch (K3) over every
 client's pad rows. The server's whole view is symmetric ciphertexts plus
 CKKS ciphertexts; the authority derives each client's pad from its wrapped
-master key.
+master key. `retranscipher_decode` is journal replay's half: one persisted
+symmetric upload re-transciphered against its re-derived pad (one K7
+launch at [n_ct, L, N] on CUDA), bitwise the live fold's residues.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from hefl_tpu_torch.ckks import cuda_ntt, encoding, ops
@@ -72,3 +75,19 @@ def transcipher_batch(
         Ciphertext(c0=c0, c1=c1, scale=spec.guard_scale),
         Ciphertext(c0=pad.c0, c1=pad.c1, scale=spec.guard_scale),
     )
+
+
+def retranscipher_decode(ctx: CkksContext, w_hi, w_lo, pad_c0, pad_c1):
+    """Journal replay's decode: one upload's symmetric words (host uint32 or
+    int32 [n_ct, N], as the journal body holds them, or tensors) and its
+    pad residues int32[n_ct, L, N] -> (c0, c1) on the pads' device, through
+    `transcipher_core` (K7 on CUDA, its plain version on the CPU)."""
+    dev = pad_c0.device
+
+    def words(w):
+        if not isinstance(w, torch.Tensor):
+            w = torch.from_numpy(np.ascontiguousarray(np.asarray(w).astype(np.int32)))
+        return w.to(device=dev, dtype=torch.int32).contiguous()
+
+    return transcipher_core(ctx, words(w_hi), words(w_lo), pad_c0.contiguous(),
+                            pad_c1.contiguous())

@@ -1,0 +1,320 @@
+"""Structured run events: one JSONL file per experiment run.
+
+Counterpart of `hefl_tpu.obs.events`, line for line: every noteworthy
+runtime occurrence is one JSON line in `events.jsonl` (written next to the
+checkpoint by default), so a gate or a post-mortem can query "how many
+clients were excluded, and why" instead of grepping stdout. A file written
+here reads through `hefl_tpu.obs.events.read_events` and back.
+
+One event = one line:
+
+    {"ts": <unix seconds>, "event": "<kind>", ...fields}
+
+Event kinds emitted by the current producers (fields beyond ts/event):
+
+    experiment_start   model, dataset, num_clients, rounds, encrypted, faults
+    round_phase        round, phase, seconds            (one per timed phase)
+    round_end          round, accuracy, f1, surviving
+    round_robust       round, participation, surviving, excluded{cause: n},
+                       sanitized                        (masked rounds only)
+    round_retry        round, attempt, error, backoff_s
+    checkpoint_resume  round, path
+    checkpoint_save    round, path
+    stream_round       round, the StreamRoundMeta record
+    quorum_wait        round, seconds, quorum, fresh, committed
+    span               one per recorded span (obs.spans)
+    journal_*          recovered / torn_tail / compacted (fl.journal)
+    experiment_end     rounds, device_peak_bytes, metrics{...snapshot}
+
+The writer is process-global (`configure` + module-level `emit`) so deep
+producers (fl.faults, fl.stream, fl.journal) need no plumbing;
+`HEFL_EVENTS=0` disables every write without code changes (the test suite
+and short CLI runs set it). Appending is line-buffered append
+— a crashed run keeps every line emitted before the crash, and a crash
+MID-append (a torn final line with no trailing newline) is repaired on
+reopen: the torn line is truncated and a `torn_tail_recovered` event
+records the removal, so `read_events(strict=True)` stays loud about real
+corruption without being poisoned forever by one killed write.
+
+The file is SIZE-CAPPED: when an emit would push it past
+`HEFL_EVENTS_MAX_BYTES` (default 64 MiB; 0 disables the cap) the current
+file rotates to `<path>.1` (replacing any previous rotation) and a fresh
+file starts with its own `log_open` header carrying `rotated_from` — so a
+multi-day aggregation-service run keeps a bounded recent window plus one
+generation of history instead of an unbounded append. Gates that read the
+CURRENT file see a parseable log either way (`read_events` never needs
+the rotated half).
+
+Rotated generations can be SHIPPED: `on_rotation(callback)` registers a
+hook invoked with the rotated file's path right after each rotation
+(the fresh generation is already open, so a hook may itself emit; the
+rotated file is guaranteed to exist until the NEXT rotation replaces
+it), so a long-lived service run can upload/archive `<path>.1` instead
+of silently orphaning it. Default is no hooks (pure local rotation); a
+hook that raises is swallowed with a one-line stderr warning — telemetry
+shipping must never take down the training loop.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, IO
+
+SCHEMA_VERSION = 1
+
+# Fields every line carries; gates can demand them without knowing kinds.
+REQUIRED_FIELDS = ("ts", "event")
+
+# Rotation-shipper hooks: callables invoked with the rotated generation's
+# path (`<path>.1`) right after each rotation. Process-global, like the
+# writer itself, so deep producers and the driver share one registry.
+_ROTATION_HOOKS: list = []
+
+
+def on_rotation(callback):
+    """Register a shipper hook `callback(rotated_path: str) -> None` for
+    rotated events.jsonl generations (idempotent per callable). Returns
+    the callback so it can be used as a decorator."""
+    if callback not in _ROTATION_HOOKS:
+        _ROTATION_HOOKS.append(callback)
+    return callback
+
+
+def remove_rotation_hook(callback) -> bool:
+    """Unregister a shipper hook; True if it was registered."""
+    try:
+        _ROTATION_HOOKS.remove(callback)
+        return True
+    except ValueError:
+        return False
+
+
+def _fire_rotation_hooks(rotated_path: str) -> None:
+    for cb in list(_ROTATION_HOOKS):
+        try:
+            cb(rotated_path)
+        except Exception as e:  # never raise into the training loop
+            import sys
+
+            print(
+                f"events: rotation hook {cb!r} failed: {e!r}",
+                file=sys.stderr,
+            )
+
+
+def enabled() -> bool:
+    """The HEFL_EVENTS=0 kill switch (checked per emit, so a test can flip
+    it with monkeypatch.setenv and never touch producer code)."""
+    return os.environ.get("HEFL_EVENTS", "1") != "0"
+
+
+DEFAULT_MAX_BYTES = 64 * 1024 * 1024
+
+
+def max_bytes() -> int:
+    """Rotation threshold (HEFL_EVENTS_MAX_BYTES; 0 = never rotate).
+    Checked per emit, like `enabled`, so tests set tiny caps via env."""
+    try:
+        return int(os.environ.get("HEFL_EVENTS_MAX_BYTES", DEFAULT_MAX_BYTES))
+    except ValueError:
+        return DEFAULT_MAX_BYTES
+
+
+def _jsonable(obj: Any):
+    """numpy scalars/arrays -> python; anything else stringified (an event
+    writer must never raise into the training loop)."""
+    if hasattr(obj, "tolist"):
+        return obj.tolist()
+    if hasattr(obj, "item"):
+        return obj.item()
+    return str(obj)
+
+
+def _repair_torn_tail(path: str) -> int:
+    """Truncate a torn final line (no trailing newline) left by a crashed
+    writer mid-append. Every complete emit is one `\\n`-terminated line,
+    so a file not ending in `\\n` can only be a torn write; truncating
+    back to the last newline restores a strictly-parseable log instead of
+    poisoning `read_events(strict=True)` forever. -> bytes removed."""
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        return 0
+    if size == 0:
+        return 0
+    with open(path, "rb") as f:
+        f.seek(size - 1)
+        if f.read(1) == b"\n":
+            return 0
+        # Scan backwards for the last newline (a torn line can exceed any
+        # fixed tail-chunk size, so walk in blocks).
+        keep = 0
+        pos = size - 1
+        block = 65536
+        while pos > 0:
+            start = max(0, pos - block)
+            f.seek(start)
+            chunk = f.read(pos - start)
+            nl = chunk.rfind(b"\n")
+            if nl >= 0:
+                keep = start + nl + 1
+                break
+            pos = start
+    os.truncate(path, keep)
+    return size - keep
+
+
+class EventLog:
+    """Append-only JSONL writer. Opens lazily on first emit; one instance
+    per run file (use `configure` for the process-global log). Reopening a
+    file a crashed process left mid-append truncates the torn final line
+    and records a `torn_tail_recovered` event."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._f: IO[str] | None = None
+        self._bytes = 0           # current file size (tracked, not stat'd)
+
+    def _open(self, rotated_from: str | None = None) -> None:
+        d = os.path.dirname(self.path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        torn = _repair_torn_tail(self.path)
+        self._f = open(self.path, "a", buffering=1)
+        self._bytes = os.path.getsize(self.path)
+        if self._bytes == 0:
+            header = {
+                "ts": round(time.time(), 6),
+                "event": "log_open",
+                "schema_version": SCHEMA_VERSION,
+                "pid": os.getpid(),
+            }
+            if rotated_from:
+                header["rotated_from"] = rotated_from
+            line = json.dumps(header) + "\n"
+            self._f.write(line)
+            self._bytes += len(line)
+        if torn:
+            line = json.dumps({
+                "ts": round(time.time(), 6),
+                "event": "torn_tail_recovered",
+                "truncated_bytes": torn,
+            }) + "\n"
+            self._f.write(line)
+            self._bytes += len(line)
+
+    def _rotate(self) -> None:
+        """Move the full file aside to `<path>.1` (one generation kept) and
+        start fresh — bounded disk for multi-day runs, see module doc."""
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+        rotated = self.path + ".1"
+        try:
+            os.replace(self.path, rotated)
+        except OSError:
+            rotated = None
+        self._open(rotated_from=rotated)
+        if rotated:
+            # Shipper hooks run AFTER the fresh generation opens (the
+            # rotated file still exists — os.replace is done): a hook
+            # that itself emits an event must find a healthy open log,
+            # not re-enter a half-finished rotation (which would leak the
+            # handle and overwrite the rotated_from header).
+            _fire_rotation_hooks(rotated)
+
+    def emit(self, event: str, **fields: Any) -> dict:
+        rec = {"ts": round(time.time(), 6), "event": event, **fields}
+        if self._f is None:
+            self._open()
+        line = json.dumps(rec, default=_jsonable) + "\n"
+        cap = max_bytes()
+        if cap and self._bytes and self._bytes + len(line) > cap:
+            self._rotate()
+        self._f.write(line)
+        self._bytes += len(line)
+        return rec
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+
+
+# --------------------------------------------------------------------------
+# Process-global log: deep producers emit without plumbing a handle.
+# --------------------------------------------------------------------------
+
+_LOG: EventLog | None = None
+
+
+def configure(path: str | None) -> EventLog | None:
+    """Point the process-global log at `path` (None/"" disables). Returns
+    the new log. The previous log, if any, is closed."""
+    global _LOG
+    if _LOG is not None:
+        _LOG.close()
+    _LOG = EventLog(path) if path else None
+    return _LOG
+
+
+def current_path() -> str | None:
+    return _LOG.path if _LOG is not None else None
+
+
+def emit(event: str, **fields: Any) -> dict | None:
+    """Emit to the process-global log; silently a no-op when no log is
+    configured or HEFL_EVENTS=0. Never raises into the caller."""
+    if _LOG is None or not enabled():
+        return None
+    try:
+        return _LOG.emit(event, **fields)
+    except OSError:
+        return None
+
+
+def default_events_path(checkpoint_path: str | None) -> str:
+    """Where events.jsonl lives by default: next to the checkpoint when the
+    run has one (the 'durable artifacts of this run' directory), else the
+    working directory."""
+    if checkpoint_path:
+        return os.path.join(os.path.dirname(checkpoint_path) or ".", "events.jsonl")
+    return "events.jsonl"
+
+
+def read_events(path: str, strict: bool = True) -> list[dict]:
+    """Parse an events.jsonl back into records (the gate/test-side half).
+
+    strict=True raises ValueError on any malformed line or any line missing
+    the required fields — a truncated or hand-edited log must fail the CI
+    gate loudly, not quietly shrink its counters.
+    """
+    out: list[dict] = []
+    with open(path) as f:
+        for i, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError as e:
+                if strict:
+                    raise ValueError(f"{path}:{i}: malformed event line: {e}") from e
+                continue
+            if not isinstance(rec, dict):
+                # Valid JSON but not an event object (e.g. a bare number
+                # from a torn write): same failure class as malformed.
+                if strict:
+                    raise ValueError(
+                        f"{path}:{i}: event line is not an object: {rec!r}"
+                    )
+                continue
+            if strict and not all(k in rec for k in REQUIRED_FIELDS):
+                raise ValueError(
+                    f"{path}:{i}: event line missing required fields "
+                    f"{REQUIRED_FIELDS}: {rec}"
+                )
+            out.append(rec)
+    return out

@@ -1,0 +1,307 @@
+"""Process-wide counter/gauge/histogram registry.
+
+Counterpart of `hefl_tpu.obs.metrics`, with the same names, bucket labels
+and snapshot JSON, so an artifact's `metrics` keys read the same in both
+packages. The numeric companion to `obs.events`: events answer "what
+happened, when"; this registry answers "how many, how much, right now" —
+per-round phase seconds, client exclusions by cause, retry attempts,
+checkpoint resumes, the streaming engine's arrival counters, the journal's
+appends and fsyncs, the device-memory high-water mark. Every driver embeds
+`snapshot_delta()` in its result so the counters are queryable evidence,
+not process-local trivia.
+
+Names are dotted strings ("exclusions.nonfinite", "stream.folds"). The
+registry is deliberately flat and dependency-free — no labels, no
+exposition format — because the consumers are JSON artifacts and tests.
+
+The JAX package's `install_jax_listeners` (XLA's new-executable count)
+has no counterpart: nothing here compiles per call. `record_device_memory`
+reads `torch.cuda.max_memory_allocated` on a CUDA device and returns None
+on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Any
+
+
+class Counter:
+    """Monotonic count. inc() only; value survives snapshot()."""
+
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value: float = 0
+
+    def inc(self, n: float = 1) -> None:
+        self.value += n
+
+
+class Gauge:
+    """Last-written value, with a high-water helper for peaks."""
+
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value: float | None = None
+
+    def set(self, v: float) -> None:
+        self.value = v
+
+    def max(self, v: float) -> None:
+        self.value = v if self.value is None else max(self.value, v)
+
+
+DEFAULT_HISTOGRAM_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0)
+
+# First-N exact sample reservoir per histogram: below this many
+# observations `quantile` is EXACT (linear interpolation over the kept
+# samples); past it, estimation falls back to the cumulative buckets.
+# Deterministic (first N, no sampling) so tests and replayed rounds see
+# identical percentiles.
+RESERVOIR_SIZE = 512
+
+
+def exact_percentile(xs, q: float) -> float:
+    """The q-th percentile (q in [0, 100]) of a sample list by linear
+    interpolation — the ONE percentile implementation the load harness
+    and the histogram small-N path share (`fl/load.py::_pctl` delegates
+    here). Empty input -> 0.0."""
+    xs = sorted(float(v) for v in xs)
+    if not xs:
+        return 0.0
+    if len(xs) == 1:
+        return xs[0]
+    pos = (float(q) / 100.0) * (len(xs) - 1)
+    lo = max(0, min(len(xs) - 1, int(pos)))
+    hi = min(len(xs) - 1, lo + 1)
+    frac = pos - lo
+    return xs[lo] * (1.0 - frac) + xs[hi] * frac
+
+
+class Histogram:
+    """Cumulative bucket counts over fixed upper bounds (plus +inf).
+
+    The distribution companion to Counter/Gauge — e.g. the streaming
+    engine's staleness histogram ("how many rounds late was each folded
+    upload"). `observe(v)` increments every bucket whose bound is >= v
+    (Prometheus-style cumulative buckets), so `value` is JSON-ready:
+    {"le_1": n, ..., "le_inf": n, "count": n, "sum": s}.
+
+    `quantile(q)` (q in [0, 1]) is exact while the first-N reservoir
+    still covers every observation, and cumulative-bucket interpolation
+    (Prometheus `histogram_quantile` style: error bounded by the bucket
+    width the quantile lands in) beyond it.
+    """
+
+    __slots__ = ("bounds", "counts", "count", "sum", "samples")
+
+    def __init__(self, bounds: tuple = DEFAULT_HISTOGRAM_BUCKETS) -> None:
+        self.bounds = tuple(float(b) for b in bounds)
+        self.counts = [0] * (len(self.bounds) + 1)   # + the inf bucket
+        self.count = 0
+        self.sum: float = 0.0
+        self.samples: list[float] = []   # first-N exact reservoir
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        self.count += 1
+        self.sum += v
+        if len(self.samples) < RESERVOIR_SIZE:
+            self.samples.append(v)
+        for i, b in enumerate(self.bounds):
+            if v <= b:
+                self.counts[i] += 1
+        self.counts[-1] += 1
+
+    def quantile(self, q: float) -> float:
+        """The q-th quantile (q in [0, 1]) of everything observed.
+        Exact (reservoir) while count <= RESERVOIR_SIZE; bucket
+        interpolation past it. Empty histogram -> 0.0."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile q={q}: must be in [0, 1]")
+        if self.count == 0:
+            return 0.0
+        if self.count <= len(self.samples):
+            return exact_percentile(self.samples, q * 100.0)
+        return self._bucket_quantile(
+            q, self.bounds, self.counts, self.count, self.sum
+        )
+
+    @staticmethod
+    def _bucket_quantile(q, bounds, counts, count, total) -> float:
+        """Cumulative-bucket estimation: find the first bucket whose
+        cumulative count reaches rank ceil(q*count) and interpolate
+        linearly inside it (Prometheus histogram_quantile). A rank in
+        the +inf bucket clamps to max(highest bound, mean) — the same
+        bounded lie Prometheus reports rather than an unbounded guess."""
+        rank = max(1, math.ceil(q * count))
+        prev_b, prev_c = None, 0
+        for i, b in enumerate(bounds):
+            c = counts[i]
+            if c >= rank:
+                lo = prev_b if prev_b is not None else min(0.0, b)
+                inb = c - prev_c
+                if inb <= 0:
+                    return b
+                return lo + (b - lo) * (rank - prev_c) / inb
+            prev_b, prev_c = b, c
+        top = bounds[-1] if bounds else 0.0
+        return max(top, total / count)
+
+    @staticmethod
+    def quantile_of(value: dict, q: float) -> float:
+        """`quantile` over a snapshot()/snapshot_delta()-shaped histogram
+        dict ({"le_X": n, ..., "le_inf": n, "count": n, "sum": s}) — the
+        per-run view: a delta dict carries no reservoir, so this is
+        always the bucket estimate. Empty/zero-count dict -> 0.0."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile q={q}: must be in [0, 1]")
+        count = int(value.get("count", 0) or 0)
+        if count <= 0:
+            return 0.0
+        pairs = []
+        for k, v in value.items():
+            if k.startswith("le_") and k != "le_inf":
+                pairs.append((float(k[3:]), int(v or 0)))
+        pairs.sort()
+        bounds = tuple(b for b, _ in pairs)
+        counts = [c for _, c in pairs] + [count]
+        return Histogram._bucket_quantile(
+            q, bounds, counts, count, float(value.get("sum", 0.0) or 0.0)
+        )
+
+    @staticmethod
+    def _label(b: float) -> str:
+        return f"le_{int(b)}" if float(b).is_integer() else f"le_{b}"
+
+    @property
+    def value(self) -> dict:
+        out = {self._label(b): self.counts[i] for i, b in enumerate(self.bounds)}
+        out["le_inf"] = self.counts[-1]
+        out["count"] = self.count
+        out["sum"] = round(self.sum, 6)
+        return out
+
+    def delta(self, baseline: dict | None) -> dict:
+        """This histogram minus a snapshot()-shaped baseline (per-run view,
+        same contract as Counter deltas in `snapshot_delta`)."""
+        cur = self.value
+        if not isinstance(baseline, dict):
+            return cur
+        return {
+            k: (
+                round(v - (baseline.get(k) or 0), 6)
+                if isinstance(v, (int, float))
+                else v
+            )
+            for k, v in cur.items()
+        }
+
+
+class MetricsRegistry:
+    """Thread-safe name -> metric map. Metrics are created on first use so
+    producers never need registration order."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._metrics: dict[str, Counter | Gauge] = {}
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = Counter()
+            elif not isinstance(m, Counter):
+                raise TypeError(f"metric {name!r} already registered as gauge")
+            return m
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = Gauge()
+            elif not isinstance(m, Gauge):
+                raise TypeError(f"metric {name!r} already registered as counter")
+            return m
+
+    def histogram(self, name: str, bounds: tuple | None = None) -> Histogram:
+        """bounds=None fetches-or-creates with the default buckets;
+        explicit bounds that CONFLICT with an existing registration raise
+        (silently bucketing under bounds a producer never asked for is
+        the same failure class as a type collision)."""
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = Histogram(
+                    DEFAULT_HISTOGRAM_BUCKETS if bounds is None else bounds
+                )
+            elif not isinstance(m, Histogram):
+                raise TypeError(
+                    f"metric {name!r} already registered as "
+                    f"{type(m).__name__.lower()}"
+                )
+            elif bounds is not None and m.bounds != tuple(
+                float(b) for b in bounds
+            ):
+                raise ValueError(
+                    f"histogram {name!r} already registered with bounds "
+                    f"{m.bounds}, conflicting with {tuple(bounds)}"
+                )
+            return m
+
+    def snapshot(self) -> dict[str, Any]:
+        """JSON-ready {name: value}; the record artifacts embed."""
+        with self._lock:
+            return {k: m.value for k, m in sorted(self._metrics.items())}
+
+    def snapshot_delta(self, baseline: dict[str, Any]) -> dict[str, Any]:
+        """Per-run view of a process-global registry: counters report the
+        increase since `baseline` (a snapshot() taken at run start), gauges
+        report their current value. Without this, the second experiment in
+        one process (e.g. the chaos gate's clean twin + faulted run) would
+        fold every earlier run into its own 'per-run' counters."""
+        with self._lock:
+            return {
+                k: (
+                    m.value - (baseline.get(k) or 0)
+                    if isinstance(m, Counter)
+                    else m.delta(baseline.get(k))
+                    if isinstance(m, Histogram)
+                    else m.value
+                )
+                for k, m in sorted(self._metrics.items())
+            }
+
+    def reset(self) -> None:
+        """Drop every metric (tests only — production never resets)."""
+        with self._lock:
+            self._metrics.clear()
+
+
+REGISTRY = MetricsRegistry()
+
+# Module-level conveniences: the spelling every producer uses.
+counter = REGISTRY.counter
+gauge = REGISTRY.gauge
+histogram = REGISTRY.histogram
+snapshot = REGISTRY.snapshot
+snapshot_delta = REGISTRY.snapshot_delta
+reset = REGISTRY.reset
+
+
+def record_device_memory(device: Any = None) -> int | None:
+    """Fold the device's peak allocation into the
+    `device.peak_bytes_in_use` high-water gauge. Returns the peak, or None
+    on a device with no allocator statistics (the CPU) — the gauge then
+    stays unset rather than lying with a 0."""
+    import torch
+
+    dev = torch.device(device) if device is not None else None
+    if dev is None or dev.type != "cuda":
+        return None
+    peak = int(torch.cuda.max_memory_allocated(dev))
+    gauge("device.peak_bytes_in_use").max(peak)
+    return peak

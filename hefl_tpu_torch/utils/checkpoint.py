@@ -27,7 +27,7 @@ import torch
 from hefl_tpu_torch import convert
 
 
-def _npz_path(path: str) -> str:
+def npz_path(path: str) -> str:
     """np.savez appends '.npz' to extensionless paths on write; normalize so
     save and load agree on the filename either way."""
     return path if path.endswith(".npz") else path + ".npz"
@@ -42,7 +42,7 @@ class CheckpointError(RuntimeError):
 def _read_npz(path: str) -> dict[str, np.ndarray]:
     """Every array of an npz, read eagerly; unreadable archives raise
     CheckpointError, a missing file stays FileNotFoundError."""
-    target = _npz_path(path)
+    target = npz_path(path)
     try:
         with np.load(target) as z:
             return {k: z[k] for k in z.files}
@@ -98,7 +98,7 @@ def _restore_into(template: dict[str, torch.Tensor], arrays: dict[str, np.ndarra
 def _atomic_savez(path: str, **arrays) -> None:
     """npz write via tmp + rename: a kill mid-write never leaves a truncated
     file for the next resume."""
-    target = _npz_path(path)
+    target = npz_path(path)
     tmp = target + ".tmp.npz"
     np.savez_compressed(tmp, **arrays)
     os.replace(tmp, target)
@@ -120,7 +120,7 @@ def _parse_header(path: str, arrays: dict[str, np.ndarray]) -> dict:
         return json.loads(bytes(arrays["header"]).decode())
     except (KeyError, ValueError, UnicodeDecodeError) as e:
         raise CheckpointError(
-            f"checkpoint {_npz_path(path)!r} has a missing/unreadable "
+            f"checkpoint {npz_path(path)!r} has a missing/unreadable "
             f"header ({e}) — the file is damaged or not a checkpoint"
         ) from e
 
@@ -149,21 +149,21 @@ def load_checkpoint(path: str, template: dict[str, torch.Tensor]):
     header = _parse_header(path, z)
     if "rng_key" in z and "rng_state" not in z:
         raise ValueError(
-            f"checkpoint {_npz_path(path)!r} is a hefl_tpu (JAX) round checkpoint: "
+            f"checkpoint {npz_path(path)!r} is a hefl_tpu (JAX) round checkpoint: "
             "its rng_key is a jax.random key, and jax.random streams cannot be "
             "reproduced in torch, so the run cannot resume from it; load its "
             "weights with load_params instead"
         )
     if "rng_state" not in z or "round" not in header:
         raise CheckpointError(
-            f"checkpoint {_npz_path(path)!r} is missing its rng_state/round "
+            f"checkpoint {npz_path(path)!r} is missing its rng_state/round "
             "record — not a round checkpoint (or damaged)"
         )
     want = header.get("sha256")
     got = _content_sha256({k: v for k, v in z.items() if k != "header"})
     if want != got:
         raise CheckpointError(
-            f"checkpoint {_npz_path(path)!r} content hash mismatch "
+            f"checkpoint {npz_path(path)!r} content hash mismatch "
             f"(header {str(want)[:12]}..., arrays {got[:12]}...) — the payload "
             "was altered after the write; resume must not proceed from it"
         )

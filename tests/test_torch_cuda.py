@@ -591,3 +591,68 @@ def test_masked_he_half_on_card_equals_cpu(cuda_device):
     for k, v in got["avg"].items():
         mean = torch.stack([c[k] for c in want["kept"]]).mean(0)
         assert (v.cpu() - mean).abs().max().item() <= 5e-6
+
+
+@pytest.mark.cuda
+def test_encrypt_and_transcipher_at_the_streaming_shapes_on_card(cuda_device):
+    # K3 at [220, 3, 4096] (a medical-8 cohort of 4 trains fedavg.cohort_bucket
+    # = 4 slots x 55 ciphertexts) and K7 at [294, 3, 256] (journal replay
+    # re-transciphers one hhe-smoke upload at a time), each bitwise against
+    # its plain version, one launch counted at its shape.
+    ctx = _ctx(4096)
+    m, u, e0, e1 = (_res(ctx, (220, 3, 4096), 80 + i, cuda_device) for i in range(4))
+    b, a = (_res(ctx, (3, 4096), 84 + i, cuda_device) for i in range(2))
+    small = _ctx(256)
+    w_hi, w_lo, pad0, pad1 = _k7_inputs(small, 294, 882, cuda_device)
+    cuda_ntt.reset_launch_counts()
+    got = cuda_ntt.encrypt_fused(ctx, m, u, e0, e1, b, a)
+    got7 = cuda_ntt.transcipher_fused(small, w_hi, w_lo, pad0, pad1)
+    torch.cuda.synchronize(cuda_device)
+    for g, w in zip(got + got7, cuda_ntt.encrypt_fused_plain(ctx, m, u, e0, e1, b, a)
+                    + cuda_ntt.transcipher_fused_plain(small, w_hi, w_lo, pad0, pad1)):
+        assert torch.equal(g, w)
+    assert cuda_ntt.launch_rows() == {("encrypt_fused", 660, 4096): 1,
+                                      ("transcipher_fused", 882, 256): 1}
+
+
+@pytest.mark.cuda
+def test_journaled_crash_recovery_at_n256_is_bitwise_on_card(cuda_device, tmp_path):
+    # A journaled streaming run (tau = 1, stragglers carried, a duplicate),
+    # its twin crashed mid-append at round 1's 2nd fold, then recovered from
+    # the journal alone: the commit sum_sha chain and the final parameters
+    # bitwise the uninterrupted run's, on the card (deterministic kernels).
+    import dataclasses
+
+    from hefl_tpu_torch import experiment
+    from hefl_tpu_torch.fl import journal
+    from hefl_tpu_torch.fl.config import StreamConfig, TrainConfig
+    from hefl_tpu_torch.fl.faults import CrashConfig, FaultConfig, SimulatedCrash
+
+    cfg = experiment.ExperimentConfig(
+        model="smallcnn", dataset="mnist", num_clients=4, rounds=2, n_train=64, n_test=16,
+        seed=3, events_path="", he=experiment.HEConfig(n=256),
+        train=TrainConfig(epochs=1, batch_size=8, num_classes=10, augment=False,
+                          val_fraction=0.25),
+        stream=StreamConfig(quorum=0.75, deadline_s=1.0, staleness_rounds=1),
+        faults=FaultConfig(seed=3, straggler_fraction=0.25, straggler_delay_s=1.5,
+                           arrival_delay_s=1.0, duplicate_clients=1))
+    twin = experiment.run_experiment(
+        dataclasses.replace(cfg, journal_path=str(tmp_path / "twin.wal")),
+        verbose=False, device=cuda_device)
+    crash = dataclasses.replace(
+        cfg, journal_path=str(tmp_path / "crash.wal"),
+        crash=CrashConfig(round=1, at="mid_append", after_folds=2))
+    with pytest.raises(SimulatedCrash):
+        experiment.run_experiment(crash, verbose=False, device=cuda_device)
+    out = experiment.run_experiment(dataclasses.replace(crash, crash=None),
+                                    verbose=False, device=cuda_device)
+    assert out["journal"]["recovered"]["torn_bytes_truncated"] == 24
+
+    def chain(path):
+        return {r["round"]: r["sum_sha"] for r in journal.read_journal(path)
+                if r["kind"] == "commit"}
+
+    assert chain(tmp_path / "crash.wal") == chain(tmp_path / "twin.wal") and len(
+        chain(tmp_path / "twin.wal")) == 2
+    for k, v in twin["params"].items():
+        assert torch.equal(out["params"][k], v), k

@@ -645,13 +645,13 @@ def test_chaos_smoke_rounds_equal_the_committed_gate():
 
 
 REFUSED = [
-    # DP and fault schedules run on the synchronous rounds; the streaming
-    # engine's dp floor and arrival faults are M12's.
-    ("dp", dict(dp=DpConfig(), stream=experiment.StreamConfig())),
-    ("faults", dict(faults=FaultConfig(drop_fraction=0.5), stream=experiment.StreamConfig())),
-    ("journal_path", dict(journal_path="j.wal", stream=experiment.StreamConfig())),
-    ("span_trace_path", dict(span_trace_path="t.json")),
-    ("events_path", dict(events_path="e.jsonl")),
+    # The hierarchical fold, its link faults and error feedback are the
+    # next slices' (ROADMAP Queue 1).
+    ("num_hosts", dict(stream=experiment.StreamConfig(num_hosts=2))),
+    ("link_loss_hosts", dict(faults=FaultConfig(num_hosts=2, link_loss_hosts=1),
+                             stream=experiment.StreamConfig())),
+    ("error_feedback", dict(packing=experiment.PackingConfig(bits=4, error_feedback=True),
+                            stream=experiment.StreamConfig())),
     ("data_dir", dict(data_dir="images")),
     ("exact_final_decode", dict(exact_final_decode=True)),
     ("profile_dir", dict(profile_dir="prof")),
@@ -669,7 +669,11 @@ def test_unported_fields_are_refused_by_name(field, kw):
     dict(encrypted=False, packing=experiment.PackingConfig(bits=8)),
     dict(centralized=True, stream=experiment.StreamConfig()),
     dict(hhe=experiment.HheConfig()),
-], ids=["packing_plaintext", "stream_centralized", "hhe_without_stream"])
+    dict(dp=DpConfig(), stream=experiment.StreamConfig(staleness_rounds=1)),
+    dict(journal_path="j.wal"),
+    dict(crash=experiment.CrashConfig(), stream=experiment.StreamConfig()),
+], ids=["packing_plaintext", "stream_centralized", "hhe_without_stream", "dp_staleness",
+        "journal_without_stream", "crash_without_journal"])
 def test_config_checks_are_the_jax_drivers(kw):
     jkw = {k: _jtype(k)(**dataclasses.asdict(v)) if dataclasses.is_dataclass(v) else v
            for k, v in kw.items()}
@@ -683,7 +687,10 @@ def test_config_checks_are_the_jax_drivers(kw):
 def _jtype(field):
     from hefl_tpu import fl
 
-    return {"packing": fl.PackingConfig, "stream": fl.StreamConfig, "hhe": fl.HheConfig}[field]
+    from hefl_tpu.fl import dp, faults
+
+    return {"packing": fl.PackingConfig, "stream": fl.StreamConfig, "hhe": fl.HheConfig,
+            "dp": dp.DpConfig, "crash": faults.CrashConfig}[field]
 
 
 # --- the CLI -------------------------------------------------------------------------
@@ -702,11 +709,19 @@ ARGV = [
      "--drop-fraction", "0.25", "--nan-clients", "1", "--huge-clients", "1",
      "--straggler-delay", "0.2", "--fail-rounds", "1,3", "--fault-seed", "7"],
     ["--straggler-delay", "0.5", "--on-overflow", "raise"],
+    ["--num-clients", "8", "--cohort-size", "6", "--quorum", "0.375", "--deadline", "2",
+     "--stream-retries", "1", "--stream-backoff", "0.5", "--stream-seed", "3", "--staleness", "1",
+     "--full-cohort-train", "--arrival-delay", "0.5", "--duplicate-clients", "1",
+     "--transient-clients", "1", "--permanent-clients", "1", "--serve", "--journal-path",
+     "j.wal", "--fsync-policy", "always", "--crash-round", "1", "--crash-at", "mid_append",
+     "--crash-after-folds", "2", "--events", "e.jsonl", "--span-trace", "s.json.gz"],
+    ["--stream", "--no-events", "--dp-noise", "1.0"],
 ]
 
 
 @pytest.mark.parametrize("argv", ARGV, ids=["plaintext_skew", "centralized", "hhe", "defaults",
-                                            "fusion_retries", "dp_faults", "stragglers"])
+                                            "fusion_retries", "dp_faults", "stragglers",
+                                            "streaming_service", "stream_dp_no_events"])
 def test_cli_flags_map_to_the_jax_config(argv):
     port = cli.config_from_args(cli.parse_args(argv + ["--device", "cpu"]))
     ref = jcli.config_from_args(jcli.build_parser().parse_args(argv))
@@ -746,7 +761,11 @@ def test_cli_refuses_a_dp_floor_without_dp(capsys):
                                  "hefl_tpu_torch/models/folded.py",
                                  "hefl_tpu_torch/models/resnet.py",
                                  "hefl_tpu_torch/fl/faults.py", "hefl_tpu_torch/fl/dp.py",
-                                 "hefl_tpu_torch/utils/serialization.py"])
+                                 "hefl_tpu_torch/utils/serialization.py",
+                                 "hefl_tpu_torch/fl/journal.py", "hefl_tpu_torch/fl/server.py",
+                                 "hefl_tpu_torch/fl/load.py", "hefl_tpu_torch/obs/metrics.py",
+                                 "hefl_tpu_torch/obs/events.py", "hefl_tpu_torch/obs/spans.py",
+                                 "hefl_tpu_torch/obs/scopes.py"])
 def test_new_modules_are_scanned_and_import_no_jax(rel):
     path = REPO / rel
     assert path in sorted((REPO / "hefl_tpu_torch").rglob("*.py"))

@@ -341,25 +341,53 @@ def test_engine_hhe_round_bitwise_equals_direct_packed(round_setup):
     assert max((h_avg[k] - params[k]).abs().max().item() for k in params) > 1e-4
 
 
-@pytest.mark.parametrize("field,value", [("cohort_size", 2), ("quorum", 0.5), ("deadline_s", 1.0),
-                                         ("staleness_rounds", 1), ("num_hosts", 2),
-                                         ("cohort_only", False), ("seed", 3)])
-def test_engine_refuses_unported_stream_knobs_by_name(field, value):
-    with pytest.raises(ValueError, match=f"StreamConfig.{field}"):
-        stream.StreamEngine(StreamConfig(upload_kind="hhe", **{field: value}))
+@pytest.mark.parametrize("extra", [{}, {"host_quorum": 0.5}, {"ship_deadline_s": 1.0},
+                                   {"host_staleness_rounds": 1}],
+                         ids=["num_hosts", "host_quorum", "ship_deadline_s", "host_staleness_rounds"])
+def test_engine_refuses_unported_stream_knobs_by_name(extra):
+    # The hierarchical fold (num_hosts >= 2 and its tier knobs, which
+    # StreamConfig accepts only with num_hosts >= 2) is the next slice's.
+    with pytest.raises(ValueError, match="StreamConfig.num_hosts=2.*hierarchy slice"):
+        stream.StreamEngine(StreamConfig(upload_kind="hhe", num_hosts=2, **extra))
+
+
+@pytest.mark.parametrize("field,value,bad", [
+    ("cohort_size", 2, -1), ("quorum", 0.5, 0.0), ("deadline_s", 1.0, -1.0),
+    ("staleness_rounds", 1, -1), ("cohort_only", False, None), ("seed", 3, None),
+])
+def test_ported_stream_knobs_reach_the_engine_with_jax_validation(field, value, bad):
+    from hefl_tpu.fl.config import StreamConfig as JStreamConfig
+
+    engine = stream.StreamEngine(StreamConfig(upload_kind="hhe", **{field: value}))
+    assert getattr(engine.stream, field) == value
+    if bad is not None:
+        with pytest.raises(ValueError) as want:
+            JStreamConfig(**{field: bad})
+        with pytest.raises(ValueError) as got:
+            StreamConfig(**{field: bad})
+        assert str(got.value) == str(want.value)
 
 
 def test_engine_refuses_unported_arguments_and_unpacked_hhe(round_setup):
+    # dp, a journal session and a fault schedule run; num_real_clients (one
+    # device never pads) and an unpacked hhe round stay refused.
+    from hefl_tpu_torch.fl.dp import DpConfig
+    from hefl_tpu_torch.fl.faults import FaultConfig
+    from hefl_tpu_torch.fl.journal import RoundSession
+
     model, params, xs, ys, ctx, sk, pk, spec, cfg = round_setup
-    engine = stream.StreamEngine(StreamConfig(upload_kind="hhe"))
+    engine = stream.StreamEngine(StreamConfig(upload_kind="hhe"),
+                                 faults=FaultConfig(seed=1, duplicate_clients=1))
     gen = torch.Generator().manual_seed(0)
-    for kw in ({"dp": object()}, {"session": object()}, {"num_real_clients": 2}):
-        with pytest.raises(ValueError, match=next(iter(kw))):
-            engine.run_round(model, cfg, ctx, pk, params, xs, ys, gen, 0, packing=spec, **kw)
+    session = RoundSession(None)
+    _, _, _, sm = engine.run_round(model, cfg, ctx, pk, params, xs, ys, gen, 0, packing=spec,
+                                   dp=DpConfig(noise_multiplier=0.5), session=session)
+    assert sm.committed and sm.fresh == 3 and sm.duplicates == 1
+    with pytest.raises(ValueError, match="num_real_clients"):
+        engine.run_round(model, cfg, ctx, pk, params, xs, ys, gen, 0, packing=spec,
+                         num_real_clients=2)
     with pytest.raises(ValueError, match="PACKED"):
         engine.run_round(model, cfg, ctx, pk, params, xs, ys, gen, 0)
-    with pytest.raises(ValueError, match="faults"):
-        stream.StreamEngine(StreamConfig(), faults=object())
 
 
 # --- the certificates --------------------------------------------------------------
@@ -405,7 +433,7 @@ def test_cli_parses_the_hhe_flags():
     (["--hhe-key-seed", "3"], "--hhe-key-seed"),
     (["--pack-clip", "0.3"], "--pack-clip"),
     (["--pack-interleave", "2"], "--pack-interleave"),
-    (["--stream", "--quorum", "0.5"], "--quorum"),
+    (["--stream", "--quorum", "1.5"], "--quorum"),
     (["--pack-bits", "1"], "bits"),
 ])
 def test_cli_refuses_invalid_hhe_combinations_by_name(argv, flag, capsys):
