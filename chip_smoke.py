@@ -136,12 +136,42 @@ error:
      journaled, crashed and recovered, the persisted symmetric uploads
      re-transciphered through K7 at [294, 3, 256], the chain bitwise the
      twin's.
-  Phases 3-9 each print their launches by (kernel, rows x N).
-  10. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-9 launched, and not K6's kernel, spills registers, and that every
-     K3, K4, K6 and K7 launch of phases 3-9 fell on a shape phase 2 timed.
+  10. The hierarchical fold tree and error feedback through
+     `run_experiment` (`hier_ef_runs`), the bitwise comparisons under
+     deterministic algorithms: (q) medical-8 at full width, 3 rounds x 1
+     epoch, fused, the full cohort (quorum 0.75, a 2 s deadline, one
+     retry) through 4 host tiers of 2 hospitals and flat, clean, under a
+     duplicate storm and under a regional outage: each round's committed
+     sum, stream record and the final parameters bitwise the flat twin's;
+     a lossy-uplink twin (a lost, a duplicated and delayed ships, host
+     quorum 0.5, a 1 s ship deadline, tier staleness 1): its hosts records
+     what the link schedule and the ship policy give
+     (`host_hier_record`), its sums the clean flat twin's, its decrypts
+     within 5e-6 of the released clients' mean; a dark-uplink twin (one
+     uplink a round never delivers, the same tier knobs): its hosts records
+     the schedules' (a missed tier, its carry, the next round's stale tier
+     fold), its released clients and host_unreachable exclusions the
+     schedules', its decrypts within 5e-6 of the mean of the uploads it
+     released, the carried tier's among them; (r) the clean twin's round-0
+     uploads through a journaled aggregator crashed at each tier crash
+     point and recovered bitwise from its tier journals, with each WAL's
+     bytes, appends, fsyncs and the recovery latency, and
+     `dcn_compare_record`; (s) medical-8 streaming, a cohort of 4 of 8, b = 4
+     with error feedback (K3 and K7 at [40, 3, 4096], K4 at [10, 3, 4096]),
+     3 rounds, CKKS and hybrid-HE uploads: the residual moves on the
+     cohort's rows only, is each upload's quantization error and within
+     step/2 where unsaturated, each decrypt within the error budget of the
+     quantized carried mean, HHE bitwise CKKS; beside a b = 8 twin (K3 at
+     [76, 3, 4096]): the bytes on the wire and the round seconds, and one
+     warm upload at each geometry profiled (torch.profiler); (t)
+     chaos-smoke's hierarchical twins (N = 256) bitwise their flat twins,
+     committing CHAOS_SMOKE.json's hier_check rounds; `ef_packing_record`.
+  Phases 3-10 each print their launches by (kernel, rows x N).
+  11. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-10 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-10 fell on a shape phase 2 timed.
      Print one JSON line {"kernels": [...]}
-     (launches: the sum over the main-path runs of phases 3-9, each counted
+     (launches: the sum over the main-path runs of phases 3-10, each counted
      from zero; every kernel carries one "shapes" entry per timed shape
      with the launches at that shape, K5's also its per-kernel "split";
      the ranking launches x (ms - bound) prices each launch at its own
@@ -263,14 +293,19 @@ KS_SHAPES = ((False, 1, 3, 4096), (False, 4, 3, 4096), (False, 1, 3, 8192),
 # 225,034 parameters at N = 256) and K4 over 880.
 # Phase 9's medical-8 streaming rounds sample a cohort of 4 of 8 clients,
 # which trains and encrypts fedavg.cohort_bucket(4, 8) = 4 clients x 55.
+# Phase 10's error-feedback rounds (s) pack b = 4 at k = 6 (C = 8, guard
+# 16): 10 rows a client, so a cohort of 4 encrypts (or, on the hybrid-HE
+# path, provisions pads for) 40 rows and decrypts 10; the b = 8 twin 4 x 19.
 ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096), (440, 3, 4096), (1072, 3, 4096), (2352, 3, 256),
-              (7040, 3, 256), (220, 3, 4096))
-DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096), (67, 3, 4096), (294, 3, 256), (880, 3, 256))
+              (7040, 3, 256), (220, 3, 4096), (40, 3, 4096), (76, 3, 4096))
+DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096), (67, 3, 4096), (294, 3, 256), (880, 3, 256),
+              (10, 3, 4096))
 # [B', L, N] (B' upload rows) at which phase 2 times K7: every shape phases 6,
-# 7 and 9 launch it at, the HHE round's 8 clients x 19 packed rows,
-# hhe-smoke's 8 x 294 at N = 256, and phase 9's journal replay of one
-# hhe-smoke upload (294 rows) at a time.
-TC_SHAPES = ((152, 3, 4096), (2352, 3, 256), (294, 3, 256))
+# 7, 9 and 10 launch it at, the HHE round's 8 clients x 19 packed rows,
+# hhe-smoke's 8 x 294 at N = 256, phase 9's journal replay of one
+# hhe-smoke upload (294 rows) at a time, and phase 10's error-feedback
+# cohort of 4 x 10 packed rows.
+TC_SHAPES = ((152, 3, 4096), (2352, 3, 256), (294, 3, 256), (40, 3, 4096))
 # (S, R, B, L, N) at which phase 2 times K6: every shape phases 4-5 launch it
 # at (S baby steps of the plan, R = L*NUM_DIGITS gadget components): the
 # linear score (bsgs_plan: 22 baby steps), `score_many`'s 4 packed
@@ -292,8 +327,8 @@ HOIST_CHECK_PRIMES = (1, 2, 3, 5, 6)
 # one block a row below N = 1024, at least 2 at N = 16384), and the row
 # counts of ENC_SHAPES, DEC_SHAPES and TC_SHAPES (chaos-smoke's 21,120 and
 # 2,640 rows among them).
-NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 54, 57, 165, 201, 330, 456, 660, 882, 1320, 2640, 3216,
-                  21120)
+NTT_CHECK_ROWS = (1, 3, 5, 6, 10, 18, 30, 54, 57, 120, 165, 201, 228, 330, 456, 660, 882, 1320,
+                  2640, 3216, 21120)
 ERR_LIMIT = 5e-6
 SCORE_ERR_LIMIT = 0.05               # the JAX package's serving tolerance
 # The depth-2 MLP at N=8192 carries more noise than the JAX tests' n=512 ring:
@@ -1019,10 +1054,12 @@ def warm_latency(fn, calls: int = 20) -> tuple[float, float]:
     return statistics.median(times), float(np.percentile(times, 95))
 
 
-def device_time_breakdown(label: str, fn, top: int = 8) -> None:
+def device_time_breakdown(label: str, fn, top: int = 8, host_top: int = 0) -> None:
     """Device time of one warm call of `fn` by kernel (torch.profiler with
     CUDA activity, kernel events only), beside its host-clock wall time, and
-    the `top` kernels by device time."""
+    the `top` kernels by device time; with `host_top`, also the host ops'
+    own time (self CPU time, profiler overhead included) and the `host_top`
+    ops that take most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1042,6 +1079,13 @@ def device_time_breakdown(label: str, fn, top: int = 8) -> None:
         f"the port's CUDA kernels {ours:.3f} ms, PyTorch's own {busy - ours:.3f} ms")
     for key, ms, count in rows[:top]:
         log(f"    {ms:9.4f} ms  x{count:<5d} {key[:90]}")
+    if host_top:
+        host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
+                       if e.self_cpu_time_total > 0), key=lambda r: -r[1])
+        log(f"    host ops {sum(r[1] for r in host):.3f} ms in {sum(r[2] for r in host)} calls; "
+            f"by self CPU time:")
+        for key, ms, count in host[:host_top]:
+            log(f"    host {ms:9.4f} ms  x{count:<5d} {key[:90]}")
 
 
 def same_ciphertext(a, b) -> bool:
@@ -1364,15 +1408,17 @@ def expected_launches(cfg, out: dict, rounds_run: int) -> dict:
     every client and decrypts; a streaming run's rounds are read from its
     history (cohort size, decrypted or degraded), and a recovered hybrid-HE
     run adds one K7 a refolded upload. n_ct is ceil(params / N) on the float
-    path, the packed rows on the hybrid-HE path. Nothing for a plaintext
+    path, the packed rows on a packed path. Nothing for a plaintext
     preset."""
     if not cfg.encrypted:
         return {}
-    if out["hhe"] is not None:
+    replays = 0
+    if out["packing"] is not None:
         n_ct = out["packing"]["n_ct"]
-        replays = out["obs"]["metrics"].get("recovery.refolded_uploads", 0)
+        if out["hhe"] is not None:
+            replays = out["obs"]["metrics"].get("recovery.refolded_uploads", 0)
     else:
-        n_ct, replays = -(-sum(v.numel() for v in out["params"].values()) // cfg.he.n), 0
+        n_ct = -(-sum(v.numel() for v in out["params"].values()) // cfg.he.n)
     rounds = (history_rounds(out) if cfg.stream is not None
               else [(cfg.num_clients, True)] * rounds_run)
     return round_launches(cfg, rounds, n_ct, replays)
@@ -1819,10 +1865,16 @@ STREAM_FAULTS = dict(straggler_fraction=0.25, straggler_delay_s=6.0, arrival_del
 
 def host_stream_record(stream, faults, round_index: int, num_clients: int) -> dict:
     """The `stream` record of a flat round without staleness carries or
-    sanitizer rejects, from the schedules alone: `sample_cohort`, the fault
-    schedule's dropouts and `schedule_arrivals`, the engine's
-    `_retry_times`, then the deliveries in (t, seq) order against the
-    dedup set, the deadline and the quorum."""
+    sanitizer rejects, from the schedules alone (`host_stream_round`)."""
+    return host_stream_round(stream, faults, round_index, num_clients)[0]
+
+
+def host_stream_round(stream, faults, round_index: int, num_clients: int):
+    """A flat round without staleness carries or sanitizer rejects, from
+    the schedules alone: `sample_cohort`, the fault schedule's dropouts and
+    `schedule_arrivals`, the engine's `_retry_times`, then the deliveries in
+    (t, seq) order against the dedup set, the deadline and the quorum.
+    -> (the `stream` record, the clients folded, the commit time or None)."""
     from hefl_tpu_torch.fl.faults import schedule_arrivals, schedule_for_round
     from hefl_tpu_torch.fl.stream import StreamEngine, quorum_count, sample_cohort
 
@@ -1849,7 +1901,7 @@ def host_stream_record(stream, faults, round_index: int, num_clients: int) -> di
     deadline = stream.deadline_s if stream.deadline_s > 0 else float("inf")
     quorum = quorum_count(stream, len(cohort))
     fresh = dups = 0
-    seen, committed_at, last_t = set(), None, 0.0
+    seen, committed_at, last_t, folded = set(), None, 0.0, []
     for _, (t, retried, c) in sorted(enumerate(events), key=lambda e: (e[1][0], e[0])):
         last_t = max(last_t, t)
         if c in seen:
@@ -1858,6 +1910,7 @@ def host_stream_record(stream, faults, round_index: int, num_clients: int) -> di
         seen.add(c)
         if committed_at is None and (t <= deadline or retried):
             fresh += 1
+            folded.append(c)
             if fresh >= quorum:
                 committed_at = t
     commit_s = (committed_at if committed_at is not None
@@ -1867,7 +1920,7 @@ def host_stream_record(stream, faults, round_index: int, num_clients: int) -> di
             "degraded_reason": None if committed_at is not None else "quorum",
             "fresh": fresh, "stale_folded": 0, "carried": 0, "stale_excluded": 0,
             "unreachable": unreachable, "arrivals": len(events), "duplicates": dups,
-            "rejected": 0, "retries": retries, "commit_s": round(commit_s, 6)}
+            "rejected": 0, "retries": retries, "commit_s": round(commit_s, 6)}, folded, committed_at
 
 
 def round_launches(cfg, rounds, n_ct: int, replays: int = 0) -> dict:
@@ -2171,6 +2224,527 @@ def stream_runs(device, sync_twin_s: list) -> list[tuple[dict, dict]]:
     return runs
 
 
+# Phase 10: the hierarchical fold tree and error feedback. (q)'s stream
+# knobs (the full cohort of 8 through 4 host tiers of 2 hospitals), the
+# fault schedules of its twins, and the lossy twin's uplinks and tier knobs.
+HIER_KNOBS = dict(quorum=0.75, deadline_s=2.0, max_retries=1, seed=0)
+HIER_TWINS = (("clean", {}), ("duplicate storm", dict(duplicate_clients=2, arrival_delay_s=1.0)),
+              ("regional outage", dict(outage_hosts=1, num_hosts=4)))
+LOSSY_LINKS = dict(link_loss_hosts=1, link_dup_hosts=1, link_delay_s=0.5, num_hosts=4)
+LOSSY_TIERS = dict(host_quorum=0.5, ship_deadline_s=1.0, host_staleness_rounds=1)
+# The dark twin: one uplink a round never delivers, so its tier misses the
+# ship, carries under the tier budget and folds stale at the next root.
+DARK_LINKS = dict(link_dark_hosts=1, link_delay_s=0.5, num_hosts=4)
+# (s): a cohort of 4 of 8, every upload folded, b = 4 (k = 6 at C = 8,
+# guard 16: 10 packed rows a client) with error feedback, clip 0.02 (a
+# step of 0.00286, where a round's update codes are partly non-zero); its
+# twin at b = 8 (k = 3: 19 rows).
+EF_STREAM = dict(cohort_size=4, seed=0)
+EF_PACKING = dict(bits=4, guard_bits=16, clip=0.02, error_feedback=True)
+
+
+def host_hier_record(stream, faults, round_index: int, num_clients: int, folded,
+                     committed_at, stale_folded: int = 0) -> dict:
+    """The `hosts` record of a committed hierarchical round from the
+    schedules alone: the tiers of the clients the flat round folds
+    (`host_stream_round`), each nonempty tier's ship timeline from
+    `schedule_links` and the ship policy (first delivery at the commit
+    time plus the uplink's delay; a lost one redelivered after a jittered
+    backoff on the stream (seed, round, host, 9), exempt from the
+    deadline; a dark one never lands; a duplicate lands twice and the root
+    dedups it), the host quorum over the nonempty tiers, and the missed
+    tiers carried under the tier budget. `stale_folded`: the carried
+    partials of the round before."""
+    from hefl_tpu_torch.fl.faults import schedule_links
+    from hefl_tpu_torch.parallel import host_of_clients
+
+    host_of = host_of_clients(num_clients, stream.num_hosts)
+    tiers = sorted({int(host_of[c]) for c in folded})
+    link = schedule_links(faults, round_index) if faults is not None and \
+        faults._any_link_fault() else None
+    deadline = (committed_at + stream.ship_deadline_s if stream.ship_deadline_s > 0
+                else float("inf"))
+    landed, missed, retries, lost, deduped, done = [], [], 0, 0, 0, 0.0
+    for h in tiers:
+        delay = float(link.delay_s[h]) if link is not None else 0.0
+        dark = bool(link.dark[h]) if link is not None else False
+        trans = bool(link.transient[h]) if link is not None else False
+        dup = bool(link.duplicate[h]) if link is not None else False
+        send = committed_at + delay
+        rng = np.random.default_rng([int(stream.seed), int(round_index), h, 9])
+        again, t = [], send
+        for i in range(stream.max_retries):
+            t += stream.retry_backoff_s * 2.0 ** i * (
+                1.0 + stream.retry_jitter * float(rng.uniform(-1.0, 1.0)))
+            again.append(t)
+        if dark:
+            lost += 1 + len(again)
+            retries += len(again)
+            missed.append([h, "unreachable"])
+        elif trans:
+            lost += 1
+            if again:
+                retries += 1
+                landed.append(h)
+                done = max(done, again[0])
+            else:
+                missed.append([h, "unreachable"])
+        elif send > deadline:
+            missed.append([h, "timeout"])
+        else:
+            landed.append(h)
+            done = max(done, send)
+            deduped += int(dup)
+    hq = max(1, int(np.ceil(stream.host_quorum * len(tiers)))) if tiers else 0
+    carried = len(missed) if stream.host_staleness_rounds >= 1 and len(landed) >= hq else 0
+    return {"nonempty": len(tiers), "landed": landed, "missed": missed, "host_quorum": hq,
+            "ship_retries": retries, "ship_lost": lost, "ship_deduped": deduped,
+            "tier_carried": carried, "tier_stale_folded": stale_folded,
+            "tier_stale_excluded": 0, "ships_done_s": round(done, 6)}
+
+
+@contextlib.contextmanager
+def engine_rounds():
+    """During the block, each `StreamEngine.run_round` is recorded: yields a
+    list of {round, meta (the StreamRoundMeta), before and after (the
+    engine's error-feedback residual rows, None without EF), sha (the
+    committed sum's, None when degraded)}. Inside a round only references
+    are taken (the engine replaces its residual rows, never writes them in
+    place), so the round's timed phases hold no copy or hash made for this
+    record; the shas are filled in when the block ends."""
+    from hefl_tpu_torch.fl.stream import StreamEngine, ct_hash
+
+    real = StreamEngine.run_round
+    rounds = []
+
+    def run_round(self, *a, **k):
+        before = self._ef_residual
+        out = real(self, *a, **k)
+        meta = out[3]
+        rounds.append({"round": meta.round_index, "meta": meta, "before": before,
+                       "after": self._ef_residual, "sum": out[0] if meta.committed else None})
+        return out
+
+    StreamEngine.run_round = run_round
+    try:
+        yield rounds
+    finally:
+        StreamEngine.run_round = real
+        for rd in rounds:
+            total = rd.pop("sum")
+            rd["sha"] = None if total is None else ct_hash(total.c0, total.c1)
+
+
+@contextlib.contextmanager
+def upload_records():
+    """During the block, each streaming round's `client_uploads` call is
+    recorded: yields a list of (cohort rows, uploaded params, global params,
+    the ciphertexts or word pairs)."""
+    from hefl_tpu_torch.fl import stream as stream_mod
+
+    real = stream_mod.client_uploads
+    calls = []
+
+    def uploads(*a, **k):
+        out = real(*a, **k)
+        cohort = k.get("cohort")
+        rows = ([int(c) for c in cohort] if cohort is not None
+                else list(range(int(a[5].shape[0]))))
+        calls.append((rows, out[3], a[4], out[0]))
+        return out
+
+    stream_mod.client_uploads = uploads
+    try:
+        yield calls
+    finally:
+        stream_mod.client_uploads = real
+
+
+def tier_crash_runs(ctx, cts, device) -> None:
+    """(r): round 0's 8 uploads (Ciphertext rows on the card) through a
+    journaled `HierarchicalAggregator` (fsync_policy "always": every tier
+    record durable), crashed by a TierCrash at each of TIER_CRASH_POINTS on
+    host 1 after its 2nd fold, then recovered from the tier journals alone
+    and the uploads re-delivered to the tiers that had not shipped: the
+    root value bitwise the uninterrupted tree's, every upload folded once,
+    one root_fold a host, and a re-ship (a second tier_ship attempt) only
+    where root.wal lacked the crashed tier's root_fold. Each tier WAL's
+    bytes, the appends and fsyncs, the recovery latency. Then
+    `dcn_compare_record` on the same uploads."""
+    import os
+    import tempfile
+
+    from hefl_tpu_torch.fl import journal as jr
+    from hefl_tpu_torch.fl.faults import SimulatedCrash
+    from hefl_tpu_torch.fl.hierarchy import (
+        TIER_CRASH_POINTS,
+        HierarchicalAggregator,
+        TierCrash,
+        dcn_compare_record,
+    )
+    from hefl_tpu_torch.fl.stream import ct_hash
+    from hefl_tpu_torch.obs import metrics as obs_metrics
+    from hefl_tpu_torch.parallel import host_of_clients
+
+    p, num = ctx.ntt.p, int(cts.c0.shape[0])
+    host_of = host_of_clients(num, 4)
+
+    def deliver(agg, only_unshipped=False):
+        for c in range(num):
+            if not (only_unshipped and agg._shipped[host_of[c]]):
+                agg.fold((c, 0), cts.c0[c], cts.c1[c])
+
+    whole = HierarchicalAggregator(p, 4, num, device=device)
+    deliver(whole)
+    want = ct_hash(*whole.value())
+    for at in TIER_CRASH_POINTS:
+        with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                         prefix="chip_smoke_tiers_") as d:
+            base = obs_metrics.snapshot()
+            t0 = time.perf_counter()
+            agg = HierarchicalAggregator(p, 4, num, journal_dir=d, fsync_policy="always",
+                                         crash=TierCrash(host=1, at=at, after_folds=2),
+                                         device=device)
+            try:
+                deliver(agg)
+                agg.ship_all(0.0)
+            except SimulatedCrash:
+                pass
+            else:
+                raise AssertionError(f"(r) {at}: the tier crash did not fire")
+            agg.close()
+            crash_s = time.perf_counter() - t0
+            # The crashed tier's journal may end in a torn frame: scan it.
+            roots_before = {r["host"] for r in jr.scan_journal(f"{d}/root.wal").records
+                            if r["kind"] == "root_fold"}
+            ships_before = {h: sum(r["kind"] == "tier_ship" for r in jr.scan_journal(
+                f"{d}/tier{h}.wal").records) for h in range(4)}
+            t0 = time.perf_counter()
+            rec = HierarchicalAggregator(p, 4, num, journal_dir=d, fsync_policy="always",
+                                         device=device)
+            torch.cuda.synchronize()
+            recover_s = time.perf_counter() - t0
+            refolded = rec.refolded
+            deliver(rec, only_unshipped=True)
+            got = ct_hash(*rec.value())
+            rec.close()
+            delta = obs_metrics.snapshot_delta(base)
+            sizes = {name: os.path.getsize(f"{d}/{name}") for name in sorted(os.listdir(d))}
+            roots = [r["host"] for r in jr.read_journal(f"{d}/root.wal")
+                     if r["kind"] == "root_fold"]
+            ships = {h: sum(r["kind"] == "tier_ship" for r in jr.read_journal(f"{d}/tier{h}.wal"))
+                     for h in range(4)}
+            reshipped = {h for h in range(4) if ships[h] > max(ships_before[h], 1)}
+            log(f"    (r) {at}: crashed after {crash_s:.4f} s; recovery {recover_s:.6f} s "
+                f"({refolded} uploads refolded from the tier journals); WAL bytes {sizes}; "
+                f"appends {delta.get('journal.appends')}, fsyncs {delta.get('journal.fsyncs')}; "
+                f"tier_ship records {ships}, root_fold hosts {sorted(roots)}")
+            if got != want:
+                raise AssertionError(f"(r) {at}: the recovered root differs from the tree's")
+            if rec.folded != num or sorted(roots) != [0, 1, 2, 3]:
+                raise AssertionError(f"(r) {at}: folded {rec.folded}, root_folds {roots}")
+            must = {h for h in range(4) if ships_before[h] and h not in roots_before}
+            if reshipped != must:
+                raise AssertionError(f"(r) {at}: re-shipped {reshipped}, root.wal lacked the "
+                                     f"root_fold of {must}")
+    t0 = time.perf_counter()
+    cmp = dcn_compare_record(p, cts.c0, cts.c1, list(range(num)), num, 4)
+    log(f"    (r) dcn_compare_record ({time.perf_counter() - t0:.3f} s): "
+        f"{json.dumps(cmp)}")
+    if not (cmp["bitwise_equal"] and cmp["ratio_ok"]):
+        raise AssertionError(f"(r) dcn_compare_record {cmp}")
+
+
+def dark_hier_checks(stream, faults, out, ups, decrypts) -> None:
+    """(q)'s dark-uplink twin: each round's `hosts` record equals
+    `host_hier_record` (the missed tier, its carry, and the round after's
+    stale tier fold), its `stream` record the flat schedule's, its released
+    clients and `host_unreachable` exclusions the schedule's, and each
+    decrypt within ERR_LIMIT of the plaintext mean of the uploads the round
+    released: the landed tiers' clients of this round and the clients of
+    the tier partial carried from the round before (a client in both counts
+    twice, as the sum holds both uploads)."""
+    from hefl_tpu_torch.parallel import host_of_clients
+
+    num = 8
+    host_of = host_of_clients(num, stream.num_hosts)
+    hist = out["history"]
+    if len(ups) != len(hist) or len(decrypts) != len(hist):
+        raise AssertionError(f"(q) dark: {len(hist)} rounds, {len(ups)} uploads, "
+                             f"{len(decrypts)} decrypts")
+    carried, carried_up, errs, seen = 0, [], [], {"missed": 0, "stale": 0}
+    for rec, (rows, p_out, _, _), (_, _, avg) in zip(hist, ups, decrypts):
+        r = rec["round"]
+        flat, folded, at = host_stream_round(stream, faults, r, num)
+        want = host_hier_record(stream, faults, r, num, folded, at, carried)
+        missed = {h for h, _ in want["missed"]}
+        landed = [c for c in folded if int(host_of[c]) not in missed]
+        released = [p_out[rows.index(c)] for c in landed] + [prm for _, prm in carried_up]
+        part = sorted(set(landed) | {c for c, _ in carried_up})
+        st = dict(rec["stream"])
+        hosts = st.pop("hosts")
+        if hosts != want or st != flat or not st["committed"]:
+            raise AssertionError(f"(q) dark round {r}: stream {rec['stream']}, the schedules "
+                                 f"give {flat} and hosts {want}")
+        got_part = [c for c, on in enumerate(rec["robust"]["participation"]) if on]
+        unreachable = sum(1 for c in folded if int(host_of[c]) in missed)
+        if (got_part != part or rec["robust"]["surviving"] != len(released)
+                or rec["robust"]["excluded"]["host_unreachable"] != unreachable):
+            raise AssertionError(f"(q) dark round {r}: robust {rec['robust']}, expected "
+                                 f"participation {part}, surviving {len(released)}, "
+                                 f"host_unreachable {unreachable}")
+        ref = {k: torch.stack([prm[k] for prm in released]).mean(dim=0) for k in avg}
+        errs.append(max((avg[k] - ref[k]).abs().max().item() for k in ref))
+        seen["missed"] += len(want["missed"])
+        seen["stale"] += want["tier_stale_folded"]
+        log(f"    (q) dark round {r}: hosts {json.dumps(hosts)}; released {len(released)} "
+            f"uploads (carried from round {r - 1}: {len(carried_up)})")
+        carried = want["tier_carried"]
+        carried_up = ([(c, p_out[rows.index(c)]) for c in folded if int(host_of[c]) in missed]
+                      if carried else [])
+    log(f"    (q) dark: decrypted average vs the released uploads' plaintext mean: max abs "
+        f"err {errs} (limit {ERR_LIMIT})")
+    if not (seen["missed"] and seen["stale"]):
+        raise AssertionError(f"(q) dark: the schedule missed {seen['missed']} tiers and folded "
+                             f"{seen['stale']} carried partials; both must happen")
+    if max(errs) > ERR_LIMIT:
+        raise AssertionError(f"(q) dark decrypts off their plaintext means: {errs}")
+
+
+def hier_ef_runs(device) -> list[tuple[dict, dict]]:
+    """Phase 10: the hierarchical fold tree and error feedback through
+    `run_experiment`, each run through `drive` (launches exactly
+    `expected_launches`), the bitwise comparisons under
+    `experiment.deterministic_algorithms`.
+
+    (q) medical-8 at full width (MedCNN 256x256x3, 222,722 parameters,
+    N=4096, L=3), 3 rounds x 1 epoch, fused, the full cohort under
+    HIER_KNOBS, through 4 host tiers of 2 hospitals and flat, for each of
+    HIER_TWINS: each round's committed ciphertext sha and stream record
+    (hosts aside) and the final parameters bitwise the flat twin's. The
+    lossy twin (LOSSY_LINKS, LOSSY_TIERS): each round's `hosts` record
+    equals `host_hier_record`, its sums bitwise the clean flat twin's, each
+    decrypt within ERR_LIMIT of the released clients' plaintext mean. The
+    dark twin (DARK_LINKS, LOSSY_TIERS): `dark_hier_checks`.
+    (r) `tier_crash_runs` on the clean twin's round-0 uploads. (s)
+    medical-8 streaming, a cohort of 4 of 8, EF_PACKING (b = 4, error
+    feedback), 3 rounds x 1 epoch, once with CKKS uploads and once with
+    hybrid-HE uploads: the residual changes on the cohort's rows only and
+    is the uploads' own quantization error, |residual| <= step/2 wherever
+    the carried update did not saturate, each decrypt within
+    `spec.error_budget` of the plaintext mean of the released clients'
+    quantized carried updates, the hybrid-HE run bitwise the CKKS run; the
+    bytes on the wire and the round seconds against its b = 8 twin, and
+    one warm upload at each geometry profiled. (t)
+    chaos-smoke's hierarchical twins (N = 256, 4 rounds): duplicate storm
+    and regional outage, each bitwise its flat twin, committing
+    CHAOS_SMOKE.json's hier_check rounds. Then `ef_packing_record` on the
+    card."""
+    from hefl_tpu_torch import experiment
+    from hefl_tpu_torch.ckks import quantize
+    from hefl_tpu_torch.ckks.keys import CkksContext, keygen
+    from hefl_tpu_torch.ckks.packing import PackedSpec, ciphertext_bytes, flat_params
+    from hefl_tpu_torch.experiment import deterministic_algorithms
+    from hefl_tpu_torch.fl.config import PackingConfig, StreamConfig
+    from hefl_tpu_torch.fl.faults import FaultConfig
+    from hefl_tpu_torch.fl.load import ef_packing_record
+    from hefl_tpu_torch.fl.secure import encrypt_stack_packed
+    from hefl_tpu_torch.presets import PRESETS
+
+    runs = []
+
+    def run(label, cfg, rounds_run):
+        out, _, launched, _ = drive(label, cfg, rounds_run, device, robust=True)
+        runs.append(launched)
+        return out
+
+    def same_params(a, b):
+        return all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+
+    def strip(rec):
+        st = dict(rec["stream"])
+        st.pop("hosts", None)
+        return st
+
+    t = time.perf_counter()
+    stream = StreamConfig(**HIER_KNOBS)
+    hier_stream = dataclasses.replace(stream, num_hosts=4)
+    flat_shas = {}
+    uploads0 = None
+    with deterministic_algorithms():
+        for name, fkw in HIER_TWINS:
+            faults = FaultConfig(seed=0, **fkw) if fkw else None
+            twin = {}
+            for hosts, st in ((0, stream), (4, hier_stream)):
+                cfg = cut("medical-8", 3, 1, "fused", stream=st, faults=faults)
+                with engine_rounds() as rounds, upload_records() as ups:
+                    out = run(f"q, {name}, {'hierarchical' if hosts else 'flat'}", cfg, 3)
+                twin[hosts] = (out, [r["sha"] for r in rounds])
+                if hosts and name == "clean":
+                    uploads0 = ups[0][3]
+            (flat, flat_sha), (hier, hier_sha) = twin[0], twin[4]
+            if flat_sha != hier_sha or None in hier_sha:
+                raise AssertionError(f"(q) {name}: committed shas {hier_sha}, flat {flat_sha}")
+            if [strip(r) for r in hier["history"]] != [r["stream"] for r in flat["history"]]:
+                raise AssertionError(f"(q) {name}: stream records differ from the flat twin's")
+            if not same_params(flat, hier):
+                raise AssertionError(f"(q) {name}: final parameters differ from the flat twin's")
+            flat_shas[name] = flat_sha
+            log(f"    (q) {name}: committed sums, stream records and final parameters bitwise "
+                f"the flat twin's; hosts {[r['stream']['hosts'] for r in hier['history']]}")
+        lossy_faults = FaultConfig(seed=0, **LOSSY_LINKS)
+        lossy_stream = dataclasses.replace(hier_stream, **LOSSY_TIERS)
+        cfg = cut("medical-8", 3, 1, "fused", stream=lossy_stream, faults=lossy_faults)
+        with engine_rounds() as rounds, stream_references() as pairs:
+            lossy = run("q, lossy uplinks", cfg, 3)
+        dark_faults = FaultConfig(seed=0, **DARK_LINKS)
+        cfg = cut("medical-8", 3, 1, "fused", stream=lossy_stream, faults=dark_faults)
+        with upload_records() as dark_ups, timed_calls(experiment, ("decrypt_average",)) as dec:
+            dark = run("q, dark uplink", cfg, 3)
+    carried = 0
+    for rec in lossy["history"]:
+        _, folded, at = host_stream_round(lossy_stream, lossy_faults, rec["round"], 8)
+        want = host_hier_record(lossy_stream, lossy_faults, rec["round"], 8, folded, at, carried)
+        carried = want["tier_carried"]
+        if rec["stream"]["hosts"] != want or want["tier_stale_folded"] or want["missed"]:
+            raise AssertionError(f"(q) lossy round {rec['round']}: hosts {rec['stream']['hosts']}"
+                                 f", the schedules give {want}")
+        log(f"    (q) lossy round {rec['round']}: hosts {json.dumps(rec['stream']['hosts'])}")
+    if [r["sha"] for r in rounds] != flat_shas["clean"]:
+        raise AssertionError("(q) the lossy twin's sums differ from the clean flat twin's")
+    errs = [max((avg[k] - ref[k]).abs().max().item() for k in ref) for ref, avg in pairs]
+    log(f"    (q) lossy: sums bitwise the clean flat twin's; decrypted average vs the released "
+        f"clients' plaintext mean: max abs err {errs} (limit {ERR_LIMIT})")
+    if len(errs) != 3 or max(errs) > ERR_LIMIT:
+        raise AssertionError(f"(q) lossy decrypts off their plaintext means: {errs}")
+    dark_hier_checks(lossy_stream, dark_faults, dark, dark_ups, dec["decrypt_average"])
+    log(f"  phase 10 (q) wall time: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    tier_crash_runs(CkksContext.create(), uploads0, device)
+    log(f"  phase 10 (r) wall time: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    ef_stream = StreamConfig(**EF_STREAM)
+    ef = {}
+    with deterministic_algorithms():
+        for label, kind, bits in (("s, b=4 CKKS", "ckks", 4), ("s, b=4 HHE", "hhe", 4),
+                                  ("s, b=8 CKKS twin", "ckks", 8)):
+            cfg = cut("medical-8", 3, 1, "fused",
+                      stream=dataclasses.replace(ef_stream, upload_kind=kind),
+                      packing=PackingConfig(**dict(EF_PACKING, bits=bits)))
+            with (engine_rounds() as rounds, upload_records() as ups,
+                  timed_calls(experiment, ("decrypt_average",)) as dec):
+                out = run(label, cfg, 3)
+            ef[label] = (out, rounds, ups, dec["decrypt_average"])
+    out4, rounds4, ups4, dec4 = ef["s, b=4 CKKS"]
+    spec_step = quantize.symmetric_step(EF_PACKING["clip"], 4)
+    budget = out4["packing"]["error_budget"]
+    errs, codes = [], []
+    for rd, (rows, p_out, gp, _), (_, args, avg) in zip(rounds4, ups4, dec4):
+        before = rd["before"] if rd["before"] is not None else torch.zeros_like(rd["after"])
+        after = rd["after"]
+        others = [c for c in range(8) if c not in rows]
+        if not torch.equal(after[others], before[others]) or torch.equal(after[rows],
+                                                                          before[rows]):
+            raise AssertionError(f"(s) round {rd['round']}: the residual moved off the cohort")
+        base = flat_params(gp)
+        sent = {}
+        for i, c in enumerate(rows):
+            upd = flat_params(p_out[i]) - base
+            q, res = quantize.ef_quantize(upd, before[c], spec_step, 4)
+            if not torch.equal(res, after[c]):
+                raise AssertionError(f"(s) round {rd['round']}: client {c}'s residual is not "
+                                     "its upload's quantization error")
+            carried = upd + before[c]
+            inside = (carried / spec_step).abs() <= quantize.qmax(4) + 0.5
+            if float(after[c][inside].abs().max()) > spec_step / 2 * (1 + 1e-6):
+                raise AssertionError(f"(s) round {rd['round']}: |residual| > step/2")
+            sent[c] = quantize.dequantize(q, spec_step)
+            codes.append((int((q != 0).sum()), int((~inside).sum()), int(q.numel())))
+        kept = [c for c, on in enumerate(rd["meta"].meta.participation) if on]
+        ref = base + torch.stack([sent[c] for c in kept]).mean(dim=0)
+        errs.append(float((flat_params(avg) - ref).abs().max()))
+    log(f"    (s) b=4 CKKS: the residual moves on the cohort's rows only, is each upload's "
+        f"quantization error and within step/2 = {spec_step / 2:.6f} where unsaturated; "
+        f"(non-zero codes, saturated, coefficients) a client-round {codes}; "
+        f"decrypt vs the mean of the quantized carried updates: max abs err {errs} "
+        f"(budget {budget:.6f})")
+    if len(errs) != 3 or max(errs) > budget:
+        raise AssertionError(f"(s) decrypts off the quantized carried mean: {errs}")
+    out_h, rounds_h, _, dec_h = ef["s, b=4 HHE"]
+    if not (same_params(out4, out_h) and all(
+            all(torch.equal(a[2][k], b[2][k]) for k in a[2]) for a, b in zip(dec4, dec_h))
+            and torch.equal(rounds4[-1]["after"], rounds_h[-1]["after"])):
+        raise AssertionError("(s) the hybrid-HE run is not bitwise the CKKS run")
+    out8 = ef["s, b=8 CKKS twin"][0]
+    n4, n8 = out4["packing"]["n_ct"], out8["packing"]["n_ct"]
+    b4, b8 = (ciphertext_bytes(n, 3, 4096) for n in (n4, n8))
+    log(f"    (s) hybrid-HE run bitwise the CKKS run (decrypts, parameters, residual); bytes "
+        f"on the wire a client: b=4 {n4} ciphertexts {b4} B (HHE {out_h['hhe']}), b=8 {n8} "
+        f"ciphertexts {b8} B, ratio {b4 / b8:.4f}; train+encrypt+aggregate a round: b=4 "
+        f"{[r['phases']['train+encrypt+aggregate'] for r in out4['history']]} s, HHE "
+        f"{[r['phases']['train+encrypt+aggregate'] for r in out_h['history']]} s, b=8 "
+        f"{[r['phases']['train+encrypt+aggregate'] for r in out8['history']]} s")
+    if (n4, n8) != (10, 19):
+        raise AssertionError(f"(s) packed rows b=4 {n4}, b=8 {n8}; expected 10 and 19")
+    # Where a b=4 round's time goes beside b=8's: one warm error-feedback
+    # upload (quantize through the residual, pack, encode, encrypt) of round
+    # 0's trained cohort at each geometry, under torch.profiler. Outside
+    # `drive`, so its launches count in no run.
+    rows0, p_out0, gp0, _ = ups4[0]
+    up_ctx = CkksContext.create()
+    _, up_pk = keygen(up_ctx, torch.Generator().manual_seed(5), device=device)
+    res0 = torch.zeros((len(p_out0), flat_params(gp0).numel()), dtype=torch.float32,
+                       device=device)
+    for bits in (4, 8):
+        spec = PackedSpec.for_params(gp0, up_ctx, PackingConfig(**dict(EF_PACKING, bits=bits)), 8)
+        gens = [torch.Generator(device=device).manual_seed(i) for i in range(len(p_out0))]
+        device_time_breakdown(
+            f"(s) b={bits} error-feedback upload of round 0's {len(p_out0)} clients "
+            f"({spec.n_ct} ciphertexts each)",
+            lambda: encrypt_stack_packed(up_ctx, up_pk, p_out0, gp0, gens, spec,
+                                         residual_blk=res0), top=4, host_top=8)
+    log(f"  phase 10 (s) wall time: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    gate = json.loads((Path(__file__).resolve().parent / "CHAOS_SMOKE.json").read_text())
+    chaos = PRESETS["chaos-smoke"]
+    base_faults = dataclasses.replace(chaos.faults, **STREAM_FAULTS, fail_rounds=())
+    chaos_stream = StreamConfig(quorum=0.375, deadline_s=2.0, max_retries=1, staleness_rounds=1,
+                                seed=0)
+    legs = (("duplicate-storm", dataclasses.replace(base_faults, duplicate_clients=3,
+                                                    arrival_delay_s=0.5)),
+            ("regional-outage", dataclasses.replace(base_faults, drop_fraction=0.0,
+                                                    nan_clients=0, duplicate_clients=0,
+                                                    outage_hosts=1, num_hosts=4)))
+    with deterministic_algorithms():
+        for name, faults in legs:
+            twin = {}
+            for hosts in (0, 4):
+                cfg = dataclasses.replace(chaos, faults=faults,
+                                          stream=dataclasses.replace(chaos_stream,
+                                                                     num_hosts=hosts))
+                twin[hosts] = run(f"t, chaos-smoke {name}, {hosts} hosts", cfg, cfg.rounds)
+            flat, hier = twin[0], twin[4]
+            committed = [r["round"] for r in hier["history"] if r["stream"]["committed"]]
+            if not same_params(flat, hier) or [strip(r) for r in hier["history"]] != [
+                    r["stream"] for r in flat["history"]]:
+                raise AssertionError(f"(t) {name}: the hierarchical twin differs from the flat")
+            if committed != gate["hier_check"][name]["rounds_committed"]:
+                raise AssertionError(f"(t) {name}: committed {committed}, CHAOS_SMOKE.json has "
+                                     f"{gate['hier_check'][name]['rounds_committed']}")
+            log(f"    (t) {name}: bitwise the flat twin; rounds committed {committed} == "
+                "CHAOS_SMOKE.json's hier_check")
+    t0 = time.perf_counter()
+    rec = ef_packing_record(device=device)
+    log(f"    ef_packing_record on the card ({time.perf_counter() - t0:.3f} s): {json.dumps(rec)}")
+    if not (rec["certified"] and rec["bytes_ratio_b4_vs_b8"] <= 0.55):
+        raise AssertionError(f"ef_packing_record {rec}")
+    log(f"  phase 10 (t) wall time: {time.perf_counter() - t:.3f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2217,13 +2791,18 @@ def main() -> int:
         "crash and its recovery, chaos-smoke's streaming, cohort-only and full-C twins, "
         "hhe-smoke journaled with a crash and its recovery (N=256)")
     runs += stream_runs(device, sync_twin_s)
+    log("phase 10: the hierarchical fold tree and error feedback: medical-8 through 4 host tiers "
+        "(clean, duplicate storm, regional outage, lossy and dark uplinks) beside its flat twins, "
+        "the tier journals crashed and recovered, medical-8 streaming at b=4 with error feedback "
+        "(CKKS, HHE, and a b=8 twin), chaos-smoke's hierarchical twins (N=256)")
+    runs += hier_ef_runs(device)
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-9 together:")
+    log("phases 3-10 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-9
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-10
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),

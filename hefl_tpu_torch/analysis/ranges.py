@@ -210,3 +210,73 @@ def certify_fold(prime: int, spec=None, modulus: int | None = None) -> FoldCerti
         (checks if cert.ok else findings).append(cert.summary())
     return FoldCertificate(ok=not findings, prime=prime, findings=tuple(findings),
                            checks=tuple(checks))
+
+
+# The arrival-count ceiling of the JAX package's inductive fold proof: its
+# loop post-fixpoint is taken over any count in [0, 2**48].
+LOOP_COUNT_CEILING = 1 << 48
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldTreeCertificate:
+    """Proof (or refutation) of the two-tier fold tree, with the fields and
+    summary of the JAX package's `FoldCertificate`."""
+
+    ok: bool
+    prime_bits: int
+    count_ceiling_bits: int
+    bits: int | None     # packed leg (None: the tree certifies unpacked)
+    k: int | None
+    clients: int | None
+    findings: tuple
+    checks: tuple
+
+    def summary(self) -> str:
+        head = (f"fold-inductive p<2**{self.prime_bits} "
+                f"arrivals<=2**{self.count_ceiling_bits}")
+        if self.bits is not None:
+            head += f" packed(b={self.bits} k={self.k} C={self.clients})"
+        if self.ok:
+            return f"{head}: CERTIFIED — " + "; ".join(self.checks)
+        return f"{head}: UNSAFE — " + "; ".join(str(f) for f in self.findings)
+
+
+@functools.lru_cache(maxsize=64)
+def certify_fold_tree(prime: int) -> FoldTreeCertificate:
+    """The closed-form counterpart of the JAX package's `certify_fold_tree`:
+    the fold loop's invariant (`certify_fold`: acc in [0, p - 1] after every
+    fold, the int64 carrier wrap-free, for any arrival count) plus the three
+    facts the two-tier tree (`fl.hierarchy`) adds on top of it:
+
+      * tier partials are canonical — each host fold ends in [0, p - 1],
+        the canonical-input precondition of the root fold, so the root is
+        one more instance of the same loop;
+      * tree == flat bitwise — every fold is an exact canonical addition
+        mod p, associative and commutative, so any bracketing and arrival
+        order of the same uploads gives the same residues;
+      * carried partials stay certified — a sealed tier partial folded at
+        a later round's root is the same canonical residue, one more
+        instance of the loop.
+
+    An unsafe loop makes the tree unsafe (no tree claim on a broken
+    invariant)."""
+    base = certify_fold(int(prime))
+    fields = dict(prime_bits=int(prime).bit_length(),
+                  count_ceiling_bits=LOOP_COUNT_CEILING.bit_length() - 1,
+                  bits=None, k=None, clients=None)
+    if not base.ok:
+        return FoldTreeCertificate(ok=False, findings=base.findings, checks=base.checks,
+                                   **fields)
+    checks = base.checks + (
+        "tier partials canonical: each host fold ends in the loop "
+        "post-fixpoint [0, p-1], satisfying the root fold's canonical-"
+        "input precondition — the root is the same certified loop",
+        "fold-tree = flat fold bitwise: exact canonical add mod p is "
+        "associative+commutative, so any bracketing/arrival order of the "
+        "same uploads yields identical residues",
+        "carried partials certified: a sealed tier partial is a frozen "
+        "canonical residue, so a stale tier fold at a later round's root "
+        "is the same certified loop on the same value — late folding "
+        "cannot leave the proven region",
+    )
+    return FoldTreeCertificate(ok=True, findings=(), checks=checks, **fields)

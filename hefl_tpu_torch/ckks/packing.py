@@ -12,7 +12,9 @@ MedCNN's 222,722 parameters fill 55 rows at N=4096.
 
 The quantized path packs a client's UPDATE (trained minus global weights):
 b-bit codes, k interleaved per slot (`ckks.quantize`), so the upload is
-[ceil(n_ct / k), N] (hi, lo) word pairs — 19 rows for MedCNN at b=8, k=3.
+[ceil(n_ct / k), N] (hi, lo) word pairs — 19 rows for MedCNN at b=8, k=3,
+10 at b=4, k=6. The `_ef` packers quantize the update plus a carried
+residual (error feedback) and return the new residual.
 """
 
 from __future__ import annotations
@@ -108,11 +110,6 @@ class PackedSpec:
 
         if not cfg.enabled:
             raise ValueError("PackedSpec.for_params: PackingConfig is disabled")
-        if cfg.error_feedback:
-            raise ValueError(
-                "PackingConfig.error_feedback is not ported yet: the port has "
-                "no cross-round residual state; drop error_feedback"
-            )
         base = PackSpec.for_params(params, ctx.n)
         clips = spans = None
         if cfg.per_tensor:
@@ -144,6 +141,7 @@ class PackedSpec:
             clip=max(cfg.clip) if cfg.per_tensor else float(cfg.clip),
             clients=int(num_clients), n_ct=-(-base.n_ct // k),
             error_budget=quantize.quant_error_budget(cfg), clips=clips, spans=spans,
+            error_feedback=bool(cfg.error_feedback),
         )
 
     @property
@@ -217,29 +215,63 @@ def bytes_on_wire_record(spec: PackedSpec, num_limbs: int) -> dict:
     }
 
 
-def pack_quantized_flat(flat: torch.Tensor, spec: PackedSpec):
-    """float[total] update -> ((hi, lo) int32[n_ct, n], saturation int32).
-
-    Quantize -> offset to non-negative codes -> pad to k*n_ct blocks (code
-    0) -> interleave k consecutive blocks per packed row. `saturation`
-    counts coefficients that clipped or were non-finite."""
-    flat = flat.to(torch.float32)
-    steps = step_vector(spec)
-    step = spec.step if steps is None else steps
-    sat = quantize.saturation_count(flat, step, spec.bits)
-    u = quantize.quantize(flat, step, spec.bits).to(torch.int64) + spec.offset
+def _interleave_codes(q: torch.Tensor, spec: PackedSpec):
+    """int32 codes [total] -> (hi, lo) int32[n_ct, n]: the shared tail of the
+    plain and error-feedback packers — offset to non-negative codes, pad to
+    k*n_ct blocks (code 0), interleave k consecutive blocks per packed row."""
+    u = q.to(torch.int64) + spec.offset
     pad = spec.n_ct * spec.k * spec.n - spec.total
     if pad:
         u = torch.cat([u, u.new_zeros(pad)])
-    hi, lo = quantize.interleave_fields(
+    return quantize.interleave_fields(
         u.reshape(spec.n_ct, spec.k, spec.n), spec.k, spec.field_bits, spec.guard
     )
+
+
+def _steps(spec: PackedSpec):
+    steps = step_vector(spec)
+    return spec.step if steps is None else steps
+
+
+def pack_quantized_flat(flat: torch.Tensor, spec: PackedSpec):
+    """float[total] update -> ((hi, lo) int32[n_ct, n], saturation int32).
+
+    Quantize -> `_interleave_codes`. `saturation` counts coefficients that
+    clipped or were non-finite."""
+    flat = flat.to(torch.float32)
+    step = _steps(spec)
+    sat = quantize.saturation_count(flat, step, spec.bits)
+    hi, lo = _interleave_codes(quantize.quantize(flat, step, spec.bits), spec)
     return hi, lo, sat
+
+
+def pack_quantized_flat_ef(flat: torch.Tensor, residual: torch.Tensor, spec: PackedSpec):
+    """The error-feedback twin of `pack_quantized_flat`: quantize
+    `flat + residual` (`quantize.ef_quantize`) and return the new residual
+    beside the wire pair -> (hi, lo, saturation, residual' float32[total]).
+    The codes keep the [-qmax, qmax] alphabet, so the wire geometry and
+    every later step are the plain path's. `saturation` counts the
+    coefficients whose CARRIED value clipped."""
+    step = _steps(spec)
+    carried = flat.to(torch.float32) + residual.to(torch.float32)
+    sat = quantize.saturation_count(carried, step, spec.bits)
+    q, new_residual = quantize.ef_quantize(flat.to(torch.float32), residual, step, spec.bits)
+    hi, lo = _interleave_codes(q, spec)
+    return hi, lo, sat, new_residual
 
 
 def pack_quantized_delta(params: dict, base_params: dict, spec: PackedSpec):
     """Quantize-and-pack one client's UPDATE (params - base_params)."""
     return pack_quantized_flat(flat_params(params) - flat_params(base_params), spec)
+
+
+def pack_quantized_delta_ef(params: dict, base_params: dict, residual: torch.Tensor,
+                            spec: PackedSpec):
+    """Quantize-and-pack one client's UPDATE with error feedback: `residual`
+    is its carried float32[total] quantization error -> (hi, lo, saturation,
+    residual')."""
+    return pack_quantized_flat_ef(flat_params(params) - flat_params(base_params), residual,
+                                  spec)
 
 
 def unpack_quantized(v, spec: PackedSpec, surviving: int) -> np.ndarray:

@@ -60,9 +60,10 @@ class PackingConfig:
                   effective guard adds ceil(log2 C)).
     error_budget: declared max |packed - unpacked| error per averaged
                   coefficient (0 = auto: step/2 + 1e-4).
-    error_feedback: residual-carrying quantization. Accepted here so the
-                  config mirrors the JAX package's, but the port does not
-                  run it yet: `PackedSpec.for_params` refuses it.
+    error_feedback: residual-carrying quantization (`ef_quantize`): each
+                  client quantizes update + residual and carries the
+                  remainder to its next upload; needs the streaming
+                  engine, which owns the residual rows.
     """
 
     bits: int = 0
@@ -164,6 +165,25 @@ def dequantize(q: torch.Tensor, step) -> torch.Tensor:
     return q.to(torch.float32) * _step_tensor(step, q)
 
 
+def ef_quantize(x: torch.Tensor, residual: torch.Tensor, step, bits: int):
+    """Error-feedback quantization: quantize `x + residual` and return the
+    new residual, the part of the carried signal the b-bit grid could not
+    express this round:
+
+        q         = quantize(x + residual)        # int32 in [-qmax, qmax]
+        residual' = (x + residual) - dequantize(q)
+
+    While the carried value stays inside the clip, |residual'| <= step/2; a
+    saturating coefficient parks its excess in the residual instead of
+    losing it. The codes are clipped exactly like `quantize`'s, so the
+    carry-free interleave certificate holds unchanged. float32 throughout,
+    in the JAX package's order, so the codes and the residual are bitwise
+    its. -> (q int32, residual' float32)."""
+    carried = x.to(torch.float32) + residual.to(torch.float32)
+    q = quantize(carried, step, bits)
+    return q, carried - dequantize(q, step)
+
+
 def saturation_count(x: torch.Tensor, step, bits: int) -> torch.Tensor:
     """How many of `x` saturate the b-bit grid at this step (non-finite
     values count)."""
@@ -238,3 +258,24 @@ def quant_error_budget(cfg: PackingConfig) -> float:
     step = cfg.step
     worst = max(step) if isinstance(step, tuple) else step
     return 0.5 * worst + 1e-4
+
+
+def describe(cfg: PackingConfig, modulus: int, clients: int) -> dict:
+    """Human/artifact-facing summary of a packing choice at one geometry
+    (the JAX package's `describe`)."""
+    fb = field_bits(cfg.bits, clients)
+    guard_eff = cfg.guard_bits + max(int(clients) - 1, 0).bit_length()
+    k = cfg.interleave or max_interleave(modulus, cfg.bits, clients, cfg.guard_bits)
+    return {
+        "bits": cfg.bits,
+        "interleave": k,
+        "field_bits": fb,
+        "guard_bits": guard_eff,
+        "clip": cfg.clip,
+        "step": cfg.step,
+        "payload_bits": payload_bits(modulus, guard_eff),
+        "error_budget": quant_error_budget(cfg),
+        "error_feedback": bool(cfg.error_feedback),
+        "clients": int(clients),
+        "headroom_ok": guard_eff + k * fb <= min(modulus.bit_length() - 2, MAX_PACKED_BITS),
+    }

@@ -26,15 +26,19 @@ trees. `--dp-noise SIGMA` (with `--dp-clip`,
 `--duplicate-clients`, `--transient-clients` and `--permanent-clients`
 inject a deterministic fault schedule, and `--on-overflow
 exclude` / `--max-update-norm` sanitize the uploads (`fl.faults`, `fl.dp`).
+`--num-hosts H` (>= 2, implying `--stream`) folds each host's client block
+locally and ships one partial a host (`fl.hierarchy`), under
+`--host-quorum`, `--ship-deadline` and `--host-staleness`; `--outage-hosts`
+darkens whole host blocks and `--link-loss`, `--link-dark`, `--link-delay`
+and `--link-dup` fault the tier->root uplinks.
 `--preset NAME` runs a named configuration (`presets.PRESETS`) and ignores
 the other flags but `--resume`, `--json` and `--device`.
 
 The flags keep the JAX CLI's names, defaults and guards (the final model is
 saved to agg_model.npz unless `--no-save-model`). A flag of the JAX CLI
-that this port does not have yet (the hierarchical fold's `--num-hosts`,
-its tier knobs and outage and link faults, `--data-dir`, `--profile`,
-`--mesh-ct`; ROADMAP) is refused with an error naming it, never silently
-ignored. `--device` is the one flag the JAX CLI lacks: the run is on CUDA
+that this port does not have yet (`--data-dir`, `--image-size`,
+`--profile`, `--mesh-ct`; ROADMAP) is refused with an error naming it,
+never silently ignored. `--device` is the one flag the JAX CLI lacks: the run is on CUDA
 unless it names another device.
 """
 
@@ -53,11 +57,7 @@ from hefl_tpu_torch.models import MODEL_REGISTRY
 from hefl_tpu_torch.presets import PRESETS
 
 # Flags of `hefl_tpu.cli` that the port does not run yet.
-UNPORTED_FLAGS = (
-    "--data-dir", "--image-size", "--profile",
-    "--outage-hosts", "--link-loss", "--link-dark", "--link-delay", "--link-dup",
-    "--num-hosts", "--host-quorum", "--ship-deadline", "--host-staleness", "--mesh-ct",
-)
+UNPORTED_FLAGS = ("--data-dir", "--image-size", "--profile", "--mesh-ct")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -134,6 +134,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "clients masked (the historical full-C producer; "
                         "the cohort-only default gathers just the sampled "
                         "cohort's slots, bitwise the same aggregate)")
+    p.add_argument("--num-hosts", type=int, default=0, metavar="H",
+                   help="hierarchical multi-host aggregation (>= 2): each "
+                        "host folds its contiguous client block locally "
+                        "and ships ONE partial ciphertext across the "
+                        "simulated DCN per round — O(hosts) cross-host "
+                        "bytes, bitwise the flat fold; 0 = flat "
+                        "single-root aggregation; implies --stream")
+    p.add_argument("--host-quorum", type=float, default=1.0, metavar="Q",
+                   help="fraction of the round's nonempty host tiers "
+                        "whose partials must land at the root to commit; "
+                        "below it the round degrades like a missed client "
+                        "quorum; requires --num-hosts H >= 2")
+    p.add_argument("--ship-deadline", type=float, default=0.0, metavar="S",
+                   help="per-round tier->root ship deadline in simulated "
+                        "seconds from the client-quorum commit point "
+                        "(0 = none; retried deliveries are exempt); "
+                        "requires --num-hosts H >= 2")
+    p.add_argument("--host-staleness", type=int, default=0, metavar="T",
+                   help="tier staleness budget: rounds a host partial "
+                        "that missed its ship may carry forward to fold "
+                        "as a stale tier fold before its clients are "
+                        "excluded as host_stale; requires --num-hosts")
     p.add_argument("--hhe", action="store_true",
                    help="hybrid-HE uplink: clients encrypt their packed update under "
                         "a per-client stream cipher (~1x wire bytes, no client-side "
@@ -215,6 +237,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--permanent-clients", type=int, default=0, metavar="K",
                    help="fault injection: clients per round for whom every "
                         "delivery fails (excluded as unreachable)")
+    p.add_argument("--outage-hosts", type=int, default=0, metavar="K",
+                   help="fault injection: host rows per round whose whole "
+                        "contiguous client block is scheduled out (a "
+                        "regional outage); requires --num-hosts H >= 2")
+    p.add_argument("--link-loss", type=int, default=0, metavar="K",
+                   help="fault injection: tier->root uplinks per round "
+                        "whose first ship delivery is LOST (recovered by "
+                        "ship retries); requires --num-hosts H >= 2")
+    p.add_argument("--link-dark", type=int, default=0, metavar="K",
+                   help="fault injection: tier->root uplinks per round "
+                        "that lose EVERY ship delivery (the host misses "
+                        "the round as host_unreachable); requires "
+                        "--num-hosts H >= 2")
+    p.add_argument("--link-delay", type=float, default=0.0, metavar="S",
+                   help="fault injection: max per-uplink ship delivery "
+                        "delay in simulated seconds (drawn per round; "
+                        "gated by --ship-deadline); requires --num-hosts")
+    p.add_argument("--link-dup", type=int, default=0, metavar="K",
+                   help="fault injection: tier->root uplinks per round "
+                        "whose ship is delivered TWICE (the root dedups "
+                        "by (host, round, sha)); requires --num-hosts")
     p.add_argument("--fault-seed", type=int, default=0,
                    help="PRNG seed of the fault schedule")
     p.add_argument("--serve", action="store_true",
@@ -306,6 +349,21 @@ def check_args(args: argparse.Namespace) -> None:
     if args.full_cohort_train and not want_stream:
         raise ValueError("--full-cohort-train has no effect without a streaming knob; "
                          "add --stream (or --cohort-size K) to enable the engine")
+    if args.outage_hosts > 0 and args.num_hosts < 2:
+        raise ValueError("--outage-hosts darkens host rows of the hierarchical "
+                         "topology; add --num-hosts H (>= 2) to define the rows")
+    if _link_faults(args) and args.num_hosts < 2:
+        raise ValueError("--link-loss/--link-dark/--link-delay/--link-dup fault the "
+                         "tier->root uplinks of the hierarchical topology; add "
+                         "--num-hosts H (>= 2) to define the uplinks")
+    if (args.host_quorum != 1.0 or args.ship_deadline > 0
+            or args.host_staleness > 0) and args.num_hosts < 2:
+        raise ValueError("--host-quorum/--ship-deadline/--host-staleness govern the "
+                         "tier->root uplink of the hierarchical fold tree; add "
+                         "--num-hosts H (>= 2) to define the tiers")
+    if args.num_hosts == 1:
+        raise ValueError("--num-hosts 1 is the flat single-root fold; use 0 (flat) or "
+                         ">= 2 (hierarchical multi-host aggregation)")
     _packing_config(args)
     _fault_config(args)
     _stream_config(args)
@@ -314,7 +372,12 @@ def check_args(args: argparse.Namespace) -> None:
 def _want_stream(args: argparse.Namespace) -> bool:
     """Any streaming knob turns the streaming engine on (`hefl_tpu.cli`)."""
     return (args.stream or args.hhe or args.cohort_size > 0 or args.quorum < 1.0
-            or args.deadline > 0 or args.staleness > 0 or args.stream_retries > 0)
+            or args.deadline > 0 or args.staleness > 0 or args.stream_retries > 0
+            or args.num_hosts > 0)
+
+
+def _link_faults(args: argparse.Namespace) -> bool:
+    return args.link_loss > 0 or args.link_dark > 0 or args.link_delay > 0 or args.link_dup > 0
 
 
 def _stream_config(args: argparse.Namespace) -> StreamConfig | None:
@@ -329,6 +392,10 @@ def _stream_config(args: argparse.Namespace) -> StreamConfig | None:
         retry_backoff_s=args.stream_backoff,
         staleness_rounds=args.staleness,
         seed=args.stream_seed,
+        num_hosts=args.num_hosts,
+        host_quorum=args.host_quorum,
+        ship_deadline_s=args.ship_deadline,
+        host_staleness_rounds=args.host_staleness,
         upload_kind="hhe" if args.hhe else "ckks",
     )
 
@@ -336,12 +403,13 @@ def _stream_config(args: argparse.Namespace) -> StreamConfig | None:
 def _fault_config(args: argparse.Namespace) -> FaultConfig | None:
     """The fault flags as a FaultConfig (None when no fault is set), as
     `hefl_tpu.cli` builds it: a straggler delay makes 25% of the clients
-    straggle."""
+    straggle; the host rows are defined only for an outage or link fault."""
     fail_rounds = tuple(int(r) for r in args.fail_rounds.split(",") if r.strip())
     if not (args.drop_fraction > 0 or args.nan_clients > 0 or args.huge_clients > 0
             or args.straggler_delay > 0 or args.arrival_delay > 0
             or args.duplicate_clients > 0 or args.transient_clients > 0
-            or args.permanent_clients > 0 or fail_rounds):
+            or args.permanent_clients > 0 or args.outage_hosts > 0 or _link_faults(args)
+            or fail_rounds):
         return None
     return FaultConfig(
         seed=args.fault_seed,
@@ -355,6 +423,12 @@ def _fault_config(args: argparse.Namespace) -> FaultConfig | None:
         duplicate_clients=args.duplicate_clients,
         transient_fail_clients=args.transient_clients,
         permanent_fail_clients=args.permanent_clients,
+        outage_hosts=args.outage_hosts,
+        link_loss_hosts=args.link_loss,
+        link_dark_hosts=args.link_dark,
+        link_delay_s=args.link_delay,
+        link_dup_hosts=args.link_dup,
+        num_hosts=args.num_hosts if (args.outage_hosts > 0 or _link_faults(args)) else 0,
     )
 
 

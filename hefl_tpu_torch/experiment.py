@@ -233,15 +233,7 @@ def check_config(cfg: ExperimentConfig) -> None:
             "StreamConfig.host_staleness_rounds=0 for dp runs (a carried "
             "host partial would double its clients' accounted sensitivity)"
         )
-    link = cfg.faults is not None and cfg.faults._any_link_fault()
-    link_field = next((f for f in ("link_loss_hosts", "link_dark_hosts", "link_delay_s",
-                                   "link_dup_hosts") if link and getattr(cfg.faults, f)),
-                      "link_loss_hosts")
     unported = [
-        ("stream.num_hosts", cfg.stream is not None and cfg.stream.num_hosts >= 2,
-         "the hierarchy slice, fl/hierarchy.py"),
-        (f"faults.{link_field}", link, "the hierarchy slice, link faults"),
-        ("packing.error_feedback", ef_on, "the error-feedback slice"),
         ("data_dir", cfg.data_dir is not None, "Queue 1, data/folder.py"),
         ("exact_final_decode", cfg.exact_final_decode, "M14, native/crt.cpp"),
         ("profile_dir", cfg.profile_dir is not None, "M15, the profiler trace of a round"),

@@ -81,6 +81,18 @@ class ClientState:
     stopped: bool
 
 
+def init_ef_residuals(template_params: dict, num_clients: int) -> torch.Tensor:
+    """Fresh error-feedback residual state: one float32 row per REGISTERED
+    client over the model's parameter count, all zeros, on the parameters'
+    device — the first EF round quantizes the bare update, as the plain
+    quantizer does. Not a `ClientState` field: that state lives one round,
+    while the residual is the quantizer's memory across rounds, which
+    `fl.stream.StreamEngine` owns."""
+    total = sum(int(v.numel()) for v in template_params.values())
+    dev = next(iter(template_params.values())).device
+    return torch.zeros((int(num_clients), total), dtype=torch.float32, device=dev)
+
+
 def init_client_state(global_params: dict) -> ClientState:
     return ClientState(
         params=global_params,

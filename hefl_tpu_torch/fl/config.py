@@ -64,10 +64,11 @@ class StreamConfig:
     """Streaming quorum-aggregation knobs, the fields, defaults and
     validation messages of the JAX package's `StreamConfig`
     (hefl_tpu/fl/config.py). The port's engine (`fl.stream.StreamEngine`)
-    runs every knob of the flat engine — cohort sampling, cohort-only
-    training, quorum, deadlines, retries with backoff and jitter, bounded
-    staleness, real-time pacing — and refuses the hierarchical fold
-    (`num_hosts >= 2` and its tier knobs) by name.
+    runs every knob — cohort sampling, cohort-only training, quorum,
+    deadlines, retries with backoff and jitter, bounded staleness,
+    real-time pacing, and the hierarchical fold (`num_hosts >= 2`: the
+    host quorum, the ship deadline and the tier staleness budget of
+    `fl.hierarchy`).
 
     upload_kind: "ckks" (a float or packed CKKS ciphertext) or "hhe" (a
     stream-cipher encryption of the PACKED quantized update, transciphered

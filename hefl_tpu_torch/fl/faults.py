@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from hefl_tpu_torch.fl.dp import global_l2_norm
+from hefl_tpu_torch.parallel import host_of_clients
 
 # Exclusion-cause bits (the int32[C] bitmask of a masked round).
 EXCLUDED_SCHEDULED = 1      # external mask: scheduled dropout
@@ -126,22 +127,6 @@ class CrashConfig:
             raise ValueError("CrashConfig.after_folds must be >= 1")
         if self.torn_bytes < 1:
             raise ValueError("CrashConfig.torn_bytes must be >= 1")
-
-
-def host_of_clients(num_clients: int, num_hosts: int) -> np.ndarray:
-    """int64[num_clients]: which host row owns each client slot — host h
-    owns the contiguous block of ceil(num_clients / num_hosts) slots from
-    h * ceil(num_clients / num_hosts) (`hefl_tpu.parallel.host_of_clients`,
-    which the regional-outage draw keys off)."""
-    if num_hosts < 1:
-        raise ValueError(f"host_of_clients: num_hosts={num_hosts} must be >= 1")
-    if num_clients < num_hosts:
-        raise ValueError(
-            f"host_of_clients: {num_hosts} hosts over {num_clients} clients "
-            "would leave empty host rows; use num_hosts <= num_clients"
-        )
-    per_host = -(-num_clients // num_hosts)
-    return np.arange(num_clients, dtype=np.int64) // per_host
 
 
 @dataclasses.dataclass(frozen=True)

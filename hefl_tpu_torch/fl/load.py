@@ -13,9 +13,12 @@ The record stream — and so the journal's bytes — is a pure function of the
 trace, so `drive_trace(LoadConfig(), path, policy)` reproduces the JAX
 package's `journal_bytes_sha` and `sum_sha` in BENCH_LOAD.json under every
 fsync policy, group-committed or not, folded one at a time or batched.
-The rest of the JAX module (the hierarchical fold leg, the error-feedback
-record, the commit-latency sweep, the artifact driver) waits for the
-hierarchy and error-feedback slices (ROADMAP).
+`fold_throughput_record` times the fold sequential, batched and through the
+hierarchical tree over the same rows (sha-gated equal), and
+`ef_packing_record` the b = 4 error-feedback grid against b = 8; both fold
+on the device given (CUDA unless the caller passes another). The rest of the JAX module (the
+commit-latency sweep, the cohort-gather record, `bench_load_record` and
+`_main`) is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from hefl_tpu_torch.fl import journal as jr
 from hefl_tpu_torch.fl.config import StreamConfig
@@ -294,3 +298,125 @@ def recovery_record(cfg: LoadConfig, path: str) -> list[dict]:
         if p != path:
             os.unlink(p)
     return out
+
+
+def _on(rows: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Rows as int32 residues on `device`."""
+    return torch.from_numpy(rows.astype(np.int32)).to(device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def fold_throughput_record(n_rows: int = 512, repeats: int = 3, shape=_ROW_SHAPE,
+                           seed: int = 0, device=None) -> dict:
+    """folds/s sequential vs `fold_batch` vs the hierarchical tree (4 hosts)
+    over the SAME rows, sha-gated equal: the batched speedup, and what the
+    tree costs on top of the flat fold. The rows are moved to `device`
+    (CUDA unless given) before the clock starts; the clock stops after the
+    device finished."""
+    from hefl_tpu_torch import resolve_device
+    from hefl_tpu_torch.fl.hierarchy import HierarchicalAggregator
+
+    device = resolve_device(device)
+    rows = _on(synthetic_rows(n_rows, seed, shape), device)
+    nonces = [(i, 0) for i in range(n_rows)]
+    p = _p_broadcast()
+
+    def time_seq():
+        acc = OnlineAccumulator(p)
+        t0 = time.perf_counter()
+        for i in range(n_rows):
+            acc.fold(nonces[i], rows[i], rows[i])
+        _sync(device)
+        return time.perf_counter() - t0, acc.value()
+
+    def time_batch():
+        acc = OnlineAccumulator(p)
+        t0 = time.perf_counter()
+        acc.fold_batch(nonces, rows, rows)
+        _sync(device)
+        return time.perf_counter() - t0, acc.value()
+
+    def time_hier():
+        acc = HierarchicalAggregator(p, 4, n_rows)
+        t0 = time.perf_counter()
+        for i in range(n_rows):
+            acc.fold(nonces[i], rows[i], rows[i])
+        out = acc.value()
+        _sync(device)
+        return time.perf_counter() - t0, out
+
+    best = {"sequential": None, "batched": None, "hier": None}
+    shas = {}
+    for _ in range(repeats):
+        for name, fn in (("sequential", time_seq), ("batched", time_batch), ("hier", time_hier)):
+            dt, (s0, s1) = fn()
+            shas[name] = ct_hash(s0, s1)
+            if best[name] is None or dt < best[name]:
+                best[name] = dt
+    return {
+        "rows": n_rows,
+        "row_shape": list(shape),
+        "folds_per_s": {k: round(n_rows / max(v, 1e-9), 1) for k, v in best.items()},
+        "batched_speedup": round(best["sequential"] / max(best["batched"], 1e-9), 2),
+        "sha_equal": len(set(shas.values())) == 1,
+    }
+
+
+def ef_packing_record(clients: int = 8, guard_bits: int = 16, total_params: int = 225_034,
+                      n: int = 256, cohort: int = 256, device=None) -> dict:
+    """The error-feedback geometry as a record: at (C = 8, guard 16), b = 4
+    packs k twice as deep as b = 8, so the bytes on the wire fall to <= 0.55
+    of b = 8's and the fold ingests more client updates a second (fewer
+    ciphertext rows an update). Every (b, k) point is re-certified
+    carry-free (`certify_packing`, what `PackedSpec.for_params` enforces).
+    The fold runs on `device` (CUDA unless given; the rows moved there
+    before the clock)."""
+    from hefl_tpu_torch import resolve_device
+    from hefl_tpu_torch.analysis.ranges import certify_packing
+    from hefl_tpu_torch.ckks.keys import CkksContext
+    from hefl_tpu_torch.ckks.quantize import max_interleave
+
+    device = resolve_device(device)
+    q = int(CkksContext.create(n=n).modulus)
+    grid = {}
+    for b in (2, 4, 8):
+        k = max_interleave(q, b, clients, guard_bits)
+        grid[b] = {"k": int(k), "certified": bool(certify_packing(q, b, k, clients,
+                                                                  guard_bits).ok)}
+    n_ct = {b: -(-total_params // (grid[b]["k"] * n)) for b in grid}
+    bytes_ratio = n_ct[4] / n_ct[8]
+    # Fold throughput at each geometry: the same cohort, rows sized by the
+    # geometry's ciphertext count.
+    num_l = len(_PRIMES)
+    tput = {}
+    for b in (4, 8):
+        rows = _on(synthetic_rows(cohort, b, (n_ct[b], num_l, 64)), device)
+        nonces = [(i, 0) for i in range(cohort)]
+        best = None
+        for _ in range(3):
+            acc = OnlineAccumulator(_p_broadcast())
+            t0 = time.perf_counter()
+            acc.fold_batch(nonces, rows, rows)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        tput[b] = cohort / max(best, 1e-9)
+    fold_ratio = tput[4] / tput[8]
+    return {
+        "clients": clients,
+        "guard_bits": guard_bits,
+        "total_params": total_params,
+        "grid": {str(b): grid[b] for b in grid},
+        "n_ct": {str(b): int(n_ct[b]) for b in n_ct},
+        "bytes_ratio_b4_vs_b8": round(bytes_ratio, 4),
+        "bytes_ratio_budget": 0.55,
+        "bytes_ratio_ok": bytes_ratio <= 0.55,
+        "fold_throughput_ratio_b4_vs_b8": round(fold_ratio, 3),
+        "fold_ratio_floor": 1.5,
+        "fold_ratio_ok": fold_ratio >= 1.5,
+        "certified": all(g["certified"] for g in grid.values()),
+    }

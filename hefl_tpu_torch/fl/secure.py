@@ -14,6 +14,10 @@ fused-encrypt kernel launch on CUDA):
   * hybrid HE (`hhe_encrypt_stack`): the same packed integers under each
     client's stream cipher — no CKKS work on the client at all; the server
     transciphers them (`hhe.transcipher`) before the sum.
+  * error feedback (`residual_blk=` on the packed and hybrid-HE stacks):
+    the upload of update + carried residual, returning the new residual;
+    only the streaming engine, which carries the residual rows across
+    rounds, runs it.
 
 The server's aggregation is the ciphertext sum mod p over the client axis.
 Trust split: the round touches only the `PublicKey`; the `SecretKey`
@@ -43,6 +47,7 @@ from hefl_tpu_torch.ckks.packing import (
     flat_params,
     pack_params,
     pack_quantized_flat,
+    pack_quantized_flat_ef,
     unpack_blocks,
     unpack_quantized,
 )
@@ -78,38 +83,57 @@ def encrypt_stack(
     return ops.encrypt_batch(ctx, pk, encode_stack(ctx, p_out), enc_gens, samples)
 
 
+def _pack_updates(p_out: list[dict], base_params: dict, spec: PackedSpec,
+                  residual_blk: torch.Tensor | None) -> list[tuple]:
+    """Each client's UPDATE (trained weights minus `base_params`) quantized
+    and interleaved -> (hi, lo, saturation) a client; with `residual_blk`
+    (float32[C, total], error feedback) quantized THROUGH its carried
+    residual row, with the new row fourth."""
+    base = flat_params(base_params)
+    if residual_blk is None:
+        return [pack_quantized_flat(flat_params(prm) - base, spec) for prm in p_out]
+    return [pack_quantized_flat_ef(flat_params(prm) - base, residual_blk[c], spec)
+            for c, prm in enumerate(p_out)]
+
+
+def _with_residual(out: tuple, packed: list[tuple], residual_blk) -> tuple:
+    return out if residual_blk is None else out + (torch.stack([r for *_, r in packed]),)
+
+
 def encrypt_stack_packed(
     ctx: CkksContext, pk: PublicKey, p_out: list[dict], base_params: dict, enc_gens,
-    spec: PackedSpec, samples=None,
-) -> tuple[Ciphertext, torch.Tensor]:
+    spec: PackedSpec, samples=None, residual_blk: torch.Tensor | None = None,
+) -> tuple:
     """The packed twin of `encrypt_stack`: each client's UPDATE (trained
     weights minus `base_params`, the round's global weights) quantized and
     interleaved -> (Ciphertext [C, spec.n_ct, L, N] at the guard scale,
-    saturation int32[C], the packed analog of the encode overflow)."""
-    base = flat_params(base_params)
-    packed = [pack_quantized_flat(flat_params(prm) - base, spec) for prm in p_out]
-    m_res = torch.stack([encoding.encode_packed(ctx.ntt, hi, lo) for hi, lo, _ in packed])
+    saturation int32[C], the packed analog of the encode overflow). With
+    `residual_blk` (error feedback: float32[C, total] in `p_out`'s client
+    order) each update is quantized through its residual row and the new
+    rows come back third, float32[C, total]; the wire geometry is the same."""
+    packed = _pack_updates(p_out, base_params, spec, residual_blk)
+    m_res = torch.stack([encoding.encode_packed(ctx.ntt, hi, lo) for hi, lo, *_ in packed])
     ct = ops.encrypt_batch(ctx, pk, m_res, enc_gens, samples)
-    sat = torch.stack([s for _, _, s in packed])
-    return Ciphertext(c0=ct.c0, c1=ct.c1, scale=spec.guard_scale), sat
+    out = (Ciphertext(c0=ct.c0, c1=ct.c1, scale=spec.guard_scale),
+           torch.stack([s for _, _, s, *_ in packed]))
+    return _with_residual(out, packed, residual_blk)
 
 
 def hhe_encrypt_stack(
-    p_out: list[dict], base_params: dict, hhe_keys, round_index: int, spec: PackedSpec
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    p_out: list[dict], base_params: dict, hhe_keys, round_index: int, spec: PackedSpec,
+    residual_blk: torch.Tensor | None = None,
+) -> tuple:
     """The hybrid-HE twin of `encrypt_stack_packed`: each client's packed
     update under its stream cipher (`hhe_keys[c]`, uint32[4]) instead of
     CKKS — one keystream sweep and one add per slot, no NTT.
-    -> (w_hi, w_lo int32[C, spec.n_ct, N], saturation int32[C])."""
-    base = flat_params(base_params)
-    w_hi, w_lo, sat = [], [], []
-    for c, prm in enumerate(p_out):
-        hi, lo, s = pack_quantized_flat(flat_params(prm) - base, spec)
-        wh, wl = cipher.stream_encrypt(hi, lo, hhe_keys[c], round_index)
-        w_hi.append(wh)
-        w_lo.append(wl)
-        sat.append(s)
-    return torch.stack(w_hi), torch.stack(w_lo), torch.stack(sat)
+    -> (w_hi, w_lo int32[C, spec.n_ct, N], saturation int32[C]), and the
+    new residual rows fourth with `residual_blk`, as `encrypt_stack_packed`."""
+    packed = _pack_updates(p_out, base_params, spec, residual_blk)
+    words = [cipher.stream_encrypt(hi, lo, hhe_keys[c], round_index)
+             for c, (hi, lo, *_) in enumerate(packed)]
+    out = (torch.stack([wh for wh, _ in words]), torch.stack([wl for _, wl in words]),
+           torch.stack([s for _, _, s, *_ in packed]))
+    return _with_residual(out, packed, residual_blk)
 
 
 def lazy_sum_mod(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -144,6 +168,7 @@ def client_uploads(
     xs: torch.Tensor, ys: torch.Tensor, gen: torch.Generator, packing: PackedSpec | None = None,
     hhe_keys=None, round_index: int = 0, streams=None, dp: DpConfig | None = None,
     participation=None, poison=None, want_bits: bool = False, cohort=None,
+    ef_residual=None,
 ):
     """The client half of a round, in the JAX package's order: train ->
     DP-sanitize (`dp`, shares calibrated to `calibration_clients`) ->
@@ -171,10 +196,24 @@ def client_uploads(
     are then cohort-rowed ([len(cohort), ...], cohort order); the padding
     rows are encrypted (the launch keeps the bucket's shape) and dropped.
 
+    `ef_residual` (float32[C, total], the registry's rows) is REQUIRED when
+    `packing.error_feedback` is set: each client quantizes its update plus
+    its residual row, and the new residual rows (cohort-rowed under
+    `cohort`) come back as a seventh output, for the streaming engine to
+    scatter into its cross-round state.
+
     -> (Ciphertext [C, n_ct, L, N] or the (w_hi, w_lo) word pair,
     metrics float32[C, E, 4], overflow [C], uploaded params, enc_gens,
-    exclusion bits int32[C] or None)."""
+    exclusion bits int32[C] or None[, residual' float32[C, total]])."""
     num_clients = int(xs.shape[0])
+    ef_on = packing is not None and packing.error_feedback
+    if ef_on and ef_residual is None:
+        raise ValueError(
+            "PackingConfig.error_feedback needs the per-client residual "
+            "rows (ef_residual) the StreamEngine carries across rounds — "
+            "pass f32[num_clients, total] (zeros on round 0; see "
+            "fl.client.init_ef_residuals)"
+        )
     if packing is not None and packing.clients < num_clients:
         raise ValueError(
             f"packing spec sized for {packing.clients} clients cannot hold a "
@@ -215,6 +254,8 @@ def client_uploads(
         xs, ys = xs.index_select(0, idx), ys.index_select(0, idx)
         if hhe_keys is not None:
             hhe_keys = np.asarray(hhe_keys)[gidx]
+        if ef_on:
+            ef_residual = ef_residual[torch.from_numpy(gidx).to(ef_residual.device)]
     p_out, mets = train_block(
         model, cfg, global_params, xs, ys,
         gens=None if streams is not None else train_gens, streams=streams,
@@ -226,23 +267,30 @@ def client_uploads(
                  for g, prm in zip(dp_gens, p_out)]
     if poison is not None:
         p_out = [poison_tree(prm, int(code)) for prm, code in zip(p_out, np.asarray(poison))]
+    ef_blk = ef_residual if ef_on else None
+    ef = []
     if hhe_keys is not None:
-        w_hi, w_lo, overflow = hhe_encrypt_stack(p_out, global_params, hhe_keys, round_index,
-                                                 packing)
+        w_hi, w_lo, overflow, *ef = hhe_encrypt_stack(p_out, global_params, hhe_keys,
+                                                      round_index, packing, residual_blk=ef_blk)
         cts = (w_hi[:rows], w_lo[:rows])
     elif packing is not None:
-        cts, overflow = encrypt_stack_packed(ctx, pk, p_out, global_params, enc_gens, packing)
+        cts, overflow, *ef = encrypt_stack_packed(ctx, pk, p_out, global_params, enc_gens,
+                                                  packing, residual_blk=ef_blk)
     else:
         overflow = torch.stack([
             encoding.encode_overflow_count(pack_params(prm, ctx.n), ctx.scale) for prm in p_out
         ])
         cts = encrypt_stack(ctx, pk, p_out, enc_gens)
     bits = exclusion_bits(cfg, global_params, p_out, part, overflow) if want_bits else None
+    ef_out = ef[0] if ef else None
     if gidx is not None:
         if hhe_keys is None:
             cts = Ciphertext(c0=cts.c0[:rows], c1=cts.c1[:rows], scale=cts.scale)
         mets, overflow, p_out, enc_gens = mets[:rows], overflow[:rows], p_out[:rows], enc_gens[:rows]
         bits = bits[:rows] if bits is not None else None
+        ef_out = ef_out[:rows] if ef_out is not None else None
+    if ef_on:
+        return cts, mets, overflow, p_out, enc_gens, bits, ef_out
     return cts, mets, overflow, p_out, enc_gens, bits
 
 
@@ -291,6 +339,15 @@ def secure_fedavg_round(
     path exists to hide, and exists only to check encode + encrypt + sum +
     decrypt against a plaintext reference in one program.
     """
+    if packing is not None and packing.error_feedback:
+        # One-shot round: nowhere to carry the residual, so an EF spec here
+        # would silently degrade to plain low-bit quantization.
+        raise ValueError(
+            "PackingConfig.error_feedback requires the streaming engine's "
+            "cross-round residual state (fl.stream); the batched secure "
+            "round cannot carry it — add a StreamConfig or drop "
+            "error_feedback"
+        )
     num_clients = int(xs.shape[0])
     sanitizing = cfg.on_overflow == "exclude" or cfg.max_update_norm > 0
     explicit = participation is not None or poison is not None

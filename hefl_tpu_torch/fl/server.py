@@ -1,6 +1,7 @@
 """Durable aggregation server: recover-then-serve around `StreamEngine`.
 
-Counterpart of `hefl_tpu.fl.server` for the flat engine. The
+Counterpart of `hefl_tpu.fl.server`, for the flat and the hierarchical
+engine. The
 `StreamEngine` lives inside `run_experiment`'s round loop and dies with
 it; `AggregationServer` is the same engine wrapped in a
 write-ahead-journal lifecycle (fl.journal):
@@ -8,8 +9,10 @@ write-ahead-journal lifecycle (fl.journal):
   1. **Recover.** On construction the server opens the journal (torn-tail
      repair; CRC/chain damage fails loudly), verifies the stream-config
      echo in the header, and rebuilds the engine's cross-round state —
-     carried uploads (payloads from `carry` records) and the dedup nonce
-     window (from the last `round_close`) — as of the last sealed round.
+     carried uploads (payloads from `carry` records), the carried host
+     partials of the hierarchical engine (from `tier_carry` records) and
+     the dedup nonce window (from the last `round_close`) — as of the last
+     sealed round.
      A round left OPEN by the crash is kept as a replay script.
 
   2. **Serve.** `run_round` mirrors `StreamEngine.run_round` exactly, but
@@ -44,7 +47,12 @@ import dataclasses
 import time
 
 from hefl_tpu_torch.fl import journal as jr
-from hefl_tpu_torch.fl.stream import DedupWindow, PendingUpload, StreamEngine
+from hefl_tpu_torch.fl.stream import (
+    DedupWindow,
+    PendingTierPartial,
+    PendingUpload,
+    StreamEngine,
+)
 from hefl_tpu_torch.obs import events as obs_events
 from hefl_tpu_torch.obs import metrics as obs_metrics
 
@@ -93,6 +101,25 @@ def _pending_from_carries(carries: list[dict]) -> list[PendingUpload]:
             nonce=tuple(rec["nonce"]),
             c0=c0, c1=c1,
             lands_at=float(rec["lands_at"]),
+            lateness=int(rec["lateness"]),
+        ))
+    return out
+
+
+def _tiers_from_carries(carries: list[dict]) -> list[PendingTierPartial]:
+    """Re-materialize pending HOST partials from a sealed round's
+    tier_carry records, the tier-level twin of `_pending_from_carries`.
+    The body's sha was verified on read; `fold_carried` re-verifies it
+    against the carried sha at fold time."""
+    out = []
+    for rec in carries:
+        c0, c1 = jr.ct_from_body(rec["body"], rec["shape"])
+        out.append(PendingTierPartial(
+            host=int(rec["host"]),
+            origin_round=int(rec["origin_round"]),
+            sha=rec["sha"],
+            c0=c0, c1=c1,
+            clients=tuple(int(c) for c in rec["clients"]),
             lateness=int(rec["lateness"]),
         ))
     return out
@@ -177,12 +204,13 @@ class AggregationServer:
         # STARTS from (so a sealed round the driver re-runs can be
         # replayed against its true entry state).
         state_pending: list[PendingUpload] = []
+        state_tiers: list[PendingTierPartial] = []
         state_seen: set = set()
-        self._pre_state: dict[int, tuple[list, set]] = {}
+        self._pre_state: dict[int, tuple[list, list, set]] = {}
         self._replay: dict[int, list[dict]] = {}
         for r in sorted(by_round):
             recs = by_round[r]
-            self._pre_state[r] = (list(state_pending), set(state_seen))
+            self._pre_state[r] = (list(state_pending), list(state_tiers), set(state_seen))
             close = next(
                 (x for x in recs if x["kind"] == "round_close"), None
             )
@@ -196,10 +224,14 @@ class AggregationServer:
                 state_pending = _pending_from_carries(
                     [x for x in recs if x["kind"] == "carry"]
                 )
+                state_tiers = _tiers_from_carries(
+                    [x for x in recs if x["kind"] == "tier_carry"]
+                )
                 state_seen = {tuple(n) for n in close["seen"]}
             else:
                 open_round = r
         self.engine._pending = state_pending
+        self.engine._pending_tiers = state_tiers
         self.engine._seen = DedupWindow(state_seen)
         replayable = sum(len(v) for v in self._replay.values())
         if not fresh:
@@ -215,6 +247,7 @@ class AggregationServer:
             sealed_rounds=tuple(sealed),
             open_round=open_round,
             carried_uploads=len(state_pending),
+            carried_tier_partials=len(state_tiers),
             seen_nonces=len(state_seen),
             fresh_journal=fresh,
         )
@@ -240,8 +273,9 @@ class AggregationServer:
         r = int(round_index)
         replay = self._replay.pop(r, None)
         if replay is not None and r in self._pre_state:
-            pend, seen = self._pre_state[r]
+            pend, tiers, seen = self._pre_state[r]
             self.engine._pending = list(pend)
+            self.engine._pending_tiers = list(tiers)
             self.engine._seen = DedupWindow(seen)
         sess = jr.RoundSession(self.writer, crash=self.crash, replay=replay)
         try:

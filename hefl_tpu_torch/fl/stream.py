@@ -1,6 +1,6 @@
 """Streaming quorum aggregation: deadline-driven cohorts, bounded staleness.
 
-Counterpart of `hefl_tpu.fl.stream`'s flat engine. CKKS addition is
+Counterpart of `hefl_tpu.fl.stream`'s engine. CKKS addition is
 associative and commutative over exact residues mod p, so a round need not
 wait for every client nor hold every ciphertext at once:
 
@@ -30,10 +30,22 @@ upload into CKKS (one K7 launch) before the fold; a journaled round keeps
 the pads so replay can re-transcipher the persisted symmetric bodies
 (`hhe.transcipher.retranscipher_decode`).
 
-Not ported here, and refused by name: the hierarchical multi-host fold
-(`StreamConfig.num_hosts >= 2` and its tier knobs, link faults — ROADMAP's
-hierarchy slice), error feedback (`PackedSpec.error_feedback`, the EF
-slice), and `num_real_clients` (one device never pads its clients).
+With `StreamConfig.num_hosts >= 2` the round folds through the two-tier
+tree of `fl.hierarchy`: each host's tier folds its client block, and at the
+client-quorum commit point every nonempty tier ships one partial over a
+simulated uplink that the link-fault schedule (`fl.faults.schedule_links`)
+may delay, lose, duplicate or darken. The round re-takes its verdict at the
+tier level (`host_quorum`), and a missed tier's sealed partial carries into
+the next round under `host_staleness_rounds` (`PendingTierPartial`), folded
+at that round's root before any arrival.
+
+With `PackedSpec.error_feedback` each client quantizes update + residual;
+the engine keeps one float32 residual row per registered client
+(`_ef_residual`), updated at production time for the round's trained rows
+and committed with the rest of the cross-round state. As in the JAX
+package, the residual is not journaled.
+
+`num_real_clients` is refused: one device never pads its clients.
 """
 
 from __future__ import annotations
@@ -50,9 +62,13 @@ import torch
 
 from hefl_tpu_torch.analysis import ranges
 from hefl_tpu_torch.ckks.ops import Ciphertext
+from hefl_tpu_torch.fl.client import init_ef_residuals
 from hefl_tpu_torch.fl.config import HheConfig, StreamConfig, TrainConfig
 from hefl_tpu_torch.fl.dp import calibration_clients
 from hefl_tpu_torch.fl.faults import (
+    EXCLUDED_HOST_STALE,
+    EXCLUDED_HOST_TIMEOUT,
+    EXCLUDED_HOST_UNREACHABLE,
     EXCLUDED_NONFINITE,
     EXCLUDED_NORM,
     EXCLUDED_OVERFLOW,
@@ -64,6 +80,7 @@ from hefl_tpu_torch.fl.faults import (
     RoundMeta,
     schedule_arrivals,
     schedule_for_round,
+    schedule_links,
 )
 from hefl_tpu_torch.fl.journal import host_u32
 from hefl_tpu_torch.fl.secure import client_uploads
@@ -72,6 +89,7 @@ from hefl_tpu_torch.obs import events as obs_events
 from hefl_tpu_torch.obs import metrics as obs_metrics
 from hefl_tpu_torch.obs import scopes as obs_scopes
 from hefl_tpu_torch.obs import spans as obs_spans
+from hefl_tpu_torch.parallel import host_of_clients
 
 # In-program sanitization causes: an upload whose bits carry any of these
 # ARRIVES but is rejected at the accumulator (the sanitizer's verdict is
@@ -140,9 +158,16 @@ class OnlineAccumulator:
         self._c0, self._c1 = self._mod(s0), self._mod(s1)
 
     def _device(self, c0):
-        if self._c0 is not None:
-            return self._c0.device
-        return c0.device if isinstance(c0, torch.Tensor) else torch.device("cpu")
+        """The sum's device: a host array moves there, a tensor must be there
+        already (a fold never carries the sum off the device it lives on)."""
+        if self._c0 is None:
+            return c0.device if isinstance(c0, torch.Tensor) else torch.device("cpu")
+        if isinstance(c0, torch.Tensor) and c0.device != self._c0.device:
+            raise ValueError(
+                f"OnlineAccumulator: upload on {c0.device} but the running sum "
+                f"lives on {self._c0.device}"
+            )
+        return self._c0.device
 
     def fold(self, nonce, c0, c1) -> bool:
         """Fold one upload (tensors, or host uint32 arrays); False (and count
@@ -267,6 +292,24 @@ class PendingUpload:
 
 
 @dataclasses.dataclass
+class PendingTierPartial:
+    """A sealed HOST partial carried across rounds under the tier staleness
+    budget: host `host`'s tier folded `clients`' uploads in `origin_round`
+    but its ship missed that round's commit. It folds at a later round's
+    root as a stale tier fold (`HierarchicalAggregator.fold_carried`,
+    deduped by (host, origin_round)) or carries until `lateness` passes
+    host_staleness_rounds, when its clients are excluded as "host_stale"."""
+
+    host: int
+    origin_round: int
+    sha: str
+    c0: Any                    # int32 residues [n_ct, L, N] (tensor, or a journal body's array)
+    c1: Any
+    clients: tuple[int, ...]   # the client folds the partial holds
+    lateness: int              # rounds behind its origin when it folds
+
+
+@dataclasses.dataclass
 class _HheRound:
     """Server-side hybrid-HE state of one journaled round: the arrived
     symmetric words and the provisioned keystream pads (on the device), so
@@ -297,7 +340,7 @@ class StreamRoundMeta:
     cohort: tuple[int, ...]
     quorum: int
     committed: bool          # round released (False = degraded)
-    degraded_reason: str | None  # None | "quorum" | "dp_floor"
+    degraded_reason: str | None  # None | "quorum" | "host_quorum" | "dp_floor"
     fresh: int               # this round's cohort arrivals folded
     stale_folded: int        # carried uploads folded this round
     carried: int             # uploads carried into the NEXT round
@@ -308,7 +351,9 @@ class StreamRoundMeta:
     rejected: int            # arrivals the sanitizer rejected
     retries: int             # redelivery attempts made
     commit_s: float          # simulated time at which the round closed
-    hosts: dict | None = None  # the hierarchical engine's uplink story (None here)
+    hosts: dict | None = None  # the hierarchical engine's uplink story: landed and
+                               # missed tiers, host quorum, ship retries and dedups,
+                               # tier carries (None on the flat engine)
 
     def record(self) -> dict:
         """JSON-ready summary for history[r] / the stream_round event."""
@@ -365,23 +410,16 @@ class StreamEngine:
     """
 
     def __init__(self, stream: StreamConfig, faults=None):
-        if stream.num_hosts >= 2:
-            raise ValueError(
-                f"StreamConfig.num_hosts={stream.num_hosts}: the hierarchical "
-                "multi-host fold is not ported to hefl_tpu_torch yet (ROADMAP: "
-                "the hierarchy slice, fl/hierarchy.py); use num_hosts=0"
-            )
-        if faults is not None and faults._any_link_fault():
-            raise ValueError(
-                "FaultConfig link faults (link_loss_hosts/link_dark_hosts/"
-                "link_delay_s/link_dup_hosts) fault the hierarchical uplinks, "
-                "which are not ported to hefl_tpu_torch yet (ROADMAP: the "
-                "hierarchy slice, fl/hierarchy.py)"
-            )
         self.stream = stream
         self.faults = faults
         self._pending: list[PendingUpload] = []   # land next round
+        # Sealed host partials that missed their round's ship, carried
+        # under host_staleness_rounds.
+        self._pending_tiers: list[PendingTierPartial] = []
         self._seen: DedupWindow = DedupWindow()
+        # Error-feedback residual rows float32[num_clients, total], lazily
+        # zeroed on the first EF round; committed with _pending/_seen.
+        self._ef_residual: torch.Tensor | None = None
         # The most recent round's span tree (purely observational).
         self.last_spans: obs_spans.SpanTracer | None = None
 
@@ -471,11 +509,6 @@ class StreamEngine:
             raise ValueError("an HheConfig is given but StreamConfig.upload_kind is not 'hhe'")
         if hhe_mode and hhe is None:
             hhe = HheConfig()
-        if packing is not None and packing.error_feedback:
-            raise ValueError(
-                "PackedSpec.error_feedback is not ported to hefl_tpu_torch yet "
-                "(ROADMAP: the error-feedback slice); drop error_feedback"
-            )
         if hhe_mode:
             # Round-setup range proof: the keystream subtract stays
             # carry-free inside the guard band, or the round refuses to run.
@@ -504,6 +537,25 @@ class StreamEngine:
                 "upload gives one client 2x the accounted per-round "
                 "sensitivity and breaks cohort-subsampling amplification "
                 "— set staleness_rounds=0 for dp runs"
+            )
+        if dp is not None and s.host_staleness_rounds > 0:
+            raise ValueError(
+                "dp cannot be combined with a tier staleness budget "
+                f"(host_staleness_rounds={s.host_staleness_rounds}): a "
+                "carried host partial re-releases its client folds in a "
+                "later round, giving each 2x the accounted per-round "
+                "sensitivity and breaking cohort-subsampling amplification "
+                "— set host_staleness_rounds=0 for dp runs"
+            )
+        ef_on = packing is not None and packing.error_feedback
+        if dp is not None and ef_on:
+            raise ValueError(
+                "dp cannot be combined with error-feedback packing "
+                "(PackedSpec.error_feedback): the residual carries round "
+                "r's signal into round r+1's upload, giving a client "
+                "cross-round influence the per-round sensitivity "
+                "accounting does not cover and breaking cohort-subsampling "
+                "amplification — drop error_feedback for dp runs"
             )
         num_clients = int(xs.shape[0])
         device = xs.device
@@ -534,14 +586,30 @@ class StreamEngine:
         # the full-C shapes bit for bit.
         use_cohort = bool(s.cohort_only) and len(cohort) < num_clients
         hhe_keys = cipher.derive_client_keys(hhe.key_seed, num_clients) if hhe_mode else None
-        cts, mets_rows, overflow_rows, _, enc_gens, bits_rows = client_uploads(
+        ef_full = None
+        if ef_on:
+            # Lazy zero-init of the residual rows: one a REGISTERED client.
+            total = int(packing.total)
+            if (self._ef_residual is None or tuple(self._ef_residual.shape) != (num_clients, total)
+                    or self._ef_residual.device != device):
+                self._ef_residual = init_ef_residuals(global_params, num_clients).to(device)
+            ef_full = self._ef_residual
+        cts, mets_rows, overflow_rows, _, enc_gens, bits_rows, *ef_tail = client_uploads(
             model, cfg, ctx, pk, global_params, xs, ys, gen, packing=packing,
             hhe_keys=hhe_keys, round_index=round_index, dp=dp, participation=part,
             poison=pois, want_bits=True, cohort=cohort if use_cohort else None,
+            ef_residual=ef_full,
         )
         rows = cohort if use_cohort else np.arange(num_clients)
         row_of = np.full(num_clients, -1, dtype=np.int64)
         row_of[rows] = np.arange(len(rows))
+        ef_next = None
+        if ef_on:
+            # The residual updates at PRODUCTION time: the client quantized
+            # this upload through the old residual whatever becomes of the
+            # upload. Staged here, committed with the cross-round state.
+            ef_next = ef_full.clone()
+            ef_next[torch.from_numpy(rows).to(device)] = ef_tail[0]
         hhe_rd = None
         if hhe_mode:
             hhe_rd, cts = self._transcipher_round(
@@ -630,7 +698,54 @@ class StreamEngine:
 
         # ---- process arrivals in time order ------------------------------
         deadline = s.deadline_s if s.deadline_s > 0 else float("inf")
-        acc = OnlineAccumulator(ctx.ntt.p)
+        hier = s.num_hosts >= 2
+        if hier:
+            # The two-tier fold (lazy import: hierarchy imports this module);
+            # the link-fault schedule and the ship policy ride into it.
+            from hefl_tpu_torch.fl.hierarchy import HierarchicalAggregator, ShipPolicy
+
+            link = None
+            if self.faults is not None and self.faults._any_link_fault():
+                if int(self.faults.num_hosts) != int(s.num_hosts):
+                    raise ValueError(
+                        f"FaultConfig.num_hosts={self.faults.num_hosts} does "
+                        f"not match StreamConfig.num_hosts={s.num_hosts}: "
+                        "the link-fault schedule would fault the uplinks of "
+                        "a different fold-tree topology"
+                    )
+                link = schedule_links(self.faults, round_index)
+            acc = HierarchicalAggregator(
+                ctx.ntt.p, s.num_hosts, num_clients, round_index=round_index, link=link,
+                ship=ShipPolicy(deadline_s=float(s.ship_deadline_s),
+                                max_retries=int(s.max_retries),
+                                backoff_s=float(s.retry_backoff_s),
+                                jitter=float(s.retry_jitter), seed=int(s.seed)),
+            )
+            host_of = host_of_clients(num_clients, s.num_hosts)
+        else:
+            acc = OnlineAccumulator(ctx.ntt.p)
+            host_of = None
+        # ---- stale tier folds --------------------------------------------
+        # Host partials that missed an earlier round's ship fold at THIS
+        # round's root before any arrival; acc.folded counts their client
+        # folds, so quorum, headroom and dp accounting see them.
+        tier_stale_folded = 0
+        tier_stale_clients: list[int] = []
+        if hier:
+            for tp in self._pending_tiers:
+                if session is not None:
+                    session.tier_fold(round_index, tp.host, tp.origin_round, tp.sha,
+                                      len(tp.clients), tp.lateness)
+                if acc.fold_carried(tp.host, tp.origin_round, _residues(tp.c0, device),
+                                    _residues(tp.c1, device), tp.sha, len(tp.clients)):
+                    tier_stale_folded += 1
+                    tier_stale_clients.extend(int(c) for c in tp.clients)
+                    for tc in tp.clients:
+                        bits[int(tc)] &= ~EXCLUDED_UNSAMPLED
+                    if tracer is not None:
+                        tracer.add("tier_fold", 0.0, host=int(tp.host),
+                                   origin_round=int(tp.origin_round),
+                                   clients=len(tp.clients), lateness=int(tp.lateness))
         staleness_hist = obs_metrics.histogram("stream.staleness_rounds")
         committed_at: float | None = None
         fresh = stale_folded = arrivals = rejected = 0
@@ -744,14 +859,66 @@ class StreamEngine:
         commit_s = (committed_at if committed
                     else min(max(last_t, 0.0), deadline) if events else 0.0)
         degraded_reason = None if committed else "quorum"
+
+        # ---- hierarchical ship phase -------------------------------------
+        # The client-quorum commit point launches every nonempty tier's ship
+        # onto its uplink; the round then re-takes its verdict at the tier
+        # level: fewer than host_quorum landed tiers (or an empty released
+        # sum) degrades it like a missed client quorum.
+        host_tau = int(s.host_staleness_rounds)
+        pending_tiers_next: list[PendingTierPartial] = []
+        tier_carried = 0
+        tier_stale_excluded = 0
+        missed_hosts: set[int] = set()
+        hq = 0
+        released: int | None = None
+        if hier and committed:
+            acc.ship_all(t0=float(committed_at))
+            if session is not None:
+                for sh_h, sh_att, sh_t, sh_lost in acc.ship_log:
+                    if sh_att > 1:
+                        session.ship_retry(round_index, sh_h, sh_att, sh_t, sh_lost)
+            nonempty = int(acc.nonempty_tiers)
+            hq = max(1, math.ceil(s.host_quorum * nonempty)) if nonempty else 0
+            missed_hosts = {h for h, _cz in acc.missed_ships}
+            # Per-cause attribution of every client whose tier missed.
+            for mh, cause in acc.missed_ships:
+                cbit = EXCLUDED_HOST_TIMEOUT if cause == "timeout" else EXCLUDED_HOST_UNREACHABLE
+                for c in folded_clients:
+                    if int(host_of[c]) == int(mh):
+                        bits[int(c)] |= cbit
+            released = (sum(1 for c in folded_clients if int(host_of[c]) not in missed_hosts)
+                        + len(tier_stale_clients))
+            if len(acc.landed_hosts) < hq:
+                committed = False
+                degraded_reason = "host_quorum"
+                obs_metrics.counter("stream.host_quorum_degraded").inc()
+            elif released <= 0:
+                committed = False
+                degraded_reason = "quorum"
         # DP surviving-cohort floor: a release holding fewer uploads than the
         # declared noise-calibration floor degrades instead of releasing.
         if dp is not None and committed:
-            if acc.folded < calibration_clients(dp, num_clients):
+            n_rel = released if released is not None else acc.folded
+            if n_rel < calibration_clients(dp, num_clients):
                 committed = False
                 degraded_reason = "dp_floor"
                 obs_metrics.counter("stream.dp_floor_degraded").inc()
-        surviving = int(acc.folded) if committed else 0
+        if committed and missed_hosts:
+            # The round commits WITHOUT the missed tiers: each sealed
+            # partial carries under the tier staleness budget.
+            for mh, _cause in acc.missed_ships:
+                pc0, pc1, psha, _nf = acc.take_late_partial(mh)
+                t_clients = tuple(int(c) for c in folded_clients if int(host_of[c]) == int(mh))
+                if host_tau >= 1 and t_clients:
+                    pending_tiers_next.append(PendingTierPartial(
+                        host=int(mh), origin_round=int(round_index), sha=psha, c0=pc0, c1=pc1,
+                        clients=t_clients, lateness=1,
+                    ))
+                    tier_carried += 1
+        surviving = 0
+        if committed:
+            surviving = int(released if released is not None else acc.folded)
         if tracer is not None:
             tracer.add("commit", float(commit_s), committed=bool(committed),
                        degraded_reason=degraded_reason, surviving=int(surviving),
@@ -817,11 +984,47 @@ class StreamEngine:
                         lands_at=max(0.0, float(t) - float(commit_s)), lateness=1,
                     ))
                     carried += 1
+            # Carried tier partials folded into the discarded accumulator
+            # (or still pending) carry one round deeper under the tier
+            # budget; past it their clients are excluded as host_stale.
+            for tp in self._pending_tiers:
+                next_late = tp.lateness + 1
+                if next_late <= host_tau:
+                    pending_tiers_next.append(dataclasses.replace(tp, lateness=next_late))
+                    tier_carried += 1
+                    for tc in tp.clients:
+                        bits[int(tc)] |= EXCLUDED_HOST_TIMEOUT
+                else:
+                    for tc in tp.clients:
+                        bits[int(tc)] |= EXCLUDED_HOST_STALE
+                    tier_stale_excluded += 1
 
         # ---- public metadata + observability -----------------------------
+        hosts_rec = None
+        if hier:
+            hosts_rec = {
+                "nonempty": int(acc.nonempty_tiers),
+                "landed": [int(h) for h in acc.landed_hosts],
+                "missed": [[int(h), str(cz)] for h, cz in acc.missed_ships],
+                "host_quorum": int(hq),
+                "ship_retries": int(acc.ship_retries),
+                "ship_lost": int(acc.ship_lost),
+                "ship_deduped": int(acc.ship_deduped),
+                "tier_carried": int(tier_carried),
+                "tier_stale_folded": int(tier_stale_folded),
+                "tier_stale_excluded": int(tier_stale_excluded),
+                "ships_done_s": round(float(acc.ships_done_s), 6),
+            }
+            obs_metrics.counter("dcn.tier.carried").inc(tier_carried)
+            obs_metrics.counter("dcn.tier.stale_folded").inc(tier_stale_folded)
+            obs_metrics.counter("dcn.tier.stale_excluded").inc(tier_stale_excluded)
         participation = np.zeros(num_clients, np.int32)
-        if committed and folded_clients:
-            participation[np.asarray(folded_clients, dtype=int)] = 1
+        if committed:
+            rel_clients = [c for c in folded_clients
+                           if host_of is None or int(host_of[c]) not in missed_hosts]
+            rel_clients += tier_stale_clients
+            if rel_clients:
+                participation[np.asarray(rel_clients, dtype=int)] = 1
         meta = RoundMeta(
             num_clients=num_clients,
             bits=tuple(int(v) for v in bits),
@@ -837,6 +1040,7 @@ class StreamEngine:
             stale_folded=stale_folded, carried=carried, stale_excluded=stale_excluded,
             unreachable=unreachable, arrivals=arrivals, duplicates=acc.duplicates,
             rejected=rejected, retries=retries_made, commit_s=float(commit_s),
+            hosts=hosts_rec,
         )
         obs_metrics.counter("stream.arrivals").inc(arrivals)
         obs_metrics.counter("stream.duplicates").inc(acc.duplicates)
@@ -849,6 +1053,10 @@ class StreamEngine:
         if not committed:
             obs_metrics.counter("stream.degraded_rounds").inc()
         obs_events.emit("stream_round", round=round_index, **smeta.record())
+        if hier and committed:
+            # One cross-region traffic summary per committed round: the ship
+            # phase sealed the tree, so the counters are final.
+            obs_events.emit("dcn_round", round=round_index, **acc.report())
         obs_events.emit("quorum_wait", round=round_index, seconds=round(float(commit_s), 6),
                         quorum=qcount, fresh=fresh, committed=committed)
         if s.time_scale > 0 and commit_s > 0:
@@ -862,11 +1070,19 @@ class StreamEngine:
             for up in pending_next:
                 session.carry(round_index, up.client, up.origin_round, up.nonce, up.lands_at,
                               up.lateness, up.c0, up.c1)
+            for tp in pending_tiers_next:
+                # Payload-bearing like carry: a carried partial survives a
+                # crash without its origin round's tier journals.
+                session.tier_carry(round_index, tp.host, tp.origin_round, tp.clients,
+                                   tp.lateness, tp.c0, tp.c1)
             session.close(round_index, committed, surviving, meta.excluded, seen)
 
         # Commit the transactional cross-round state.
         self._pending = pending_next
+        self._pending_tiers = pending_tiers_next
         self._seen = seen
+        if ef_on:
+            self._ef_residual = ef_next
         obs_metrics.gauge("stream.dedup_window_peak").set(seen.peak_entries)
 
         if committed:
@@ -878,5 +1094,6 @@ class StreamEngine:
             sum_c1 = torch.zeros(row_shape, dtype=torch.int32, device=device)
         ct_sum = Ciphertext(c0=sum_c0, c1=sum_c1, scale=cts.scale)
         if tracer is not None:
-            tracer.finish(max(float(commit_s), float(last_t)))
+            tracer.finish(max(float(commit_s), float(last_t),
+                              float(getattr(acc, "ships_done_s", 0.0))))
         return ct_sum, mets, overflow, smeta

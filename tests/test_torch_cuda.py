@@ -656,3 +656,48 @@ def test_journaled_crash_recovery_at_n256_is_bitwise_on_card(cuda_device, tmp_pa
         chain(tmp_path / "twin.wal")) == 2
     for k, v in twin["params"].items():
         assert torch.equal(out["params"][k], v), k
+
+
+@pytest.mark.cuda
+def test_hierarchical_error_feedback_round_on_card_equals_the_flat_round(cuda_device):
+    # A small streaming round with b = 4 error feedback through 4 host
+    # tiers on the card: the committed sum, the stream record (hosts aside)
+    # and the residual rows bitwise the flat engine's; the residual moved
+    # on the cohort's rows only; one K3 launch at the packed rows.
+    from hefl_tpu_torch.ckks import keys, packing
+    from hefl_tpu_torch.data import partition, synthetic
+    from hefl_tpu_torch.experiment import deterministic_algorithms
+    from hefl_tpu_torch.fl import stream
+    from hefl_tpu_torch.fl.config import PackingConfig, StreamConfig, TrainConfig
+    from hefl_tpu_torch.fl.faults import FaultConfig
+    from hefl_tpu_torch.models import create_model
+
+    (x, y), _, _ = synthetic.make_dataset("mnist", seed=0, n_train=64, n_test=8)
+    xs, ys = (torch.from_numpy(a).to(cuda_device) for a in partition.stack_federated(
+        x, y, partition.iid_contiguous(64, 8)))
+    model = create_model("smallcnn", device=cuda_device)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    ctx = keys.CkksContext.create(n=256)
+    _, pk = keys.keygen(ctx, torch.Generator().manual_seed(21), device=cuda_device)
+    spec = packing.PackedSpec.for_params(
+        params, ctx, PackingConfig(bits=4, clip=0.05, error_feedback=True), 8)
+    cfg = TrainConfig(epochs=1, batch_size=4, num_classes=10, augment=False,
+                      val_fraction=0.25, client_fusion="vmap")
+    out = {}
+    for hosts in (0, 4):
+        eng = stream.StreamEngine(
+            StreamConfig(cohort_size=4, quorum=0.5, deadline_s=2.0, num_hosts=hosts),
+            FaultConfig(seed=5, duplicate_clients=2, arrival_delay_s=1.0))
+        cuda_ntt.reset_launch_counts()
+        with deterministic_algorithms():
+            ct, _, _, sm = eng.run_round(model, cfg, ctx, pk, params, xs, ys,
+                                         torch.Generator().manual_seed(22), 0, packing=spec)
+        torch.cuda.synchronize(cuda_device)
+        assert cuda_ntt.launch_rows() == {("encrypt_fused", 4 * spec.n_ct * 3, 256): 1}
+        rec = sm.record()
+        assert (rec.pop("hosts", None) is not None) == bool(hosts)
+        res = eng._ef_residual
+        others = [c for c in range(8) if c not in sm.cohort]
+        assert not res[others].any() and res[list(sm.cohort)].any()
+        out[hosts] = (stream.ct_hash(ct.c0, ct.c1), rec, res.cpu())
+    assert out[0][:2] == out[4][:2] and torch.equal(out[0][2], out[4][2])

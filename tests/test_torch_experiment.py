@@ -645,13 +645,6 @@ def test_chaos_smoke_rounds_equal_the_committed_gate():
 
 
 REFUSED = [
-    # The hierarchical fold, its link faults and error feedback are the
-    # next slices' (ROADMAP Queue 1).
-    ("num_hosts", dict(stream=experiment.StreamConfig(num_hosts=2))),
-    ("link_loss_hosts", dict(faults=FaultConfig(num_hosts=2, link_loss_hosts=1),
-                             stream=experiment.StreamConfig())),
-    ("error_feedback", dict(packing=experiment.PackingConfig(bits=4, error_feedback=True),
-                            stream=experiment.StreamConfig())),
     ("data_dir", dict(data_dir="images")),
     ("exact_final_decode", dict(exact_final_decode=True)),
     ("profile_dir", dict(profile_dir="prof")),
@@ -672,8 +665,13 @@ def test_unported_fields_are_refused_by_name(field, kw):
     dict(dp=DpConfig(), stream=experiment.StreamConfig(staleness_rounds=1)),
     dict(journal_path="j.wal"),
     dict(crash=experiment.CrashConfig(), stream=experiment.StreamConfig()),
+    dict(packing=experiment.PackingConfig(bits=4, error_feedback=True)),
+    dict(packing=experiment.PackingConfig(bits=4, error_feedback=True), dp=DpConfig(),
+         stream=experiment.StreamConfig()),
+    dict(dp=DpConfig(), stream=experiment.StreamConfig(num_hosts=2, host_staleness_rounds=1)),
 ], ids=["packing_plaintext", "stream_centralized", "hhe_without_stream", "dp_staleness",
-        "journal_without_stream", "crash_without_journal"])
+        "journal_without_stream", "crash_without_journal", "ef_without_stream", "ef_with_dp",
+        "dp_host_staleness"])
 def test_config_checks_are_the_jax_drivers(kw):
     jkw = {k: _jtype(k)(**dataclasses.asdict(v)) if dataclasses.is_dataclass(v) else v
            for k, v in kw.items()}
@@ -777,3 +775,38 @@ def test_new_modules_are_scanned_and_import_no_jax(rel):
             mods.add(node.module)
     assert not {m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                                        "hefl_tpu")}
+
+
+@pytest.mark.parametrize("twin", ["duplicate-storm", "regional-outage"])
+def test_chaos_smoke_hierarchical_twin_is_the_flat_twin(twin):
+    # run_chaos_smoke.sh's hierarchical legs: the chaos-smoke streaming
+    # schedule (cut to 256 images; 2 rounds under the storm, whose round 1
+    # folds carried uploads through the tiers, 1 under the outage) flat and
+    # through 4 host tiers; CHAOS_SMOKE.json's hier_check commits every round.
+    gate = json.loads((REPO / "CHAOS_SMOKE.json").read_text())["hier_check"][twin]
+    rounds = 2 if twin == "duplicate-storm" else 1
+    cfg = presets.PRESETS["chaos-smoke"]
+    faults = dataclasses.replace(cfg.faults, straggler_fraction=0.25, straggler_delay_s=6.0,
+                                 arrival_delay_s=0.5, duplicate_clients=1,
+                                 transient_fail_clients=1, fail_rounds=())
+    faults = (dataclasses.replace(faults, duplicate_clients=3, arrival_delay_s=0.5)
+              if twin == "duplicate-storm" else
+              dataclasses.replace(faults, drop_fraction=0.0, nan_clients=0, duplicate_clients=0,
+                                  outage_hosts=1, num_hosts=4))
+    stream = experiment.StreamConfig(quorum=0.375, deadline_s=2.0, max_retries=1,
+                                     staleness_rounds=1, seed=0)
+    runs = {}
+    for hosts in (0, 4):
+        runs[hosts] = experiment.run_experiment(dataclasses.replace(
+            cfg, rounds=rounds, n_train=256, faults=faults, events_path="",
+            stream=dataclasses.replace(stream, num_hosts=hosts)), verbose=False, device="cpu")
+    flat, hier = runs[0], runs[4]
+    assert all(torch.equal(flat["params"][k], hier["params"][k]) for k in flat["params"])
+    for rf, rh in zip(flat["history"], hier["history"]):
+        st = dict(rh["stream"])
+        hosts = st.pop("hosts")
+        assert st == rf["stream"] and "hosts" not in rf["stream"]
+        assert hosts["landed"] and hosts["missed"] == [] and hosts["nonempty"] == len(
+            hosts["landed"])
+    committed = [rec["round"] for rec in hier["history"] if rec["stream"]["committed"]]
+    assert committed == gate["rounds_committed"][:rounds] == list(range(rounds))

@@ -345,10 +345,15 @@ def test_engine_hhe_round_bitwise_equals_direct_packed(round_setup):
                                    {"host_staleness_rounds": 1}],
                          ids=["num_hosts", "host_quorum", "ship_deadline_s", "host_staleness_rounds"])
 def test_engine_refuses_unported_stream_knobs_by_name(extra):
-    # The hierarchical fold (num_hosts >= 2 and its tier knobs, which
-    # StreamConfig accepts only with num_hosts >= 2) is the next slice's.
-    with pytest.raises(ValueError, match="StreamConfig.num_hosts=2.*hierarchy slice"):
-        stream.StreamEngine(StreamConfig(upload_kind="hhe", num_hosts=2, **extra))
+    # The hierarchical fold's knobs (num_hosts >= 2 and the tier knobs,
+    # which StreamConfig accepts only with num_hosts >= 2) are ported now:
+    # the hybrid-HE engine takes them, and refuses them only without tiers.
+    eng = stream.StreamEngine(StreamConfig(upload_kind="hhe", num_hosts=2, **extra))
+    assert eng.stream.num_hosts == 2 and eng._pending_tiers == []
+    assert all(getattr(eng.stream, k) == v for k, v in extra.items())
+    if extra:
+        with pytest.raises(ValueError, match="set num_hosts >= 2 to define the tiers"):
+            StreamConfig(upload_kind="hhe", **extra)
 
 
 @pytest.mark.parametrize("field,value,bad", [

@@ -204,3 +204,58 @@ def test_fsync_policies_and_the_environment_switch(tmp_path, monkeypatch):
     assert jr.JournalWriter(str(tmp_path / "x.wal")).fsync_policy == "never"
     with pytest.raises(ValueError, match="fsync_policy"):
         jr.JournalWriter(str(tmp_path / "y.wal"), "sometimes")
+
+
+def test_hierarchical_journal_recovers_carried_tier_partials(tmp_path):
+    # A dark uplink and ship delays past the deadline: round 0 carries its
+    # missed host partials (tier_carry records); a crash in round 1 leaves
+    # them to recovery, which rebuilds them from the journal alone and
+    # replays round 1 to the uninterrupted twin's commit chain.
+    from hefl_tpu_torch.ckks import keys, packing
+    from hefl_tpu_torch.data import partition, synthetic
+    from hefl_tpu_torch.fl import server
+    from hefl_tpu_torch.fl.config import PackingConfig, StreamConfig, TrainConfig
+    from hefl_tpu_torch.fl.faults import CrashConfig, FaultConfig, SimulatedCrash
+    from hefl_tpu_torch.models import create_model
+
+    (x, y), _, _ = synthetic.make_dataset("mnist", seed=0, n_train=64, n_test=8)
+    xs, ys = (torch.from_numpy(a) for a in partition.stack_federated(
+        x, y, partition.iid_contiguous(64, 8)))
+    model = create_model("smallcnn", device="cpu")
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    ctx = keys.CkksContext.create(n=256)
+    _, pk = keys.keygen(ctx, torch.Generator().manual_seed(21), device="cpu")
+    spec = packing.PackedSpec.for_params(params, ctx, PackingConfig(bits=8, clip=0.05), 8)
+    s = StreamConfig(quorum=0.5, deadline_s=2.0, max_retries=1, num_hosts=4, host_quorum=0.5,
+                     ship_deadline_s=0.3, host_staleness_rounds=1)
+    f = FaultConfig(seed=1, num_hosts=4, link_dark_hosts=1, link_delay_s=0.6)
+    cfg = TrainConfig(epochs=1, batch_size=4, num_classes=10, augment=False, val_fraction=0.25)
+
+    def rounds(srv, todo):
+        shas = {}
+        for r in todo:
+            ct, _, _, sm = srv.run_round(model, cfg, ctx, pk, params, xs, ys,
+                                         torch.Generator().manual_seed(100 + r), r, packing=spec)
+            shas[r] = ct_hash(ct.c0, ct.c1)
+        return shas
+
+    twin = server.AggregationServer(s, f, journal_path=str(tmp_path / "twin.wal"),
+                                    fsync_policy="never")
+    want = rounds(twin, (0, 1))
+    twin.close()
+    path = str(tmp_path / "crash.wal")
+    srv = server.AggregationServer(s, f, journal_path=path, fsync_policy="never",
+                                   crash=CrashConfig(round=1, at="post_fold", after_folds=1))
+    rounds(srv, (0,))
+    with pytest.raises(SimulatedCrash):
+        rounds(srv, (1,))
+    rec = server.AggregationServer(s, f, journal_path=path, fsync_policy="never")
+    assert rec.recovered.carried_tier_partials >= 1 and rec.recovered.open_round == 1
+    assert rec.engine._pending_tiers[0].sha in {
+        r["sha"] for r in jr.read_journal(path) if r["kind"] == "tier_carry"}
+    assert rounds(rec, (1,)) == {1: want[1]}
+    rec.close()
+    kinds = [r["kind"] for r in jr.read_journal(path)]
+    assert "tier_carry" in kinds and "tier_fold" in kinds
+    # The JAX reader takes the hierarchical journal too.
+    assert [r["kind"] for r in jjr.read_journal(path)] == kinds

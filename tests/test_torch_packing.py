@@ -205,11 +205,13 @@ def test_packed_spec_fields_equal_jax_formulas(ctx256, bits, clip, clients):
 
 
 def test_packed_spec_refuses_error_feedback_and_uncertified_interleave(ctx256):
+    # Error feedback is ported: the spec builds and records it; an
+    # uncertified interleave is still refused.
     _, tctx = ctx256
     params = convert.from_flax(_tree(np.random.default_rng(8)))
-    with pytest.raises(ValueError, match="error_feedback"):
-        packing.PackedSpec.for_params(
-            params, tctx, quantize.PackingConfig(bits=8, error_feedback=True), 2)
+    spec = packing.PackedSpec.for_params(
+        params, tctx, quantize.PackingConfig(bits=8, error_feedback=True), 2)
+    assert spec.error_feedback and spec.geometry_record()["error_feedback"] is True
     with pytest.raises(ValueError, match="carry-free|wall"):
         packing.PackedSpec.for_params(
             params, tctx, quantize.PackingConfig(bits=16, interleave=16), 1024)

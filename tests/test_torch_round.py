@@ -362,7 +362,7 @@ def test_cli_runs_end_to_end_on_cpu():
     assert 0.0 <= rec["accuracy"] <= 1.0 and len(rec["val_loss"]) == 2
 
 
-@pytest.mark.parametrize("flag", ["--num-hosts=2", "--link-loss=0.1", "--profile"])
+@pytest.mark.parametrize("flag", ["--data-dir=images", "--mesh-ct=2", "--profile"])
 def test_cli_refuses_unported_flags_by_name(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.parse_args(["--device", "cpu", flag])

@@ -299,11 +299,20 @@ def test_chaos_smoke_streaming_twin_rounds_match_chaos_smoke_json():
 
 
 def test_engine_refuses_the_hierarchy_error_feedback_and_padding_by_name():
-    with pytest.raises(ValueError, match="num_hosts.*hierarchy slice"):
-        stream.StreamEngine(StreamConfig(num_hosts=2))
-    with pytest.raises(ValueError, match="link faults.*hierarchy slice"):
-        stream.StreamEngine(StreamConfig(), FaultConfig(num_hosts=2, link_loss_hosts=1))
+    # The hierarchy and error feedback run now; what stays refused: a link
+    # schedule of another fold-tree topology, error feedback under dp, and
+    # the multi-device padding.
     setup = _port_setup()
+    eng = stream.StreamEngine(StreamConfig(num_hosts=2),
+                              FaultConfig(num_hosts=3, link_loss_hosts=1))
+    spec = packing.PackedSpec.for_params(setup[1], setup[4], PackingConfig(bits=8, clip=0.05), C)
+    with pytest.raises(ValueError, match="FaultConfig.num_hosts=3 does not match"):
+        _round(eng, setup, 0, packing=spec)
+    from hefl_tpu_torch.fl.dp import DpConfig
+
+    ef = dataclasses.replace(spec, error_feedback=True)
+    with pytest.raises(ValueError, match="dp cannot be combined with error-feedback"):
+        _round(stream.StreamEngine(StreamConfig()), setup, 0, packing=ef, dp=DpConfig())
     eng = stream.StreamEngine(StreamConfig())
     with pytest.raises(ValueError, match="num_real_clients"):
         _round(eng, setup, 0, num_real_clients=4)
