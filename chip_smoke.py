@@ -165,13 +165,35 @@ error:
      [76, 3, 4096]): the bytes on the wire and the round seconds, and one
      warm upload at each geometry profiled (torch.profiler); (t)
      chaos-smoke's hierarchical twins (N = 256) bitwise their flat twins,
-     committing CHAOS_SMOKE.json's hier_check rounds; `ef_packing_record`.
-  Phases 3-10 each print their launches by (kernel, rows x N).
-  11. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-10 launched, and not K6's kernel, spills registers, and that every
-     K3, K4, K6 and K7 launch of phases 3-10 fell on a shape phase 2 timed.
+     committing CHAOS_SMOKE.json's hier_check rounds; `ef_packing_record`
+     EF_RATIO_READINGS times (its certificates and bytes ratio gated, its
+     fold ratio reported).
+  11. The rotate-and-sum ladder, the exact final decode and the writers
+     (`ladder_runs`): (u) the ladder `LinearScorer` at phase 4's geometry
+     and model (N=4096, d=512, K=10, 11 Galois keys): one score's launches
+     exactly 11 K5, 11 K2 and 13 K1 (per stage one of each, plus the
+     weights and the bias; its forward transforms 11 x
+     `ladder_stage_forward_ntts` + 2 per class block), its scores within
+     0.05 of W x + b with the BSGS scorer's argmax, bitwise the CPU plain
+     versions' score; `score_many` on 4 queries ([40, 3, 4096] K5 calls);
+     warm latency of both and of the BSGS score, one score's device time
+     by kernel; (v) the ladder `MlpScorer` at phase 5's geometry and model
+     (N=8192, L=5, d=64, H=16, K=10): 12 K5 stages at [16, 5, 8192], one
+     eval-input K5 at [16, 5, 8192], argmax and MLP_ERR_LIMIT, the
+     mlp_compare key-switch counts; `score_many` on 4 ([64, 5, 8192]);
+     every K1, K2 and K5 launch of (u)-(v) on a shape phase 2 timed; (w)
+     medical-8 cut to 1 round of 1 epoch with exact_final_decode: the
+     round's residues decoded by the native CRT bitwise the Python-bignum
+     decode, both timed, the exact and the float decode within 5e-6; (x)
+     `bench_inference` (3 reps), the BENCH_LOAD writer on the 10**4-client
+     trace with its sweep and the BENCH_DCN writer into a temporary
+     directory, each exiting 0, then the trend gate over what they wrote.
+  Phases 3-11 each print their launches by (kernel, rows x N).
+  12. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-11 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-11 fell on a shape phase 2 timed.
      Print one JSON line {"kernels": [...]}
-     (launches: the sum over the main-path runs of phases 3-10, each counted
+     (launches: the sum over the main-path runs of phases 3-11, each counted
      from zero; every kernel carries one "shapes" entry per timed shape
      with the launches at that shape, K5's also its per-kernel "split";
      the ranking launches x (ms - bound) prices each launch at its own
@@ -270,18 +292,33 @@ DIGIT_BITS, NUM_DIGITS = 5, 6        # the default gadget at 27-bit primes
 PALLAS = "hefl_tpu/ckks/pallas_ntt.py"
 SOURCE = "hefl_tpu_torch/csrc/ntt.cu"
 # [B, L, N] shapes at which phase 2 also times K1 and K2: the main paths
-# launch them on 1 to 150 rows (phases 3-8 print the count at each).
+# launch them on 1 to 640 rows (phases 3-11 print the count at each).
+# Phase 11's ladders launch them at: the linear ladder's K = 10 class rows
+# (K1 30 rows: the weights, each stage's rotated c0, the bias; K2 60: c0 and
+# c1 of a stage) and score_many's 4 queries (K1 120, K2 240); the MLP's 16
+# hidden units at L = 5 (K1 80, K2 160), its rescales (K2 16 on the dropped
+# limb, K1 64 and 48 on the head) and score_many's 4 queries (K1 320, 256,
+# 192; K2 640, 64). Each (rows, N) once: a launch is priced at its rows.
 NTT_SHAPES = ((1, 3, 4096), (2, 3, 4096), (18, 3, 4096), (55, 3, 4096),
               (1, 1, 8192), (1, 3, 8192), (2, 3, 8192), (1, 4, 8192), (1, 5, 8192),
-              (2, 5, 8192), (18, 3, 8192), (30, 5, 8192), (1, 3, 256))
+              (2, 5, 8192), (18, 3, 8192), (30, 5, 8192), (1, 3, 256),
+              (10, 3, 4096), (20, 3, 4096), (40, 3, 4096), (80, 3, 4096),
+              (16, 1, 8192), (16, 3, 8192), (16, 4, 8192), (16, 5, 8192), (32, 5, 8192),
+              (64, 3, 8192), (64, 4, 8192), (64, 5, 8192), (128, 5, 8192))
 # (eval_input, B, L, N) at which phase 2 times K5: every shape phases 4-5
 # launch it at (their `launches by (kernel, rows x N)` lines): a linear
 # score's giant steps at [1, 3, 4096], the MLP's key switches at [1, 5, 8192]
 # and [1, 3, 8192] (after two rescales) and its relinearization (eval
 # input) at [1, 5, 8192]; and `score_many`'s 4 packed ciphertexts at
 # [4, 3, 4096], which phase 4 runs but does not count.
+# Phase 11's ladders: a linear stage on the K = 10 class rows [10, 3, 4096]
+# and score_many's [40, 3, 4096]; an MLP stage on its 16 hidden units
+# [16, 5, 8192] and score_many's [64, 5, 8192], each also the square's
+# relinearization (eval input).
 KS_SHAPES = ((False, 1, 3, 4096), (False, 4, 3, 4096), (False, 1, 3, 8192),
-             (False, 1, 5, 8192), (True, 1, 5, 8192))
+             (False, 1, 5, 8192), (True, 1, 5, 8192),
+             (False, 10, 3, 4096), (False, 40, 3, 4096), (False, 16, 5, 8192),
+             (False, 64, 5, 8192), (True, 16, 5, 8192), (True, 64, 5, 8192))
 # [B, L, N] shapes at which phase 2 times K3 and K4: every shape phases 3,
 # 6, 7 and 8 launch them at (their `launches by (kernel, rows x N)` lines). K3:
 # 2 clients x 55 ciphertexts (phase 3, mnist-enc), the HHE round's pads for
@@ -2240,6 +2277,8 @@ DARK_LINKS = dict(link_dark_hosts=1, link_delay_s=0.5, num_hosts=4)
 # step of 0.00286, where a round's update codes are partly non-zero); its
 # twin at b = 8 (k = 3: 19 rows).
 EF_STREAM = dict(cohort_size=4, seed=0)
+# Readings of `ef_packing_record`'s host-clock fold ratio phase 10 reports.
+EF_RATIO_READINGS = 5
 EF_PACKING = dict(bits=4, guard_bits=16, clip=0.02, error_feedback=True)
 
 
@@ -2539,7 +2578,8 @@ def hier_ef_runs(device) -> list[tuple[dict, dict]]:
     chaos-smoke's hierarchical twins (N = 256, 4 rounds): duplicate storm
     and regional outage, each bitwise its flat twin, committing
     CHAOS_SMOKE.json's hier_check rounds. Then `ef_packing_record` on the
-    card."""
+    card EF_RATIO_READINGS times: its certificates and bytes ratio gated,
+    its host-clock fold ratio reported beside its 1.5 floor."""
     from hefl_tpu_torch import experiment
     from hefl_tpu_torch.ckks import quantize
     from hefl_tpu_torch.ckks.keys import CkksContext, keygen
@@ -2737,11 +2777,311 @@ def hier_ef_runs(device) -> list[tuple[dict, dict]]:
             log(f"    (t) {name}: bitwise the flat twin; rounds committed {committed} == "
                 "CHAOS_SMOKE.json's hier_check")
     t0 = time.perf_counter()
-    rec = ef_packing_record(device=device)
+    ratios = []
+    for _ in range(EF_RATIO_READINGS):
+        rec = ef_packing_record(device=device)
+        if not (rec["certified"] and rec["bytes_ratio_b4_vs_b8"] <= 0.55):
+            raise AssertionError(f"ef_packing_record {rec}")
+        ratios.append(rec["fold_throughput_ratio_b4_vs_b8"])
     log(f"    ef_packing_record on the card ({time.perf_counter() - t0:.3f} s): {json.dumps(rec)}")
-    if not (rec["certified"] and rec["bytes_ratio_b4_vs_b8"] <= 0.55):
-        raise AssertionError(f"ef_packing_record {rec}")
+    log(f"    ef_packing_record fold ratio b=4/b=8 over {EF_RATIO_READINGS} readings (reported, "
+        f"floor {rec['fold_ratio_floor']}): {ratios}")
     log(f"  phase 10 (t) wall time: {time.perf_counter() - t:.3f} s")
+    return runs
+
+
+# Phase 11: the rotate-and-sum ladder serving, the exact final decode and the
+# writers. (u) and (v) use phases 4-5's models and queries (the same seeds),
+# so their argmax is compared with the BSGS scorers'.
+LADDER_LATENCY_CALLS = 10
+
+
+def check_ladder_launches(label: str, counts: dict, shapes: dict, n: int, stages: int,
+                          blocks: int, num_l: int, num_r: int, fwd_per_stage: int,
+                          eval_calls: int = 0, rescale_launches: int = 0) -> None:
+    """One ladder score's launches: per stage one K5 call, one K2 launch and
+    one K1 launch, plus K1 on the weights and on the bias (for the MLP also
+    one eval-input K5 and the rescales' K1/K2); and its forward transforms
+    per [L, N] block (K1's one, K5's R digit transforms, at the ladder's
+    `blocks` x L rows) are `stages` x `ladder_stage_forward_ntts` plus the
+    weights' and the bias'."""
+    want = {"keyswitch_fused": stages, "ntt_inverse": stages + rescale_launches,
+            "ntt_forward": stages + 2 + rescale_launches, "keyswitch_fused_eval": eval_calls}
+    got = {k: counts[k] for k in want}
+    if got != want or counts["hoisted_products"] or counts["encrypt_fused"]:
+        raise AssertionError(f"({label}) launched {counts}, expected {want}")
+    rows = blocks * num_l
+    fwd = (shapes.get(("ntt_forward", rows, n), 0)
+           + num_r * shapes.get(("keyswitch_fused", rows, n), 0))
+    log(f"  ({label}) forward [L, N] transforms a block: {fwd} = {stages} stages x "
+        f"{fwd_per_stage} (ladder_stage_forward_ntts) + 2 (the weights, the bias)")
+    if fwd != stages * fwd_per_stage + 2:
+        raise AssertionError(f"({label}) {fwd} forward transforms a block, expected "
+                             f"{stages} x {fwd_per_stage} + 2")
+
+
+def ladder_linear(device, n: int = 4096) -> tuple[dict, dict]:
+    """Phase 11 (u): the ladder `LinearScorer` at N=4096, L=3, d=512, K=10."""
+    from hefl_tpu_torch import he_inference as hei
+    from hefl_tpu_torch.ckks import cuda_ntt, encoding
+    from hefl_tpu_torch.ckks.keys import CkksContext, GaloisKey, keygen
+
+    t = time.perf_counter()
+    ctx = CkksContext.create(n=n)
+    gen = torch.Generator().manual_seed(42)
+    sk, pk = keygen(ctx, gen, device=device)
+    slots = encoding.num_slots(ctx.ntt)
+    d, k = slots // 4, 10
+    rng = np.random.default_rng(42)
+    W, b = rng.normal(0, 0.3, (k, d)), rng.normal(0, 0.2, k)
+    gks = hei.gen_rotation_keys(ctx, sk, 1)
+    plan = hei.bsgs_plan(slots, d, k)
+    bsgs = hei.BsgsLinearScorer(ctx, W, b, hei.gen_rotation_keys_for_steps(
+        ctx, sk, 2, plan.rotation_steps_needed))
+    scorer = hei.LinearScorer(ctx, W, b, gks)
+    x = rng.normal(0, 0.5, d)
+    ct = hei.encrypt_features(ctx, pk, x, gen)
+    torch.cuda.synchronize()
+    stages = len(hei.rotation_steps(slots))
+    num_r = ctx.num_primes * ctx.ksk_num_digits
+    log(f"  (u) keys ({len(gks)} ladder + {len(plan.rotation_steps_needed)} BSGS Galois keys) "
+        f"and scorers: {time.perf_counter() - t:.3f} s; {stages} stages a score")
+
+    cuda_ntt.reset_launch_counts()
+    out = scorer.score_batched(ct)
+    torch.cuda.synchronize()
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log_launch_rows(shapes)
+    check_ladder_launches("u, score", counts, shapes, n, stages, k, ctx.num_primes, num_r,
+                          hei.ladder_stage_forward_ntts(ctx))
+    want = x @ W.T + b
+    got = hei.decrypt_score_matrix(ctx, sk, out)
+    check_scores("(u) ladder linear score (1 query)", got, want)
+    bsgs_got = hei.decrypt_class_scores(ctx, sk, bsgs.score(ct), k)
+    if int(np.argmax(got)) != int(np.argmax(bsgs_got)):
+        raise AssertionError(f"(u) ladder argmax {np.argmax(got)} != BSGS {np.argmax(bsgs_got)}")
+    log(f"  (u) argmax {int(np.argmax(got))} == the BSGS scorer's on the same query; "
+        f"max |ladder - BSGS| {float(np.max(np.abs(got - bsgs_got))):.3e}")
+    t = time.perf_counter()
+    cpu_gks = {s: GaloisKey(g=v.g, b_mont=v.b_mont.cpu(), a_mont=v.a_mont.cpu())
+               for s, v in gks.items()}
+    cpu_out = hei.LinearScorer(ctx, W, b, cpu_gks, device="cpu").score_batched(
+        hei.Ciphertext(ct.c0.cpu(), ct.c1.cpu(), ct.scale))
+    if not same_ciphertext(out, cpu_out):
+        raise AssertionError("(u) the card's ladder score differs from the CPU plain versions'")
+    log(f"  (u) card == CPU plain versions: bitwise ({time.perf_counter() - t:.3f} s on the CPU)")
+
+    batch = 4
+    xs = rng.normal(0, 0.5, (batch, d))
+    cts = hei.encrypt_features(ctx, pk, xs, gen)
+    torch.cuda.synchronize()
+    cuda_ntt.reset_launch_counts()
+    outs = scorer.score_many(cts)
+    torch.cuda.synchronize()
+    m_counts, m_shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log_launch_rows(m_shapes)
+    if m_counts["keyswitch_fused"] != stages or (
+            "keyswitch_fused", batch * k * ctx.num_primes, n) not in m_shapes:
+        raise AssertionError(f"(u) score_many launched {m_shapes}")
+    check_scores(f"(u) ladder linear score_many ({batch} queries)",
+                 hei.decrypt_score_matrix(ctx, sk, outs), xs @ W.T + b)
+
+    lat = {}
+    for name, fn, queries in (("ladder", lambda: scorer.score_batched(ct), 1),
+                              ("ladder_many", lambda: scorer.score_many(cts), batch),
+                              ("bsgs", lambda: bsgs.score(ct), 1)):
+        med, p95 = warm_latency(fn, LADDER_LATENCY_CALLS)
+        lat.update({f"{name}_median_s": med, f"{name}_p95_s": p95, f"{name}_qps": queries / med})
+    log("  (u) latency: " + json.dumps(lat))
+    device_time_breakdown("(u) one ladder linear score", lambda: scorer.score_batched(ct))
+    for key, c in m_shapes.items():
+        shapes[key] = shapes.get(key, 0) + c
+    return {name: counts[name] + m_counts[name] for name in counts}, shapes
+
+
+def ladder_mlp(device, n: int = 8192) -> tuple[dict, dict]:
+    """Phase 11 (v): the ladder `MlpScorer` at N=8192, L=5, d=64, H=16, K=10."""
+    from hefl_tpu_torch import he_inference as hei
+    from hefl_tpu_torch.ckks import cuda_ntt, encoding
+    from hefl_tpu_torch.ckks.keys import CkksContext, gen_relin_key, keygen
+
+    t = time.perf_counter()
+    ctx = CkksContext.create(n=n, num_primes=5)
+    gen = torch.Generator().manual_seed(10)
+    sk, pk = keygen(ctx, gen, device=device)
+    rlk = gen_relin_key(ctx, sk, gen)
+    d, hidden, k = 64, 16, 10
+    rng = np.random.default_rng(43)
+    w1, b1 = rng.normal(0, 0.3, (hidden, d)), rng.normal(0, 0.2, hidden)
+    w2, b2 = rng.normal(0, 0.3, (k, hidden)), rng.normal(0, 0.2, k)
+    gks = hei.gen_rotation_keys(ctx, sk, 11)
+    scorer = hei.MlpScorer(ctx, w1, b1, w2, b2, gks, rlk)
+    sub_sk = hei.slice_secret_key(sk, scorer.sub_ctx.num_primes)
+    x = rng.normal(0, 0.4, d)
+    ct = hei.encrypt_features(ctx, pk, x, gen)
+    torch.cuda.synchronize()
+    slots = encoding.num_slots(ctx.ntt)
+    stages = len(hei.rotation_steps(slots))
+    num_r = ctx.num_primes * ctx.ksk_num_digits
+    plan1, plan2 = hei.bsgs_mlp_plans(slots, d, hidden, k)
+    bsgs_ks = plan1.num_keyswitches + plan2.num_keyswitches + 1
+    log(f"  (v) keys ({len(gks)} Galois keys, relin) and scorer: {time.perf_counter() - t:.3f} s; "
+        f"mlp_compare key-switches a score: ladder {scorer.num_keyswitches} "
+        f"({hidden} units x {stages} stages + {hidden} relinearizations, {stages} + 1 K5 calls), "
+        f"mlp_bsgs {bsgs_ks}")
+
+    cuda_ntt.reset_launch_counts()
+    out = scorer.score_batched(ct)
+    torch.cuda.synchronize()
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log_launch_rows(shapes)
+    # Two rescales, each a K2 on the dropped limb and a K1 on the head rows,
+    # for c0 and for c1.
+    check_ladder_launches("v, score", counts, shapes, n, stages, hidden, ctx.num_primes, num_r,
+                          hei.ladder_stage_forward_ntts(ctx), eval_calls=1, rescale_launches=4)
+    if shapes.get(("keyswitch_fused_eval", hidden * ctx.num_primes, n)) != 1:
+        raise AssertionError(f"(v) no eval-input K5 at [{hidden}, 5, {n}]: {shapes}")
+    want = ((x @ w1.T + b1) ** 2) @ w2.T + b2
+    got = hei.decrypt_score_matrix(scorer.sub_ctx, sub_sk, out)
+    check_scores("(v) ladder MLP score (1 query)", got, want, MLP_ERR_LIMIT)
+
+    batch = 4
+    xs = rng.normal(0, 0.4, (batch, d))
+    cts = hei.encrypt_features(ctx, pk, xs, gen)
+    torch.cuda.synchronize()
+    cuda_ntt.reset_launch_counts()
+    outs = scorer.score_many(cts)
+    torch.cuda.synchronize()
+    m_counts, m_shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log_launch_rows(m_shapes)
+    if m_shapes.get(("keyswitch_fused", batch * hidden * ctx.num_primes, n)) != stages:
+        raise AssertionError(f"(v) score_many launched {m_shapes}")
+    check_scores(f"(v) ladder MLP score_many ({batch} queries)",
+                 hei.decrypt_score_matrix(scorer.sub_ctx, sub_sk, outs),
+                 ((xs @ w1.T + b1) ** 2) @ w2.T + b2, MLP_ERR_LIMIT)
+    med, p95 = warm_latency(lambda: scorer.score_batched(ct), LADDER_LATENCY_CALLS)
+    med_b, p95_b = warm_latency(lambda: scorer.score_many(cts), LADDER_LATENCY_CALLS)
+    log("  (v) latency: " + json.dumps({"median_s": med, "p95_s": p95, "qps": 1.0 / med,
+                                         "many_median_s": med_b, "many_p95_s": p95_b,
+                                         "many_qps": batch / med_b}))
+    device_time_breakdown("(v) one ladder MLP score", lambda: scorer.score_batched(ct))
+    for key, c in m_shapes.items():
+        shapes[key] = shapes.get(key, 0) + c
+    return {name: counts[name] + m_counts[name] for name in counts}, shapes
+
+
+def check_ladder_shapes_timed(shapes: dict) -> None:
+    """Every K1, K2 and K5 launch of (u) and (v) falls on a shape phase 2
+    timed (NTT_SHAPES by rows x N, KS_SHAPES by mode and rows x N)."""
+    timed = {("ntt_forward", b * num_l, n) for b, num_l, n in NTT_SHAPES}
+    timed |= {("ntt_inverse", b * num_l, n) for b, num_l, n in NTT_SHAPES}
+    timed |= {("keyswitch_fused_eval" if ev else "keyswitch_fused", b * num_l, n)
+              for ev, b, num_l, n in KS_SHAPES}
+    untimed = {k: c for k, c in shapes.items() if k not in timed}
+    log(f"  (u)-(v) K1/K2/K5 launches at {len(shapes)} (kernel, rows, N) shapes, all timed in "
+        f"phase 2: {not untimed}")
+    if untimed:
+        raise AssertionError(f"ladder launches at shapes phase 2 does not time: {untimed}")
+
+
+def exact_decode_run(device) -> tuple[dict, dict]:
+    """Phase 11 (w): medical-8 cut to 1 round of 1 epoch with
+    exact_final_decode; the round's residues decoded by the native CRT and
+    by the Python-bignum plain version (bitwise), the exact and the float
+    decode of the round (within ERR_LIMIT), both decode times."""
+    from hefl_tpu_torch import experiment
+    from hefl_tpu_torch.ckks import encoding, ops
+
+    captured = []
+    real = experiment.decrypt_average
+
+    def capture(*a, **k):
+        captured.append((a, k))
+        return real(*a, **k)
+
+    experiment.decrypt_average = capture
+    try:
+        out, _, run, _ = drive("w", cut("medical-8", 1, 1, exact_final_decode=True), 1, device,
+                               check_plain=True)
+    finally:
+        experiment.decrypt_average = real
+    (a, k), = captured
+    if k.get("exact") is not True:
+        raise AssertionError(f"(w) the final round decrypted with exact={k.get('exact')}")
+    ctx, sk, ct_sum, num_clients, spec = a
+    res = ops.decrypt(ctx, sk, ct_sum).cpu().contiguous().numpy().view(np.uint32)
+    denom = ct_sum.scale * num_clients
+    t0 = time.perf_counter()
+    fast = encoding.decode_exact(ctx.ntt, res, denom)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = encoding.decode_exact_plain(ctx.ntt, res, denom)
+    plain_s = time.perf_counter() - t0
+    if not np.array_equal(fast, slow):
+        raise AssertionError("(w) the native CRT differs from the Python-bignum decode")
+    floated = real(*a, **dict(k, exact=False))
+    err = max((floated[name] - out["params"][name]).abs().max().item() for name in floated)
+    log(f"  (w) residues {list(res.shape)}: native CRT == Python bignum bitwise; decode "
+        f"{native_s * 1e3:.3f} ms native, {plain_s * 1e3:.3f} ms bignum; exact vs float decode "
+        f"max abs diff {err:.3e} (limit {ERR_LIMIT})")
+    if not err <= ERR_LIMIT:
+        raise AssertionError(f"(w) exact and float decodes differ by {err}")
+    return run
+
+
+def writer_runs(device, smi: str) -> None:
+    """Phase 11 (x): the writers on the card into a temporary directory,
+    each exiting 0: bench_inference (3 reps), the BENCH_LOAD writer on the
+    10**4-client trace with its sweep, the BENCH_DCN writer, then the trend
+    gate over what they wrote (single-point baselines)."""
+    import tempfile
+
+    from hefl_tpu_torch import bench_inference
+    from hefl_tpu_torch.fl import hierarchy, load
+    from hefl_tpu_torch.obs import trend
+
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_") as tmp:
+        for name, fn, argv in (
+            ("BENCH_TORCH_INFER.json", bench_inference._main, ["--reps", "3"]),
+            ("BENCH_TORCH_LOAD.json", load._main, ["--smoke", "--sweep"]),
+            ("BENCH_TORCH_DCN.json", hierarchy._main, []),
+        ):
+            t0 = time.perf_counter()
+            rc = fn(argv + ["--out", str(Path(tmp) / name)])
+            log(f"  (x) {name}: exit {rc} in {time.perf_counter() - t0:.3f} s ({smi})")
+            if rc != 0:
+                raise AssertionError(f"(x) the writer of {name} exited {rc}")
+        rc = trend._main(["--root", tmp, "--out", str(Path(tmp) / "TREND.md"), "--quiet"])
+        log(f"  (x) trend gate over the written files: exit {rc}")
+        if rc != 0:
+            raise AssertionError(f"(x) the trend gate exited {rc}")
+        load_rec = json.loads((Path(tmp) / "BENCH_TORCH_LOAD.json").read_text())["bench_load"]
+        log("  (x) BENCH_TORCH_LOAD: " + json.dumps({
+            "folds_per_s": load_rec["runs"]["commit_grouped"]["folds_per_s"],
+            "fsync_ratio": load_rec["group_commit"]["fsync_ratio"],
+            "fold_throughput": load_rec["fold_throughput"]["folds_per_s"],
+            "ef_packing": {k: v for k, v in load_rec["ef_packing"].items() if "ratio" in k},
+            "device": load_rec["device"]}))
+
+
+def ladder_runs(device, smi: str) -> list[tuple[dict, dict]]:
+    """Phase 11: (u)-(x)."""
+    t = time.perf_counter()
+    runs = [ladder_linear(device), ladder_mlp(device)]
+    shapes = {}
+    for _, run_shapes in runs:
+        for key, c in run_shapes.items():
+            if key[0] in ("ntt_forward", "ntt_inverse", "keyswitch_fused", "keyswitch_fused_eval"):
+                shapes[key] = shapes.get(key, 0) + c
+    check_ladder_shapes_timed(shapes)
+    log(f"  phase 11 (u)-(v) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    runs.append(exact_decode_run(device))
+    log(f"  phase 11 (w) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    writer_runs(device, smi)
+    log(f"  phase 11 (x) wall time: {time.perf_counter() - t:.3f} s")
     return runs
 
 
@@ -2796,13 +3136,17 @@ def main() -> int:
         "the tier journals crashed and recovered, medical-8 streaming at b=4 with error feedback "
         "(CKKS, HHE, and a b=8 twin), chaos-smoke's hierarchical twins (N=256)")
     runs += hier_ef_runs(device)
+    log("phase 11: the rotate-and-sum ladder: linear (N=4096 L=3, d=512, K=10) and MLP (N=8192 "
+        "L=5, d=64, H=16) scores; medical-8 with exact_final_decode; the BENCH_TORCH_INFER, "
+        "BENCH_TORCH_LOAD and BENCH_TORCH_DCN writers and the trend gate")
+    runs += ladder_runs(device, smi)
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-10 together:")
+    log("phases 3-11 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-10
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-11
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),

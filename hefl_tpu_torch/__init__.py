@@ -25,6 +25,8 @@ to the kernel, a CPU tensor to the plain version.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -42,3 +44,25 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch versions"
         )
     return torch.device("cuda")
+
+
+def device_record(device) -> dict:
+    """What an artifact records of the device it measured on: platform
+    ("gpu" or "cpu"), the device's name, the device count, and a card's
+    power limit as `nvidia-smi --query-gpu=name,power.limit` gives it (a
+    card below its maximum limit runs slower under load)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"platform": "cpu", "kind": "cpu", "count": 1, "power_limit": None}
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    limit = None
+    try:
+        proc = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+        if proc.returncode == 0 and proc.stdout.strip():
+            limit = proc.stdout.strip().splitlines()[0].split(",")[-1].strip()
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(index),
+            "count": torch.cuda.device_count(), "power_limit": limit}

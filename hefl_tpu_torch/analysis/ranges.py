@@ -280,3 +280,146 @@ def certify_fold_tree(prime: int) -> FoldTreeCertificate:
         "cannot leave the proven region",
     )
     return FoldTreeCertificate(ok=True, findings=(), checks=checks, **fields)
+
+
+# --- Serving: the gadget key-switch and the rotate-and-sum ladder -----------
+# The port's carriers: the plain versions compute in int64 (a Montgomery
+# product's t + m*p must stay below 2**63); the kernels in 32-bit words
+# (add_mod's a + b below 2**32) with 64-bit Montgomery products, and K6
+# sums up to K = lazy_terms(p) raw products in 64 bits before one REDC,
+# which is exact while the sum stays below p * 2**32.
+
+
+def _lazy_terms(prime: int) -> int:
+    """`cuda_ntt.lazy_terms` of one prime, restated (analysis imports no
+    kernel module)."""
+    return ((prime << 32) - 1) // max(prime - 1, 1) ** 2
+
+
+def _gadget_checks(findings: list, checks: list, prime: int, digit_bits: int,
+                   num_digits: int) -> None:
+    """The facts every gadget key-switch (K5 and its plain version) rests on."""
+    w, d = int(digit_bits), int(num_digits)
+    canonical_hi = prime - 1
+    _check(findings, checks, "gadget digits (base-2**w bound)", 0, (1 << w) - 1, 0, (1 << w) - 1)
+    _check(findings, checks, "gadget covers every residue (p - 1 below 2**(w*d))",
+           0, canonical_hi, 0, (1 << (w * d)) - 1)
+    _check(findings, checks, "last digit's shift w*(d-1) (32-bit words)", 0, w * (d - 1), 0, 31)
+    _check(findings, checks, "gadget digits canonical (the kernel's sub_mod precondition)",
+           0, (1 << w) - 1, 0, canonical_hi)
+    _check(findings, checks, "digit x key product (mul) inside the 2**62 wall",
+           0, canonical_hi ** 2, 0, (1 << 62) - 1)
+    _check(findings, checks, "Montgomery carrier t + m*p (int64 plain version)",
+           0, canonical_hi ** 2 + ((1 << 32) - 1) * prime, 0, (1 << 63) - 1)
+    _check(findings, checks, "accumulated c0 / c1 correction: add_mod of canonical terms "
+           "(32-bit kernel words)", 0, 2 * canonical_hi, 0, (1 << 32) - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyswitchCertificate:
+    """Proof (or refutation) of one key-switch gadget geometry, with the
+    fields and summary of the JAX package's certificate."""
+
+    ok: bool
+    prime_bits: int
+    digit_bits: int
+    num_digits: int
+    findings: tuple
+    checks: tuple
+
+    def summary(self) -> str:
+        head = (f"keyswitch gadget p<2**{self.prime_bits} "
+                f"(w={self.digit_bits} d={self.num_digits})")
+        if self.ok:
+            return f"{head}: CERTIFIED — " + "; ".join(self.checks)
+        return f"{head}: UNSAFE — " + "; ".join(str(f) for f in self.findings)
+
+
+@functools.lru_cache(maxsize=64)
+def certify_keyswitch(prime: int, digit_bits: int, num_digits: int) -> KeyswitchCertificate:
+    """The closed-form counterpart of the JAX package's `certify_keyswitch`:
+    for every canonical input, every base-2**w digit stays below 2**w and
+    below the prime (the centring's sub_mod precondition), the gadget covers
+    every residue, every digit x key product and Montgomery carrier stays
+    inside its word (the 2**62 wall, int64 in the plain version, 32-bit
+    add_mod words in the kernel), so the accumulated (c0, c1) correction is
+    canonical."""
+    prime = int(prime)
+    findings: list[str] = []
+    checks: list[str] = []
+    _gadget_checks(findings, checks, prime, digit_bits, num_digits)
+    if not findings:
+        checks.append(f"digit x key products inside the 2**62 wall "
+                      f"(w={digit_bits}, d={num_digits})")
+    return KeyswitchCertificate(
+        ok=not findings, prime_bits=prime.bit_length(), digit_bits=int(digit_bits),
+        num_digits=int(num_digits), findings=tuple(findings), checks=tuple(checks),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class InferenceCertificate:
+    """Proof (or refutation) of the serving programs' integer invariants,
+    with the fields and summary of the JAX package's certificate."""
+
+    ok: bool
+    prime_bits: int
+    digit_bits: int
+    num_digits: int
+    depth_ceiling_bits: int
+    findings: tuple
+    checks: tuple
+
+    def summary(self) -> str:
+        head = (f"inference ladder p<2**{self.prime_bits} "
+                f"gadget(w={self.digit_bits} d={self.num_digits}) "
+                f"depth<=2**{self.depth_ceiling_bits}")
+        if self.ok:
+            return f"{head}: CERTIFIED — " + "; ".join(self.checks)
+        return f"{head}: UNSAFE — " + "; ".join(str(f) for f in self.findings)
+
+
+@functools.lru_cache(maxsize=64)
+def certify_inference(prime: int, digit_bits: int, num_digits: int) -> InferenceCertificate:
+    """The closed-form counterpart of the JAX package's `certify_inference`
+    over the three serving programs:
+
+      * the rotate-and-sum ladder: a stage adds a canonical rotation (the
+        signed automorphism of canonical residues, then a certified
+        key-switch) to the canonical carry with add_mod, so by induction the
+        carried (c0, c1) are canonical after any number of stages;
+      * the hoisted sweep (K6): the UNCENTERED digits must be canonical as
+        extracted (2**w - 1 <= p - 1), and each 64-bit lazy sum of up to
+        K = lazy_terms(p) raw products stays below p * 2**32, so one REDC
+        gives a canonical word at any step count;
+      * the composed two-layer MLP: every Montgomery product, add_mod and
+        sub_mod of canonical residues (the square, its relinearization, the
+        rescale's subtract and multiply) returns a canonical residue.
+
+    An uncertified key-switch gadget makes every program unsafe."""
+    prime = int(prime)
+    w = int(digit_bits)
+    findings: list[str] = []
+    checks: list[str] = []
+    _gadget_checks(findings, checks, prime, digit_bits, num_digits)
+    canonical = f"[0, {prime - 1}]"
+    ladder_ok = not findings
+    if ladder_ok:
+        checks.append(f"carried c0 residues (any ladder depth) in {canonical}")
+        checks.append(f"carried c1 residues (any ladder depth) in {canonical}")
+        checks.append(f"gadget digit x key products inside the 2**62 wall "
+                      f"(w={digit_bits}, d={num_digits})")
+    terms = _lazy_terms(prime)
+    _check(findings, checks, "hoisted sweep: uncentered gadget digits (shared across every step)",
+           0, (1 << w) - 1, 0, prime - 1)
+    _check(findings, checks, f"hoisted sweep: 64-bit lazy sum of K={max(terms, 1)} digit x key "
+           "terms (one REDC)", 0, max(terms, 1) * (prime - 1) ** 2, 0, (prime << 32) - 1)
+    if not findings:
+        checks.append(f"hoisted sweep: hoisted c0 / c1 outputs (any step count) in {canonical}")
+        checks.append("mlp compose: composed c0 / c1 residues (sweep -> square -> relin -> "
+                      f"rescale -> sweep) in {canonical}")
+    return InferenceCertificate(
+        ok=not findings, prime_bits=prime.bit_length(), digit_bits=w,
+        num_digits=int(num_digits), depth_ceiling_bits=LOOP_COUNT_CEILING.bit_length() - 1,
+        findings=tuple(findings), checks=tuple(checks),
+    )

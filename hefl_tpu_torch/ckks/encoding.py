@@ -4,8 +4,8 @@ Counterpart of `hefl_tpu.ckks.encoding`. Coefficient packing (`encode`,
 `decode`, `encode_overflow_count`) is the FedAvg wire format: a whole
 N-coefficient block of weights per polynomial, encode is round(w * scale)
 reduced mod each RNS prime, decode the mixed-radix CRT reconstruction
-divided by the tracked scale. Slot packing (`encode_slots`, `decode_slots`,
-`decode_exact`) is the serving format: host-side float64 numpy, copied from
+divided by the tracked scale. Slot packing (`encode_slots`, `decode_slots`)
+is the serving format: host-side float64 numpy, copied from
 the JAX package, so the residues are the same words.
 
 Both keep the JAX package's float32 steps in the same order, so encode gives
@@ -155,8 +155,18 @@ def decode_int_center(ctx: NTTContext, residues: torch.Tensor) -> np.ndarray:
 
 
 def decode_exact(ctx: NTTContext, residues: np.ndarray, scale: float) -> np.ndarray:
-    """Exact host-side decode (Python-bignum Garner CRT, centered mod q);
-    residues uint32 numpy [..., L, N] -> float64."""
+    """Exact host-side decode (Garner CRT, centered mod q): residues uint32
+    numpy [..., L, N] -> float64. Runs the native C++ decode
+    (`hefl_tpu_torch.native`), which raises if it cannot be built; it is
+    bitwise `decode_exact_plain`."""
+    from hefl_tpu_torch import native
+
+    return native.crt_decode_exact(np.asarray(residues), np.asarray(ctx.p)[:, 0], scale)
+
+
+def decode_exact_plain(ctx: NTTContext, residues: np.ndarray, scale: float) -> np.ndarray:
+    """Plain version of `decode_exact`: the Python-bignum Garner CRT over an
+    object array, as the JAX package's `decode_exact(prefer_native=False)`."""
     res = np.asarray(residues)
     p = [int(x) for x in np.asarray(ctx.p)[:, 0]]
     q = 1

@@ -275,3 +275,12 @@ def to_mont(ctx: NTTContext, a: torch.Tensor) -> torch.Tensor:
     """Lift residues to Montgomery form (multiply by 2**32 mod p)."""
     tabs = plain_tables(ctx, a.device)
     return mont_mul(a.to(torch.int64), tabs.r2, tabs.p, tabs.pinv_neg).to(torch.int32)
+
+
+def negacyclic_poly_mul(ctx: NTTContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full coefficient-domain negacyclic product a*b mod (X^N + 1) (a test
+    and reference path): two forward transforms, the pointwise Montgomery
+    product, one inverse transform."""
+    ea = ntt_forward(ctx, a)
+    eb = to_mont(ctx, ntt_forward(ctx, b))
+    return ntt_inverse(ctx, pointwise_mul(ctx, ea, eb))

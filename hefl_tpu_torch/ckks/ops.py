@@ -135,6 +135,17 @@ def ct_mul_scalar(ctx: CkksContext, a: Ciphertext, k: int) -> Ciphertext:
     )
 
 
+def ct_mul_plain_poly(ctx: CkksContext, a: Ciphertext, m_res: torch.Tensor,
+                      pt_scale: float) -> Ciphertext:
+    """ct * plaintext polynomial (coefficient-domain residues [..., L, N]
+    encoded at pt_scale, broadcast against the ciphertext): one forward-NTT
+    launch (K1) on the plaintext rows, then the Montgomery product."""
+    m_mont = to_mont(ctx.ntt, ntt_forward(ctx.ntt, m_res))
+    tabs, (a0, a1, m64) = _i64(ctx, a.c0, a.c1, m_mont)
+    mul = lambda t: modular.mont_mul(t, m64, tabs.p, tabs.pinv_neg).to(torch.int32)  # noqa: E731
+    return Ciphertext(c0=mul(a0), c1=mul(a1), scale=a.scale * pt_scale)
+
+
 # --- Key-switching, rotations, ct x ct, rescale ------------------------------
 
 
@@ -176,6 +187,15 @@ def ct_rotate(ctx: CkksContext, a: Ciphertext, gk: GaloisKey, steps: int) -> Cip
     want = galois.galois_elt_rotation(ctx.n, steps)
     if gk.g != want:
         raise ValueError(f"galois key has g={gk.g}, rotation by {steps} needs g={want}")
+    return ct_apply_galois(ctx, a, gk)
+
+
+def ct_conjugate(ctx: CkksContext, a: Ciphertext, gk: GaloisKey) -> Ciphertext:
+    """Conjugate every slot; `gk` must be the key for
+    `galois.galois_elt_conjugation(n)`."""
+    want = galois.galois_elt_conjugation(ctx.n)
+    if gk.g != want:
+        raise ValueError(f"galois key has g={gk.g}, conjugation needs g={want}")
     return ct_apply_galois(ctx, a, gk)
 
 

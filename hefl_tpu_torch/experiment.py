@@ -235,7 +235,6 @@ def check_config(cfg: ExperimentConfig) -> None:
         )
     unported = [
         ("data_dir", cfg.data_dir is not None, "Queue 1, data/folder.py"),
-        ("exact_final_decode", cfg.exact_final_decode, "M14, native/crt.cpp"),
         ("profile_dir", cfg.profile_dir is not None, "M15, the profiler trace of a round"),
         ("mesh_ct", cfg.mesh_ct > 1, "one GPU runs no 2-D round mesh"),
     ]
@@ -584,6 +583,7 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device) -> dict[str, Any]:
                             new_params = decrypt_average(
                                 ctx, sk, ct_sum, cfg.num_clients, spec, meta=meta,
                                 packing=pspec, base_params=params, hhe=hhe_on,
+                                exact=cfg.exact_final_decode and r == cfg.rounds - 1,
                             )
                 else:
                     overflow = None

@@ -144,8 +144,8 @@ class FaultConfig:
     transient_fail_clients, permanent_fail_clients), the regional outage
     (outage_hosts, num_hosts) and the DCN link knobs (link_*) are drawn by
     `schedule_arrivals` / `schedule_for_round` / `schedule_links` as in the
-    JAX package; the engines that consume the arrival and link schedules
-    are not ported yet (ROADMAP M12).
+    JAX package, and consumed by the streaming engine (`fl/stream.py`) and
+    the fold tree (`fl/hierarchy.py`).
     """
 
     seed: int = 0

@@ -48,7 +48,9 @@ at a later round's root (`fold_carried`).
 
 `dcn_compare_record` folds the same uploads flat and hierarchically in
 several arrival orders with a duplicate storm and hash-compares the
-results; `dcn_compare_smoke_record` runs it at a fixed small geometry.
+results; `dcn_compare_smoke_record` runs it at a fixed small geometry, and
+`python -m hefl_tpu_torch.fl.hierarchy` writes that record as
+BENCH_TORCH_DCN.json (on CUDA unless `--device` names another).
 """
 
 from __future__ import annotations
@@ -724,6 +726,44 @@ def dcn_compare_smoke_record(device=None) -> dict:
                          torch.from_numpy(ys).to(device), torch.Generator().manual_seed(78),
                          participation=part, cohort=cohort)[0]
     return dcn_compare_record(ctx.ntt.p, cts.c0, cts.c1, cohort, num_clients=16, num_hosts=4)
+
+
+def _main(argv: list[str] | None = None) -> int:
+    """The BENCH_DCN writer: `python -m hefl_tpu_torch.fl.hierarchy [--out
+    BENCH_TORCH_DCN.json] [--device D]`; exit 1 unless the tree is bitwise
+    the flat fold and the cross-region bytes ratio meets its floor."""
+    import argparse
+    import json
+
+    from hefl_tpu_torch import device_record
+    from hefl_tpu_torch.obs import metrics as obs_metrics
+
+    ap = argparse.ArgumentParser(description=_main.__doc__)
+    ap.add_argument("--out", default="BENCH_TORCH_DCN.json")
+    ap.add_argument("--device", default=None, help="where the uploads and folds run "
+                                                   "(default: cuda)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    rec = dcn_compare_smoke_record(device=device)
+    dev = device_record(device)
+    artifact = {
+        "platform": dev["platform"],
+        "device_count": dev["count"],
+        "device": dev,
+        "dcn_compare": rec,
+        "metrics": obs_metrics.snapshot(),
+    }
+    with open(args.out, "w") as f:
+        json.dump(artifact, f, indent=2, sort_keys=True)
+    print(f"dcn_compare: cohort={rec['cohort_size']} hosts={rec['num_hosts']} "
+          f"ratio={rec['bytes_ratio']} (floor {rec['ratio_floor']}) "
+          f"bitwise_equal={rec['bitwise_equal']} on {dev['kind']} ({dev['power_limit']}) "
+          f"-> {args.out}")
+    return 0 if (rec["bitwise_equal"] and rec["ratio_ok"]) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())
 
 
 __all__ = [

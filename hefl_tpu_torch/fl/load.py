@@ -1,24 +1,27 @@
-"""Server hot-path load trace: the journal, the dedup window and the fold
-at registry scale, on synthetic ciphertext bodies.
+"""Server hot-path load trace: the journal, the dedup window, the fold and
+the cohort gather at registry scale, on synthetic ciphertext bodies.
 
-Counterpart of `hefl_tpu.fl.load`, as far as the journal's bitwise gate
-needs it: `LoadConfig` (the trace's registry scale and fault schedule),
-`synthetic_rows`, `drive_trace` (the real `fl.journal.JournalWriter` /
-`RoundSession` record stream, `fl.stream.DedupWindow` and
-`OnlineAccumulator` over one deterministic trace) and `recovery_record`
-(scan seconds against journal length). No training, no encryption: random
+Counterpart of `hefl_tpu.fl.load`: `LoadConfig` (the trace's registry scale
+and fault schedule), `synthetic_rows`, `drive_trace` (the real
+`fl.journal.JournalWriter` / `RoundSession` record stream,
+`fl.stream.DedupWindow` and `OnlineAccumulator` over one deterministic
+trace), `recovery_record` (scan seconds against journal length),
+`commit_latency_sweep` (virtual commit-latency percentiles over (cohort,
+quorum) points), `gather_record` (cohort-gather seconds against registry
+size), `fold_throughput_record`, `ef_packing_record`, and the BENCH_LOAD
+writer `bench_load_record` / `_main`. No training, no encryption: random
 canonical residues at a toy (n_ct, L, N) geometry ride the real code.
 
-The record stream — and so the journal's bytes — is a pure function of the
+The record stream, and so the journal's bytes, is a pure function of the
 trace, so `drive_trace(LoadConfig(), path, policy)` reproduces the JAX
 package's `journal_bytes_sha` and `sum_sha` in BENCH_LOAD.json under every
-fsync policy, group-committed or not, folded one at a time or batched.
-`fold_throughput_record` times the fold sequential, batched and through the
-hierarchical tree over the same rows (sha-gated equal), and
-`ef_packing_record` the b = 4 error-feedback grid against b = 8; both fold
-on the device given (CUDA unless the caller passes another). The rest of the JAX module (the
-commit-latency sweep, the cohort-gather record, `bench_load_record` and
-`_main`) is not ported yet (ROADMAP).
+fsync policy, group-committed or not, folded one at a time or batched, and
+`commit_latency_sweep(LoadConfig())` its `commit_latency_sweep` block. Every
+fold runs on the device given (CUDA unless the caller passes another), the
+rows moved there before the clock starts.
+
+    python -m hefl_tpu_torch.fl.load [--out BENCH_TORCH_LOAD.json] [--smoke]
+        [--clients N] [--sweep] [--device cpu]
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import tempfile
 import time
 
 import numpy as np
@@ -35,9 +39,11 @@ from hefl_tpu_torch.fl import journal as jr
 from hefl_tpu_torch.fl.config import StreamConfig
 from hefl_tpu_torch.fl.faults import FaultConfig, schedule_arrivals
 from hefl_tpu_torch.fl.stream import (
+    _COMMIT_LATENCY_BUCKETS,
     DedupWindow,
     OnlineAccumulator,
     ct_hash,
+    quorum_count,
     sample_cohort,
 )
 from hefl_tpu_torch.obs import metrics as obs_metrics
@@ -158,6 +164,7 @@ def drive_trace(
     fsync_policy: str,
     group_commit: bool = True,
     fold_batched: bool = False,
+    device=None,
 ) -> dict:
     """Run the full trace against a real journal + window + accumulator.
 
@@ -165,8 +172,13 @@ def drive_trace(
     re-indexed by client so a replayed nonce re-presents ITS bytes); the
     record stream (and therefore the journal's hash chain) is a pure
     function of (cfg, fsync-independent) — the property the group-commit
-    sha-equality gate rests on. -> per-trace stats dict.
+    sha-equality gate rests on. The journal records the host rows; the
+    folds take the same rows moved to `device` (CUDA unless given) before
+    the clock starts. -> per-trace stats dict.
     """
+    from hefl_tpu_torch import resolve_device
+
+    device = resolve_device(device)
     base = obs_metrics.snapshot()
     w = jr.JournalWriter(path, fsync_policy, group_commit=group_commit)
     w._open(jr._CHAIN_SEED)
@@ -180,6 +192,7 @@ def drive_trace(
     for r in range(cfg.rounds):
         cohort, deliveries = _round_trace(cfg, r)
         rows = synthetic_rows(len(cohort), cfg.seed + r)
+        rows_d = _on(rows, device)
         row_of = {int(c): i for i, c in enumerate(cohort)}
         acc = OnlineAccumulator(_p_broadcast())
         session = jr.RoundSession(w)
@@ -191,21 +204,21 @@ def drive_trace(
             # Vectorized ingest: journal every arrival first (the WAL
             # order is unchanged — bytes durable before the fold), then
             # one fold_batch dispatch over the fresh bodies.
-            batch_nonces, batch_rows = [], []
+            batch_nonces, batch_idx = [], []
             for seq, (t, c, nonce, stale) in enumerate(deliveries):
                 if nonce in seen:
                     session.dedup(r, seq, c, nonce)
                     dedups += 1
                     continue
                 seen.add(nonce)
-                row = rows[row_of[c]] if c in row_of else rows[0]
+                i = row_of.get(c, 0)
                 session.fold(r, seq, "fresh", c, nonce, 0, t,
-                             row, row, persist=True)
+                             rows[i], rows[i], persist=True)
                 batch_nonces.append(nonce)
-                batch_rows.append(row)
+                batch_idx.append(i)
                 folds += 1
-            if batch_rows:
-                b = np.stack(batch_rows)
+            if batch_idx:
+                b = rows_d.index_select(0, torch.tensor(batch_idx, device=device))
                 acc.fold_batch(batch_nonces, b, b)
         else:
             for seq, (t, c, nonce, stale) in enumerate(deliveries):
@@ -214,11 +227,11 @@ def drive_trace(
                     dedups += 1
                     continue
                 seen.add(nonce)
-                row = rows[row_of[c]] if c in row_of else rows[0]
-                fc0, fc1 = session.fold(r, seq, "fresh", c, nonce, 0, t,
-                                        row, row, persist=True)
-                acc.fold(nonce, fc0, fc1)
+                i = row_of.get(c, 0)
+                session.fold(r, seq, "fresh", c, nonce, 0, t, rows[i], rows[i], persist=True)
+                acc.fold(nonce, rows_d[i], rows_d[i])
                 folds += 1
+        _sync(device)
         fold_seconds += time.perf_counter() - t0
         s0, s1 = acc.value(like_shape=_ROW_SHAPE)
         final_sha = ct_hash(s0, s1)
@@ -300,6 +313,82 @@ def recovery_record(cfg: LoadConfig, path: str) -> list[dict]:
     return out
 
 
+# The default sweep grid: two cohort sizes x two quorum fractions.
+_SWEEP_POINTS = ((256, 0.5), (256, 0.9), (512, 0.5), (512, 0.9))
+
+
+def commit_latency_sweep(cfg: LoadConfig | None = None, points=_SWEEP_POINTS,
+                         rounds: int = 4) -> dict:
+    """Commit-latency percentiles as a family over (cohort, quorum) points.
+
+    Per point: `rounds` deterministic `_round_trace` rounds at that cohort
+    size; a round's commit latency is the VIRTUAL arrival time of the
+    quorum-th fresh (non-stale, deduped) delivery, what the engine's
+    `stream.commit_latency_s` histogram observes; a round that never
+    reaches quorum contributes nothing. Percentiles through
+    `obs.metrics.Histogram.quantile`. Gates: >= 3 points, every point
+    committed at least once, p50 <= p95 <= p99 at each."""
+    cfg = cfg or LoadConfig.smoke()
+    out = []
+    for cohort_size, q_frac in points:
+        pt_cfg = dataclasses.replace(cfg, cohort_size=int(cohort_size), rounds=int(rounds))
+        s = StreamConfig(cohort_size=int(cohort_size), seed=pt_cfg.seed,
+                         staleness_rounds=pt_cfg.staleness_rounds, quorum=float(q_frac))
+        hist = obs_metrics.Histogram(bounds=_COMMIT_LATENCY_BUCKETS)
+        committed = 0
+        for r in range(int(rounds)):
+            cohort, deliveries = _round_trace(pt_cfg, r)
+            qcount = quorum_count(s, len(cohort))
+            seen: set = set()
+            nth = 0
+            for t, _c, nonce, stale in deliveries:      # already time-sorted
+                if stale or nonce in seen:
+                    continue
+                seen.add(nonce)
+                nth += 1
+                if nth >= qcount:
+                    hist.observe(float(t))
+                    committed += 1
+                    break
+        p50, p95, p99 = (hist.quantile(q) for q in (0.50, 0.95, 0.99))
+        out.append({
+            "cohort_size": int(cohort_size),
+            "quorum": float(q_frac),
+            "rounds": int(rounds),
+            "committed_rounds": int(committed),
+            "commit_latency_s": {"p50": round(p50, 6), "p95": round(p95, 6),
+                                 "p99": round(p99, 6)},
+        })
+    ok = (len(out) >= 3 and all(p["committed_rounds"] >= 1 for p in out)
+          and all(p["commit_latency_s"]["p50"] <= p["commit_latency_s"]["p95"]
+                  <= p["commit_latency_s"]["p99"] for p in out))
+    return {"points": out, "num_points": len(out), "ok": bool(ok)}
+
+
+def gather_record(registry_sizes=(10_000, 100_000), cohort_size: int = 512,
+                  seed: int = 0) -> list[dict]:
+    """Cohort-gather seconds against registry size: `cohort_gather_index`
+    is O(cohort), so the rows stay flat as the registry grows."""
+    from hefl_tpu_torch.fl.fedavg import cohort_bucket, cohort_gather_index
+
+    out = []
+    for n in registry_sizes:
+        s = StreamConfig(cohort_size=min(cohort_size, n), seed=seed)
+        cohort = sample_cohort(s, 0, n)
+        bucket = cohort_bucket(len(cohort), n, 1)
+        best = None
+        for _ in range(5):
+            t0 = time.perf_counter()
+            gidx = cohort_gather_index(cohort, bucket)
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        if len(gidx) != bucket:
+            raise AssertionError(f"gather index of {len(gidx)} slots for a bucket of {bucket}")
+        out.append({"registry": int(n), "cohort": int(len(cohort)), "bucket": int(bucket),
+                    "gather_seconds": round(best, 6)})
+    return out
+
+
 def _on(rows: np.ndarray, device: torch.device) -> torch.Tensor:
     """Rows as int32 residues on `device`."""
     return torch.from_numpy(rows.astype(np.int32)).to(device)
@@ -374,7 +463,11 @@ def ef_packing_record(clients: int = 8, guard_bits: int = 16, total_params: int 
     ciphertext rows an update). Every (b, k) point is re-certified
     carry-free (`certify_packing`, what `PackedSpec.for_params` enforces).
     The fold runs on `device` (CUDA unless given; the rows moved there
-    before the clock)."""
+    before the clock) over the JAX record's geometry on every device:
+    `cohort` uploads of [n_ct, L, 64] rows. Its ratio is a host-clock
+    reading, reported beside its 1.5 floor: on a card a fold of these rows
+    is bound by its fixed cost, not its bytes, so `bench_load_record` does
+    not gate on it."""
     from hefl_tpu_torch import resolve_device
     from hefl_tpu_torch.analysis.ranges import certify_packing
     from hefl_tpu_torch.ckks.keys import CkksContext
@@ -420,3 +513,125 @@ def ef_packing_record(clients: int = 8, guard_bits: int = 16, total_params: int 
         "fold_ratio_ok": fold_ratio >= 1.5,
         "certified": all(g["certified"] for g in grid.values()),
     }
+
+
+# --- The BENCH_LOAD record ----------------------------------------------------
+
+
+def bench_load_record(cfg: LoadConfig | None = None, workdir: str | None = None,
+                      device=None) -> dict:
+    """The whole artifact family on one deterministic trace, the folds on
+    `device` (CUDA unless given). The trace is driven four times: fsync
+    always (the fsync ceiling), fsync commit group-committed (the default),
+    fsync commit unbatched (the sha-equality twin), and group-committed with
+    `fold_batch` ingest (its released sum sha-equal to the sequential
+    run's). `ok` is every gate but the error-feedback fold ratio, which
+    the record reports (`ef_packing_record`)."""
+    from hefl_tpu_torch import device_record, resolve_device
+
+    device = resolve_device(device)
+    cfg = cfg or LoadConfig()
+    tmp = None
+    if workdir is None:
+        tmp = tempfile.TemporaryDirectory(prefix="hefl_load_")
+        workdir = tmp.name
+    try:
+        runs, paths = {}, {}
+        for name, pol, grp, batched in (
+            ("always", "always", False, False),
+            ("commit_grouped", "commit", True, False),
+            ("commit_unbatched", "commit", False, False),
+            ("commit_grouped_batchfold", "commit", True, True),
+        ):
+            paths[name] = os.path.join(workdir, f"journal_{name}.jl")
+            runs[name] = drive_trace(cfg, paths[name], pol, group_commit=grp,
+                                     fold_batched=batched, device=device)
+        g, u, a = runs["commit_grouped"], runs["commit_unbatched"], runs["always"]
+        b = runs["commit_grouped_batchfold"]
+        fsync_ratio = g["fsyncs_per_round"] / max(a["fsyncs_per_round"], 1e-9)
+        rec = {
+            "config": dataclasses.asdict(cfg),
+            "row_shape": list(_ROW_SHAPE),
+            "device": device_record(device),
+            "runs": runs,
+            "group_commit": {
+                "sha_equal": g["journal_bytes_sha"] == u["journal_bytes_sha"],
+                "fsyncs_per_round_grouped": g["fsyncs_per_round"],
+                "fsyncs_per_round_always": a["fsyncs_per_round"],
+                "fsync_ratio": round(fsync_ratio, 4),
+                "fsync_ratio_budget": 0.1,
+                "fsync_ratio_ok": fsync_ratio <= 0.1,
+            },
+            "batched_fold": {
+                "sha_equal": b["sum_sha"] == g["sum_sha"],
+                "folds_per_s_sequential": g["folds_per_s"],
+                "folds_per_s_batched": b["folds_per_s"],
+            },
+            "dedup": {"peak": g["dedup_window_peak"], "bound": g["dedup_window_bound"],
+                      "ok": g["dedup_bound_ok"]},
+            "fold_throughput": fold_throughput_record(device=device),
+            "recovery": recovery_record(cfg, paths["commit_grouped"]),
+            "gather": gather_record(registry_sizes=sorted({10_000, cfg.num_clients}),
+                                    cohort_size=cfg.cohort_size, seed=cfg.seed),
+            "ef_packing": ef_packing_record(device=device),
+        }
+        rec["ok"] = bool(
+            rec["group_commit"]["sha_equal"]
+            and rec["group_commit"]["fsync_ratio_ok"]
+            and rec["batched_fold"]["sha_equal"]
+            and rec["dedup"]["ok"]
+            and rec["fold_throughput"]["sha_equal"]
+            and rec["ef_packing"]["bytes_ratio_ok"]
+            and rec["ef_packing"]["certified"]
+        )
+        return rec
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
+
+
+def bench_load_smoke_record(device=None) -> dict:
+    """The smaller trace (10**4 clients), the same artifact family."""
+    return bench_load_record(LoadConfig.smoke(), device=device)
+
+
+def _main(argv: list[str] | None = None) -> int:
+    """The BENCH_LOAD writer: `python -m hefl_tpu_torch.fl.load [--out
+    BENCH_TORCH_LOAD.json] [--smoke] [--clients N] [--sweep] [--device D]`;
+    exit 1 unless every gate of the record's `ok` holds."""
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(description=_main.__doc__)
+    ap.add_argument("--out", default="BENCH_TORCH_LOAD.json")
+    ap.add_argument("--smoke", action="store_true", help="the 10**4-client trace")
+    ap.add_argument("--clients", type=int, default=0, help="override the registry size")
+    ap.add_argument("--sweep", action="store_true",
+                    help="add the commit-latency percentiles over (cohort, quorum) points")
+    ap.add_argument("--device", default=None, help="where the folds run (default: cuda)")
+    args = ap.parse_args(argv)
+    cfg = LoadConfig.smoke() if args.smoke else LoadConfig()
+    if args.clients:
+        cfg = dataclasses.replace(cfg, num_clients=int(args.clients))
+    t0 = time.perf_counter()
+    rec = bench_load_record(cfg, device=args.device)
+    if args.sweep:
+        rec["commit_latency_sweep"] = commit_latency_sweep(cfg)
+        rec["ok"] = bool(rec["ok"] and rec["commit_latency_sweep"]["ok"])
+    rec["wall_seconds"] = round(time.perf_counter() - t0, 3)
+    with open(args.out, "w") as f:
+        json.dump({"bench_load": rec, "metrics": obs_metrics.snapshot()}, f, indent=2,
+                  sort_keys=True)
+    g = rec["group_commit"]
+    print(f"bench_load: clients={rec['config']['num_clients']} rounds={rec['config']['rounds']} "
+          f"device={rec['device']['kind']} ({rec['device']['power_limit']}) "
+          f"folds/s={rec['runs']['commit_grouped']['folds_per_s']} "
+          f"fsync_ratio={g['fsync_ratio']} sha_equal={g['sha_equal']} "
+          f"ef_bytes={rec['ef_packing']['bytes_ratio_b4_vs_b8']} "
+          f"ef_fold={rec['ef_packing']['fold_throughput_ratio_b4_vs_b8']} "
+          f"ok={rec['ok']} -> {args.out}")
+    return 0 if rec["ok"] else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

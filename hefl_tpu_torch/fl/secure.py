@@ -394,16 +394,20 @@ def decrypt_average(
     packing: PackedSpec | None = None,
     base_params: dict | None = None,
     hhe: bool = False,
+    exact: bool = False,
 ) -> dict:
     """Owner-side decrypt of the aggregated sum -> averaged parameter dict.
 
     Float path (`spec`): the division by the client count happens in the
-    decode scale. Packed path (`packing`, with `base_params` the round's
-    global weights): the integers are recovered EXACTLY (`decode_int_center`
-    and one guard-rounding shift), deinterleaved, offset-corrected and
-    averaged, and the average update is added onto `base_params`. `hhe`
-    marks a transciphered aggregate, whose cipher wrap multiples
-    `hhe_center_mod` removes first — bitwise the direct path's integers.
+    decode scale; `exact=True` decodes through the exact host CRT
+    (`encoding.decode_exact`, the trust-boundary decode of the final model
+    export) instead of the float32 recombination. Packed path (`packing`,
+    with `base_params` the round's global weights): the integers are
+    recovered EXACTLY (`decode_int_center` and one guard-rounding shift),
+    deinterleaved, offset-corrected and averaged, and the average update is
+    added onto `base_params`. `hhe` marks a transciphered aggregate, whose
+    cipher wrap multiples `hhe_center_mod` removes first — bitwise the
+    direct path's integers.
     The denominator is `meta.surviving` when the round's RoundMeta is given
     (cross-checked against `num_clients`), else `num_clients`.
     """
@@ -440,5 +444,10 @@ def decrypt_average(
         delta = unpack_quantized(v, packing, surviving)
         base = flat_params(base_params)
         return unpack_blocks(base + torch.from_numpy(delta).to(base.device), packing.base)
-    blocks = encoding.decode(ctx.ntt, res, ct_sum.scale * surviving)
+    denom = ct_sum.scale * surviving
+    if exact:
+        host = encoding.decode_exact(ctx.ntt, res.cpu().numpy().view(np.uint32), denom)
+        blocks = torch.from_numpy(host.astype(np.float32)).to(res.device)
+    else:
+        blocks = encoding.decode(ctx.ntt, res, denom)
     return unpack_blocks(blocks, spec)

@@ -1,22 +1,34 @@
-"""Encrypted-inference serving: baby-step giant-step (BSGS) scoring of
-slot-packed encrypted features.
+"""Encrypted-inference serving: the rotate-and-sum ladder and baby-step
+giant-step (BSGS) scoring of slot-packed encrypted features.
 
-Counterpart of the BSGS half of `hefl_tpu.he_inference`. A server holding
-only the context, the public key, Galois keys (and, for the MLP, a relin
-key) scores an ENCRYPTED feature vector against its own plaintext model; the
-client decrypts the scores. The linear layer is decomposed over the model's
-generalized diagonals (Halevi-Shoup): all K class scores land in ONE output
-ciphertext, at (baby - 1) + #giants key-switches per score.
+Counterpart of `hefl_tpu.he_inference`. A server holding only the context,
+the public key, Galois keys (and, for the MLP, a relin key) scores an
+ENCRYPTED feature vector against its own plaintext model; the client
+decrypts the scores.
 
-Per score on CUDA: the baby sweep shares one gadget decomposition
-(`ops.hoisted_digits`, one K1 launch) and runs every baby rotation as one K6
-launch plus a permutation gather; each giant rotation is one K5 call; the
-relinearization of the MLP's square activation is one K5 call in its
-eval-input mode. The JAX package's `lax.scan` sweeps are Python loops here.
+The ladder (`LinearScorer`, `MlpScorer`, the serving reference): a slot-wise
+product of the query with each class's weights (`ops.ct_mul_plain_poly`),
+then log2(slots) rotate-and-add stages that leave every slot holding the
+inner product, then the bias: K x log2(slots) key-switches per score. Each
+stage rotates the previous stage's output, so no decomposition is shared:
+per stage one K2 launch (c0 and c1), the automorphism gather, one K5 call on
+the whole [..., K, L, N] batch, one K1 launch (the rotated c0) and two
+add_mods. The MLP's hidden layer is the same ladder over its H units, the
+square activation one ct_mul (K5 in its eval-input mode), and the output
+layer a Montgomery contraction with eval-domain constants.
 
-Keys come from `torch.Generator`s, so they differ from the JAX package's for
-the same seed; the tests hand the JAX package's keys and ciphertexts to the
-port (`convert`) and compare the output ciphertexts bit for bit.
+BSGS (`BsgsLinearScorer`, `BsgsMlpScorer`): the linear layer decomposed over
+the model's generalized diagonals (Halevi-Shoup): all K class scores land in
+ONE output ciphertext, at (baby - 1) + #giants key-switches per score. The
+baby sweep shares one gadget decomposition (`ops.hoisted_digits`, one K1
+launch) and runs every baby rotation as one K6 launch plus a permutation
+gather; each giant rotation is one K5 call.
+
+The JAX package's `jit` programs and `lax.scan` sweeps are Python loops
+here. Keys come from `torch.Generator`s seeded by (seed, step), so they
+differ from the JAX package's for the same seed; the tests hand the JAX
+package's keys and ciphertexts to the port (`convert`) and compare the
+output ciphertexts bit for bit.
 """
 
 from __future__ import annotations
@@ -98,6 +110,168 @@ def encrypt_features(
 def slice_secret_key(sk: SecretKey, num_primes: int) -> SecretKey:
     """Drop RNS limbs from sk to match a rescaled (shrunken) context."""
     return SecretKey(s_mont=sk.s_mont[:num_primes].contiguous())
+
+
+# --- The rotate-and-sum ladder ------------------------------------------------
+
+
+def gen_rotation_keys(ctx: CkksContext, sk: SecretKey, seed: int) -> dict[int, GaloisKey]:
+    """Galois keys for every power-of-two rotation up to slots/2, the key
+    bundle the ladder server holds (log2(slots) keys, never sk itself), on
+    the secret key's device; each step's key is `gen_rotation_keys_for_steps`'s
+    for the same (seed, step)."""
+    return gen_rotation_keys_for_steps(ctx, sk, seed, rotation_steps(encoding.num_slots(ctx.ntt)))
+
+
+def rotate_and_sum(ctx: CkksContext, ct: Ciphertext, gks: dict[int, GaloisKey]) -> Ciphertext:
+    """Fold all slots into their total: after log2(slots) rotate+add stages
+    every slot holds sum_j z_j (step by step through `ops.ct_rotate`; the
+    serving path runs `rotate_and_sum_scan` over stacked tables)."""
+    for step in rotation_steps(encoding.num_slots(ctx.ntt)):
+        ct = ops.ct_add(ctx, ct, ops.ct_rotate(ctx, ct, gks[step], step))
+    return ct
+
+
+def stack_rotation_ladder(ctx: CkksContext, gks: dict[int, GaloisKey], device=None):
+    """The ladder's stacked tables and keys: `stack_rotation_steps` at steps
+    1, 2, 4, ..., slots/2."""
+    return stack_rotation_steps(ctx, gks, rotation_steps(encoding.num_slots(ctx.ntt)), device)
+
+
+def ladder_stage_forward_ntts(ctx: CkksContext) -> int:
+    """Forward [L, N] transforms one ladder stage pays: L*d gadget-digit
+    transforms inside the K5 call plus the rotated c0's. Each stage rotates
+    the previous stage's output, so there is no shared input whose
+    decomposition could be hoisted (the BSGS baby sweep is where that
+    applies)."""
+    return ctx.num_primes * ctx.ksk_num_digits + 1
+
+
+def rotate_and_sum_scan(ctx: CkksContext, ct: Ciphertext, ladder) -> Ciphertext:
+    """`rotate_and_sum` over the stacked `ladder` (src, flip, b_mont,
+    a_mont), any leading batch shape on `ct`. Per stage: one inverse-NTT
+    launch (K2) on c0 and c1 together, the automorphism gather, one K5 call
+    on the rotated c1, one K1 launch on the rotated c0, two add_mods; the
+    same arithmetic as `rotate_and_sum`, so the same words."""
+    ntt = ctx.ntt
+    p = plain_tables(ntt, ct.c0.device).p
+    i64 = lambda t: t.to(torch.int64)  # noqa: E731
+    src, flip, b_mont, a_mont = ladder
+    c0, c1 = ct.c0, ct.c1
+    for i in range(src.shape[0]):
+        cc = ntt_inverse(ntt, torch.stack([c0, c1]))
+        pc0 = galois.apply_automorphism(cc[0], p, src[i], flip[i])
+        pc1 = galois.apply_automorphism(cc[1], p, src[i], flip[i])
+        k0, k1 = ops._keyswitch_coeff(ctx, pc1, b_mont[i], a_mont[i])
+        rot0 = modular.add_mod(i64(ntt_forward(ntt, pc0)), i64(k0), p)
+        c0 = modular.add_mod(i64(c0), rot0, p).to(torch.int32)
+        c1 = modular.add_mod(i64(c1), i64(k1), p).to(torch.int32)
+    return Ciphertext(c0=c0, c1=c1, scale=ct.scale)
+
+
+def _linear_apply(ctx: CkksContext, pt_scale: float, ct_x: Ciphertext, w_res, b_res,
+                  ladder) -> Ciphertext:
+    """Score encrypted samples (any leading batch shape) against all K
+    classes: the ct x plaintext product broadcast over a new K axis, ONE
+    ladder over the whole [..., K, L, N] block, the bias."""
+    ct = ops.ct_mul_plain_poly(
+        ctx, Ciphertext(c0=ct_x.c0[..., None, :, :], c1=ct_x.c1[..., None, :, :],
+                        scale=ct_x.scale), w_res, pt_scale)
+    return ops.ct_add_plain(ctx, rotate_and_sum_scan(ctx, ct, ladder), b_res)
+
+
+def _encode_linear_model(ctx: CkksContext, weights: np.ndarray, bias: np.ndarray,
+                         ct_scale: float, pt_scale: float, device):
+    """Check and slot-encode a linear model (weights [K, d <= slots], bias
+    [K]) for ciphertexts of scale `ct_scale` -> (w_res, b_res) int32
+    [K, L, N] coefficient-domain residues on `device`."""
+    slots = encoding.num_slots(ctx.ntt)
+    weights = np.asarray(weights, np.float64)
+    bias = np.asarray(bias, np.float64)
+    if weights.ndim != 2 or weights.shape[1] > slots:
+        raise ValueError(f"weights must be [K, d<= {slots}], got {weights.shape}")
+    if bias.shape != (weights.shape[0],):
+        raise ValueError(f"bias must be [{weights.shape[0]}], got {bias.shape}")
+    wz = np.zeros((weights.shape[0], slots), np.float64)
+    wz[:, : weights.shape[1]] = weights
+    w_res = encoding.encode_slots(ctx.ntt, wz, pt_scale)
+    b_res = np.stack([encoding.encode_slots_const(ctx.ntt, float(b), ct_scale * pt_scale)
+                      for b in bias])
+    return tuple(torch.from_numpy(r.view(np.int32)).to(device) for r in (w_res, b_res))
+
+
+def _check_scale(scorer, ct: Ciphertext) -> None:
+    if ct.scale != scorer.ct_scale:
+        raise ValueError(f"scorer was built for ct scale {scorer.ct_scale}, got {ct.scale}")
+
+
+def _split_classes(batched: Ciphertext) -> list[Ciphertext]:
+    return [Ciphertext(c0=batched.c0[k], c1=batched.c1[k], scale=batched.scale)
+            for k in range(batched.c0.shape[0])]
+
+
+class LinearScorer:
+    """Private-inference server for a FIXED linear model on the ladder, the
+    serving reference the BSGS plan is held to. The weights and bias are
+    slot-encoded and the ladder's tables and keys stacked once here, on
+    `device` (CUDA unless given); `score_batched` returns the K class scores
+    as one [K, L, N] ciphertext, each score in every slot."""
+
+    def __init__(self, ctx: CkksContext, weights: np.ndarray, bias: np.ndarray,
+                 gks: dict[int, GaloisKey], pt_scale: float = 2.0**14,
+                 ct_scale: float | None = None, device=None):
+        self.device = resolve_device(device)
+        self.ctx = ctx
+        self.pt_scale = pt_scale
+        self.ct_scale = ctx.scale if ct_scale is None else ct_scale
+        # Only the stacked ladder is kept: the gks dict would be a second
+        # copy of the key material for the scorer's lifetime.
+        self._ladder = stack_rotation_ladder(ctx, gks, self.device)
+        self.num_classes = int(np.asarray(weights).shape[0])
+        self._w_res, self._b_res = _encode_linear_model(
+            ctx, weights, bias, self.ct_scale, pt_scale, self.device)
+
+    def score_batched(self, ct_x: Ciphertext) -> Ciphertext:
+        """K class scores as ONE batched ciphertext (leading axis K)."""
+        _check_scale(self, ct_x)
+        return _linear_apply(self.ctx, self.pt_scale, ct_x, self._w_res, self._b_res,
+                             self._ladder)
+
+    def score(self, ct_x: Ciphertext) -> list[Ciphertext]:
+        return _split_classes(self.score_batched(ct_x))
+
+    def score_many(self, ct_xs: Ciphertext) -> Ciphertext:
+        """Score a batch [B, L, N] -> [B, K] batched score ciphertext, one
+        ladder over all B*K rows; decrypt with `decrypt_score_matrix`."""
+        _check_scale(self, ct_xs)
+        _check_batched(ct_xs)
+        return _linear_apply(self.ctx, self.pt_scale, ct_xs, self._w_res, self._b_res,
+                             self._ladder)
+
+
+def encrypted_linear(ctx: CkksContext, ct_x: Ciphertext, weights: np.ndarray,
+                     bias: np.ndarray, gks: dict[int, GaloisKey], pt_scale: float = 2.0**14,
+                     device=None) -> list[Ciphertext]:
+    """scores[k] = <x, weights[k]> + bias[k] under encryption -> K
+    ciphertexts, each holding its score in every slot at scale
+    ct_x.scale * pt_scale. One-shot `LinearScorer`, on the query's device
+    unless `device` is given."""
+    device = ct_x.c0.device if device is None else device
+    return LinearScorer(ctx, weights, bias, gks, pt_scale, ct_scale=ct_x.scale,
+                        device=device).score(ct_x)
+
+
+def decrypt_scores(ctx: CkksContext, sk: SecretKey, cts: list[Ciphertext]) -> np.ndarray:
+    """Owner-side: decrypt each class ciphertext, read slot 0 -> scores [K].
+    After rescales, `sk` is `slice_secret_key(sk, ctx.num_primes)`."""
+    return np.asarray([float(decrypt_score_matrix(ctx, sk, ct)) for ct in cts])
+
+
+def decrypt_score_matrix(ctx: CkksContext, sk: SecretKey, ct: Ciphertext) -> np.ndarray:
+    """Owner-side: a batched ladder score ciphertext (any leading axes, e.g.
+    [B, K] from `score_many`) -> its real scores (slot 0 of each), in one
+    decrypt."""
+    return decrypt_class_scores(ctx, sk, ct, 1)[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -409,10 +583,6 @@ class BsgsLinearScorer:
         b_res = encoding.encode_slots(ctx.ntt, bz, self.ct_scale * pt_scale)
         self._b_res = torch.from_numpy(b_res.view(np.int32)).to(self.device)
 
-    def _check_scale(self, ct: Ciphertext) -> None:
-        if ct.scale != self.ct_scale:
-            raise ValueError(f"scorer was built for ct scale {self.ct_scale}, got {ct.scale}")
-
     def _run(self, ct: Ciphertext) -> Ciphertext:
         return _bsgs_apply(
             self.ctx, self.plan, self.pt_scale, ct, self._u_mont, self._b_res,
@@ -421,7 +591,7 @@ class BsgsLinearScorer:
 
     def score(self, ct_x: Ciphertext) -> Ciphertext:
         """All K class scores of one sample [L, N] as ONE ciphertext."""
-        self._check_scale(ct_x)
+        _check_scale(self, ct_x)
         if ct_x.c0.dim() != 2:
             raise ValueError(
                 f"score takes one sample [L, N], got {tuple(ct_x.c0.shape)}; "
@@ -433,7 +603,7 @@ class BsgsLinearScorer:
         """Score a batch [B, L, N] -> [B] score ciphertexts. The batch is
         padded with zero ciphertexts to the next power of two
         (`serving_batch_bucket`) and the padding sliced away."""
-        self._check_scale(ct_xs)
+        _check_scale(self, ct_xs)
         _check_batched(ct_xs)
         batch = ct_xs.c0.shape[0]
         out = self._run(_pad_to_bucket(ct_xs))
@@ -598,10 +768,6 @@ class BsgsMlpScorer:
         """Key-switches per score: both plans' sweeps + the relinearization."""
         return self.plan1.num_keyswitches + self.plan2.num_keyswitches + 1
 
-    def _check_scale(self, ct: Ciphertext) -> None:
-        if ct.scale != self.ct_scale:
-            raise ValueError(f"scorer was built for ct scale {self.ct_scale}, got {ct.scale}")
-
     def _run(self, ct_x: Ciphertext) -> Ciphertext:
         mode = self.rotation_mode
         h = _bsgs_apply(self.ctx, self.plan1, self.pt_scale, ct_x, self._u1, self._b1_res,
@@ -616,7 +782,7 @@ class BsgsMlpScorer:
     def score(self, ct_x: Ciphertext) -> Ciphertext:
         """All K class scores of one sample as ONE ciphertext at
         `self.sub_ctx`'s level (slot k = class k)."""
-        self._check_scale(ct_x)
+        _check_scale(self, ct_x)
         if ct_x.c0.dim() != 2:
             raise ValueError(
                 f"score takes one sample [L, N], got {tuple(ct_x.c0.shape)}; "
@@ -626,8 +792,147 @@ class BsgsMlpScorer:
 
     def score_many(self, ct_xs: Ciphertext) -> Ciphertext:
         """Score a batch [B, L, N], padded to the power-of-two bucket."""
-        self._check_scale(ct_xs)
+        _check_scale(self, ct_xs)
         _check_batched(ct_xs)
         batch = ct_xs.c0.shape[0]
         out = self._run(_pad_to_bucket(ct_xs))
         return Ciphertext(c0=out.c0[:batch], c1=out.c1[:batch], scale=out.scale)
+
+
+# --- The depth-2 MLP on the ladder -------------------------------------------
+# The hidden layer is `_linear_apply` over the H units ([..., H, L, N], each
+# unit in every slot), the square one batched ct_mul + relinearization, then
+# `rescales` rescales, and the output layer a Montgomery product with the
+# eval-domain constant w2[k, j] (a constant polynomial is the constant at
+# every evaluation point) contracted over H: no rotation, no NTT.
+
+
+def _const_eval_residues(ctx: CkksContext, c: np.ndarray, scale: float) -> np.ndarray:
+    """Eval-domain residues of constant-in-every-slot plaintexts: round(c *
+    scale) mod p_i as uint32 [..., L, 1]."""
+    coeffs = np.round(np.asarray(c, np.float64) * scale).astype(np.int64)
+    p = np.asarray(ctx.ntt.p)[:, 0].astype(np.int64)
+    q = ctx.modulus
+    if np.any(2 * np.abs(coeffs.astype(object)) >= q):
+        raise ValueError(
+            f"constant plaintext saturates: |round(c*scale)| up to "
+            f"{np.max(np.abs(coeffs))} must stay below q/2 (q~2**{q.bit_length()})"
+        )
+    return np.mod(coeffs[..., None], p)[..., None].astype(np.uint32)
+
+
+def _const_eval_mont(ctx: CkksContext, c: np.ndarray, scale: float) -> np.ndarray:
+    """Montgomery form of `_const_eval_residues` (x * 2**32 mod p), uint32
+    [..., L, 1]."""
+    res = _const_eval_residues(ctx, c, scale).astype(np.int64)
+    p = np.asarray(ctx.ntt.p)[:, 0].astype(np.int64)[:, None]
+    return ((res << 32) % p).astype(np.uint32)
+
+
+def _mlp_tail_apply(ctx: CkksContext, pt_scale: float, rescales: int, h: Ciphertext, rlk,
+                    w2m, b2e) -> Ciphertext:
+    """Everything after the hidden layer, any leading batch shape on the
+    [..., H, L, N] hidden ciphertext: the square (batched ct_mul, one K5
+    eval-input call), `rescales` rescales, and scores_k = sum_j w2[k, j] *
+    h_j**2 + b2[k] as a Montgomery product with `w2m` [K, H, L, 1] contracted
+    over H, plus `b2e` [K, L, 1]."""
+    sq = ops.ct_mul(ctx, h, h, rlk)
+    cur = ctx
+    for _ in range(rescales):
+        cur, sq = ops.rescale(cur, sq)
+    tabs = plain_tables(cur.ntt, sq.c0.device)
+    p, pinv = tabs.p, tabs.pinv_neg
+    w = w2m.to(torch.int64)
+
+    def contract(c: torch.Tensor) -> torch.Tensor:
+        t = modular.mont_mul(c.to(torch.int64)[..., None, :, :, :], w, p, pinv)
+        return t.sum(dim=-3) % p
+
+    c0 = modular.add_mod(contract(sq.c0), b2e.to(torch.int64), p)
+    return Ciphertext(c0=c0.to(torch.int32), c1=contract(sq.c1).to(torch.int32),
+                      scale=sq.scale * pt_scale)
+
+
+def encrypted_mlp(ctx: CkksContext, ct_x: Ciphertext, w1: np.ndarray, b1: np.ndarray,
+                  w2: np.ndarray, b2: np.ndarray, gks: dict[int, GaloisKey], rlk,
+                  pt_scale: float = 2.0**14, rescales: int = 2,
+                  device=None) -> tuple[CkksContext, list[Ciphertext]]:
+    """Private 1-hidden-layer MLP: scores = W2 (W1 x + b1)**2 + b2 under
+    encryption, a depth-2 circuit (`ctx` needs num_primes >= 3 + rescales).
+    -> (the post-rescale context, K score ciphertexts); decrypt with
+    `decrypt_scores(sub_ctx, slice_secret_key(sk, sub_ctx.num_primes), ...)`.
+    One-shot `MlpScorer`, on the query's device unless `device` is given."""
+    device = ct_x.c0.device if device is None else device
+    scorer = MlpScorer(ctx, w1, b1, w2, b2, gks, rlk, pt_scale, rescales,
+                       ct_scale=ct_x.scale, device=device)
+    return scorer.sub_ctx, scorer.score(ct_x)
+
+
+class MlpScorer:
+    """Private-inference server for a FIXED depth-2 MLP on the ladder: the
+    hidden layer's slot encodes, the post-rescale context and the output
+    layer's eval-domain constants are built once here, on `device` (CUDA
+    unless given). Decrypt against `self.sub_ctx` with
+    `slice_secret_key(sk, self.sub_ctx.num_primes)`."""
+
+    def __init__(self, ctx: CkksContext, w1: np.ndarray, b1: np.ndarray, w2: np.ndarray,
+                 b2: np.ndarray, gks: dict[int, GaloisKey], rlk, pt_scale: float = 2.0**14,
+                 rescales: int = 2, ct_scale: float | None = None, device=None):
+        w1 = np.asarray(w1, np.float64)
+        w2 = np.asarray(w2, np.float64)
+        b2 = np.asarray(b2, np.float64)
+        # The output layer's shapes first: a malformed model fails before
+        # any encode.
+        if w1.ndim != 2:
+            raise ValueError(f"w1 must be [H, d], got {w1.shape}")
+        if w2.ndim != 2 or w2.shape[1] != w1.shape[0]:
+            raise ValueError(f"w2 must be [K, {w1.shape[0]}], got {w2.shape}")
+        if b2.shape != (w2.shape[0],):
+            raise ValueError(f"b2 must be [{w2.shape[0]}], got {b2.shape}")
+        self.device = resolve_device(device)
+        self.ctx = ctx
+        self.pt_scale = pt_scale
+        self.ct_scale = ctx.scale if ct_scale is None else ct_scale
+        self._ladder = stack_rotation_ladder(ctx, gks, self.device)
+        self.rlk = dataclasses.replace(
+            rlk, b_mont=rlk.b_mont.to(self.device), a_mont=rlk.a_mont.to(self.device))
+        self.num_classes = int(w2.shape[0])
+        self._rescales = int(rescales)
+        self._w1_res, self._b1_res = _encode_linear_model(
+            ctx, w1, b1, self.ct_scale, pt_scale, self.device)
+        h_scale = self.ct_scale * pt_scale
+        sq_scale = h_scale * h_scale
+        p_np = np.asarray(ctx.ntt.p)[:, 0]
+        for i in range(self._rescales):
+            sq_scale /= float(p_np[ctx.num_primes - 1 - i])
+        self.sub_ctx = mlp_sub_context(ctx, self._rescales)
+        as_tensor = lambda a: torch.from_numpy(a.view(np.int32)).to(self.device)  # noqa: E731
+        self._w2m = as_tensor(_const_eval_mont(self.sub_ctx, w2, pt_scale))
+        self._b2e = as_tensor(_const_eval_residues(self.sub_ctx, b2, sq_scale * pt_scale))
+
+    @property
+    def num_keyswitches(self) -> int:
+        """Key-switches per score: the hidden ladder's, one relinearization
+        per hidden unit."""
+        hidden = int(self._w1_res.shape[0])
+        return ladder_keyswitches(encoding.num_slots(self.ctx.ntt), hidden) + hidden
+
+    def _run(self, ct: Ciphertext) -> Ciphertext:
+        h = _linear_apply(self.ctx, self.pt_scale, ct, self._w1_res, self._b1_res, self._ladder)
+        return _mlp_tail_apply(self.ctx, self.pt_scale, self._rescales, h, self.rlk,
+                               self._w2m, self._b2e)
+
+    def score_batched(self, ct_x: Ciphertext) -> Ciphertext:
+        """K class scores as ONE batched ciphertext at `self.sub_ctx`'s level."""
+        _check_scale(self, ct_x)
+        return self._run(ct_x)
+
+    def score(self, ct_x: Ciphertext) -> list[Ciphertext]:
+        return _split_classes(self.score_batched(ct_x))
+
+    def score_many(self, ct_xs: Ciphertext) -> Ciphertext:
+        """Score a batch [B, L, N] -> [B, K] batched score ciphertext at
+        `self.sub_ctx`'s level; decrypt with `decrypt_score_matrix`."""
+        _check_scale(self, ct_xs)
+        _check_batched(ct_xs)
+        return self._run(ct_xs)

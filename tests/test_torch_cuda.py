@@ -390,6 +390,80 @@ def test_linear_score_launch_rows_on_card(cuda_device):
         cuda_ntt.launch_counts()["ntt_forward"]
 
 
+def _small_ladder(dev, n: int = 1024, num_l: int = 3):
+    """A small ladder setup on `dev`: (ctx, sk, pk, Galois keys, relin key,
+    generator)."""
+    from hefl_tpu_torch import he_inference as hei
+    from hefl_tpu_torch.ckks.keys import CkksContext, gen_relin_key, keygen
+
+    ctx = CkksContext.create(n=n, num_primes=num_l)
+    gen = torch.Generator().manual_seed(44)
+    sk, pk = keygen(ctx, gen, device=dev)
+    return ctx, sk, pk, hei.gen_rotation_keys(ctx, sk, 45), gen_relin_key(ctx, sk, gen), gen
+
+
+def _cpu_keys(gks):
+    from hefl_tpu_torch import he_inference as hei
+
+    return {s: hei.GaloisKey(g=v.g, b_mont=v.b_mont.cpu(), a_mont=v.a_mont.cpu())
+            for s, v in gks.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, 3])
+def test_ladder_linear_on_card_equals_cpu(cuda_device, batch):
+    # The ladder LinearScorer (N=1024, d=40, K=4; one query and score_many
+    # on 3) through K1, K2 and K5 on the card is bitwise the same score on
+    # CPU copies; per stage one K5, one K2 and one K1 launch.
+    from hefl_tpu_torch import he_inference as hei
+
+    ctx, sk, pk, gks, _, gen = _small_ladder(cuda_device)
+    rng = np.random.default_rng(46)
+    d, k = 40, 4
+    W, b = rng.normal(0, 0.3, (k, d)), rng.normal(0, 0.2, k)
+    x = rng.normal(0, 0.5, (d,) if batch is None else (batch, d))
+    ct = hei.encrypt_features(ctx, pk, x, gen)
+    scorer = hei.LinearScorer(ctx, W, b, gks, device=cuda_device)
+    cuda_ntt.reset_launch_counts()
+    out = scorer.score_batched(ct) if batch is None else scorer.score_many(ct)
+    stages = len(hei.rotation_steps(512))
+    counts = cuda_ntt.launch_counts()
+    assert (counts["keyswitch_fused"], counts["ntt_inverse"], counts["ntt_forward"]) == (
+        stages, stages, stages + 2)
+    ref = hei.LinearScorer(ctx, W, b, _cpu_keys(gks), device="cpu")
+    cpu_ct = hei.Ciphertext(ct.c0.cpu(), ct.c1.cpu(), ct.scale)
+    want = ref.score_batched(cpu_ct) if batch is None else ref.score_many(cpu_ct)
+    assert torch.equal(out.c0.cpu(), want.c0) and torch.equal(out.c1.cpu(), want.c1)
+    got = hei.decrypt_score_matrix(ctx, sk, out)
+    assert np.max(np.abs(got - (x @ W.T + b))) <= 0.05
+
+
+@pytest.mark.cuda
+def test_ladder_mlp_on_card_equals_cpu(cuda_device):
+    # The ladder MlpScorer (N=1024, L=5, d=16, H=4, K=3): the hidden ladder,
+    # the square's eval-input K5, two rescales; bitwise the CPU plain run.
+    from hefl_tpu_torch import he_inference as hei
+    from hefl_tpu_torch.ckks.keys import RelinKey
+
+    ctx, sk, pk, gks, rlk, gen = _small_ladder(cuda_device, num_l=5)
+    rng = np.random.default_rng(47)
+    d, hidden, k = 16, 4, 3
+    w1, b1 = rng.normal(0, 0.3, (hidden, d)), rng.normal(0, 0.2, hidden)
+    w2, b2 = rng.normal(0, 0.3, (k, hidden)), rng.normal(0, 0.2, k)
+    x = rng.normal(0, 0.4, d)
+    ct = hei.encrypt_features(ctx, pk, x, gen)
+    scorer = hei.MlpScorer(ctx, w1, b1, w2, b2, gks, rlk, device=cuda_device)
+    cuda_ntt.reset_launch_counts()
+    out = scorer.score_batched(ct)
+    assert cuda_ntt.launch_rows()[("keyswitch_fused_eval", hidden * 5, 1024)] == 1
+    ref = hei.MlpScorer(ctx, w1, b1, w2, b2, _cpu_keys(gks),
+                        RelinKey(b_mont=rlk.b_mont.cpu(), a_mont=rlk.a_mont.cpu()), device="cpu")
+    want = ref.score_batched(hei.Ciphertext(ct.c0.cpu(), ct.c1.cpu(), ct.scale))
+    assert torch.equal(out.c0.cpu(), want.c0) and torch.equal(out.c1.cpu(), want.c1)
+    got = hei.decrypt_score_matrix(scorer.sub_ctx, hei.slice_secret_key(sk, 3), out)
+    assert np.max(np.abs(got - (((x @ w1.T + b1) ** 2) @ w2.T + b2))) <= 0.05
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 18, 24, 57, 456])
 @pytest.mark.parametrize("n", [1024, 4096, 8192])

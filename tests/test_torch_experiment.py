@@ -646,10 +646,30 @@ def test_chaos_smoke_rounds_equal_the_committed_gate():
 
 REFUSED = [
     ("data_dir", dict(data_dir="images")),
-    ("exact_final_decode", dict(exact_final_decode=True)),
     ("profile_dir", dict(profile_dir="prof")),
     ("mesh_ct", dict(mesh_ct=2)),
 ]
+
+
+def test_exact_final_decode_runs_through_run_experiment(monkeypatch):
+    # exact_final_decode: the last round decrypts through the exact host
+    # CRT (the native decode), the earlier rounds through the float32 one;
+    # the final parameters sit within the 5e-6 encrypted-average yardstick
+    # of the float-decoded twin's.
+    calls = []
+    real = experiment.decrypt_average
+
+    def decrypt(*a, **k):
+        calls.append(k.get("exact"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(experiment, "decrypt_average", decrypt)
+    exact = experiment.run_experiment(_tiny(_T, exact_final_decode=True), verbose=False,
+                                      device="cpu")
+    assert calls == [False, True]
+    plain = experiment.run_experiment(_tiny(_T), verbose=False, device="cpu")
+    assert calls == [False, True, False, False]
+    assert _max_diff(exact["params"], plain["params"]) <= 5e-6
 
 
 @pytest.mark.parametrize("field,kw", REFUSED, ids=[f for f, _ in REFUSED])

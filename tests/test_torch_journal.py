@@ -36,7 +36,7 @@ RUNS = json.loads((REPO / "BENCH_LOAD.json").read_text())["bench_load"]["runs"]
 ])
 def test_load_trace_reproduces_bench_load_shas(tmp_path, policy, group_commit, fold_batched, run):
     rec = load.drive_trace(load.LoadConfig(), str(tmp_path / "j.wal"), policy,
-                           group_commit=group_commit, fold_batched=fold_batched)
+                           group_commit=group_commit, fold_batched=fold_batched, device="cpu")
     assert rec["journal_bytes_sha"] == (
         "e0db2886b333c42b94cd51c9600bc1a71c19043a92e90723cae9f99331d0ae2d")
     assert rec["sum_sha"] == (
@@ -51,7 +51,7 @@ def test_load_trace_reproduces_bench_load_shas(tmp_path, policy, group_commit, f
 
 def test_recovery_record_scans_whole_and_half_journal(tmp_path):
     path = str(tmp_path / "j.wal")
-    load.drive_trace(load.LoadConfig.smoke(), path, "never")
+    load.drive_trace(load.LoadConfig.smoke(), path, "never", device="cpu")
     half, whole = load.recovery_record(load.LoadConfig.smoke(), path)
     assert 0 < half["records"] < whole["records"] and half["bytes"] < whole["bytes"]
     assert whole["records"] == len(jjr.read_journal(path))
