@@ -20,22 +20,10 @@ error:
      version run on the same card tensors, at N=1024 and at every ring
      size of `cuda_ntt.SUPPORTED_N` (N=256..16384) x NTT_CHECK_ROWS (every
      cluster plan of `cuda_ntt.ntt_plan`; K7 on rows // L upload rows of L
-     primes). Time it: `ms` is device time
-     (the kernel events of torch.profiler, median over 30 calls, L2
-     flushed before each), `call_ms` the wrapper's call between two CUDA
-     events (device time plus the host work the device waits for),
-     `plain_ms` the plain version's call; and compute the kernel's lower
-     bound on this card. K1 and K2 are timed at the round's [55, 3, 4096]
-     and at each of NTT_SHAPES, K3 at each of ENC_SHAPES, K4 at each of
-     DEC_SHAPES and K7 at each of TC_SHAPES: the shapes the main paths
-     launch them at. The same for K5 (both modes) at each of KS_SHAPES,
-     with the device time of each of its two or three kernels (inverse,
-     digit stage, inner product) printed apart (held bitwise at every ring
-     size x KS_CHECK_PRIMES), and K6, checked at N=1024 too, at every ring
-     size x HOIST_CHECK_PRIMES at its plan's split Q and
-     at every other, and timed at each of HOIST_SHAPES with its bound on the lazy count,
-     the bound on a per-term Montgomery count, and `read_ms`, the
-     device time of PyTorch's torch.amax over the same key bytes.
+     primes); K5 (both modes) at every ring size x KS_CHECK_PRIMES (every
+     cluster plan of its digit stage), and K6, checked at N=1024 too, at
+     every ring size x HOIST_CHECK_PRIMES at its plan's split Q and at
+     every other. (The timed shapes are phase 12's.)
   3. Drive the main path once through the port's entry points: MedCNN at
      full width (256x256x3, 222,722 parameters, random weights from a seed),
      the `medical` synthetic data, 2 clients of 96 images, 2 local epochs,
@@ -51,7 +39,8 @@ error:
      bench_inference.py configuration): N=4096, L=3, d=512 features, K=10
      classes, 45 Galois keys. One query through `BsgsLinearScorer.score`
      (hoisted) must decrypt within 0.05 of W x + b with the same argmax, be
-     bitwise equal to the "unhoisted" scorer's output and to the same
+     bitwise equal to the "unhoisted" scorer's output (one K6 launch at
+     S = 1 a baby step, 22) and to the same
      scorer run on CPU copies of the keys and query (the plain versions),
      and launch exactly 23 K5 and 1 K6 (and at least one K1 and one K2).
      Then 16 queries packed 4 per ciphertext through `score_many`, with the
@@ -62,7 +51,8 @@ error:
      as the plaintext circuit and within MLP_ERR_LIMIT of it (see there),
      at least one K5 launch in its eval-input mode (relinearization),
      exactly 2 K6 (one a layer),
-     bitwise equal to the unhoisted scorer and to the same scorer on CPU
+     bitwise equal to the unhoisted scorer (one K6 at S = 1 a baby step: 8
+     at L=5, 4 at L=3) and to the same scorer on CPU
      copies; warm latency. Phases 4 and 5 also print one warm score's
      device time by kernel (torch.profiler).
   6. The hybrid-HE uplink round (the `hhe-smoke` preset's path at full
@@ -188,16 +178,34 @@ error:
      `bench_inference` (3 reps), the BENCH_LOAD writer on the 10**4-client
      trace with its sweep and the BENCH_DCN writer into a temporary
      directory, each exiting 0, then the trend gate over what they wrote.
-  Phases 3-11 each print their launches by (kernel, rows x N).
-  12. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-11 launched, and not K6's kernel, spills registers, and that every
-     K3, K4, K6 and K7 launch of phases 3-11 fell on a shape phase 2 timed.
-     Print one JSON line {"kernels": [...]}
-     (launches: the sum over the main-path runs of phases 3-11, each counted
-     from zero; every kernel carries one "shapes" entry per timed shape
-     with the launches at that shape, K5's also its per-kernel "split";
-     the ranking launches x (ms - bound) prices each launch at its own
-     shape)
+  12. The headline benchmark and the kernel benchmark (`headline_runs`):
+     (y) `bench.run` at the flagship's full width and epochs (MedCNN
+     256x256x3, 1600 `medical` images, 2 clients x 10 epochs, N=4096 L=3),
+     HEADLINE_ROUNDS rounds, then the cell-6 comparison, the standalone and
+     packed HE phases, the cohort and DCN comparisons, its launches counted
+     from zero: the decrypted average within 5e-6 of the plaintext mean,
+     the packed round within its budget, both comparisons bitwise, every
+     phase_roofline row with FLOPs and an mfu in (0, 1], every he_roofline
+     row with a utilization and no timing_floor_suspect; (z)
+     `bench_ntt.run`: each kernel K1-K7 bitwise against its plain version
+     and timed at every shape of bench_ntt's lists (`ms` device time: the
+     kernel events of torch.profiler, median over 30 calls, L2 flushed
+     before each; `call_ms` the wrapper's call between two CUDA events;
+     `plain_ms` the plain version's call; the kernel's lower bound on this
+     card; K5's device time by kernel; K6's bound on the lazy count and on
+     a per-term Montgomery count and `read_ms`, PyTorch's torch.amax over
+     the same key bytes), then the trend gate over both artifacts.
+  Phases 3-12 each print their launches by (kernel, rows x N); phases 4-5
+     also count the unhoisted twins' one K6 launch a baby step (S = 1).
+  13. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-12 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-12 fell on a shape phase 12
+     timed. Print one JSON line {"kernels": [...]}
+     (phase 12's records; launches: the sum over the main-path runs of
+     phases 3-12, each counted from zero; every kernel carries one
+     "shapes" entry per timed shape with the launches at that shape, K5's
+     also its per-kernel "split"; the ranking launches x (ms - bound)
+     prices each launch at its own shape)
      and, last, the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -219,138 +227,26 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM peaks at the 700 W limit: HBM3 bandwidth (NVIDIA data sheet), and
-# the rate of the 32-bit integer instructions that bound the kernels' work
-# (NVIDIA Hopper architecture white paper, 1.98 GHz boost clock): each of an
-# SM's 4 sub-partitions issues one warp instruction a clock (128 lanes a
-# clock an SM) to one of two integer pipes of 16 lanes, the multiply pipe
-# (IMAD, IMAD.HI, IMAD.WIDE: umulhi, mul, mad) and the ALU pipe (ISETP, SEL,
-# LOP3, SHF: compare, select, logic, shift); an add runs on either (IADD3 on
-# the ALU pipe, IMAD.IADD on the multiply pipe: phase 1 prints K3's SASS,
-# where the compiler puts 759 of its ~980 adds on the multiply pipe). So m
-# multiplies, a ALU-only operations and d adds take at least
-# max(m / 64, a / 64, (m + a + d) / 128) lane-clocks an SM, at 132 SMs x
-# 1.98e9 clocks a second. (A model with every instruction on one 64-lane
-# pipe stands too high for the NTT kernels: K3 was once timed below it. The
-# data sheet's 67 TFLOP/s float32 rate counts an FMA as two operations and
-# does not apply to integer code.)
-HBM_BYTES_PER_S = 3.35e12
-PIPE_OPS_PER_S = 132 * 64 * 1.98e9
-ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
+from hefl_tpu_torch.bench_ntt import (
+    BUTTERFLY_OPS,
+    DEC_SHAPES,
+    DIGIT_BITS,
+    ENC_SHAPES,
+    HOIST_SHAPES,
+    KS_SHAPES,
+    NTT_SHAPES,
+    NUM_DIGITS,
+    TC_SHAPES,
+    decrypt_case,
+    encrypt_case,
+    max_abs_err,
+    ntt_cases,
+    rand_residues,
+    serving_kernel_cases,
+    transcipher_case,
+)
+from hefl_tpu_torch.utils.roofline import is_port_kernel, log
 
-
-@dataclasses.dataclass(frozen=True)
-class Ops:
-    """A count of 32-bit integer instructions by the pipes that can run
-    them: `mul` only the multiply pipe, `alu` only the ALU pipe, `add`
-    either. Adds to another count, multiplies by an int."""
-
-    mul: int = 0
-    alu: int = 0
-    add: int = 0
-
-    def __add__(self, other):
-        if isinstance(other, int) and other == 0:
-            return self
-        return Ops(self.mul + other.mul, self.alu + other.alu, self.add + other.add)
-
-    __radd__ = __add__
-
-    def __mul__(self, k: int):
-        return Ops(self.mul * k, self.alu * k, self.add * k)
-
-    __rmul__ = __mul__
-
-    @property
-    def total(self) -> int:
-        return self.mul + self.alu + self.add
-
-    def __str__(self) -> str:
-        return f"{self.total} ({self.mul} mul + {self.alu} alu + {self.add} add)"
-
-
-# The fewest 32-bit integer instructions per element operation that compute
-# it, whatever the kernel issues (so that a bound can show waste in the
-# kernel's own choice: K3's SASS in phase 1 reduces with a compare and a
-# select, two ALU instructions where one unsigned min does). A conditional
-# subtract of p from a value below 2p is r - p and min(r, r - p) as
-# unsigned: one add, one ALU instruction (IMNMX.U32). So a Shoup product
-# is umulhi, mul, mad (a*w - q*p) and the conditional subtract; a
-# Montgomery product a wide multiply (2), mul, umulhi, 2 adds and the
-# min; add/sub mod p a + b, a + b - p (IADD3) and the min; a Barrett
-# reduction umulhi, mad, the subtract and the min.
-SHOUP_OPS, MONT_OPS, ADDMOD_OPS = Ops(3, 1, 1), Ops(4, 1, 2), Ops(0, 1, 2)
-BUTTERFLY_OPS = SHOUP_OPS + 2 * ADDMOD_OPS
-DIGIT_OPS = Ops(0, 2) + ADDMOD_OPS   # shift, mask, centre (sub mod p)
-# K6 sums raw 32x32->64 products lazily: one wide multiply-add a term (SASS
-# IMAD.WIDE.U32 with a 64-bit addend; phase 1 prints the opcode counts of
-# its instantiations from cuobjdump), and one REDC at MONT_OPS per chunk of
-# at most K = cuda_ntt.lazy_terms terms.
-MAD64_OPS = Ops(1, 0)
-BARRETT_OPS = Ops(2, 1, 1)           # umulhi, mad; the min; the subtract
-DIGIT_BITS, NUM_DIGITS = 5, 6        # the default gadget at 27-bit primes
-PALLAS = "hefl_tpu/ckks/pallas_ntt.py"
-SOURCE = "hefl_tpu_torch/csrc/ntt.cu"
-# [B, L, N] shapes at which phase 2 also times K1 and K2: the main paths
-# launch them on 1 to 640 rows (phases 3-11 print the count at each).
-# Phase 11's ladders launch them at: the linear ladder's K = 10 class rows
-# (K1 30 rows: the weights, each stage's rotated c0, the bias; K2 60: c0 and
-# c1 of a stage) and score_many's 4 queries (K1 120, K2 240); the MLP's 16
-# hidden units at L = 5 (K1 80, K2 160), its rescales (K2 16 on the dropped
-# limb, K1 64 and 48 on the head) and score_many's 4 queries (K1 320, 256,
-# 192; K2 640, 64). Each (rows, N) once: a launch is priced at its rows.
-NTT_SHAPES = ((1, 3, 4096), (2, 3, 4096), (18, 3, 4096), (55, 3, 4096),
-              (1, 1, 8192), (1, 3, 8192), (2, 3, 8192), (1, 4, 8192), (1, 5, 8192),
-              (2, 5, 8192), (18, 3, 8192), (30, 5, 8192), (1, 3, 256),
-              (10, 3, 4096), (20, 3, 4096), (40, 3, 4096), (80, 3, 4096),
-              (16, 1, 8192), (16, 3, 8192), (16, 4, 8192), (16, 5, 8192), (32, 5, 8192),
-              (64, 3, 8192), (64, 4, 8192), (64, 5, 8192), (128, 5, 8192))
-# (eval_input, B, L, N) at which phase 2 times K5: every shape phases 4-5
-# launch it at (their `launches by (kernel, rows x N)` lines): a linear
-# score's giant steps at [1, 3, 4096], the MLP's key switches at [1, 5, 8192]
-# and [1, 3, 8192] (after two rescales) and its relinearization (eval
-# input) at [1, 5, 8192]; and `score_many`'s 4 packed ciphertexts at
-# [4, 3, 4096], which phase 4 runs but does not count.
-# Phase 11's ladders: a linear stage on the K = 10 class rows [10, 3, 4096]
-# and score_many's [40, 3, 4096]; an MLP stage on its 16 hidden units
-# [16, 5, 8192] and score_many's [64, 5, 8192], each also the square's
-# relinearization (eval input).
-KS_SHAPES = ((False, 1, 3, 4096), (False, 4, 3, 4096), (False, 1, 3, 8192),
-             (False, 1, 5, 8192), (True, 1, 5, 8192),
-             (False, 10, 3, 4096), (False, 40, 3, 4096), (False, 16, 5, 8192),
-             (False, 64, 5, 8192), (True, 16, 5, 8192), (True, 64, 5, 8192))
-# [B, L, N] shapes at which phase 2 times K3 and K4: every shape phases 3,
-# 6, 7 and 8 launch them at (their `launches by (kernel, rows x N)` lines). K3:
-# 2 clients x 55 ciphertexts (phase 3, mnist-enc), the HHE round's pads for
-# 8 clients x 19 packed rows, 8 clients x 55 (medical-8, medical-skew), 16
-# clients x 67 (cifar-resnet16's ResNet-20), and hhe-smoke's pads for 8
-# clients x 294 packed rows at N = 256. K4: the rounds' 55 ciphertexts, the
-# HHE round's 19 packed rows, ResNet-20's 67, hhe-smoke's 294.
-# Phase 8's chaos-smoke adds K3 over 8 clients x 880 ciphertexts (SmallCNN's
-# 225,034 parameters at N = 256) and K4 over 880.
-# Phase 9's medical-8 streaming rounds sample a cohort of 4 of 8 clients,
-# which trains and encrypts fedavg.cohort_bucket(4, 8) = 4 clients x 55.
-# Phase 10's error-feedback rounds (s) pack b = 4 at k = 6 (C = 8, guard
-# 16): 10 rows a client, so a cohort of 4 encrypts (or, on the hybrid-HE
-# path, provisions pads for) 40 rows and decrypts 10; the b = 8 twin 4 x 19.
-ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096), (440, 3, 4096), (1072, 3, 4096), (2352, 3, 256),
-              (7040, 3, 256), (220, 3, 4096), (40, 3, 4096), (76, 3, 4096))
-DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096), (67, 3, 4096), (294, 3, 256), (880, 3, 256),
-              (10, 3, 4096))
-# [B', L, N] (B' upload rows) at which phase 2 times K7: every shape phases 6,
-# 7, 9 and 10 launch it at, the HHE round's 8 clients x 19 packed rows,
-# hhe-smoke's 8 x 294 at N = 256, phase 9's journal replay of one
-# hhe-smoke upload (294 rows) at a time, and phase 10's error-feedback
-# cohort of 4 x 10 packed rows.
-TC_SHAPES = ((152, 3, 4096), (2352, 3, 256), (294, 3, 256), (40, 3, 4096))
-# (S, R, B, L, N) at which phase 2 times K6: every shape phases 4-5 launch it
-# at (S baby steps of the plan, R = L*NUM_DIGITS gadget components): the
-# linear score (bsgs_plan: 22 baby steps), `score_many`'s 4 packed
-# ciphertexts (run, not counted), the MLP's first layer at L=5 (8 baby
-# steps) and its second after two rescales (4). LAUNCH_ROWS keys K6 by
-# (B*L, N), distinct for these four.
-HOIST_SHAPES = ((22, 18, 1, 3, 4096), (22, 18, 4, 3, 4096), (8, 30, 1, 5, 8192),
-                (4, 18, 1, 3, 8192))
 # Prime counts at which phase 2 holds K5 bitwise at every ring size: every
 # cluster plan of its digit stage (cuda_ntt.keyswitch_plan).
 KS_CHECK_PRIMES = (1, 2, 3, 5)
@@ -374,10 +270,6 @@ SCORE_ERR_LIMIT = 0.05               # the JAX package's serving tolerance
 # integers as the plain versions). Its check is the repo's serving gate
 # (argmax agrees, run_perf_smoke.sh) plus this bound against broken decodes.
 MLP_ERR_LIMIT = 0.25
-
-
-def log(msg: str) -> None:
-    print(msg, flush=True)
 
 
 # An ntt_kernel<LOGN, C, kInverse, Src, Dst> instantiation's mangled name.
@@ -488,362 +380,11 @@ def log_ptxas_report(report: dict) -> None:
         raise AssertionError("the ptxas report names no ntt_kernel instantiation")
 
 
-def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
-    """Median time between two CUDA events recorded around one call of `fn`,
-    over `reps` calls, L2 flushed before each (after `reps` untimed warm-up
-    calls, so the clocks have ramped up). The host runs the call between the
-    two events, so this is the cost as a caller pays it: device time plus
-    the host work (argument checks, allocation, the ctypes call) the device
-    waits for. The plain versions are timed so; a kernel's `call_ms` too."""
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def is_port_kernel(name: str) -> bool:
-    """The port's kernels live in csrc/ntt.cu's anonymous namespace (a
-    template's demangled name starts with its return type). PyTorch's own
-    kernels start with their return type and at::native; some of them hold
-    "(anonymous namespace)::" further in."""
-    return name.removeprefix("void ").startswith("(anonymous namespace)::")
-
-
-# Device idle time (us) that marks the start of a new call in device_ms:
-# the 64 MB flush before each call keeps the card busy for about 20 us.
-CALL_GAP_US = 10.0
-PROFILE_TRIES = 5
-
-
-def kernel_label(name: str) -> str:
-    """A port kernel's event name without its namespace and argument list,
-    e.g. "ntt_kernel<12, 2, false, DigitRows>"."""
-    return name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
-
-
-def device_ms(fn, reps: int, flush: torch.Tensor, own=is_port_kernel) -> tuple[float, list]:
-    """Median device time of one call of `fn`: the summed durations of the
-    port's kernels that the call launched (torch.profiler with CUDA
-    activity; K5 launches 2 or 3 kernels a call), over `reps` calls with the
-    L2 flushed before each, after 3 untimed warm-up calls; and the split by
-    launch, [(kernel label, median ms)] in launch order. One call's kernels
-    are told from the next's by the flush between them: its own device
-    event, or, where the profiler dropped that event (it happens, at times
-    for a third of the calls), the idle gap the flush leaves on the port's
-    stream (at least CALL_GAP_US; a call's own launches follow each other
-    closely). A group with another kernel count than most (a dropped kernel
-    event) is left out; at least half of the calls must remain. The
-    profiler has also returned a window with none or few of the port's
-    kernel events, between two windows that had all of them; such a window
-    is measured again, up to PROFILE_TRIES windows in all, and the run fails
-    when none of them holds the calls' kernels (a time from another clock
-    never stands in for the device time). `own` picks the
-    kernels that count by their event name (the port's, by default)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        calls, current, last_end = [], None, 0.0
-        for start, end, name in sorted((e.time_range.start, e.time_range.end, e.name) for e in
-                                       prof.events() if str(e.device_type).endswith("CUDA")):
-            if not own(name):
-                current = None
-                continue
-            if current is None or start - last_end > CALL_GAP_US:
-                current = []
-                calls.append(current)
-            current.append((kernel_label(name), end - start))
-            last_end = end
-        width = statistics.mode(len(c) for c in calls) if calls else 0
-        whole = [c for c in calls if len(c) == width]
-        if len(whole) != reps:
-            log(f"    (profiler: {len(calls)} groups of kernel events for {reps} calls, "
-                f"{len(whole)} whole with {width} kernels)")
-        if len(whole) >= reps // 2:
-            break
-        time.sleep(0.5)
-    else:
-        raise AssertionError(f"the profiler saw the port's kernels whole in fewer than {reps // 2} "
-                             f"of {reps} calls in each of {PROFILE_TRIES} windows")
-    split = [(whole[0][i][0], statistics.median(c[i][1] for c in whole) / 1e3)
-             for i in range(width)]
-    return statistics.median(sum(us for _, us in c) for c in whole) / 1e3, split
-
-
-def bound(bytes_moved: int, ops: Ops) -> tuple[float, str]:
-    """The least time (ms) for `bytes_moved` bytes and `ops` instructions:
-    the larger of the bytes over HBM's rate and the instructions over each
-    pipe's rate and over the issue rate; and which of the two it is."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = max(max(ops.mul, ops.alu) / PIPE_OPS_PER_S, ops.total / ISSUE_OPS_PER_S)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def rand_residues(ntt_ctx, shape, seed: int, device) -> torch.Tensor:
-    rng = np.random.default_rng(seed)
-    p = np.asarray(ntt_ctx.p).astype(np.int64)
-    x = rng.integers(0, 2**40, size=shape, dtype=np.int64) % p
-    return torch.from_numpy(x.astype(np.int32)).to(device)
-
-
-def ntt_cases(cuda_ntt, ntt_ctx, batch: int, device, seed: int):
-    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K1 and K2
-    on [batch, L, N]: row in, row out, the prime's twiddle tables."""
-    n, logn, num_l = ntt_ctx.n, ntt_ctx.logn, ntt_ctx.num_primes
-    x = rand_residues(ntt_ctx, (batch, num_l, n), seed, device)
-    rows = batch * num_l
-    fwd_ops = (n // 2) * logn * BUTTERFLY_OPS
-    words = 2 * rows * n + 2 * num_l * n
-    return [
-        ("ntt_forward", f"{PALLAS}:413", [batch, num_l, n],
-         lambda: cuda_ntt.ntt_forward(ntt_ctx, x),
-         lambda: cuda_ntt.ntt_forward_plain(ntt_ctx, x),
-         4 * words, rows * fwd_ops),
-        ("ntt_inverse", f"{PALLAS}:418", [batch, num_l, n],
-         lambda: cuda_ntt.ntt_inverse(ntt_ctx, x),
-         lambda: cuda_ntt.ntt_inverse_plain(ntt_ctx, x),
-         4 * words, rows * (fwd_ops + n * SHOUP_OPS)),
-    ]
-
-
-def encrypt_transforms_ops(shape, transforms: int) -> int:
-    """Operations of K3 on `shape` [B, L, N] counting `transforms` forward
-    transforms a row, plus the pointwise work: e0 + m and the epilogue's
-    two Montgomery products and two adds (3 add_mod, 2 Montgomery a word)."""
-    batch, num_l, n = shape
-    fwd_ops = (n // 2) * (n.bit_length() - 1) * BUTTERFLY_OPS
-    return batch * num_l * (transforms * fwd_ops + n * (2 * MONT_OPS + 3 * ADDMOD_OPS))
-
-
-def encrypt_case(cuda_ntt, ntt_ctx, batch: int, device, seed: int):
-    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K3 on
-    [batch, L, N]. Bytes: 6 words a coefficient (m, u, e0, e1 in; c0, c1
-    out), the key rows and the twiddle tables. Operations: the least work
-    that computes the function, three forward transforms a row (u, e0 + m,
-    e1), not the TPU kernel's four."""
-    n, num_l = ntt_ctx.n, ntt_ctx.num_primes
-    m, u, e0, e1 = (rand_residues(ntt_ctx, (batch, num_l, n), seed + i, device)
-                    for i in range(4))
-    b, a = (rand_residues(ntt_ctx, (num_l, n), seed + i, device) for i in (4, 5))
-    words = 6 * batch * num_l * n + 2 * num_l * n + 2 * num_l * n
-    return ("encrypt_fused", f"{PALLAS}:480", [batch, num_l, n],
-            lambda: cuda_ntt.encrypt_fused(ntt_ctx, m, u, e0, e1, b, a),
-            lambda: cuda_ntt.encrypt_fused_plain(ntt_ctx, m, u, e0, e1, b, a),
-            4 * words, encrypt_transforms_ops((batch, num_l, n), 3))
-
-
-def decrypt_case(cuda_ntt, ntt_ctx, batch: int, device, seed: int):
-    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K4 on
-    [batch, L, N]: c0, c1 in, one row out, the key row and the twiddle
-    tables; one inverse transform a row and c0 + c1*s."""
-    n, logn, num_l = ntt_ctx.n, ntt_ctx.logn, ntt_ctx.num_primes
-    c0, c1 = (rand_residues(ntt_ctx, (batch, num_l, n), seed + i, device) for i in range(2))
-    s = rand_residues(ntt_ctx, (num_l, n), seed + 2, device)
-    inv_ops = (n // 2) * logn * BUTTERFLY_OPS + n * SHOUP_OPS
-    words = 3 * batch * num_l * n + num_l * n + 2 * num_l * n
-    return ("decrypt_fused", f"{PALLAS}:633", [batch, num_l, n],
-            lambda: cuda_ntt.decrypt_fused(ntt_ctx, c0, c1, s),
-            lambda: cuda_ntt.decrypt_fused_plain(ntt_ctx, c0, c1, s),
-            4 * words, batch * num_l * (inv_ops + n * (MONT_OPS + ADDMOD_OPS)))
-
-
-def serving_kernel_cases(cuda_ntt, ntt_mod, n: int, device, seed: int, shapes="slice"):
-    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K5 (both
-    modes) and K6. `shapes="slice"`: the serving paths' shapes (K5 at each
-    of KS_SHAPES, with R+1 = 6L+1 key rows; K6 at each of HOIST_SHAPES,
-    shape [S, R, B, L, N]); otherwise the same kinds at ring size n."""
+def check_kernels(cuda_ntt, ntt_mod, device) -> None:
+    """Phase 2: bitwise checks at N=1024 and at every ring size and cluster
+    plan (the timed shapes are phase 12's, `bench_ntt.run`)."""
     from hefl_tpu_torch.ckks.primes import find_ntt_primes
 
-    word = 4
-    cases = []
-
-    def ctx_of(num_l, ring):
-        return ntt_mod.NTTContext.build(find_ntt_primes(num_l, 27, 2 * ring), ring)
-
-    def keyswitch(b, num_l, ring, eval_input, k):
-        ctx = ctx_of(num_l, ring)
-        logn = ring.bit_length() - 1
-        r = num_l * NUM_DIGITS
-        c = r + 1
-        x = rand_residues(ctx, (b, num_l, ring), seed + k, device)
-        bk = rand_residues(ctx, (c, num_l, ring), seed + k + 1, device)
-        ak = rand_residues(ctx, (c, num_l, ring), seed + k + 2, device)
-        fwd_ops = (ring // 2) * logn * BUTTERFLY_OPS
-        inv_ops = fwd_ops + ring * SHOUP_OPS
-        words = 3 * b * num_l * ring + 2 * c * num_l * ring + (4 if eval_input else 2) * num_l * ring
-        ops = (b * r * num_l * (fwd_ops + ring * DIGIT_OPS)
-               + 2 * c * b * num_l * ring * (MONT_OPS + ADDMOD_OPS)
-               + (b * num_l * inv_ops if eval_input else 0))
-        name = "keyswitch_fused_eval" if eval_input else "keyswitch_fused"
-        return (name, f"{PALLAS}:527", [b, num_l, ring],
-                lambda: cuda_ntt.keyswitch_fused(ctx, x, bk, ak, DIGIT_BITS, NUM_DIGITS, eval_input),
-                lambda: cuda_ntt.keyswitch_fused_plain(ctx, x, bk, ak, DIGIT_BITS, NUM_DIGITS,
-                                                       eval_input),
-                words * word, ops)
-
-    def hoisted(s_steps, r, b, num_l, ring, k):
-        ctx = ctx_of(num_l, ring)
-        c0 = rand_residues(ctx, (b, num_l, ring), seed + k, device)
-        d = rand_residues(ctx, (b, r, num_l, ring), seed + k + 1, device)
-        # Both keys in one tensor, so that one reduction reads them (read()).
-        keys = rand_residues(ctx, (2, s_steps, r, num_l, ring), seed + k + 2, device)
-        bk, ak = keys[0], keys[1]
-        poly = num_l * ring
-        words = b * poly + b * r * poly + 2 * s_steps * r * poly + 2 * s_steps * b * poly
-        # The least work of the function: per output word pair 2R lazy
-        # multiply-adds, one REDC per K terms of each sum and the c0 add_mod
-        # (the per-term count below, a Montgomery product and an add_mod a
-        # term, is the earlier one-thread-a-word kernel's and is printed
-        # beside it).
-        # K = cuda_ntt.lazy_terms(primes), restated so that time_kernels.py
-        # can time a tree without it.
-        terms = min(((int(q) << 32) - 1) // (int(q) - 1) ** 2 for q in ctx.p[:, 0])
-        redcs = 2 * -(-r // terms)
-        ops = s_steps * b * poly * (2 * r * MAD64_OPS + redcs * MONT_OPS + ADDMOD_OPS)
-        ops_mont = s_steps * b * poly * (2 * r * (MONT_OPS + ADDMOD_OPS) + ADDMOD_OPS)
-
-        def read():
-            # One PyTorch read of the same key bytes, a yardstick for
-            # streaming them (not the same function, so not a library call):
-            # one max reduction over both keys reads the int32 words as they
-            # are (torch.sum to int64 first casts them to a new tensor).
-            return torch.amax(keys)
-
-        return ("hoisted_products", f"{PALLAS}:701", [s_steps, r, b, num_l, ring],
-                lambda: cuda_ntt.hoisted_products(ctx, c0, d, bk, ak),
-                lambda: cuda_ntt.hoisted_products_plain(ctx, c0, d, bk, ak),
-                words * word, ops, {"ops_mont": ops_mont, "read": read,
-                                    "at": lambda **kw: cuda_ntt.hoisted_products(
-                                        ctx, c0, d, bk, ak, plan=cuda_ntt.hoisted_plan(
-                                            s_steps, b, r, ctx.p[:, 0], ring, **kw))})
-
-    if shapes == "slice":
-        for k, (eval_input, b, num_l, ring) in enumerate(KS_SHAPES):
-            cases.append(keyswitch(b, num_l, ring, eval_input, 10 * k))
-        for k, (s_steps, r, b, num_l, ring) in enumerate(HOIST_SHAPES):
-            cases.append(hoisted(s_steps, r, b, num_l, ring, 100 + 10 * k))
-    else:
-        cases.append(keyswitch(2, 3, n, False, 0))
-        cases.append(keyswitch(1, 5, n, True, 10))
-        cases.append(hoisted(22, 3 * NUM_DIGITS, 2, 3, n, 20))
-    return cases
-
-
-def transcipher_case(cuda_ntt, ntt_ctx, rows: int, device, seed: int):
-    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K7 over
-    `rows` upload rows: words [rows, N] below 2**31, pads [rows, L, N].
-    Bytes: the word pair once (the L rows of an upload row re-read it from
-    the L2), both pads in, c0 and c1 out, the twiddle tables."""
-    n, logn, num_l = ntt_ctx.n, ntt_ctx.logn, ntt_ctx.num_primes
-    rng = np.random.default_rng(seed)
-    w_hi, w_lo = (torch.from_numpy(rng.integers(0, 2**31, (rows, n)).astype(np.int32)).to(device)
-                  for _ in range(2))
-    p0, p1 = (rand_residues(ntt_ctx, (rows, num_l, n), seed + i, device) for i in (1, 2))
-    fwd_ops = (n // 2) * logn * BUTTERFLY_OPS
-    words = 2 * rows * n + 4 * rows * num_l * n + 2 * num_l * n     # + twiddle tables
-    ops = rows * num_l * (fwd_ops + n * (2 * BARRETT_OPS + MONT_OPS + 3 * ADDMOD_OPS))
-    return ("transcipher_fused", f"{PALLAS}:423", [rows, num_l, n],
-            lambda: cuda_ntt.transcipher_fused(ntt_ctx, w_hi, w_lo, p0, p1),
-            lambda: cuda_ntt.transcipher_fused_plain(ntt_ctx, w_hi, w_lo, p0, p1),
-            words * 4, ops)
-
-
-def max_abs_err(got, want) -> int:
-    if isinstance(got, tuple):
-        return max(max_abs_err(g, w) for g, w in zip(got, want))
-    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
-
-
-def ntt_shape_cases(cuda_ntt, ntt_mod, device, seed: int):
-    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K1 and K2
-    at each of NTT_SHAPES."""
-    from hefl_tpu_torch.ckks.primes import find_ntt_primes
-
-    cases = []
-    for k, (b, num_l, n) in enumerate(NTT_SHAPES):
-        ctx = ntt_mod.NTTContext.build(find_ntt_primes(num_l, 27, 2 * n), n)
-        cases += ntt_cases(cuda_ntt, ctx, b, device, seed + k)
-    return cases
-
-
-def encdec_shape_cases(cuda_ntt, ntt_mod, device, seed: int):
-    """(name, replaces, shape, kernel fn, plain fn, bytes, ops) for K3 at
-    each of ENC_SHAPES, K4 at each of DEC_SHAPES and K7 at each of
-    TC_SHAPES."""
-    from hefl_tpu_torch.ckks.primes import find_ntt_primes
-
-    def ctx_of(num_l, n):
-        return ntt_mod.NTTContext.build(find_ntt_primes(num_l, 27, 2 * n), n)
-
-    return ([encrypt_case(cuda_ntt, ctx_of(num_l, n), b, device, seed + 10 * k)
-             for k, (b, num_l, n) in enumerate(ENC_SHAPES)]
-            + [decrypt_case(cuda_ntt, ctx_of(num_l, n), b, device, seed + 100 + 10 * k)
-               for k, (b, num_l, n) in enumerate(DEC_SHAPES)]
-            + [transcipher_case(cuda_ntt, ctx_of(num_l, n), b, device, seed + 200 + 10 * k)
-               for k, (b, num_l, n) in enumerate(TC_SHAPES)])
-
-
-def is_torch_reduction(name: str) -> bool:
-    return "at::native::reduce_kernel" in name
-
-
-def kernel_record(case, flush, time_plain: bool = True) -> dict:
-    """Hold a kernel bitwise against its plain version on the same card
-    tensors, then time it: `ms` device time (device_ms), `call_ms` the
-    wrapper's call (time_ms), `plain_ms` the plain version (time_ms). A
-    case's optional extras (K6's) add `bound_mont_ms`, the bound on the
-    per-term Montgomery count, and `read_ms`, the device time of PyTorch's
-    reduction over the same key bytes."""
-    name, replaces, shape, kern, plain, bytes_moved, ops, *extra = case
-    err = max_abs_err(kern(), plain())
-    torch.cuda.synchronize()
-    if err != 0:
-        raise AssertionError(f"{name} at {shape} differs from its plain version")
-    (ms, split), call_ms = device_ms(kern, 30, flush), time_ms(kern, 30, flush)
-    plain_ms = time_ms(plain, 5, flush) if time_plain else None
-    bound_ms, bound_by = bound(bytes_moved, ops)
-    log(f"  {name} {shape}: bitwise equal; device {ms:.6f} ms, call {call_ms:.6f} ms, plain "
-        f"{'-' if plain_ms is None else f'{plain_ms:.6f}'} ms, bound {bound_ms:.6f} ms "
-        f"({bound_by}: {bytes_moved} B, {ops} int32 ops)")
-    if len(split) > 1:
-        log("    by launch: " + "; ".join(f"{label} {t:.6f} ms" for label, t in split))
-    rec = {
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-        "shape": shape, "launches": None, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "split": [{"kernel": label, "ms": t} for label, t in split],
-    }
-    if extra:
-        rec["bound_mont_ms"] = bound(bytes_moved, extra[0]["ops_mont"])[0]
-        rec["read_ms"] = device_ms(extra[0]["read"], 30, flush, own=is_torch_reduction)[0]
-        log(f"    bound on a Montgomery product a term {rec['bound_mont_ms']:.6f} ms; PyTorch's "
-            f"read of the keys (torch.amax) {rec['read_ms']:.6f} ms")
-    return rec
-
-
-def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
-    """Phase 2: bitwise checks at the slice's shapes and at N=1024; timings."""
-    from hefl_tpu_torch.ckks.primes import find_ntt_primes
-
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    records = {}
     small = ntt_mod.NTTContext.build(find_ntt_primes(3, 27, 2048), 1024)
     small_cases = ntt_cases(cuda_ntt, small, 8, device, 100) + [
         encrypt_case(cuda_ntt, small, 8, device, 110), decrypt_case(cuda_ntt, small, 8, device, 120),
@@ -885,24 +426,6 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
     log(f"  ntt_forward, ntt_inverse, encrypt_fused, decrypt_fused, transcipher_fused at N in "
         f"{cuda_ntt.SUPPORTED_N} x rows in {NTT_CHECK_ROWS} (cluster sizes "
         f"{[cuda_ntt.ntt_plan(r, 4096) for r in NTT_CHECK_ROWS]}): bitwise equal")
-    for case in ntt_cases(cuda_ntt, ckks_ctx.ntt, 55, device, 200):
-        records[case[0]] = kernel_record(case, flush)
-    # K1 and K2 at NTT_SHAPES, K3 at ENC_SHAPES, K4 at DEC_SHAPES, K7 at
-    # TC_SHAPES: the shapes the main paths launch them at (phases 3-8 print
-    # their launches by (kernel, rows, N)). K1/K2's [55, 3, 4096] records
-    # above are kept for continuity with earlier runs; K3/K4/K7's record is
-    # their first shape's.
-    # K3's bound counts three transforms a row; the TPU kernel's four are
-    # printed beside it, for comparison with earlier runs.
-    for case in ntt_shape_cases(cuda_ntt, ntt_mod, device, 500) + encdec_shape_cases(
-            cuda_ntt, ntt_mod, device, 600):
-        name = case[0]
-        rec = kernel_record(case, flush)
-        entry = {k: rec[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
-        if name == "encrypt_fused":
-            entry["bound_4t_ms"] = bound(case[5], encrypt_transforms_ops(rec["shape"], 4))[0]
-            log(f"    bound on four transforms a row: {entry['bound_4t_ms']:.6f} ms")
-        records.setdefault(name, rec).setdefault("shapes", []).append(entry)
     for name, _, shape, kern, plain, *_ in serving_kernel_cases(cuda_ntt, ntt_mod, 1024, device,
                                                                  300, shapes="small"):
         err = max_abs_err(kern(), plain())
@@ -949,21 +472,14 @@ def check_kernels(cuda_ntt, ntt_mod, ckks_ctx, device) -> dict:
     torch.cuda.synchronize()
     log(f"  hoisted_products at N in {cuda_ntt.SUPPORTED_N} x L in {HOIST_CHECK_PRIMES} (S=3, "
         f"B=5), at the plan's split and every split {cuda_ntt.HOIST_SPLITS}: bitwise equal")
-    # K5 at each of KS_SHAPES, K6 at each of HOIST_SHAPES (the record: the
-    # first shape of each kind, all of them under "shapes"; K6's with its
-    # plan, its per-term bound and PyTorch's read of its keys).
-    for case in serving_kernel_cases(cuda_ntt, ntt_mod, 4096, device, 400):
-        rec = kernel_record(case, flush)
-        entry = {k: rec[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                                     "split", "bound_mont_ms", "read_ms") if k in rec}
-        if rec["name"] == "hoisted_products":
-            s_steps, r, b, num_l, n = rec["shape"]
-            plan = cuda_ntt.hoisted_plan(s_steps, b, r, find_ntt_primes(num_l, 27, 2 * n), n)
-            entry["plan"] = dataclasses.asdict(plan)
-            log(f"    plan: {entry['plan']}")
-        records.setdefault(rec["name"], rec).setdefault("shapes", []).append(entry)
-    del flush
-    return records
+
+
+def launch_key(name: str, shape) -> tuple:
+    """The LAUNCH_ROWS key of a kernel's launch at a timed shape: [B, L, N]
+    -> (name, B*L, N); K6's [S, R, B, L, N] -> (name, S*B*L, N)."""
+    *lead, b, num_l, n = shape
+    steps = lead[0] if name == "hoisted_products" else 1
+    return (name, steps * b * num_l, n)
 
 
 def log_launch_rows(rows: dict) -> None:
@@ -1139,6 +655,36 @@ def check_scores(label: str, got, want, limit: float = SCORE_ERR_LIMIT) -> None:
         raise AssertionError(f"{label}: scores off the plaintext reference ({err}, argmax {agree})")
 
 
+def unhoisted_twin_launches(scorer, ct, steps: int, k6_rows: dict):
+    """One score of a scorer in rotation_mode="unhoisted", its launches
+    counted from zero: its baby steps run one K6 launch each at S = 1
+    (`ops.step_key_products`), `k6_rows` {(S*B*L, N): launches} of them.
+    -> (the score, launch counts, launches by shape)."""
+    from hefl_tpu_torch.ckks import cuda_ntt
+
+    cuda_ntt.reset_launch_counts()
+    out = scorer.score(ct)
+    torch.cuda.synchronize()
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    k6 = {key[1:]: c for key, c in shapes.items() if key[0] == "hoisted_products"}
+    log(f"  the unhoisted twin's K6 launches at S = 1 by (rows, N): {k6}")
+    if counts["hoisted_products"] != steps or k6 != k6_rows:
+        raise AssertionError(f"the unhoisted twin must launch one K6 a baby step ({steps}: "
+                             f"{k6_rows}), launched {k6}")
+    return out, counts, shapes
+
+
+def merge_launches(*runs) -> tuple[dict, dict]:
+    """The (counts, launches by shape) of several runs, summed."""
+    counts, shapes = {}, {}
+    for run_counts, run_shapes in runs:
+        for key, c in run_counts.items():
+            counts[key] = counts.get(key, 0) + c
+        for key, c in run_shapes.items():
+            shapes[key] = shapes.get(key, 0) + c
+    return counts, shapes
+
+
 def serving_linear(device, n: int = 4096) -> tuple[dict, dict]:
     """Phase 4: linear BSGS serving at N=4096, L=3, d=N/8 = 512, K=10."""
     from hefl_tpu_torch import he_inference as hei
@@ -1182,7 +728,9 @@ def serving_linear(device, n: int = 4096) -> tuple[dict, dict]:
     check_scores("linear score (1 query)", hei.decrypt_class_scores(ctx, sk, out, k), x @ W.T + b)
 
     unhoisted = hei.BsgsLinearScorer(ctx, W, b, gks, rotation_mode="unhoisted")
-    if not same_ciphertext(out, unhoisted.score(ct)):
+    twin_out, twin_counts, twin_shapes = unhoisted_twin_launches(
+        unhoisted, ct, len(plan.baby_steps), {(3, n): len(plan.baby_steps)})
+    if not same_ciphertext(out, twin_out):
         raise AssertionError("hoisted and unhoisted linear scores differ")
     log("  hoisted == unhoisted: bitwise")
     t = time.perf_counter()
@@ -1210,7 +758,7 @@ def serving_linear(device, n: int = 4096) -> tuple[dict, dict]:
     lat.update(packed_median_s=med, packed_p95_s=p95, packed_qps=q * n_ct / med)
     log("  latency: " + json.dumps(lat))
     log("  phase times (s): " + json.dumps(times))
-    return counts, shapes
+    return merge_launches((counts, shapes), (twin_counts, twin_shapes))
 
 
 def serving_mlp(device, n: int = 8192) -> tuple[dict, dict]:
@@ -1254,7 +802,10 @@ def serving_mlp(device, n: int = 8192) -> tuple[dict, dict]:
     want = ((x @ w1.T + b1) ** 2) @ w2.T + b2
     check_scores("MLP score", hei.decrypt_class_scores(sub, sub_sk, out, k), want, MLP_ERR_LIMIT)
     twin = hei.BsgsMlpScorer(ctx, w1, b1, w2, b2, gks1, rlk, gks2, rotation_mode="unhoisted")
-    if not same_ciphertext(out, twin.score(ct)):
+    steps1, steps2 = len(plan1.baby_steps), len(plan2.baby_steps)
+    twin_out, twin_counts, twin_shapes = unhoisted_twin_launches(
+        twin, ct, steps1 + steps2, {(5, n): steps1, (3, n): steps2})
+    if not same_ciphertext(out, twin_out):
         raise AssertionError("hoisted and unhoisted MLP scores differ")
     log("  hoisted == unhoisted: bitwise")
     t = time.perf_counter()
@@ -1269,7 +820,7 @@ def serving_mlp(device, n: int = 8192) -> tuple[dict, dict]:
     med, p95 = warm_latency(lambda: scorer.score(ct))
     log("  latency: " + json.dumps({"median_s": med, "p95_s": p95, "qps": 1.0 / med}))
     device_time_breakdown("one MLP score", lambda: scorer.score(ct))
-    return counts, shapes
+    return merge_launches((counts, shapes), (twin_counts, twin_shapes))
 
 
 def hhe_round(device) -> tuple[dict, dict]:
@@ -2971,17 +2522,17 @@ def ladder_mlp(device, n: int = 8192) -> tuple[dict, dict]:
 
 
 def check_ladder_shapes_timed(shapes: dict) -> None:
-    """Every K1, K2 and K5 launch of (u) and (v) falls on a shape phase 2
-    timed (NTT_SHAPES by rows x N, KS_SHAPES by mode and rows x N)."""
+    """Every K1, K2 and K5 launch of (u) and (v) falls on a shape phase 12
+    times (NTT_SHAPES by rows x N, KS_SHAPES by mode and rows x N)."""
     timed = {("ntt_forward", b * num_l, n) for b, num_l, n in NTT_SHAPES}
     timed |= {("ntt_inverse", b * num_l, n) for b, num_l, n in NTT_SHAPES}
     timed |= {("keyswitch_fused_eval" if ev else "keyswitch_fused", b * num_l, n)
               for ev, b, num_l, n in KS_SHAPES}
     untimed = {k: c for k, c in shapes.items() if k not in timed}
     log(f"  (u)-(v) K1/K2/K5 launches at {len(shapes)} (kernel, rows, N) shapes, all timed in "
-        f"phase 2: {not untimed}")
+        f"phase 12: {not untimed}")
     if untimed:
-        raise AssertionError(f"ladder launches at shapes phase 2 does not time: {untimed}")
+        raise AssertionError(f"ladder launches at shapes phase 12 does not time: {untimed}")
 
 
 def exact_decode_run(device) -> tuple[dict, dict]:
@@ -3085,6 +2636,80 @@ def ladder_runs(device, smi: str) -> list[tuple[dict, dict]]:
     return runs
 
 
+# The headline benchmark's rounds in phase 12 (round 0 cold, round 1 warm).
+HEADLINE_ROUNDS = 2
+
+
+def headline_runs(device, smi: str) -> tuple[tuple[dict, dict], dict]:
+    """Phase 12: `bench.run` at the flagship's full width and epochs (its
+    launches counted from zero), its gates, then `bench_ntt.run`: every
+    kernel bitwise and timed at every shape of its list; both artifacts
+    and the trend gate over them in a temporary directory. -> the bench's
+    (counts, launches by shape) and the kernels' records by name."""
+    import tempfile
+
+    from hefl_tpu_torch import bench, bench_ntt
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.obs import trend
+
+    t = time.perf_counter()
+    cuda_ntt.reset_launch_counts()
+    art = bench.run(device, rounds=HEADLINE_ROUNDS)
+    torch.cuda.synchronize()
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log_launch_rows(shapes)
+    log(f"  (y) bench launches: {counts}")
+    log("  (y) BENCH_TORCH: " + json.dumps({k: art[k] for k in (
+        "value", "vs_baseline", "warm_round_s", "steady_round_s", "rounds_per_sec_per_chip",
+        "train_mfu", "accuracy", "plaintext_round_s", "enc_plain_max_abs_diff",
+        "enc_plain_max_abs_diff_exact_decode", "encode_overflow_count", "ciphertext_expansion",
+        "round_stats")}) + f" ({smi})")
+    log("  (y) phase_roofline: " + json.dumps(art["phase_roofline"]))
+    log("  (y) he_roofline: " + json.dumps(art["he_roofline"]))
+    pk = art["packing"]
+    log("  (y) packing: " + json.dumps({k: pk[k] for k in (
+        "n_ct", "standalone_encrypt_packed_s", "decrypt_core_packed_s",
+        "packed_round_max_abs_diff", "error_budget", "packed_round_within_budget")})
+        + "; he_roofline_packed " + json.dumps(pk["he_roofline_packed"]))
+    log("  (y) cohort_compare: " + json.dumps(art["cohort_compare"]) + "; dcn_compare ratio "
+        f"{art['dcn_compare']['bytes_ratio']}, bitwise {art['dcn_compare']['bitwise_equal']}")
+    log("  (y) client_fusion_compare: " + json.dumps(art["client_fusion_compare"]))
+    if not art["enc_plain_max_abs_diff"] <= ERR_LIMIT:
+        raise AssertionError(f"(y) the flagship's decrypted average is "
+                             f"{art['enc_plain_max_abs_diff']} off the plaintext mean")
+    if art["packing"]["packed_round_within_budget"] is not True:
+        raise AssertionError("(y) the packed flagship round is outside its error budget")
+    if not (art["cohort_compare"]["bitwise_equal"] and art["dcn_compare"]["bitwise_equal"]):
+        raise AssertionError("(y) the cohort-only (or the tiered) sum differs from the full-C one")
+    for phase, row in art["phase_roofline"].items():
+        if row["flops"] is None or row["mfu"] is None or not 0.0 < row["mfu"] <= 1.0:
+            raise AssertionError(f"(y) phase_roofline {phase}: {row}")
+    for phase in ("encrypt", "aggregate", "decrypt"):
+        row = art["he_roofline"][phase]
+        if row["util_vs_peak_int_ops"] is None or row.get("timing_floor_suspect"):
+            raise AssertionError(f"(y) he_roofline {phase}: {row}")
+    log(f"  phase 12 (y) wall time: {time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    ntt_art = bench_ntt.run(device)
+    records = {rec["name"]: rec for rec in ntt_art["kernels"]}
+    if not ntt_art["bitwise"] or ntt_art["kernels_covered"] != [f"K{i}" for i in range(1, 8)]:
+        raise AssertionError(f"(z) BENCH_TORCH_NTT: bitwise {ntt_art['bitwise']}, kernels "
+                             f"{ntt_art['kernels_covered']}")
+    log(f"  (z) BENCH_TORCH_NTT: K1-K7 bitwise at every listed shape "
+        f"({sum(len(r['shapes']) for r in records.values())} shapes)")
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_") as tmp:
+        for name, doc in (("BENCH_TORCH.json", art), ("BENCH_TORCH_NTT.json", ntt_art)):
+            (Path(tmp) / name).write_text(json.dumps(doc))
+        rc = trend._main(["--root", tmp, "--quiet"])
+        log(f"  (z) trend gate over BENCH_TORCH.json: exit {rc}")
+        if rc != 0:
+            raise AssertionError(f"(z) the trend gate exited {rc}")
+    log(f"  phase 12 (z) wall time: {time.perf_counter() - t:.3f} s")
+    return (counts, shapes), records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3099,7 +2724,6 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from hefl_tpu_torch.ckks import cuda_ntt, ntt as ntt_mod
-    from hefl_tpu_torch.ckks.keys import CkksContext
 
     t = time.perf_counter()
     cuda_ntt.load_library()
@@ -3109,7 +2733,7 @@ def main() -> int:
     log_sass(cuda_ntt)
 
     log("phase 2: kernels vs plain versions")
-    records = check_kernels(cuda_ntt, ntt_mod, CkksContext.create(), device)
+    check_kernels(cuda_ntt, ntt_mod, device)
 
     log("phase 3: encrypted FedAvg round, MedCNN 256x256x3, N=4096 L=3, 2 clients")
     runs = [main_path(device)]
@@ -3140,13 +2764,18 @@ def main() -> int:
         "L=5, d=64, H=16) scores; medical-8 with exact_final_decode; the BENCH_TORCH_INFER, "
         "BENCH_TORCH_LOAD and BENCH_TORCH_DCN writers and the trend gate")
     runs += ladder_runs(device, smi)
+    log("phase 12: the headline benchmark (bench.run: the flagship MedCNN 256x256x3, 1600 "
+        "images, 2 clients x 10 epochs, N=4096 L=3, 2 rounds) and the kernel benchmark "
+        "(bench_ntt.run: K1-K7 at every launched shape)")
+    headline, records = headline_runs(device, smi)
+    runs.append(headline)
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-11 together:")
+    log("phases 3-12 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-11
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-12
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),
@@ -3165,21 +2794,21 @@ def main() -> int:
         if rec["launches"] < 1:
             raise AssertionError(f"no main path launched {name}")
         for entry in rec["shapes"]:
-            *_, b, num_l, n = entry["shape"]         # [B, L, N]; K6 [S, R, B, L, N]
-            entry["launches"] = shapes.get((name, b * num_l, n), 0)
+            entry["launches"] = shapes.get(launch_key(name, entry["shape"]), 0)
     # ENC_SHAPES, DEC_SHAPES, HOIST_SHAPES and TC_SHAPES claim every shape
     # K3, K4, K6 and K7 run at: each main-path launch must fall on exactly
     # one of them.
-    for shape_list in (ENC_SHAPES, DEC_SHAPES, HOIST_SHAPES, TC_SHAPES):
-        if len({(b * num_l, n) for *_, b, num_l, n in shape_list}) != len(shape_list):
+    for name, shape_list in (("encrypt_fused", ENC_SHAPES), ("decrypt_fused", DEC_SHAPES),
+                             ("hoisted_products", HOIST_SHAPES), ("transcipher_fused", TC_SHAPES)):
+        if len({launch_key(name, shape) for shape in shape_list}) != len(shape_list):
             raise AssertionError("two timed shapes of one kernel share one (B*L, N), so their "
                                  "launches cannot be told apart")
     for name in ("encrypt_fused", "decrypt_fused", "hoisted_products", "transcipher_fused"):
         timed = sum(e["launches"] for e in records[name]["shapes"])
         if timed != records[name]["launches"]:
             raise AssertionError(f"{records[name]['launches'] - timed} {name} launches at a shape "
-                                 "phase 2 does not time (ENC_SHAPES / DEC_SHAPES / HOIST_SHAPES / "
-                                 "TC_SHAPES are stale)")
+                                 "phase 12 does not time (bench_ntt's ENC_SHAPES / DEC_SHAPES / "
+                                 "HOIST_SHAPES / TC_SHAPES are stale)")
 
     # ROADMAP Queue 2's ranking: launches x (device time - bound), summed
     # over each kernel's timed shapes, each launch priced at its own shape

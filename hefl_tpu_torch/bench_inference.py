@@ -20,10 +20,10 @@ forward NTTs a score and at least 1.3x the QPS, batched at least 1.3x the
 single QPS, mlp_bsgs fewer key-switches a score than the ladder MLP, the
 composed MLP's parity shas equal, no analysis violation.
 
-The unhoisted twin computes each baby step's key inner product in plain
-PyTorch int64 (`ops._uncentered_products`, as the JAX twin does in XLA), not
-in a kernel: on a card its eager launches, not the transforms hoisting
-saves, set most of the `hoisted` speedup. The block says so in its `note`.
+The unhoisted twin runs each baby step's own digits, fresh forward NTTs and
+its key inner product (one K6 launch a step on a card,
+`ops.step_key_products`), so the `hoisted` speedup is what sharing one
+decomposition saves.
 
     python -m hefl_tpu_torch.bench_inference [--out BENCH_TORCH_INFER.json]
         [--reps 20] [--smoke] [--device cpu]
@@ -179,8 +179,6 @@ def run(device, reps: int = 20, smoke: bool = False) -> dict:
         "unhoisted_ntts_per_score": u_row["forward_ntts_per_score"],
         "parity_sha_hoisted": _parity_sha(out_h),
         "parity_sha_unhoisted": _parity_sha(out_u),
-        "note": ("the unhoisted twin's per-step key inner product is plain PyTorch int64 "
-                 "(ops._uncentered_products), not a kernel; the hoisted plan's is K6"),
     }
     hoisted_cmp["parity"] = hoisted_cmp["parity_sha_hoisted"] == hoisted_cmp["parity_sha_unhoisted"]
 

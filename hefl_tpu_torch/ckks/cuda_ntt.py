@@ -115,7 +115,9 @@ def launch_counts() -> dict:
 
 
 def launch_rows() -> dict:
-    """{(name, rows, N): launches} since the last reset."""
+    """{(name, rows, N): launches} since the last reset: rows of a launch's
+    main input ([B*L] residue rows; K6 its S*B*L output rows, so a sweep
+    and its one-step twin are told apart)."""
     return dict(LAUNCH_ROWS)
 
 
@@ -616,7 +618,7 @@ def hoisted_products(ctx: NTTContext, c0, d_eval, b_mont, a_mont,
                 c0.data_ptr(), d_eval.data_ptr(), b_mont.data_ptr(), a_mont.data_ptr(),
                 out0.data_ptr(), out1.data_ptr(), tabs.p.data_ptr(), tabs.pinv_neg.data_ptr(),
                 num_s, nb, num_r, ctx.num_primes, ctx.logn, plan.split, plan.chunk,
-                rows=nb * ctx.num_primes)
+                rows=num_s * nb * ctx.num_primes)
     return out0, out1
 
 

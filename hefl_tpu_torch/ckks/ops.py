@@ -284,12 +284,30 @@ def _uncentered_products(ctx: CkksContext, d_eval, bk, ak):
     return out
 
 
+def step_key_products(ctx: CkksContext, pc0, d_eval, bk, ak) -> tuple[torch.Tensor, torch.Tensor]:
+    """One unhoisted rotation step's key inner products: pc0 int32[..., L, N]
+    (the rotated c0, eval domain), the step's own digits d_eval int32[...,
+    R, L, N] and the ORIGINAL key rows bk, ak int32[R, L, N] ->
+    (pc0 + sum_c D_c * B_c, sum_c D_c * A_c) int32[..., L, N]. On CUDA one
+    K6 launch at S = 1 (the function K6 computes for every step of a
+    hoisted sweep); on the CPU the int64 products. Canonical residues
+    either way, so the order of the sum changes no word."""
+    if pc0.is_cuda:
+        acc0, acc1 = cuda_ntt.hoisted_products(ctx.ntt, pc0.contiguous(), d_eval.contiguous(),
+                                               bk[None], ak[None])
+        return acc0[0], acc1[0]
+    k0, k1 = _uncentered_products(ctx, d_eval, bk, ak)
+    p = plain_tables(ctx.ntt, pc0.device).p
+    return modular.add_mod(pc0.to(torch.int64), k0, p).to(torch.int32), k1.to(torch.int32)
+
+
 def hoisted_rotations_reference(
     ctx: CkksContext, ct: Ciphertext, steps, gks: dict
 ) -> Ciphertext:
     """The UNHOISTED twin (bitwise anchor): per step, the coefficient-domain
     automorphism of every uncentered digit polynomial, fresh forward NTTs,
-    and the inner product against the ORIGINAL key rows."""
+    and the inner product against the ORIGINAL key rows
+    (`step_key_products`: one K6 launch a step on CUDA)."""
     ntt = ctx.ntt
     tabs = plain_tables(ntt, ct.c0.device)
     p = tabs.p
@@ -304,11 +322,11 @@ def hoisted_rotations_reference(
             raise ValueError(f"galois key for step {s} has g={gks[int(s)].g}")
         src, flip = galois.automorphism_tensors(ctx.n, g, ct.c0.device)
         d_eval = ntt_forward(ntt, galois.apply_automorphism(lifted, p, src, flip))
-        k0, k1 = _uncentered_products(ctx, d_eval, gks[int(s)].b_mont[:num_r],
-                                      gks[int(s)].a_mont[:num_r])
         pc0 = ntt_forward(ntt, galois.apply_automorphism(c0_coeff, p, src, flip))
-        r0s.append(modular.add_mod(pc0.to(torch.int64), k0, p).to(torch.int32))
-        r1s.append(k1.to(torch.int32))
+        r0, r1 = step_key_products(ctx, pc0, d_eval, gks[int(s)].b_mont[:num_r],
+                                   gks[int(s)].a_mont[:num_r])
+        r0s.append(r0)
+        r1s.append(r1)
     return Ciphertext(c0=torch.stack(r0s), c1=torch.stack(r1s), scale=ct.scale)
 
 

@@ -1,2 +1,25 @@
-"""Data pipeline of the port: synthetic datasets and IID partitioning (numpy
-copies of the JAX package's modules) and device-side augmentation."""
+"""Data pipeline of the port: synthetic datasets and IID / label-skew
+partitioning (numpy copies of the JAX package's modules) and device-side
+augmentation (`data.augment`).
+
+Re-exports the names of `hefl_tpu.data` that the port defines; the image
+folder loader, `Batcher`/`one_hot` and `RoundPrefetcher` are not ported."""
+
+from hefl_tpu_torch.data.partition import (
+    client_slice,
+    iid_contiguous,
+    label_skew,
+    stack_federated,
+    train_val_split,
+)
+from hefl_tpu_torch.data.synthetic import DATASETS, make_dataset
+
+__all__ = [
+    "iid_contiguous",
+    "label_skew",
+    "client_slice",
+    "train_val_split",
+    "stack_federated",
+    "make_dataset",
+    "DATASETS",
+]

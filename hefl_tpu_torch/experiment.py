@@ -87,7 +87,7 @@ from hefl_tpu_torch.models import count_params, create_model
 from hefl_tpu_torch.obs import events as obs_events
 from hefl_tpu_torch.obs import metrics as obs_metrics
 from hefl_tpu_torch.obs import spans as obs_spans
-from hefl_tpu_torch.utils import PhaseTimer, load_checkpoint, save_checkpoint, save_params
+from hefl_tpu_torch.utils import PhaseTimer, load_checkpoint, roofline, save_checkpoint, save_params
 from hefl_tpu_torch.utils.checkpoint import npz_path
 
 
@@ -266,22 +266,25 @@ def _preflight(cfg: ExperimentConfig, ctx: CkksContext, say) -> None:
     say(f"analysis: {'; '.join(c.summary() for c in certs)}")
 
 
-def _phase_stats(seconds: float, images: int | None = None) -> dict:
-    """One phase's roofline record in the JAX schema; `flops` and `mfu` stay
-    None until the roofline with the card's peaks is ported (M15)."""
-    return {
-        "seconds": round(seconds, 6),
-        "flops": None,
-        "mfu": None,
-        "images_per_s": round(images / seconds, 2) if (images and seconds) else None,
-    }
-
-
 def _train_images(cfg: TrainConfig, n_samples: int, num_clients: int) -> int:
     """Images one round's training steps process (0 for a client too small
     to train)."""
     _, grp, steps = train_batch_geometry(cfg, int(n_samples))
     return num_clients * cfg.epochs * steps * grp
+
+
+def _train_flops(model, cfg: TrainConfig, sample_shape, n_samples: int,
+                 num_clients: int) -> float | None:
+    """One round's train FLOPs (the JAX driver's `_train_roofline_inputs`):
+    one batch's forward (`roofline.model_flops`, FlopCounterMode's conv and
+    matmul count) x 3 (forward + backward) x steps x epochs x clients, the
+    batch geometry `train_batch_geometry`'s, as training runs it. None for
+    a client too small to train."""
+    _, grp, steps = train_batch_geometry(cfg, int(n_samples))
+    if grp < 1:
+        return None
+    fwd = roofline.model_flops(model, (grp, *sample_shape))
+    return roofline.train_flops_per_round(fwd, steps, cfg.epochs, num_clients)
 
 
 def _round_seed(gen: torch.Generator) -> int:
@@ -417,12 +420,18 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device) -> dict[str, Any]:
         with timer.phase("evaluate"):
             results = evaluate(model, params, xt_d, yt)
         phases = timer.summary()
+        train_flops = _train_flops(model, train_cfg, x.shape[1:], len(x), 1)
+        train_images = _train_images(train_cfg, len(x), 1)
         record = {
             "round": 0,
             "phases": phases,
+            # The JAX driver's per-phase {seconds, flops, mfu, images_per_s}
+            # (utils.roofline; mfu against the card's bf16 peak).
             "phase_roofline": {
-                "train": _phase_stats(phases["train"], _train_images(train_cfg, len(x), 1)),
-                "evaluate": _phase_stats(phases["evaluate"], len(xt)),
+                "train": roofline.phase_stats(phases["train"], flops=train_flops, device=device,
+                                              images=train_images),
+                "evaluate": roofline.phase_stats(phases["evaluate"], device=device,
+                                                 images=len(xt)),
             },
             "val_loss": [float(metrics[-1, 0])],
             "val_acc": [float(metrics[-1, 1])],
@@ -477,6 +486,7 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device) -> dict[str, Any]:
 
     train_phase = "train+encrypt+aggregate" if cfg.encrypted else "train+aggregate"
     train_images = _train_images(train_cfg, int(xs.shape[1]), cfg.num_clients)
+    train_flops = _train_flops(model, train_cfg, x.shape[1:], int(xs.shape[1]), cfg.num_clients)
     # The masked engine (fault schedule or sanitizing knobs) returns a
     # RoundMeta a round: the same predicate the round functions use for
     # their return arity. Streaming rounds always carry one.
@@ -635,10 +645,16 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device) -> dict[str, Any]:
                                             sample_rate=dp_sample_rate)}
                if cfg.dp is not None else {}),
             "phases": phases,
+            # The JAX driver's roofline rows: the train numerator is train
+            # math only (the phase also encrypts and sums), so its mfu is a
+            # lower bound; decrypt and evaluate carry no FLOP count.
             "phase_roofline": {
-                train_phase: _phase_stats(phases[train_phase], train_images),
-                **({"decrypt": _phase_stats(phases["decrypt"])} if cfg.encrypted else {}),
-                "evaluate": _phase_stats(phases["evaluate"], len(xt)),
+                train_phase: roofline.phase_stats(phases[train_phase], flops=train_flops,
+                                                  device=device, images=train_images),
+                **({"decrypt": roofline.phase_stats(phases["decrypt"], device=device)}
+                   if cfg.encrypted else {}),
+                "evaluate": roofline.phase_stats(phases["evaluate"], device=device,
+                                                 images=len(xt)),
             },
             "val_loss": mets[:, -1, 0].tolist(),
             "val_acc": mets[:, -1, 1].tolist(),
@@ -728,17 +744,29 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device) -> dict[str, Any]:
         # augment warp, the client-training backend, the HE kernels (the
         # CUDA kernels on a card, their plain versions on the CPU) and the
         # round topology (one device).
-        "augment_backend": {"requested": "gather", "backend": "gather",
-                            "auto_timings_ms": None, "auto_persisted": False},
+        "augment_backend": augment_backend_record(),
         "client_fusion": fusion_report(),
-        "he_backend": {"requested": "auto", "backend": "cuda" if device.type == "cuda" else "plain",
-                       "auto_timings_ms": None, "auto_persisted": False},
+        "he_backend": he_backend_record(device),
         "packing": pspec.geometry_record() if pspec is not None else None,
         "stream": dataclasses.asdict(cfg.stream) if cfg.stream is not None else None,
         "mesh": {"axes": ["clients"], "clients": 1, "ct": 1},
         "hhe": _hhe_record(cfg, pspec, ctx) if hhe_on else None,
         "obs": obs_record,
     }
+
+
+def augment_backend_record() -> dict:
+    """The JAX record of the augment warp's backend: the port's one warp,
+    a gather."""
+    return {"requested": "gather", "backend": "gather", "auto_timings_ms": None,
+            "auto_persisted": False}
+
+
+def he_backend_record(device) -> dict:
+    """The JAX record of the HE backend: the CUDA kernels on a card, their
+    plain versions on the CPU (no persisted choice yet)."""
+    return {"requested": "auto", "backend": "cuda" if torch.device(device).type == "cuda"
+            else "plain", "auto_timings_ms": None, "auto_persisted": False}
 
 
 def _straggler_wait(seconds: float, device) -> None:

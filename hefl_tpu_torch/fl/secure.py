@@ -83,6 +83,32 @@ def encrypt_stack(
     return ops.encrypt_batch(ctx, pk, encode_stack(ctx, p_out), enc_gens, samples)
 
 
+def encrypt_params(
+    ctx: CkksContext, pk: PublicKey, params: dict, gen: torch.Generator | None = None,
+    samples=None,
+) -> Ciphertext:
+    """Encrypt one client's parameter dict -> Ciphertext [n_ct, L, N] (one
+    K3 launch on CUDA): the analog of the reference's
+    `encrypt_export_weights`, 55 batched ciphertexts for MedCNN. The
+    randomness (u, e0, e1) is drawn from `gen`, or `samples` = (u, e0, e1)
+    int32[n_ct, L, N] are given (a test feeding the JAX package's)."""
+    ct = encrypt_stack(ctx, pk, [params], None if gen is None else [gen], samples)
+    return Ciphertext(c0=ct.c0[0], c1=ct.c1[0], scale=ct.scale)
+
+
+def encrypt_params_packed(
+    ctx: CkksContext, pk: PublicKey, params: dict, base_params: dict,
+    gen: torch.Generator | None, spec: PackedSpec, samples=None,
+) -> Ciphertext:
+    """Encrypt one client's quantized interleaved UPDATE (params minus
+    `base_params`) -> Ciphertext [spec.n_ct, L, N] at the guard scale: the
+    packed twin of `encrypt_params`, k-fold fewer rows through the same
+    encrypt core (one K3 launch on CUDA)."""
+    ct, _ = encrypt_stack_packed(ctx, pk, [params], base_params,
+                                 None if gen is None else [gen], spec, samples)
+    return Ciphertext(c0=ct.c0[0], c1=ct.c1[0], scale=ct.scale)
+
+
 def _pack_updates(p_out: list[dict], base_params: dict, spec: PackedSpec,
                   residual_blk: torch.Tensor | None) -> list[tuple]:
     """Each client's UPDATE (trained weights minus `base_params`) quantized

@@ -1097,3 +1097,78 @@ class StreamEngine:
             tracer.finish(max(float(commit_s), float(last_t),
                               float(getattr(acc, "ships_done_s", 0.0))))
         return ct_sum, mets, overflow, smeta
+
+
+def cohort_compare_record(
+    model, cfg: TrainConfig, ctx, pk, global_params: dict, xs: torch.Tensor, ys: torch.Tensor,
+    key_seed: int, num_clients: int, cohort_size: int, seed: int = 0,
+) -> dict:
+    """Timed full-C-vs-cohort-only upload producers (the JAX package's
+    `cohort_compare_record`): both produce the SAME sampled cohort's
+    uploads through `secure.client_uploads`, the full-C run training every
+    registered client (the unsampled ones scheduled out), the cohort run
+    gathering the cohort bucket first. Each producer run draws from a fresh
+    generator seeded `key_seed`, so both see the same streams. Speedup is
+    warm wall clock (`roofline.steady_seconds`); `bitwise_equal` folds the
+    cohort's uploads from both producers into `OnlineAccumulator`s and
+    compares the sums' `ct_hash`, with both runs under deterministic
+    algorithms (`experiment.deterministic_algorithms`)."""
+    from hefl_tpu_torch.experiment import deterministic_algorithms
+    from hefl_tpu_torch.fl.fedavg import cohort_bucket
+    from hefl_tpu_torch.utils.roofline import steady_seconds
+
+    cohort = sample_cohort(StreamConfig(cohort_size=cohort_size, seed=seed), 0, num_clients)
+    part = np.zeros(num_clients, dtype=np.int32)
+    part[cohort] = 1
+    last: dict = {}   # each producer's final uploads, for the hash gate
+
+    def run(tag, cohort_arg):
+        last[tag] = client_uploads(model, cfg, ctx, pk, global_params, xs, ys,
+                                   torch.Generator().manual_seed(int(key_seed)),
+                                   participation=part, cohort=cohort_arg)[0]
+
+    with deterministic_algorithms():
+        t_full = steady_seconds(lambda: run("full", None))
+        t_cohort = steady_seconds(lambda: run("cohort", cohort))
+    acc_full, acc_coh = OnlineAccumulator(ctx.ntt.p), OnlineAccumulator(ctx.ntt.p)
+    full, coh = last["full"], last["cohort"]
+    for i, c in enumerate(cohort):
+        acc_full.fold((int(c), 0), full.c0[c], full.c1[c])
+        acc_coh.fold((int(c), 0), coh.c0[i], coh.c1[i])
+    return {
+        "num_clients": int(num_clients),
+        "cohort_size": int(len(cohort)),
+        "bucket": int(cohort_bucket(len(cohort), num_clients)),
+        "full_c_train_s": round(t_full, 6),
+        "cohort_train_s": round(t_cohort, 6),
+        "speedup": round(t_full / t_cohort, 3),
+        "devices_per_axis": {"clients": 1, "ct": 1},
+        "bitwise_equal": ct_hash(*acc_full.value()) == ct_hash(*acc_coh.value()),
+    }
+
+
+def cohort_compare_smoke_record(device=None) -> dict:
+    """`cohort_compare_record` at the JAX package's FIXED geometry: 16
+    registered clients, a cohort of 2, SmallCNN on mnist (64 train images)
+    at N = 256 — a record of training scaling, not of ring cost. Runs on
+    `device` (CUDA unless given); the per-client loop trains each client
+    alone ("vmap"), so both producers run the same kernels on the same
+    shapes."""
+    from hefl_tpu_torch import resolve_device
+    from hefl_tpu_torch.ckks.keys import CkksContext, keygen
+    from hefl_tpu_torch.data.partition import iid_contiguous, stack_federated
+    from hefl_tpu_torch.data.synthetic import make_dataset
+    from hefl_tpu_torch.models import create_model
+
+    device = resolve_device(device)
+    model = create_model("smallcnn", gen=torch.Generator().manual_seed(7), device=device)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    (x, y), _, _ = make_dataset("mnist", seed=0, n_train=64, n_test=8)
+    xs, ys = stack_federated(x, y, iid_contiguous(len(x), 16))
+    ctx = CkksContext.create(n=256)
+    _, pk = keygen(ctx, torch.Generator().manual_seed(77), device=device)
+    cfg = TrainConfig(epochs=1, batch_size=8, num_classes=10, augment=False, val_fraction=0.25,
+                      client_fusion="vmap")
+    return cohort_compare_record(
+        model, cfg, ctx, pk, params, torch.from_numpy(xs).to(device),
+        torch.from_numpy(ys).to(device), 78, num_clients=16, cohort_size=2)

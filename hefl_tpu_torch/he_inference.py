@@ -455,9 +455,8 @@ def _bsgs_apply(
         for i in range(len(plan.baby_steps)):
             if mode == "unhoisted":
                 d_eval = ntt_forward(ntt, galois.apply_automorphism(lifted, p, src[i], flip[i]))
-                k0, k1 = ops._uncentered_products(ctx, d_eval, bks[i][:num_r], aks[i][:num_r])
                 pc0 = ntt_forward(ntt, galois.apply_automorphism(cc0, p, src[i], flip[i]))
-                r0, r1 = modular.add_mod(i64(pc0), k0, p), k1
+                r0, r1 = ops.step_key_products(ctx, pc0, d_eval, bks[i][:num_r], aks[i][:num_r])
             else:
                 r0, r1 = rotate(cc0, cc1, src[i], flip[i], bks[i], aks[i])
             r0s.append(r0.to(torch.int32))

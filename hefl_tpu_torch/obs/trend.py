@@ -15,11 +15,13 @@ best earlier point.
   * `--extra FILE` appends artifacts after the committed history (matched
     to a series by basename).
 
-`SPECS` name the port's artifacts only (BENCH_TORCH_LOAD*.json,
-BENCH_TORCH_INFER*.json, BENCH_TORCH_DCN*.json, the files
+`SPECS` name the port's artifacts only (BENCH_TORCH.json and
+BENCH_TORCH_r*.json, BENCH_TORCH_LOAD*.json, BENCH_TORCH_INFER*.json,
+BENCH_TORCH_DCN*.json, the files `hefl_tpu_torch.bench`,
 `hefl_tpu_torch.fl.load`, `hefl_tpu_torch.bench_inference` and
 `hefl_tpu_torch.fl.hierarchy` write): a card's numbers are never gated
-against the TPU-era history the JAX package's specs read.
+against the TPU-era history the JAX package's specs read. A pattern may
+list several globs separated by "|".
 
     python -m hefl_tpu_torch.obs.trend [--root DIR] [--out TREND.md]
         [--extra FILE ...] [--quiet]
@@ -44,13 +46,15 @@ class TrendSpec:
     """One tracked metric: where its points live and what 'worse' means."""
 
     metric: str       # table name, e.g. "load.folds_per_s"
-    pattern: str      # basename glob of the series' artifact files
+    pattern: str      # basename glob(s) of the series' artifact files, "|"-separated
     path: str         # dotted path into the JSON
     direction: str    # "down" (lower better) | "up" (higher better)
     tolerance: float  # allowed fractional regression vs the best earlier point
 
 
 SPECS: tuple[TrendSpec, ...] = (
+    TrendSpec("pipeline.wallclock_s", "BENCH_TORCH.json|BENCH_TORCH_r*.json",
+              "value", "down", 0.25),
     TrendSpec("load.folds_per_s", "BENCH_TORCH_LOAD*.json",
               "bench_load.runs.commit_grouped.folds_per_s", "up", 0.30),
     TrendSpec("load.fsync_ratio", "BENCH_TORCH_LOAD*.json",
@@ -148,8 +152,11 @@ def evaluate(root: str = ".", specs: Iterable[TrendSpec] = SPECS,
     extra = list(extra)
     rows = []
     for spec in specs:
-        files = sorted(globlib.glob(os.path.join(root, spec.pattern)), key=_natural_key)
-        files += [p for p in extra if fnmatch.fnmatch(os.path.basename(p), spec.pattern)]
+        globs = spec.pattern.split("|")
+        files = sorted({p for g in globs for p in globlib.glob(os.path.join(root, g))},
+                       key=_natural_key)
+        files += [p for p in extra
+                  if any(fnmatch.fnmatch(os.path.basename(p), g) for g in globs)]
         points: list[tuple[str, float]] = []
         for p in files:
             doc = _load(p)

@@ -40,7 +40,11 @@ def test_smoke_artifact_schema(artifact):
     assert all(r["max_abs_err"] < 0.05 for r in artifact["rows"])
     assert artifact["analysis_check"]["violations"] == 0
     assert len(artifact["analysis_check"]["certified"]) == 4
-    assert "plain PyTorch" in artifact["hoisted"]["note"]
+    # The root bench's hoisted block, key for key: the twin's products run
+    # through a kernel on a card, so no note qualifies the speedup.
+    assert set(artifact["hoisted"]) == {
+        "plan", "baby", "hoisted_qps", "unhoisted_qps", "speedup", "hoisted_ntts_per_score",
+        "unhoisted_ntts_per_score", "parity_sha_hoisted", "parity_sha_unhoisted", "parity"}
     mlp = artifact["mlp_compare"]
     assert mlp["ladder_keyswitches_per_score"] == 4 * 8 + 4    # H x log2(256 slots) + H
 

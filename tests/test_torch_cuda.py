@@ -299,7 +299,7 @@ def test_keyswitch_rejects_unaligned_keys_on_card(cuda_device):
 def test_hoisted_products_bitwise_vs_plain_on_card(cuda_device, num_s, batch, num_l, n,
                                                    plan_kw):
     # K6 at the plan's split and at every split Q, against its plain
-    # version on the same card tensors; one launch counted at its (B*L, N).
+    # version on the same card tensors; one launch counted at its (S*B*L, N).
     ctx = _ctx(n, num_l)
     r = 6 * num_l
     c0 = _res(ctx, (batch, num_l, n), 50, cuda_device)
@@ -312,7 +312,7 @@ def test_hoisted_products_bitwise_vs_plain_on_card(cuda_device, num_s, batch, nu
     for g, w in zip(got, cuda_ntt.hoisted_products_plain(ctx, c0, d, *hk)):
         assert torch.equal(g, w)
     torch.cuda.synchronize(cuda_device)
-    assert cuda_ntt.launch_rows() == {("hoisted_products", batch * num_l, n): 1}
+    assert cuda_ntt.launch_rows() == {("hoisted_products", num_s * batch * num_l, n): 1}
 
 
 @pytest.mark.cuda
@@ -775,3 +775,48 @@ def test_hierarchical_error_feedback_round_on_card_equals_the_flat_round(cuda_de
         assert not res[others].any() and res[list(sm.cohort)].any()
         out[hosts] = (stream.ct_hash(ct.c0, ct.c1), rec, res.cpu())
     assert out[0][:2] == out[4][:2] and torch.equal(out[0][2], out[4][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,num_l", [(4096, 3), (8192, 5), (8192, 3)])
+def test_unhoisted_step_products_run_k6_at_one_step_on_card(cuda_device, n, num_l):
+    # The unhoisted twin's per-step products on the card (one K6 launch at
+    # S = 1, counted at its (S*B*L, N)) against the CPU's int64 products on
+    # copies of the same tensors: bitwise.
+    from hefl_tpu_torch.ckks import keys, ops
+
+    ctx = keys.CkksContext.create(n=n, num_primes=num_l)
+    r = num_l * ctx.ksk_num_digits
+    pc0, d = _res(ctx.ntt, (num_l, n), 60), _res(ctx.ntt, (r, num_l, n), 61)
+    bk, ak = _res(ctx.ntt, (r + 1, num_l, n), 62), _res(ctx.ntt, (r + 1, num_l, n), 63)
+    want = ops.step_key_products(ctx, pc0, d, bk[:r], ak[:r])
+    card = [t.to(cuda_device) for t in (pc0, d, bk, ak)]
+    cuda_ntt.reset_launch_counts()
+    got = ops.step_key_products(ctx, card[0], card[1], card[2][:r], card[3][:r])
+    torch.cuda.synchronize(cuda_device)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+    assert cuda_ntt.launch_rows() == {("hoisted_products", num_l, n): 1}
+
+
+@pytest.mark.cuda
+def test_encrypt_params_on_card_bitwise_vs_cpu(cuda_device):
+    # encrypt_params on the card (one K3 launch over the 55 ciphertexts of
+    # MedCNN) against its CPU plain run on the same samples: bitwise.
+    from hefl_tpu_torch.ckks import keys, ops
+    from hefl_tpu_torch.fl import secure
+    from hefl_tpu_torch.models import create_model
+
+    ctx = keys.CkksContext.create()
+    params = {k: v.detach() for k, v in create_model("medcnn", device="cpu").named_parameters()}
+    _, pk = keys.keygen(ctx, torch.Generator().manual_seed(40), device="cpu")
+    samples = ops.encrypt_samples(ctx, torch.Generator().manual_seed(41), (55,), "cpu")
+    want = secure.encrypt_params(ctx, pk, params, samples=samples)
+    card_pk = keys.PublicKey(b_mont=pk.b_mont.to(cuda_device), a_mont=pk.a_mont.to(cuda_device))
+    cuda_ntt.reset_launch_counts()
+    got = secure.encrypt_params(ctx, card_pk, {k: v.to(cuda_device) for k, v in params.items()},
+                                samples=tuple(s.to(cuda_device) for s in samples))
+    torch.cuda.synchronize(cuda_device)
+    assert cuda_ntt.launch_rows() == {("encrypt_fused", 55 * 3, 4096): 1}
+    assert torch.equal(got.c0.cpu(), want.c0) and torch.equal(got.c1.cpu(), want.c1)
+    assert got.scale == want.scale

@@ -28,7 +28,7 @@ torch.set_num_threads(2)
 
 THREADS = 256           # ntt.cu kHoistThreads
 SHARE_SLOTS = THREADS // 2
-# (S, R, B, L, N) of every K6 launch of the serving paths (chip_smoke.py's
+# (S, R, B, L, N) of every K6 launch of the serving paths (bench_ntt.py's
 # HOIST_SHAPES), and the plan's (split, chunk) on a 132-SM card: the
 # largest Q whose groups x Q threads fit its 135,168 resident threads.
 PLANS = {
@@ -36,6 +36,9 @@ PLANS = {
     (22, 18, 4, 3, 4096): (1, 32),    # score_many, 4 ciphertexts: 270,336 groups
     (8, 30, 1, 5, 8192): (1, 32),     # MLP layer 1, 81,920 groups
     (4, 18, 1, 3, 8192): (4, 32),     # MLP layer 2, 24,576 groups
+    (1, 18, 1, 3, 4096): (8, 32),     # the unhoisted twins' one step: 3,072 groups
+    (1, 30, 1, 5, 8192): (8, 32),     # 10,240 groups
+    (1, 18, 1, 3, 8192): (8, 32),     # 6,144 groups
 }
 
 

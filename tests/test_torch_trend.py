@@ -35,11 +35,19 @@ def test_renders_the_jax_table_from_the_same_specs_and_files():
 
 
 def test_specs_read_the_ports_artifacts_only():
-    assert all(s.pattern.startswith("BENCH_TORCH_") for s in trend.SPECS)
+    assert all(g.startswith("BENCH_TORCH") for s in trend.SPECS for g in s.pattern.split("|"))
     assert {s.pattern for s in trend.SPECS} == {
-        "BENCH_TORCH_LOAD*.json", "BENCH_TORCH_INFER*.json", "BENCH_TORCH_DCN*.json"}
-    # The repo holds no BENCH_TORCH_* artifact yet: nothing is gated.
-    assert trend._main(["--root", str(REPO), "--quiet"]) == 2
+        "BENCH_TORCH.json|BENCH_TORCH_r*.json", "BENCH_TORCH_LOAD*.json",
+        "BENCH_TORCH_INFER*.json", "BENCH_TORCH_DCN*.json"}
+    wall = next(s for s in trend.SPECS if s.metric == "pipeline.wallclock_s")
+    jwall = next(s for s in jtrend.SPECS if s.metric == "pipeline.wallclock_s")
+    assert (wall.path, wall.direction, wall.tolerance) == ("value", "down", jwall.tolerance)
+    # The repo's committed BENCH_TORCH.json (a card's run) is the pipeline
+    # series' baseline point: the gate is clean.
+    rows = trend.evaluate(str(REPO))
+    assert [p[0] for p in next(r for r in rows if r.metric == wall.metric).points] == [
+        "BENCH_TORCH.json"]
+    assert trend._main(["--root", str(REPO), "--quiet"]) == 0
 
 
 def _load_artifact(path, folds_per_s):
@@ -68,3 +76,18 @@ def test_gate_clean_then_seeded_regression(tmp_path):
     empty = tmp_path / "empty"
     empty.mkdir()
     assert trend._main(["--root", str(empty), "--quiet"]) == 2
+
+
+def test_pipeline_series_reads_the_bench_files_only(tmp_path):
+    for name, value in (("BENCH_TORCH.json", 100.0), ("BENCH_TORCH_r02.json", 110.0),
+                        ("BENCH_TORCH_LOAD.json", 1.0), ("BENCH_TORCH_NTT.json", 1.0),
+                        ("BENCH_TORCH_INFER.json", 1.0), ("BENCH_TORCH_DCN.json", 1.0)):
+        (tmp_path / name).write_text(json.dumps({"value": value}))
+    rows = trend.evaluate(str(tmp_path))
+    wall = next(r for r in rows if r.metric == "pipeline.wallclock_s")
+    assert wall.points == [("BENCH_TORCH.json", 100.0), ("BENCH_TORCH_r02.json", 110.0)]
+    assert not wall.regressed                                  # +10 %, inside 25 %
+    bad = tmp_path / "late" / "BENCH_TORCH_r03.json"
+    bad.parent.mkdir()
+    bad.write_text(json.dumps({"value": 130.0}))
+    assert trend._main(["--root", str(tmp_path), "--quiet", "--extra", str(bad)]) == 1
