@@ -195,14 +195,31 @@ error:
      card; K5's device time by kernel; K6's bound on the lazy count and on
      a per-term Montgomery count and `read_ms`, PyTorch's torch.amax over
      the same key bytes), then the trend gate over both artifacts.
-  Phases 3-12 each print their launches by (kernel, rows x N); phases 4-5
+  13. Profiler trace attribution (`trace_runs`, `obs.trace`): (aa)
+     medical-8 cut to 1 round of 1 epoch through
+     `run_experiment(profile_dir=...)`: rows sgd_core, augment, val,
+     encrypt, psum_aggregate, decrypt and evaluate each above 0, every K3
+     kernel event in hefl.encrypt and every K4 in hefl.decrypt, as many as
+     the round launched, no port kernel unattributed, the rows plus the
+     unattributed time the device total within 1 us an op event, the
+     device total within 1.02 x the traced wall time; (ab)
+     `profile_round.run` at the flagship's full width cut to
+     PROFILE_EPOCHS local epochs, traced: its record's keys,
+     attribution_source "trace", round_wall_agreement (the round's device
+     busy share) in (0, 1.02], its rows logged; (ac) one warm BSGS linear
+     score (phase 4's geometry) and one ladder linear score (phase 11
+     (u)'s), traced: every port kernel event in a hefl.serve_* row, K5 in
+     serve_keyswitch or serve_hoist (the ladder's in serve_rotate), K6 in
+     serve_hoist. A trace that drops a kernel event is taken again, up to
+     TRACE_TRIES windows.
+  Phases 3-13 each print their launches by (kernel, rows x N); phases 4-5
      also count the unhoisted twins' one K6 launch a baby step (S = 1).
-  13. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-12 launched, and not K6's kernel, spills registers, and that every
-     K3, K4, K6 and K7 launch of phases 3-12 fell on a shape phase 12
+  14. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-13 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-13 fell on a shape phase 12
      timed. Print one JSON line {"kernels": [...]}
      (phase 12's records; launches: the sum over the main-path runs of
-     phases 3-12, each counted from zero; every kernel carries one
+     phases 3-13, each counted from zero; every kernel carries one
      "shapes" entry per timed shape with the launches at that shape, K5's
      also its per-kernel "split"; the ranking launches x (ms - bound)
      prices each launch at its own shape)
@@ -2710,6 +2727,211 @@ def headline_runs(device, smi: str) -> tuple[tuple[dict, dict], dict]:
     return (counts, shapes), records
 
 
+# Phase 13: profiler trace attribution. A window whose trace drops a kernel
+# event (its launch has no kernel) is traced again, up to TRACE_TRIES windows.
+TRACE_TRIES = 3
+# (aa)'s rows: every phase of the encrypted round, augmentation included.
+ROUND_TRACE_PHASES = ("hefl.sgd_core", "hefl.augment", "hefl.val", "hefl.encrypt",
+                      "hefl.psum_aggregate", "hefl.decrypt", "hefl.evaluate")
+# (ab)'s profile_round: the flagship cut in local epochs only.
+PROFILE_EPOCHS = 2
+
+
+# K1-K7 by their kernel event's label (K5's digit stage and inner product;
+# its eval-input inverse is an inverse NTT, K2's kernel).
+PORT_KERNEL_KINDS = (("K3", "EncryptRows"), ("K4", "DecryptRows"), ("K7", "TranscipherRows"),
+                     ("K5", "DigitRows"), ("K5", "keyswitch_reduce_kernel"),
+                     ("K6", HOIST_KERNEL), ("K2", ", true, PlainRows"),
+                     ("K1", ", false, PlainRows"))
+
+
+def port_kernel_phases(ops) -> dict:
+    """{K1-K7: {phase (None: unattributed): kernel events}} of a trace's ops."""
+    from hefl_tpu_torch.utils.roofline import kernel_label
+
+    out: dict = {}
+    for op in ops:
+        if is_port_kernel(op["name"]):
+            label = kernel_label(op["name"])
+            kind = next(k for k, key in PORT_KERNEL_KINDS if key in label)
+            by_phase = out.setdefault(kind, {})
+            by_phase[op["phase"]] = by_phase.get(op["phase"], 0) + 1
+    return out
+
+
+def log_trace_rows(label: str, rec: dict) -> None:
+    total = rec["device_total_s"] or 1.0
+    log(f"  ({label}) {rec['op_events']} {rec['device_events']} events, device total "
+        f"{rec['device_total_s']:.6f} s, unattributed {rec['unattributed_s']:.6f} s, dropped "
+        f"launches {rec['dropped_launches']}, unlinked {rec['unlinked_device_events']}")
+    for phase, row in rec["rows"].items():
+        log(f"    {phase:22s} {row['device_seconds']:.6f} s  {row['op_events']:7d} ops  "
+            f"{100 * row['device_seconds'] / total:5.1f} %")
+    log(f"    modules {json.dumps(rec['modules'])}; host rows {json.dumps(rec['host_rows'])}")
+
+
+def traced_window(label: str, run):
+    """`run(trace_dir)` -> (its output, its wall seconds), with the launch
+    counts zeroed before it, traced again while its trace drops kernel
+    events (TRACE_TRIES windows) -> (output, wall, counts, shapes, record,
+    ops)."""
+    import tempfile
+
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.obs import trace
+
+    for attempt in range(TRACE_TRIES):
+        with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                         prefix=".chip_smoke_") as tmp:
+            cuda_ntt.reset_launch_counts()
+            out, wall = run(tmp)
+            torch.cuda.synchronize()
+            counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+            events = trace.load_trace_events(trace.find_trace_file(tmp))
+        rec, by_event = trace.trace_attribution(events), trace.attributed_events(events)
+        if rec["dropped_launches"] == 0:
+            return out, wall, counts, shapes, rec, by_event["ops"]
+        log(f"  ({label}) window {attempt + 1}: {rec['dropped_launches']} launches without "
+            f"their kernel event ({by_event['dropped']}); tracing again")
+    raise AssertionError(f"({label}) each of {TRACE_TRIES} traces dropped kernel events")
+
+
+def round_trace(device) -> tuple[dict, dict]:
+    """Phase 13 (aa): medical-8 cut to 1 round of 1 epoch through
+    `run_experiment(profile_dir=...)`: every phase's row, the port's K3 and
+    K4 kernel events in their phases and as many as the round launched,
+    the rows' sum, the device total within the traced wall time."""
+    cfg = cut("medical-8", 1, 1)
+
+    def run(tmp):
+        out = drive("aa", dataclasses.replace(cfg, profile_dir=tmp), 1, device)[0]
+        return out, out["history"][0]["phases"]["total"]
+
+    _, wall, counts, shapes, rec, ops = traced_window("aa", run)
+    log_trace_rows("aa", rec)
+    missing = [p for p in ROUND_TRACE_PHASES if not rec["rows"].get(p, {}).get("device_seconds")]
+    if missing or rec["device_events"] != "kernel":
+        raise AssertionError(f"(aa) no device time in {missing} ({rec['device_events']})")
+    kinds = port_kernel_phases(ops)
+    log(f"  (aa) the port's kernel events by phase: {json.dumps(kinds)}; launches {counts}")
+    want = {"K3": {"hefl.encrypt": counts["encrypt_fused"]},
+            "K4": {"hefl.decrypt": counts["decrypt_fused"]}}
+    if kinds != want:
+        raise AssertionError(f"(aa) the port's kernel events by phase {kinds}, expected {want}")
+    gap = abs(rec["device_total_s"] - sum(r["device_seconds"] for r in rec["rows"].values())
+              - rec["unattributed_s"])
+    log(f"  (aa) |rows + unattributed - device total| {gap:.3e} s; device total "
+        f"{rec['device_total_s']:.6f} s of the traced round's {wall:.6f} s wall")
+    if gap > 1e-6 * rec["op_events"] or rec["device_total_s"] > 1.02 * wall:
+        raise AssertionError(f"(aa) the rows do not add up ({gap}) or the device time "
+                             f"{rec['device_total_s']} exceeds the wall time {wall}")
+    return counts, shapes
+
+
+def profile_round_trace(device, smi: str) -> tuple[dict, dict]:
+    """Phase 13 (ab): `profile_round.run` at the flagship's full width, cut
+    to PROFILE_EPOCHS local epochs, traced: the record's keys, its trace
+    attribution and the round's device busy share."""
+    import tempfile
+
+    from hefl_tpu_torch import profile_round
+    from hefl_tpu_torch.ckks import cuda_ntt
+
+    cuda_ntt.reset_launch_counts()
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_") as tmp:
+        att = profile_round.run(device, profile=tmp, epochs=PROFILE_EPOCHS, reps=1)
+    torch.cuda.synchronize()
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log_launch_rows(shapes)
+    missing = [k for k in profile_round.RECORD_KEYS if k not in att]
+    tr = att.get("trace_attribution") or {}
+    log_trace_rows("ab", tr)
+    log(f"  (ab) round_wall_agreement {tr.get('round_wall_agreement')} (the round's device "
+        f"busy share), wall {json.dumps(tr.get('wall_s'))}, attributed {tr.get('attributed_sum_s')}"
+        f" s; ablation: full {att['full_round_s']} s, train {att['train_s']} s, sgd_core "
+        f"{att['sgd_core_s']}, augment {att['augment_s']}, val {att['per_epoch_val_s']}, HE "
+        f"{att['he_in_round_s']} (unreliable {att['attribution_unreliable']}) ({smi})")
+    if missing or att["attribution_source"] != "trace":
+        raise AssertionError(f"(ab) record lacks {missing} or is not traced "
+                             f"({att['attribution_source']})")
+    if not 0.0 < tr["round_wall_agreement"] <= 1.02:
+        raise AssertionError(f"(ab) round_wall_agreement {tr['round_wall_agreement']}")
+    return counts, shapes
+
+
+def serving_trace(device) -> tuple[dict, dict]:
+    """Phase 13 (ac): one warm BSGS linear score at phase 4's geometry and
+    one ladder linear score at phase 11 (u)'s, each traced: every port
+    kernel event in a hefl.serve_* row, K5 in serve_keyswitch or
+    serve_hoist (the ladder's in serve_rotate), K6 in serve_hoist."""
+    from hefl_tpu_torch import he_inference as hei
+    from hefl_tpu_torch.ckks import encoding
+    from hefl_tpu_torch.ckks.keys import CkksContext, keygen
+    from hefl_tpu_torch.obs.trace import round_profiler
+
+    ctx = CkksContext.create(n=4096)
+    gen = torch.Generator().manual_seed(42)
+    sk, pk = keygen(ctx, gen, device=device)
+    slots = encoding.num_slots(ctx.ntt)
+    d, k = slots // 4, 10
+    rng = np.random.default_rng(42)
+    W, b = rng.normal(0, 0.3, (k, d)), rng.normal(0, 0.2, k)
+    plan = hei.bsgs_plan(slots, d, k)
+    bsgs = hei.BsgsLinearScorer(ctx, W, b, hei.gen_rotation_keys_for_steps(
+        ctx, sk, 2, plan.rotation_steps_needed))
+    ladder = hei.LinearScorer(ctx, W, b, hei.gen_rotation_keys(ctx, sk, 1))
+    ct = hei.encrypt_features(ctx, pk, rng.normal(0, 0.5, d), gen)
+    runs = []
+    for label, fn in (("ac, BSGS", lambda: bsgs.score(ct)),
+                      ("ac, ladder", lambda: ladder.score_batched(ct))):
+        fn()
+        torch.cuda.synchronize()
+
+        def run(tmp, fn=fn):
+            with round_profiler(tmp, device):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                return None, time.perf_counter() - t0
+
+        _, wall, counts, shapes, rec, ops = traced_window(label, run)
+        log_trace_rows(label, rec)
+        kinds = port_kernel_phases(ops)
+        log(f"  ({label}) wall {wall * 1e3:.3f} ms; the port's kernel events by phase: "
+            f"{json.dumps(kinds)}")
+        # The ladder's stages run in one serve_rotate range, its K5 calls
+        # included; the BSGS sweeps hold theirs in serve_keyswitch.
+        allowed = {"K5": ({"hefl.serve_rotate"} if label == "ac, ladder"
+                          else {"hefl.serve_keyswitch", "hefl.serve_hoist"}),
+                   "K6": {"hefl.serve_hoist"}}
+        for kind, by_phase in kinds.items():
+            ok = allowed.get(kind)
+            bad = [p for p in by_phase if p is None or not p.startswith("hefl.serve_")
+                   or (ok is not None and p not in ok)]
+            if bad:
+                raise AssertionError(f"({label}) {kind} kernel events in {bad}: {by_phase}")
+        if (sum(kinds.get("K6", {}).values()) != counts["hoisted_products"]
+                or ("K5" in kinds) != bool(counts["keyswitch_fused"])):
+            raise AssertionError(f"({label}) kernel events {kinds} vs launches {counts}")
+        runs.append((counts, shapes))
+    return merge_launches(*runs)
+
+
+def trace_runs(device, smi: str) -> list[tuple[dict, dict]]:
+    """Phase 13: (aa)-(ac)."""
+    t = time.perf_counter()
+    runs = [round_trace(device)]
+    log(f"  phase 13 (aa) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    runs.append(profile_round_trace(device, smi))
+    log(f"  phase 13 (ab) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    runs.append(serving_trace(device))
+    log(f"  phase 13 (ac) wall time: {time.perf_counter() - t:.3f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2769,13 +2991,17 @@ def main() -> int:
         "(bench_ntt.run: K1-K7 at every launched shape)")
     headline, records = headline_runs(device, smi)
     runs.append(headline)
+    log("phase 13: profiler trace attribution: medical-8 (1 round x 1 epoch) through "
+        "run_experiment(profile_dir=...), profile_round at the flagship's width (2 epochs), "
+        "a BSGS and a ladder linear score (N=4096 L=3, d=512, K=10)")
+    runs += trace_runs(device, smi)
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-12 together:")
+    log("phases 3-13 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-12
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-13
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),

@@ -31,6 +31,8 @@ from hefl_tpu_torch.ckks.keys import (
 )
 from hefl_tpu_torch.ckks.ntt import ntt_forward, ntt_inverse, plain_tables, to_mont
 from hefl_tpu_torch.ckks.primes import host_to_mont
+from hefl_tpu_torch.obs import scopes
+from hefl_tpu_torch.obs.scopes import scoped
 
 
 @dataclasses.dataclass
@@ -63,6 +65,7 @@ def encrypt_core(
     return Ciphertext(c0=c0, c1=c1, scale=ctx.scale)
 
 
+@scoped(scopes.ENCRYPT)
 def encrypt_batch(
     ctx: CkksContext, pk: PublicKey, m_res: torch.Tensor, gens=None, samples=None
 ) -> Ciphertext:
@@ -81,6 +84,7 @@ def encrypt_batch(
     return Ciphertext(c0=ct.c0.reshape(shape), c1=ct.c1.reshape(shape), scale=ct.scale)
 
 
+@scoped(scopes.ENCRYPT)
 def encrypt(
     ctx: CkksContext, pk: PublicKey, m_res: torch.Tensor, gen: torch.Generator
 ) -> Ciphertext:
@@ -90,6 +94,7 @@ def encrypt(
     return encrypt_core(ctx, pk, m_res, u, e0, e1)
 
 
+@scoped(scopes.DECRYPT)
 def decrypt(ctx: CkksContext, sk: SecretKey, ct: Ciphertext) -> torch.Tensor:
     """-> coefficient-domain residues int32[..., L, N] of m*scale + noise.
     One fused-decrypt kernel launch on CUDA."""

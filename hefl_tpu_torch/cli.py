@@ -19,7 +19,8 @@ server transcipher it into CKKS before the fold. `--serve` /
 `--journal-path` (with `--fsync-policy` and the `--crash-*` injection)
 run the durable aggregation service (`fl.server`); `--events`,
 `--no-events` and `--span-trace` route the run's event log and span
-trees. `--dp-noise SIGMA` (with `--dp-clip`,
+trees; `--profile DIR` writes a torch.profiler trace of the first round
+into DIR (`obs.trace.trace_attribution` reads it). `--dp-noise SIGMA` (with `--dp-clip`,
 `--dp-delta`, `--dp-min-surviving`) runs DP-FedAvg; `--drop-fraction`,
 `--nan-clients`, `--huge-clients`, `--straggler-delay`, `--fail-rounds`,
 `--fault-seed` and the streaming engine's `--arrival-delay`,
@@ -37,7 +38,7 @@ the other flags but `--resume`, `--json` and `--device`.
 The flags keep the JAX CLI's names, defaults and guards (the final model is
 saved to agg_model.npz unless `--no-save-model`). A flag of the JAX CLI
 that this port does not have yet (`--data-dir`, `--image-size`,
-`--profile`, `--mesh-ct`; ROADMAP) is refused with an error naming it,
+`--mesh-ct`; ROADMAP) is refused with an error naming it,
 never silently ignored. `--device` is the one flag the JAX CLI lacks: the run is on CUDA
 unless it names another device.
 """
@@ -57,7 +58,7 @@ from hefl_tpu_torch.models import MODEL_REGISTRY
 from hefl_tpu_torch.presets import PRESETS
 
 # Flags of `hefl_tpu.cli` that the port does not run yet.
-UNPORTED_FLAGS = ("--data-dir", "--image-size", "--profile", "--mesh-ct")
+UNPORTED_FLAGS = ("--data-dir", "--image-size", "--mesh-ct")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -178,6 +179,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--centralized", action="store_true",
                    help="centralized (non-federated) baseline: train one "
                         "model on the whole dataset (train_server analog)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the first round to DIR "
+                        "(obs.trace / profile_round.py --profile parse it "
+                        "into per-phase device-time attribution)")
     p.add_argument("--events", default=None, metavar="PATH", dest="events",
                    help="structured run-event JSONL (obs.events). Default: "
                         "events.jsonl next to --checkpoint (else ./); "
@@ -487,6 +492,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         retry_backoff_s=args.retry_backoff,
         events_path=args.events,
         span_trace_path=args.span_trace,
+        profile_dir=args.profile,
     )
 
 

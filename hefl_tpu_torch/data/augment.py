@@ -15,6 +15,9 @@ from __future__ import annotations
 
 import torch
 
+from hefl_tpu_torch.obs import scopes
+from hefl_tpu_torch.obs.scopes import scoped
+
 
 def rescale(images: torch.Tensor) -> torch.Tensor:
     """uint8 [0, 255] -> float32 [0, 1] (the reference's rescale=1/255)."""
@@ -45,6 +48,7 @@ def _gather_axis(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.gather(x, axis, idx.expand(shape))
 
 
+@scoped(scopes.AUGMENT)
 def apply_affine(images, s, zx, zy, f) -> torch.Tensor:
     """Apply per-image affine params (shapes [b]) to a float batch
     [b, H, W, C]; the JAX package's `_affine_gather` (augment.py:172)."""

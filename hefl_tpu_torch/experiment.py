@@ -86,7 +86,9 @@ from hefl_tpu_torch.hhe.cipher import hhe_bytes_on_wire_record
 from hefl_tpu_torch.models import count_params, create_model
 from hefl_tpu_torch.obs import events as obs_events
 from hefl_tpu_torch.obs import metrics as obs_metrics
+from hefl_tpu_torch.obs import scopes as obs_scopes
 from hefl_tpu_torch.obs import spans as obs_spans
+from hefl_tpu_torch.obs import trace as obs_trace
 from hefl_tpu_torch.utils import PhaseTimer, load_checkpoint, roofline, save_checkpoint, save_params
 from hefl_tpu_torch.utils.checkpoint import npz_path
 
@@ -235,7 +237,6 @@ def check_config(cfg: ExperimentConfig) -> None:
         )
     unported = [
         ("data_dir", cfg.data_dir is not None, "Queue 1, data/folder.py"),
-        ("profile_dir", cfg.profile_dir is not None, "M15, the profiler trace of a round"),
         ("mesh_ct", cfg.mesh_ct > 1, "one GPU runs no 2-D round mesh"),
     ]
     for name, is_set, where in unported:
@@ -356,11 +357,13 @@ def run_experiment(
     say = print if verbose else (lambda *_: None)
     check_config(cfg)
     device = resolve_device(device)
-    with deterministic_algorithms(bool(cfg.journal_path or cfg.serve)):
-        return _run(cfg, resume, say, device)
+    with deterministic_algorithms(bool(cfg.journal_path or cfg.serve)), \
+            contextlib.ExitStack() as profiling:
+        return _run(cfg, resume, say, device, profiling)
 
 
-def _run(cfg: ExperimentConfig, resume: bool, say, device) -> dict[str, Any]:
+def _run(cfg: ExperimentConfig, resume: bool, say, device,
+         profiling: contextlib.ExitStack) -> dict[str, Any]:
     hhe_on = cfg.stream is not None and cfg.stream.upload_kind == "hhe"
     # DP under partial participation: each share is calibrated to the
     # surviving-cohort floor (`fl.dp`). With faults or a stream on and no
@@ -526,6 +529,11 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device) -> dict[str, Any]:
     history: list[dict[str, Any]] = []
     span_tracers: list = []
     for r in range(start_round, cfg.rounds):
+        # The first executed round, from its start through evaluate, under
+        # the profiler on request (`profiling` stops it should the round
+        # raise).
+        if cfg.profile_dir is not None and r == start_round:
+            profiling.enter_context(obs_trace.round_profiler(cfg.profile_dir, device))
         sched = (schedule_for_round(cfg.faults, r, cfg.num_clients)
                  if cfg.faults is not None else None)
         part = sched.participation() if sched is not None else None
@@ -637,6 +645,10 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device) -> dict[str, Any]:
                         say(f"auto-resumed round-{r} state from {cfg.checkpoint_path}")
         with timer.phase("evaluate"):
             results = evaluate(model, params, xt_d, yt)
+        if cfg.profile_dir is not None and r == start_round:
+            profiling.close()
+            say(f"profiler trace written to {cfg.profile_dir}")
+            obs_events.emit("profiler_trace", round=r, dir=cfg.profile_dir)
         phases = timer.summary()
         mets = metrics.cpu().numpy()
         record: dict[str, Any] = {
@@ -776,7 +788,8 @@ def _straggler_wait(seconds: float, device) -> None:
     if seconds > 0:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        time.sleep(seconds)
+        with torch.profiler.record_function(obs_scopes.STRAGGLER_WAIT):
+            time.sleep(seconds)
 
 
 def _hhe_record(cfg: ExperimentConfig, pspec: PackedSpec, ctx: CkksContext) -> dict:

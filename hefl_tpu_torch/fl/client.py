@@ -35,6 +35,7 @@ from hefl_tpu_torch.data.augment import apply_affine, draw_affine_params, rescal
 from hefl_tpu_torch.fl.config import TrainConfig
 from hefl_tpu_torch.fl.loss import accuracy, cross_entropy, loss_fn
 from hefl_tpu_torch.fl.optimizer import AdamState, adam_init, adam_update
+from hefl_tpu_torch.obs import scopes
 
 
 def train_batch_geometry(cfg: TrainConfig, n_samples: int) -> tuple[int, int, int]:
@@ -186,28 +187,30 @@ def _fit(model, cfg: TrainConfig, global_params: dict, x, y, gen, streams,
     rows = []
     for step in range(cfg.epochs * steps):
         if not state.stopped:
-            idx = perms[step]
-            xb = rescale(x_tr[idx])
-            if cfg.augment:
-                xb = apply_affine(xb, *(a[step] for a in aug))
-            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-            loss, _ = loss_fn(model, leaves, xb, oh_tr[idx], global_params, cfg.prox_mu)
-            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-            with torch.no_grad():
-                params, opt = adam_update(
-                    grads, opt, {k: v.detach() for k, v in leaves.items()},
-                    cfg.lr, cfg.lr_decay, state.lr_scale, warmup_steps=cfg.warmup_steps,
-                )
+            with torch.profiler.record_function(scopes.SGD_CORE):
+                idx = perms[step]
+                xb = rescale(x_tr[idx])
+                if cfg.augment:
+                    xb = apply_affine(xb, *(a[step] for a in aug))
+                leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+                loss, _ = loss_fn(model, leaves, xb, oh_tr[idx], global_params, cfg.prox_mu)
+                grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+                with torch.no_grad():
+                    params, opt = adam_update(
+                        grads, opt, {k: v.detach() for k, v in leaves.items()},
+                        cfg.lr, cfg.lr_decay, state.lr_scale, warmup_steps=cfg.warmup_steps,
+                    )
         if step % steps == steps - 1:
-            # a stopped client evaluates the weights it keeps (its frozen ones)
-            eval_params = state.params if state.stopped else params
-            val_loss, val_acc = _eval_metrics(model, eval_params, x_va, oh_va)
-            state, row = _epoch_update(
-                cfg, state, params, opt,
-                np.float32(val_loss.item()), np.float32(val_acc.item()), track_best_acc,
-            )
-            params, opt = state.params, state.opt
-            rows.append(row)
+            with torch.profiler.record_function(scopes.VAL):
+                # a stopped client evaluates the weights it keeps (its frozen ones)
+                eval_params = state.params if state.stopped else params
+                val_loss, val_acc = _eval_metrics(model, eval_params, x_va, oh_va)
+                state, row = _epoch_update(
+                    cfg, state, params, opt,
+                    np.float32(val_loss.item()), np.float32(val_acc.item()), track_best_acc,
+                )
+                params, opt = state.params, state.opt
+                rows.append(row)
     return state, torch.from_numpy(np.stack(rows))
 
 

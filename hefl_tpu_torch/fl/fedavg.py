@@ -32,6 +32,8 @@ from hefl_tpu_torch.fl.config import TrainConfig
 from hefl_tpu_torch.fl.faults import RoundMeta, exclusion_bits, poison_tree
 from hefl_tpu_torch.fl.fusion import fused_train, resolve_fusion_backend
 from hefl_tpu_torch.fl.metrics import classification_metrics
+from hefl_tpu_torch.obs import scopes
+from hefl_tpu_torch.obs.scopes import scoped
 
 
 def train_clients(
@@ -123,12 +125,14 @@ def cohort_gather_index(cohort, bucket: int) -> np.ndarray:
     return idx
 
 
+@scoped(scopes.AGGREGATE)
 def plain_mean(p_out: list[dict]) -> dict:
     """The plaintext FedAvg mean of the clients' trained weights (the JAX
     package's all-kept `masked_mean_tree`)."""
     return {k: torch.stack([prm[k] for prm in p_out]).mean(dim=0) for k in p_out[0]}
 
 
+@scoped(scopes.AGGREGATE)
 def masked_mean_tree(global_params: dict, p_out: list[dict], keep: torch.Tensor,
                      total: int) -> tuple[dict, torch.Tensor]:
     """Participation-masked FedAvg mean of the clients' weights, shared by
@@ -208,13 +212,15 @@ def fedavg_round(
         return plain_mean(p_out), mets
     if trivial:
         return plain_mean(p_out), mets, RoundMeta.full_participation(num_clients)
-    if poison is not None:
-        p_out = [poison_tree(prm, int(code)) for prm, code in zip(p_out, np.asarray(poison))]
-    bits = exclusion_bits(cfg, global_params, p_out, part)
+    with torch.profiler.record_function(scopes.SANITIZE):
+        if poison is not None:
+            p_out = [poison_tree(prm, int(code)) for prm, code in zip(p_out, np.asarray(poison))]
+        bits = exclusion_bits(cfg, global_params, p_out, part)
     new, _ = masked_mean_tree(global_params, p_out, bits == 0, num_clients)
     return new, mets, RoundMeta.from_bits(bits)
 
 
+@scoped(scopes.EVALUATE)
 def evaluate(model, params: dict, x, y, batch_size: int = 32) -> dict:
     """Whole-dataset inference + weighted classification metrics.
 

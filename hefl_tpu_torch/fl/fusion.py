@@ -65,6 +65,7 @@ from hefl_tpu_torch.fl.config import TrainConfig
 from hefl_tpu_torch.fl.loss import cross_entropy
 from hefl_tpu_torch.fl.optimizer import AdamState, adam_init, adam_update
 from hefl_tpu_torch.models.folded import fold_clients, stack_params, unfold_clients
+from hefl_tpu_torch.obs import scopes
 
 FUSION_BACKENDS = ("fused", "vmap")
 
@@ -149,53 +150,58 @@ def fused_train(model, cfg: TrainConfig, global_params: dict, xs: torch.Tensor, 
     opt = adam_init(params)
     rows = []
     for step in range(cfg.epochs * steps):
-        idx = perms[:, step]                                                 # [C, grp]
-        xb = fold_clients(rescale(x_tr[rows_c, idx]))
-        if cfg.augment:
-            xb = apply_affine(xb, *(a[:, step].reshape(-1) for a in aug))
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        ce, _ = _client_metrics(model, leaves, xb, oh_tr[rows_c, idx])
-        loss = ce.sum()
-        if cfg.prox_mu > 0.0:
-            loss = loss + 0.5 * cfg.prox_mu * torch.stack(
-                [torch.sum((leaves[k] - gp[k]) ** 2) for k in leaves]).sum()
-        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-        lr_scale = np.array([s.lr_scale for s in states], dtype=np.float32)
-        with torch.no_grad():
-            new_params, new_opt = adam_update(
-                grads, opt, {k: v.detach() for k, v in leaves.items()}, cfg.lr, cfg.lr_decay,
-                lr_scale, warmup_steps=cfg.warmup_steps,
-            )
-            if keep is not None:
-                # Scheduled-out clients flow through the step but update nothing.
-                new_params = _mask_select(keep, new_params, params)
-                new_opt = AdamState(mu=_mask_select(keep, new_opt.mu, opt.mu),
-                                    nu=_mask_select(keep, new_opt.nu, opt.nu), step=new_opt.step)
-            params, opt = new_params, new_opt
+        with torch.profiler.record_function(scopes.SGD_CORE):
+            idx = perms[:, step]                                             # [C, grp]
+            xb = fold_clients(rescale(x_tr[rows_c, idx]))
+            if cfg.augment:
+                xb = apply_affine(xb, *(a[:, step].reshape(-1) for a in aug))
+            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            ce, _ = _client_metrics(model, leaves, xb, oh_tr[rows_c, idx])
+            loss = ce.sum()
+            if cfg.prox_mu > 0.0:
+                loss = loss + 0.5 * cfg.prox_mu * torch.stack(
+                    [torch.sum((leaves[k] - gp[k]) ** 2) for k in leaves]).sum()
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            lr_scale = np.array([s.lr_scale for s in states], dtype=np.float32)
+            with torch.no_grad():
+                new_params, new_opt = adam_update(
+                    grads, opt, {k: v.detach() for k, v in leaves.items()}, cfg.lr, cfg.lr_decay,
+                    lr_scale, warmup_steps=cfg.warmup_steps,
+                )
+                if keep is not None:
+                    # Scheduled-out clients flow through the step but update nothing.
+                    new_params = _mask_select(keep, new_params, params)
+                    new_opt = AdamState(mu=_mask_select(keep, new_opt.mu, opt.mu),
+                                        nu=_mask_select(keep, new_opt.nu, opt.nu),
+                                        step=new_opt.step)
+                params, opt = new_params, new_opt
         if step % steps != steps - 1:
             continue
-        # Epoch boundary: validate (a stopped client its frozen weights),
-        # then each client's callback transition; a stopped client takes its
-        # frozen weights and moments back, discarding its phantom updates.
-        frozen = [s.stopped for s in states]
-        eval_params = params if not any(frozen) else {
-            k: torch.stack([states[c].params[k] if frozen[c] else v[c] for c in range(num_c)])
-            for k, v in params.items()}
-        with torch.no_grad():
-            val_loss, val_acc = (t.cpu().numpy() for t in
-                                 _client_metrics(model, eval_params, xva, oh_va))
-        epoch_rows = []
-        for c in range(num_c):
-            p_c, o_c = _client_view(params, opt, c)
-            states[c], row = _epoch_update(cfg, states[c], p_c, o_c, np.float32(val_loss[c]),
-                                           np.float32(val_acc[c]))
-            epoch_rows.append(row)
-        rows.append(np.stack(epoch_rows))
-        if any(s.stopped for s in states):
-            params = {k: torch.stack([s.params[k] for s in states]) for k in params}
-            opt = AdamState(mu={k: torch.stack([s.opt.mu[k] for s in states]) for k in opt.mu},
-                            nu={k: torch.stack([s.opt.nu[k] for s in states]) for k in opt.nu},
-                            step=opt.step)
+        with torch.profiler.record_function(scopes.VAL):
+            # Epoch boundary: validate (a stopped client its frozen weights),
+            # then each client's callback transition; a stopped client takes its
+            # frozen weights and moments back, discarding its phantom updates.
+            frozen = [s.stopped for s in states]
+            eval_params = params if not any(frozen) else {
+                k: torch.stack([states[c].params[k] if frozen[c] else v[c]
+                                for c in range(num_c)])
+                for k, v in params.items()}
+            with torch.no_grad():
+                val_loss, val_acc = (t.cpu().numpy() for t in
+                                     _client_metrics(model, eval_params, xva, oh_va))
+            epoch_rows = []
+            for c in range(num_c):
+                p_c, o_c = _client_view(params, opt, c)
+                states[c], row = _epoch_update(cfg, states[c], p_c, o_c,
+                                               np.float32(val_loss[c]), np.float32(val_acc[c]))
+                epoch_rows.append(row)
+            rows.append(np.stack(epoch_rows))
+            if any(s.stopped for s in states):
+                params = {k: torch.stack([s.params[k] for s in states]) for k in params}
+                opt = AdamState(
+                    mu={k: torch.stack([s.opt.mu[k] for s in states]) for k in opt.mu},
+                    nu={k: torch.stack([s.opt.nu[k] for s in states]) for k in opt.nu},
+                    step=opt.step)
     metrics = torch.from_numpy(np.stack(rows, axis=1))                      # [C, E, 4]
     return [client_shipped_params(s) for s in states], metrics
 

@@ -66,6 +66,8 @@ from hefl_tpu_torch.fl.fedavg import (
     train_block,
 )
 from hefl_tpu_torch.hhe import cipher
+from hefl_tpu_torch.obs import scopes
+from hefl_tpu_torch.obs.scopes import scoped
 
 
 def encode_stack(ctx: CkksContext, p_out: list[dict]) -> torch.Tensor:
@@ -75,6 +77,7 @@ def encode_stack(ctx: CkksContext, p_out: list[dict]) -> torch.Tensor:
     ])
 
 
+@scoped(scopes.ENCRYPT)
 def encrypt_stack(
     ctx: CkksContext, pk: PublicKey, p_out: list[dict], enc_gens=None, samples=None
 ) -> Ciphertext:
@@ -126,6 +129,7 @@ def _with_residual(out: tuple, packed: list[tuple], residual_blk) -> tuple:
     return out if residual_blk is None else out + (torch.stack([r for *_, r in packed]),)
 
 
+@scoped(scopes.ENCRYPT)
 def encrypt_stack_packed(
     ctx: CkksContext, pk: PublicKey, p_out: list[dict], base_params: dict, enc_gens,
     spec: PackedSpec, samples=None, residual_blk: torch.Tensor | None = None,
@@ -145,6 +149,7 @@ def encrypt_stack_packed(
     return _with_residual(out, packed, residual_blk)
 
 
+@scoped(scopes.ENCRYPT)
 def hhe_encrypt_stack(
     p_out: list[dict], base_params: dict, hhe_keys, round_index: int, spec: PackedSpec,
     residual_blk: torch.Tensor | None = None,
@@ -171,6 +176,7 @@ def lazy_sum_mod(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.remainder(torch.sum(x.to(torch.int64), dim=0), p).to(torch.int32)
 
 
+@scoped(scopes.PSUM_AGGREGATE)
 def aggregate_encrypted(ctx: CkksContext, cts: Ciphertext) -> Ciphertext:
     """Homomorphic sum of a [C, n_ct, L, N] ciphertext stack over clients."""
     p = plain_tables(ctx.ntt, cts.c0.device).p
@@ -179,6 +185,7 @@ def aggregate_encrypted(ctx: CkksContext, cts: Ciphertext) -> Ciphertext:
     )
 
 
+@scoped(scopes.PSUM_AGGREGATE)
 def zero_excluded(cts: Ciphertext, keep: torch.Tensor) -> Ciphertext:
     """Zero the ciphertext rows [C, n_ct, L, N] of the clients with
     keep[c] False: zero residues are the additive identity mod p, so the
@@ -287,12 +294,13 @@ def client_uploads(
         gens=None if streams is not None else train_gens, streams=streams,
         participation=part if want_bits else None,
     )
-    if dp is not None:
-        dp_k = calibration_clients(dp, num_clients)
-        p_out = [dp_sanitize(g, global_params, prm, dp, dp_k)[0]
-                 for g, prm in zip(dp_gens, p_out)]
-    if poison is not None:
-        p_out = [poison_tree(prm, int(code)) for prm, code in zip(p_out, np.asarray(poison))]
+    with torch.profiler.record_function(scopes.SANITIZE):
+        if dp is not None:
+            dp_k = calibration_clients(dp, num_clients)
+            p_out = [dp_sanitize(g, global_params, prm, dp, dp_k)[0]
+                     for g, prm in zip(dp_gens, p_out)]
+        if poison is not None:
+            p_out = [poison_tree(prm, int(code)) for prm, code in zip(p_out, np.asarray(poison))]
     ef_blk = ef_residual if ef_on else None
     ef = []
     if hhe_keys is not None:
@@ -303,11 +311,16 @@ def client_uploads(
         cts, overflow, *ef = encrypt_stack_packed(ctx, pk, p_out, global_params, enc_gens,
                                                   packing, residual_blk=ef_blk)
     else:
-        overflow = torch.stack([
-            encoding.encode_overflow_count(pack_params(prm, ctx.n), ctx.scale) for prm in p_out
-        ])
+        with torch.profiler.record_function(scopes.ENCRYPT):
+            overflow = torch.stack([
+                encoding.encode_overflow_count(pack_params(prm, ctx.n), ctx.scale)
+                for prm in p_out
+            ])
         cts = encrypt_stack(ctx, pk, p_out, enc_gens)
-    bits = exclusion_bits(cfg, global_params, p_out, part, overflow) if want_bits else None
+    bits = None
+    if want_bits:
+        with torch.profiler.record_function(scopes.SANITIZE):
+            bits = exclusion_bits(cfg, global_params, p_out, part, overflow)
     ef_out = ef[0] if ef else None
     if gidx is not None:
         if hhe_keys is None:
@@ -410,6 +423,7 @@ def secure_fedavg_round(
     return outs
 
 
+@scoped(scopes.DECRYPT)
 def decrypt_average(
     ctx: CkksContext,
     sk: SecretKey,

@@ -88,6 +88,7 @@ from hefl_tpu_torch.hhe import cipher, transcipher
 from hefl_tpu_torch.obs import events as obs_events
 from hefl_tpu_torch.obs import metrics as obs_metrics
 from hefl_tpu_torch.obs import scopes as obs_scopes
+from hefl_tpu_torch.obs.scopes import scoped
 from hefl_tpu_torch.obs import spans as obs_spans
 from hefl_tpu_torch.parallel import host_of_clients
 
@@ -169,6 +170,7 @@ class OnlineAccumulator:
             )
         return self._c0.device
 
+    @scoped(obs_scopes.PSUM_AGGREGATE)
     def fold(self, nonce, c0, c1) -> bool:
         """Fold one upload (tensors, or host uint32 arrays); False (and count
         a duplicate) if its nonce was already folded."""
@@ -181,6 +183,7 @@ class OnlineAccumulator:
         self.folded += 1
         return True
 
+    @scoped(obs_scopes.PSUM_AGGREGATE)
     def fold_batch(self, nonces, c0_batch, c1_batch) -> int:
         """Fold a batch of arrivals with one int64 sum and one reduction;
         duplicate nonces (against the window and within the batch) are

@@ -38,6 +38,7 @@ import math
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from hefl_tpu_torch import resolve_device
 from hefl_tpu_torch.ckks import encoding, galois, modular, ops
@@ -51,6 +52,8 @@ from hefl_tpu_torch.ckks.keys import (
 )
 from hefl_tpu_torch.ckks.ntt import ntt_forward, ntt_inverse, plain_tables, to_mont
 from hefl_tpu_torch.ckks.ops import Ciphertext
+from hefl_tpu_torch.obs import scopes
+from hefl_tpu_torch.obs.scopes import scoped
 
 ROTATION_MODES = ("hoisted", "unhoisted", "legacy")
 
@@ -152,20 +155,24 @@ def rotate_and_sum_scan(ctx: CkksContext, ct: Ciphertext, ladder) -> Ciphertext:
     a_mont), any leading batch shape on `ct`. Per stage: one inverse-NTT
     launch (K2) on c0 and c1 together, the automorphism gather, one K5 call
     on the rotated c1, one K1 launch on the rotated c0, two add_mods; the
-    same arithmetic as `rotate_and_sum`, so the same words."""
+    same arithmetic as `rotate_and_sum`, so the same words. One
+    serve_rotate range holds the whole ladder, its K5 calls included: the
+    stages run one after another, and a serve_keyswitch range a stage cost
+    ~4 % of a score's host time on the H100's host."""
     ntt = ctx.ntt
     p = plain_tables(ntt, ct.c0.device).p
     i64 = lambda t: t.to(torch.int64)  # noqa: E731
     src, flip, b_mont, a_mont = ladder
     c0, c1 = ct.c0, ct.c1
-    for i in range(src.shape[0]):
-        cc = ntt_inverse(ntt, torch.stack([c0, c1]))
-        pc0 = galois.apply_automorphism(cc[0], p, src[i], flip[i])
-        pc1 = galois.apply_automorphism(cc[1], p, src[i], flip[i])
-        k0, k1 = ops._keyswitch_coeff(ctx, pc1, b_mont[i], a_mont[i])
-        rot0 = modular.add_mod(i64(ntt_forward(ntt, pc0)), i64(k0), p)
-        c0 = modular.add_mod(i64(c0), rot0, p).to(torch.int32)
-        c1 = modular.add_mod(i64(c1), i64(k1), p).to(torch.int32)
+    with record_function(scopes.SERVE_ROTATE):
+        for i in range(src.shape[0]):
+            cc = ntt_inverse(ntt, torch.stack([c0, c1]))
+            pc0 = galois.apply_automorphism(cc[0], p, src[i], flip[i])
+            pc1 = galois.apply_automorphism(cc[1], p, src[i], flip[i])
+            k0, k1 = ops._keyswitch_coeff(ctx, pc1, b_mont[i], a_mont[i])
+            rot0 = modular.add_mod(i64(ntt_forward(ntt, pc0)), i64(k0), p)
+            c0 = modular.add_mod(i64(c0), rot0, p).to(torch.int32)
+            c1 = modular.add_mod(i64(c1), i64(k1), p).to(torch.int32)
     return Ciphertext(c0=c0, c1=c1, scale=ct.scale)
 
 
@@ -174,10 +181,13 @@ def _linear_apply(ctx: CkksContext, pt_scale: float, ct_x: Ciphertext, w_res, b_
     """Score encrypted samples (any leading batch shape) against all K
     classes: the ct x plaintext product broadcast over a new K axis, ONE
     ladder over the whole [..., K, L, N] block, the bias."""
-    ct = ops.ct_mul_plain_poly(
-        ctx, Ciphertext(c0=ct_x.c0[..., None, :, :], c1=ct_x.c1[..., None, :, :],
-                        scale=ct_x.scale), w_res, pt_scale)
-    return ops.ct_add_plain(ctx, rotate_and_sum_scan(ctx, ct, ladder), b_res)
+    with record_function(scopes.SERVE_SCORE):
+        ct = ops.ct_mul_plain_poly(
+            ctx, Ciphertext(c0=ct_x.c0[..., None, :, :], c1=ct_x.c1[..., None, :, :],
+                            scale=ct_x.scale), w_res, pt_scale)
+    ct = rotate_and_sum_scan(ctx, ct, ladder)
+    with record_function(scopes.SERVE_SCORE):
+        return ops.ct_add_plain(ctx, ct, b_res)
 
 
 def _encode_linear_model(ctx: CkksContext, weights: np.ndarray, bias: np.ndarray,
@@ -431,37 +441,51 @@ def _bsgs_apply(
     p, pinv = tabs.p, tabs.pinv_neg
     i64 = lambda t: t.to(torch.int64)  # noqa: E731
 
-    def rotate(c0_coeff, c1_coeff, src, flip, b_mont, a_mont):
-        """One rotation of a COEFFICIENT-domain pair -> eval domain (int64)."""
-        pc0 = galois.apply_automorphism(c0_coeff, p, src, flip)
-        pc1 = galois.apply_automorphism(c1_coeff, p, src, flip)
-        k0, k1 = ops._keyswitch_coeff(ctx, pc1, b_mont, a_mont)
-        return modular.add_mod(i64(ntt_forward(ntt, pc0)), i64(k0), p), i64(k1)
+    def rotate_all(pairs, src, flip, b_mont, a_mont):
+        """Rotations of COEFFICIENT-domain pairs [(c0, c1)], pair i by step i
+        of the tables -> [(r0, r1)] in the eval domain (int64), inside the
+        caller's serve_rotate range. The pairs are independent, so each
+        stage runs over all of them in turn (the same launches and words as
+        pair by pair) and one serve_keyswitch range holds every K5 call."""
+        rot = [(galois.apply_automorphism(c0, p, src[i], flip[i]),
+                galois.apply_automorphism(c1, p, src[i], flip[i]))
+               for i, (c0, c1) in enumerate(pairs)]
+        with record_function(scopes.SERVE_KEYSWITCH):
+            ks = [ops._keyswitch_coeff(ctx, pc1, b_mont[i], a_mont[i])
+                  for i, (_, pc1) in enumerate(rot)]
+        return [(modular.add_mod(i64(ntt_forward(ntt, pc0)), i64(k0), p), i64(k1))
+                for (pc0, _), (k0, k1) in zip(rot, ks)]
 
     if not plan.baby_steps:
         rots0, rots1 = ct_x.c0[None], ct_x.c1[None]
     elif mode == "hoisted":
-        d_eval = ops.hoisted_digits(ctx, ntt_inverse(ntt, ct_x.c1))
-        r0, r1 = ops.hoisted_rotations_core(ctx, ct_x.c0, d_eval, *baby_tables)
+        with record_function(scopes.SERVE_ROTATE):
+            cc1 = ntt_inverse(ntt, ct_x.c1)
+        with record_function(scopes.SERVE_HOIST):
+            d_eval = ops.hoisted_digits(ctx, cc1)
+            r0, r1 = ops.hoisted_rotations_core(ctx, ct_x.c0, d_eval, *baby_tables)
         rots0, rots1 = torch.cat([ct_x.c0[None], r0]), torch.cat([ct_x.c1[None], r1])
     else:
-        cc = ntt_inverse(ntt, torch.stack([ct_x.c0, ct_x.c1]))
-        cc0, cc1 = cc[0], cc[1]
-        src, flip, bks, aks = baby_tables
-        num_r = ctx.num_primes * ctx.ksk_num_digits
-        if mode == "unhoisted":
-            lifted = gadget_digits(cc1, ctx.ksk_digit_bits, ctx.ksk_num_digits).to(torch.int32)
-        r0s, r1s = [ct_x.c0], [ct_x.c1]
-        for i in range(len(plan.baby_steps)):
+        with record_function(scopes.SERVE_ROTATE):
+            cc = ntt_inverse(ntt, torch.stack([ct_x.c0, ct_x.c1]))
+            cc0, cc1 = cc[0], cc[1]
+            src, flip, bks, aks = baby_tables
+            num_r = ctx.num_primes * ctx.ksk_num_digits
             if mode == "unhoisted":
-                d_eval = ntt_forward(ntt, galois.apply_automorphism(lifted, p, src[i], flip[i]))
-                pc0 = ntt_forward(ntt, galois.apply_automorphism(cc0, p, src[i], flip[i]))
-                r0, r1 = ops.step_key_products(ctx, pc0, d_eval, bks[i][:num_r], aks[i][:num_r])
+                lifted = gadget_digits(cc1, ctx.ksk_digit_bits,
+                                       ctx.ksk_num_digits).to(torch.int32)
+                rots = []
+                for i in range(len(plan.baby_steps)):
+                    with record_function(scopes.SERVE_HOIST):
+                        d_eval = ntt_forward(
+                            ntt, galois.apply_automorphism(lifted, p, src[i], flip[i]))
+                        pc0 = ntt_forward(ntt, galois.apply_automorphism(cc0, p, src[i], flip[i]))
+                        rots.append(ops.step_key_products(ctx, pc0, d_eval, bks[i][:num_r],
+                                                          aks[i][:num_r]))
             else:
-                r0, r1 = rotate(cc0, cc1, src[i], flip[i], bks[i], aks[i])
-            r0s.append(r0.to(torch.int32))
-            r1s.append(r1.to(torch.int32))
-        rots0, rots1 = torch.stack(r0s), torch.stack(r1s)
+                rots = rotate_all([(cc0, cc1)] * len(plan.baby_steps), src, flip, bks, aks)
+            rots0 = torch.stack([ct_x.c0] + [r0.to(torch.int32) for r0, _ in rots])
+            rots1 = torch.stack([ct_x.c1] + [r1.to(torch.int32) for _, r1 in rots])
 
     # Giant partial sums: s[g] = sum_j rots[j] * u[g, j] mod p (canonical
     # products summed exactly in int64, then reduced: the same residue as
@@ -469,21 +493,23 @@ def _bsgs_apply(
     batch_ndim = ct_x.c0.dim() - 2
     g_count = len(plan.giants)
     u = i64(u_mont).reshape((g_count, u_mont.shape[1]) + (1,) * batch_ndim + tuple(u_mont.shape[2:]))
-    s0 = modular.mont_mul(i64(rots0)[None], u, p, pinv).sum(dim=1) % p
-    s1 = modular.mont_mul(i64(rots1)[None], u, p, pinv).sum(dim=1) % p
+    with record_function(scopes.SERVE_SCORE):
+        s0 = modular.mont_mul(i64(rots0)[None], u, p, pinv).sum(dim=1) % p
+        s1 = modular.mont_mul(i64(rots1)[None], u, p, pinv).sum(dim=1) % p
 
     # Giant sweep: the identity group seeds the accumulator; every other
     # group rotates by its step (one K2 launch for both components, one K5).
     y0, y1 = s0[0], s1[0]
-    src, flip, gbk, gak = giant_tables
-    for gi in range(len(plan.giant_steps)):
-        gc = ntt_inverse(ntt, torch.stack([s0[gi + 1], s1[gi + 1]]).to(torch.int32))
-        rr0, rr1 = rotate(gc[0], gc[1], src[gi], flip[gi], gbk[gi], gak[gi])
-        y0 = modular.add_mod(y0, rr0, p)
-        y1 = modular.add_mod(y1, rr1, p)
+    with record_function(scopes.SERVE_ROTATE):
+        gcs = [ntt_inverse(ntt, torch.stack([s0[gi + 1], s1[gi + 1]]).to(torch.int32))
+               for gi in range(len(plan.giant_steps))]
+        for rr0, rr1 in rotate_all([(gc[0], gc[1]) for gc in gcs], *giant_tables):
+            y0 = modular.add_mod(y0, rr0, p)
+            y1 = modular.add_mod(y1, rr1, p)
 
     out = Ciphertext(c0=y0.to(torch.int32), c1=y1.to(torch.int32), scale=ct_x.scale * pt_scale)
-    return ops.ct_add_plain(ctx, out, b_res)
+    with record_function(scopes.SERVE_SCORE):
+        return ops.ct_add_plain(ctx, out, b_res)
 
 
 def serving_batch_bucket(batch: int) -> int:
@@ -771,10 +797,11 @@ class BsgsMlpScorer:
         mode = self.rotation_mode
         h = _bsgs_apply(self.ctx, self.plan1, self.pt_scale, ct_x, self._u1, self._b1_res,
                         self._baby1, self._giant1, mode)
-        sq = ops.ct_mul(self.ctx, h, h, self.rlk)
-        cur = self.ctx
-        for _ in range(self._rescales):
-            cur, sq = ops.rescale(cur, sq)
+        with record_function(scopes.SERVE_SCORE):
+            sq = ops.ct_mul(self.ctx, h, h, self.rlk)
+            cur = self.ctx
+            for _ in range(self._rescales):
+                cur, sq = ops.rescale(cur, sq)
         return _bsgs_apply(cur, self.plan2, self.pt_scale, sq, self._u2, self._b2_res,
                            self._baby2, self._giant2, mode)
 
@@ -828,6 +855,7 @@ def _const_eval_mont(ctx: CkksContext, c: np.ndarray, scale: float) -> np.ndarra
     return ((res << 32) % p).astype(np.uint32)
 
 
+@scoped(scopes.SERVE_SCORE)
 def _mlp_tail_apply(ctx: CkksContext, pt_scale: float, rescales: int, h: Ciphertext, rlk,
                     w2m, b2e) -> Ciphertext:
     """Everything after the hidden layer, any leading batch shape on the

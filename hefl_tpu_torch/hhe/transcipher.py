@@ -27,8 +27,11 @@ from hefl_tpu_torch.ckks import cuda_ntt, encoding, ops
 from hefl_tpu_torch.ckks.keys import CkksContext, PublicKey
 from hefl_tpu_torch.ckks.ops import Ciphertext
 from hefl_tpu_torch.hhe import cipher
+from hefl_tpu_torch.obs import scopes
+from hefl_tpu_torch.obs.scopes import scoped
 
 
+@scoped(scopes.TRANSCIPHER)
 def transcipher_core(ctx: CkksContext, w_hi, w_lo, pad_c0, pad_c1):
     """Transcipher a batch: words int32[..., n_ct, N], pad residues
     int32[..., n_ct, L, N] -> eval-domain (c0, c1). K7 on CUDA."""

@@ -439,12 +439,18 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
+# csrc/ntt.cu's kernel templates, in its anonymous namespace.
+PORT_KERNELS = ("ntt_kernel<", "keyswitch_reduce_kernel", "hoisted_lazy_kernel")
+
+
 def is_port_kernel(name: str) -> bool:
-    """The port's kernels live in csrc/ntt.cu's anonymous namespace (a
-    template's demangled name starts with its return type). PyTorch's own
-    kernels start with their return type and at::native; some of them hold
-    "(anonymous namespace)::" further in."""
-    return name.removeprefix("void ").startswith("(anonymous namespace)::")
+    """A profiler kernel event of the port's: one of csrc/ntt.cu's kernel
+    templates in its anonymous namespace (a template's demangled name
+    starts with its return type). PyTorch keeps kernels in anonymous
+    namespaces too, some at the start of their names, so the template is
+    matched and not the namespace alone."""
+    return name.removeprefix("void ").startswith(
+        tuple("(anonymous namespace)::" + k for k in PORT_KERNELS))
 
 
 # Device idle time (us) that marks the start of a new call in device_ms:

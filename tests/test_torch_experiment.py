@@ -649,7 +649,6 @@ def test_chaos_smoke_rounds_equal_the_committed_gate():
 
 REFUSED = [
     ("data_dir", dict(data_dir="images")),
-    ("profile_dir", dict(profile_dir="prof")),
     ("mesh_ct", dict(mesh_ct=2)),
 ]
 
@@ -673,6 +672,55 @@ def test_exact_final_decode_runs_through_run_experiment(monkeypatch):
     plain = experiment.run_experiment(_tiny(_T), verbose=False, device="cpu")
     assert calls == [False, True, False, False]
     assert _max_diff(exact["params"], plain["params"]) <= 5e-6
+
+
+def test_profile_dir_traces_the_first_round_into_an_attributable_trace(tmp_path, monkeypatch):
+    # profile_dir: the first executed round, from its start through
+    # evaluate, under torch.profiler; on the CPU the attribution reads the
+    # cpu_op events, and every phase of the encrypted round has its row.
+    from hefl_tpu_torch.obs import scopes, trace
+
+    emitted = []
+    real_emit = experiment.obs_events.emit
+    monkeypatch.setattr(experiment.obs_events, "emit",
+                        lambda event, **kw: emitted.append((event, kw)) or real_emit(event, **kw))
+    prof = tmp_path / "prof"
+    out = experiment.run_experiment(_tiny(_T, profile_dir=str(prof)), verbose=False, device="cpu")
+    assert len(out["history"]) == 2
+    files = list(prof.glob("*.pt.trace.json.gz"))
+    assert len(files) == 1
+    rec = trace.trace_attribution(str(prof))
+    assert rec["device_events"] == "cpu_op" and rec["source"] == "trace"
+    for phase in (scopes.SGD_CORE, scopes.VAL, scopes.ENCRYPT, scopes.PSUM_AGGREGATE,
+                  scopes.DECRYPT, scopes.EVALUATE):
+        assert rec["rows"][phase]["device_seconds"] > 0, phase
+    assert scopes.AUGMENT not in rec["rows"]          # TINY trains without augmentation
+    assert trace.attributed_sum_s(rec) == pytest.approx(rec["device_total_s"], abs=1e-6)
+    # One round traced: one bracket of each PhaseTimer phase.
+    assert {k: v["spans"] for k, v in rec["host_rows"].items()} == {
+        "hefl.phase.train+encrypt+aggregate": 1, "hefl.phase.decrypt": 1,
+        "hefl.phase.evaluate": 1}
+    assert set(rec["modules"]) == set(rec["host_rows"])
+    assert [kw for event, kw in emitted if event == "profiler_trace"] == [
+        {"round": 0, "dir": str(prof)}]
+
+
+def test_augmented_round_traces_the_augment_range(tmp_path):
+    from hefl_tpu_torch.obs import scopes, trace
+
+    cfg = _tiny(_T, rounds=1, profile_dir=str(tmp_path), events_path="",
+                train=TrainConfig(**{**TINY_TRAIN, "augment": True}))
+    experiment.run_experiment(cfg, verbose=False, device="cpu")
+    rec = trace.trace_attribution(str(tmp_path))
+    assert rec["rows"][scopes.AUGMENT]["device_seconds"] > 0
+    assert rec["rows"][scopes.SGD_CORE]["device_seconds"] > 0
+
+
+def test_cli_profile_flag_sets_profile_dir():
+    args = cli.parse_args(["--device", "cpu", "--profile", "trace_dir"])
+    assert cli.config_from_args(args).profile_dir == "trace_dir"
+    assert cli.config_from_args(cli.parse_args(["--device", "cpu"])).profile_dir is None
+    assert "--profile" not in cli.UNPORTED_FLAGS
 
 
 @pytest.mark.parametrize("field,kw", REFUSED, ids=[f for f, _ in REFUSED])

@@ -30,11 +30,16 @@ UNPORTED = {
         "load_image_dataset": "data/folder.py: ROADMAP Queue 1, the driver leftovers",
         "load_folder_splits": "data/folder.py: ROADMAP Queue 1, the driver leftovers",
     },
-    "obs": {
-        "trace": "obs/trace.py parses XLA traces; its torch.profiler counterpart is M15b",
-        "TraceParseError": "obs/trace.py (M15b)",
-        "trace_attribution": "obs/trace.py (M15b)",
-    },
+}
+
+# Functions of the JAX `obs/trace.py` that have no counterpart: a
+# torch.profiler trace of eager PyTorch carries no compiled program whose
+# HLO metadata would hold the scopes (the port joins each kernel to the
+# ranges around its launch instead).
+TRACE_NOT_APPLICABLE = {
+    "hlo_scope_map": "no HLO text: scopes are the ranges around each kernel's launch",
+    "hlo_module_name": "no HLO module: the modules are PhaseTimer's hefl.phase.* ranges",
+    "metadata_preserving_compile": "no compiled program and no compilation cache",
 }
 
 
@@ -60,6 +65,20 @@ def test_subpackage_reexports_every_ported_jax_name(sub):
         assert hasattr(port, name), f"hefl_tpu_torch.{sub} lacks {name}"
         assert name in port.__all__, f"{name} missing from hefl_tpu_torch.{sub}.__all__"
     assert all(hasattr(port, name) for name in port.__all__)
+
+
+def test_obs_trace_ports_every_jax_function_that_applies():
+    tree = ast.parse((REPO / "hefl_tpu" / "obs" / "trace.py").read_text())
+    public = {n.name for n in tree.body
+              if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and not n.name.startswith("_")}
+    port = importlib.import_module("hefl_tpu_torch.obs.trace")
+    assert set(TRACE_NOT_APPLICABLE) <= public
+    for name in sorted(public):
+        assert hasattr(port, name) != (name in TRACE_NOT_APPLICABLE), name
+    from hefl_tpu_torch.obs import TraceParseError, trace, trace_attribution
+
+    assert trace is port and trace_attribution is port.trace_attribution
+    assert TraceParseError is port.TraceParseError
 
 
 def test_jax_subpackage_sizes():
