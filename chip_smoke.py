@@ -212,14 +212,33 @@ error:
      serve_keyswitch or serve_hoist (the ladder's in serve_rotate), K6 in
      serve_hoist. A trace that drops a kernel event is taken again, up to
      TRACE_TRIES windows.
-  Phases 3-13 each print their launches by (kernel, rows x N); phases 4-5
+  14. The driver leftovers (`leftover_runs`): (ad) a reference-layout
+     folder (Train/ and Test/, 2 classes, FOLDER_TRAIN + FOLDER_TEST PNGs
+     at 256x256 from the `medical` generator) through the CLI's
+     `--data-dir DIR --image-size 256 --rounds 1 --epochs 1`: the arrays
+     the run loads equal the written ones bitwise, 2 classes, the load's
+     seconds an image, the decrypted average within 5e-6 of the round's
+     plaintext mean; (ae) the client-fusion "auto" choice in a fresh
+     process (the probe, persisted into a temporary directory) and in a
+     second one (read back: `autoselect.cache` 1, no probe,
+     `auto_persisted`), the resolution and the first training call after
+     it timed in each; `he_backend_report`
+     reads "cuda", a "plain" pin on the card raises; (af)
+     `fidelity_check.run` over 3 seeds at the flagship shape (worst diff
+     <= 5e-6, 0 overflows); (ag) `mfu_probe.run` over the full batch
+     ladder; (ah) `flagship_acc` at FLAGSHIP_EPOCHS epochs: a separate
+     process stopped after the first epoch (`run(chunk_epochs=1)`), resumed
+     here, bitwise the unchunked run and the secure round's own result
+     (`secure_fedavg_round` under "vmap", both under deterministic
+     algorithms). Its seconds are printed.
+  Phases 3-14 each print their launches by (kernel, rows x N); phases 4-5
      also count the unhoisted twins' one K6 launch a baby step (S = 1).
-  14. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-13 launched, and not K6's kernel, spills registers, and that every
-     K3, K4, K6 and K7 launch of phases 3-13 fell on a shape phase 12
+  15. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-14 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-14 fell on a shape phase 12
      timed. Print one JSON line {"kernels": [...]}
      (phase 12's records; launches: the sum over the main-path runs of
-     phases 3-13, each counted from zero; every kernel carries one
+     phases 3-14, each counted from zero; every kernel carries one
      "shapes" entry per timed shape with the launches at that shape, K5's
      also its per-kernel "split"; the ranking launches x (ms - bound)
      prices each launch at its own shape)
@@ -1050,9 +1069,9 @@ _DATASETS: dict = {}
 
 @contextlib.contextmanager
 def datasets_once():
-    """During the block, `run_experiment` makes each synthetic dataset once
-    for the whole script."""
-    from hefl_tpu_torch import experiment
+    """During the block, `run_experiment` and `flagship.flagship_setup` make
+    each synthetic dataset once for the whole script."""
+    from hefl_tpu_torch import data, experiment
 
     real = experiment.make_dataset
 
@@ -1062,11 +1081,11 @@ def datasets_once():
             _DATASETS[key] = real(*a, **k)
         return _DATASETS[key]
 
-    experiment.make_dataset = make_dataset
+    experiment.make_dataset = data.make_dataset = make_dataset
     try:
         yield
     finally:
-        experiment.make_dataset = real
+        experiment.make_dataset = data.make_dataset = real
 
 
 @contextlib.contextmanager
@@ -2931,6 +2950,295 @@ def trace_runs(device, smi: str) -> list[tuple[dict, dict]]:
     log(f"  phase 13 (ac) wall time: {time.perf_counter() - t:.3f} s")
     return runs
 
+# Phase 14 (ad): the folder's images a split, at 256x256 from the medical
+# generator, and the seed the loader shuffles with.
+FOLDER_TRAIN = 80
+FOLDER_TEST = 20
+# Phase 14 (ah): the flagship recipe cut to this many local epochs.
+FLAGSHIP_EPOCHS = 2
+_FUSION_PROCESS = """
+import json, sys, time, torch
+from pathlib import Path
+from hefl_tpu_torch.fl import fusion
+from hefl_tpu_torch.fl.config import TrainConfig
+from hefl_tpu_torch.fl.fedavg import client_generators, train_block
+from hefl_tpu_torch.models import create_model
+from hefl_tpu_torch.obs import metrics
+from hefl_tpu_torch.utils import autoselect
+autoselect.DEFAULT_DIR = Path(sys.argv[1])
+model = create_model("medcnn", device="cuda")
+params = {k: v.detach() for k, v in model.named_parameters()}
+gen = torch.Generator().manual_seed(0)
+xs = torch.randint(0, 256, (2, 64, 256, 256, 3), dtype=torch.uint8, generator=gen).cuda()
+ys = torch.randint(0, 2, (2, 64), generator=gen).cuda()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+backend = fusion.resolve_fusion_backend("auto", model, torch.device("cuda"))
+torch.cuda.synchronize()
+seconds = time.perf_counter() - t0
+# The first training call after the choice: what a run pays next, with
+# whatever the probe warmed (or did not) still warm.
+cfg = TrainConfig(epochs=1, batch_size=32, client_fusion=backend)
+train_block(model, cfg, params, xs, ys, gens=client_generators(gen, 2, torch.device("cuda")))
+torch.cuda.synchronize()
+train_s = time.perf_counter() - t0 - seconds
+snap = metrics.snapshot()
+print(json.dumps({"backend": backend, "report": fusion.fusion_report(), "seconds": seconds,
+                  "train_s": train_s, "probe": snap.get("autoselect.probe", 0),
+                  "cache": snap.get("autoselect.cache", 0)}))
+"""
+
+
+def port_process(args: list, env: dict | None = None, timeout: int = 300) -> str:
+    """Run `python args...` from the checkout with the port importable ->
+    its standard output; fails the run on a non-zero exit."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    full = {**os.environ, **(env or {}), "PYTHONPATH": str(root)}
+    full = {k: v for k, v in full.items() if v is not None}
+    proc = subprocess.run([sys.executable, *args], cwd=root, env=full, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[:3]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def folder_round(device) -> tuple[dict, dict]:
+    """Phase 14 (ad): a reference-layout PNG folder through the CLI."""
+    import tempfile
+
+    from PIL import Image
+
+    from hefl_tpu_torch import cli, experiment
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.data import make_dataset, scan_image_folder
+
+    (x, y), (xt, yt), _ = make_dataset("medical", seed=0, n_train=FOLDER_TRAIN,
+                                       n_test=FOLDER_TEST)
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_") as tmp:
+        written = {}
+        t0 = time.perf_counter()
+        for split, imgs, labels in (("Train", x, y), ("Test", xt, yt)):
+            for i, (img, lab) in enumerate(zip(imgs, labels)):
+                d = Path(tmp) / split / f"class_{int(lab)}"
+                d.mkdir(parents=True, exist_ok=True)
+                Image.fromarray(img).save(d / f"img_{i:04d}.png")
+                written[str(d / f"img_{i:04d}.png")] = img
+        write_s = time.perf_counter() - t0
+        real_load = experiment.load_folder_splits
+        loaded = {}
+
+        def load(*a, **k):
+            t = time.perf_counter()
+            out = real_load(*a, **k)
+            loaded["out"], loaded["seconds"] = out, time.perf_counter() - t
+            return out
+
+        args = cli.parse_args(["--data-dir", tmp, "--image-size", "256", "--rounds", "1",
+                               "--epochs", "1", "--no-save-model", "--no-events"])
+        experiment.load_folder_splits = load
+        cuda_ntt.reset_launch_counts()
+        try:
+            with plain_references() as (pairs, _):
+                history = cli.run(args, verbose=False)
+            torch.cuda.synchronize()
+        finally:
+            experiment.load_folder_splits = real_load
+        counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+        (lx, ly), (ltx, lty), names = loaded["out"]
+        want = {}
+        for split, shuffle in (("Train", True), ("Test", False)):
+            paths, labels, _ = scan_image_folder(str(Path(tmp) / split), shuffle, args.seed)
+            want[split] = (np.stack([written[p] for p in paths]), labels)
+    same = (np.array_equal(lx, want["Train"][0]) and np.array_equal(ly, want["Train"][1])
+            and np.array_equal(ltx, want["Test"][0]) and np.array_equal(lty, want["Test"][1]))
+    n_img = len(lx) + len(ltx)
+    errs = [max((avg[k] - ref[k]).abs().max().item() for k in ref) for ref, avg in pairs]
+    log(f"  (ad) wrote {n_img} PNGs at 256x256 in {write_s:.3f} s; load_folder_splits "
+        f"{loaded['seconds']:.3f} s ({loaded['seconds'] / n_img * 1e3:.3f} ms an image); classes "
+        f"{names}; train {lx.shape}, test {ltx.shape}; loaded == written bitwise: {same}")
+    rec = history[0]
+    log(f"  (ad) round: phases (s) {json.dumps(rec['phases'])}; accuracy {rec['accuracy']:.4f}; "
+        f"encode_overflow {rec['encode_overflow']}; decrypted average vs plaintext mean {errs} "
+        f"(limit {ERR_LIMIT})")
+    log_launch_rows(shapes)
+    if not same or names != ["class_0", "class_1"]:
+        raise AssertionError(f"(ad) the loaded arrays are not the written ones ({same}) or the "
+                             f"classes {names} are not 2")
+    if len(errs) != 1 or errs[0] > ERR_LIMIT or rec["encode_overflow"] != [0, 0]:
+        raise AssertionError(f"(ad) decrypt off its plaintext mean {errs} or overflow "
+                             f"{rec['encode_overflow']}")
+    want_launch = {("encrypt_fused", 110 * 3, 4096): 1, ("decrypt_fused", 55 * 3, 4096): 1}
+    if {k: v for k, v in shapes.items() if k[0] != "ntt_forward"} != want_launch:
+        raise AssertionError(f"(ad) launched {shapes}, expected K3/K4 {want_launch}")
+    return counts, shapes
+
+
+def backend_choice_runs(device) -> None:
+    """Phase 14 (ae): the fusion winner persisted across two fresh
+    processes; the HE backend record and a contradicting pin."""
+    import tempfile
+
+    from hefl_tpu_torch.ckks.backend import he_backend_report
+
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_") as tmp:
+        env = {"HEFL_AUTOSELECT_CACHE": "1", "HEFL_CLIENT_FUSION": None}
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = port_process(["-c", _FUSION_PROCESS, tmp], env)
+            runs.append({**json.loads(out.strip().splitlines()[-1]),
+                         "process_s": time.perf_counter() - t0})
+        stored = json.loads((Path(tmp) / "hefl_autoselect.json").read_text())
+    first, second = runs
+    log(f"  (ae) fusion 'auto', fresh process: {first['backend']} by probe in "
+        f"{first['seconds']:.6f} s (timings {first['report']['auto_timings_ms']} ms; process "
+        f"{first['process_s']:.3f} s); second process: {second['backend']} from the file in "
+        f"{second['seconds']:.6f} s (auto_persisted {second['report']['auto_persisted']}; "
+        f"process {second['process_s']:.3f} s); the first training call after it (2 clients x 64 "
+        f"MedCNN images, 1 epoch) {first['train_s']:.6f} s against {second['train_s']:.6f} s; "
+        f"choice + first training: the file saves "
+        f"{first['seconds'] + first['train_s'] - second['seconds'] - second['train_s']:.6f} s "
+        f"a process (the probe alone {first['seconds'] - second['seconds']:.6f} s); stored "
+        f"{json.dumps(stored)}")
+    if ((first["probe"], first["cache"], second["probe"], second["cache"]) != (1, 0, 0, 1)
+            or second["report"]["auto_persisted"] is not True
+            or first["report"]["auto_persisted"] is not False
+            or second["backend"] != first["backend"]):
+        raise AssertionError(f"(ae) the winner did not persist: {runs}")
+    rep = he_backend_report(device)
+    try:
+        he_backend_report(device, "plain")
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        raise AssertionError("(ae) a 'plain' HE pin on the card did not raise")
+    log(f"  (ae) he_backend_report {json.dumps(rep)}; 'plain' pin: {refusal}")
+    if rep["backend"] != "cuda":
+        raise AssertionError(f"(ae) he_backend_report {rep}")
+
+
+def fidelity_run(device) -> tuple[dict, dict]:
+    """Phase 14 (af): fidelity_check over 3 seeds at the flagship shape."""
+    from hefl_tpu_torch import fidelity_check
+    from hefl_tpu_torch.ckks import cuda_ntt
+
+    cuda_ntt.reset_launch_counts()
+    rec = fidelity_check.run(device, (0, 1, 2))
+    torch.cuda.synchronize()
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log(f"  (af) worst max abs diff {rec['worst_max_abs_diff']:.3e} over seeds "
+        f"{[r['seed'] for r in rec['rows']]}; exact decode "
+        f"{[r['max_abs_diff_exact_decode'] for r in rec['rows']]}; overflow "
+        f"{[r['encode_overflow'] for r in rec['rows']]}; encrypt+sum+decrypt s "
+        f"{[round(r['seconds'], 6) for r in rec['rows']]}")
+    log_launch_rows(shapes)
+    if rec["worst_max_abs_diff"] > ERR_LIMIT or any(r["encode_overflow"] for r in rec["rows"]):
+        raise AssertionError(f"(af) fidelity {rec}")
+    return counts, shapes
+
+
+def mfu_run(device) -> None:
+    """Phase 14 (ag): mfu_probe over the full batch ladder."""
+    from hefl_tpu_torch import mfu_probe
+
+    rec = mfu_probe.run(device)
+    for row in rec["rows"]:
+        log(f"  (ag) batch {row['batch']:4d}: step {row['step_ms']:.3f} ms, "
+            f"{row['images_per_s']:.1f} images/s, {row['flops'] / 1e9:.2f} GFLOP, "
+            f"mfu {row['mfu']:.4f}")
+    log(f"  (ag) verdict: {rec['verdict']}")
+    if [r["batch"] for r in rec["rows"]] != list(mfu_probe.LADDER) or not all(
+            0 < r["mfu"] <= 1 for r in rec["rows"]):
+        raise AssertionError(f"(ag) {rec['rows']}")
+
+
+def flagship_acc_runs(device) -> tuple[dict, dict]:
+    """Phase 14 (ah): flagship_acc stopped after one epoch in its own
+    process and resumed here, against the unchunked run and the secure
+    round on the same generators."""
+    import tempfile
+
+    from hefl_tpu_torch import flagship_acc
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.ckks.keys import keygen
+    from hefl_tpu_torch.ckks.packing import PackSpec
+    from hefl_tpu_torch.data import iid_contiguous, stack_federated
+    from hefl_tpu_torch.experiment import deterministic_algorithms
+    from hefl_tpu_torch.fl.secure import decrypt_average, secure_fedavg_round
+    from hefl_tpu_torch.flagship import flagship_keygen_gen, flagship_round_gen, flagship_setup
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as chunked, \
+            tempfile.TemporaryDirectory(dir=root, prefix=".chip_smoke_") as whole:
+        t0 = time.perf_counter()
+        port_process(["-c", "import os, sys; os.chdir(sys.argv[1]); "
+                      "from hefl_tpu_torch.flagship_acc import run; "
+                      f"assert run(0, epochs={FLAGSHIP_EPOCHS}, chunk_epochs=1, "
+                      f"device='{device}') == (None, None)", chunked])
+        first_s = time.perf_counter() - t0
+        kept = (Path(chunked) / "flagship_state_torch_0.npz").exists()
+        cuda_ntt.reset_launch_counts()
+        with contextlib.chdir(chunked):
+            got, got_params = flagship_acc.run(0, epochs=FLAGSHIP_EPOCHS, device=device)
+        torch.cuda.synchronize()
+        counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+        with contextlib.chdir(whole):
+            want, want_params = flagship_acc.run(0, epochs=FLAGSHIP_EPOCHS, device=device)
+    setup = flagship_setup(0, device=device)
+    cfg = dataclasses.replace(setup["cfg"], epochs=FLAGSHIP_EPOCHS, client_fusion="vmap")
+    (x, y), ctx = setup["train"], setup["ctx"]
+    xs, ys = stack_federated(x, y, iid_contiguous(len(x), 2))
+    with deterministic_algorithms():
+        sk, pk = keygen(ctx, flagship_keygen_gen(), device=device)
+        ct_sum, _, _ = secure_fedavg_round(
+            setup["module"], cfg, ctx, pk, setup["params"], torch.from_numpy(xs).to(device),
+            torch.from_numpy(ys).to(device), flagship_round_gen(0, 0))
+        ref = decrypt_average(ctx, sk, ct_sum, 2, PackSpec.for_params(setup["params"], ctx.n))
+    ref_sha = flagship_acc.params_sha256(ref)
+    same = all(torch.equal(got_params[k], want_params[k]) for k in want_params)
+    log(f"  (ah) first process (1 epoch, then stopped; checkpoint kept {kept}): {first_s:.3f} s; "
+        f"resumed run: epochs_run {got['epochs_run']}, {got['finish_reason']}, accuracy "
+        f"{got['accuracy']}, val_curve {got['val_curve']}; unchunked accuracy {want['accuracy']}; "
+        f"resumed == unchunked bitwise {same} (sha {got['params_sha256'][:16]}), == the secure "
+        f"round's {ref_sha == want['params_sha256']}")
+    log_launch_rows(shapes)
+    if not (kept and same and got["val_curve"] == want["val_curve"]
+            and got["params_sha256"] == want["params_sha256"] == ref_sha
+            and got["epochs_run"] == FLAGSHIP_EPOCHS and got["encode_overflow_count"] == 0):
+        raise AssertionError(f"(ah) the resumed run is not the unchunked one: {got} vs {want}")
+    return counts, shapes
+
+
+def leftover_runs(device) -> list[tuple[dict, dict]]:
+    """Phase 14: (ad)-(ah), each synthetic dataset made once."""
+    with datasets_once():
+        return _leftover_runs(device)
+
+
+def _leftover_runs(device) -> list[tuple[dict, dict]]:
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    runs = [folder_round(device)]
+    log(f"  phase 14 (ad) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    backend_choice_runs(device)
+    log(f"  phase 14 (ae) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    runs.append(fidelity_run(device))
+    log(f"  phase 14 (af) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    mfu_run(device)
+    log(f"  phase 14 (ag) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    runs.append(flagship_acc_runs(device))
+    log(f"  phase 14 (ah) wall time: {time.perf_counter() - t:.3f} s")
+    log(f"  phase 14 wall time: {time.perf_counter() - t_phase:.3f} s")
+    return runs
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2995,13 +3303,18 @@ def main() -> int:
         "run_experiment(profile_dir=...), profile_round at the flagship's width (2 epochs), "
         "a BSGS and a ladder linear score (N=4096 L=3, d=512, K=10)")
     runs += trace_runs(device, smi)
+    log("phase 14: the driver leftovers: a PNG folder through --data-dir (MedCNN 256x256x3, 2 "
+        "clients, N=4096 L=3), the persisted fusion choice across two processes and the HE "
+        "backend record, fidelity_check (3 seeds), mfu_probe (batch 8..256), flagship_acc "
+        f"({FLAGSHIP_EPOCHS} epochs, stopped and resumed)")
+    runs += leftover_runs(device)
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-13 together:")
+    log("phases 3-14 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-13
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-14
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),

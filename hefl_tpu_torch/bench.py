@@ -84,7 +84,8 @@ def run(device=None, rounds: int = 5, seed: int = 0, smoke: bool = False) -> dic
     from hefl_tpu_torch.ckks.packing import PackedSpec, PackSpec, bytes_on_wire_record
     from hefl_tpu_torch.ckks.quantize import PackingConfig
     from hefl_tpu_torch.data import iid_contiguous, stack_federated
-    from hefl_tpu_torch.experiment import augment_backend_record, he_backend_record
+    from hefl_tpu_torch.ckks.backend import he_backend_report
+    from hefl_tpu_torch.experiment import augment_backend_record
     from hefl_tpu_torch.fl import hierarchy, stream
     from hefl_tpu_torch.fl.client import train_batch_geometry
     from hefl_tpu_torch.fl.fedavg import evaluate, fedavg_round
@@ -119,6 +120,7 @@ def run(device=None, rounds: int = 5, seed: int = 0, smoke: bool = False) -> dic
     # and pinned for every round, as run_experiment does.
     cfg = dataclasses.replace(cfg, client_fusion=resolve_fusion_backend(
         cfg.client_fusion, model, device))
+    he_backend = he_backend_report(device)
     sk, pk = keygen(ctx, flagship_keygen_gen(), device=device)
     pack = PackSpec.for_params(params, ctx.n)
     log(f"CKKS: N={ctx.n}, L={ctx.num_primes}, n_ct={pack.n_ct}; client_fusion "
@@ -208,7 +210,7 @@ def run(device=None, rounds: int = 5, seed: int = 0, smoke: bool = False) -> dic
         n=ctx.n, num_limbs=ctx.num_primes, n_ct=pack.n_ct, num_clients=NUM_CLIENTS,
         encrypt_clients=1, device=device)
     log(f"HE phases: encrypt {t_he_encrypt:.6f}s | aggregate {t_he_aggregate:.6f}s | "
-        f"decrypt-core {t_he_decrypt:.6f}s | backend {he_backend_record(device)['backend']}")
+        f"decrypt-core {t_he_decrypt:.6f}s | backend {he_backend['backend']}")
 
     # --- packed quantized aggregation -------------------------------------
     pspec = PackedSpec.for_params(params, ctx, PackingConfig(**PACKING), NUM_CLIENTS)
@@ -300,7 +302,7 @@ def run(device=None, rounds: int = 5, seed: int = 0, smoke: bool = False) -> dic
         "client_fusion": fusion_report(),
         "client_fusion_compare": roofline.backend_compare(
             fusion_seconds, flops=train_flops, device=device, images=train_images),
-        "he_backend": he_backend_record(device),
+        "he_backend": he_backend,
         "he_roofline": he_rows,
         "packing": packing_rec,
         "bytes_on_wire": bytes_on_wire,

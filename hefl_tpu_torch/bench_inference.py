@@ -110,6 +110,7 @@ def run(device, reps: int = 20, smoke: bool = False) -> dict:
     from hefl_tpu_torch import he_inference as hei
     from hefl_tpu_torch.analysis import check_inference
     from hefl_tpu_torch.ckks import encoding
+    from hefl_tpu_torch.ckks.backend import he_backend_report
     from hefl_tpu_torch.ckks.keys import CkksContext, gen_relin_key, keygen
     from hefl_tpu_torch.obs import metrics as obs_metrics
 
@@ -123,6 +124,7 @@ def run(device, reps: int = 20, smoke: bool = False) -> dict:
     n_lin = 256 if smoke else 4096
     ctx = CkksContext.create(n=n_lin)
     certified.extend(c.summary() for c in check_inference(ctx).values())
+    he_backend = he_backend_report(device)
     gen = torch.Generator().manual_seed(0)
     sk, pk = keygen(ctx, gen, device=device)
     gks = hei.gen_rotation_keys(ctx, sk, 1)
@@ -276,8 +278,7 @@ def run(device, reps: int = 20, smoke: bool = False) -> dict:
         "hoisted": hoisted_cmp,
         "mlp_compare": mlp_compare,
         "analysis_check": {"violations": violations, "certified": certified},
-        "he_backend": {"requested": "auto", "backend": "cuda" if device.type == "cuda" else "plain",
-                       "auto_timings_ms": None, "auto_persisted": False},
+        "he_backend": he_backend,
     }
     artifact["gates"] = gate_failures(artifact)
     return artifact

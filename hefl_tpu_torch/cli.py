@@ -32,15 +32,18 @@ locally and ships one partial a host (`fl.hierarchy`), under
 `--host-quorum`, `--ship-deadline` and `--host-staleness`; `--outage-hosts`
 darkens whole host blocks and `--link-loss`, `--link-dark`, `--link-delay`
 and `--link-dup` fault the tier->root uplinks.
+`--data-dir DIR` trains on a folder of class-subdirectory images (the
+reference layout `DIR/Train` and `DIR/Test`, or one folder split 80/20;
+`data.folder`) decoded at `--image-size` H (HxH) in place of `--dataset`.
+`--mesh-ct K` asks for the JAX package's 2-D round mesh, which one GPU
+runs as its bitwise-equal 1-D round (`experiment`).
 `--preset NAME` runs a named configuration (`presets.PRESETS`) and ignores
 the other flags but `--resume`, `--json` and `--device`.
 
-The flags keep the JAX CLI's names, defaults and guards (the final model is
-saved to agg_model.npz unless `--no-save-model`). A flag of the JAX CLI
-that this port does not have yet (`--data-dir`, `--image-size`,
-`--mesh-ct`; ROADMAP) is refused with an error naming it,
-never silently ignored. `--device` is the one flag the JAX CLI lacks: the run is on CUDA
-unless it names another device.
+The flags are the JAX CLI's, with its names, defaults and guards (the final
+model is saved to agg_model.npz unless `--no-save-model`). `--device` is the
+one flag the JAX CLI lacks: the run is on CUDA unless it names another
+device.
 """
 
 from __future__ import annotations
@@ -57,9 +60,6 @@ from hefl_tpu_torch.fl.faults import CRASH_POINTS, CrashConfig, FaultConfig
 from hefl_tpu_torch.models import MODEL_REGISTRY
 from hefl_tpu_torch.presets import PRESETS
 
-# Flags of `hefl_tpu.cli` that the port does not run yet.
-UNPORTED_FLAGS = ("--data-dir", "--image-size", "--mesh-ct")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -71,6 +71,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "hefl_tpu_torch.presets.PRESETS); other flags are ignored")
     p.add_argument("--model", default="medcnn", choices=sorted(MODEL_REGISTRY))
     p.add_argument("--dataset", default="medical", choices=["medical", "mnist", "cifar10"])
+    p.add_argument("--data-dir", default=None, metavar="DIR",
+                   help="directory of class-subdir images (reference layout: "
+                        "DIR/Train and DIR/Test, or one folder that gets an "
+                        "80/20 split); overrides --dataset")
+    p.add_argument("--image-size", type=int, default=256,
+                   help="decode size for --data-dir images (HxH)")
     p.add_argument("--num-clients", type=int, default=2)
     p.add_argument("--rounds", type=int, default=1)
     p.add_argument("--epochs", type=int, default=10, help="local epochs per round")
@@ -91,8 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cross-client training backend: 'fused' folds the "
                         "client axis into every conv/dense GEMM batch "
                         "(fl.fusion), 'vmap' is the per-client reference, "
-                        "'auto' micro-times both once per device (the "
-                        "winner is not persisted across processes yet)")
+                        "'auto' micro-times both once per device "
+                        "(winner persisted beside the kernel libraries)")
     p.add_argument("--he-n", type=int, default=4096, help="CKKS ring degree")
     p.add_argument("--he-primes", type=int, default=3, help="RNS limb count")
     p.add_argument("--pack-bits", type=int, default=0, metavar="B",
@@ -157,6 +163,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "that missed its ship may carry forward to fold "
                         "as a stale tier fold before its clients are "
                         "excluded as host_stale; requires --num-hosts")
+    p.add_argument("--mesh-ct", type=int, default=0, metavar="K",
+                   help="2-D (clients, ct) round mesh; one GPU is one client "
+                        "block, so the round is the 1-D round (bitwise the "
+                        "JAX package's 2-D round); 0 = the 1-D client mesh")
     p.add_argument("--hhe", action="store_true",
                    help="hybrid-HE uplink: clients encrypt their packed update under "
                         "a per-client stream cipher (~1x wire bytes, no client-side "
@@ -456,6 +466,8 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
     return ExperimentConfig(
         model=args.model,
         dataset=args.dataset,
+        data_dir=args.data_dir,
+        image_size=(args.image_size, args.image_size),
         num_clients=args.num_clients,
         rounds=args.rounds,
         encrypted=not args.plaintext,
@@ -493,18 +505,13 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         events_path=args.events,
         span_trace_path=args.span_trace,
         profile_dir=args.profile,
+        mesh_ct=args.mesh_ct,
     )
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser = build_parser()
-    args, rest = parser.parse_known_args(argv)
-    for tok in rest:
-        flag = tok.split("=", 1)[0]
-        if flag in UNPORTED_FLAGS:
-            parser.error(f"{flag} is a hefl_tpu flag that hefl_tpu_torch does not support yet")
-    if rest:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = parser.parse_args(argv)
     try:
         check_args(args)
     except ValueError as exc:

@@ -1,10 +1,15 @@
 """Data pipeline of the port: synthetic datasets and IID / label-skew
-partitioning (numpy copies of the JAX package's modules) and device-side
-augmentation (`data.augment`).
+partitioning and the image-folder loader (numpy copies of the JAX
+package's modules) and device-side augmentation (`data.augment`).
 
-Re-exports the names of `hefl_tpu.data` that the port defines; the image
-folder loader, `Batcher`/`one_hot` and `RoundPrefetcher` are not ported."""
+Re-exports the names of `hefl_tpu.data` that the port defines;
+`Batcher`/`one_hot` and `RoundPrefetcher` are not ported."""
 
+from hefl_tpu_torch.data.folder import (
+    load_folder_splits,
+    load_image_dataset,
+    scan_image_folder,
+)
 from hefl_tpu_torch.data.partition import (
     client_slice,
     iid_contiguous,
@@ -22,4 +27,7 @@ __all__ = [
     "stack_federated",
     "make_dataset",
     "DATASETS",
+    "scan_image_folder",
+    "load_image_dataset",
+    "load_folder_splits",
 ]

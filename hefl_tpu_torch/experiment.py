@@ -40,9 +40,15 @@ benchmarking, CUBLAS_WORKSPACE_CONFIG set): journal replay re-derives every
 upload and holds it to the journaled content hash, which needs training
 that is bitwise repeatable on the card.
 
-A field that needs a module the port does not have yet is refused by name,
-with the ROADMAP item that ports it; so is a `TrainConfig` knob the port
-does not run away from its default.
+Input: the synthetic datasets (`dataset`), or a reference-layout image
+folder (`data_dir`, decoded at `image_size` by `data.folder`), whose class
+count replaces `train.num_classes`. Either is copied to the device once.
+
+Round topology: one GPU is one client block, so `mesh_ct` > 1 (the JAX
+package's 2-D (clients, ct) mesh, whose ct axis shards a block's
+ciphertext rows over its devices) runs the 1-D round, which the JAX
+package's 2-D round equals bit for bit; the `mesh` record names the two
+axes, each of size 1.
 """
 
 from __future__ import annotations
@@ -59,8 +65,10 @@ import torch
 from hefl_tpu_torch import resolve_device
 from hefl_tpu_torch.analysis import ranges
 from hefl_tpu_torch.ckks import quantize
+from hefl_tpu_torch.ckks.backend import he_backend_report
 from hefl_tpu_torch.ckks.keys import CkksContext, keygen
 from hefl_tpu_torch.ckks.packing import PackedSpec, PackSpec
+from hefl_tpu_torch.data.folder import load_folder_splits
 from hefl_tpu_torch.data.partition import iid_contiguous, label_skew, stack_federated
 from hefl_tpu_torch.data.synthetic import make_dataset
 from hefl_tpu_torch.fl.client import train_batch_geometry, train_centralized
@@ -165,8 +173,7 @@ def _partition(cfg: ExperimentConfig, y: np.ndarray) -> list[np.ndarray]:
 
 
 def check_config(cfg: ExperimentConfig) -> None:
-    """The JAX driver's configuration checks, then a refusal, by name, of
-    every field whose module the port does not have yet."""
+    """The JAX driver's configuration checks."""
     packing_on = cfg.packing is not None and cfg.packing.enabled
     if cfg.dp is not None and (not cfg.encrypted or cfg.centralized):
         raise ValueError(
@@ -235,16 +242,6 @@ def check_config(cfg: ExperimentConfig) -> None:
             "StreamConfig.host_staleness_rounds=0 for dp runs (a carried "
             "host partial would double its clients' accounted sensitivity)"
         )
-    unported = [
-        ("data_dir", cfg.data_dir is not None, "Queue 1, data/folder.py"),
-        ("mesh_ct", cfg.mesh_ct > 1, "one GPU runs no 2-D round mesh"),
-    ]
-    for name, is_set, where in unported:
-        if is_set:
-            raise ValueError(
-                f"ExperimentConfig.{name} is not ported to hefl_tpu_torch yet "
-                f"(ROADMAP: {where}); drop it"
-            )
 
 
 def _preflight(cfg: ExperimentConfig, ctx: CkksContext, say) -> None:
@@ -403,9 +400,18 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
         obs_events.emit("dp_recalibrated", min_surviving=dp_cfg.min_surviving,
                         num_clients=cfg.num_clients)
     train_cfg = cfg.train
-    (x, y), (xt, yt), _ = make_dataset(
-        cfg.dataset, seed=cfg.seed, n_train=cfg.n_train, n_test=cfg.n_test
-    )
+    if cfg.data_dir is not None:
+        # The reference's own workflow: a folder of class-subdir images
+        # (FLPyfhelin.py:38-55, the notebook's image/Train and image/Test).
+        (x, y), (xt, yt), class_names = load_folder_splits(
+            cfg.data_dir, image_size=cfg.image_size, seed=cfg.seed)
+        say(f"data dir {cfg.data_dir}: classes {class_names}, train {x.shape}, test {xt.shape}")
+        if train_cfg.num_classes != len(class_names):
+            train_cfg = dataclasses.replace(train_cfg, num_classes=len(class_names))
+    else:
+        (x, y), (xt, yt), _ = make_dataset(
+            cfg.dataset, seed=cfg.seed, n_train=cfg.n_train, n_test=cfg.n_test
+        )
     xt_d = torch.from_numpy(xt).to(device)
     model = create_model(cfg.model, num_classes=train_cfg.num_classes,
                          input_shape=tuple(int(d) for d in x.shape[1:]), device=device)
@@ -456,9 +462,11 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
     train_cfg = dataclasses.replace(train_cfg, client_fusion=resolve_fusion_backend(
         train_cfg.client_fusion, model, device))
 
-    ctx = sk = pk = spec = pspec = None
+    ctx = cfg.he.build() if cfg.encrypted else None
+    # A plaintext run has no HE phases: no pin to check, backend None.
+    he_backend = he_backend_report(device if cfg.encrypted else None)
+    sk = pk = spec = pspec = None
     if cfg.encrypted:
-        ctx = cfg.he.build()
         _preflight(cfg, ctx, say)
         sk, pk = keygen(ctx, gen, device=device)
         spec = PackSpec.for_params(params, ctx.n)
@@ -758,10 +766,11 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
         # round topology (one device).
         "augment_backend": augment_backend_record(),
         "client_fusion": fusion_report(),
-        "he_backend": he_backend_record(device),
+        "he_backend": he_backend,
         "packing": pspec.geometry_record() if pspec is not None else None,
         "stream": dataclasses.asdict(cfg.stream) if cfg.stream is not None else None,
-        "mesh": {"axes": ["clients"], "clients": 1, "ct": 1},
+        "mesh": {"axes": ["clients", "ct"] if cfg.mesh_ct > 1 else ["clients"],
+                 "clients": 1, "ct": 1},
         "hhe": _hhe_record(cfg, pspec, ctx) if hhe_on else None,
         "obs": obs_record,
     }
@@ -772,13 +781,6 @@ def augment_backend_record() -> dict:
     a gather."""
     return {"requested": "gather", "backend": "gather", "auto_timings_ms": None,
             "auto_persisted": False}
-
-
-def he_backend_record(device) -> dict:
-    """The JAX record of the HE backend: the CUDA kernels on a card, their
-    plain versions on the CPU (no persisted choice yet)."""
-    return {"requested": "auto", "backend": "cuda" if torch.device(device).type == "cuda"
-            else "plain", "auto_timings_ms": None, "auto_persisted": False}
 
 
 def _straggler_wait(seconds: float, device) -> None:

@@ -20,6 +20,11 @@ Streams: `local_train` takes (perms int64[E*S, grp], aug) where aug is a
 tuple (s, zx, zy, f) of float32[E*S, grp] or None when augmentation is off,
 so a test can feed it the JAX package's `epoch_index_streams`; without
 streams it draws its own from a `torch.Generator` (`epoch_index_streams`).
+
+Chunks: `local_train_epochs` advances a `ClientState` by the epochs whose
+streams it is given (`split_epoch_streams` of the streams drawn once for
+all epochs), so a run checkpointed between chunks ends where the unchunked
+`local_train` ends.
 """
 
 from __future__ import annotations
@@ -157,61 +162,112 @@ def _eval_metrics(model, params, x_u8, onehot):
         return cross_entropy(logits, onehot), accuracy(logits, onehot)
 
 
-def _fit(model, cfg: TrainConfig, global_params: dict, x, y, gen, streams,
-         track_best_acc: bool) -> tuple[ClientState, torch.Tensor]:
-    """The E*S-step loop shared by `local_train` and `train_centralized`
-    -> (final ClientState, metrics float32[E, 4])."""
-    n_tr, grp, steps = train_batch_geometry(cfg, int(x.shape[0]))
-    if n_tr < 1:
+def split_epoch_streams(streams, epochs: int) -> list:
+    """(perms [E*S, grp], aug or None) -> E per-epoch (perms [S, grp], aug)
+    pairs: views of the streams drawn once for all epochs, so a run that
+    trains them in chunks consumes exactly the streams of an unchunked one."""
+    perms, aug = streams
+    steps = int(perms.shape[0]) // epochs if epochs else 0
+    return [(perms[e * steps:(e + 1) * steps],
+             None if aug is None else tuple(a[e * steps:(e + 1) * steps] for a in aug))
+            for e in range(epochs)]
+
+
+def _require_trainable(cfg: TrainConfig, n_samples: int) -> None:
+    if train_batch_geometry(cfg, n_samples)[0] < 1:
         raise ValueError(
-            f"client has {x.shape[0]} sample(s); needs >= 2 to carve out a "
+            f"client has {n_samples} sample(s); needs >= 2 to carve out a "
             "validation split (set val_fraction=0 to train on everything)"
         )
-    n_val = int(x.shape[0]) - n_tr
+
+
+def train_step(model, cfg: TrainConfig, params: dict, opt: AdamState, lr_scale, x_u8,
+               onehot, aug, anchor: dict) -> tuple[dict, AdamState]:
+    """One SGD step: rescale the uint8 batch, warp it (`aug` = one step's
+    (s, zx, zy, f), when `cfg.augment`), the loss gradient (FedProx against
+    `anchor`) and the Adam update at `lr_scale` -> (params, opt)."""
+    xb = rescale(x_u8)
+    if cfg.augment:
+        xb = apply_affine(xb, *aug)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss, _ = loss_fn(model, leaves, xb, onehot, anchor, cfg.prox_mu)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    with torch.no_grad():
+        return adam_update(grads, opt, {k: v.detach() for k, v in leaves.items()}, cfg.lr,
+                           cfg.lr_decay, lr_scale, warmup_steps=cfg.warmup_steps)
+
+
+def local_train_epochs(
+    model: torch.nn.Module,
+    cfg: TrainConfig,
+    global_params: dict,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    state: ClientState,
+    epoch_streams: list,
+    track_best_acc: bool = True,
+) -> tuple[ClientState, torch.Tensor]:
+    """Advance one client by `len(epoch_streams)` epochs from `state`.
+
+    The chunk-resume primitive (`hefl_tpu.fl.client.local_train_epochs`):
+    a driver that trains in chunks draws the streams of all `cfg.epochs`
+    epochs once (`epoch_index_streams`), slices `split_epoch_streams` of
+    them, checkpoints the returned ClientState between chunks, and ends
+    with exactly the state, and so the upload (`client_shipped_params`),
+    of an unchunked `local_train`. `global_params` is the round's global
+    weights (the FedProx anchor). -> (state, metrics float32[len, 4]
+    with columns val_loss, val_acc, lr_scale, stopped)."""
+    n_samples = int(x.shape[0])
+    _require_trainable(cfg, n_samples)
+    n_tr, _, steps = train_batch_geometry(cfg, n_samples)
+    n_val = n_samples - n_tr
     x_tr, y_tr = x[n_val:], y[n_val:]
     x_va, y_va = (x[:n_val], y[:n_val]) if n_val else (x_tr, y_tr)
     oh_tr = F.one_hot(y_tr.to(torch.int64), cfg.num_classes).to(torch.float32)
     oh_va = F.one_hot(y_va.to(torch.int64), cfg.num_classes).to(torch.float32)
+    global_params = {k: v.detach() for k, v in global_params.items()}
+    params, opt = state.params, state.opt
+    rows = []
+    for perms, aug in epoch_streams:
+        perms = perms.to(x.device)
+        if cfg.augment:
+            aug = tuple(a.to(x.device) for a in aug)
+        for step in range(steps):
+            if state.stopped:
+                continue
+            with torch.profiler.record_function(scopes.SGD_CORE):
+                idx = perms[step]
+                params, opt = train_step(
+                    model, cfg, params, opt, state.lr_scale, x_tr[idx], oh_tr[idx],
+                    tuple(a[step] for a in aug) if cfg.augment else None, global_params)
+        with torch.profiler.record_function(scopes.VAL):
+            # a stopped client evaluates the weights it keeps (its frozen ones)
+            eval_params = state.params if state.stopped else params
+            val_loss, val_acc = _eval_metrics(model, eval_params, x_va, oh_va)
+            state, row = _epoch_update(
+                cfg, state, params, opt,
+                np.float32(val_loss.item()), np.float32(val_acc.item()), track_best_acc,
+            )
+            params, opt = state.params, state.opt
+            rows.append(row)
+    metrics = (torch.from_numpy(np.stack(rows)) if rows
+               else torch.zeros((0, 4), dtype=torch.float32))
+    return state, metrics
+
+
+def _fit(model, cfg: TrainConfig, global_params: dict, x, y, gen, streams,
+         track_best_acc: bool) -> tuple[ClientState, torch.Tensor]:
+    """All `cfg.epochs` epochs from the global weights, as one chunk: the
+    loop shared by `local_train` and `train_centralized` -> (final
+    ClientState, metrics float32[E, 4])."""
+    _require_trainable(cfg, int(x.shape[0]))
     if streams is None:
         if gen is None:
             raise TypeError("local_train needs a generator or precomputed streams")
         streams = epoch_index_streams(cfg, gen, int(x.shape[0]))
-    perms, aug = streams
-    perms = perms.to(x.device)
-    if cfg.augment:
-        aug = tuple(a.to(x.device) for a in aug)
-
     global_params = {k: v.detach() for k, v in global_params.items()}
-    state = init_client_state(global_params)
-    params, opt = state.params, state.opt
-    rows = []
-    for step in range(cfg.epochs * steps):
-        if not state.stopped:
-            with torch.profiler.record_function(scopes.SGD_CORE):
-                idx = perms[step]
-                xb = rescale(x_tr[idx])
-                if cfg.augment:
-                    xb = apply_affine(xb, *(a[step] for a in aug))
-                leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-                loss, _ = loss_fn(model, leaves, xb, oh_tr[idx], global_params, cfg.prox_mu)
-                grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-                with torch.no_grad():
-                    params, opt = adam_update(
-                        grads, opt, {k: v.detach() for k, v in leaves.items()},
-                        cfg.lr, cfg.lr_decay, state.lr_scale, warmup_steps=cfg.warmup_steps,
-                    )
-        if step % steps == steps - 1:
-            with torch.profiler.record_function(scopes.VAL):
-                # a stopped client evaluates the weights it keeps (its frozen ones)
-                eval_params = state.params if state.stopped else params
-                val_loss, val_acc = _eval_metrics(model, eval_params, x_va, oh_va)
-                state, row = _epoch_update(
-                    cfg, state, params, opt,
-                    np.float32(val_loss.item()), np.float32(val_acc.item()), track_best_acc,
-                )
-                params, opt = state.params, state.opt
-                rows.append(row)
-    return state, torch.from_numpy(np.stack(rows))
+    return local_train_epochs(model, cfg, global_params, x, y, init_client_state(global_params),
+                              split_epoch_streams(streams, cfg.epochs), track_best_acc)
 
 
 def local_train(

@@ -35,12 +35,12 @@ Per-client semantics are kept (the JAX module's list):
 
 Backend selection (`resolve_fusion_backend`): "fused" and "vmap" pin a
 backend; "auto" reads the HEFL_CLIENT_FUSION environment variable, then
-micro-times one gradient step of both backends on the live device (8
-clients x batch 8 of a 24x24 SmallCNN, best of 3) and caches the winner
-in-process per device name. Unlike the JAX package, the port does not
-persist the winner next to a compile cache yet (`utils/autoselect.py`,
-ROADMAP M15): every process times anew. `fusion_report()` says what was
-chosen.
+the winner persisted for this device name (`utils.autoselect`, beside the
+kernel libraries in `_build/`), and only on a miss micro-times one
+gradient step of both backends on the live device (8 clients x batch 8 of
+a 24x24 SmallCNN, best of 3) and persists the winner. The choice is also
+cached in-process per device name. `fusion_report()` says what was chosen
+and whether it came from the persisted file.
 """
 
 from __future__ import annotations
@@ -73,6 +73,7 @@ FUSION_BACKENDS = ("fused", "vmap")
 # device name, the timings of the last probe, and the last resolved backend.
 _AUTO_CHOICE: dict[str, str] = {}
 _AUTO_TIMINGS_MS: dict[str, float] | None = None
+_AUTO_PERSISTED: bool = False
 _LAST_RESOLVED: str | None = None
 
 
@@ -238,14 +239,23 @@ def _time_backend(fn, device: torch.device) -> float:
 
 
 def _autoselect_backend(device: torch.device) -> str:
-    """One-shot fused-vs-vmap micro-timing on `device`: one gradient step of
-    each backend on the probe geometry; the winner is cached for the process
-    per device name."""
-    global _AUTO_TIMINGS_MS
+    """One-shot fused-vs-vmap choice on `device`: the winner persisted for
+    its device name, else one gradient step of each backend timed on the
+    probe geometry, the winner persisted; cached for the process per
+    device name."""
+    global _AUTO_TIMINGS_MS, _AUTO_PERSISTED
     name = _device_name(device)
     if name in _AUTO_CHOICE:
         return _AUTO_CHOICE[name]
     from hefl_tpu_torch.models.cnn import SmallCNN
+    from hefl_tpu_torch.utils.autoselect import load_winner, store_winner
+
+    hit = load_winner("client_fusion", name, allowed=FUSION_BACKENDS)
+    if hit is not None:
+        _AUTO_CHOICE[name] = hit["winner"]
+        _AUTO_TIMINGS_MS = hit.get("timings_ms")
+        _AUTO_PERSISTED = True
+        return hit["winner"]
 
     c, b, hw = _PROBE_CLIENTS, _PROBE_BATCH, _PROBE_HW
     probe = SmallCNN(num_classes=10, input_shape=(hw, hw, 1))
@@ -269,6 +279,7 @@ def _autoselect_backend(device: torch.device) -> str:
     timings = {"vmap": _time_backend(loop_step, device), "fused": _time_backend(fused_step, device)}
     _AUTO_TIMINGS_MS = {k: round(v * 1e3, 3) for k, v in timings.items()}
     _AUTO_CHOICE[name] = min(timings, key=timings.get)
+    store_winner("client_fusion", name, _AUTO_CHOICE[name], _AUTO_TIMINGS_MS)
     return _AUTO_CHOICE[name]
 
 
@@ -303,11 +314,11 @@ def resolve_fusion_backend(setting: str | None, model, device=None) -> str:
 
 def fusion_report() -> dict:
     """Which client-training backend the last resolution chose: the JAX
-    record's keys (`auto_persisted` is always False: the port keeps no
-    persisted winner yet)."""
+    record's keys (`auto_persisted`: "auto" took the winner from the
+    persisted file instead of timing the backends in this process)."""
     return {
         "requested": os.environ.get("HEFL_CLIENT_FUSION") or "auto",
         "backend": _LAST_RESOLVED,
         "auto_timings_ms": _AUTO_TIMINGS_MS,
-        "auto_persisted": False,
+        "auto_persisted": _AUTO_PERSISTED,
     }

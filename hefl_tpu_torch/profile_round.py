@@ -150,7 +150,8 @@ def run(device=None, profile: str | None = None, smoke: bool = False, epochs: in
     from hefl_tpu_torch.ckks.quantize import PackingConfig
     from hefl_tpu_torch.data import iid_contiguous, stack_federated
     from hefl_tpu_torch.data.augment import apply_affine, draw_affine_params
-    from hefl_tpu_torch.experiment import augment_backend_record, he_backend_record
+    from hefl_tpu_torch.ckks.backend import he_backend_report
+    from hefl_tpu_torch.experiment import augment_backend_record
     from hefl_tpu_torch.fl.client import train_batch_geometry
     from hefl_tpu_torch.fl.fedavg import evaluate, fedavg_round
     from hefl_tpu_torch.fl.fusion import fusion_report, resolve_fusion_backend, supports_fusion
@@ -177,6 +178,7 @@ def run(device=None, profile: str | None = None, smoke: bool = False, epochs: in
     cfg = dataclasses.replace(cfg, client_fusion=resolve_fusion_backend(
         cfg.client_fusion, model, device))
     fusion = fusion_report()        # before the comparisons pin other backends
+    he_backend = he_backend_report(device)
     sk, pk = keygen(ctx, flagship_keygen_gen(), device=device)
     pack = PackSpec.for_params(params, ctx.n)
     xs_d, ys_d = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
@@ -336,7 +338,7 @@ def run(device=None, profile: str | None = None, smoke: bool = False, epochs: in
         "client_fusion_compare": roofline.backend_compare(
             fusion_times, flops=train_flops, device=device, images=train_images),
         "phase_roofline": phase_roofline,
-        "he_backend": he_backend_record(device),
+        "he_backend": he_backend,
         "he_roofline": he_rows,
         "packing": packing_rec,
         "bytes_on_wire": bytes_on_wire,

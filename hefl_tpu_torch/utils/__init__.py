@@ -6,8 +6,10 @@ from hefl_tpu_torch.utils.checkpoint import (
     CheckpointError,
     load_checkpoint,
     load_params,
+    load_pytree,
     save_checkpoint,
     save_params,
+    save_pytree,
 )
 from hefl_tpu_torch.utils.serialization import (
     load_ciphertext,
@@ -40,4 +42,6 @@ __all__ = [
     "load_checkpoint",
     "save_params",
     "load_params",
+    "save_pytree",
+    "load_pytree",
 ]

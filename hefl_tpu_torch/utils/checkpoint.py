@@ -11,10 +11,16 @@ Two artifacts, both plain `.npz`, written atomically (tmp + rename):
     array: enough to resume a multi-round run exactly. A JAX round
     checkpoint holds a jax.random key (`rng_key`) instead, whose streams
     cannot be reproduced in torch, so the port refuses to resume from one.
+
+`save_pytree` / `load_pytree` store any nested dict / dataclass of tensors
+and scalars (e.g. the per-client `fl.client.ClientState`s that a
+chunk-resumable run checkpoints between epochs) under `param:<path>` keys,
+with the same header framing and content sha256.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -56,7 +62,7 @@ def _read_npz(path: str) -> dict[str, np.ndarray]:
         ) from e
 
 
-def _content_sha256(arrays: dict[str, np.ndarray]) -> str:
+def content_sha256(arrays: dict[str, np.ndarray]) -> str:
     """Digest of a checkpoint's arrays: (name, dtype, shape, bytes) in
     sorted-name order — the JAX package's, so both packages agree on it."""
     h = hashlib.sha256()
@@ -134,7 +140,7 @@ def save_checkpoint(path: str, params: dict[str, torch.Tensor], round_index: int
         "round": int(round_index),
         "meta": meta or {},
         "version": 1,
-        "sha256": _content_sha256(arrays),
+        "sha256": content_sha256(arrays),
     })
     _atomic_savez(path, header=np.frombuffer(header.encode(), dtype=np.uint8), **arrays)
 
@@ -160,7 +166,7 @@ def load_checkpoint(path: str, template: dict[str, torch.Tensor]):
             "record — not a round checkpoint (or damaged)"
         )
     want = header.get("sha256")
-    got = _content_sha256({k: v for k, v in z.items() if k != "header"})
+    got = content_sha256({k: v for k, v in z.items() if k != "header"})
     if want != got:
         raise CheckpointError(
             f"checkpoint {npz_path(path)!r} content hash mismatch "
@@ -169,3 +175,76 @@ def load_checkpoint(path: str, template: dict[str, torch.Tensor]):
         )
     params = _restore_into(template, z)
     return params, int(header["round"]), torch.from_numpy(z["rng_state"]), header.get("meta", {})
+
+
+def _flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested dict / list / dataclass of tensors and scalars -> {path:
+    array}, paths joined by '/' (dict keys, dataclass field names, list
+    indices)."""
+    if dataclasses.is_dataclass(tree):
+        items = [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, dict):
+        items = list(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        leaf = tree.detach().cpu().contiguous().numpy() if torch.is_tensor(tree) else tree
+        return {prefix: np.asarray(leaf)}
+    out = {}
+    for key, value in items:
+        out.update(_flatten_tree(value, f"{prefix}/{key}" if prefix else str(key)))
+    return out
+
+
+def _unflatten_into(template, arrays: dict[str, np.ndarray], prefix: str = ""):
+    """Rebuild `template`'s structure from `_flatten_tree` arrays: tensors
+    with the template leaf's dtype and device, numpy scalars and Python
+    scalars as the template leaf's type."""
+    def sub(key, value):
+        return _unflatten_into(value, arrays, f"{prefix}/{key}" if prefix else str(key))
+
+    if dataclasses.is_dataclass(template):
+        return dataclasses.replace(template, **{
+            f.name: sub(f.name, getattr(template, f.name)) for f in dataclasses.fields(template)})
+    if isinstance(template, dict):
+        return {k: sub(k, v) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(sub(i, v) for i, v in enumerate(template))
+    if prefix not in arrays:
+        raise KeyError(f"checkpoint missing leaf {prefix!r}")
+    arr = arrays[prefix]
+    shape = tuple(template.shape) if hasattr(template, "shape") else ()
+    if arr.shape != shape:
+        raise ValueError(f"shape mismatch for {prefix!r}: checkpoint {arr.shape} vs "
+                         f"template {shape}")
+    if torch.is_tensor(template):
+        return torch.from_numpy(arr).to(device=template.device, dtype=template.dtype)
+    if isinstance(template, (np.ndarray, np.generic)):
+        return arr.astype(template.dtype)[()] if arr.ndim == 0 else arr.astype(template.dtype)
+    return type(template)(arr.item())
+
+
+def save_pytree(path: str, tree, meta: dict | None = None) -> None:
+    """Any nested dict / dataclass of tensors and scalars -> npz (+ JSON
+    meta), atomically, with a content sha256 over every array in the
+    header (`hefl_tpu.utils.checkpoint.save_pytree` generalized to the
+    port's state, e.g. a list of `ClientState`s)."""
+    arrays = {f"param:{k}": v for k, v in _flatten_tree(tree).items()}
+    header = json.dumps({"meta": meta or {}, "version": 1, "sha256": content_sha256(arrays)})
+    _atomic_savez(path, header=np.frombuffer(header.encode(), dtype=np.uint8), **arrays)
+
+
+def load_pytree(path: str, template):
+    """Restore a `save_pytree` file into `template`'s structure -> (tree,
+    meta). Raises CheckpointError when the file is damaged or its arrays do
+    not match the header's sha256."""
+    z = _read_npz(path)
+    header = _parse_header(path, z)
+    arrays = {k: v for k, v in z.items() if k != "header"}
+    if header.get("sha256") != content_sha256(arrays):
+        raise CheckpointError(
+            f"checkpoint {npz_path(path)!r} content hash mismatch: the payload was "
+            "altered after the write; resume must not proceed from it"
+        )
+    named = {k[len("param:"):]: v for k, v in arrays.items() if k.startswith("param:")}
+    return _unflatten_into(template, named), header.get("meta", {})

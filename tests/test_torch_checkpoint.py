@@ -67,7 +67,7 @@ def test_both_packages_write_the_same_params_arrays(tmp_path, jparams):
     for k in ja:
         assert ja[k].dtype == ta[k].dtype and ja[k].shape == ta[k].shape, k
         np.testing.assert_array_equal(ja[k], ta[k])
-    assert jck._content_sha256(ja) == checkpoint._content_sha256(ta)
+    assert jck._content_sha256(ja) == checkpoint.content_sha256(ta)
 
 
 def test_round_checkpoint_roundtrips_params_round_and_generator(tmp_path, jparams):

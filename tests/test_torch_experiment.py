@@ -385,7 +385,9 @@ def test_run_experiment_matches_jax_schema(kind, monkeypatch):
         for key in ("augment_backend", "client_fusion", "he_backend", "mesh"):
             assert got[key].keys() == want[key].keys(), key
         assert got["mesh"] == {"axes": ["clients"], "clients": 1, "ct": 1}
-        assert got["he_backend"]["backend"] == "plain"
+        # The HE layer's plain versions; a plaintext run has no HE phases
+        # and reports none, as the JAX driver's record of one does.
+        assert got["he_backend"]["backend"] == ("plain" if tcfg.encrypted else None)
         assert got["augment_backend"]["backend"] == "gather"
         assert got["client_fusion"]["backend"] in ("fused", "vmap")
     assert got["final_metrics"] is got["history"][-1]
@@ -647,12 +649,6 @@ def test_chaos_smoke_rounds_equal_the_committed_gate():
     assert all(torch.isfinite(v).all() for v in out["params"].values())
 
 
-REFUSED = [
-    ("data_dir", dict(data_dir="images")),
-    ("mesh_ct", dict(mesh_ct=2)),
-]
-
-
 def test_exact_final_decode_runs_through_run_experiment(monkeypatch):
     # exact_final_decode: the last round decrypts through the exact host
     # CRT (the native decode), the earlier rounds through the float32 one;
@@ -720,13 +716,35 @@ def test_cli_profile_flag_sets_profile_dir():
     args = cli.parse_args(["--device", "cpu", "--profile", "trace_dir"])
     assert cli.config_from_args(args).profile_dir == "trace_dir"
     assert cli.config_from_args(cli.parse_args(["--device", "cpu"])).profile_dir is None
-    assert "--profile" not in cli.UNPORTED_FLAGS
 
 
-@pytest.mark.parametrize("field,kw", REFUSED, ids=[f for f, _ in REFUSED])
-def test_unported_fields_are_refused_by_name(field, kw):
-    with pytest.raises(ValueError, match=rf"ExperimentConfig\.\S*{field}.*ROADMAP"):
-        experiment.run_experiment(_tiny(_T, **kw), verbose=False, device="cpu")
+@pytest.mark.parametrize("mesh_ct", [2, 4])
+@pytest.mark.parametrize("encrypted", [True, False], ids=["encrypted", "plaintext"])
+def test_mesh_ct_round_is_the_1d_round_bitwise(mesh_ct, encrypted):
+    # One GPU is one client block: the 2-D (clients, ct) mesh runs the 1-D
+    # round, which the JAX package's 2-D round equals bit for bit; only the
+    # mesh record names the ct axis.
+    base = _tiny(_T, rounds=1, encrypted=encrypted, events_path="")
+    flat = experiment.run_experiment(base, verbose=False, device="cpu")
+    mesh = experiment.run_experiment(dataclasses.replace(base, mesh_ct=mesh_ct), verbose=False,
+                                     device="cpu")
+    assert flat["mesh"] == {"axes": ["clients"], "clients": 1, "ct": 1}
+    assert mesh["mesh"] == {"axes": ["clients", "ct"], "clients": 1, "ct": 1}
+    assert mesh["params"].keys() == flat["params"].keys()
+    for k, v in flat["params"].items():
+        assert torch.equal(mesh["params"][k], v), k
+    for g, w in zip(mesh["history"], flat["history"]):
+        assert {k: g[k] for k in ("val_loss", "val_acc", "accuracy", "f1")} == {
+            k: w[k] for k in ("val_loss", "val_acc", "accuracy", "f1")}
+
+
+def test_no_jax_config_field_is_refused():
+    # Every ExperimentConfig field of the JAX driver is a field of the port,
+    # and none is refused by name any more.
+    jfields = {f.name for f in dataclasses.fields(jexp.ExperimentConfig)}
+    assert jfields == {f.name for f in dataclasses.fields(experiment.ExperimentConfig)}
+    src = (REPO / "hefl_tpu_torch" / "experiment.py").read_text()
+    assert "is not ported to hefl_tpu_torch" not in src
 
 
 @pytest.mark.parametrize("kw", [
@@ -785,12 +803,16 @@ ARGV = [
      "j.wal", "--fsync-policy", "always", "--crash-round", "1", "--crash-at", "mid_append",
      "--crash-after-folds", "2", "--events", "e.jsonl", "--span-trace", "s.json.gz"],
     ["--stream", "--no-events", "--dp-noise", "1.0"],
+    ["--data-dir", "images", "--image-size", "64", "--model", "smallcnn"],
+    ["--mesh-ct", "2", "--num-clients", "4"],
+    ["--data-dir", "scans", "--mesh-ct", "4", "--pack-bits", "8"],
 ]
 
 
 @pytest.mark.parametrize("argv", ARGV, ids=["plaintext_skew", "centralized", "hhe", "defaults",
                                             "fusion_retries", "dp_faults", "stragglers",
-                                            "streaming_service", "stream_dp_no_events"])
+                                            "streaming_service", "stream_dp_no_events",
+                                            "data_dir", "mesh_ct", "data_dir_mesh_ct"])
 def test_cli_flags_map_to_the_jax_config(argv):
     port = cli.config_from_args(cli.parse_args(argv + ["--device", "cpu"]))
     ref = jcli.config_from_args(jcli.build_parser().parse_args(argv))
@@ -834,7 +856,14 @@ def test_cli_refuses_a_dp_floor_without_dp(capsys):
                                  "hefl_tpu_torch/fl/journal.py", "hefl_tpu_torch/fl/server.py",
                                  "hefl_tpu_torch/fl/load.py", "hefl_tpu_torch/obs/metrics.py",
                                  "hefl_tpu_torch/obs/events.py", "hefl_tpu_torch/obs/spans.py",
-                                 "hefl_tpu_torch/obs/scopes.py"])
+                                 "hefl_tpu_torch/obs/scopes.py",
+                                 "hefl_tpu_torch/data/folder.py",
+                                 "hefl_tpu_torch/utils/autoselect.py",
+                                 "hefl_tpu_torch/ckks/backend.py",
+                                 "hefl_tpu_torch/fl/client.py",
+                                 "hefl_tpu_torch/fidelity_check.py",
+                                 "hefl_tpu_torch/mfu_probe.py",
+                                 "hefl_tpu_torch/flagship_acc.py"])
 def test_new_modules_are_scanned_and_import_no_jax(rel):
     path = REPO / rel
     assert path in sorted((REPO / "hefl_tpu_torch").rglob("*.py"))

@@ -26,9 +26,6 @@ UNPORTED = {
                    "queued)",
         "RoundPrefetcher": "data/prefetch.py: the driver copies a static dataset to the card "
                            "once (ROADMAP, not queued)",
-        "scan_image_folder": "data/folder.py: ROADMAP Queue 1, the driver leftovers",
-        "load_image_dataset": "data/folder.py: ROADMAP Queue 1, the driver leftovers",
-        "load_folder_splits": "data/folder.py: ROADMAP Queue 1, the driver leftovers",
     },
 }
 

@@ -362,17 +362,21 @@ def test_cli_runs_end_to_end_on_cpu():
     assert 0.0 <= rec["accuracy"] <= 1.0 and len(rec["val_loss"]) == 2
 
 
-@pytest.mark.parametrize("flag", ["--data-dir=images", "--mesh-ct=2", "--image-size=64"])
-def test_cli_refuses_unported_flags_by_name(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.parse_args(["--device", "cpu", flag])
-    assert exc.value.code == 2
-    assert flag.split("=")[0] in capsys.readouterr().err
+@pytest.mark.parametrize("argv,want", [
+    (["--data-dir=images"], dict(data_dir="images", image_size=(256, 256))),
+    (["--data-dir", "x", "--image-size", "64"], dict(data_dir="x", image_size=(64, 64))),
+    (["--image-size=32"], dict(data_dir=None, image_size=(32, 32))),
+    (["--mesh-ct=2"], dict(mesh_ct=2)),
+    ([], dict(data_dir=None, image_size=(256, 256), mesh_ct=0)),
+], ids=["data_dir_default_size", "data_dir_size", "size_alone", "mesh_ct", "defaults"])
+def test_cli_parses_the_folder_and_mesh_flags(argv, want):
+    cfg = cli.config_from_args(cli.parse_args(["--device", "cpu", *argv]))
+    assert {k: getattr(cfg, k) for k in want} == want
 
 
 def test_cli_flags_cover_the_jax_cli():
-    # Every hefl_tpu.cli flag is either ported (same default) or refused by
-    # name; the port adds --device and nothing else.
+    # The port's flags are exactly hefl_tpu.cli's (same defaults) plus
+    # --device.
     from hefl_tpu.cli import build_parser as jax_parser
 
     def defaults(parser):
@@ -381,7 +385,7 @@ def test_cli_flags_cover_the_jax_cli():
 
     jflags, tflags = defaults(jax_parser()), defaults(cli.build_parser())
     assert set(tflags) - set(jflags) == {"--device"}
-    assert set(jflags) - set(tflags) == set(cli.UNPORTED_FLAGS)
+    assert set(jflags) - set(tflags) == set()
     assert all(tflags[f] == jflags[f] for f in tflags if f in jflags)
 
 
