@@ -231,14 +231,30 @@ error:
      here, bitwise the unchunked run and the secure round's own result
      (`secure_fedavg_round` under "vmap", both under deterministic
      algorithms). Its seconds are printed.
-  Phases 3-14 each print their launches by (kernel, rows x N); phases 4-5
+  15. The quality sweep, the static gate and the pre-flight
+     (`results_gate_runs`): (ai) `results.run_preset` on the five
+     BASELINE presets at full width, RESULTS_ROUNDS rounds x RESULTS_EPOCHS
+     epoch: each record with the JAX script's keys plus power_limit, no
+     encode overflow, the card's name and power limit; one K3 and one K4 a
+     round of each encrypted preset, no kernel for mnist-plain;
+     RESULTS_TORCH.json / .md rendered in a temporary directory; (aj)
+     `python -m hefl_tpu_torch.analysis --json --device cuda` in its own
+     process: exit 0, the lines certificate, finding, summary, every
+     coverage stage run (a medical-8 round on the card, a BSGS and a ladder
+     score), the stage seconds printed; each violation fixture through
+     the gate's `main` with no `--device` exits 1 on the card under its
+     rule; (ak) a clean medical-8 run's
+     metrics carry analysis.violations = 0, an over-headroom packing (b=16,
+     k=16) is refused with AnalysisError by `run_experiment` and with
+     "hefl-lint: ..." by the CLI, before any kernel launches.
+  Phases 3-15 each print their launches by (kernel, rows x N); phases 4-5
      also count the unhoisted twins' one K6 launch a baby step (S = 1).
-  15. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-14 launched, and not K6's kernel, spills registers, and that every
-     K3, K4, K6 and K7 launch of phases 3-14 fell on a shape phase 12
+  16. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-15 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-15 fell on a shape phase 12
      timed. Print one JSON line {"kernels": [...]}
      (phase 12's records; launches: the sum over the main-path runs of
-     phases 3-14, each counted from zero; every kernel carries one
+     phases 3-15, each counted from zero; every kernel carries one
      "shapes" entry per timed shape with the launches at that shape, K5's
      also its per-kernel "split"; the ranking launches x (ms - bound)
      prices each launch at its own shape)
@@ -3240,6 +3256,184 @@ def _leftover_runs(device) -> list[tuple[dict, dict]]:
     return runs
 
 
+# Phase 15 (ai): the five BASELINE presets through results.run_preset at
+# full width, cut to this depth.
+RESULTS_ROUNDS = 2
+RESULTS_EPOCHS = 1
+# results._measure's record keys: the JAX script's, plus power_limit.
+RESULTS_KEYS = frozenset((
+    "preset", "label", "device", "model", "dataset", "num_clients", "encrypted", "partition",
+    "prox_mu", "rounds", "seed", "wallclock_s", "cold_round_s", "warm_round_s",
+    "rounds_per_sec_per_chip", "accuracy", "precision", "recall", "f1", "accuracy_by_round",
+    "encode_overflow_total", "power_limit"))
+# The gate's scope-coverage stages (aj) must all have run.
+GATE_COVERAGE_STAGES = ("scope coverage [vmap]", "scope coverage [fused]",
+                        "scope coverage [secure]", "scope coverage [stream/server]",
+                        "scope coverage [hhe]", "scope coverage [inference]")
+
+
+def results_runs(device, smi: str) -> list[tuple[dict, dict]]:
+    """Phase 15 (ai): `results.run_preset` on the five BASELINE presets at
+    full width, RESULTS_ROUNDS x RESULTS_EPOCHS: the JAX record keys plus
+    power_limit, no encode overflow, the card's name and power limit in the
+    record; each encrypted preset one K3 and one K4 a round, mnist-plain no
+    kernel; then RESULTS_TORCH.json and RESULTS_TORCH.md written in a
+    temporary directory, each table row naming the card and its limit."""
+    import tempfile
+
+    from hefl_tpu_torch import results
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.presets import BASELINE_PRESET_NAMES, PRESETS
+
+    runs, recs = [], []
+    for name in BASELINE_PRESET_NAMES:
+        cuda_ntt.reset_launch_counts()
+        with datasets_once():
+            rec = results.run_preset(name, rounds=RESULTS_ROUNDS, epochs=RESULTS_EPOCHS,
+                                     device=device)
+        torch.cuda.synchronize()
+        counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+        log(f"  (ai) {name}: wall {rec['wallclock_s']} s, cold round {rec['cold_round_s']} s, "
+            f"steady {rec['warm_round_s']} s; accuracy by round {rec['accuracy_by_round']}, f1 "
+            f"{rec['f1']}; encode_overflow_total {rec['encode_overflow_total']}; device "
+            f"{rec['device']['kind']} ({rec['power_limit']})")
+        log_launch_rows(shapes)
+        want = ((RESULTS_ROUNDS, RESULTS_ROUNDS) if PRESETS[name].encrypted else (0, 0))
+        if (set(rec) != RESULTS_KEYS or rec["encode_overflow_total"] != 0
+                or rec["device"]["kind"] != torch.cuda.get_device_name(0)
+                or not rec["power_limit"] or rec["power_limit"] not in smi
+                or not 0.0 <= rec["accuracy"] <= 1.0
+                or len(rec["accuracy_by_round"]) != RESULTS_ROUNDS):
+            raise AssertionError(f"(ai) {name}: bad record {rec}")
+        if (counts["encrypt_fused"], counts["decrypt_fused"]) != want or (
+                not PRESETS[name].encrypted and any(counts.values())):
+            raise AssertionError(f"(ai) {name}: launched {counts}, expected K3/K4 {want}")
+        runs.append((counts, shapes))
+        recs.append(rec)
+    data = {"presets": recs, "convergence": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_results_") as tmp, \
+            contextlib.chdir(tmp):
+        results._write_evidence(data)
+        md = Path(results.RESULTS_MD).read_text()
+        stored = json.loads(Path(results.RESULTS_JSON).read_text())
+    rows = [line for line in md.splitlines()
+            if line.startswith("| ") and f"({recs[0]['power_limit']})" in line]
+    log(f"  (ai) RESULTS_TORCH.md rendered in a temporary directory: {len(md.splitlines())} "
+        f"lines, {len(rows)} preset rows naming the card and its limit")
+    if len(rows) != len(recs) or stored != json.loads(json.dumps(data)):
+        raise AssertionError(f"(ai) the rendered evidence is off: {rows}")
+    return runs
+
+
+def gate_run() -> None:
+    """Phase 15 (aj): `python -m hefl_tpu_torch.analysis --json --device
+    cuda` in its own process: exit 0, the JSON lines in the order
+    certificate, finding, summary, no violation, and every coverage stage
+    run (a medical-8 round on the card, a BSGS and a ladder score)."""
+    t0 = time.perf_counter()
+    out = port_process(["-m", "hefl_tpu_torch.analysis", "--json", "--device", "cuda"],
+                       timeout=900)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    kinds = [line["type"] for line in lines]
+    rank = {"certificate": 0, "finding": 1, "summary": 2}
+    summary = lines[-1] if lines else {}
+    stages = {s["stage"]: s for s in summary.get("stages", [])}
+    log(f"  (aj) gate process {wall:.3f} s: {kinds.count('certificate')} certificates, "
+        f"{kinds.count('finding')} findings; stage seconds "
+        f"{json.dumps({k: v['seconds'] for k, v in stages.items()})}")
+    if (kinds != sorted(kinds, key=rank.__getitem__) or kinds.count("summary") != 1
+            or kinds[-1] != "summary" or summary.get("schema") != 1 or not summary.get("ok")
+            or summary.get("violations") != 0
+            or any(stage not in stages for stage in GATE_COVERAGE_STAGES)):
+        raise AssertionError(f"(aj) the gate's JSON lines are off: {lines[-3:]}")
+
+
+def fixture_runs() -> None:
+    """Phase 15 (aj): each violation fixture through the gate's `main`
+    with `--fixture F --json` and no `--device`, so on the card as the tree
+    gate: exit 1, with findings under the fixture's RULE only."""
+    import io
+    import os
+
+    from hefl_tpu_torch import resolve_device
+    from hefl_tpu_torch.analysis import cli as gate
+
+    folder = Path(__file__).resolve().parent / "hefl_tpu_torch" / "analysis" / "fixtures"
+    env = dict(os.environ)                      # main() sets the gate's env defaults
+    try:
+        for path in sorted(folder.glob("violation_*.py")):
+            rule = re.search(r'^RULE = "([^"]+)"', path.read_text(), re.M).group(1)
+            out, t0 = io.StringIO(), time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = gate.main(["--fixture", str(path), "--json"])
+            found = [line["rule"] for line in map(json.loads, out.getvalue().splitlines())
+                     if line["type"] == "finding"]
+            log(f"  (aj) fixture {path.name} on {resolve_device()}: exit {rc}, findings "
+                f"{found} [{time.perf_counter() - t0:.3f} s]")
+            if rc != 1 or not found or set(found) != {rule}:
+                raise AssertionError(f"(aj) {path.name} ({rule}): exit {rc}, findings {found}")
+    finally:
+        os.environ.clear()
+        os.environ.update(env)
+
+
+def preflight_runs(device) -> tuple[dict, dict]:
+    """Phase 15 (ak): a clean medical-8 run (1 round x 1 epoch) carries
+    analysis.violations = 0 in its metrics; an over-headroom packing (b=16,
+    k=16, 8 clients) is refused with AnalysisError by `run_experiment`, and
+    by the CLI with "hefl-lint: ...", before any kernel launches."""
+    from hefl_tpu_torch import analysis, cli
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.experiment import run_experiment
+    from hefl_tpu_torch.fl.config import PackingConfig
+
+    out, _, run, _ = drive("ak, medical-8", cut("medical-8", 1, 1), 1, device)
+    violations = out["obs"]["metrics"].get("analysis.violations")
+    bad = cut("medical-8", 1, 1, packing=PackingConfig(bits=16, interleave=16))
+    cuda_ntt.reset_launch_counts()
+    try:
+        with datasets_once():
+            run_experiment(bad, verbose=False, device=device)
+    except analysis.AnalysisError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("(ak) an over-headroom packing ran")
+    try:
+        cli.run(cli.parse_args(["--model", "medcnn", "--dataset", "medical", "--num-clients",
+                                "8", "--rounds", "1", "--epochs", "1", "--pack-bits", "16",
+                                "--pack-interleave", "16", "--no-save-model", "--no-events"]))
+    except SystemExit as exc:
+        cli_refused = str(exc)
+    else:
+        raise AssertionError("(ak) the CLI ran an over-headroom packing")
+    launched = cuda_ntt.launch_counts()
+    log(f"  (ak) clean medical-8: analysis.violations {violations}; over-headroom packing: "
+        f"{refused[:160]}...; CLI: {cli_refused[:60]}...; launches after both refusals "
+        f"{sum(launched.values())}")
+    if violations != 0 or any(launched.values()) or not cli_refused.startswith("hefl-lint: "):
+        raise AssertionError(f"(ak) violations {violations}, launches {launched}, CLI "
+                             f"{cli_refused!r}")
+    return run
+
+
+def results_gate_runs(device, smi: str) -> list[tuple[dict, dict]]:
+    """Phase 15: (ai)-(ak)."""
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    runs = results_runs(device, smi)
+    log(f"  phase 15 (ai) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    gate_run()
+    fixture_runs()
+    log(f"  phase 15 (aj) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    runs.append(preflight_runs(device))
+    log(f"  phase 15 (ak) wall time: {time.perf_counter() - t:.3f} s")
+    log(f"  phase 15 wall time: {time.perf_counter() - t_phase:.3f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3308,13 +3502,18 @@ def main() -> int:
         "backend record, fidelity_check (3 seeds), mfu_probe (batch 8..256), flagship_acc "
         f"({FLAGSHIP_EPOCHS} epochs, stopped and resumed)")
     runs += leftover_runs(device)
+    log(f"phase 15: results.run_preset on the five BASELINE presets ({RESULTS_ROUNDS} rounds x "
+        f"{RESULTS_EPOCHS} epoch, full width), the static gate (python -m "
+        "hefl_tpu_torch.analysis --json --device cuda), the pre-flight (medical-8 clean; an "
+        "over-headroom packing refused)")
+    runs += results_gate_runs(device, smi)
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-14 together:")
+    log("phases 3-15 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-14
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-15
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),

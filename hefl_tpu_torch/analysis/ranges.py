@@ -1,7 +1,8 @@
-"""Closed-form integer certificates of the packed and hybrid-HE uplinks.
+"""Closed-form integer certificates of the packed and hybrid-HE uplinks,
+the aggregation, the streaming fold and the serving programs.
 
-Counterpart of `certify_packing` and `certify_transciphering` in
-`hefl_tpu.analysis.ranges`. The JAX package proves these invariants by
+Counterpart of the certificates in `hefl_tpu.analysis.ranges`, with their
+fields and summary heads. The JAX package proves these invariants by
 interval analysis of a traced jaxpr of the aggregation's integer pipeline;
 that pipeline is short and monotone (non-negative codes shifted into
 disjoint fields, summed over C clients, plus bounded noise), so its exact
@@ -172,60 +173,23 @@ def certify_transciphering(modulus: int, bits: int, k: int, clients: int,
     )
 
 
-@dataclasses.dataclass(frozen=True)
-class FoldCertificate:
-    """Proof (or refutation) of the streaming fold's invariant at one prime
-    (and, for a packed round, one packing geometry)."""
-
-    ok: bool
-    prime: int
-    findings: tuple
-    checks: tuple
-
-    def summary(self) -> str:
-        head = f"online fold at p={self.prime}"
-        if self.ok:
-            return f"{head}: CERTIFIED — " + "; ".join(self.checks)
-        return f"{head}: UNSAFE — " + "; ".join(self.findings)
-
-
-def certify_fold(prime: int, spec=None, modulus: int | None = None) -> FoldCertificate:
-    """The closed-form counterpart of the JAX package's
-    `certify_fold_inductive` (M15 ports its interval analysis): the
-    `OnlineAccumulator` folds a canonical row into a canonical sum as
-    (acc + row) mod p in int64, so the invariant "acc in [0, p - 1]" is
-    closed under any number of folds iff p - 1 plus a canonical residue
-    fits int64 (and the primes are positive). With a packed `spec` and the
-    ciphertext modulus, the headroom-capped `spec.clients`-summand packed
-    sum is certified by `certify_packing` at the spec's geometry."""
-    prime = int(prime)
-    findings: list[str] = []
-    checks: list[str] = []
-    _check(findings, checks, "prime", prime, prime, 2, (1 << 62) - 1)
-    _check(findings, checks, "fold carrier (p - 1) + canonical residue",
-           0, 2 * (prime - 1), 0, (1 << 63) - 1)
-    if spec is not None and modulus is not None:
-        guard_bits = spec.guard - max(spec.clients - 1, 0).bit_length()
-        cert = certify_packing(int(modulus), spec.bits, spec.k, spec.clients, guard_bits)
-        (checks if cert.ok else findings).append(cert.summary())
-    return FoldCertificate(ok=not findings, prime=prime, findings=tuple(findings),
-                           checks=tuple(checks))
-
-
 # The arrival-count ceiling of the JAX package's inductive fold proof: its
 # loop post-fixpoint is taken over any count in [0, 2**48].
 LOOP_COUNT_CEILING = 1 << 48
+# `hefl_tpu.parallel.collectives.MAX_PSUM_CLIENTS`, restated: the canonical
+# residues one lazy sum adds before its single reduction.
+MAX_PSUM_CLIENTS = 32
 
 
 @dataclasses.dataclass(frozen=True)
-class FoldTreeCertificate:
-    """Proof (or refutation) of the two-tier fold tree, with the fields and
-    summary of the JAX package's `FoldCertificate`."""
+class FoldCertificate:
+    """Proof (or refutation) of the streaming fold's invariant, with the
+    fields and summary of the JAX package's `FoldCertificate`."""
 
     ok: bool
     prime_bits: int
     count_ceiling_bits: int
-    bits: int | None     # packed leg (None: the tree certifies unpacked)
+    bits: int | None     # packed leg (None when certifying unpacked)
     k: int | None
     clients: int | None
     findings: tuple
@@ -242,11 +206,100 @@ class FoldTreeCertificate:
 
 
 @functools.lru_cache(maxsize=64)
-def certify_fold_tree(prime: int) -> FoldTreeCertificate:
+def certify_fold_inductive(prime: int, spec=None, modulus: int | None = None) -> FoldCertificate:
+    """The closed-form counterpart of the JAX package's
+    `certify_fold_inductive`: the `OnlineAccumulator` folds a canonical row
+    into a canonical sum as (acc + row) mod p in int64, so the invariant
+    "acc in [0, p - 1]" is closed under any number of folds (up to
+    LOOP_COUNT_CEILING, whose counter fits int64) iff p - 1 plus a
+    canonical residue fits int64 and the prime is positive. With a packed
+    `spec` (a hashable `PackedSpec`) and the ciphertext modulus, the
+    headroom-capped `spec.clients`-summand packed sum is certified by
+    `certify_packing` at the spec's geometry."""
+    prime = int(prime)
+    findings: list[str] = []
+    checks: list[str] = []
+    _check(findings, checks, "prime", prime, prime, 2, (1 << 62) - 1)
+    _check(findings, checks, "fold carrier (p - 1) + canonical residue",
+           0, 2 * (prime - 1), 0, (1 << 63) - 1)
+    _check(findings, checks, "arrival counter (int64)", 0, LOOP_COUNT_CEILING,
+           0, (1 << 63) - 1)
+    if not findings:
+        checks.append(f"OnlineAccumulator fold invariant [0, {prime - 1}] closed under any "
+                      f"arrival count <= 2**{LOOP_COUNT_CEILING.bit_length() - 1} (inductive)")
+    bits = k = clients = None
+    if spec is not None:
+        if modulus is None:
+            raise ValueError("certify_fold_inductive: a PackedSpec needs the ring modulus to "
+                             "re-derive the packed C-client sum")
+        bits, k, clients = int(spec.bits), int(spec.k), int(spec.clients)
+        guard_bits = spec.guard - max(clients - 1, 0).bit_length()
+        packed = certify_packing(int(modulus), bits, k, clients, guard_bits)
+        findings.extend(f"packed fold: {f}" for f in packed.findings)
+        if packed.ok:
+            checks.append(f"headroom-capped packed fold (C={clients}): "
+                          + "; ".join(packed.checks))
+    return FoldCertificate(
+        ok=not findings, prime_bits=prime.bit_length(),
+        count_ceiling_bits=LOOP_COUNT_CEILING.bit_length() - 1, bits=bits, k=k,
+        clients=clients, findings=tuple(findings), checks=tuple(checks),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregationCertificate:
+    """Proof (or refutation) of the aggregation hot path at one prime size,
+    with the fields and summary of the JAX package's certificate."""
+
+    ok: bool
+    prime_bits: int
+    chunk: int          # lazy-sum participants proven per reduction
+    findings: tuple
+    checks: tuple
+
+    def summary(self) -> str:
+        head = f"aggregation p<2**{self.prime_bits} chunk={self.chunk}"
+        if self.ok:
+            return f"{head}: CERTIFIED — " + "; ".join(self.checks)
+        return f"{head}: UNSAFE — " + "; ".join(str(f) for f in self.findings)
+
+
+@functools.lru_cache(maxsize=32)
+def certify_aggregation(prime: int) -> AggregationCertificate:
+    """The closed-form counterpart of the JAX package's
+    `certify_aggregation`, over the legs the port runs:
+
+      1. `fl.secure.lazy_sum_mod`: the int64 sum of MAX_PSUM_CLIENTS
+         canonical residues, then one remainder, stays inside int64;
+      2. (the JAX legs 2 and 2b, `psum_mod` on the client mesh and on the
+         2-D mesh, have no counterpart: one card has no psum);
+      3. `fl.stream.OnlineAccumulator`'s int64 fold, by
+         `certify_fold_inductive` (its checks folded in, as in JAX).
+    """
+    prime = int(prime)
+    findings: list[str] = []
+    checks: list[str] = []
+    _check(findings, checks, f"lazy_sum_mod int64 sum of {MAX_PSUM_CLIENTS} canonical residues",
+           0, MAX_PSUM_CLIENTS * (prime - 1), 0, (1 << 63) - 1)
+    _check(findings, checks, "lazy_sum_mod output (one remainder by p)", 0, prime - 1,
+           0, prime - 1)
+    checks.append("psum_mod: no counterpart on one card (no client-mesh all-reduce)")
+    fold = certify_fold_inductive(prime)
+    findings.extend(fold.findings)
+    checks.extend(fold.checks)
+    return AggregationCertificate(
+        ok=not findings, prime_bits=prime.bit_length(), chunk=MAX_PSUM_CLIENTS,
+        findings=tuple(findings), checks=tuple(checks),
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def certify_fold_tree(prime: int) -> FoldCertificate:
     """The closed-form counterpart of the JAX package's `certify_fold_tree`:
-    the fold loop's invariant (`certify_fold`: acc in [0, p - 1] after every
-    fold, the int64 carrier wrap-free, for any arrival count) plus the three
-    facts the two-tier tree (`fl.hierarchy`) adds on top of it:
+    the fold loop's invariant (`certify_fold_inductive`: acc in [0, p - 1]
+    after every fold, the int64 carrier wrap-free, for any arrival count)
+    plus the three facts the two-tier tree (`fl.hierarchy`) adds on top of
+    it:
 
       * tier partials are canonical — each host fold ends in [0, p - 1],
         the canonical-input precondition of the root fold, so the root is
@@ -260,13 +313,9 @@ def certify_fold_tree(prime: int) -> FoldTreeCertificate:
 
     An unsafe loop makes the tree unsafe (no tree claim on a broken
     invariant)."""
-    base = certify_fold(int(prime))
-    fields = dict(prime_bits=int(prime).bit_length(),
-                  count_ceiling_bits=LOOP_COUNT_CEILING.bit_length() - 1,
-                  bits=None, k=None, clients=None)
+    base = certify_fold_inductive(int(prime))
     if not base.ok:
-        return FoldTreeCertificate(ok=False, findings=base.findings, checks=base.checks,
-                                   **fields)
+        return base
     checks = base.checks + (
         "tier partials canonical: each host fold ends in the loop "
         "post-fixpoint [0, p-1], satisfying the root fold's canonical-"
@@ -279,7 +328,7 @@ def certify_fold_tree(prime: int) -> FoldTreeCertificate:
         "is the same certified loop on the same value — late folding "
         "cannot leave the proven region",
     )
-    return FoldTreeCertificate(ok=True, findings=(), checks=checks, **fields)
+    return dataclasses.replace(base, checks=checks)
 
 
 # --- Serving: the gadget key-switch and the rotate-and-sum ladder -----------
@@ -423,3 +472,14 @@ def certify_inference(prime: int, digit_bits: int, num_digits: int) -> Inference
         num_digits=int(num_digits), depth_ceiling_bits=LOOP_COUNT_CEILING.bit_length() - 1,
         findings=tuple(findings), checks=tuple(checks),
     )
+
+
+def certified_max_interleave(modulus: int, bits: int, clients: int, guard_bits: int) -> int:
+    """The largest k `certify_packing` certifies, searched upward from 1 (the
+    JAX package's cross-check target for `quantize.max_interleave`)."""
+    k = 0
+    while certify_packing(modulus, bits, k + 1, clients, guard_bits).ok:
+        k += 1
+        if k > 64:  # one packed slot cannot hold more than 64 one-bit fields
+            break
+    return k

@@ -117,6 +117,23 @@ def _mixed_radix_digits(ctx: NTTContext, residues: torch.Tensor) -> list[torch.T
     return digits
 
 
+def exact_int_probes(device="cpu") -> dict:
+    """The exact-integer encode of packed words and the CRT mixed-radix
+    digits as declared exact-integer regions, on a tiny ring (n = 256)."""
+    from hefl_tpu_torch.ckks.keys import CkksContext
+
+    ntt = CkksContext.create(n=256).ntt
+    num_l = int(np.asarray(ntt.p).shape[0])
+    hi = torch.zeros((2, ntt.n), dtype=torch.int32, device=device)
+    lo = torch.zeros((2, ntt.n), dtype=torch.int32, device=device)
+    res = torch.zeros((2, num_l, ntt.n), dtype=torch.int32, device=device)
+    return {
+        "ckks.encoding.encode_packed": (lambda h, l: encode_packed(ntt, h, l), (hi, lo)),
+        "ckks.encoding.mixed_radix_digits": (lambda r: tuple(_mixed_radix_digits(ntt, r)),
+                                             (res,)),
+    }
+
+
 def decode(ctx: NTTContext, residues: torch.Tensor, scale: float) -> torch.Tensor:
     """Canonical residues int32[..., L, N] -> float32[..., N].
 

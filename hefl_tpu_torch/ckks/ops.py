@@ -274,6 +274,31 @@ def hoisted_rotations(ctx: CkksContext, ct: Ciphertext, steps, gks: dict) -> Cip
     return Ciphertext(c0=r0, c1=r1, scale=ct.scale)
 
 
+def exact_int_probes(device="cpu") -> dict:
+    """The gadget key-switch (K5 and its glue) and the hoisted sweep (the
+    uncentered digits, K1, K6 and the output gather) as declared
+    exact-integer regions, on a tiny ring (n = 256) with real Galois keys
+    for steps 1 and 2."""
+    from hefl_tpu_torch.ckks.keys import CkksContext, gen_galois_key, keygen
+
+    ctx = CkksContext.create(n=256)
+    gen = torch.Generator().manual_seed(0)
+    sk, _ = keygen(ctx, gen, device=device)
+    steps = (1, 2)
+    gks = {s: gen_galois_key(ctx, sk, gen, galois.galois_elt_rotation(ctx.n, s)) for s in steps}
+    perms, bk, ak = hoisted_rotation_tables(ctx, gks, steps, device)
+    coeff = torch.zeros((2, ctx.num_primes, ctx.n), dtype=torch.int32, device=device)
+
+    def hoisted(c0, c1):
+        return hoisted_rotations_core(ctx, c0, hoisted_digits(ctx, c1), perms, bk, ak)
+
+    return {
+        "ckks.ops.keyswitch_gadget": (
+            lambda c: _keyswitch_coeff(ctx, c, gks[1].b_mont, gks[1].a_mont), (coeff,)),
+        "ckks.ops.hoisted_gadget": (hoisted, (coeff[0], coeff[1])),
+    }
+
+
 def _uncentered_products(ctx: CkksContext, d_eval, bk, ak):
     """sum_c D_c * key_c over the gadget axis (-3), int64, exact add_mod."""
     tabs = plain_tables(ctx.ntt, d_eval.device)

@@ -228,6 +228,27 @@ def _interleave_codes(q: torch.Tensor, spec: PackedSpec):
     )
 
 
+def probe_spec(bits: int = 8, k: int = 2, clients: int = 2) -> PackedSpec:
+    """A tiny hand-built PackedSpec for the lint's regions and fixtures (the
+    JAX module's `probe_spec`): no model template or CKKS context."""
+    n = 8
+    base = PackSpec(n=n, total=2 * k * n, n_ct=2 * k, entries=())
+    return PackedSpec(
+        base=base, bits=bits, k=k, field_bits=quantize.field_bits(bits, clients),
+        guard=6 + max(clients - 1, 0).bit_length(), step=0.5 / quantize.qmax(bits), clip=0.5,
+        clients=clients, n_ct=2, error_budget=0.1,
+    )
+
+
+def exact_int_probes(device="cpu") -> dict:
+    """The packed wire format's declared exact-integer region: the integer
+    tail of `pack_quantized_flat` (offset + interleave of quantized codes;
+    the quantizer before it is float by design)."""
+    spec = probe_spec()
+    q = torch.zeros((spec.total,), dtype=torch.int32, device=device)
+    return {"ckks.packing.interleave_tail": (lambda c: _interleave_codes(c, spec), (q,))}
+
+
 def _steps(spec: PackedSpec):
     steps = step_vector(spec)
     return spec.step if steps is None else steps

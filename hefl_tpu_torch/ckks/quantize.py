@@ -223,6 +223,25 @@ def interleave_fields(u: torch.Tensor, k: int, fbits: int, guard: int):
     return hi.to(torch.int32), lo.to(torch.int32)
 
 
+def exact_int_probes(device="cpu") -> dict:
+    """This module's declared exact-integer regions (`analysis.lint` runs
+    them: no remainder/divide, no float), as `(fn, args)` on small tensors
+    on `device`, with the JAX module's region names. `ef_interleave_fields`
+    is the error-feedback path's wire tail at b = 4 (7-bit fields, k = 4):
+    its codes keep the [-qmax, qmax] alphabet, so everything from the
+    offset on is exact integers."""
+    u = torch.zeros((2, 4), dtype=torch.int32, device=device)
+
+    def ef_tail(q):
+        return interleave_fields(q.to(torch.int64) + qmax(4), 4, 7, 5)
+
+    q4 = torch.zeros((2, 4, 4), dtype=torch.int32, device=device)
+    return {
+        "ckks.quantize.interleave_fields": (lambda v: interleave_fields(v, 2, 9, 5), (u,)),
+        "ckks.quantize.ef_interleave_fields": (ef_tail, (q4,)),
+    }
+
+
 def packed_value_int64(hi, lo) -> np.ndarray:
     """(hi, lo) words -> the packed integer as int64 (host)."""
     hi = hi.cpu().numpy() if isinstance(hi, torch.Tensor) else np.asarray(hi)

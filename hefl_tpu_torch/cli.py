@@ -520,10 +520,17 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 
 def run(args: argparse.Namespace, verbose: bool = True) -> list[dict]:
-    """Run the configured experiment -> one record per round."""
+    """Run the configured experiment -> one record per round. A config that
+    static analysis rejects exits before any dataset or device work."""
+    from hefl_tpu_torch import analysis
+
     check_args(args)
-    out = run_experiment(config_from_args(args), resume=args.resume, verbose=verbose,
-                         device=args.device)
+    cfg = config_from_args(args)
+    try:
+        analysis.check_experiment(cfg)
+    except analysis.AnalysisError as e:
+        raise SystemExit(f"hefl-lint: {e}")
+    out = run_experiment(cfg, resume=args.resume, verbose=verbose, device=args.device)
     return out["history"]
 
 

@@ -63,8 +63,7 @@ import numpy as np
 import torch
 
 from hefl_tpu_torch import resolve_device
-from hefl_tpu_torch.analysis import ranges
-from hefl_tpu_torch.ckks import quantize
+from hefl_tpu_torch import analysis
 from hefl_tpu_torch.ckks.backend import he_backend_report
 from hefl_tpu_torch.ckks.keys import CkksContext, keygen
 from hefl_tpu_torch.ckks.packing import PackedSpec, PackSpec
@@ -242,26 +241,6 @@ def check_config(cfg: ExperimentConfig) -> None:
             "StreamConfig.host_staleness_rounds=0 for dp runs (a carried "
             "host partial would double its clients' accounted sensitivity)"
         )
-
-
-def _preflight(cfg: ExperimentConfig, ctx: CkksContext, say) -> None:
-    """The packed and hybrid-HE certificates the JAX driver's pre-flight
-    (`analysis.check_experiment`) runs before any training work."""
-    packing = cfg.packing
-    if packing is None or not packing.enabled:
-        return
-    modulus = int(ctx.modulus)
-    k = packing.interleave or quantize.max_interleave(
-        modulus, packing.bits, cfg.num_clients, packing.guard_bits)
-    certs = [ranges.certify_packing(modulus, packing.bits, k, cfg.num_clients,
-                                    packing.guard_bits)]
-    if cfg.stream is not None and cfg.stream.upload_kind == "hhe":
-        certs.append(ranges.certify_transciphering(modulus, packing.bits, k, cfg.num_clients,
-                                                   packing.guard_bits))
-    for cert in certs:
-        if not cert.ok:
-            raise ValueError(f"static analysis rejected this configuration — {cert.summary()}")
-    say(f"analysis: {'; '.join(c.summary() for c in certs)}")
 
 
 def _train_images(cfg: TrainConfig, n_samples: int, num_clients: int) -> int:
@@ -467,7 +446,11 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
     he_backend = he_backend_report(device if cfg.encrypted else None)
     sk = pk = spec = pspec = None
     if cfg.encrypted:
-        _preflight(cfg, ctx, say)
+        # Pre-flight static analysis: the aggregation and fold no-wrap
+        # bounds and the packed headroom of THIS config, before any
+        # training work; publishes analysis.violations (0 here) into the
+        # run's metrics snapshot.
+        analysis.check_experiment(cfg, ctx=ctx, say=say)
         sk, pk = keygen(ctx, gen, device=device)
         spec = PackSpec.for_params(params, ctx.n)
         say(f"CKKS context: N={ctx.n} L={ctx.num_primes} -> {spec.n_ct} ciphertexts "

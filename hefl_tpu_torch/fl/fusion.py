@@ -93,10 +93,11 @@ def _client_metrics(model, stacked: dict, xf: torch.Tensor, onehot: torch.Tensor
 
 
 def _client_view(params: dict, opt: AdamState, c: int) -> tuple[dict, AdamState]:
-    """Client c's slice of the stacked params and Adam state (views)."""
-    return ({k: v[c] for k, v in params.items()},
-            AdamState(mu={k: v[c] for k, v in opt.mu.items()},
-                      nu={k: v[c] for k, v in opt.nu.items()}, step=opt.step))
+    """Client c's slice of the stacked params and Adam state (copies: the
+    unmasked step updates the stacked tensors in place)."""
+    return ({k: v[c].clone() for k, v in params.items()},
+            AdamState(mu={k: v[c].clone() for k, v in opt.mu.items()},
+                      nu={k: v[c].clone() for k, v in opt.nu.items()}, step=opt.step))
 
 
 def _mask_select(keep: torch.Tensor, new: dict, old: dict) -> dict:
@@ -104,6 +105,36 @@ def _mask_select(keep: torch.Tensor, new: dict, old: dict) -> dict:
     for client c's slice."""
     return {k: torch.where(keep.reshape((-1,) + (1,) * (v.dim() - 1)), v, old[k])
             for k, v in new.items()}
+
+
+def fused_step(model, cfg: TrainConfig, params: dict, opt: AdamState, xb: torch.Tensor,
+               onehot: torch.Tensor, lr_scale: np.ndarray, anchor: dict,
+               keep: torch.Tensor | None = None) -> tuple[dict, AdamState]:
+    """One client-folded SGD step over stacked params [C, ...]: the gradient
+    of the summed per-client losses (FedProx against `anchor`) on the folded
+    batch xb, and each client's Adam update at its `lr_scale` [C]. Without
+    a participation mask the update is written into the tensors of `params`
+    and `opt` (their storage is kept from step to step, the counterpart of
+    the JAX round's donated state); with one, a masked client keeps its old
+    rows, so the step is computed out of place. -> (params, opt)."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    ce, _ = _client_metrics(model, leaves, xb, onehot)
+    loss = ce.sum()
+    if cfg.prox_mu > 0.0:
+        loss = loss + 0.5 * cfg.prox_mu * torch.stack(
+            [torch.sum((leaves[k] - anchor[k]) ** 2) for k in leaves]).sum()
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    with torch.no_grad():
+        new_params, new_opt = adam_update(
+            grads, opt, {k: v.detach() for k, v in leaves.items()}, cfg.lr, cfg.lr_decay,
+            lr_scale, warmup_steps=cfg.warmup_steps, inplace=keep is None,
+        )
+        if keep is None:
+            return new_params, new_opt
+        # Scheduled-out clients flow through the step but update nothing.
+        return (_mask_select(keep, new_params, params),
+                AdamState(mu=_mask_select(keep, new_opt.mu, opt.mu),
+                          nu=_mask_select(keep, new_opt.nu, opt.nu), step=new_opt.step))
 
 
 def fused_train(model, cfg: TrainConfig, global_params: dict, xs: torch.Tensor, ys: torch.Tensor,
@@ -156,26 +187,9 @@ def fused_train(model, cfg: TrainConfig, global_params: dict, xs: torch.Tensor, 
             xb = fold_clients(rescale(x_tr[rows_c, idx]))
             if cfg.augment:
                 xb = apply_affine(xb, *(a[:, step].reshape(-1) for a in aug))
-            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-            ce, _ = _client_metrics(model, leaves, xb, oh_tr[rows_c, idx])
-            loss = ce.sum()
-            if cfg.prox_mu > 0.0:
-                loss = loss + 0.5 * cfg.prox_mu * torch.stack(
-                    [torch.sum((leaves[k] - gp[k]) ** 2) for k in leaves]).sum()
-            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
             lr_scale = np.array([s.lr_scale for s in states], dtype=np.float32)
-            with torch.no_grad():
-                new_params, new_opt = adam_update(
-                    grads, opt, {k: v.detach() for k, v in leaves.items()}, cfg.lr, cfg.lr_decay,
-                    lr_scale, warmup_steps=cfg.warmup_steps,
-                )
-                if keep is not None:
-                    # Scheduled-out clients flow through the step but update nothing.
-                    new_params = _mask_select(keep, new_params, params)
-                    new_opt = AdamState(mu=_mask_select(keep, new_opt.mu, opt.mu),
-                                        nu=_mask_select(keep, new_opt.nu, opt.nu),
-                                        step=new_opt.step)
-                params, opt = new_params, new_opt
+            params, opt = fused_step(model, cfg, params, opt, xb, oh_tr[rows_c, idx], lr_scale,
+                                     gp, keep)
         if step % steps != steps - 1:
             continue
         with torch.profiler.record_function(scopes.VAL):

@@ -38,10 +38,14 @@ def adam_update(
     b2: float = 0.999,
     eps: float = 1e-7,
     warmup_steps: int = 0,
+    inplace: bool = False,
 ) -> tuple[dict, AdamState]:
-    """-> (new_params, new_state); nothing is updated in place. `lr_scale`
-    is a scalar, or float32[C] for parameters stacked over C clients (the
-    fused trainer), each client's scale broadcast along the leading axis."""
+    """-> (new_params, new_state). `lr_scale` is a scalar, or float32[C] for
+    parameters stacked over C clients (the fused trainer), each client's
+    scale broadcast along the leading axis. With `inplace`, each update's
+    last operation writes into the tensors of `params` and `state` (the same
+    operations, so the same bits), which the result then holds; otherwise
+    nothing is updated in place."""
     step = state.step + 1
     f32 = np.float32
     t = f32(step)
@@ -51,11 +55,16 @@ def adam_update(
     bc1 = f32(1.0) - f32(b1) ** t
     bc2 = f32(1.0) - f32(b2) ** t
     mu, nu, new = {}, {}, {}
+
+    def out(dst: torch.Tensor) -> dict:
+        return {"out": dst} if inplace else {}
+
     for k, p in params.items():
         g = grads[k]
-        mu[k] = b1 * state.mu[k] + (1 - b1) * g
-        nu[k] = b2 * state.nu[k] + (1 - b2) * g * g
+        mu[k] = torch.add(b1 * state.mu[k], (1 - b1) * g, **out(state.mu[k]))
+        nu[k] = torch.add(b2 * state.nu[k], (1 - b2) * g * g, **out(state.nu[k]))
         lr_k = (float(lr_t) if lr_t.ndim == 0 else
                 torch.from_numpy(lr_t).to(p.device).reshape((-1,) + (1,) * (p.dim() - 1)))
-        new[k] = p - lr_k * (mu[k] / float(bc1)) / (torch.sqrt(nu[k] / float(bc2)) + eps)
+        new[k] = torch.sub(p, lr_k * (mu[k] / float(bc1)) / (torch.sqrt(nu[k] / float(bc2)) + eps),
+                           **out(p))
     return new, AdamState(mu=mu, nu=nu, step=step)

@@ -176,6 +176,14 @@ def lazy_sum_mod(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.remainder(torch.sum(x.to(torch.int64), dim=0), p).to(torch.int32)
 
 
+def exact_int_probes(device="cpu") -> dict:
+    """The lazy modular sum as a declared exact-integer region: it runs per
+    ciphertext limb on the aggregation path."""
+    p = torch.full((3, 1), 2**27 - 39, dtype=torch.int64, device=device)
+    x = torch.zeros((4, 3, 8), dtype=torch.int32, device=device)
+    return {"fl.secure.lazy_sum_mod": (lambda v: lazy_sum_mod(v, p), (x,))}
+
+
 @scoped(scopes.PSUM_AGGREGATE)
 def aggregate_encrypted(ctx: CkksContext, cts: Ciphertext) -> Ciphertext:
     """Homomorphic sum of a [C, n_ct, L, N] ciphertext stack over clients."""

@@ -149,14 +149,19 @@ class OnlineAccumulator:
     def _mod(self, s: torch.Tensor) -> torch.Tensor:
         if self._p is None or self._p.device != s.device:
             self._p = torch.from_numpy(self._p_host).to(s.device)
-        return torch.remainder(s, self._p).to(torch.int32)
+        return torch.remainder(s, self._p)
 
     def _add(self, s0: torch.Tensor, s1: torch.Tensor) -> None:
-        """Fold int64 sums (already reduced or not) into the accumulator."""
-        if self._c0 is not None:
-            s0 = s0 + self._c0.to(torch.int64)
-            s1 = s1 + self._c1.to(torch.int64)
-        self._c0, self._c1 = self._mod(s0), self._mod(s1)
+        """Fold int64 sums (already reduced or not) into the accumulator.
+        The running sum keeps its storage from fold to fold: the int64 sum
+        and its remainder are written back into it (the counterpart of the
+        JAX fold's donated accumulator; one cast kernel fewer a fold than
+        a new int32 sum)."""
+        if self._c0 is None:
+            self._c0, self._c1 = self._mod(s0).to(torch.int32), self._mod(s1).to(torch.int32)
+            return
+        self._c0.copy_(self._mod(s0 + self._c0))
+        self._c1.copy_(self._mod(s1 + self._c1))
 
     def _device(self, c0):
         """The sum's device: a host array moves there, a tensor must be there
@@ -206,15 +211,35 @@ class OnlineAccumulator:
         return len(fresh)
 
     def value(self, like_shape=None, device=None) -> tuple[torch.Tensor, torch.Tensor]:
-        """The running sum (canonical int32 residues); zeros of `like_shape`
-        on `device` when nothing folded (the encryption of zero an empty
-        round yields)."""
+        """A copy of the running sum (canonical int32 residues: a later fold
+        does not change it); zeros of `like_shape` on `device` when nothing
+        folded (the encryption of zero an empty round yields)."""
         if self._c0 is None:
             if like_shape is None:
                 raise ValueError("OnlineAccumulator.value: nothing folded and no shape")
             z = torch.zeros(tuple(like_shape), dtype=torch.int32, device=device)
             return z, z.clone()
-        return self._c0, self._c1
+        return self._c0.clone(), self._c1.clone()
+
+
+def exact_int_probes(device="cpu") -> dict:
+    """The online fold's declared exact-integer regions: one fold, and the
+    arrival loop (four folds into one running sum)."""
+    p = np.asarray([[2**27 - 39]], dtype=np.int64)
+    z = torch.zeros((1, 8), dtype=torch.int32, device=device)
+
+    def folds(count: int):
+        def run(c0, c1):
+            acc = OnlineAccumulator(p)
+            for nonce in range(count):
+                acc.fold(nonce, c0, c1)
+            return acc.value()
+        return run
+
+    return {
+        "fl.stream.accumulator_fold": (folds(1), (z, z)),
+        "fl.stream.fold_loop": (folds(4), (z, z)),
+    }
 
 
 def ct_hash(c0, c1) -> str:
@@ -526,8 +551,8 @@ class StreamEngine:
         # The fold's invariant (closed form of the JAX package's inductive
         # certificate) and, on a packed round, its headroom-capped sum.
         max_prime = int(np.asarray(ctx.ntt.p).max())
-        fold_cert = (ranges.certify_fold(max_prime, packing, int(ctx.modulus))
-                     if packing is not None else ranges.certify_fold(max_prime))
+        fold_cert = (ranges.certify_fold_inductive(max_prime, packing, int(ctx.modulus))
+                     if packing is not None else ranges.certify_fold_inductive(max_prime))
         if not fold_cert.ok:
             raise ValueError(
                 "streaming fold rejected by static range analysis — "

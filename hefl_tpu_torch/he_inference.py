@@ -49,6 +49,8 @@ from hefl_tpu_torch.ckks.keys import (
     PublicKey,
     SecretKey,
     gen_galois_key,
+    gen_relin_key,
+    keygen,
 )
 from hefl_tpu_torch.ckks.ntt import ntt_forward, ntt_inverse, plain_tables, to_mont
 from hefl_tpu_torch.ckks.ops import Ciphertext
@@ -963,3 +965,32 @@ class MlpScorer:
         _check_scale(self, ct_xs)
         _check_batched(ct_xs)
         return self._run(ct_xs)
+
+
+def exact_int_probes(device="cpu") -> dict:
+    """The serving side's declared exact-integer regions, on a tiny ring
+    (n = 256, 128 slots): the rotate-and-sum ladder (its seven stages, each
+    K2, the automorphism gather, K5, K1 and two add_mods) and the composed
+    two-layer MLP (the hidden layer's ladder, the square, its
+    relinearization, two rescales and the output contraction)."""
+    device = torch.device(device)
+    gen = torch.Generator().manual_seed(0)
+    ctx = CkksContext.create(n=256)
+    sk, _ = keygen(ctx, gen, device=device)
+    ladder = stack_rotation_ladder(ctx, gen_rotation_keys(ctx, sk, 1), device)
+    zeros = torch.zeros((ctx.num_primes, ctx.n), dtype=torch.int32, device=device)
+    ct = Ciphertext(c0=zeros, c1=zeros, scale=ctx.scale)
+
+    mctx = CkksContext.create(n=256, num_primes=5)
+    msk, _ = keygen(mctx, gen, device=device)
+    rng = np.random.default_rng(0)
+    mlp = MlpScorer(mctx, rng.normal(0, 0.3, (2, 4)), rng.normal(0, 0.2, (2,)),
+                    rng.normal(0, 0.3, (2, 2)), rng.normal(0, 0.2, (2,)),
+                    gen_rotation_keys(mctx, msk, 2), gen_relin_key(mctx, msk, gen),
+                    device=device)
+    mzeros = torch.zeros((mctx.num_primes, mctx.n), dtype=torch.int32, device=device)
+    mct = Ciphertext(c0=mzeros, c1=mzeros, scale=mctx.scale)
+    return {
+        "he_inference.rotate_ladder": (lambda c: rotate_and_sum_scan(ctx, c, ladder), (ct,)),
+        "he_inference.mlp_compose": (mlp._run, (mct,)),
+    }

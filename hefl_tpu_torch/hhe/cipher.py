@@ -181,6 +181,25 @@ def stream_decrypt(w_hi, w_lo, key, round_index: int):
     return sub_packed_mod(w_hi, w_lo, z_hi, z_lo)
 
 
+def exact_int_probes(device="cpu") -> dict:
+    """The keystream PRF, the cipher add and the counter-mode round loop as
+    declared exact-integer regions: pure integer words, no remainder, no
+    float (a float round-trip would shear the packed fields)."""
+    key = np.zeros(4, dtype=np.uint32)
+    hi = torch.zeros((2, 8), dtype=torch.int32, device=device)
+    lo = torch.zeros((2, 8), dtype=torch.int32, device=device)
+
+    def counter(k):
+        return [keystream_pair(k, r, (2, 8), device) for r in range(3)]
+
+    return {
+        "hhe.cipher.keystream": (lambda k: keystream_pair(k, 1, (2, 8), device), (key,)),
+        "hhe.cipher.stream_encrypt": (lambda h, l, k: stream_encrypt(h, l, k, 1),
+                                      (hi, lo, key)),
+        "hhe.cipher.keystream_counter": (counter, (key,)),
+    }
+
+
 def hhe_center_mod(v: np.ndarray, guard: int) -> np.ndarray:
     """Recover the packed aggregate from the transciphered decode (host).
 

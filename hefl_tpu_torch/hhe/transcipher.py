@@ -44,6 +44,19 @@ def transcipher(ctx: CkksContext, w_hi, w_lo, pad: Ciphertext) -> Ciphertext:
     return Ciphertext(c0=c0, c1=c1, scale=pad.scale)
 
 
+def exact_int_probes(device="cpu") -> dict:
+    """The transcipher core (K7 and its glue) as a declared exact-integer
+    region, on a tiny ring (n = 256)."""
+    ctx = CkksContext.create(n=256)
+    hi = torch.zeros((2, ctx.n), dtype=torch.int32, device=device)
+    lo = torch.zeros((2, ctx.n), dtype=torch.int32, device=device)
+    pad = torch.zeros((2, ctx.num_primes, ctx.n), dtype=torch.int32, device=device)
+    return {
+        "hhe.transcipher.core": (
+            lambda h, l, p0, p1: transcipher_core(ctx, h, l, p0, p1), (hi, lo, pad, pad)),
+    }
+
+
 def provision_pads(
     ctx: CkksContext, pk: PublicKey, keys, round_index: int, n_ct: int,
     enc_gens=None, samples=None,
