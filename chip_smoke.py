@@ -240,10 +240,16 @@ error:
      RESULTS_TORCH.json / .md rendered in a temporary directory; (aj)
      `python -m hefl_tpu_torch.analysis --json --device cuda` in its own
      process: exit 0, the lines certificate, finding, summary, every
+     certificate the interval interpreter's (proven intervals), every
      coverage stage run (a medical-8 round on the card, a BSGS and a ladder
-     score), the stage seconds printed; each violation fixture through
-     the gate's `main` with no `--device` exits 1 on the card under its
-     rule; (ak) a clean medical-8 run's
+     score), the certificate count and the stage seconds printed; eight
+     certificates with their range probes traced on the card (FakeTensors
+     on CUDA, no launch) equal to the CPU traces string for string,
+     refuted points included; each violation fixture through the gate's
+     `main` with no `--device` exits 1 on the card under its rule, the
+     loop-overflow fixture citing the carried `add`; (ak) the pre-flight
+     of medical-8 and hhe-smoke from cold certificate caches, its seconds
+     printed; a clean medical-8 run's
      metrics carry analysis.violations = 0, an over-headroom packing (b=16,
      k=16) is refused with AnalysisError by `run_experiment` and with
      "hefl-lint: ..." by the CLI, before any kernel launches.
@@ -3339,14 +3345,57 @@ def gate_run() -> None:
     rank = {"certificate": 0, "finding": 1, "summary": 2}
     summary = lines[-1] if lines else {}
     stages = {s["stage"]: s for s in summary.get("stages", [])}
-    log(f"  (aj) gate process {wall:.3f} s: {kinds.count('certificate')} certificates, "
-        f"{kinds.count('finding')} findings; stage seconds "
-        f"{json.dumps({k: v['seconds'] for k, v in stages.items()})}")
+    certs = [line for line in lines if line["type"] == "certificate"]
+    # The interpreter's certificates carry its proven intervals (the loop
+    # invariants and the lazy sum's bound), not restated closed forms.
+    proven = [c for c in certs if " ⊆ " in c["summary"] or " stays in [" in c["summary"]]
+    log(f"  (aj) gate process {wall:.3f} s: {kinds.count('certificate')} certificates "
+        f"({len(proven)} from the interval interpreter), {kinds.count('finding')} findings; "
+        f"range certification stage {stages.get('range certification', {}).get('seconds')} s; "
+        f"stage seconds {json.dumps({k: v['seconds'] for k, v in stages.items()})}")
     if (kinds != sorted(kinds, key=rank.__getitem__) or kinds.count("summary") != 1
             or kinds[-1] != "summary" or summary.get("schema") != 1 or not summary.get("ok")
-            or summary.get("violations") != 0
+            or summary.get("violations") != 0 or not certs or len(proven) != len(certs)
+            or "range certification" not in stages
             or any(stage not in stages for stage in GATE_COVERAGE_STAGES)):
         raise AssertionError(f"(aj) the gate's JSON lines are off: {lines[-3:]}")
+
+
+def certificate_runs() -> None:
+    """Phase 15 (aj): the interval interpreter's certificates with their
+    probes traced on the card (FakeTensors on CUDA: nothing launches) equal
+    the CPU traces string for string, at the default ring and at a refuted
+    packing (k + 1) and gadget (an oversized prime)."""
+    from hefl_tpu_torch.analysis import cli as gate
+    from hefl_tpu_torch.analysis import ranges
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.ckks.quantize import max_interleave
+
+    q, p, w, d = gate._default_ring()
+    k = max_interleave(q, 8, 8, gate.GRID_GUARD)
+    points = [
+        ("aggregation", ranges.certify_aggregation, (p,), True),
+        ("fold-tree", ranges.certify_fold_tree, (p,), True),
+        ("inference", ranges.certify_inference, (p, w, d), True),
+        ("keyswitch", ranges.certify_keyswitch, (p, w, d), True),
+        ("packing", ranges.certify_packing, (q, 8, k, 8, gate.GRID_GUARD), True),
+        ("packing k+1", ranges.certify_packing, (q, 8, k + 1, 8, gate.GRID_GUARD), False),
+        ("transciphering", ranges.certify_transciphering, (q, 8, k, 8, gate.GRID_GUARD), True),
+        ("keyswitch p>2**62", ranges.certify_keyswitch, ((1 << 62) + 135, 9, 7), False),
+    ]
+    cuda_ntt.reset_launch_counts()
+    t0 = time.perf_counter()
+    for label, certify, args, ok in points:
+        on_card = certify(*args, device="cuda")
+        on_cpu = certify(*args, device="cpu")
+        if on_card.ok != ok or on_card.summary() != on_cpu.summary():
+            raise AssertionError(f"(aj) {label}: {on_card.summary()[:300]}")
+        log(f"  (aj) {label} traced on the card: {on_card.summary()[:150]}...")
+    launched = sum(cuda_ntt.launch_counts().values())
+    log(f"  (aj) {len(points)} certificates traced on the card and the CPU in "
+        f"{time.perf_counter() - t0:.3f} s, equal string for string; port launches {launched}")
+    if launched:
+        raise AssertionError(f"(aj) tracing launched {launched} port kernels")
 
 
 def fixture_runs() -> None:
@@ -3367,12 +3416,18 @@ def fixture_runs() -> None:
             out, t0 = io.StringIO(), time.perf_counter()
             with contextlib.redirect_stdout(out):
                 rc = gate.main(["--fixture", str(path), "--json"])
-            found = [line["rule"] for line in map(json.loads, out.getvalue().splitlines())
+            lines = [line for line in map(json.loads, out.getvalue().splitlines())
                      if line["type"] == "finding"]
+            found = [line["rule"] for line in lines]
             log(f"  (aj) fixture {path.name} on {resolve_device()}: exit {rc}, findings "
                 f"{found} [{time.perf_counter() - t0:.3f} s]")
             if rc != 1 or not found or set(found) != {rule}:
                 raise AssertionError(f"(aj) {path.name} ({rule}): exit {rc}, findings {found}")
+            if rule == "loop-overflow":
+                # The loop fixpoint's finding cites the carried op.
+                log(f"  (aj) {path.name}: {lines[0]['message']}")
+                if not lines[0]["message"].startswith("`add` (eqn "):
+                    raise AssertionError(f"(aj) {path.name}: {lines[0]['message']}")
     finally:
         os.environ.clear()
         os.environ.update(env)
@@ -3388,6 +3443,18 @@ def preflight_runs(device) -> tuple[dict, dict]:
     from hefl_tpu_torch.experiment import run_experiment
     from hefl_tpu_torch.fl.config import PackingConfig
 
+    from hefl_tpu_torch.analysis import ranges
+    from hefl_tpu_torch.presets import PRESETS as presets
+
+    # The pre-flight from cold caches: its certificates trace their probes.
+    for certify in (ranges.certify_aggregation, ranges.certify_fold_inductive,
+                    ranges.certify_packing, ranges.certify_transciphering):
+        certify.cache_clear()
+    for name in ("medical-8", "hhe-smoke"):
+        t0 = time.perf_counter()
+        report = analysis.check_experiment(presets[name])
+        log(f"  (ak) pre-flight of {name} from cold caches: {time.perf_counter() - t0:.3f} s, "
+            f"{sum(c is not None for c in report.values())} certificates")
     out, _, run, _ = drive("ak, medical-8", cut("medical-8", 1, 1), 1, device)
     violations = out["obs"]["metrics"].get("analysis.violations")
     bad = cut("medical-8", 1, 1, packing=PackingConfig(bits=16, interleave=16))
@@ -3425,6 +3492,7 @@ def results_gate_runs(device, smi: str) -> list[tuple[dict, dict]]:
     log(f"  phase 15 (ai) wall time: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
     gate_run()
+    certificate_runs()
     fixture_runs()
     log(f"  phase 15 (aj) wall time: {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()

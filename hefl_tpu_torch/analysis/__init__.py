@@ -1,10 +1,13 @@
 """Static analysis of the port's HE/FL pipeline, counterpart of
 `hefl_tpu.analysis`:
 
-  * :mod:`hefl_tpu_torch.analysis.ranges` — closed-form certificates of the
-    packed-aggregation headroom, the aggregation and streaming-fold no-wrap
-    bounds, the hybrid-HE transciphering and the serving programs, with
-    the JAX certificates' fields and summary heads;
+  * :mod:`hefl_tpu_torch.analysis.ranges` — interval abstract
+    interpretation over traced aten graphs (`eval_graph_ranges`, the
+    counterpart of `eval_jaxpr_ranges`), with loop fixpoints over
+    `while_loop` / `scan`: proves the packed-aggregation headroom, the
+    aggregation and streaming-fold no-wrap bounds, the hybrid-HE
+    transciphering and the serving programs for ALL inputs, or names the
+    overflowing op, with the JAX certificates' fields and messages;
   * :mod:`hefl_tpu_torch.analysis.lint` — forbidden-primitive,
     float-contamination, f64, host-callback (a device-to-host sync),
     donation (an in-place accumulator) and source-sweep rules over the aten
@@ -28,8 +31,11 @@ from hefl_tpu_torch.analysis.ranges import (
     AggregationCertificate,
     FoldCertificate,
     InferenceCertificate,
+    Interval,
     KeyswitchCertificate,
+    LoopReport,
     PackingCertificate,
+    RangeFinding,
     TranscipherCertificate,
     certified_max_interleave,
     certify_aggregation,
@@ -39,6 +45,7 @@ from hefl_tpu_torch.analysis.ranges import (
     certify_keyswitch,
     certify_packing,
     certify_transciphering,
+    eval_graph_ranges,
 )
 
 
@@ -156,6 +163,9 @@ __all__ = [
     "ranges",
     "lint",
     "coverage",
+    "Interval",
+    "RangeFinding",
+    "LoopReport",
     "PackingCertificate",
     "AggregationCertificate",
     "FoldCertificate",
@@ -170,6 +180,7 @@ __all__ = [
     "certify_keyswitch",
     "certify_transciphering",
     "certified_max_interleave",
+    "eval_graph_ranges",
     "LintFinding",
     "Allow",
     "ALLOWLIST",

@@ -17,11 +17,14 @@ findings:
   2. exact-integer regions — the modules' `exact_int_probes(device)`, run
      under the dispatch recorder: no remainder/divide, no float, no sync
      (`lint.UNPORTED_REGIONS` lists the JAX regions without a counterpart)
-  3. range certification — the closed forms at the default ring's largest
-     prime: `certify_aggregation` (the streaming fold inside it),
-     `certify_fold_inductive`, `certify_inference`, and `certify_packing`
-     over the supported b x C grid at auto-k, each point paired with its
-     `certify_transciphering` twin
+     and the range probes' `%` (`lint.lint_range_probes`, each pinned to
+     its probe by the allowlist)
+  3. range certification — the interval interpreter over the traced range
+     probes, at the default ring's largest prime: `certify_aggregation`
+     (the streaming fold inside it), `certify_fold_inductive`,
+     `certify_inference`, and `certify_packing` over the supported b x C
+     grid at auto-k, each point paired with its `certify_transciphering`
+     twin
   4. hot-path lint — the real round programs at tiny geometry (both
      fusion backends, the secure round included): integer divides, f64,
      host syncs inside an SGD step or the ciphertext sum
@@ -38,9 +41,11 @@ gate's line schema. Stage timings also print on the human path.
 
 Fixture protocol (`hefl_tpu_torch/analysis/fixtures/violation_*.py`): the
 module defines `RULE` (forbidden-primitive | float-contamination |
-missing-scope | broken-donation) and `build(device)` returning `(fn, args)`
-with its tensors on `device`; a broken-donation fixture may name its
-donated argument positions in `DONATE` (default: the first). A fixture
+missing-scope | broken-donation | loop-overflow) and `build(device)`
+returning `(fn, args)` with its tensors on `device`; a broken-donation
+fixture may name its donated argument positions in `DONATE` (default: the
+first). A loop-overflow fixture is traced and range-analysed at its
+arguments' concrete intervals: the finding cites the carried op. A fixture
 runs on the device the tree gate would: CUDA unless `--device` says
 otherwise.
 """
@@ -97,8 +102,15 @@ def run_fixture(path: str, device) -> list:
     elif rule == "broken-donation":
         found = lint.check_donation(fn, tuple(args), name, donate=getattr(mod, "DONATE", (0,)))
     elif rule == "loop-overflow":
-        raise SystemExit(f"{path}: rule loop-overflow needs the interval interpreter over "
-                         "traced graphs, which the port does not have yet")
+        # Trace and range-analyse: a loop-carried integer that escapes its
+        # carrier only after enough iterations is invisible to the per-op
+        # lint rules; the loop fixpoint finds it and cites the carried op.
+        from hefl_tpu_torch.analysis import ranges
+
+        res = ranges.eval_graph_ranges(ranges.trace_graph(fn, tuple(args)),
+                                       [ranges._array_interval(a) for a in args])
+        found = [lint.LintFinding(rule="loop-overflow", where=name, message=f.message)
+                 for f in res.findings]
     else:
         raise SystemExit(f"{path}: unknown fixture RULE {rule!r}")
     # The fixture contract: its seeded violation must fire under ITS rule.
@@ -131,24 +143,26 @@ def _cert_record(kind: str, cert) -> dict:
     return rec
 
 
-def _certificates(report: GateReport, progress) -> list:
+def _certificates(report: GateReport, progress, device="cpu") -> list:
+    """Stage 3: the certificates, their probes traced on `device`."""
     from hefl_tpu_torch.analysis import ranges
     from hefl_tpu_torch.ckks.quantize import max_interleave
 
     got = []
+    dev = str(device)
 
     def record(kind, cert):
         report.certificates.append(_cert_record(kind, cert))
         got.extend(cert.findings)
 
     q, max_prime, ksk_w, ksk_d = _default_ring()
-    record("aggregation", ranges.certify_aggregation(max_prime))
+    record("aggregation", ranges.certify_aggregation(max_prime, device=dev))
     # The fold's findings are already in the aggregation certificate (the
     # same cached proof): only the standalone record is added, so a broken
     # fold counts once.
     report.certificates.append(_cert_record(
-        "fold-inductive", ranges.certify_fold_inductive(max_prime)))
-    record("inference", ranges.certify_inference(max_prime, ksk_w, ksk_d))
+        "fold-inductive", ranges.certify_fold_inductive(max_prime, device=dev)))
+    record("inference", ranges.certify_inference(max_prime, ksk_w, ksk_d, device=dev))
     points = 0
     for bits in GRID_BITS:
         for clients in GRID_CLIENTS:
@@ -156,9 +170,10 @@ def _certificates(report: GateReport, progress) -> list:
                 k = max_interleave(q, bits, clients, GRID_GUARD)
             except ValueError:
                 continue  # no headroom at all: correctly unsupported
-            record("packing", ranges.certify_packing(q, bits, k, clients, GRID_GUARD))
-            record("transciphering",
-                   ranges.certify_transciphering(q, bits, k, clients, GRID_GUARD))
+            record("packing", ranges.certify_packing(q, bits, k, clients, GRID_GUARD,
+                                                     device=dev))
+            record("transciphering", ranges.certify_transciphering(
+                q, bits, k, clients, GRID_GUARD, device=dev))
             points += 1
     progress(f"    packing grid: {points} (b, C) points certified "
              "(+ transciphering twin each)")
@@ -181,9 +196,10 @@ def run_tree_gate(fast: bool = False, progress=print, device="cpu") -> GateRepor
         progress(f"  {label}: {len(got)} finding(s) [{seconds:.1f}s]")
 
     stage("source sweep", lint.source_sweep)
-    stage("exact-int regions", lambda: lint.lint_exact_regions(device=device))
+    stage("exact-int regions", lambda: lint.lint_exact_regions(device=device)
+          + lint.lint_range_probes(device=device))
     progress(f"    not ported (no counterpart): {json.dumps(lint.UNPORTED_REGIONS)}")
-    stage("range certification", lambda: _certificates(report, progress))
+    stage("range certification", lambda: _certificates(report, progress, device))
     stage("hot-path lint [vmap+secure]",
           lambda: lint.lint_round_programs(fusion="vmap", secure=True, device=device))
     stage("hot-path lint [fused]",

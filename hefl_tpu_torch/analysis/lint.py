@@ -34,8 +34,11 @@ Rules (each with a per-rule allowlist, see :data:`ALLOWLIST`):
 The kernels K1-K7 are launched through ctypes and never reach the
 dispatcher, so on the card this lint checks the PyTorch glue around them;
 on the CPU the same regions run the kernels' plain versions, so it checks
-those too. `lint_exact_regions` + `lint_round_programs` +
-`check_tree_donations` + `source_sweep` are the whole-tree gates
+those too. The range probes `analysis.ranges` traces are checked on their
+traced graphs (`lint_range_probes`: forbidden primitives, each probe's `%`
+allowlisted at that probe only). `lint_exact_regions` +
+`lint_range_probes` + `lint_round_programs` + `check_tree_donations` +
+`source_sweep` are the whole-tree gates
 `python -m hefl_tpu_torch.analysis` runs; `lint_fn` is the building block
 the violation fixtures exercise.
 """
@@ -135,6 +138,74 @@ ALLOWLIST: tuple[Allow, ...] = (
             "package's host-side numpy `(a + b) % p`, allowlisted there as "
             "fl.stream.accumulator_fold / fold_loop); the H100 has no TPU "
             "divide constraint"
+        ),
+    ),
+    # The range probes (`analysis.ranges`' certifiers trace them; never run
+    # on a device) mirror canonical-residue arithmetic with `%` standing in
+    # for the Montgomery REDC contract. `lint_range_probes` walks their
+    # traced graphs; each entry blesses the `%` of ONE probe.
+    Allow(
+        region="ranges:*",
+        rule="forbidden-primitive",
+        primitive="remainder",
+        source="*/fl/stream.py:fold_loop_probe",
+        reason=(
+            "fold_loop_probe: the arrival-loop form of OnlineAccumulator._add's "
+            "(row + acc) % p, traced so the inductive invariant proof analyses "
+            "the real loop shape (the JAX package's fl.stream.fold_loop entry)"
+        ),
+    ),
+    Allow(
+        region="ranges:*",
+        rule="forbidden-primitive",
+        primitive="remainder",
+        source="*/he_inference.py:rotation_ladder_range_probe",
+        reason=(
+            "rotation_ladder_range_probe mirrors the serving ladder's "
+            "canonical-residue arithmetic with `%` standing in for the "
+            "Montgomery REDC contract; traced for range analysis, never run. "
+            "The real ladder (rotate_and_sum_scan) is linted as the "
+            "he_inference.rotate_ladder region (the JAX package's entry)"
+        ),
+    ),
+    Allow(
+        region="ranges:*",
+        rule="forbidden-primitive",
+        primitive="remainder",
+        source="*/ckks/ops.py:keyswitch_gadget_probe",
+        reason=(
+            "keyswitch_gadget_probe mirrors K5's digit x key accumulation "
+            "with `%` standing in for the Montgomery REDC contract; traced "
+            "for range analysis, never run. The real key-switch (K5 and its "
+            "plain version) is division-free and bitwise-tested (the JAX "
+            "package's ckks.ops.keyswitch_gadget entry)"
+        ),
+    ),
+    Allow(
+        region="ranges:*",
+        rule="forbidden-primitive",
+        primitive="remainder",
+        source="*/ckks/ops.py:hoisted_gadget_probe",
+        reason=(
+            "hoisted_gadget_probe mirrors the hoisted sweep (uncentred digits, "
+            "digit x pre-permuted key accumulation, the output gather) with "
+            "`%` standing in for REDC, certifying the 2**w <= p digit width; "
+            "traced, never run. The real sweep (K6 and its plain version) is "
+            "division-free and bitwise-tested (the JAX package's "
+            "ckks.ops.hoisted_gadget entry)"
+        ),
+    ),
+    Allow(
+        region="ranges:*",
+        rule="forbidden-primitive",
+        primitive="remainder",
+        source="*/he_inference.py:mlp_bsgs_range_probe",
+        reason=(
+            "mlp_bsgs_range_probe mirrors the composed two-layer circuit "
+            "(hoisted sweep, square, relinearisation, rescale, sweep) with `%` "
+            "standing in for REDC; traced for range analysis only. The real "
+            "program is linted as the he_inference.mlp_compose region (the JAX "
+            "package's entry)"
         ),
     ),
     Allow(
@@ -330,6 +401,70 @@ def lint_exact_regions(allow: tuple[Allow, ...] = ALLOWLIST, device="cpu") -> li
     findings: list[LintFinding] = []
     for region, (fn, args) in exact_int_regions(device).items():
         findings.extend(lint_fn(fn, args, region, exact_int=True, allow=allow))
+    return findings
+
+
+def range_probes(device="cpu") -> dict[str, tuple[Callable, tuple]]:
+    """The nine range probes `analysis.ranges`' certifiers trace, at a
+    representative geometry (p = 2**27 - 39), on `device`, keyed
+    "ranges:<module>.<probe>"."""
+    from hefl_tpu_torch import he_inference
+    from hefl_tpu_torch.ckks import ops, quantize
+    from hefl_tpu_torch.fl import secure, stream
+    from hefl_tpu_torch.hhe import cipher
+
+    p = 2**27 - 39
+    probes = {
+        "ckks.quantize.packing_sum_probe": quantize.packing_sum_probe(8, 2, 9, 17, 2, device),
+        "fl.secure.lazy_sum_chunk_probe": secure.lazy_sum_chunk_probe(32, device),
+        "fl.stream.fold_loop_probe": stream.fold_loop_probe(p, device),
+        "ckks.ops.keyswitch_gadget_probe": ops.keyswitch_gadget_probe(p, 5, 6, device),
+        "ckks.ops.hoisted_gadget_probe": ops.hoisted_gadget_probe(p, 5, 6, device),
+        "he_inference.rotation_ladder_range_probe":
+            he_inference.rotation_ladder_range_probe(p, 9, 3, device),
+        "he_inference.mlp_bsgs_range_probe": he_inference.mlp_bsgs_range_probe(p, 5, 6, device),
+        "hhe.cipher.transcipher_sum_probe": cipher.transcipher_sum_probe(8, 2, 9, 17, 2, device),
+        "hhe.cipher.keystream_counter_probe": cipher.keystream_counter_probe(device),
+    }
+    return {f"ranges:{name}": fa for name, fa in probes.items()}
+
+
+def _graph_ops(gm):
+    """Every aten op of a traced graph and of its loop / branch sub-graphs."""
+    for node in gm.graph.nodes:
+        if node.op == "get_attr":
+            sub = gm
+            for part in node.target.split("."):
+                sub = getattr(sub, part)
+            if isinstance(sub, torch.fx.GraphModule):
+                yield from _graph_ops(sub)
+        elif node.op == "call_function" and isinstance(node.target, torch._ops.OpOverload):
+            yield node
+
+
+def lint_range_probes(allow: tuple[Allow, ...] = ALLOWLIST, device="cpu") -> list[LintFinding]:
+    """The forbidden-primitive rule over the range probes' traced graphs:
+    a probe's `%` passes only through the allowlist entry pinned to that
+    probe (its defining function), so a remainder slipped into any other
+    probe fails."""
+    from hefl_tpu_torch.analysis.ranges import trace_graph
+
+    findings: list[LintFinding] = []
+    for region, (fn, args) in range_probes(device).items():
+        code = fn.__code__
+        site = (f"{code.co_filename.replace(os.sep, '/')}:"
+                f"{fn.__qualname__.split('.<locals>')[0]}")
+        for node in _graph_ops(trace_graph(fn, args)):
+            prim = _op_name(node.target)
+            if prim not in FORBIDDEN:
+                continue
+            size = int(node.meta["val"].numel())
+            if _allowed(allow, region, "forbidden-primitive", prim, size, lambda: [site]):
+                continue
+            findings.append(LintFinding(
+                rule="forbidden-primitive", where=region,
+                message=f"`{prim}` in the traced probe ({site.rsplit('/', 1)[-1]})",
+            ))
     return findings
 
 
@@ -535,6 +670,8 @@ __all__ = [
     "lint_fn",
     "exact_int_regions",
     "lint_exact_regions",
+    "range_probes",
+    "lint_range_probes",
     "lint_round_programs",
     "check_donation",
     "check_tree_donations",

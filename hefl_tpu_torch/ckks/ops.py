@@ -274,6 +274,90 @@ def hoisted_rotations(ctx: CkksContext, ct: Ciphertext, steps, gks: dict) -> Cip
     return Ciphertext(c0=r0, c1=r1, scale=ct.scale)
 
 
+def keyswitch_gadget_probe(prime: int, digit_bits: int, num_digits: int, device="cpu"):
+    """The gadget key-switch's carrier arithmetic as a traceable mirror
+    (`analysis.ranges.certify_keyswitch`).
+
+    Per RNS limb, what K5 and its plain version compute on the gadget
+    tensors: base-2**w digit extraction from the canonical representative,
+    digit centring, the digit x key inner product over every component (the
+    constant-1 correction row consuming the last) and the modular tree-sum,
+    on the int64 carrier with `%` standing in for the Montgomery REDC
+    canonical-residue contract (the kernels themselves are held bitwise
+    against their plain versions). The NTT between decompose and inner
+    product is range-preserving and elided. The raw digits are returned so
+    the certificate checks them against both 2**w and [0, p-1]: the
+    centring's sub_mod assumes canonical digits.
+    -> (fn, example_args) on `device`."""
+    p = int(prime)
+    w = int(digit_bits)
+    half = 1 << max(w - 1, 0)
+    mask = (1 << w) - 1
+    m = 4  # coefficients per probe limb; ranges are per element anyway
+
+    def probe(coeff, key_b, key_a):
+        digits = []
+        acc0 = torch.zeros_like(coeff)
+        acc1 = torch.zeros_like(coeff)
+        for k in range(int(num_digits)):
+            digit = (coeff >> (w * k)) & mask
+            digits.append(digit)
+            centered = (digit + (p - half)) % p    # canonical
+            acc0 = (acc0 + centered * key_b) % p
+            acc1 = (acc1 + centered * key_a) % p
+        # The constant-1 correction digit consumes the last key row.
+        acc0 = (acc0 + key_b) % p
+        acc1 = (acc1 + key_a) % p
+        return torch.stack(digits), acc0, acc1
+
+    return probe, tuple(torch.zeros((m,), dtype=torch.int64, device=device) for _ in range(3))
+
+
+def hoisted_gadget_probe(prime: int, digit_bits: int, num_digits: int, device="cpu"):
+    """The hoisted rotation sweep's carrier arithmetic as a traceable mirror
+    (`analysis.ranges.certify_inference`).
+
+    Per RNS limb, what `hoisted_digits` + `hoisted_rotations_core` (K6)
+    compute: UNCENTERED base-2**w digits (no centring, no correction row),
+    then, in a `while_loop` over an abstract step count, the digit x
+    pre-permuted-key inner product, the c0 add and the eval-domain output
+    permutation (an `index_select` through the step's table), each step's
+    outputs folded into a carried accumulator, so the invariant holds for
+    ANY number of hoisted steps. The hoisted path skips centring, so its
+    digits must be canonical as extracted: the certificate checks them
+    against [0, p-1]. -> (fn, example_args) on `device`."""
+    from torch._higher_order_ops.while_loop import while_loop_op
+
+    p = int(prime)
+    w = int(digit_bits)
+    mask = (1 << w) - 1
+    m = 4  # coefficients per probe limb; ranges are per element anyway
+
+    def cond(remaining, a0, a1, *consts):
+        return remaining > 0
+
+    def body(remaining, a0, a1, digit_stack, c0, c1, key_b, key_a, perm):
+        k0 = torch.zeros_like(c0)
+        k1 = torch.zeros_like(c1)
+        for k in range(int(num_digits)):
+            k0 = (k0 + digit_stack[k] * key_b) % p
+            k1 = (k1 + digit_stack[k] * key_a) % p
+        r0 = torch.index_select((c0 + k0) % p, -1, perm)
+        r1 = torch.index_select(k1, -1, perm)
+        return remaining - 1, (a0 + r0) % p, (a1 + r1) % p
+
+    def probe(num_steps, c0, c1, key_b, key_a, perm):
+        digits = [(c1 >> (w * k)) & mask for k in range(int(num_digits))]
+        digit_stack = torch.stack(digits)
+        _, a0, a1 = while_loop_op(cond, body,
+                                  (num_steps, torch.zeros_like(c0), torch.zeros_like(c1)),
+                                  (digit_stack, c0, c1, key_b, key_a, perm))
+        return digit_stack, a0, a1
+
+    return probe, (torch.zeros((), dtype=torch.int64, device=device),
+                   *(torch.zeros((m,), dtype=torch.int64, device=device) for _ in range(5)))
+
+
 def exact_int_probes(device="cpu") -> dict:
     """The gadget key-switch (K5 and its glue) and the hoisted sweep (the
     uncentered digits, K1, K6 and the output gather) as declared

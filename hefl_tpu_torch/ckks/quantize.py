@@ -242,6 +242,48 @@ def exact_int_probes(device="cpu") -> dict:
     }
 
 
+def packing_sum_probe(bits: int, k: int, fbits: int, guard: int, clients: int,
+                      device="cpu"):
+    """The packed-aggregation integer pipeline as one traceable function
+    (`analysis.ranges.certify_packing`).
+
+    Mirrors in plaintext integers what the encrypted path computes:
+    `quantize` (clip to ±qmax), the offset to non-negative codes, each of
+    the k fields shifted to its bit offset (`interleave_fields`' value on
+    v = hi*2**31 + lo), the FOLD over C clients as a `scan` (one arrival at
+    a time, the loop the lazy sum and the online fold iterate), plus the
+    accumulated decrypt noise. Outputs what the certificate bounds:
+
+        (field_sums [k, m], noise_sum [m], packed_total [m])
+
+    The C-client sums are loop carries, so the carry-free proof is the loop
+    machinery's. A shift offset past 63 (an unsafe geometry) still traces:
+    the analysis reports the shift as the offending op.
+    -> (fn, example_args) on `device`."""
+    from torch._higher_order_ops.scan import scan_op
+
+    qm = qmax(bits)
+    m = 2  # coefficients per probe slab; ranges are per element anyway
+
+    def probe(x, noise):
+        q = quantize(x, 1.0, bits)                     # int32 in [-qm, qm]
+        u = (q + qm).to(torch.int64)                   # [C, k, m] >= 0
+
+        def fold(fs, ns, tot, u_c, n_c):               # carries, then [k, m], [m]
+            packed_c = torch.zeros((m,), dtype=torch.int64, device=u_c.device)
+            for j in range(k):
+                packed_c = packed_c + (u_c[j] << (guard + j * fbits))
+            return [fs + u_c, ns + n_c, tot + packed_c + n_c]
+
+        zk = torch.zeros((k, m), dtype=torch.int64, device=x.device)
+        zm = torch.zeros((m,), dtype=torch.int64, device=x.device)
+        return tuple(scan_op(fold, [zk, zm, zm.clone()], [u, noise], ()))
+
+    x = torch.zeros((int(clients), k, m), dtype=torch.float32, device=device)
+    noise = torch.zeros((int(clients), m), dtype=torch.int64, device=device)
+    return probe, (x, noise)
+
+
 def packed_value_int64(hi, lo) -> np.ndarray:
     """(hi, lo) words -> the packed integer as int64 (host)."""
     hi = hi.cpu().numpy() if isinstance(hi, torch.Tensor) else np.asarray(hi)

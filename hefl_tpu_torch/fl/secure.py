@@ -184,6 +184,18 @@ def exact_int_probes(device="cpu") -> dict:
     return {"fl.secure.lazy_sum_mod": (lambda v: lazy_sum_mod(v, p), (x,))}
 
 
+def lazy_sum_chunk_probe(chunk: int = 32, device="cpu"):
+    """Range probe (`analysis.ranges.certify_aggregation`): the int64 sum
+    inside `lazy_sum_mod` of `chunk` canonical int32 residues before its one
+    reduction, so the no-wrap proof is the sum's bound against int64.
+    -> (fn, example_args) on `device`."""
+
+    def probe(x):
+        return torch.sum(x.to(torch.int64), dim=0)
+
+    return probe, (torch.zeros((int(chunk), 8), dtype=torch.int32, device=device),)
+
+
 @scoped(scopes.PSUM_AGGREGATE)
 def aggregate_encrypted(ctx: CkksContext, cts: Ciphertext) -> Ciphertext:
     """Homomorphic sum of a [C, n_ct, L, N] ciphertext stack over clients."""

@@ -242,6 +242,33 @@ def exact_int_probes(device="cpu") -> dict:
     }
 
 
+def fold_loop_probe(prime: int, device="cpu"):
+    """The online fold as an unbounded arrival loop
+    (`analysis.ranges.certify_fold_inductive`): a `while_loop` folding one
+    canonical row per arrival, `OnlineAccumulator._add`'s int64
+    `(row + acc) % p`, with the arrival count an abstract input, so the
+    invariant [0, p-1] is proven inductively (base: the canonical first
+    upload; step: this body) for ANY arrival count. The count-down counter
+    makes the loop's post-fixpoint immediate for the analysis.
+    -> (fn, example_args) on `device`."""
+    from torch._higher_order_ops.while_loop import while_loop_op
+
+    p = torch.tensor([[int(prime)]], dtype=torch.int64, device=device)
+
+    def cond(remaining, a, row, p):
+        return remaining > 0
+
+    def body(remaining, a, row, p):
+        return remaining - 1, (row + a) % p
+
+    def probe(count, acc, row):
+        return while_loop_op(cond, body, (count, acc), (row, p))[1]
+
+    return probe, (torch.zeros((), dtype=torch.int64, device=device),
+                   torch.zeros((1, 8), dtype=torch.int64, device=device),
+                   torch.zeros((1, 8), dtype=torch.int64, device=device))
+
+
 def ct_hash(c0, c1) -> str:
     """sha256 over the uint32 bytes of c0 then c1 — the bitwise-equality
     currency of the streaming gates and the journal's content hashes (the

@@ -967,6 +967,127 @@ class MlpScorer:
         return self._run(ct_xs)
 
 
+def rotation_ladder_range_probe(prime: int, digit_bits: int, num_digits: int,
+                                device="cpu"):
+    """The rotate-and-sum serving ladder's carrier arithmetic as ONE
+    traceable loop (`analysis.ranges.certify_inference`).
+
+    Per ladder stage, what `rotate_and_sum_scan` computes on each RNS limb:
+    the automorphism (an `index_select` through the rotation table plus the
+    sign flip, taken at its worst case `(p - x) mod p`), the gadget
+    key-switch (base-2**w digits, centring, the digit x key inner product
+    summed mod p) and the rotate+add re-canonicalisation, as a `while_loop`
+    over an ABSTRACT stage count, so the carried (c0, c1) invariant is
+    proven for any ladder depth. `%` stands in for the Montgomery REDC
+    contract on the int64 carrier. -> (fn, example_args) on `device`."""
+    from torch._higher_order_ops.while_loop import while_loop_op
+
+    p = int(prime)
+    w = int(digit_bits)
+    half = 1 << max(w - 1, 0)
+    mask = (1 << w) - 1
+    m = 4  # coefficients per probe limb; ranges are per element anyway
+
+    def cond(remaining, c0, c1, *consts):
+        return remaining > 0
+
+    def body(remaining, c0, c1, key_b, key_a, src):
+        # Rotation: gather through the automorphism table, sign flip at its
+        # worst case (canonical-preserving).
+        g0 = torch.index_select(c0, -1, src)
+        g1 = torch.index_select(c1, -1, src)
+        pc0 = (p - g0) % p
+        pc1 = (p - g1) % p
+        # Gadget key-switch: digit-decompose pc1, centre, inner-product
+        # against the key tensors, modular tree-sum.
+        ks0 = torch.zeros_like(c0)
+        ks1 = torch.zeros_like(c1)
+        for kk in range(int(num_digits)):
+            digit = (pc1 >> (w * kk)) & mask       # [0, 2**w - 1]
+            centered = (digit + (p - half)) % p    # canonical
+            ks0 = (ks0 + centered * key_b) % p
+            ks1 = (ks1 + centered * key_a) % p
+        return remaining - 1, (pc0 + ks0) % p, ks1
+
+    def probe(depth, c0, c1, key_b, key_a, src):
+        _, c0, c1 = while_loop_op(cond, body, (depth, c0, c1), (key_b, key_a, src))
+        return c0, c1
+
+    return probe, (torch.zeros((), dtype=torch.int64, device=device),
+                   *(torch.zeros((m,), dtype=torch.int64, device=device) for _ in range(5)))
+
+
+def mlp_bsgs_range_probe(prime: int, digit_bits: int, num_digits: int, device="cpu"):
+    """The two-layer composed MLP circuit's carrier arithmetic as a
+    traceable mirror (`analysis.ranges.certify_inference`).
+
+    Per RNS limb, what `MlpScorer`'s program computes: a layer-1 hoisted
+    sweep (uncentered shared digits, digit x key products, the eval
+    permutation) as a `while_loop` over an abstract step count, the square's
+    Montgomery-contract products (`ct_mul`'s d0/d1/d2 at canonical inputs),
+    the relinearisation's centred gadget key-switch of d2, the rescale's
+    (x - rep) * p_last^-1 mod p at a canonical stand-in for the dropped
+    limb, and a layer-2 hoisted sweep. Both sweeps are abstract-depth
+    loops, so the invariants hold for any plan geometry; `%` stands in for
+    REDC on the int64 carrier. -> (fn, example_args) on `device`."""
+    from torch._higher_order_ops.while_loop import while_loop_op
+
+    p = int(prime)
+    w = int(digit_bits)
+    half = 1 << max(w - 1, 0)
+    mask = (1 << w) - 1
+    m = 4  # coefficients per probe limb; ranges are per element anyway
+
+    def cond(remaining, a0, a1, *consts):
+        return remaining > 0
+
+    def body(remaining, a0, a1, x0, x1, key_b, key_a, perm, *digits):
+        k0 = torch.zeros_like(x0)
+        k1 = torch.zeros_like(x1)
+        for k in range(int(num_digits)):
+            k0 = (k0 + digits[k] * key_b) % p
+            k1 = (k1 + digits[k] * key_a) % p
+        r0 = torch.index_select((x0 + k0) % p, -1, perm)
+        r1 = torch.index_select(k1, -1, perm)
+        return remaining - 1, (a0 + r0) % p, (a1 + r1) % p
+
+    def hoisted_sweep(steps, x0, x1, key_b, key_a, perm):
+        digits = [((x1 >> (w * k)) & mask) for k in range(int(num_digits))]
+        _, a0, a1 = while_loop_op(cond, body,
+                                  (steps, torch.zeros_like(x0), torch.zeros_like(x1)),
+                                  (x0, x1, key_b, key_a, perm, *digits))
+        return a0, a1
+
+    def probe(steps1, steps2, c0, c1, key_b, key_a, perm, rs_inv):
+        # Layer 1: hoisted sweep.
+        h0, h1 = hoisted_sweep(steps1, c0, c1, key_b, key_a, perm)
+        # Square activation: ct_mul's d0/d1/d2 Montgomery-contract mirror.
+        d0 = (h0 * h0) % p
+        d1 = ((h0 * h1) % p + (h1 * h0) % p) % p
+        d2 = (h1 * h1) % p
+        # Relinearisation: the centred gadget key-switch of d2.
+        k0 = torch.zeros_like(d2)
+        k1 = torch.zeros_like(d2)
+        for k in range(int(num_digits)):
+            digit = (d2 >> (w * k)) & mask
+            centered = (digit + (p - half)) % p
+            k0 = (k0 + centered * key_b) % p
+            k1 = (k1 + centered * key_a) % p
+        s0 = (d0 + (k0 + key_b) % p) % p
+        s1 = (d1 + (k1 + key_a) % p) % p
+        # Rescale: (x - rep) * p_last^-1 mod p, rep canonical (the dropped
+        # limb's representative re-embedded under the head prime).
+        rep = torch.index_select(s0, -1, perm)
+        s0 = (((s0 + (p - rep)) % p) * rs_inv) % p
+        s1 = (((s1 + (p - rep)) % p) * rs_inv) % p
+        # Layer 2: hoisted sweep on the rescaled hidden ciphertext.
+        return hoisted_sweep(steps2, s0, s1, key_b, key_a, perm)
+
+    return probe, (torch.zeros((), dtype=torch.int64, device=device),
+                   torch.zeros((), dtype=torch.int64, device=device),
+                   *(torch.zeros((m,), dtype=torch.int64, device=device) for _ in range(6)))
+
+
 def exact_int_probes(device="cpu") -> dict:
     """The serving side's declared exact-integer regions, on a tiny ring
     (n = 256, 128 slots): the rotate-and-sum ladder (its seven stages, each

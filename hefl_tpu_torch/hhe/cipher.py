@@ -200,6 +200,93 @@ def exact_int_probes(device="cpu") -> dict:
     }
 
 
+def transcipher_sum_probe(bits: int, k: int, fbits: int, guard: int, clients: int,
+                          device="cpu"):
+    """The transciphered-aggregation integer pipeline as one traceable
+    function (`analysis.ranges.certify_transciphering`).
+
+    Mirrors in plaintext integers what the hybrid-HE path computes under
+    encryption: quantize, offset, interleave into the packed value v per
+    client; the cipher's wrap carry gamma in {0, 1} (an abstracted INPUT:
+    its value depends on the secret keystream, its range does not); the
+    transciphered per-client plaintext v - 2**62 * gamma; the C-client sum
+    as a `scan` fold plus decrypt noise. Outputs what the certificate
+    bounds:
+
+        (field_sums [k, m], noise_sum [m],
+         transciphered_total [m],   # sum(v) - 2**62*Gamma + E: the q/2 wall
+         recovered_shifted [m])     # sum(v) + E + 2**(guard-1): the window
+
+    -> (fn, example_args) on `device`."""
+    from torch._higher_order_ops.scan import scan_op
+
+    from hefl_tpu_torch.ckks import quantize
+
+    qm = quantize.qmax(bits)
+    m = 2
+    domain = 1 << HHE_DOMAIN_BITS
+
+    def probe(x, gamma, noise):
+        q = quantize.quantize(x, 1.0, bits)            # int32 [-qm, qm]
+        u = (q + qm).to(torch.int64)                   # [C, k, m] >= 0
+
+        def fold(fs, ns, tot, rec, u_c, g_c, n_c):    # carries, then [k, m], [m], [m]
+            packed_c = torch.zeros((m,), dtype=torch.int64, device=u_c.device)
+            for j in range(k):
+                packed_c = packed_c + (u_c[j] << (guard + j * fbits))
+            trans_c = packed_c - g_c * domain          # per-client w - z
+            return [fs + u_c, ns + n_c, tot + trans_c + n_c, rec + packed_c + n_c]
+
+        zk = torch.zeros((k, m), dtype=torch.int64, device=x.device)
+        zm = torch.zeros((m,), dtype=torch.int64, device=x.device)
+        field_sums, noise_sum, total, rec = scan_op(
+            fold, [zk, zm, zm.clone(), zm.clone()], [u, gamma, noise], ())
+        recovered = rec + (1 << max(guard - 1, 0))
+        return field_sums, noise_sum, total, recovered
+
+    x = torch.zeros((int(clients), k, m), dtype=torch.float32, device=device)
+    gamma = torch.zeros((int(clients), m), dtype=torch.int64, device=device)
+    noise = torch.zeros((int(clients), m), dtype=torch.int64, device=device)
+    return probe, (x, gamma, noise)
+
+
+def keystream_counter_probe(device="cpu"):
+    """The counter-mode round loop as one traceable function
+    (`analysis.ranges.certify_transciphering`'s loop leg).
+
+    Every round increments the round counter (wrapping mod 2**32 by design,
+    modelled as an explicit mask on an int64 carrier so the wrap is a
+    proven bound) and encrypts a fresh packed payload with fresh keystream
+    words through `add_packed_mod`, the port's word-pair carry add. Over an
+    ABSTRACT round count, the analysis proves that the counter stays in
+    [0, 2**32), that the carry add never wraps its int64 carrier and that
+    both output words stay below 2**31 (the packed (hi, lo) wire
+    invariant). The keystream derivation itself wraps by design and enters
+    as [0, 2**31) words, the only fact its masking exports.
+    -> (fn, example_args) on `device`."""
+    from torch._higher_order_ops.while_loop import while_loop_op
+
+    def cond(remaining, r, w_hi, w_lo, *consts):
+        return remaining > 0
+
+    def body(remaining, r, w_hi, w_lo, mask, v_hi, v_lo, z_hi, z_lo):
+        r = (r + 1) & mask                    # the mod-2**32 counter
+        w_hi, w_lo = add_packed_mod(v_hi, v_lo, z_hi, z_lo)
+        return remaining - 1, r, w_hi, w_lo
+
+    def probe(rounds, r0, mask, v_hi, v_lo, z_hi, z_lo):
+        _, r, w_hi, w_lo = while_loop_op(
+            cond, body, (rounds, r0, torch.zeros_like(v_hi), torch.zeros_like(v_lo)),
+            (mask, v_hi, v_lo, z_hi, z_lo))
+        return r, w_hi, w_lo
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int64, device=device)
+
+    return probe, (scalar(0), scalar(0), scalar(0xFFFFFFFF),
+                   *(torch.zeros((2, 8), dtype=torch.int32, device=device) for _ in range(4)))
+
+
 def hhe_center_mod(v: np.ndarray, guard: int) -> np.ndarray:
     """Recover the packed aggregate from the transciphered decode (host).
 

@@ -9,7 +9,8 @@ trained weights, which come from torch generators here: the tests hold it
 to its definition (the uploads it quantized), to the cohort it may touch,
 and the engine's records to the JAX engine's. The JAX engine's certifiers
 need `jax.experimental.enable_x64`, gone in JAX 0.9 (ROADMAP caveat R1):
-they are stubbed with monkeypatch.
+they are stubbed with monkeypatch, and run for real once through the
+`jax_x64` stand-in (tests/test_torch_ranges.py).
 """
 
 import dataclasses
@@ -41,6 +42,7 @@ from hefl_tpu_torch.fl.faults import FaultConfig
 from hefl_tpu_torch.models import create_model
 
 from test_torch_packing import _client_trees, _tree, _u, jax_spec
+from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 torch.set_num_threads(2)
 
@@ -212,9 +214,18 @@ def test_engine_residual_is_the_uploads_error_on_cohort_rows_only(monkeypatch):
 
 def test_engine_records_with_error_feedback_match_jax(monkeypatch):
     _stub_jax_certifiers(monkeypatch)
+    _ef_engines_match(2)
+
+
+def test_ef_engine_matches_jax_under_its_own_certifiers(jax_x64):
+    # One round, the JAX engine's set-up certifying the b = 4 EF geometry.
+    _ef_engines_match(1)
+
+
+def _ef_engines_match(rounds):
     setup = _setup()
     eng = stream.StreamEngine(StreamConfig(**S_KW), FaultConfig(**F_KW))
-    got = [sm for *_, sm, _ in _rounds(eng, setup, 2)]
+    got = [sm for *_, sm, _ in _rounds(eng, setup, rounds)]
     xs, ys = _data()
     jmodel = JSmallCNN(num_classes=10)
     jparams = jmodel.init(jax.random.key(0), jnp.zeros((1, 28, 28, 1)))["params"]

@@ -8,9 +8,10 @@ decrypted average's error. jax.random streams cannot be reproduced in
 torch, so two runs' histories are not compared number for number.
 
 The JAX side runs the tiny config of `tests/test_experiment.py` (N = 256).
-Its encrypted run stubs out the JAX package's pre-flight certifier, which
-needs `jax.experimental.enable_x64`, removed in JAX 0.9 (ROADMAP caveat
-R1); the run itself is unchanged.
+Its encrypted runs take the JAX package's pre-flight certifiers through the
+`jax_x64` stand-in (tests/test_torch_ranges.py) for the
+`jax.experimental.enable_x64` JAX 0.9 removed (ROADMAP caveat R1), so the
+JAX pre-flight really runs; the run itself is unchanged.
 """
 
 import ast
@@ -38,7 +39,7 @@ from hefl_tpu.fl import faults as jfaults
 from hefl_tpu.fl import loss as jloss
 from hefl_tpu.models import create_model as jcreate_model
 
-from hefl_tpu_torch import cli, convert, experiment, presets
+from hefl_tpu_torch import analysis, cli, convert, experiment, presets
 from hefl_tpu_torch.ckks import keys
 from hefl_tpu_torch.ckks.packing import PackSpec
 from hefl_tpu_torch.data import partition, synthetic
@@ -48,6 +49,8 @@ from hefl_tpu_torch.fl.config import TrainConfig
 from hefl_tpu_torch.fl.dp import DpConfig, epsilon_spent
 from hefl_tpu_torch.fl.faults import FaultConfig
 from hefl_tpu_torch.models import LogReg, SmallCNN, count_params, create_model
+
+from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 torch.set_num_threads(2)
 
@@ -355,13 +358,20 @@ KINDS = {
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
-def test_run_experiment_matches_jax_schema(kind, monkeypatch):
+def test_run_experiment_matches_jax_schema(kind, request):
     kw = KINDS[kind]
     if kind == "encrypted":
-        monkeypatch.setattr(janalysis, "check_experiment", lambda *a, **k: None)
+        request.getfixturevalue("jax_x64")
     jcfg, tcfg = _tiny(_J, **kw), _tiny(_T, **kw)
     want = jexp.run_experiment(jcfg, verbose=False)
     got = experiment.run_experiment(tcfg, verbose=False, device="cpu")
+    if kind == "encrypted":
+        # Both pre-flights ran, certified the same ring, and published no violation.
+        assert got["obs"]["metrics"]["analysis.violations"] == 0
+        assert want["obs"]["metrics"]["analysis.violations"] == 0
+        jreport, report = janalysis.check_experiment(jcfg), analysis.check_experiment(tcfg)
+        assert report["aggregation"].prime_bits == jreport["aggregation"].prime_bits
+        assert report["fold"] is jreport["fold"] is None
     assert len(got["history"]) == len(want["history"]) == jcfg.rounds
     for g, w in zip(got["history"], want["history"]):
         assert g.keys() == w.keys()
@@ -587,11 +597,11 @@ def _robust(pkg, faults_cls, dp_cls):
                  retry_backoff_s=0.0)
 
 
-def test_robust_dp_run_matches_the_jax_drivers_records(monkeypatch, capsys):
+def test_robust_dp_run_matches_the_jax_drivers_records(jax_x64, capsys):
     # The robust records (participation, surviving, exclusions by cause,
     # retries, injected faults) and the epsilon spent are equal; the
-    # decrypted models are not compared (jax.random streams).
-    monkeypatch.setattr(janalysis, "check_experiment", lambda *a, **k: None)
+    # decrypted models are not compared (jax.random streams). Both
+    # pre-flights run (the JAX one through the stand-in).
     want = jexp.run_experiment(_robust(_J, jfaults.FaultConfig, jdp.DpConfig), verbose=False)
     got = experiment.run_experiment(_robust(_T, FaultConfig, DpConfig), device="cpu")
     out = capsys.readouterr().out

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from hefl_tpu.analysis import ranges as jranges
 from hefl_tpu.ckks import encoding as jenc
 from hefl_tpu.ckks import keys as jkeys
 from hefl_tpu.ckks import ops as jops
@@ -42,6 +43,7 @@ from hefl_tpu_torch.hhe import cipher, transcipher
 from hefl_tpu_torch.models import create_model
 
 from test_torch_packing import _client_trees, _t, _tree, _u, jax_spec
+from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 torch.set_num_threads(2)
 
@@ -399,26 +401,34 @@ def test_engine_refuses_unported_arguments_and_unpacked_hhe(round_setup):
 
 
 @pytest.mark.parametrize("certify", [ranges.certify_packing, ranges.certify_transciphering])
-def test_certificates_accept_default_geometry_and_name_the_violation(certify):
+def test_certificates_accept_default_geometry_and_name_the_violation(certify, jax_x64):
     q = keys.CkksContext.create(n=4096).modulus
     good = certify(q, 8, 3, 8, 16)           # the HHE round's geometry (k=3, C=8)
     assert good.ok and "CERTIFIED" in good.summary()
     bad = certify(q, 16, 16, 1024, 2)
     assert not bad.ok and "UNSAFE" in bad.summary()
-    assert not any("carry-free" in f for f in bad.findings)   # fields are sized for C
+    assert bad.summary() == getattr(jranges, certify.__name__)(q, 16, 16, 1024, 2).summary()
+    assert not any("carry-free" in str(f) for f in bad.findings)   # fields are sized for C
+    assert bad.findings[0].op == "shift_left"                      # the first wide field
     wall = "transciphered total (q/2 wall)" if certify is ranges.certify_transciphering \
         else "packed client-sum (q/2 & 2**62 wall)"
     assert wall in bad.summary()
 
 
-def test_transcipher_certificate_names_the_q_wall_and_recovery_window():
+def test_transcipher_certificate_names_the_q_wall_and_recovery_window(jax_x64):
     q = keys.CkksContext.create(n=256).modulus
     small_q = ranges.certify_transciphering(1 << 40, 8, 3, 8, 16)
     assert not small_q.ok
-    assert [f.split(":")[0] for f in small_q.findings] == ["transciphered total (q/2 wall)"]
+    assert small_q.summary() == jranges.certify_transciphering(1 << 40, 8, 3, 8, 16).summary()
+    # Every op past q/2 inside the fold is cited; the output checks name the wall.
+    assert [str(f).split(":")[0] for f in small_q.findings if f.kind == "output-bound"] == [
+        "transciphered total (q/2 wall)"]
+    assert small_q.findings[0].op == "shift_left"
     # A guard so wide the shifted recovery leaves the mod-2**62 window.
     window = ranges.certify_transciphering(q, 8, 4, 2, 30)
-    assert not window.ok and any("mod-2**62 window" in f for f in window.findings)
+    assert not window.ok and [str(f).split(":")[0] for f in window.findings] == [
+        "shifted recovery (mod-2**62 window)"]
+    assert window.summary() == jranges.certify_transciphering(q, 8, 4, 2, 30).summary()
 
 
 # --- the CLI -------------------------------------------------------------------------

@@ -9,7 +9,9 @@ is a function of the link schedule and the retry PRNG, so its report, the
 tier and root WALs (`fl.journal` framing) and the engine's `hosts` record
 are the JAX package's exactly. The JAX aggregator's and engine's
 certifiers need `jax.experimental.enable_x64`, gone in JAX 0.9 (ROADMAP
-caveat R1): the tests stub them with monkeypatch.
+caveat R1): most tests stub them with monkeypatch; the fold-tree tests also
+run the JAX aggregator with its own `certify_fold_tree` through the
+`jax_x64` stand-in (tests/test_torch_ranges.py).
 """
 
 import dataclasses
@@ -47,6 +49,7 @@ from hefl_tpu_torch.fl.faults import FaultConfig, LinkFaults, SimulatedCrash, sc
 from hefl_tpu_torch.models import create_model
 
 from test_torch_packing import jax_spec
+from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 torch.set_num_threads(2)
 
@@ -91,16 +94,23 @@ def test_topology_helpers_equal_jax(clients, hosts):
         parallel.host_of_clients(hosts - 1, hosts)
 
 
-def test_fold_tree_certificate():
+def test_fold_tree_certificate(jax_x64):
     cert = ranges.certify_fold_tree(int(P256.max()))
     assert cert.ok and cert.bits is None and cert.count_ceiling_bits == 48
     assert cert.summary().startswith(f"fold-inductive p<2**{cert.prime_bits} arrivals<=2**48: "
                                      "CERTIFIED")
     assert any("fold-tree = flat fold bitwise" in c for c in cert.checks)
-    bad = ranges.certify_fold_tree(1)
+    assert cert.summary() == jranges.certify_fold_tree(int(P256.max())).summary()
+    # A prime past 2**62: the int64 fold wraps (the JAX certificate's refusal too).
+    big = (1 << 62) + 135
+    bad = ranges.certify_fold_tree(big)
     assert not bad.ok and "UNSAFE" in bad.summary()
-    with pytest.raises(ValueError, match="fold tree rejected"):
-        hierarchy.HierarchicalAggregator(np.asarray([[1]]), 2, 4)
+    assert bad.summary() == jranges.certify_fold_tree(big).summary()
+    with pytest.raises(ValueError, match="fold tree rejected") as mine:
+        hierarchy.HierarchicalAggregator(np.asarray([[big]]), 2, 4)
+    with pytest.raises(ValueError, match="fold tree rejected") as theirs:
+        jhier.HierarchicalAggregator(np.asarray([[big]]), 2, 4)
+    assert bad.summary() in str(mine.value) and bad.summary() in str(theirs.value)
 
 
 # ---- the fold tree ------------------------------------------------------------
@@ -128,6 +138,18 @@ def test_fold_tree_is_the_flat_fold_and_the_jax_tree_in_any_order(hosts, monkeyp
     want = jstream.ct_hash(*theirs.value())
     assert stream.ct_hash(*mine.value()) == want == stream.ct_hash(*flat.value())
     assert mine.report() == theirs.report() and mine.duplicates == len(order[::2])
+
+
+def test_fold_tree_matches_the_jax_tree_under_its_own_certifier(jax_x64):
+    # The JAX aggregator built with its real certify_fold_tree (no stub).
+    rows = _uploads()
+    mine = hierarchy.HierarchicalAggregator(P256, 3, C)
+    theirs = jhier.HierarchicalAggregator(P256, 3, C)
+    for i in np.random.default_rng(7).permutation(C):
+        mine.fold((int(i), 0), *(torch.from_numpy(rows[i, j].astype(np.int32)) for j in (0, 1)))
+        theirs.fold((int(i), 0), rows[i, 0], rows[i, 1])
+    assert stream.ct_hash(*mine.value()) == jstream.ct_hash(*theirs.value())
+    assert mine.report() == theirs.report()
 
 
 def _both(monkeypatch, link, ship, crash=None, jdir=None, tdir=None, folds=None, t0=0.0,

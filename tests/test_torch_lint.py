@@ -3,16 +3,16 @@ inductive-fold certificates, `check_experiment` at the driver's and the
 CLI's call sites, the dispatch lint's rules and allowlist, the donation
 rule, the violation fixtures and `python -m hefl_tpu_torch.analysis`.
 
-Held against the JAX package where it runs here: the certificate
-dataclasses' own `summary()` on the port's field values, the copied
-constants, the declared region names and the `--json` line schema (the JAX
-`emit_json` on the same report). The JAX certifiers themselves call
-`jax.experimental.enable_x64`, which JAX 0.9 removed, so they cannot run.
+Held against the JAX package: its certifiers under the `jax_x64` stand-in
+(tests/test_torch_ranges.py), the copied constants, the declared region
+names and the `--json` line schema (the JAX `emit_json` on the same
+report).
 """
 
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +39,8 @@ from hefl_tpu_torch.obs import events as obs_events
 from hefl_tpu_torch.obs import metrics as obs_metrics
 from hefl_tpu_torch.presets import PRESETS
 
+from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
+
 REPO = Path(__file__).resolve().parent.parent
 FIXTURES = sorted((REPO / "hefl_tpu_torch" / "analysis" / "fixtures").glob("violation_*.py"))
 P27 = 2**27 - 39
@@ -63,17 +65,20 @@ def test_certificates_carry_the_jax_fields(cls):
 
 
 @pytest.mark.parametrize("prime", [P27, P256, 1, (1 << 62) + 135])
-def test_fold_inductive_summary_is_the_jax_dataclass_summary(prime):
-    cert = ranges.certify_fold_inductive(prime)
+def test_fold_inductive_summary_is_the_jax_dataclass_summary(prime, jax_x64):
+    cert, want = ranges.certify_fold_inductive(prime), jranges.certify_fold_inductive(prime)
     fields = {f.name: getattr(cert, f.name) for f in dataclasses.fields(cert)}
-    assert cert.summary() == jranges.FoldCertificate(**fields).summary()
+    assert cert.summary() == jranges.FoldCertificate(**fields).summary() == want.summary()
+    assert cert.checks == want.checks
+    assert [str(f) for f in cert.findings] == [str(f) for f in want.findings]
     assert cert.count_ceiling_bits == 48 and cert.bits is None
-    assert cert.ok == (2 <= prime < 1 << 62)
+    # p = 1 is a (trivial) canonical range; past 2**62 the int64 fold wraps.
+    assert cert.ok == want.ok == (prime < 1 << 62)
     head = f"fold-inductive p<2**{prime.bit_length()} arrivals<=2**48: "
     assert cert.summary().startswith(head + ("CERTIFIED" if cert.ok else "UNSAFE"))
 
 
-def test_fold_inductive_packed_leg():
+def test_fold_inductive_packed_leg(jax_x64):
     from hefl_tpu_torch.ckks.packing import probe_spec
 
     q = keys.CkksContext.create(n=256).modulus
@@ -81,26 +86,30 @@ def test_fold_inductive_packed_leg():
     cert = ranges.certify_fold_inductive(P27, spec, q)
     assert cert.ok and (cert.bits, cert.k, cert.clients) == (8, 2, 8)
     assert " packed(b=8 k=2 C=8): CERTIFIED" in cert.summary()
-    fields = {f.name: getattr(cert, f.name) for f in dataclasses.fields(cert)}
-    assert cert.summary() == jranges.FoldCertificate(**fields).summary()
+    assert cert.summary() == jranges.certify_fold_inductive(P27, spec, q).summary()
     wide = dataclasses.replace(spec, k=16)
     bad = ranges.certify_fold_inductive(P27, wide, q)
-    assert not bad.ok and any(f.startswith("packed fold: ") for f in bad.findings)
+    assert not bad.ok and any(str(f).startswith("packed fold: ") for f in bad.findings)
+    assert bad.summary() == jranges.certify_fold_inductive(P27, wide, q).summary()
     with pytest.raises(ValueError, match="needs the ring modulus"):
         ranges.certify_fold_inductive(P27, spec)
 
 
 @pytest.mark.parametrize("prime", [P27, P256, (1 << 59) + 55, (1 << 62) + 135])
-def test_aggregation_summary_is_the_jax_dataclass_summary(prime):
-    cert = ranges.certify_aggregation(prime)
+def test_aggregation_summary_is_the_jax_dataclass_summary(prime, jax_x64):
+    cert, want = ranges.certify_aggregation(prime), jranges.certify_aggregation(prime)
     fields = {f.name: getattr(cert, f.name) for f in dataclasses.fields(cert)}
     assert cert.summary() == jranges.AggregationCertificate(**fields).summary()
-    assert cert.chunk == 32 and cert.prime_bits == prime.bit_length()
+    assert cert.chunk == want.chunk == 32 and cert.prime_bits == want.prime_bits
     assert cert.summary().startswith(f"aggregation p<2**{prime.bit_length()} chunk=32: ")
-    # 32 canonical residues fit int64 below 2**58; the fold's checks ride along.
+    # The port's lazy sum adds 32 canonical residues in int64 (the JAX
+    # package's chunk in uint32): it fits below 2**58; the fold's legs are
+    # the JAX certificate's.
     assert cert.ok == (32 * (prime - 1) < 1 << 63 and prime < 1 << 62)
     fold = ranges.certify_fold_inductive(prime)
     assert set(fold.findings) <= set(cert.findings)
+    jfold = [f for f in want.findings if not f.message.startswith(("lazy_sum_mod", "psum_mod"))]
+    assert [str(f) for f in fold.findings] == [str(f) for f in jfold]
     if cert.ok:
         assert set(fold.checks) <= set(cert.checks)
         assert any("psum_mod: no counterpart" in c for c in cert.checks)
@@ -121,12 +130,12 @@ def test_certified_max_interleave_is_max_interleave(clients):
 
 
 def test_analysis_exports_the_jax_names_in_order():
-    ported = [n for n in __import__("hefl_tpu.analysis", fromlist=["x"]).__all__
-              if hasattr(analysis, n)]
-    assert analysis.__all__ == ported
-    for name in ("check_experiment", "certify_aggregation", "certify_fold_inductive",
-                 "lint", "coverage"):
-        assert name in analysis.__all__
+    # The interpreter reads torch graphs, not jaxprs: it takes the JAX name's place.
+    renamed = {"eval_jaxpr_ranges": "eval_graph_ranges"}
+    jax_names = __import__("hefl_tpu.analysis", fromlist=["x"]).__all__
+    assert analysis.__all__ == [renamed.get(n, n) for n in jax_names]
+    for name in analysis.__all__:
+        assert hasattr(analysis, name)
 
 
 # ---- check_experiment ---------------------------------------------------------
@@ -309,6 +318,21 @@ def test_allowlist_entries_bless_one_call_site():
         assert entry.reason and entry.rule in ("forbidden-primitive", "source-forbidden")
 
 
+def test_range_probe_remainders_pass_only_at_their_probes():
+    assert lint.lint_range_probes(device="cpu") == []
+    bare = lint.lint_range_probes(allow=(), device="cpu")
+    assert sorted({f.where for f in bare}) == [
+        "ranges:ckks.ops.hoisted_gadget_probe", "ranges:ckks.ops.keyswitch_gadget_probe",
+        "ranges:fl.stream.fold_loop_probe", "ranges:he_inference.mlp_bsgs_range_probe",
+        "ranges:he_inference.rotation_ladder_range_probe"]
+    assert {f.rule for f in bare} == {"forbidden-primitive"}
+    # one probe's entry blesses that probe only
+    ladder = tuple(a for a in lint.ALLOWLIST if a.source and "rotation_ladder" in a.source)
+    assert len(ladder) == 1
+    left = {f.where for f in lint.lint_range_probes(allow=ladder, device="cpu")}
+    assert "ranges:he_inference.rotation_ladder_range_probe" not in left and len(left) == 4
+
+
 def test_source_sweep(tmp_path):
     assert lint.source_sweep() == []
     pkg = tmp_path / "pkg"
@@ -397,7 +421,8 @@ def test_fixture_fails_the_gate_under_its_rule(path, capsys):
     rule = {"violation_forbidden_primitive": "forbidden-primitive",
             "violation_float_contamination": "float-contamination",
             "violation_missing_scope": "missing-scope",
-            "violation_broken_donation": "broken-donation"}[path.stem]
+            "violation_broken_donation": "broken-donation",
+            "violation_loop_overflow": "loop-overflow"}[path.stem]
     assert gate.main(["--fixture", str(path), "--json", "--device", "cpu"]) == 1
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     findings = [line for line in lines if line["type"] == "finding"]
@@ -426,7 +451,10 @@ def test_fixture_mode_runs_on_cuda_unless_asked(monkeypatch):
 
 
 def test_fixture_rules_cover_the_ported_rules():
-    assert len(FIXTURES) == 4
+    rules = {re.search(r'^RULE = "([^"]+)"', p.read_text(), re.M).group(1) for p in FIXTURES}
+    assert rules == {"forbidden-primitive", "float-contamination", "missing-scope",
+                     "broken-donation", "loop-overflow"}
+    assert len(FIXTURES) == 5
 
 
 def test_json_lines_are_the_jax_schema():

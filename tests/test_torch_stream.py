@@ -8,8 +8,9 @@ the training's random streams; so the two packages must agree on it
 exactly over the same schedule (the content hashes, the round key and the
 bodies aside: the port's uploads come from torch generators). The JAX
 engine's round-setup certifiers need `jax.experimental.enable_x64`, gone
-in JAX 0.9 (ROADMAP caveat R1): the tests stub them with monkeypatch, as
-`tests/test_torch_experiment.py` stubs `check_experiment`. The fold itself
+in JAX 0.9 (ROADMAP caveat R1): most tests stub them with monkeypatch, and
+one runs the packed schedule with the JAX engine's own certifiers through
+the `jax_x64` stand-in (tests/test_torch_ranges.py). The fold itself
 is held bitwise: the streamed sum is `lazy_sum_mod` over the folded rows,
 in any arrival order, and a cohort-only round's released sum equals the
 full-C round's.
@@ -37,6 +38,7 @@ from hefl_tpu.models import SmallCNN as JSmallCNN
 from hefl_tpu.parallel import make_mesh
 
 from hefl_tpu_torch import experiment, presets
+from hefl_tpu_torch.analysis import ranges
 from hefl_tpu_torch.ckks import keys, packing
 from hefl_tpu_torch.ckks.ntt import plain_tables
 from hefl_tpu_torch.data import partition, synthetic
@@ -46,6 +48,7 @@ from hefl_tpu_torch.fl.faults import EXCLUDED_UNSAMPLED, FaultConfig
 from hefl_tpu_torch.models import create_model
 
 from test_torch_packing import jax_spec
+from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 torch.set_num_threads(2)
 
@@ -117,6 +120,23 @@ def _records(path, reader):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_engine_matches_jax_engine_records_bits_and_journal(name, tmp_path, monkeypatch):
     _stub_jax_certifiers(monkeypatch)
+    _engine_matches_jax(name, tmp_path)
+
+
+def test_engine_matches_jax_engine_under_its_own_certifiers(tmp_path, jax_x64):
+    # The packed schedule, the JAX engine's round set-up certifying for
+    # real (fold loop with its packed leg), then the same certificates.
+    _engine_matches_jax("cohort_faults", tmp_path)
+    ctx = keys.CkksContext.create(n=256)
+    p = max(int(v) for v in ctx.ntt.p.reshape(-1))
+    spec = packing.PackedSpec.for_params(_port_setup()[1], ctx, PackingConfig(bits=8, clip=0.05),
+                                         C)
+    got = ranges.certify_fold_inductive(p, spec, int(ctx.modulus))
+    assert got.ok and got.summary() == jranges.certify_fold_inductive(
+        p, spec, int(ctx.modulus)).summary()
+
+
+def _engine_matches_jax(name, tmp_path):
     s_kw, f_kw = CONFIGS[name]
     model, params, xs, ys, ctx, pk = _port_setup()
     tpath, jpath = str(tmp_path / "port.wal"), str(tmp_path / "jax.wal")
