@@ -253,14 +253,39 @@ error:
      metrics carry analysis.violations = 0, an over-headroom packing (b=16,
      k=16) is refused with AnalysisError by `run_experiment` and with
      "hefl-lint: ..." by the CLI, before any kernel launches.
-  Phases 3-15 each print their launches by (kernel, rows x N); phases 4-5
+  16. The client mesh (`mesh_runs`, one process a rank, spawned from
+     here): (al) the NCCL world of every card (one rank on a one-card
+     machine) and (am) MESH_GLOO_RANKS gloo ranks sharing cuda:0, each
+     rank training MESH_PER_RANK clients of the full-width MedCNN round
+     (MESH_IMAGES `medical` images, 1 epoch, N=4096 L=3; twice in the same
+     ranks, cold then warm) through
+     `secure_fedavg_round(mesh=)` under the per-client loop and
+     deterministic algorithms, rank 0 decrypting: every rank's ciphertext
+     sum the same, and bitwise the one-process round's on the same inputs
+     (rank 0 runs it, uncounted), its decrypted average bitwise that
+     round's and within 5e-6 of the plaintext mean; each rank's launches
+     counted from zero: exactly one K3 over its clients' rows ([110, 3,
+     4096]) and K4 once, at the owner; the world size, backend and each
+     rank's train, upload, all-reduce and decrypt seconds printed; (an) in
+     each world of more than one rank, psum_mod, ring_psum_mod (through
+     host copies under gloo) and hierarchical_psum_mod on card tensors
+     bitwise the host's sum mod p of every rank's rows, and under gloo
+     bitwise the same collectives on CPU copies; (ao) in each world of
+     more than one rank, the driver: `run_experiment` on every rank
+     (medical-8 cut to MESH_DRIVER_ROUNDS rounds of 1 epoch, MESH_PER_RANK
+     clients a rank, the per-client loop, deterministic algorithms; rank
+     0 keygens, broadcasts pk, decrypts and replicates the parameters):
+     rank 0's history and every rank's parameters bitwise the one-process
+     run's on cuda:0 (not counted), only rank 0 writes files, each rank
+     one K3 a round over its clients' rows and rank 0 alone K4 a round.
+  Phases 3-16 each print their launches by (kernel, rows x N); phases 4-5
      also count the unhoisted twins' one K6 launch a baby step (S = 1).
-  16. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-15 launched, and not K6's kernel, spills registers, and that every
-     K3, K4, K6 and K7 launch of phases 3-15 fell on a shape phase 12
+  17. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-16 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-16 fell on a shape phase 12
      timed. Print one JSON line {"kernels": [...]}
      (phase 12's records; launches: the sum over the main-path runs of
-     phases 3-15, each counted from zero; every kernel carries one
+     phases 3-16, each counted from zero; every kernel carries one
      "shapes" entry per timed shape with the launches at that shape, K5's
      also its per-kernel "split"; the ranking launches x (ms - bound)
      prices each launch at its own shape)
@@ -3502,6 +3527,300 @@ def results_gate_runs(device, smi: str) -> list[tuple[dict, dict]]:
     return runs
 
 
+# Phase 16: the client mesh. Each rank trains MESH_PER_RANK clients of
+# MESH_IMAGES `medical` images for one epoch (MedCNN at full width).
+MESH_PER_RANK = 2
+MESH_IMAGES = 48
+MESH_GLOO_RANKS = 2
+MESH_DRIVER_ROUNDS = 2
+MESH_TEST_IMAGES = 64
+
+
+def mesh_rank_round(seed: int, device: str | None = None) -> dict:
+    """One rank of phase 16: the encrypted MedCNN round on the mesh of the
+    world's ranks (`secure_fedavg_round(mesh=)`) under the per-client loop
+    and deterministic algorithms, its launches counted from zero, its phase
+    times; rank 0 (the owner) decrypts, then runs the one-process round on
+    the same inputs (not counted) and compares."""
+    import torch.distributed as dist
+
+    from hefl_tpu_torch import parallel
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.ckks.keys import CkksContext, keygen
+    from hefl_tpu_torch.ckks.packing import PackSpec
+    from hefl_tpu_torch.data.partition import iid_contiguous, stack_federated
+    from hefl_tpu_torch.data.synthetic import make_dataset
+    from hefl_tpu_torch.experiment import deterministic_algorithms
+    from hefl_tpu_torch.fl import secure
+    from hefl_tpu_torch.fl.config import TrainConfig
+    from hefl_tpu_torch.models import count_params, create_model
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    device = torch.device(device or f"cuda:{torch.cuda.current_device()}")
+    num = MESH_PER_RANK * world
+    (x, y), _, _ = make_dataset("medical", seed=seed, n_train=MESH_IMAGES * num, n_test=8)
+    xs, ys = stack_federated(x, y, iid_contiguous(len(y), num))
+    xs_d, ys_d = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    gen = torch.Generator().manual_seed(seed)
+    model = create_model("medcnn", gen=gen, device=device)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    if count_params(params) != 222_722:
+        raise AssertionError(f"MedCNN has {count_params(params)} params, expected 222,722")
+    ctx = CkksContext.create()
+    sk, pk = keygen(ctx, gen, device=device)
+    spec = PackSpec.for_params(params, ctx.n)
+    cfg = TrainConfig(epochs=1, num_classes=2, client_fusion="vmap")
+    mesh = parallel.make_mesh(num, device=device)
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(), "device": str(device),
+           "mesh": mesh.record()}
+    with deterministic_algorithms():
+        torch.cuda.synchronize()
+        cuda_ntt.reset_launch_counts()
+        names = ("train_block", "encrypt_stack", "psum_ciphertext")
+        with timed_calls(secure, names) as calls:
+            t0 = time.perf_counter()
+            ct_sum, mets, overflow, ref = secure.secure_fedavg_round(
+                model, cfg, ctx, pk, params, xs_d, ys_d, torch.Generator().manual_seed(seed + 1),
+                with_plain_reference=True, mesh=mesh)
+            torch.cuda.synchronize()
+            out["round_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        avg = secure.decrypt_average(ctx, sk, ct_sum, num, spec) if rank == 0 else None
+        torch.cuda.synchronize()
+        out["decrypt_s"] = time.perf_counter() - t0 if rank == 0 else None
+        out["counts"], out["shapes"] = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+        for name in names:
+            out[f"{name}_s"] = sum(c[0] for c in calls[name]) if calls[name] else None
+        out["sum_sha"] = hashlib.sha256(ct_sum.c0.cpu().numpy().tobytes()
+                                        + ct_sum.c1.cpu().numpy().tobytes()).hexdigest()
+        out["mets_finite"] = bool(torch.isfinite(mets).all()) and tuple(mets.shape) == (num, 1, 4)
+        out["overflow"] = int(overflow.sum())
+        if rank == 0:
+            out["avg_err"] = max((avg[k] - ref[k]).abs().max().item() for k in ref)
+            one_sum, _, _, _ = secure.secure_fedavg_round(
+                model, cfg, ctx, pk, params, xs_d, ys_d, torch.Generator().manual_seed(seed + 1),
+                with_plain_reference=True)
+            one_avg = secure.decrypt_average(ctx, sk, one_sum, num, spec)
+            out["sum_equal"] = bool(torch.equal(one_sum.c0, ct_sum.c0)
+                                    and torch.equal(one_sum.c1, ct_sum.c1))
+            out["avg_equal"] = all(torch.equal(avg[k], one_avg[k]) for k in avg)
+    return out
+
+
+def mesh_collectives(seed: int, device: str = "cuda") -> dict:
+    """Phase 16 (an), on one rank: psum_mod, ring_psum_mod and
+    hierarchical_psum_mod on card tensors (residues near p, each rank's
+    drawn from seed + rank) against the sum mod p of every rank's rows
+    on the host, and under gloo against the same collectives on CPU copies
+    (NCCL takes no host tensor)."""
+    import torch.distributed as dist
+
+    from hefl_tpu_torch import parallel
+    from hefl_tpu_torch.ckks.keys import CkksContext
+    from hefl_tpu_torch.ckks.ntt import plain_tables
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    ctx = CkksContext.create()
+    p = plain_tables(ctx.ntt, torch.device("cpu")).p
+    pn = p.numpy().reshape(1, -1, 1)
+    rows = [((pn - 1 - np.random.default_rng(seed + r).integers(
+        0, 2**20, (55, ctx.num_primes, ctx.n))) % pn).astype(np.int32) for r in range(world)]
+    want = torch.from_numpy((sum(r.astype(np.int64) for r in rows) % pn).astype(np.int32))
+    x = torch.from_numpy(rows[rank])
+    on_host = dist.get_backend() == "gloo"
+    checks = {}
+    for label, fn, mesh, axes in (
+            ("psum_mod", parallel.psum_mod, parallel.make_mesh(world), "clients"),
+            ("ring_psum_mod", parallel.ring_psum_mod, parallel.make_mesh(world), "clients"),
+            ("hierarchical_psum_mod hosts", parallel.hierarchical_psum_mod,
+             parallel.make_host_mesh(world, 1), ("hosts", "clients")),
+            ("hierarchical_psum_mod clients", parallel.hierarchical_psum_mod,
+             parallel.make_host_mesh(1, world), ("hosts", "clients"))):
+        card = fn(x.to(device), p.to(device), mesh, axes).cpu()
+        ok = bool(torch.equal(card, want))
+        if on_host:
+            ok = ok and bool(torch.equal(card, fn(x, p, mesh, axes)))
+        checks[label] = ok
+    return checks
+
+
+def driver_history(out: dict) -> list[dict]:
+    """A run's round records less their timings (phases, phase_roofline)."""
+    return [{k: v for k, v in rec.items() if k not in ("phases", "phase_roofline")}
+            for rec in out["history"]]
+
+
+def mesh_driver_cfg(num: int, out_dir: Path):
+    """Phase 16 (ao)'s run: medical-8 (MedCNN at full width, N=4096 L=3) cut
+    to MESH_DRIVER_ROUNDS rounds of 1 epoch, `num` clients of MESH_IMAGES
+    images, the per-client loop; its checkpoints, model and events under
+    `out_dir`."""
+    return cut("medical-8", MESH_DRIVER_ROUNDS, 1, "vmap", num_clients=num,
+               n_train=MESH_IMAGES * num, n_test=MESH_TEST_IMAGES,
+               checkpoint_path=str(out_dir / "round.npz"),
+               save_model_path=str(out_dir / "model.npz"))
+
+
+def mesh_rank_experiment(out_dir: str, device: str | None = None) -> dict:
+    """Phase 16 (ao), on one rank: `run_experiment` on the mesh of the
+    world's ranks (what `torchrun ... -m hefl_tpu_torch.cli` runs on each
+    rank), MESH_PER_RANK clients a rank, under deterministic algorithms,
+    writing under out_dir/rank{r}; its launches counted from zero."""
+    import torch.distributed as dist
+
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.experiment import deterministic_algorithms, run_experiment
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mine = Path(out_dir) / f"rank{rank}"
+    mine.mkdir()
+    torch.cuda.synchronize()
+    cuda_ntt.reset_launch_counts()
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        out = run_experiment(mesh_driver_cfg(MESH_PER_RANK * world, mine), verbose=False,
+                             device=device or "cuda")
+    torch.cuda.synchronize()
+    return {"rank": rank, "seconds": time.perf_counter() - t0, "history": driver_history(out),
+            "params": {k: v.cpu().numpy() for k, v in out["params"].items()},
+            "mesh": out["mesh"], "counts": cuda_ntt.launch_counts(),
+            "shapes": cuda_ntt.launch_rows()}
+
+
+def mesh_driver_check(label: str, ranks: list[dict], out_dir: Path, device: str) -> None:
+    """Phase 16 (ao): rank 0's history and parameters bitwise the
+    one-process run's (run here, on `device` with no process group, not
+    counted), the other ranks' parameters too; only rank 0 wrote files;
+    each rank launched one K3 a round over its clients' rows, and rank 0
+    alone K4 once a round."""
+    from hefl_tpu_torch.experiment import deterministic_algorithms, run_experiment
+
+    size = len(ranks)
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        one = run_experiment(mesh_driver_cfg(MESH_PER_RANK * size, out_dir / "one"),
+                             verbose=False, device=device)
+    one_s = time.perf_counter() - t0
+    want = driver_history(one)
+    enc_key = launch_key("encrypt_fused", (MESH_PER_RANK * 55, 3, 4096))
+    dec_key = launch_key("decrypt_fused", (55, 3, 4096))
+    for r in ranks:
+        written = sorted(p.name for p in (out_dir / f"rank{r['rank']}").iterdir())
+        log(f"  ({label}, ao) rank {r['rank']}: run_experiment {r['seconds']:.3f} s, mesh "
+            f"{json.dumps(r['mesh'])}, {len(r['history'])} round record(s), wrote {written}; "
+            f"launches {json.dumps({k: v for k, v in r['counts'].items() if v})}")
+        lead = r["rank"] == 0
+        if r["history"] != (want if lead else []):
+            raise AssertionError(f"({label}, ao) rank {r['rank']}'s history is not the "
+                                 f"one-process run's: {r['history']} vs {want}")
+        if not all(np.array_equal(r["params"][k], v.cpu().numpy())
+                   for k, v in one["params"].items()):
+            raise AssertionError(f"({label}, ao) rank {r['rank']}'s parameters are not the "
+                                 "one-process run's bitwise")
+        if bool(written) != lead:
+            raise AssertionError(f"({label}, ao) rank {r['rank']} wrote {written}: only rank 0 "
+                                 "writes")
+        if (r["counts"]["encrypt_fused"] != MESH_DRIVER_ROUNDS
+                or r["shapes"].get(enc_key) != MESH_DRIVER_ROUNDS
+                or r["counts"]["decrypt_fused"] != (MESH_DRIVER_ROUNDS if lead else 0)
+                or r["shapes"].get(dec_key, 0) != (MESH_DRIVER_ROUNDS if lead else 0)):
+            raise AssertionError(f"({label}, ao) rank {r['rank']}: launches {r['counts']} "
+                                 f"{r['shapes']}, expected one K3 over its clients a round "
+                                 "and K4 a round at rank 0 alone")
+    log(f"  ({label}, ao) the one-process run ({one_s:.3f} s): accuracy "
+        f"{[rec['accuracy'] for rec in want]}; rank 0's history and every rank's parameters "
+        "bitwise it, only rank 0 wrote")
+
+
+def mesh_world(label: str, backend: str, device: str, size: int,
+               task_device: str | None = None) -> tuple[dict, dict]:
+    """Phase 16 (al)/(am): one world's round, run twice in the same ranks
+    (cold, then warm: cuDNN and the communicator set up), each checked;
+    -> the ranks' summed (launch counts, launch rows) for the final check.
+    `task_device` (None: each rank's card) is where the ranks put their
+    tensors."""
+    import tempfile
+
+    from hefl_tpu_torch.parallel.launch import World
+
+    t = time.perf_counter()
+    with World(size, backend=backend, device=device) as world:
+        log(f"  ({label}) world of {size} {backend} rank(s) on {device} up in "
+            f"{time.perf_counter() - t:.3f} s")
+        rounds = [world.run(mesh_rank_round, 0, task_device) for _ in ("cold", "warm")]
+        checks = world.run(mesh_collectives, 1, task_device or "cuda") if size > 1 else None
+        with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                         prefix=".chip_smoke_") as tmp:
+            drv = world.run(mesh_rank_experiment, tmp, task_device) if size > 1 else None
+            if drv is not None:
+                mesh_driver_check(label, drv, Path(tmp), task_device or "cuda:0")
+    log(f"  ({label}) world {rounds[0][0]['world']}, backend {rounds[0][0]['backend']}, mesh "
+        f"{json.dumps(rounds[0][0]['mesh'])}")
+    enc_key = launch_key("encrypt_fused", (MESH_PER_RANK * 55, 3, 4096))
+    dec_key = launch_key("decrypt_fused", (55, 3, 4096))
+    counts, shapes = {}, {}
+    for when, ranks in zip(("cold", "warm"), rounds):
+        lead = ranks[0]
+        for r in ranks:
+            times = {k: (round(r[k], 4) if r[k] is not None else None)
+                     for k in ("round_s", "train_block_s", "encrypt_stack_s",
+                               "psum_ciphertext_s", "decrypt_s")}
+            reduce = ("none (one rank)" if times["psum_ciphertext_s"] is None
+                      else f"{times['psum_ciphertext_s']} s")
+            log(f"  ({label}, {when}) rank {r['rank']} on {r['device']}: train "
+                f"{times['train_block_s']} s, upload {times['encrypt_stack_s']} s, all-reduce "
+                f"{reduce}, round {times['round_s']} s, decrypt {times['decrypt_s']} s; "
+                f"launches {json.dumps({k: v for k, v in r['counts'].items() if v})}")
+            want_dec = 1 if r["rank"] == 0 else 0
+            if r["counts"]["encrypt_fused"] != 1 or r["shapes"].get(enc_key) != 1:
+                raise AssertionError(f"({label}) rank {r['rank']}: K3 launches "
+                                     f"{r['counts']['encrypt_fused']} {r['shapes']}, expected "
+                                     f"one over its {MESH_PER_RANK} clients' rows")
+            if (r["counts"]["decrypt_fused"] != want_dec
+                    or r["shapes"].get(dec_key, 0) != want_dec):
+                raise AssertionError(f"({label}) rank {r['rank']}: K4 launches "
+                                     f"{r['counts']['decrypt_fused']}, expected {want_dec}")
+            if (r["sum_sha"] != rounds[0][0]["sum_sha"] or not r["mets_finite"]
+                    or r["overflow"]):
+                raise AssertionError(f"({label}) rank {r['rank']}: sum, metrics or overflow "
+                                     "differ")
+            if size > 1 and r["psum_ciphertext_s"] is None:
+                raise AssertionError(f"({label}) rank {r['rank']} ran no all-reduce")
+            for k, v in r["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+            for k, v in r["shapes"].items():
+                shapes[k] = shapes.get(k, 0) + v
+        log(f"  ({label}, {when}) sum bitwise the one-process round's {lead['sum_equal']}, "
+            f"decrypted average bitwise {lead['avg_equal']}, vs the plaintext mean "
+            f"{lead['avg_err']:.3e} (limit {ERR_LIMIT})")
+        if not (lead["sum_equal"] and lead["avg_equal"] and lead["avg_err"] <= ERR_LIMIT):
+            raise AssertionError(f"({label}) the sharded round is not the one-process round")
+    if checks is not None:
+        log(f"  (an, {backend}) collectives on card tensors bitwise the host's sum mod p"
+            + (" and their CPU counterparts" if backend == "gloo" else "")
+            + f": {json.dumps(checks[0])}")
+        if not all(all(c.values()) for c in checks):
+            raise AssertionError(f"(an) a collective on the card differs from the host: {checks}")
+    for r in drv or []:
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+        for k, v in r["shapes"].items():
+            shapes[k] = shapes.get(k, 0) + v
+    log(f"  ({label}) wall time: {time.perf_counter() - t:.3f} s")
+    return counts, shapes
+
+
+def mesh_runs() -> list[tuple[dict, dict]]:
+    """Phase 16: (al) the NCCL world of every card, (am) MESH_GLOO_RANKS gloo
+    ranks sharing cuda:0, and (an) the collectives on card tensors in each
+    world of more than one rank."""
+    t = time.perf_counter()
+    runs = [mesh_world("al", "nccl", "cuda", torch.cuda.device_count()),
+            mesh_world("am", "gloo", "cuda:0", MESH_GLOO_RANKS)]
+    log(f"  phase 16 wall time: {time.perf_counter() - t:.3f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3575,13 +3894,17 @@ def main() -> int:
         "hefl_tpu_torch.analysis --json --device cuda), the pre-flight (medical-8 clean; an "
         "over-headroom packing refused)")
     runs += results_gate_runs(device, smi)
+    log(f"phase 16: the client mesh: the encrypted MedCNN round (256x256x3, N=4096 L=3, "
+        f"{MESH_PER_RANK} clients a rank) across {torch.cuda.device_count()} NCCL rank(s) and "
+        f"across {MESH_GLOO_RANKS} gloo ranks on cuda:0, and the modular all-reduces on the card")
+    runs += mesh_runs()
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-15 together:")
+    log("phases 3-16 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-15
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-16
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of `hefl_tpu`: encrypted FedAvg of CNNs (float, packed
 quantized and hybrid-HE uplinks; robust to dropped and poisoned clients,
 with DP-FedAvg) driven by the experiment driver and its presets, and
-encrypted inference serving on one NVIDIA GPU.
+encrypted inference serving, on one NVIDIA GPU or across several (the
+client mesh, `parallel`: one process a GPU).
 
 The package mirrors `hefl_tpu`'s module layout (ckks/, models/, data/, fl/,
 utils/, experiment.py, presets.py, cli.py) so each function has an obvious

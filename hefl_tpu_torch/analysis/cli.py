@@ -16,7 +16,8 @@ findings:
      `torch.floor_divide` references (allowlisted call sites aside)
   2. exact-integer regions — the modules' `exact_int_probes(device)`, run
      under the dispatch recorder: no remainder/divide, no float, no sync
-     (`lint.UNPORTED_REGIONS` lists the JAX regions without a counterpart)
+     (the JAX regions, every one with its counterpart: `lint.UNPORTED_REGIONS`
+     is empty)
      and the range probes' `%` (`lint.lint_range_probes`, each pinned to
      its probe by the allowlist)
   3. range certification — the interval interpreter over the traced range
@@ -198,7 +199,7 @@ def run_tree_gate(fast: bool = False, progress=print, device="cpu") -> GateRepor
     stage("source sweep", lint.source_sweep)
     stage("exact-int regions", lambda: lint.lint_exact_regions(device=device)
           + lint.lint_range_probes(device=device))
-    progress(f"    not ported (no counterpart): {json.dumps(lint.UNPORTED_REGIONS)}")
+    progress(f"    JAX regions without a counterpart: {json.dumps(lint.UNPORTED_REGIONS)}")
     stage("range certification", lambda: _certificates(report, progress, device))
     stage("hot-path lint [vmap+secure]",
           lambda: lint.lint_round_programs(fusion="vmap", secure=True, device=device))

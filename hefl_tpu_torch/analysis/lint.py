@@ -370,11 +370,9 @@ def lint_fn(fn: Callable, args: tuple, region: str, *, exact_int: bool,
 # Whole-tree gates.
 # ---------------------------------------------------------------------------
 
-# The JAX package's declared regions that have no counterpart here, and why.
-UNPORTED_REGIONS = {
-    "parallel.collectives.psum_mod": "one card has no client-mesh psum",
-    "parallel.collectives.psum_mod_2d": "one card has no 2-D (clients, ct) mesh psum",
-}
+# The JAX package's declared regions that have no counterpart here, and why
+# (none: the client-mesh all-reduce is `parallel.collectives.psum_mod`).
+UNPORTED_REGIONS: dict[str, str] = {}
 
 
 def exact_int_regions(device="cpu") -> dict[str, tuple[Callable, tuple]]:
@@ -386,11 +384,12 @@ def exact_int_regions(device="cpu") -> dict[str, tuple[Callable, tuple]]:
     from hefl_tpu_torch.fl import secure, stream
     from hefl_tpu_torch.hhe import cipher as hhe_cipher
     from hefl_tpu_torch.hhe import transcipher as hhe_transcipher
+    from hefl_tpu_torch.parallel import collectives
 
     device = torch.device(device)
     regions: dict[str, tuple[Callable, tuple]] = {}
     for mod in (quantize, packing, encoding, ops, secure, stream, hhe_cipher, hhe_transcipher,
-                he_inference):
+                he_inference, collectives):
         regions.update(mod.exact_int_probes(device))
     return regions
 

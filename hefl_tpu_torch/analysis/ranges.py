@@ -76,7 +76,7 @@ WIDEN_DELAY = 3
 # The declared iteration-count ceiling the loop probes certify against
 # ("any arrival count / ladder depth up to 2**48").
 LOOP_COUNT_CEILING = 1 << 48
-# `hefl_tpu.parallel.collectives.MAX_PSUM_CLIENTS`, restated: the canonical
+# `parallel.collectives.MAX_PSUM_CLIENTS` (the JAX package's), restated: the canonical
 # residues one lazy sum adds before its single reduction.
 MAX_PSUM_CLIENTS = 32
 
@@ -333,9 +333,11 @@ _COMPARE = {"eq": "eq", "ne": "ne", "lt": "lt", "le": "le", "gt": "gt", "ge": "g
 
 
 class _RangeInterpreter:
-    def __init__(self, ceiling: Interval | None, check_dtype: bool):
+    def __init__(self, ceiling: Interval | None, check_dtype: bool,
+                 axis_sizes: dict | None = None):
         self.ceiling = ceiling
         self.check_dtype = check_dtype
+        self.axis_sizes = dict(axis_sizes or {})
         self.findings: list[RangeFinding] = []
         self.notes: list[str] = []
         self.loops: list[LoopReport] = []
@@ -500,6 +502,9 @@ class _RangeInterpreter:
                 hi = a.hi if a.hi == _POS_INF else math.ceil(a.hi)
                 return Interval(lo, hi)
             return a
+        if name == "psum":
+            n = params["n"]
+            return Interval(_mul_bound(n, a.lo), _mul_bound(n, a.hi))
         if name == "reduce_sum":
             n = int(params["n"])
             return Interval(_mul_bound(n, a.lo), _mul_bound(n, a.hi))
@@ -657,6 +662,17 @@ class _RangeInterpreter:
                 return self._emit("cumsum", [x], dt, n=_numel(args[0]))
             n = max(_numel(args[0]) // max(_numel(node), 1), 1)
             return self._emit("reduce_sum", [x], dt, n=n)
+        if name == "all_reduce" and args[1] == "sum":
+            # A sum over a process group: the operand times the group's
+            # declared worst-case size, as the JAX interpreter's psum.
+            size = self.axis_sizes.get(args[2])
+            if size is None:
+                self._note(f"all_reduce over group {args[2]!r} with undeclared size: "
+                           "output unbounded (pass axis_sizes)")
+                return self._emit_top("psum", node)
+            return self._emit("psum", [iv(args[0])], dt, n=int(size))
+        if name == "wait_tensor":
+            return iv(args[0])
         if name in ("amax", "amin"):
             return self._emit("reduce_max" if name == "amax" else "reduce_min",
                               [iv(args[0])], dt)
@@ -1036,6 +1052,7 @@ def eval_graph_ranges(
     *,
     ceiling: Interval | None = None,
     check_dtype: bool = True,
+    axis_sizes: dict | None = None,
 ) -> RangeResult:
     """Propagate intervals through a traced aten graph (`trace_graph`),
     recursing into while_loop / scan / cond sub-graphs.
@@ -1046,8 +1063,11 @@ def eval_graph_ranges(
     Violations are recorded as findings citing the primitive; the analysis
     continues with the mathematical interval, so the FIRST offending op is
     the root cause, not a cascade. `out_ops` names the primitive that
-    produces each output ("input" for a graph input)."""
-    interp = _RangeInterpreter(ceiling, check_dtype)
+    produces each output ("input" for a graph input). `axis_sizes` maps a
+    process group's name to the declared worst-case size of its axis: a
+    functional `all_reduce` sum over it is the JAX `psum` (an undeclared
+    group leaves the sum unbounded, with a note)."""
+    interp = _RangeInterpreter(ceiling, check_dtype, axis_sizes)
     out_ops: list = []
     outs = interp._eval_graph(gm, in_intervals, out_ops)
     return RangeResult(outs, interp.findings, interp.notes, interp.loops, out_ops)
@@ -1174,25 +1194,39 @@ def certify_aggregation(prime: int, *, device: str = "cpu") -> AggregationCertif
 
       1. `fl.secure.lazy_sum_mod`'s int64 sum of MAX_PSUM_CLIENTS canonical
          residues before its one reduction (`lazy_sum_chunk_probe`);
-      2. (the JAX legs 2 and 2b, `psum_mod` on the client mesh and on the
-         2-D mesh, have no counterpart: one card has no psum);
+      2. `parallel.collectives.psum_mod`'s lazy all-reduce (int64) at
+         MAX_PSUM_CLIENTS ranks on the client axis, whatever group traced
+         it, on the 1-D client mesh and (2b) on the 2-D ("clients", "ct")
+         mesh, where the ct axis partitions rows and adds no summand;
       3. `fl.stream.OnlineAccumulator`'s int64 fold, proven inductively for
-         any arrival count (`certify_fold_inductive`)."""
+         any arrival count (`certify_fold_inductive`).
+
+    The all-reduce is traced on a process group (`collectives.
+    tracing_group`: the world's, or a one-rank gloo group for the trace)."""
     from hefl_tpu_torch.fl import secure
+    from hefl_tpu_torch.parallel import collectives
 
     prime = int(prime)
     canonical = Interval(0, prime - 1)
     findings: list[RangeFinding] = []
     checks: list[str] = []
-    fn, args = secure.lazy_sum_chunk_probe(MAX_PSUM_CLIENTS, device)
-    name = "lazy_sum_mod chunk"
-    res = eval_graph_ranges(trace_graph(fn, args), [canonical])
-    if res.findings:
-        findings.extend(dataclasses.replace(f, message=f"{name}: {f.message}")
-                        for f in res.findings)
-    else:
-        checks.append(f"{name} stays in {res.out_intervals[0]}")
-    checks.append("psum_mod: no counterpart on one card (no client-mesh all-reduce)")
+
+    def run(name, gm, **kw):
+        res = eval_graph_ranges(gm, [canonical], **kw)
+        if res.findings:
+            findings.extend(dataclasses.replace(f, message=f"{name}: {f.message}")
+                            for f in res.findings)
+        else:
+            checks.append(f"{name} stays in {res.out_intervals[0]}")
+
+    run("lazy_sum_mod chunk", trace_graph(*secure.lazy_sum_chunk_probe(MAX_PSUM_CLIENTS, device)))
+    with collectives.tracing_group() as group:
+        flat = trace_graph(*collectives.psum_range_probe(prime, device))
+        two_d = trace_graph(*collectives.psum_range_probe_2d(prime, device))
+        sizes = {group.group_name: MAX_PSUM_CLIENTS}
+    run(f"psum_mod[{MAX_PSUM_CLIENTS} participants]", flat, axis_sizes=sizes)
+    run(f"psum_mod 2-D[{MAX_PSUM_CLIENTS} clients x {MAX_PSUM_CLIENTS} ct]", two_d,
+        axis_sizes=sizes)
     fold = certify_fold_inductive(prime, device=device)
     findings.extend(fold.findings)
     checks.extend(fold.checks)

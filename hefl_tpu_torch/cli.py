@@ -35,8 +35,14 @@ and `--link-dup` fault the tier->root uplinks.
 `--data-dir DIR` trains on a folder of class-subdirectory images (the
 reference layout `DIR/Train` and `DIR/Test`, or one folder split 80/20;
 `data.folder`) decoded at `--image-size` H (HxH) in place of `--dataset`.
-`--mesh-ct K` asks for the JAX package's 2-D round mesh, which one GPU
-runs as its bitwise-equal 1-D round (`experiment`).
+`--mesh-ct K` asks for the JAX package's 2-D round mesh, which the port
+runs as its bitwise-equal 1-D round, on one GPU or across ranks
+(`experiment`).
+Across GPUs: `torchrun --nproc-per-node K -m hefl_tpu_torch.cli --preset
+medical-8` runs one rank a card (`parallel.init_mesh` joins the group from
+torchrun's environment; NCCL); each rank trains its block of the clients,
+the ciphertext sums are all-reduced mod p, and rank 0 decrypts, reports
+and saves. No flag is added.
 `--preset NAME` runs a named configuration (`presets.PRESETS`) and ignores
 the other flags but `--resume`, `--json` and `--device`.
 
@@ -52,12 +58,14 @@ import argparse
 import json
 
 import numpy as np
+import torch.distributed as dist
 
 from hefl_tpu_torch.experiment import ExperimentConfig, HEConfig, run_experiment
 from hefl_tpu_torch.fl.config import HheConfig, PackingConfig, StreamConfig, TrainConfig
 from hefl_tpu_torch.fl.dp import DpConfig
 from hefl_tpu_torch.fl.faults import CRASH_POINTS, CrashConfig, FaultConfig
 from hefl_tpu_torch.models import MODEL_REGISTRY
+from hefl_tpu_torch.parallel import init_mesh
 from hefl_tpu_torch.presets import PRESETS
 
 
@@ -530,14 +538,22 @@ def run(args: argparse.Namespace, verbose: bool = True) -> list[dict]:
         analysis.check_experiment(cfg)
     except analysis.AnalysisError as e:
         raise SystemExit(f"hefl-lint: {e}")
-    out = run_experiment(cfg, resume=args.resume, verbose=verbose, device=args.device)
+    # Under torchrun (RANK/WORLD_SIZE set) each rank joins the process group
+    # and runs its block of the clients on its own card; rank 0 reports.
+    joined = not dist.is_initialized()
+    device = init_mesh(args.device)
+    try:
+        out = run_experiment(cfg, resume=args.resume, verbose=verbose, device=device)
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
     return out["history"]
 
 
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
     history = run(args, verbose=not args.json)
-    if args.json:
+    if args.json:                 # the history is the lead rank's (empty elsewhere)
         for rec in history:
             print(json.dumps(rec, default=lambda o: np.asarray(o).tolist()))
     return 0

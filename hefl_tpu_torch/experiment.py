@@ -44,11 +44,20 @@ Input: the synthetic datasets (`dataset`), or a reference-layout image
 folder (`data_dir`, decoded at `image_size` by `data.folder`), whose class
 count replaces `train.num_classes`. Either is copied to the device once.
 
-Round topology: one GPU is one client block, so `mesh_ct` > 1 (the JAX
-package's 2-D (clients, ct) mesh, whose ct axis shards a block's
-ciphertext rows over its devices) runs the 1-D round, which the JAX
-package's 2-D round equals bit for bit; the `mesh` record names the two
-axes, each of size 1.
+Round topology: with no process group the run is one client block on one
+device. In a process group (one rank a GPU, `parallel.init_mesh`, e.g.
+under `torchrun`) the rounds run on the 1-D mesh of the world's ranks
+(`parallel.make_mesh`), the federated arrays padded to it once
+(`fedavg.pad_federated`): every rank builds the same dataset from the
+seed and trains its block of clients; rank 0, the model owner, generates
+the keys (the public key and the generator's state are broadcast), holds
+the secret key, decrypts and broadcasts the new global parameters, and
+alone evaluates, prints, keeps the history and writes files. Either way
+`mesh_ct` > 1 (the JAX package's 2-D (clients, ct) mesh, whose ct axis
+shards a block's ciphertext rows over its devices) runs the 1-D round,
+which the JAX package's 2-D round equals bit for bit (the in-round ct
+split across ranks is a later slice's); the `mesh` record names the two
+axes, ct of size 1. Ranks past the mesh return at once.
 """
 
 from __future__ import annotations
@@ -61,6 +70,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hefl_tpu_torch import resolve_device
 from hefl_tpu_torch import analysis
@@ -83,7 +93,13 @@ from hefl_tpu_torch.fl.faults import (
     record_round_meta,
     schedule_for_round,
 )
-from hefl_tpu_torch.fl.fedavg import evaluate, fedavg_round, masked_mode
+from hefl_tpu_torch.fl.fedavg import (
+    evaluate,
+    fedavg_round,
+    masked_mode,
+    pad_federated,
+    replicate_on,
+)
 from hefl_tpu_torch.fl.fusion import fusion_report, resolve_fusion_backend
 from hefl_tpu_torch.fl.secure import decrypt_average, secure_fedavg_round
 from hefl_tpu_torch.fl.journal import JournalError
@@ -96,6 +112,7 @@ from hefl_tpu_torch.obs import metrics as obs_metrics
 from hefl_tpu_torch.obs import scopes as obs_scopes
 from hefl_tpu_torch.obs import spans as obs_spans
 from hefl_tpu_torch.obs import trace as obs_trace
+from hefl_tpu_torch.parallel import client_mesh_size, make_mesh
 from hefl_tpu_torch.utils import PhaseTimer, load_checkpoint, roofline, save_checkpoint, save_params
 from hefl_tpu_torch.utils.checkpoint import npz_path
 
@@ -330,7 +347,8 @@ def run_experiment(
     encode_overflow (per client, encrypted runs), packing / stream / robust
     / hhe / dp_epsilon where on} — the JAX record's keys.
     """
-    say = print if verbose else (lambda *_: None)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if verbose and lead else (lambda *_: None)
     check_config(cfg)
     device = resolve_device(device)
     with deterministic_algorithms(bool(cfg.journal_path or cfg.serve)), \
@@ -362,7 +380,8 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
     ev_path = cfg.events_path
     if ev_path is None:
         ev_path = obs_events.default_events_path(cfg.checkpoint_path)
-    obs_events.configure(ev_path or None)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    obs_events.configure((ev_path or None) if lead else None)
     obs_events.emit(
         "experiment_start",
         model=cfg.model, dataset=cfg.dataset, num_clients=cfg.num_clients,
@@ -398,6 +417,9 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
     gen = torch.Generator().manual_seed(cfg.seed)
 
     if cfg.centralized:
+        if not lead:        # one model on one device: the lead rank's
+            return {"history": [], "final_metrics": None, "params": params, "packing": None,
+                    "stream": None, "hhe": None, "obs": _finish_run_obs(metrics_base, rounds=0)}
         timer = PhaseTimer(device)
         round_gen = torch.Generator().manual_seed(_round_seed(gen))
         with timer.phase("train"):
@@ -435,11 +457,29 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
                 "obs": _finish_run_obs(metrics_base, rounds=1)}
 
     xs, ys = stack_federated(x, y, _partition(cfg, y))
+    mesh = num_real = None
+    if dist.is_initialized():
+        if cfg.stream is not None and dist.get_world_size() > 1:
+            raise ValueError(
+                "the streaming engine runs on one rank: the engines over the client mesh "
+                "come in a later port slice; run it without a process group")
+        # mesh_ct > 1 runs the 1-D round here too: nothing in the round
+        # splits over ct yet, so ct ranks would train the same block again.
+        mesh = make_mesh(cfg.num_clients, device=device)
+        if not mesh.member:
+            say(f"rank {mesh.rank}: outside the {mesh.size}-rank mesh, idle")
+            return {"history": [], "final_metrics": None, "params": params, "packing": None,
+                    "stream": None, "hhe": None, "mesh": mesh_record(cfg, mesh),
+                    "obs": _finish_run_obs(metrics_base, rounds=0)}
+        # Pad the federated arrays to the mesh once; the rounds take the
+        # real count (num_real_clients) and train their blocks of them.
+        xs, ys, num_real = pad_federated(xs, ys, client_mesh_size(mesh))
+        params = replicate_on(mesh, params)
     xs_d, ys_d = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
     # The training backend, resolved once a run ("auto" times both on the
     # device here) and pinned for every round.
-    train_cfg = dataclasses.replace(train_cfg, client_fusion=resolve_fusion_backend(
-        train_cfg.client_fusion, model, device))
+    train_cfg = dataclasses.replace(train_cfg, client_fusion=_lead_choice(
+        mesh, resolve_fusion_backend(train_cfg.client_fusion, model, device)))
 
     ctx = cfg.he.build() if cfg.encrypted else None
     # A plaintext run has no HE phases: no pin to check, backend None.
@@ -451,7 +491,9 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
         # training work; publishes analysis.violations (0 here) into the
         # run's metrics snapshot.
         analysis.check_experiment(cfg, ctx=ctx, say=say)
-        sk, pk = keygen(ctx, gen, device=device)
+        if lead:
+            sk, pk = keygen(ctx, gen, device=device)
+        pk = _share_keys(mesh, ctx, pk, gen)
         spec = PackSpec.for_params(params, ctx.n)
         say(f"CKKS context: N={ctx.n} L={ctx.num_primes} -> {spec.n_ct} ciphertexts "
             f"for {count_params(params):,} params on {device}")
@@ -484,7 +526,8 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
     # The masked engine (fault schedule or sanitizing knobs) returns a
     # RoundMeta a round: the same predicate the round functions use for
     # their return arity. Streaming rounds always carry one.
-    robust = masked_mode(train_cfg, cfg.num_clients, 1, explicit=cfg.faults is not None,
+    n_dev = 1 if mesh is None else client_mesh_size(mesh)
+    robust = masked_mode(train_cfg, cfg.num_clients, n_dev, explicit=cfg.faults is not None,
                          secure=cfg.encrypted)
     streaming = cfg.stream is not None
     engine = server = None
@@ -523,7 +566,7 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
         # The first executed round, from its start through evaluate, under
         # the profiler on request (`profiling` stops it should the round
         # raise).
-        if cfg.profile_dir is not None and r == start_round:
+        if cfg.profile_dir is not None and r == start_round and lead:
             profiling.enter_context(obs_trace.round_profiler(cfg.profile_dir, device))
         sched = (schedule_for_round(cfg.faults, r, cfg.num_clients)
                  if cfg.faults is not None else None)
@@ -540,7 +583,13 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
             # first attempt's randomness. Configuration errors
             # (ValueError/TypeError), a SimulatedCrash (the process died; its
             # recovery is a fresh run's job) and a JournalError (the
-            # fail-loud verdict on the journal) are never retried.
+            # fail-loud verdict on the journal) are never retried. Across
+            # several ranks only the scheduled DeviceLost is: every rank
+            # raises it alike, before the round's first collective. Any
+            # other fault may be one rank's alone, whose peers wait inside
+            # the round's collectives; a lone retry would pair its
+            # collectives with theirs out of order, so the run fails (under
+            # torchrun the failed rank's exit ends its peers).
             try:
                 if sched is not None and sched.device_loss and attempt == 0:
                     raise DeviceLost(f"fault injection: scheduled device loss at round {r}")
@@ -565,11 +614,12 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
                             ct_sum, metrics, overflow, meta = secure_fedavg_round(
                                 model, train_cfg, ctx, pk, params, xs_d, ys_d, round_gen,
                                 packing=pspec, dp=dp_cfg, participation=part, poison=pois,
+                                mesh=mesh, num_real_clients=num_real,
                             )
                         else:
                             ct_sum, metrics, overflow = secure_fedavg_round(
                                 model, train_cfg, ctx, pk, params, xs_d, ys_d, round_gen,
-                                packing=pspec, dp=dp_cfg,
+                                packing=pspec, dp=dp_cfg, mesh=mesh, num_real_clients=num_real,
                             )
                         if not streaming:
                             _straggler_wait(straggler_s, device)
@@ -588,28 +638,34 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
                                 say(f"round {r}: every client excluded ({meta.excluded}); "
                                     "keeping previous global model")
                             new_params = params
+                        elif not lead:      # the owner decrypts; replicate_on shares it
+                            new_params = params
                         else:
                             new_params = decrypt_average(
                                 ctx, sk, ct_sum, cfg.num_clients, spec, meta=meta,
                                 packing=pspec, base_params=params, hhe=hhe_on,
                                 exact=cfg.exact_final_decode and r == cfg.rounds - 1,
                             )
+                        new_params = replicate_on(mesh, new_params)
                 else:
                     overflow = None
                     with timer.phase(train_phase):
                         if robust:
                             new_params, metrics, meta = fedavg_round(
                                 model, train_cfg, params, xs_d, ys_d, round_gen,
-                                participation=part, poison=pois)
+                                participation=part, poison=pois, mesh=mesh,
+                                num_real_clients=num_real)
                         else:
                             new_params, metrics = fedavg_round(
-                                model, train_cfg, params, xs_d, ys_d, round_gen)
+                                model, train_cfg, params, xs_d, ys_d, round_gen, mesh=mesh,
+                                num_real_clients=num_real)
                         _straggler_wait(straggler_s, device)
                 params = new_params
                 break
             except RuntimeError as e:
                 if isinstance(e, (SimulatedCrash, JournalError)) or (
-                        attempt >= cfg.max_round_retries):
+                        attempt >= cfg.max_round_retries) or (
+                        n_dev > 1 and not isinstance(e, DeviceLost)):
                     obs_events.emit("round_failed", round=r, error=type(e).__name__,
                                     attempts=attempt + 1)
                     raise
@@ -634,6 +690,12 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
                         obs_metrics.counter("checkpoint.resumes").inc()
                         obs_events.emit("checkpoint_resume", round=r, path=cfg.checkpoint_path)
                         say(f"auto-resumed round-{r} state from {cfg.checkpoint_path}")
+        if not lead:
+            # The lead rank evaluates, records and writes; a raise it makes
+            # on overflow is made here too, so no rank waits on the next round.
+            if cfg.encrypted and train_cfg.on_overflow == "raise" and int(overflow.sum()) > 0:
+                raise RuntimeError(f"round {r}: weights saturated and on_overflow='raise'")
+            continue
         with timer.phase("evaluate"):
             results = evaluate(model, params, xt_d, yt)
         if cfg.profile_dir is not None and r == start_round:
@@ -726,7 +788,7 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
                 # The checkpoint now covers everything before round r + 1.
                 server.compact_to(r + 1)
 
-    if cfg.save_model_path:
+    if cfg.save_model_path and lead:
         save_params(cfg.save_model_path, params)
         say(f"saved aggregated model to {cfg.save_model_path}")
     if server is not None:
@@ -746,17 +808,59 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
         # The records of what this run ran, with the JAX driver's keys: the
         # augment warp, the client-training backend, the HE kernels (the
         # CUDA kernels on a card, their plain versions on the CPU) and the
-        # round topology (one device).
+        # round topology.
         "augment_backend": augment_backend_record(),
         "client_fusion": fusion_report(),
         "he_backend": he_backend,
         "packing": pspec.geometry_record() if pspec is not None else None,
         "stream": dataclasses.asdict(cfg.stream) if cfg.stream is not None else None,
-        "mesh": {"axes": ["clients", "ct"] if cfg.mesh_ct > 1 else ["clients"],
-                 "clients": 1, "ct": 1},
+        "mesh": mesh_record(cfg, mesh),
         "hhe": _hhe_record(cfg, pspec, ctx) if hhe_on else None,
         "obs": obs_record,
     }
+
+
+def mesh_record(cfg: ExperimentConfig, mesh) -> dict:
+    """The run's round topology: the axes and their sizes (one device with
+    no process group), and in a process group the world and backend. With
+    `mesh_ct` > 1 the axes are ("clients", "ct"), ct of size 1: the round
+    is the 1-D one."""
+    axes = ["clients", "ct"] if cfg.mesh_ct > 1 else ["clients"]
+    if mesh is None:
+        return {"axes": axes, "clients": 1, "ct": 1}
+    return {**mesh.record(), "axes": axes}
+
+
+def _lead_choice(mesh, choice):
+    """Rank 0's `choice` on every member rank (a pickled broadcast), so a
+    choice timed on each card ("auto" fusion) is the same on all."""
+    if mesh is None or mesh.group is None:
+        return choice
+    box = [choice]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(mesh.group, 0), group=mesh.group)
+    return box[0]
+
+
+def _share_keys(mesh, ctx: CkksContext, pk, gen: torch.Generator):
+    """The owner's public key and the run generator's state after keygen
+    on every member rank (broadcasts from rank 0): each rank then draws the
+    rounds' seeds as the owner does (on the mesh's device). -> the public key."""
+    if mesh is None or mesh.group is None:
+        return pk
+    from hefl_tpu_torch.ckks.keys import PublicKey
+
+    src = dist.get_global_rank(mesh.group, 0)
+    device = mesh.device
+    shape = (ctx.num_primes, ctx.n)
+    if pk is None:
+        pk = PublicKey(b_mont=torch.zeros(shape, dtype=torch.int32, device=device),
+                       a_mont=torch.zeros(shape, dtype=torch.int32, device=device))
+    for t in (pk.b_mont, pk.a_mont):
+        dist.broadcast(t, src, group=mesh.group)
+    state = gen.get_state().to(device)
+    dist.broadcast(state, src, group=mesh.group)
+    gen.set_state(state.cpu())
+    return pk
 
 
 def augment_backend_record() -> dict:

@@ -1,29 +1,35 @@
 """Client training across a round, the plaintext FedAvg round, and
-evaluation, on one device.
+evaluation, on one device or across the client mesh.
 
-Counterpart of `hefl_tpu.fl.fedavg` for the all-clients-present round.
-The JAX package lays clients out on a "clients" mesh axis; on one GPU a
-round's clients train through `train_block`, the one training body of the
-plaintext round, the encrypted round (`secure.client_uploads`) and the
-streaming round, under the configured backend
-(`TrainConfig.client_fusion`, `fl.fusion`): "vmap", the per-client loop
-`train_clients` over the leading axis of the federated arrays, or "fused",
-`fusion.fused_train`.
+Counterpart of `hefl_tpu.fl.fedavg`. A round's clients train through
+`train_block`, the one training body of the plaintext round, the encrypted
+round (`secure.client_uploads`) and the streaming round, under the
+configured backend (`TrainConfig.client_fusion`, `fl.fusion`): "vmap", the
+per-client loop `train_clients` over the leading axis of the federated
+arrays, or "fused", `fusion.fused_train`.
+
+Across GPUs (`mesh=`, a `parallel.Mesh`, one rank a GPU): the clients are
+laid out on the mesh's client axes in blocks of cpd = C / ranks, rank d
+training clients d * cpd .. (d + 1) * cpd - 1 of the federated arrays
+every rank holds; FedAvg is `parallel.pmean_tree` of the block means. A
+client count that does not divide the mesh is padded with masked-out
+slots that repeat client 0 (`pad_index`, `pad_federated`); the padded
+round runs the masked engine. Every rank draws all C clients' generators
+and keeps its block's, so a client's stream does not depend on the world
+size. No mesh, or a one-rank one, is the one-device round bit for bit.
 
 The participation-masked engine (`masked_mode`): a participation mask or
 poison codes (`fl.faults`), or a `max_update_norm` bound, route a round
 through poison -> `faults.exclusion_bits` -> `masked_mean_tree`, and the
 round returns its `faults.RoundMeta` too. A clean schedule (every client
 in, no poison, no sanitizing knob) takes the all-clients path bit for bit.
-The JAX package also pads a client count that does not divide its mesh
-with masked-out slots (`pad_index`, `pad_federated`); one GPU is one
-device, so no count needs padding and those have no counterpart here.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from hefl_tpu_torch.data.augment import rescale
@@ -34,6 +40,9 @@ from hefl_tpu_torch.fl.fusion import fused_train, resolve_fusion_backend
 from hefl_tpu_torch.fl.metrics import classification_metrics
 from hefl_tpu_torch.obs import scopes
 from hefl_tpu_torch.obs.scopes import scoped
+from hefl_tpu_torch.parallel import (
+    client_axes, client_index, client_mesh_size, pmean_tree, psum_tree,
+)
 
 
 def train_clients(
@@ -94,9 +103,10 @@ def cohort_bucket(cohort_size: int, num_clients: int, n_dev: int = 1) -> int:
     package computes it (`hefl_tpu.fl.fedavg.cohort_bucket`): the next power
     of two, rounded to a multiple of `n_dev`, at least 2 * n_dev when the
     full registry trains >= 2 slots a device, capped at the full registry.
-    The port runs one device (n_dev = 1), so its buckets — and with them
-    the shape of the fused-encrypt launch (bucket * n_ct rows) — are the
-    JAX package's on one device. An oversized cohort fails loudly."""
+    `n_dev` is the client mesh's rank count (`parallel.client_mesh_size`):
+    the buckets, and with them the shape of the fused-encrypt launch
+    (bucket * n_ct rows), are the JAX package's on that mesh. An oversized
+    cohort fails loudly."""
     if cohort_size < 1:
         raise ValueError(
             f"cohort_bucket: cohort_size={cohort_size} must be >= 1"
@@ -125,6 +135,89 @@ def cohort_gather_index(cohort, bucket: int) -> np.ndarray:
     return idx
 
 
+def pad_index(num_clients: int, n_dev: int) -> np.ndarray | None:
+    """Client-axis gather index that pads `num_clients` up to the next
+    multiple of `n_dev` by repeating client 0's slot (the padding slots
+    train on client 0's data with its recycled generator and are masked
+    out of the aggregation). None when no padding is needed."""
+    pad = (-num_clients) % n_dev
+    if pad == 0:
+        return None
+    return np.concatenate([np.arange(num_clients), np.zeros(pad, np.int64)])
+
+
+def pad_federated(xs, ys, n_dev: int):
+    """Pad the federated arrays once a run -> (xs, ys, num_real): the rounds
+    take `num_real_clients=num_real` with the padded arrays. numpy arrays
+    or tensors; a divisible count returns the inputs untouched."""
+    num = int(xs.shape[0])
+    idx = pad_index(num, n_dev)
+    if idx is None:
+        return xs, ys, num
+    return xs[idx], ys[idx], num
+
+
+def _round_geometry(xs, n_dev: int, num_real_clients: int | None):
+    """-> (num_clients, pad_idx, prepadded). `num_real_clients` marks xs as
+    padded by `pad_federated`; a row count that disagrees fails (averaging
+    padding rows as real clients must never happen)."""
+    if num_real_clients is None:
+        num_clients = int(xs.shape[0])
+        return num_clients, pad_index(num_clients, n_dev), False
+    num_clients = int(num_real_clients)
+    pad_idx = pad_index(num_clients, n_dev)
+    want = num_clients if pad_idx is None else len(pad_idx)
+    if int(xs.shape[0]) != want:
+        raise ValueError(
+            f"num_real_clients={num_clients} on a {n_dev}-device mesh "
+            f"needs federated arrays pre-padded to {want} rows "
+            f"(fedavg.pad_federated), got {int(xs.shape[0])}"
+        )
+    return num_clients, pad_idx, True
+
+
+def client_block(mesh, num_clients: int, pad_idx) -> tuple[np.ndarray, int]:
+    """This rank's clients -> (gather index into the real clients, count of
+    real rows). The block is rows block * cpd .. (block + 1) * cpd - 1 of
+    the padded registry; padding slots (client 0's, repeated) are a suffix
+    of the registry, so a block's real rows lead it. Off a mesh (None):
+    every client."""
+    padded = np.arange(num_clients) if pad_idx is None else np.asarray(pad_idx, np.int64)
+    if mesh is None:
+        return padded, num_clients
+    cpd = len(padded) // client_mesh_size(mesh)
+    lo = client_index(mesh) * cpd
+    return padded[lo: lo + cpd], int(np.clip(num_clients - lo, 0, cpd))
+
+
+def gather_clients(mesh, t: torch.Tensor, num_clients: int) -> torch.Tensor:
+    """Every rank's block of a per-client tensor [cpd, ...], in client
+    order, -> the real clients' [num_clients, ...] on t's device (one
+    all-gather over the client axes, on the mesh's device: NCCL takes no
+    host tensor, and the training metrics live on the host). Off a mesh
+    (None) or on one rank: t's real rows."""
+    group = None if mesh is None else mesh.axes_group(client_axes(mesh))
+    if group is None:
+        return t[:num_clients]
+    buf = t.to(mesh.device).contiguous()
+    parts = [torch.empty_like(buf) for _ in range(client_mesh_size(mesh))]
+    dist.all_gather(parts, buf, group=group)
+    return torch.cat(parts)[:num_clients].to(t.device)
+
+
+def replicate_on(mesh, tree: dict) -> dict:
+    """The mesh's rank 0's parameter dict on every member rank (a broadcast
+    over the mesh; the dict itself off a mesh of several ranks)."""
+    if mesh is None or mesh.group is None:
+        return tree
+    out = {}
+    for k in sorted(tree):      # one order on every rank, whatever its dict's
+        buf = tree[k].detach().clone().contiguous()
+        dist.broadcast(buf, dist.get_global_rank(mesh.group, 0), group=mesh.group)
+        out[k] = buf
+    return {k: out[k] for k in tree}
+
+
 @scoped(scopes.AGGREGATE)
 def plain_mean(p_out: list[dict]) -> dict:
     """The plaintext FedAvg mean of the clients' trained weights (the JAX
@@ -134,7 +227,7 @@ def plain_mean(p_out: list[dict]) -> dict:
 
 @scoped(scopes.AGGREGATE)
 def masked_mean_tree(global_params: dict, p_out: list[dict], keep: torch.Tensor,
-                     total: int) -> tuple[dict, torch.Tensor]:
+                     total: int, mesh=None) -> tuple[dict, torch.Tensor]:
     """Participation-masked FedAvg mean of the clients' weights, shared by
     the plaintext round and the encrypted round's plain reference.
 
@@ -142,17 +235,28 @@ def masked_mean_tree(global_params: dict, p_out: list[dict], keep: torch.Tensor,
     where(keep, t, 0), then * (total / count) — so an all-kept round is
     bitwise `plain_mean` (where(True, t, 0) selects t, total/count is
     exactly 1.0f). A round where nobody survives returns `global_params`.
+    On a mesh of several ranks (`p_out` and `keep` this rank's block, `total`
+    the padded registry's size) the block means and the kept count are
+    reduced across the client axes, in the JAX package's op sequence.
     -> (aggregated params, surviving count float32)."""
-    count = torch.sum(keep.to(torch.float32))
+    local = {k: torch.where(keep.reshape((-1,) + (1,) * g.dim()),
+                            torch.stack([prm[k] for prm in p_out]),
+                            torch.zeros((), dtype=g.dtype, device=g.device)).mean(dim=0)
+             for k, g in global_params.items()}
+    local[_COUNT] = torch.sum(keep.to(torch.float32)).reshape(1)
+    # One rank-ordered reduction carries the block means and the count;
+    # off a mesh it returns them, and x / 1 is exact.
+    summed = psum_tree(local, mesh)
+    n = 1 if mesh is None else client_mesh_size(mesh)
+    count = summed.pop(_COUNT).reshape(())
     scale = torch.where(count > 0, torch.tensor(np.float32(total), device=count.device) / count,
                         torch.zeros((), device=count.device))
-    out = {}
-    for k, g in global_params.items():
-        t = torch.stack([prm[k] for prm in p_out])
-        sel = keep.reshape((-1,) + (1,) * (t.dim() - 1))
-        mean = torch.where(sel, t, torch.zeros((), dtype=t.dtype, device=t.device)).mean(dim=0)
-        out[k] = torch.where(count > 0, (mean * scale).to(t.dtype), g)
+    out = {k: torch.where(count > 0, (summed[k] / n * scale).to(g.dtype), g)
+           for k, g in global_params.items()}
     return out, count
+
+
+_COUNT = "\0count"     # the kept count's key in the reduced dict (no parameter's name)
 
 
 def masked_mode(cfg: TrainConfig, num_clients: int, n_dev: int, explicit: bool,
@@ -161,7 +265,8 @@ def masked_mode(cfg: TrainConfig, num_clients: int, n_dev: int, explicit: bool,
     `fl.secure.secure_fedavg_round` and the experiment driver (the rounds'
     return arity follows it). `explicit`: the caller passed a participation
     mask or poison codes; `secure` enables the encrypted-path-only
-    on_overflow="exclude" signal. The port runs one device (n_dev = 1)."""
+    on_overflow="exclude" signal. `n_dev`: the client mesh's rank count (a
+    count it does not divide pads, and pads run masked)."""
     sanitizing = cfg.max_update_norm > 0 or (secure and cfg.on_overflow == "exclude")
     return explicit or num_clients % n_dev != 0 or sanitizing
 
@@ -182,7 +287,8 @@ def participation_mask(num_clients: int, participation=None) -> np.ndarray:
 
 def fedavg_round(
     model, cfg: TrainConfig, global_params: dict, xs, ys, gen: torch.Generator,
-    streams=None, participation=None, poison=None,
+    streams=None, participation=None, poison=None, mesh=None,
+    num_real_clients: int | None = None,
 ):
     """One synchronous plaintext FedAvg round: every client trains from the
     global weights (its generator drawn from `gen`, as the encrypted round
@@ -196,28 +302,44 @@ def fedavg_round(
     through the masked engine, which returns a third output, the round's
     `RoundMeta`: poison -> exclusion bits -> `masked_mean_tree`. An all-ones
     mask without poison or norm bound is the all-clients round bit for bit,
-    with a full-participation meta."""
-    num_clients = int(xs.shape[0])
+    with a full-participation meta.
+
+    `mesh` (a `parallel.Mesh` of several ranks; every member rank calls
+    this with the same arguments) trains this rank's block of clients and
+    averages across the client axes; a count the mesh does not divide is
+    padded (masked). `num_real_clients` marks xs/ys as padded by
+    `pad_federated`. The metrics come back for every client on every rank."""
+    n_dev = 1 if mesh is None else client_mesh_size(mesh)
+    num_clients, pad_idx, _ = _round_geometry(xs, n_dev, num_real_clients)
     explicit = participation is not None or poison is not None
-    masked = masked_mode(cfg, num_clients, 1, explicit)
-    gens = client_generators(gen, num_clients, xs.device)
-    trivial = not masked or (cfg.max_update_norm <= 0 and _trivial_mask(participation, poison))
-    part = participation_mask(num_clients, participation)
+    masked = masked_mode(cfg, num_clients, n_dev, explicit)
+    trivial = not masked or (pad_idx is None and cfg.max_update_norm <= 0
+                             and _trivial_mask(participation, poison))
+    gidx, rows = client_block(mesh, num_clients, pad_idx)
+    gens = client_generators(gen, num_clients, xs.device, gidx)
+    if n_dev > 1:                            # this rank's block of the registry
+        idx = torch.from_numpy(gidx).to(xs.device)
+        xs, ys = xs.index_select(0, idx), ys.index_select(0, idx)
+    part = participation_mask(num_clients, participation)[gidx]
+    part[rows:] = 0                          # padding: scheduled out
     p_out, mets = train_block(
         model, cfg, global_params, xs, ys,
-        gens=None if streams is not None else gens, streams=streams,
+        gens=None if streams is not None else gens,
+        streams=None if streams is None else [streams[int(i)] for i in gidx],
         participation=None if trivial else part,
     )
-    if not masked:
-        return plain_mean(p_out), mets
+    mets = gather_clients(mesh, mets, num_clients)
     if trivial:
-        return plain_mean(p_out), mets, RoundMeta.full_participation(num_clients)
+        new = pmean_tree(plain_mean(p_out), mesh)
+        return (new, mets) + ((RoundMeta.full_participation(num_clients),) if masked else ())
     with torch.profiler.record_function(scopes.SANITIZE):
         if poison is not None:
-            p_out = [poison_tree(prm, int(code)) for prm, code in zip(p_out, np.asarray(poison))]
+            codes = np.asarray(poison).astype(np.int32).reshape(num_clients)[gidx]
+            codes[rows:] = 0
+            p_out = [poison_tree(prm, int(code)) for prm, code in zip(p_out, codes)]
         bits = exclusion_bits(cfg, global_params, p_out, part)
-    new, _ = masked_mean_tree(global_params, p_out, bits == 0, num_clients)
-    return new, mets, RoundMeta.from_bits(bits)
+    new, _ = masked_mean_tree(global_params, p_out, bits == 0, len(gidx) * n_dev, mesh=mesh)
+    return new, mets, RoundMeta.from_bits(gather_clients(mesh, bits, num_clients))
 
 
 @scoped(scopes.EVALUATE)

@@ -1,4 +1,4 @@
-"""Encrypted FedAvg on one device: train, encrypt, sum mod p, owner decrypt.
+"""Encrypted FedAvg: train, encrypt, sum mod p, owner decrypt.
 
 Counterpart of the synchronous paths of `hefl_tpu.fl.secure`. Each client's
 upload goes through ONE encrypt core call over the whole client stack (one
@@ -19,7 +19,11 @@ fused-encrypt kernel launch on CUDA):
     only the streaming engine, which carries the residual rows across
     rounds, runs it.
 
-The server's aggregation is the ciphertext sum mod p over the client axis.
+The server's aggregation is the ciphertext sum mod p over the client axis;
+across the client mesh (`mesh=`, one rank a GPU) each rank sums its block
+and the partial sums are all-reduced mod p (`psum_ciphertext`), and the
+owner's encrypt and decrypt can split their rows over a ct mesh
+(`encrypt_params_sharded`, `decrypt_sharded`).
 Trust split: the round touches only the `PublicKey`; the `SecretKey`
 appears only in `decrypt_average`, the model owner's step.
 
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hefl_tpu_torch.ckks import encoding, ops
 from hefl_tpu_torch.ckks.keys import CkksContext, PublicKey, SecretKey
@@ -55,10 +60,13 @@ from hefl_tpu_torch.fl.config import TrainConfig
 from hefl_tpu_torch.fl.dp import DpConfig, calibration_clients, dp_sanitize
 from hefl_tpu_torch.fl.faults import RoundMeta, exclusion_bits, poison_tree
 from hefl_tpu_torch.fl.fedavg import (
+    _round_geometry,
     _trivial_mask,
+    client_block,
     client_generators,
     cohort_bucket,
     cohort_gather_index,
+    gather_clients,
     masked_mean_tree,
     masked_mode,
     participation_mask,
@@ -68,6 +76,7 @@ from hefl_tpu_torch.fl.fedavg import (
 from hefl_tpu_torch.hhe import cipher
 from hefl_tpu_torch.obs import scopes
 from hefl_tpu_torch.obs.scopes import scoped
+from hefl_tpu_torch.parallel import client_axes, client_mesh_size, hierarchical_psum_mod, pmean_tree
 
 
 def encode_stack(ctx: CkksContext, p_out: list[dict]) -> torch.Tensor:
@@ -110,6 +119,56 @@ def encrypt_params_packed(
     ct, _ = encrypt_stack_packed(ctx, pk, [params], base_params,
                                  None if gen is None else [gen], spec, samples)
     return Ciphertext(c0=ct.c0[0], c1=ct.c1[0], scale=ct.scale)
+
+
+def _pad_rows(t: torch.Tensor, mult: int) -> torch.Tensor:
+    """Zero-pad axis 0 to a multiple of `mult` (ciphertext-shard padding)."""
+    pad = (-int(t.shape[0])) % mult
+    if pad:
+        t = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
+    return t
+
+
+def _row_block(mesh, *ts: torch.Tensor) -> tuple[list, int]:
+    """Each [n_ct, ...] tensor zero-padded to the ct mesh and cut to this
+    rank's block of rows -> (blocks, n_ct)."""
+    n_dev = mesh.size
+    rows = -(-int(ts[0].shape[0]) // n_dev)
+    lo = mesh.coords[mesh.axis_names[0]] * rows
+    return [_pad_rows(t, n_dev)[lo: lo + rows] for t in ts], int(ts[0].shape[0])
+
+
+def _gather_rows(mesh, blk: torch.Tensor, n_ct: int) -> torch.Tensor:
+    """Every rank's block of rows, in rank order, less the padding."""
+    if mesh.group is None:
+        return blk[:n_ct]
+    parts = [torch.empty_like(blk) for _ in range(mesh.size)]
+    dist.all_gather(parts, blk.contiguous(), group=mesh.group)
+    return torch.cat(parts)[:n_ct]
+
+
+def encrypt_params_sharded(ctx: CkksContext, pk: PublicKey, params: dict,
+                           gen: torch.Generator, mesh) -> Ciphertext:
+    """`encrypt_params` with the [n_ct] ciphertext rows split over a ct mesh
+    (`parallel.make_ct_mesh`; every member rank calls it alike): encode
+    and the samples at the whole [n_ct] shape from `gen`, as the one-device
+    path draws them, then each rank's block of rows through the encrypt
+    core (one K3 launch a rank on CUDA), the blocks gathered on every rank.
+    Bitwise `encrypt_params(..., gen)`."""
+    m_res = encoding.encode(ctx.ntt, pack_params(params, ctx.n), ctx.scale)
+    samples = ops.encrypt_samples(ctx, gen, (int(m_res.shape[0]),), m_res.device)
+    (m_blk, u, e0, e1), n_ct = _row_block(mesh, m_res, *samples)
+    ct = ops.encrypt_core(ctx, pk, m_blk, u, e0, e1)
+    return Ciphertext(c0=_gather_rows(mesh, ct.c0, n_ct), c1=_gather_rows(mesh, ct.c1, n_ct),
+                      scale=ctx.scale)
+
+
+def decrypt_sharded(ctx: CkksContext, sk: SecretKey, ct: Ciphertext, mesh) -> torch.Tensor:
+    """`ops.decrypt` with the [n_ct] rows split over a ct mesh (one K4 launch
+    a rank on CUDA), gathered on every rank: bitwise the residues."""
+    (c0, c1), n_ct = _row_block(mesh, ct.c0, ct.c1)
+    res = ops.decrypt(ctx, sk, Ciphertext(c0=c0, c1=c1, scale=ct.scale))
+    return _gather_rows(mesh, res, n_ct)
 
 
 def _pack_updates(p_out: list[dict], base_params: dict, spec: PackedSpec,
@@ -221,7 +280,7 @@ def client_uploads(
     xs: torch.Tensor, ys: torch.Tensor, gen: torch.Generator, packing: PackedSpec | None = None,
     hhe_keys=None, round_index: int = 0, streams=None, dp: DpConfig | None = None,
     participation=None, poison=None, want_bits: bool = False, cohort=None,
-    ef_residual=None,
+    ef_residual=None, block=None, num_real_clients: int | None = None,
 ):
     """The client half of a round, in the JAX package's order: train ->
     DP-sanitize (`dp`, shares calibrated to `calibration_clients`) ->
@@ -255,10 +314,20 @@ def client_uploads(
     `cohort`) come back as a seventh output, for the streaming engine to
     scatter into its cross-round state.
 
+    `block` (a rank's `fedavg.client_block`: a gather index into the
+    clients and its count of real rows) trains and encrypts this rank's
+    block of the client mesh, as `cohort` does its cohort, with the
+    generators drawn at the full count; the padding rows are scheduled out
+    and KEPT (block-rowed outputs, cpd rows), as the JAX package keeps a
+    device's padding slots. `num_real_clients`: the client count when xs
+    is padded (`fedavg.pad_federated`).
+
     -> (Ciphertext [C, n_ct, L, N] or the (w_hi, w_lo) word pair,
     metrics float32[C, E, 4], overflow [C], uploaded params, enc_gens,
     exclusion bits int32[C] or None[, residual' float32[C, total]])."""
-    num_clients = int(xs.shape[0])
+    num_clients = int(xs.shape[0]) if num_real_clients is None else int(num_real_clients)
+    if cohort is not None and block is not None:
+        raise ValueError("client_uploads: a cohort and a mesh block do not combine")
     ef_on = packing is not None and packing.error_feedback
     if ef_on and ef_residual is None:
         raise ValueError(
@@ -278,7 +347,7 @@ def client_uploads(
             "the hybrid-HE upload ships the PACKED quantized update under the "
             "stream cipher; give a PackedSpec"
         )
-    gidx = None
+    gidx, rows = None, num_clients
     if cohort is not None:
         cohort = np.asarray(cohort, dtype=np.int64)
         if len(cohort) > num_clients or (
@@ -291,13 +360,14 @@ def client_uploads(
             )
         if len(cohort) < num_clients:
             gidx = cohort_gather_index(cohort, cohort_bucket(len(cohort), num_clients))
+            rows = len(cohort)
+    if block is not None:
+        gidx, rows = block
     train_gens = client_generators(gen, num_clients, xs.device, gidx)
     enc_gens = client_generators(gen, num_clients, xs.device, gidx)
     dp_gens = client_generators(gen, num_clients, xs.device, gidx) if dp is not None else None
     part = participation_mask(num_clients, participation)
-    rows = num_clients
     if gidx is not None:
-        rows = len(cohort)
         part = part[gidx].copy()
         part[rows:] = 0                    # bucket padding: scheduled out, never ships
         if poison is not None:
@@ -326,7 +396,7 @@ def client_uploads(
     if hhe_keys is not None:
         w_hi, w_lo, overflow, *ef = hhe_encrypt_stack(p_out, global_params, hhe_keys,
                                                       round_index, packing, residual_blk=ef_blk)
-        cts = (w_hi[:rows], w_lo[:rows])
+        cts = (w_hi, w_lo)
     elif packing is not None:
         cts, overflow, *ef = encrypt_stack_packed(ctx, pk, p_out, global_params, enc_gens,
                                                   packing, residual_blk=ef_blk)
@@ -342,9 +412,11 @@ def client_uploads(
         with torch.profiler.record_function(scopes.SANITIZE):
             bits = exclusion_bits(cfg, global_params, p_out, part, overflow)
     ef_out = ef[0] if ef else None
-    if gidx is not None:
+    if gidx is not None and block is None:
         if hhe_keys is None:
             cts = Ciphertext(c0=cts.c0[:rows], c1=cts.c1[:rows], scale=cts.scale)
+        else:
+            cts = (cts[0][:rows], cts[1][:rows])
         mets, overflow, p_out, enc_gens = mets[:rows], overflow[:rows], p_out[:rows], enc_gens[:rows]
         bits = bits[:rows] if bits is not None else None
         ef_out = ef_out[:rows] if ef_out is not None else None
@@ -368,6 +440,8 @@ def secure_fedavg_round(
     dp: DpConfig | None = None,
     participation=None,
     poison=None,
+    mesh=None,
+    num_real_clients: int | None = None,
 ):
     """One encrypted FedAvg round on the device of `xs`.
 
@@ -397,6 +471,16 @@ def secure_fedavg_round(
     the kept clients on the masked engine): it leaks what the encrypted
     path exists to hide, and exists only to check encode + encrypt + sum +
     decrypt against a plaintext reference in one program.
+
+    `mesh` (a `parallel.Mesh` of several ranks; every member rank calls
+    this with the same arguments) takes this rank's block of clients
+    through `client_uploads`, sums the block's ciphertexts
+    (`aggregate_encrypted`) and all-reduces the partial sums mod p over the
+    client axes (`parallel.hierarchical_psum_mod`): the sum is the
+    one-device round's bit for bit, on every rank. A count the mesh does
+    not divide is padded with masked-out slots; `num_real_clients` marks
+    xs/ys as padded by `fedavg.pad_federated`. Metrics, overflow and the
+    RoundMeta come back for every client on every rank.
     """
     if packing is not None and packing.error_feedback:
         # One-shot round: nowhere to carry the residual, so an EF spec here
@@ -407,27 +491,37 @@ def secure_fedavg_round(
             "round cannot carry it — add a StreamConfig or drop "
             "error_feedback"
         )
-    num_clients = int(xs.shape[0])
+    n_dev = 1 if mesh is None else client_mesh_size(mesh)
+    num_clients, pad_idx, _ = _round_geometry(xs, n_dev, num_real_clients)
     sanitizing = cfg.on_overflow == "exclude" or cfg.max_update_norm > 0
     explicit = participation is not None or poison is not None
-    masked = masked_mode(cfg, num_clients, 1, explicit, secure=True)
-    trivial = masked and not sanitizing and _trivial_mask(participation, poison)
+    masked = masked_mode(cfg, num_clients, n_dev, explicit, secure=True)
+    trivial = (masked and pad_idx is None and not sanitizing
+               and _trivial_mask(participation, poison))
     want_bits = masked and not trivial
+    block = client_block(mesh, num_clients, pad_idx) if n_dev > 1 else None
     cts, mets, overflow, p_out, _, bits = client_uploads(
         model, cfg, ctx, pk, global_params, xs, ys, gen, packing=packing, streams=streams,
         dp=dp, participation=participation if want_bits else None,
-        poison=poison if want_bits else None, want_bits=want_bits,
+        poison=poison if want_bits else None, want_bits=want_bits, block=block,
+        num_real_clients=num_clients,
     )
+    keep = bits == 0 if want_bits else None
+    if keep is not None:
+        cts = zero_excluded(cts, keep)
+    ct_sum = aggregate_encrypted(ctx, cts)
+    if block is not None:
+        ct_sum = psum_ciphertext(ctx, ct_sum, mesh)
+        mets = gather_clients(mesh, mets, num_clients)
+        overflow = gather_clients(mesh, overflow, num_clients)
     if not want_bits:
-        outs = (aggregate_encrypted(ctx, cts), mets, overflow)
+        outs = (ct_sum, mets, overflow)
         if masked:
             outs = outs + (RoundMeta.full_participation(num_clients),)
         if with_plain_reference:
-            outs = outs + (plain_mean(p_out),)
+            outs = outs + (pmean_tree(plain_mean(p_out), mesh),)
         return outs
-    keep = bits == 0
-    ct_sum = aggregate_encrypted(ctx, zero_excluded(cts, keep))
-    meta = RoundMeta.from_bits(bits)
+    meta = RoundMeta.from_bits(bits if block is None else gather_clients(mesh, bits, num_clients))
     if dp is not None and meta.surviving < calibration_clients(dp, num_clients):
         raise ValueError(
             f"dp round survived {meta.surviving} clients, below the "
@@ -439,8 +533,19 @@ def secure_fedavg_round(
         )
     outs = (ct_sum, mets, overflow, meta)
     if with_plain_reference:
-        outs = outs + (masked_mean_tree(global_params, p_out, keep, num_clients)[0],)
+        total = num_clients if block is None else len(block[0]) * n_dev
+        outs = outs + (masked_mean_tree(global_params, p_out, keep, total, mesh=mesh)[0],)
     return outs
+
+
+def psum_ciphertext(ctx: CkksContext, ct: Ciphertext, mesh) -> Ciphertext:
+    """The ranks' partial sums [n_ct, L, N] summed mod p over the mesh's
+    client axes (`parallel.hierarchical_psum_mod`), on every rank."""
+    p = plain_tables(ctx.ntt, ct.c0.device).p
+    axes = client_axes(mesh)
+    with torch.profiler.record_function(scopes.PSUM_AGGREGATE):
+        return Ciphertext(c0=hierarchical_psum_mod(ct.c0, p, mesh, axes),
+                          c1=hierarchical_psum_mod(ct.c1, p, mesh, axes), scale=ct.scale)
 
 
 @scoped(scopes.DECRYPT)
@@ -455,6 +560,7 @@ def decrypt_average(
     base_params: dict | None = None,
     hhe: bool = False,
     exact: bool = False,
+    mesh=None,
 ) -> dict:
     """Owner-side decrypt of the aggregated sum -> averaged parameter dict.
 
@@ -469,7 +575,9 @@ def decrypt_average(
     cipher wrap multiples `hhe_center_mod` removes first — bitwise the
     direct path's integers.
     The denominator is `meta.surviving` when the round's RoundMeta is given
-    (cross-checked against `num_clients`), else `num_clients`.
+    (cross-checked against `num_clients`), else `num_clients`. `mesh` (a
+    ct mesh, `parallel.make_ct_mesh`) splits the decrypt's rows over its
+    ranks (`decrypt_sharded`), each of which then holds the average.
     """
     if packing is None and spec is None:
         raise TypeError("decrypt_average: spec (the PackSpec) is required")
@@ -496,7 +604,7 @@ def decrypt_average(
         raise TypeError("decrypt_average: need num_clients or the round's RoundMeta")
     else:
         surviving = int(num_clients)
-    res = ops.decrypt(ctx, sk, ct_sum)
+    res = ops.decrypt(ctx, sk, ct_sum) if mesh is None else decrypt_sharded(ctx, sk, ct_sum, mesh)
     if packing is not None:
         v = encoding.decode_int_center(ctx.ntt, res)
         if hhe:

@@ -45,7 +45,9 @@ the engine keeps one float32 residual row per registered client
 and committed with the rest of the cross-round state. As in the JAX
 package, the residual is not journaled.
 
-`num_real_clients` is refused: one device never pads its clients.
+`num_real_clients` (the client mesh's padding) is refused: the engine
+runs on one rank; the streaming and hierarchical engines over the client
+mesh come in a later port slice.
 """
 
 from __future__ import annotations
@@ -551,7 +553,8 @@ class StreamEngine:
         if num_real_clients is not None:
             raise ValueError(
                 "StreamEngine.run_round: num_real_clients= pads the client axis "
-                "onto a multi-device mesh; one device never pads (drop it)"
+                "onto the client mesh; the streaming engine over the mesh comes in a "
+                "later port slice (drop it: the engine runs on one rank)"
             )
         hhe_mode = s.upload_kind == "hhe"
         if hhe_mode and packing is None:

@@ -1,11 +1,17 @@
-"""Host-side topology helpers of the two-tier aggregation.
+"""The client mesh across GPUs and the topology helpers of the two-tier
+aggregation.
 
-Counterpart of the numpy-only helpers of `hefl_tpu.parallel`
-(`mesh.host_of_clients`, `mesh.dcn_link_names`,
-`collectives.dcn_traffic_model`). One GPU has no device mesh: the hosts
-here are the simulated regions of the hierarchical fold tree
-(`fl.hierarchy`), whose client -> host layout the regional-outage fault
-schedule (`fl.faults`) shares.
+Counterpart of `hefl_tpu.parallel`: one (or more) FL clients a GPU, one
+process (rank) a GPU under `torch.distributed` (`mesh`), and the
+cross-client exchange as one collective a round (`collectives`: the
+modular all-reduce of ciphertext residues, the mean of weight dicts). The
+JAX package's `shard_map` has no counterpart: each rank runs its own
+block of clients eagerly.
+
+The numpy-only helpers below (`host_of_clients`, `dcn_link_names`,
+`dcn_traffic_model`) model the simulated regions of the hierarchical fold
+tree (`fl.hierarchy`), whose client -> host layout the regional-outage
+fault schedule (`fl.faults`) shares.
 """
 
 from __future__ import annotations
@@ -84,4 +90,37 @@ def dcn_traffic_model(
     }
 
 
-__all__ = ["host_of_clients", "dcn_link_names", "dcn_traffic_model"]
+from hefl_tpu_torch.parallel.collectives import (  # noqa: E402
+    MAX_PSUM_CLIENTS,
+    hierarchical_psum_mod,
+    pmean_tree,
+    psum_mod,
+    psum_tree,
+    reduce_mod,
+    ring_psum_mod,
+)
+from hefl_tpu_torch.parallel.mesh import (  # noqa: E402
+    CLIENT_AXIS,
+    CT_AXIS,
+    HOST_AXIS,
+    Mesh,
+    client_axes,
+    client_index,
+    client_mesh_size,
+    ct_shard_count,
+    host_count,
+    init_mesh,
+    local_client_count,
+    make_ct_mesh,
+    make_host_mesh,
+    make_mesh,
+    make_mesh_2d,
+)
+
+__all__ = [
+    "CLIENT_AXIS", "CT_AXIS", "HOST_AXIS", "MAX_PSUM_CLIENTS", "Mesh", "client_axes",
+    "client_index", "client_mesh_size", "ct_shard_count", "dcn_link_names",
+    "dcn_traffic_model", "hierarchical_psum_mod", "host_count", "host_of_clients",
+    "init_mesh", "local_client_count", "make_ct_mesh", "make_host_mesh", "make_mesh",
+    "make_mesh_2d", "pmean_tree", "psum_mod", "psum_tree", "reduce_mod", "ring_psum_mod",
+]

@@ -9,8 +9,7 @@ trained weights, which come from torch generators here: the tests hold it
 to its definition (the uploads it quantized), to the cohort it may touch,
 and the engine's records to the JAX engine's. The JAX engine's certifiers
 need `jax.experimental.enable_x64`, gone in JAX 0.9 (ROADMAP caveat R1):
-they are stubbed with monkeypatch, and run for real once through the
-`jax_x64` stand-in (tests/test_torch_ranges.py).
+they run for real through the `jax_x64` stand-in (tests/torch_jax_x64.py).
 """
 
 import dataclasses
@@ -21,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-import hefl_tpu.analysis.ranges as jranges
 from hefl_tpu.ckks import keys as jkeys
 from hefl_tpu.ckks import packing as jpack
 from hefl_tpu.ckks import quantize as jq
@@ -42,25 +40,12 @@ from hefl_tpu_torch.fl.faults import FaultConfig
 from hefl_tpu_torch.models import create_model
 
 from test_torch_packing import _client_trees, _tree, _u, jax_spec
-from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
+from torch_jax_x64 import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 torch.set_num_threads(2)
 
 C = 8
 TRAIN = dict(epochs=1, batch_size=4, num_classes=10, augment=False, val_fraction=0.25)
-
-
-class _Ok:
-    ok = True
-
-    def summary(self):
-        return "stubbed"
-
-
-def _stub_jax_certifiers(monkeypatch):
-    for name in ("certify_fold_inductive", "certify_transciphering", "certify_packing",
-                 "certify_fold_tree"):
-        monkeypatch.setattr(jranges, name, lambda *a, **k: _Ok())
 
 
 @pytest.mark.parametrize("bits,clip", [(4, 0.5), (8, 0.25), (2, 0.1)])
@@ -212,8 +197,7 @@ def test_engine_residual_is_the_uploads_error_on_cohort_rows_only(monkeypatch):
         assert not torch.equal(after[list(cohort)], before[list(cohort)])
 
 
-def test_engine_records_with_error_feedback_match_jax(monkeypatch):
-    _stub_jax_certifiers(monkeypatch)
+def test_engine_records_with_error_feedback_match_jax(jax_x64):
     _ef_engines_match(2)
 
 

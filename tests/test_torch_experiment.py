@@ -9,7 +9,7 @@ torch, so two runs' histories are not compared number for number.
 
 The JAX side runs the tiny config of `tests/test_experiment.py` (N = 256).
 Its encrypted runs take the JAX package's pre-flight certifiers through the
-`jax_x64` stand-in (tests/test_torch_ranges.py) for the
+`jax_x64` stand-in (tests/torch_jax_x64.py) for the
 `jax.experimental.enable_x64` JAX 0.9 removed (ROADMAP caveat R1), so the
 JAX pre-flight really runs; the run itself is unchanged.
 """
@@ -50,7 +50,7 @@ from hefl_tpu_torch.fl.dp import DpConfig, epsilon_spent
 from hefl_tpu_torch.fl.faults import FaultConfig
 from hefl_tpu_torch.models import LogReg, SmallCNN, count_params, create_model
 
-from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
+from torch_jax_x64 import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 torch.set_num_threads(2)
 

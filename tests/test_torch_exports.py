@@ -18,7 +18,7 @@ SUBPACKAGES = ("fl", "data", "utils", "obs", "models", "hhe")
 UNPORTED = {
     "fl": {
         "produce_uploads": "fl.secure.client_uploads is its counterpart (a torch.Generator "
-                           "in place of a jax.random key, no client mesh)",
+                           "in place of a jax.random key)",
     },
     "data": {
         "Batcher": "data/batches.py: no driver path batches through it (ROADMAP, not queued)",

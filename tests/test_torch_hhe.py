@@ -43,7 +43,7 @@ from hefl_tpu_torch.hhe import cipher, transcipher
 from hefl_tpu_torch.models import create_model
 
 from test_torch_packing import _client_trees, _t, _tree, _u, jax_spec
-from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
+from torch_jax_x64 import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 torch.set_num_threads(2)
 

@@ -9,9 +9,8 @@ is a function of the link schedule and the retry PRNG, so its report, the
 tier and root WALs (`fl.journal` framing) and the engine's `hosts` record
 are the JAX package's exactly. The JAX aggregator's and engine's
 certifiers need `jax.experimental.enable_x64`, gone in JAX 0.9 (ROADMAP
-caveat R1): most tests stub them with monkeypatch; the fold-tree tests also
-run the JAX aggregator with its own `certify_fold_tree` through the
-`jax_x64` stand-in (tests/test_torch_ranges.py).
+caveat R1): the tests run them for real through the `jax_x64` stand-in
+(tests/torch_jax_x64.py).
 """
 
 import dataclasses
@@ -49,26 +48,13 @@ from hefl_tpu_torch.fl.faults import FaultConfig, LinkFaults, SimulatedCrash, sc
 from hefl_tpu_torch.models import create_model
 
 from test_torch_packing import jax_spec
-from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
+from torch_jax_x64 import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 torch.set_num_threads(2)
 
 C = 8
 TRAIN = dict(epochs=1, batch_size=4, num_classes=10, augment=False, val_fraction=0.25)
 P256 = np.asarray(keys.CkksContext.create(n=256).ntt.p)
-
-
-class _Ok:
-    ok = True
-
-    def summary(self):
-        return "stubbed"
-
-
-def _stub_jax_certifiers(monkeypatch):
-    for name in ("certify_fold_inductive", "certify_transciphering", "certify_packing",
-                 "certify_fold_tree"):
-        monkeypatch.setattr(jranges, name, lambda *a, **k: _Ok())
 
 
 def _uploads(n=C, seed=0, shape=(2, 3, 256)):
@@ -117,8 +103,7 @@ def test_fold_tree_certificate(jax_x64):
 
 
 @pytest.mark.parametrize("hosts", [2, 3, 4])
-def test_fold_tree_is_the_flat_fold_and_the_jax_tree_in_any_order(hosts, monkeypatch):
-    _stub_jax_certifiers(monkeypatch)
+def test_fold_tree_is_the_flat_fold_and_the_jax_tree_in_any_order(hosts, jax_x64):
     rows = _uploads()
     clients = np.arange(C)
     rec = hierarchy.dcn_compare_record(P256, rows[:, 0], rows[:, 1], clients, C, hosts, seed=3)
@@ -152,10 +137,9 @@ def test_fold_tree_matches_the_jax_tree_under_its_own_certifier(jax_x64):
     assert mine.report() == theirs.report()
 
 
-def _both(monkeypatch, link, ship, crash=None, jdir=None, tdir=None, folds=None, t0=0.0,
+def _both(link, ship, crash=None, jdir=None, tdir=None, folds=None, t0=0.0,
           round_index=0):
     """The same folds and ship through both aggregators."""
-    _stub_jax_certifiers(monkeypatch)
     rows = _uploads()
     jlink = None if link is None else jfaults.LinkFaults(**dataclasses.asdict(link))
     mine = hierarchy.HierarchicalAggregator(
@@ -191,15 +175,15 @@ def _link(**kw):
 SHIP = dict(deadline_s=0.6, max_retries=2, backoff_s=0.25, jitter=0.5, seed=4)
 
 
-def test_ship_retry_times_equal_jax(monkeypatch):
-    mine, theirs, _ = _both(monkeypatch, None, SHIP, round_index=3)
+def test_ship_retry_times_equal_jax(jax_x64):
+    mine, theirs, _ = _both(None, SHIP, round_index=3)
     for h in range(4):
         for t in (0.0, 0.4, 2.5):
             assert mine._ship_retry_times(h, t) == theirs._ship_retry_times(h, t)
 
 
 @pytest.mark.parametrize("case", ["transient", "duplicate", "dark", "deadline", "clean"])
-def test_faulty_uplinks_match_jax(case, monkeypatch):
+def test_faulty_uplinks_match_jax(case, jax_x64):
     link = {
         "transient": _link(transient=[1], delay_s=[0.0, 0.9, 0.0, 0.0]),
         "duplicate": _link(duplicate=[2]),
@@ -207,7 +191,7 @@ def test_faulty_uplinks_match_jax(case, monkeypatch):
         "deadline": _link(delay_s=[0.0, 0.0, 0.8, 0.1]),
         "clean": None,
     }[case]
-    mine, theirs, out = _both(monkeypatch, link, SHIP, t0=1.5)
+    mine, theirs, out = _both(link, SHIP, t0=1.5)
     assert out == [None, None]
     assert mine.report() == theirs.report() and mine.ship_log == theirs.ship_log
     assert stream.ct_hash(*mine._root.value()) == jstream.ct_hash(*theirs._root.value())
@@ -250,10 +234,9 @@ def _wal_bytes(d):
     return {name: open(os.path.join(d, name), "rb").read() for name in sorted(os.listdir(d))}
 
 
-def _recover_and_finish(lib, d, link, monkeypatch):
+def _recover_and_finish(lib, d, link):
     """Recover an aggregator from journal dir `d`, re-deliver every upload,
     ship -> (root sha, uploads refolded from the journal, duplicates)."""
-    _stub_jax_certifiers(monkeypatch)
     if lib is hierarchy:
         agg = hierarchy.HierarchicalAggregator(P256, 4, C, journal_dir=d, fsync_policy="never",
                                                link=link, ship=hierarchy.ShipPolicy(**SHIP),
@@ -276,11 +259,11 @@ def _recover_and_finish(lib, d, link, monkeypatch):
 
 
 @pytest.mark.parametrize("at", hierarchy.TIER_CRASH_POINTS)
-def test_tier_crash_matrix_recovers_bitwise_with_jax_identical_wals(at, tmp_path, monkeypatch):
+def test_tier_crash_matrix_recovers_bitwise_with_jax_identical_wals(at, tmp_path, jax_x64):
     tdir, jdir = str(tmp_path / "port"), str(tmp_path / "jax")
     link = _link(duplicate=[0], transient=[2])
     crash = hierarchy.TierCrash(host=1, at=at, after_folds=2)
-    mine, theirs, out = _both(monkeypatch, link, SHIP, crash=crash, jdir=jdir, tdir=tdir)
+    mine, theirs, out = _both(link, SHIP, crash=crash, jdir=jdir, tdir=tdir)
     assert out == ["SimulatedCrash", "SimulatedCrash"]
     mine.close()
     theirs.close()
@@ -288,14 +271,12 @@ def test_tier_crash_matrix_recovers_bitwise_with_jax_identical_wals(at, tmp_path
     # Each package reads the other's crashed journals.
     shutil.copytree(tdir, str(tmp_path / "port_copy"))
     shutil.copytree(jdir, str(tmp_path / "jax_copy"))
-    want = stream.ct_hash(*_both(monkeypatch, link, SHIP)[0].value())
+    want = stream.ct_hash(*_both(link, SHIP)[0].value())
     got = {
-        "port": _recover_and_finish(hierarchy, tdir, link, monkeypatch),
-        "jax": _recover_and_finish(jhier, jdir, link, monkeypatch),
-        "port_reads_jax": _recover_and_finish(hierarchy, str(tmp_path / "jax_copy"), link,
-                                              monkeypatch),
-        "jax_reads_port": _recover_and_finish(jhier, str(tmp_path / "port_copy"), link,
-                                              monkeypatch),
+        "port": _recover_and_finish(hierarchy, tdir, link),
+        "jax": _recover_and_finish(jhier, jdir, link),
+        "port_reads_jax": _recover_and_finish(hierarchy, str(tmp_path / "jax_copy"), link),
+        "jax_reads_port": _recover_and_finish(jhier, str(tmp_path / "port_copy"), link),
     }
     assert {sha for sha, _ in got.values()} == {want}
     # The uploads the crashed tier journaled are refolded, none twice.
@@ -335,8 +316,7 @@ def _records(path, reader):
 
 
 @pytest.mark.parametrize("name", list(ENGINE))
-def test_hierarchical_engine_matches_jax_engine(name, tmp_path, monkeypatch):
-    _stub_jax_certifiers(monkeypatch)
+def test_hierarchical_engine_matches_jax_engine(name, tmp_path, jax_x64):
     s_kw, f_kw = ENGINE[name]
     xs, ys = _data()
     model = create_model("smallcnn", device="cpu")

@@ -3,7 +3,7 @@ certificates `certify_keyswitch` / `certify_inference`, traced range
 probes under the interval interpreter.
 
 Each is held against the JAX certifier under the `jax_x64` stand-in
-(tests/test_torch_ranges.py): the same fields, summary, checks and
+(tests/torch_jax_x64.py): the same fields, summary, checks and
 findings, string for string, on the default gadget of every serving ring,
 a digit width above the prime and a prime whose products leave the
 2**62 wall.
@@ -19,7 +19,7 @@ from hefl_tpu_torch.analysis import AnalysisError, check_inference, ranges
 from hefl_tpu_torch.ckks.keys import CkksContext
 from hefl_tpu_torch.obs import metrics as obs_metrics
 
-from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
+from torch_jax_x64 import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 P27 = 2**27 - 39
 

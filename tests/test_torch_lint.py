@@ -4,7 +4,7 @@ CLI's call sites, the dispatch lint's rules and allowlist, the donation
 rule, the violation fixtures and `python -m hefl_tpu_torch.analysis`.
 
 Held against the JAX package: its certifiers under the `jax_x64` stand-in
-(tests/test_torch_ranges.py), the copied constants, the declared region
+(tests/torch_jax_x64.py), the copied constants, the declared region
 names and the `--json` line schema (the JAX `emit_json` on the same
 report).
 """
@@ -39,7 +39,7 @@ from hefl_tpu_torch.obs import events as obs_events
 from hefl_tpu_torch.obs import metrics as obs_metrics
 from hefl_tpu_torch.presets import PRESETS
 
-from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
+from torch_jax_x64 import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURES = sorted((REPO / "hefl_tpu_torch" / "analysis" / "fixtures").glob("violation_*.py"))
@@ -102,17 +102,19 @@ def test_aggregation_summary_is_the_jax_dataclass_summary(prime, jax_x64):
     assert cert.summary() == jranges.AggregationCertificate(**fields).summary()
     assert cert.chunk == want.chunk == 32 and cert.prime_bits == want.prime_bits
     assert cert.summary().startswith(f"aggregation p<2**{prime.bit_length()} chunk=32: ")
-    # The port's lazy sum adds 32 canonical residues in int64 (the JAX
-    # package's chunk in uint32): it fits below 2**58; the fold's legs are
-    # the JAX certificate's.
+    # The port's lazy sum and lazy all-reduce add 32 canonical residues in
+    # int64 (the JAX package's in uint32): they fit below 2**58; the fold's
+    # legs are the JAX certificate's.
     assert cert.ok == (32 * (prime - 1) < 1 << 63 and prime < 1 << 62)
     fold = ranges.certify_fold_inductive(prime)
     assert set(fold.findings) <= set(cert.findings)
     jfold = [f for f in want.findings if not f.message.startswith(("lazy_sum_mod", "psum_mod"))]
+    assert [str(f) for f in fold.findings] == [
+        str(f) for f in cert.findings if not f.message.startswith(("lazy_sum_mod", "psum_mod"))]
     assert [str(f) for f in fold.findings] == [str(f) for f in jfold]
     if cert.ok:
         assert set(fold.checks) <= set(cert.checks)
-        assert any("psum_mod: no counterpart" in c for c in cert.checks)
+        assert any(c.startswith("psum_mod[32 participants] stays in ") for c in cert.checks)
 
 
 def test_certificates_are_memoised():
@@ -245,9 +247,10 @@ def test_cli_preflight_exits_before_any_work(monkeypatch):
 
 
 def test_region_names_are_the_jax_ones():
+    # Every JAX region has its counterpart, the client-mesh psum_mod ones too.
     got = set(lint.exact_int_regions("cpu"))
-    assert got | set(lint.UNPORTED_REGIONS) == set(jlint.exact_int_regions())
-    assert not got & set(lint.UNPORTED_REGIONS)
+    assert lint.UNPORTED_REGIONS == {}
+    assert got == set(jlint.exact_int_regions())
 
 
 def test_exact_regions_are_clean():

@@ -3,24 +3,14 @@
 and its certifiers, held against the JAX package's `eval_jaxpr_ranges` and
 certifiers on the same probes and points.
 
-The JAX certifiers call `jax.experimental.enable_x64()`, which JAX 0.9
-removed, and under plain jit `jnp.remainder` traces to a `jit` equation the
-JAX interpreter leaves unbounded. The `jax_x64` fixture is a test-local
-stand-in that edits nothing of the JAX package: `enable_x64` turns x64 on
-and disables jit while a certifier traces, so `make_jaxpr` inlines jnp's
-jitted helpers; `lax.scan` and `lax.while_loop` stay loop primitives there
-(JAX runs a scan as a Python loop under `disable_jit`, which would unroll
-the probes' folds and lose their loop reports). It restores the config on
-exit and clears the JAX certifiers' caches, so nothing it traced is seen
-outside it. Other `test_torch_*` files import it from here.
+The JAX certifiers run under the `jax_x64` stand-in (tests/torch_jax_x64.py,
+which every `test_torch_*` file that needs it imports).
 """
 
-import contextlib
 import dataclasses
 from pathlib import Path
 
 import jax
-import jax.experimental  # noqa: F401  (the attribute the stand-in sets)
 import pytest
 import torch
 
@@ -40,6 +30,8 @@ from hefl_tpu_torch.ckks import keys, ops, quantize
 from hefl_tpu_torch.fl import secure, stream
 from hefl_tpu_torch.hhe import cipher
 
+from torch_jax_x64 import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
+
 REPO = Path(__file__).resolve().parent.parent
 P27 = 2**27 - 39
 P31 = 2**31 - 1
@@ -47,57 +39,6 @@ I = ranges.Interval
 CANON = I(0, P27 - 1)
 COUNT = I(0, ranges.LOOP_COUNT_CEILING)
 WALL = I(-((1 << 62) - 1), (1 << 62) - 1)
-JAX_CERTIFIERS = ("certify_packing", "certify_aggregation", "certify_fold_inductive",
-                  "certify_fold_tree", "certify_inference", "certify_keyswitch",
-                  "certify_transciphering")
-
-
-def _inlined(fn):
-    def run(*args):
-        with jax.disable_jit(True):
-            return fn(*args)
-    return run
-
-
-def _loop_primitive(orig, n_fns: int):
-    """`orig` (lax.scan / lax.while_loop) recorded as its loop primitive even
-    under `disable_jit`, its body functions traced with jit still off."""
-    def wrapped(*args, **kw):
-        if not jax.config.jax_disable_jit:
-            return orig(*args, **kw)
-        fns = [_inlined(f) for f in args[:n_fns]]
-        with jax.disable_jit(False):
-            return orig(*fns, *args[n_fns:], **kw)
-    return wrapped
-
-
-@pytest.fixture()
-def jax_x64(monkeypatch):
-    """The JAX certifiers' `enable_x64` on JAX 0.9 (see the module docstring);
-    yields the context manager, for tracing the JAX probes directly."""
-
-    @contextlib.contextmanager
-    def enable_x64():
-        old = jax.config.jax_enable_x64
-        jax.config.update("jax_enable_x64", True)
-        try:
-            with jax.disable_jit():
-                yield
-        finally:
-            jax.config.update("jax_enable_x64", old)
-
-    def clear():
-        for name in JAX_CERTIFIERS:
-            getattr(jranges, name).cache_clear()
-
-    clear()
-    monkeypatch.setattr(jax.experimental, "enable_x64", enable_x64, raising=False)
-    monkeypatch.setattr(jax.lax, "scan", _loop_primitive(jax.lax.scan, 1))
-    monkeypatch.setattr(jax.lax, "while_loop", _loop_primitive(jax.lax.while_loop, 2))
-    try:
-        yield enable_x64
-    finally:
-        clear()
 
 
 def _jax_result(x64, fn, args, ivs, **kw):
@@ -250,26 +191,30 @@ PSUM = ("psum_mod[", "psum_mod 2-D[")
 
 @pytest.mark.parametrize("prime", [P27, P31])
 def test_aggregation_is_the_jax_certificate_but_the_psum_legs(prime, jax_x64):
+    # Every leg is the JAX certificate's, the psum legs (2 and 2b) included:
+    # string for string at 27-bit primes; at 31 bits the lazy chunk and the
+    # lazy all-reduce overflow the JAX package's uint32 carriers but not the
+    # port's int64 ones (`fl.secure.lazy_sum_mod`, `parallel.psum_mod`), and
+    # the port's checks carry the JAX findings' intervals.
     got, want = ranges.certify_aggregation(prime), jranges.certify_aggregation(prime)
     assert (got.prime_bits, got.chunk) == (want.prime_bits, want.chunk)
     fold = ranges.certify_fold_inductive(prime)
-    assert [c for c in got.checks if not c.startswith(("lazy_sum_mod", "psum_mod"))] == [
+    assert [c for c in got.checks if not c.startswith(("lazy_sum_mod",) + PSUM)] == [
         c for c in want.checks if not c.startswith(("lazy_sum_mod",) + PSUM)] == list(
         fold.checks)
-    assert "psum_mod: no counterpart on one card (no client-mesh all-reduce)" in got.checks
-    # The lazy chunk: the same interval, held against each package's carrier.
-    (lazy,) = [c for c in got.checks if c.startswith("lazy_sum_mod chunk stays in ")]
-    jlazy = [c for c in want.checks if c.startswith("lazy_sum_mod chunk")]
-    jfind = [f for f in want.findings if f.message.startswith("lazy_sum_mod chunk: ")]
+    legs = ("lazy_sum_mod chunk", "psum_mod[32 participants]", "psum_mod 2-D[32 clients x 32 ct]")
+    mine = [c for c in got.checks if c.startswith(legs)]
+    assert [c.split(" stays in ")[0] for c in mine] == list(legs)
     if prime == P27:
-        assert got.ok and want.ok and jlazy == [lazy] and not jfind
+        assert got.ok and want.ok and not want.findings
+        assert mine == [c for c in want.checks if c.startswith(legs)]
     else:
-        # 32 residues below 2**31 overflow the JAX package's uint32 chunk but
-        # not the port's int64 sum (`fl.secure.lazy_sum_mod` adds in int64).
-        (jf,) = jfind
-        assert got.ok and not want.ok and jf.op == "reduce_sum"
-        assert lazy == f"lazy_sum_mod chunk stays in {jf.interval}"
-        assert jf.bound == jranges.Interval(0, 2**32 - 1) and jf.interval.hi < 2**63
+        assert got.ok and not want.ok
+        for leg, check in zip(legs, mine):
+            jf = [f for f in want.findings if f.message.startswith(leg + ": ")]
+            assert jf and jf[0].op in ("reduce_sum", "psum")
+            assert check == f"{leg} stays in {jf[0].interval}"
+            assert jf[0].bound == jranges.Interval(0, 2**32 - 1) and jf[0].interval.hi < 2**63
 
 
 def test_certificates_are_memoised_and_device_keyed():

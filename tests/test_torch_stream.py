@@ -8,9 +8,8 @@ the training's random streams; so the two packages must agree on it
 exactly over the same schedule (the content hashes, the round key and the
 bodies aside: the port's uploads come from torch generators). The JAX
 engine's round-setup certifiers need `jax.experimental.enable_x64`, gone
-in JAX 0.9 (ROADMAP caveat R1): most tests stub them with monkeypatch, and
-one runs the packed schedule with the JAX engine's own certifiers through
-the `jax_x64` stand-in (tests/test_torch_ranges.py). The fold itself
+in JAX 0.9 (ROADMAP caveat R1): the tests run them for real through the
+`jax_x64` stand-in (tests/torch_jax_x64.py). The fold itself
 is held bitwise: the streamed sum is `lazy_sum_mod` over the folded rows,
 in any arrival order, and a cohort-only round's released sum equals the
 full-C round's.
@@ -48,7 +47,7 @@ from hefl_tpu_torch.fl.faults import EXCLUDED_UNSAMPLED, FaultConfig
 from hefl_tpu_torch.models import create_model
 
 from test_torch_packing import jax_spec
-from test_torch_ranges import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
+from torch_jax_x64 import jax_x64  # noqa: F401  (the JAX certifiers' stand-in)
 
 torch.set_num_threads(2)
 
@@ -73,18 +72,6 @@ CONFIGS = {
         dict(seed=3, straggler_fraction=0.25, straggler_delay_s=3.0, duplicate_clients=1),
     ),
 }
-
-
-class _Ok:
-    ok = True
-
-    def summary(self):
-        return "stubbed"
-
-
-def _stub_jax_certifiers(monkeypatch):
-    for name in ("certify_fold_inductive", "certify_transciphering", "certify_packing"):
-        monkeypatch.setattr(jranges, name, lambda *a, **k: _Ok())
 
 
 def _data(n=8 * C, seed=0):
@@ -118,8 +105,7 @@ def _records(path, reader):
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_engine_matches_jax_engine_records_bits_and_journal(name, tmp_path, monkeypatch):
-    _stub_jax_certifiers(monkeypatch)
+def test_engine_matches_jax_engine_records_bits_and_journal(name, tmp_path, jax_x64):
     _engine_matches_jax(name, tmp_path)
 
 
