@@ -278,14 +278,44 @@ error:
      rank 0's history and every rank's parameters bitwise the one-process
      run's on cuda:0 (not counted), only rank 0 writes files, each rank
      one K3 a round over its clients' rows and rank 0 alone K4 a round.
-  Phases 3-16 each print their launches by (kernel, rows x N); phases 4-5
+  17. The streaming engines across the client mesh (`stream_mesh_runs`,
+     one process a rank): medical-8 at full width (MedCNN, N=4096 L=3, 8
+     clients of STREAM_MESH_IMAGES `medical` images, 1 epoch), streaming
+     STREAM_MESH_ROUNDS rounds with phase 9's knobs (a cohort of 4 of 8)
+     plus a staleness budget of 1 under phase 9's fault schedule, the
+     per-client loop and deterministic algorithms, each rank's rows staged
+     by `data.RoundPrefetcher` (`fl.stream.round_rows`): (ap) float CKKS
+     uploads across the NCCL world of every card and across
+     MESH_GLOO_RANKS gloo ranks on cuda:0; (aq) in the gloo world, 4 host
+     tiers with b = 4 error feedback, CKKS and hybrid-HE (K7). Each rank's
+     launches counted from zero are exactly the predicted ones
+     (`_expected_stream_launches`: one K3 a round over its block of the
+     cohort's bucket, the HHE server's pads and K7 on every rank, K4 at
+     rank 0 a committed round); every rank's committed sums the same and
+     rank 0's every round's sum, record and decrypt bitwise the
+     one-process engine's on the same inputs (run there, uncounted); each
+     rank's train, upload, gather, fold (and transcipher) and decrypt
+     seconds printed. (ar) The ct split: the encrypted round of 2 clients
+     on `make_mesh_2d(2, 2)` in the gloo world (and of 4 on 2 x 2 across 4
+     cards; 2 on 1 x 2 across 2 or 3), each rank one K3 at [56, 3, 4096],
+     the sum bitwise the one-process (1-D) round's, the decrypt within
+     5e-6 of the plaintext mean. (as) Each gloo rank's card memory for its
+     prefetched block of medical-8's arrays against the whole arrays'
+     bytes, then with the next round staged and after promotion. (at) The
+     journaled streaming `run_experiment` (medical-8 cut to
+     MESH_DRIVER_ROUNDS rounds) in the gloo world crashed mid-append in
+     round 1 (rank 0 SimulatedCrash, rank 1 PeerRankFailed) and run again:
+     rank 0 recovers (24 torn bytes, round 1 open), its history and every
+     rank's parameters bitwise the one-process run's; only rank 0 opens
+     the journal.
+  Phases 3-17 each print their launches by (kernel, rows x N); phases 4-5
      also count the unhoisted twins' one K6 launch a baby step (S = 1).
-  17. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-16 launched, and not K6's kernel, spills registers, and that every
-     K3, K4, K6 and K7 launch of phases 3-16 fell on a shape phase 12
+  18. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-17 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-17 fell on a shape phase 12
      timed. Print one JSON line {"kernels": [...]}
      (phase 12's records; launches: the sum over the main-path runs of
-     phases 3-16, each counted from zero; every kernel carries one
+     phases 3-17, each counted from zero; every kernel carries one
      "shapes" entry per timed shape with the launches at that shape, K5's
      also its per-kernel "split"; the ranking launches x (ms - bound)
      prices each launch at its own shape)
@@ -3821,6 +3851,495 @@ def mesh_runs() -> list[tuple[dict, dict]]:
     return runs
 
 
+# Phase 17: the streaming and hierarchical engines across the client mesh.
+STREAM_MESH_CLIENTS = 8         # medical-8's registry
+STREAM_MESH_IMAGES = 24         # `medical` images a client
+STREAM_MESH_ROUNDS = 2
+# Phase 9's knobs (a cohort of 4 of 8, quorum 0.75, a deadline, a retry)
+# with a staleness budget of one round, under phase 9's fault schedule.
+MESH_STREAM = dict(STREAM_KNOBS, staleness_rounds=1)
+MESH_TIERS = dict(MESH_STREAM, num_hosts=4, host_quorum=0.5, ship_deadline_s=4.0)
+# (ap) float CKKS uploads; (aq) 4 host tiers with b = 4 error feedback,
+# CKKS and the hybrid-HE upload.
+MESH_KINDS = {"flat": (MESH_STREAM, None), "tiers_ef": (MESH_TIERS, EF_PACKING),
+              "tiers_ef_hhe": (dict(MESH_TIERS, upload_kind="hhe"), EF_PACKING)}
+CT_SPLIT = 2                    # (ar)'s ct ranks a client row
+
+
+def _medical(num: int, seed: int):
+    from hefl_tpu_torch.data.partition import iid_contiguous, stack_federated
+    from hefl_tpu_torch.data.synthetic import make_dataset
+
+    (x, y), _, _ = make_dataset("medical", seed=seed, n_train=STREAM_MESH_IMAGES * num, n_test=8)
+    return stack_federated(x, y, iid_contiguous(len(y), num))
+
+
+def _medcnn(device, seed: int):
+    from hefl_tpu_torch.ckks.keys import CkksContext, keygen
+    from hefl_tpu_torch.models import count_params, create_model
+
+    gen = torch.Generator().manual_seed(seed)
+    model = create_model("medcnn", gen=gen, device=device)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    if count_params(params) != 222_722:
+        raise AssertionError(f"MedCNN has {count_params(params)} params, expected 222,722")
+    ctx = CkksContext.create()
+    sk, pk = keygen(ctx, gen, device=device)
+    return model, params, ctx, sk, pk
+
+
+def stream_rank_rounds(kind: str, seed: int, device: str | None = None) -> dict:
+    """One rank of phase 17 (ap)/(aq): STREAM_MESH_ROUNDS streaming rounds of
+    medical-8 at full width (MedCNN 256x256x3, N=4096 L=3) on the client
+    mesh of the world's ranks, `kind` of MESH_KINDS, under the per-client
+    loop and deterministic algorithms, each rank's rows staged by the
+    prefetcher; launches counted from zero, each rank's train, upload,
+    gather, fold and decrypt seconds (synchronized host clock). Rank 0
+    decrypts each committed round, then runs the one-process engine on the
+    same inputs (not counted) and compares sums and decrypts."""
+    import torch.distributed as dist
+
+    from hefl_tpu_torch import parallel
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.ckks.packing import PackedSpec, PackSpec
+    from hefl_tpu_torch.data import RoundPrefetcher
+    from hefl_tpu_torch.experiment import deterministic_algorithms
+    from hefl_tpu_torch.fl import hierarchy, secure
+    from hefl_tpu_torch.fl import stream as stream_mod
+    from hefl_tpu_torch.fl.config import HheConfig, PackingConfig, StreamConfig, TrainConfig
+    from hefl_tpu_torch.fl.faults import FaultConfig
+
+    rank = dist.get_rank()
+    device = torch.device(device or f"cuda:{torch.cuda.current_device()}")
+    num = STREAM_MESH_CLIENTS
+    xs, ys = _medical(num, seed)
+    model, params, ctx, sk, pk = _medcnn(device, seed)
+    s_kw, p_kw = MESH_KINDS[kind]
+    stream = StreamConfig(**s_kw)
+    faults = FaultConfig(seed=0, **STREAM_FAULTS)
+    spec = PackedSpec.for_params(params, ctx, PackingConfig(**p_kw), num) if p_kw else None
+    hhe = HheConfig() if stream.upload_kind == "hhe" else None
+    cfg = TrainConfig(epochs=1, num_classes=2, client_fusion="vmap")
+    mesh = parallel.make_mesh(num, device=device)
+
+    def decrypt(ct_sum, sm):
+        if spec is not None:
+            return secure.decrypt_average(ctx, sk, ct_sum, num, meta=sm.meta, packing=spec,
+                                          base_params=params, hhe=hhe is not None)
+        return secure.decrypt_average(ctx, sk, ct_sum, num, PackSpec.for_params(params, ctx.n),
+                                      meta=sm.meta)
+
+    def rounds(on_mesh: bool):
+        engine = stream_mod.StreamEngine(stream, faults)
+        pf = RoundPrefetcher(device)
+        out = []
+        for r in range(STREAM_MESH_ROUNDS):
+            kw = dict(packing=spec, hhe=hhe)
+            if on_mesh:
+                rows = stream_mod.round_rows(stream, mesh, r, num)[0]
+                xs_r, ys_r = pf.get(xs, ys, rows=rows)
+                if r + 1 < STREAM_MESH_ROUNDS:
+                    pf.prefetch(xs, ys, rows=stream_mod.round_rows(stream, mesh, r + 1, num)[0])
+                kw.update(mesh=mesh, num_real_clients=num, resident_rows=rows)
+            else:
+                xs_r, ys_r = pf.get(xs, ys)
+            t0 = time.perf_counter()
+            ct_sum, mets, _, sm = engine.run_round(model, cfg, ctx, pk, params, xs_r, ys_r,
+                                                   torch.Generator().manual_seed(seed + r), r,
+                                                   **kw)
+            torch.cuda.synchronize()
+            rec = {"round_s": time.perf_counter() - t0, "record": sm.record(),
+                   "hash": stream_mod.ct_hash(ct_sum.c0, ct_sum.c1),
+                   "mets_ok": bool(torch.isfinite(mets[list(sm.cohort)]).all())}
+            if rank == 0 and sm.committed:
+                t0 = time.perf_counter()
+                avg = decrypt(ct_sum, sm)
+                torch.cuda.synchronize()
+                rec["decrypt_s"] = time.perf_counter() - t0
+                rec["avg"] = {k: v.cpu() for k, v in avg.items()}
+            out.append(rec)
+        return out
+
+    got = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend(),
+           "device": str(device), "mesh": mesh.record(), "kind": kind}
+    names = {secure: ("train_block", "encrypt_stack", "encrypt_stack_packed",
+                      "hhe_encrypt_stack"),
+             stream_mod: ("gather_clients",),
+             stream_mod.OnlineAccumulator: ("fold",),
+             hierarchy.HierarchicalAggregator: ("fold", "ship_all"),
+             stream_mod.StreamEngine: ("_transcipher_round",)}
+    with deterministic_algorithms():
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(device)
+        cuda_ntt.reset_launch_counts()
+        with contextlib.ExitStack() as stack:
+            timers = {mod: stack.enter_context(timed_calls(mod, fns))
+                      for mod, fns in names.items()}
+            got["rounds"] = rounds(True)
+        got["counts"], got["shapes"] = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+        seconds = {}
+        for mod, calls in timers.items():
+            for fn, hits in calls.items():
+                key = {"train_block": "train", "gather_clients": "gather", "fold": "fold",
+                       "ship_all": "fold", "_transcipher_round": "transcipher"}.get(fn, "upload")
+                seconds[key] = seconds.get(key, 0.0) + sum(h[0] for h in hits)
+        got["seconds"] = seconds
+        got["decrypt_s"] = sum(r.get("decrypt_s", 0.0) for r in got["rounds"])
+        got["mem_peak_delta"] = torch.cuda.max_memory_allocated(device) - mem0
+        if rank == 0:
+            one = rounds(False)
+            got["same_as_one"] = [a["hash"] == b["hash"] and a["record"] == b["record"]
+                                  for a, b in zip(got["rounds"], one)]
+            got["avg_same"] = [all(torch.equal(a["avg"][k], b["avg"][k]) for k in a["avg"])
+                               for a, b in zip(got["rounds"], one) if "avg" in a]
+            got["avg_finite"] = all(all(bool(torch.isfinite(v).all()) for v in r["avg"].values())
+                                    for r in got["rounds"] if "avg" in r)
+            got["one_round_s"] = [r["round_s"] for r in one]
+    for r in got["rounds"]:
+        r.pop("avg", None)
+    return got
+
+
+def ct_split_rank_round(num: int, seed: int, device: str | None = None) -> dict:
+    """One rank of phase 17 (ar): the encrypted MedCNN round of `num`
+    clients on `make_mesh_2d(num, CT_SPLIT)` (each ct rank of a client row
+    encrypts ceil(55 / CT_SPLIT) of its block's rows, the slices gathered
+    over the ct group) under the per-client loop; launches counted from
+    zero; rank 0 decrypts and runs the one-process round (not counted)."""
+    import torch.distributed as dist
+
+    from hefl_tpu_torch import parallel
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.ckks.packing import PackSpec
+    from hefl_tpu_torch.experiment import deterministic_algorithms
+    from hefl_tpu_torch.fl import secure
+    from hefl_tpu_torch.fl.config import TrainConfig
+    from hefl_tpu_torch.fl.fedavg import client_block, pad_index
+
+    rank = dist.get_rank()
+    device = torch.device(device or f"cuda:{torch.cuda.current_device()}")
+    xs, ys = _medical(num, seed)
+    model, params, ctx, sk, pk = _medcnn(device, seed)
+    cfg = TrainConfig(epochs=1, num_classes=2, client_fusion="vmap")
+    mesh = parallel.make_mesh_2d(num, CT_SPLIT, device=device)
+    got = {"rank": rank, "mesh": mesh.record(), "coords": mesh.coords}
+    if not mesh.member:
+        return got
+    n_dev = parallel.client_mesh_size(mesh)
+    rows, _ = client_block(mesh, num, pad_index(num, n_dev))
+    from hefl_tpu_torch.data import RoundPrefetcher
+
+    xs_r, ys_r = RoundPrefetcher(device).get(xs, ys, rows=rows)
+    with deterministic_algorithms():
+        torch.cuda.synchronize()
+        cuda_ntt.reset_launch_counts()
+        with timed_calls(secure, ("encrypt_stack", "train_block")) as calls:
+            t0 = time.perf_counter()
+            ct_sum, _, _, ref = secure.secure_fedavg_round(
+                model, cfg, ctx, pk, params, xs_r, ys_r, torch.Generator().manual_seed(seed + 1),
+                with_plain_reference=True, mesh=mesh, num_real_clients=num, resident_rows=rows)
+            torch.cuda.synchronize()
+            got["round_s"] = time.perf_counter() - t0
+        got["train_s"] = sum(c[0] for c in calls["train_block"])
+        got["upload_s"] = sum(c[0] for c in calls["encrypt_stack"])
+        got["hash"] = hashlib.sha256(ct_sum.c0.cpu().numpy().tobytes()
+                                     + ct_sum.c1.cpu().numpy().tobytes()).hexdigest()
+        if rank == 0:
+            avg = secure.decrypt_average(ctx, sk, ct_sum, num, PackSpec.for_params(params, ctx.n))
+            got["avg_err"] = max((avg[k] - ref[k]).abs().max().item() for k in ref)
+        torch.cuda.synchronize()
+        got["counts"], got["shapes"] = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+        if rank == 0:
+            one, *_ = secure.secure_fedavg_round(
+                model, cfg, ctx, pk, params, torch.from_numpy(xs).to(device),
+                torch.from_numpy(ys).to(device), torch.Generator().manual_seed(seed + 1))
+            got["sum_equal"] = bool(torch.equal(one.c0, ct_sum.c0)
+                                    and torch.equal(one.c1, ct_sum.c1))
+    return got
+
+
+def resident_bytes(seed: int, device: str | None = None) -> dict:
+    """Phase 17 (as), on one rank: the card memory the prefetcher's copy of
+    this rank's block of medical-8's federated arrays takes
+    (`torch.cuda.memory_allocated` around `get`) against the whole arrays'
+    bytes; then the next round's block staged beside it (the second copy
+    of the ring) and the first retired on promotion."""
+    import torch.distributed as dist
+
+    from hefl_tpu_torch import parallel
+    from hefl_tpu_torch.data import RoundPrefetcher
+    from hefl_tpu_torch.experiment import deterministic_algorithms
+    from hefl_tpu_torch.fl import stream as stream_mod
+    from hefl_tpu_torch.fl.config import StreamConfig
+
+    device = torch.device(device or f"cuda:{torch.cuda.current_device()}")
+    num = STREAM_MESH_CLIENTS
+    xs, ys = _medical(num, seed)
+    mesh = parallel.make_mesh(num, device=device)
+    stream = StreamConfig(**MESH_STREAM)
+    pf = RoundPrefetcher(device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    rows0 = stream_mod.round_rows(stream, mesh, 0, num)[0]
+    t0 = time.perf_counter()
+    # Under deterministic algorithms `empty` queues a fill the side-stream
+    # copy must wait for: the rows read back bitwise.
+    with deterministic_algorithms():
+        got0 = pf.get(xs, ys, rows=rows0)
+    torch.cuda.synchronize()
+    get_s = time.perf_counter() - t0
+    one = torch.cuda.memory_allocated(device) - base
+    equal = bool(np.array_equal(got0[0].cpu().numpy(), xs[rows0])
+                 and np.array_equal(got0[1].cpu().numpy(), ys[rows0]))
+    pf.prefetch(xs, ys, rows=stream_mod.round_rows(stream, mesh, 1, num)[0])
+    torch.cuda.synchronize()
+    two = torch.cuda.memory_allocated(device) - base
+    pf.get(xs, ys, rows=stream_mod.round_rows(stream, mesh, 1, num)[0])
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(device) - base
+    return {"rank": dist.get_rank(), "rows": [int(r) for r in rows0], "resident": one,
+            "staged_two": two, "after_promotion": after, "get_s": get_s,
+            "whole": int(xs.nbytes + ys.nbytes),
+            "block": int(xs[rows0].nbytes + ys[rows0].nbytes), "equal": equal,
+            # Retired on promotion: the ring freed round 0's copy.
+            "retired": got0[0].untyped_storage().size() == 0}
+
+
+def stream_driver_cfg(out_dir: Path, **kw):
+    """Phase 17 (at)'s run: medical-8 (MedCNN at full width, N=4096 L=3)
+    cut to MESH_DRIVER_ROUNDS rounds of 1 epoch, STREAM_MESH_IMAGES images a
+    client, the per-client loop, streaming with MESH_STREAM under phase 9's
+    fault schedule, journaled under `out_dir`."""
+    from hefl_tpu_torch.fl.config import StreamConfig
+    from hefl_tpu_torch.fl.faults import FaultConfig
+
+    return cut("medical-8", MESH_DRIVER_ROUNDS, 1, "vmap",
+               n_train=STREAM_MESH_IMAGES * STREAM_MESH_CLIENTS, n_test=MESH_TEST_IMAGES,
+               stream=StreamConfig(**MESH_STREAM), faults=FaultConfig(seed=0, **STREAM_FAULTS),
+               journal_path=str(out_dir / "journal.wal"), fsync_policy="commit",
+               checkpoint_path=None, save_model_path=None, events_path="", **kw)
+
+
+def stream_rank_experiment(out_dir: str, crash: bool, device: str | None = None) -> dict:
+    """Phase 17 (at), on one rank: the journaled streaming `run_experiment`
+    on the mesh of the world's ranks (what `torchrun ... -m
+    hefl_tpu_torch.cli --stream ...` runs on each rank), optionally crashed
+    mid-append in round 1; launches counted from zero; how it ended, the
+    journals it opened."""
+    import torch.distributed as dist
+
+    from hefl_tpu_torch import experiment
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.fl.faults import CrashConfig
+
+    rank = dist.get_rank()
+    opened = []
+    real = experiment.AggregationServer
+
+    def server(*a, **k):
+        opened.append(k["journal_path"])
+        return real(*a, **k)
+
+    cfg = stream_driver_cfg(Path(out_dir), crash=(
+        CrashConfig(round=1, at="mid_append", after_folds=2) if crash else None))
+    torch.cuda.synchronize()
+    cuda_ntt.reset_launch_counts()
+    experiment.AggregationServer = server
+    t0 = time.perf_counter()
+    out, ended = None, "completed"
+    try:
+        with datasets_once():
+            out = experiment.run_experiment(cfg, verbose=False, device=device or "cuda")
+    except RuntimeError as e:
+        ended = f"{type(e).__name__}: {e}"[:160]
+    finally:
+        experiment.AggregationServer = real
+    torch.cuda.synchronize()
+    got = {"rank": rank, "seconds": time.perf_counter() - t0, "ended": ended, "opened": opened,
+           "counts": cuda_ntt.launch_counts(), "shapes": cuda_ntt.launch_rows()}
+    if out is not None:
+        got.update(history=driver_history(out), mesh=out["mesh"], journal=out["journal"],
+                   params={k: v.cpu().numpy() for k, v in out["params"].items()})
+    return got
+
+
+def stream_driver_check(world, device: str) -> list[tuple[dict, dict]]:
+    """Phase 17 (at): the journaled streaming run in `world`, crashed in
+    round 1 (rank 0 SimulatedCrash, the others PeerRankFailed), then run
+    again: rank 0 recovers from its journal, and rank 0's history and every
+    rank's parameters are bitwise the uncrashed one-process run's on
+    `device` (not counted); only rank 0 opens the journal."""
+    import tempfile
+
+    from hefl_tpu_torch.experiment import run_experiment
+
+    runs = []
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_") as tmp:
+        crashed = world.run(stream_rank_experiment, tmp, True, device)
+        for r in crashed:
+            log(f"  (at) crashed run, rank {r['rank']}: {r['seconds']:.3f} s, ended "
+                f"{r['ended']!r}, opened {len(r['opened'])} journal(s)")
+        if [r["ended"].split(":")[0] for r in crashed] != (
+                ["SimulatedCrash"] + ["PeerRankFailed"] * (len(crashed) - 1)):
+            raise AssertionError(f"(at) the crash did not end every rank: "
+                                 f"{[r['ended'] for r in crashed]}")
+        recovered = world.run(stream_rank_experiment, tmp, False, device)
+        with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                         prefix=".chip_smoke_") as one_dir:
+            t0 = time.perf_counter()
+            with datasets_once():
+                one = run_experiment(stream_driver_cfg(Path(one_dir)), verbose=False,
+                                     device=device)
+            one_s = time.perf_counter() - t0
+    want = driver_history(one)
+    for r in recovered:
+        lead = r["rank"] == 0
+        log(f"  (at) recovery, rank {r['rank']}: {r['seconds']:.3f} s, ended {r['ended']!r}, "
+            f"opened {r['opened'] and 'the journal'}; launches "
+            f"{json.dumps({k: v for k, v in r['counts'].items() if v})}")
+        if r["ended"] != "completed" or r["history"] != (want if lead else []):
+            raise AssertionError(f"(at) rank {r['rank']}'s recovered run is not the "
+                                 f"one-process run: {r['ended']} {r.get('history')} vs {want}")
+        if not all(np.array_equal(r["params"][k], v.cpu().numpy())
+                   for k, v in one["params"].items()):
+            raise AssertionError(f"(at) rank {r['rank']}'s parameters are not the "
+                                 "one-process run's bitwise")
+        if bool(r["opened"]) != lead or bool(crashed[r["rank"]]["opened"]) != lead:
+            raise AssertionError(f"(at) rank {r['rank']} opened {r['opened']}: only rank 0 "
+                                 "journals")
+        runs.append((r["counts"], r["shapes"]))
+    rep = recovered[0]["journal"]["recovered"]
+    log(f"  (at) one-process run {one_s:.3f} s; recovered {json.dumps(rep)}; rank 0's history "
+        f"(accuracy {[rec['accuracy'] for rec in want]}) and every rank's parameters bitwise it")
+    if (rep["torn_bytes_truncated"], rep["open_round"]) != (24, 1):
+        raise AssertionError(f"(at) recovery report {rep}")
+    return runs
+
+
+def _expected_stream_launches(kind: str, mesh: dict, lead: bool, decrypts: int) -> dict:
+    """(ap)/(aq)'s predicted launches a rank: each round one K3 over its
+    block of the cohort's bucket (2 of 4 clients on 2 ranks, 4 on 1), b = 4
+    error feedback packing 10 rows a client; the hybrid-HE upload no K3 on
+    the clients and, on every rank, the server's pads (K3) and one K7 over
+    the cohort's 4 x 10 rows; K4 at rank 0 a decrypted round."""
+    from hefl_tpu_torch.fl.fedavg import cohort_bucket
+
+    n_dev = mesh["clients"]
+    cpd = cohort_bucket(STREAM_KNOBS["cohort_size"], STREAM_MESH_CLIENTS, n_dev) // n_dev
+    rows = 55 if kind == "flat" else 10
+    want = {}
+    if kind == "tiers_ef_hhe":
+        want[launch_key("encrypt_fused", (STREAM_KNOBS["cohort_size"] * rows, 3, 4096))] = (
+            STREAM_MESH_ROUNDS)
+        want[launch_key("transcipher_fused", (STREAM_KNOBS["cohort_size"] * rows, 3, 4096))] = (
+            STREAM_MESH_ROUNDS)
+    else:
+        want[launch_key("encrypt_fused", (cpd * rows, 3, 4096))] = STREAM_MESH_ROUNDS
+    if lead and decrypts:
+        want[launch_key("decrypt_fused", (rows, 3, 4096))] = decrypts
+    return want
+
+
+def stream_world(label: str, backend: str, device: str, size: int,
+                 task_device: str | None = None, driver: bool = False) -> list[tuple[dict, dict]]:
+    """Phase 17 in one world: (ap) the streaming rounds, with `driver` also
+    (aq) the tiers with error feedback (CKKS and HHE), (ar) the ct split,
+    (as) the resident bytes and (at) the journaled driver crashed and
+    recovered. -> the ranks' (launch counts, launch rows) for the final
+    check."""
+    from hefl_tpu_torch.parallel.launch import World
+
+    runs = []
+    t = time.perf_counter()
+    with World(size, backend=backend, device=device) as world:
+        log(f"  ({label}) world of {size} {backend} rank(s) on {device} up in "
+            f"{time.perf_counter() - t:.3f} s")
+        kinds = ("flat", "tiers_ef", "tiers_ef_hhe") if driver else ("flat",)
+        for kind in kinds:
+            ranks = world.run(stream_rank_rounds, kind, 3, task_device)
+            tag = "ap" if kind == "flat" else "aq"
+            lead = ranks[0]
+            decrypts = sum(1 for r in lead["rounds"] if r["record"]["committed"])
+            for r in ranks:
+                secs = {k: round(v, 4) for k, v in sorted(r["seconds"].items())}
+                log(f"  ({tag}, {kind}) rank {r['rank']} of {r['world']} ({r['backend']}, "
+                    f"{r['device']}): rounds {[round(x['round_s'], 4) for x in r['rounds']]} s; "
+                    f"{json.dumps(secs)} s; decrypt {round(r['decrypt_s'], 4)} s; peak card "
+                    f"memory +{r['mem_peak_delta'] / 2**20:.1f} MiB; launches "
+                    f"{json.dumps({k: v for k, v in r['counts'].items() if v})}")
+                want = _expected_stream_launches(kind, r["mesh"], r["rank"] == 0, decrypts)
+                if r["shapes"] != want:
+                    raise AssertionError(f"({tag}, {kind}) rank {r['rank']} launched "
+                                         f"{r['shapes']}, predicted {want}")
+                if [x["hash"] for x in r["rounds"]] != [x["hash"] for x in lead["rounds"]] or (
+                        not all(x["mets_ok"] for x in r["rounds"])):
+                    raise AssertionError(f"({tag}, {kind}) rank {r['rank']}'s sums or metrics "
+                                         "differ from rank 0's")
+                runs.append((r["counts"], r["shapes"]))
+            log(f"  ({tag}, {kind}) records {[x['record'] for x in lead['rounds']]}")
+            log(f"  ({tag}, {kind}) one-process engine rounds "
+                f"{[round(x, 4) for x in lead['one_round_s']]} s; every round's sum and record "
+                f"bitwise it: {lead['same_as_one']}, decrypts bitwise {lead['avg_same']}, "
+                f"finite {lead['avg_finite']}")
+            if not (all(lead["same_as_one"]) and all(lead["avg_same"]) and lead["avg_finite"]
+                    and decrypts):
+                raise AssertionError(f"({tag}, {kind}) the mesh's rounds are not the "
+                                     "one-process engine's")
+        if driver or size >= 2:
+            num = 2 if size < 4 else 4
+            ranks = world.run(ct_split_rank_round, num, 5, task_device)
+            split = launch_key("encrypt_fused", (-(-55 // CT_SPLIT) * 2, 3, 4096))
+            for r in ranks:
+                if "counts" not in r:
+                    continue
+                log(f"  (ar) rank {r['rank']} at {json.dumps(r['coords'])} of "
+                    f"{json.dumps(r['mesh'])}: round {r['round_s']:.4f} s, train "
+                    f"{r['train_s']:.4f} s, upload (ct split) {r['upload_s']:.4f} s; launches "
+                    f"{json.dumps({k: v for k, v in r['counts'].items() if v})}")
+                want = {split: 1}
+                if r["rank"] == 0:
+                    want[launch_key("decrypt_fused", (55, 3, 4096))] = 1
+                if r["shapes"] != want or r["hash"] != ranks[0]["hash"]:
+                    raise AssertionError(f"(ar) rank {r['rank']} launched {r['shapes']}, "
+                                         f"predicted {want}, or its sum differs")
+                runs.append((r["counts"], r["shapes"]))
+            lead = ranks[0]
+            log(f"  (ar) {num} clients x ct {CT_SPLIT}: sum bitwise the 1-D round's "
+                f"{lead['sum_equal']}, decrypted average vs the plaintext mean "
+                f"{lead['avg_err']:.3e} (limit {ERR_LIMIT})")
+            if not (lead["sum_equal"] and lead["avg_err"] <= ERR_LIMIT):
+                raise AssertionError("(ar) the ct-split round is not the 1-D round")
+        if driver:
+            for r in world.run(resident_bytes, 3, task_device):
+                log(f"  (as) rank {r['rank']}: rows {r['rows']} resident "
+                    f"{r['resident'] / 2**20:.2f} MiB (its block {r['block'] / 2**20:.2f} MiB) "
+                    f"of the whole arrays' {r['whole'] / 2**20:.2f} MiB, copied in "
+                    f"{r['get_s']:.4f} s; with the next round staged "
+                    f"{r['staged_two'] / 2**20:.2f} MiB, after promotion "
+                    f"{r['after_promotion'] / 2**20:.2f} MiB")
+                if (not r["equal"] or not r["retired"] or r["resident"] >= r["whole"]
+                        or r["resident"] < r["block"]):
+                    raise AssertionError(f"(as) rank {r['rank']}: resident {r['resident']} "
+                                         f"bytes, block {r['block']}, whole {r['whole']}")
+            runs += stream_driver_check(world, task_device or "cuda:0")
+    log(f"  ({label}) wall time: {time.perf_counter() - t:.3f} s")
+    return runs
+
+
+def stream_mesh_runs() -> list[tuple[dict, dict]]:
+    """Phase 17: (ap) the NCCL world of every card and MESH_GLOO_RANKS gloo
+    ranks on cuda:0; (aq)-(at) in the gloo world, (ar) also across the
+    cards when there are 2 or more."""
+    t = time.perf_counter()
+    cards = torch.cuda.device_count()
+    runs = stream_world("ap, nccl", "nccl", "cuda", cards)
+    runs += stream_world("ap-at, gloo", "gloo", "cuda:0", MESH_GLOO_RANKS, task_device="cuda:0",
+                         driver=True)
+    log(f"  phase 17 wall time: {time.perf_counter() - t:.3f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3898,13 +4417,19 @@ def main() -> int:
         f"{MESH_PER_RANK} clients a rank) across {torch.cuda.device_count()} NCCL rank(s) and "
         f"across {MESH_GLOO_RANKS} gloo ranks on cuda:0, and the modular all-reduces on the card")
     runs += mesh_runs()
+    log(f"phase 17: the streaming engines across the client mesh: medical-8 streaming (MedCNN "
+        f"256x256x3, N=4096 L=3, cohort 4 of 8, {STREAM_MESH_ROUNDS} rounds) across "
+        f"{torch.cuda.device_count()} NCCL rank(s) and {MESH_GLOO_RANKS} gloo ranks on cuda:0; "
+        "4 host tiers with b=4 error feedback (CKKS and hybrid-HE), the ct split, the resident "
+        "bytes, the journaled driver crashed and recovered, in the gloo world")
+    runs += stream_mesh_runs()
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-16 together:")
+    log("phases 3-17 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-16
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-17
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),

@@ -109,9 +109,14 @@ KS_SHAPES = ((False, 1, 3, 4096), (False, 4, 3, 4096), (False, 1, 3, 8192),
 # packed round 2 x 14, its decrypt 14); its cohort comparison, SmallCNN at
 # N = 256, trains and encrypts all 16 clients x 880 and a cohort's bucket of
 # 2 x 880, and its DCN comparison a bucket of 8 x 880 (chaos-smoke's 7040).
+# Phase 17 across ranks: a rank's block of a streaming cohort's bucket
+# (medical-8's cohort of 4 on 2 or 4 ranks: 2 clients x 55, the [110]
+# above), a rank's 2 clients x 10 rows of the b = 4 error-feedback upload,
+# and the ct split of 2 clients' 55 rows over 2 ct ranks: 2 x ceil(55 / 2).
 ENC_SHAPES = ((110, 3, 4096), (152, 3, 4096), (440, 3, 4096), (1072, 3, 4096), (2352, 3, 256),
               (7040, 3, 256), (220, 3, 4096), (40, 3, 4096), (76, 3, 4096),
-              (55, 3, 4096), (14, 3, 4096), (28, 3, 4096), (14080, 3, 256), (1760, 3, 256))
+              (55, 3, 4096), (14, 3, 4096), (28, 3, 4096), (14080, 3, 256), (1760, 3, 256),
+              (20, 3, 4096), (56, 3, 4096))
 DEC_SHAPES = ((55, 3, 4096), (19, 3, 4096), (67, 3, 4096), (294, 3, 256), (880, 3, 256),
               (10, 3, 4096), (14, 3, 4096))
 # [B', L, N] (B' upload rows) of K7: the HHE round's 8 clients x 19 packed

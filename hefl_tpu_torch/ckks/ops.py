@@ -65,6 +65,13 @@ def encrypt_core(
     return Ciphertext(c0=c0, c1=c1, scale=ctx.scale)
 
 
+def batch_samples(ctx: CkksContext, gens, n_ct: int, device) -> tuple:
+    """(u, e0, e1) int32[C, n_ct, L, N] of a batched encrypt: entry c's
+    drawn from `gens[c]` at the [n_ct] shape."""
+    draws = [encrypt_samples(ctx, g, (n_ct,), device) for g in gens]
+    return tuple(torch.stack([d[i] for d in draws]) for i in range(3))
+
+
 @scoped(scopes.ENCRYPT)
 def encrypt_batch(
     ctx: CkksContext, pk: PublicKey, m_res: torch.Tensor, gens=None, samples=None
@@ -75,8 +82,7 @@ def encrypt_batch(
     feeding the JAX package's samples)."""
     c, n_ct = int(m_res.shape[0]), int(m_res.shape[1])
     if samples is None:
-        draws = [encrypt_samples(ctx, g, (n_ct,), m_res.device) for g in gens]
-        samples = tuple(torch.stack([d[i] for d in draws]) for i in range(3))
+        samples = batch_samples(ctx, gens, n_ct, m_res.device)
     rows = (c * n_ct, ctx.num_primes, ctx.n)
     u, e0, e1 = (s.reshape(rows).contiguous() for s in samples)
     ct = encrypt_core(ctx, pk, m_res.reshape(rows), u, e0, e1)

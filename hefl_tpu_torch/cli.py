@@ -35,14 +35,18 @@ and `--link-dup` fault the tier->root uplinks.
 `--data-dir DIR` trains on a folder of class-subdirectory images (the
 reference layout `DIR/Train` and `DIR/Test`, or one folder split 80/20;
 `data.folder`) decoded at `--image-size` H (HxH) in place of `--dataset`.
-`--mesh-ct K` asks for the JAX package's 2-D round mesh, which the port
-runs as its bitwise-equal 1-D round, on one GPU or across ranks
+`--mesh-ct K` asks for the JAX package's 2-D (clients, ct) round mesh:
+across ranks the ct ranks of a client row split its encrypt rows; on one
+GPU (one client block) the round is the bitwise-equal 1-D round
 (`experiment`).
 Across GPUs: `torchrun --nproc-per-node K -m hefl_tpu_torch.cli --preset
 medical-8` runs one rank a card (`parallel.init_mesh` joins the group from
 torchrun's environment; NCCL); each rank trains its block of the clients,
 the ciphertext sums are all-reduced mod p, and rank 0 decrypts, reports
-and saves. No flag is added.
+and saves. The streaming service (`--stream`, `--num-hosts`, `--hhe`, a
+journal) runs the same way: every rank produces its block of each round's
+uploads and runs the engine's host half, rank 0 alone journals and
+decrypts. No flag is added.
 `--preset NAME` runs a named configuration (`presets.PRESETS`) and ignores
 the other flags but `--resume`, `--json` and `--device`.
 
@@ -172,9 +176,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "as a stale tier fold before its clients are "
                         "excluded as host_stale; requires --num-hosts")
     p.add_argument("--mesh-ct", type=int, default=0, metavar="K",
-                   help="2-D (clients, ct) round mesh; one GPU is one client "
-                        "block, so the round is the 1-D round (bitwise the "
-                        "JAX package's 2-D round); 0 = the 1-D client mesh")
+                   help="2-D (clients, ct) round mesh: under torchrun the ct "
+                        "ranks of a client row split its encrypt rows; one GPU "
+                        "is one client block, so the round is the 1-D round "
+                        "(bitwise the JAX package's 2-D round); 0 = the 1-D "
+                        "client mesh")
     p.add_argument("--hhe", action="store_true",
                    help="hybrid-HE uplink: clients encrypt their packed update under "
                         "a per-client stream cipher (~1x wire bytes, no client-side "

@@ -3,7 +3,9 @@ partitioning and the image-folder loader (numpy copies of the JAX
 package's modules) and device-side augmentation (`data.augment`).
 
 Re-exports the names of `hefl_tpu.data` that the port defines;
-`Batcher`/`one_hot` and `RoundPrefetcher` are not ported."""
+`Batcher`/`one_hot` are not ported. `RoundPrefetcher` (`data.prefetch`)
+stages a round's federated arrays on the card, on the client mesh only a
+rank's own rows."""
 
 from hefl_tpu_torch.data.folder import (
     load_folder_splits,
@@ -17,6 +19,7 @@ from hefl_tpu_torch.data.partition import (
     stack_federated,
     train_val_split,
 )
+from hefl_tpu_torch.data.prefetch import RoundPrefetcher
 from hefl_tpu_torch.data.synthetic import DATASETS, make_dataset
 
 __all__ = [
@@ -30,4 +33,5 @@ __all__ = [
     "scan_image_folder",
     "load_image_dataset",
     "load_folder_splits",
+    "RoundPrefetcher",
 ]

@@ -45,19 +45,22 @@ folder (`data_dir`, decoded at `image_size` by `data.folder`), whose class
 count replaces `train.num_classes`. Either is copied to the device once.
 
 Round topology: with no process group the run is one client block on one
-device. In a process group (one rank a GPU, `parallel.init_mesh`, e.g.
-under `torchrun`) the rounds run on the 1-D mesh of the world's ranks
-(`parallel.make_mesh`), the federated arrays padded to it once
-(`fedavg.pad_federated`): every rank builds the same dataset from the
-seed and trains its block of clients; rank 0, the model owner, generates
-the keys (the public key and the generator's state are broadcast), holds
-the secret key, decrypts and broadcasts the new global parameters, and
-alone evaluates, prints, keeps the history and writes files. Either way
-`mesh_ct` > 1 (the JAX package's 2-D (clients, ct) mesh, whose ct axis
-shards a block's ciphertext rows over its devices) runs the 1-D round,
-which the JAX package's 2-D round equals bit for bit (the in-round ct
-split across ranks is a later slice's); the `mesh` record names the two
-axes, ct of size 1. Ranks past the mesh return at once.
+device (`mesh_ct` > 1 then runs the 1-D round, which the JAX package's 2-D
+round equals bit for bit; the `mesh` record names the two axes, ct of size
+1). In a process group (one rank a GPU, `parallel.init_mesh`, e.g. under
+`torchrun`) the rounds run on the mesh of the world's ranks: the 1-D
+client mesh (`parallel.make_mesh`), or with `mesh_ct` > 1 the 2-D
+("clients", "ct") mesh (`parallel.make_mesh_2d`), whose ct ranks of a
+client row train the row's block and split its encrypt rows. Every rank
+builds the same dataset from the seed on the host and stages only the
+rows it trains on its card (`data.RoundPrefetcher`: its block of the
+padded registry, or of each streaming round's cohort bucket, the next
+round's copied while the current one runs); rank 0, the model owner,
+generates the keys (the public key and the generator's state are
+broadcast), holds the secret key and the journal, decrypts and broadcasts
+the new global parameters, and alone evaluates, prints, keeps the history
+and writes files. A streaming run's engine runs on every rank
+(`fl.stream`). Ranks past the mesh return at once.
 """
 
 from __future__ import annotations
@@ -93,18 +96,20 @@ from hefl_tpu_torch.fl.faults import (
     record_round_meta,
     schedule_for_round,
 )
+from hefl_tpu_torch.data.prefetch import RoundPrefetcher
 from hefl_tpu_torch.fl.fedavg import (
+    client_block,
     evaluate,
     fedavg_round,
     masked_mode,
-    pad_federated,
+    pad_index,
     replicate_on,
 )
 from hefl_tpu_torch.fl.fusion import fusion_report, resolve_fusion_backend
 from hefl_tpu_torch.fl.secure import decrypt_average, secure_fedavg_round
 from hefl_tpu_torch.fl.journal import JournalError
 from hefl_tpu_torch.fl.server import AggregationServer
-from hefl_tpu_torch.fl.stream import StreamEngine, quorum_count, sample_cohort
+from hefl_tpu_torch.fl.stream import StreamEngine, quorum_count, round_rows, sample_cohort
 from hefl_tpu_torch.hhe.cipher import hhe_bytes_on_wire_record
 from hefl_tpu_torch.models import count_params, create_model
 from hefl_tpu_torch.obs import events as obs_events
@@ -112,7 +117,7 @@ from hefl_tpu_torch.obs import metrics as obs_metrics
 from hefl_tpu_torch.obs import scopes as obs_scopes
 from hefl_tpu_torch.obs import spans as obs_spans
 from hefl_tpu_torch.obs import trace as obs_trace
-from hefl_tpu_torch.parallel import client_mesh_size, make_mesh
+from hefl_tpu_torch.parallel import client_mesh_size, make_mesh, make_mesh_2d
 from hefl_tpu_torch.utils import PhaseTimer, load_checkpoint, roofline, save_checkpoint, save_params
 from hefl_tpu_torch.utils.checkpoint import npz_path
 
@@ -459,23 +464,27 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
     xs, ys = stack_federated(x, y, _partition(cfg, y))
     mesh = num_real = None
     if dist.is_initialized():
-        if cfg.stream is not None and dist.get_world_size() > 1:
-            raise ValueError(
-                "the streaming engine runs on one rank: the engines over the client mesh "
-                "come in a later port slice; run it without a process group")
-        # mesh_ct > 1 runs the 1-D round here too: nothing in the round
-        # splits over ct yet, so ct ranks would train the same block again.
-        mesh = make_mesh(cfg.num_clients, device=device)
+        mesh = (make_mesh_2d(cfg.num_clients, cfg.mesh_ct, device=device) if cfg.mesh_ct > 1
+                else make_mesh(cfg.num_clients, device=device))
         if not mesh.member:
             say(f"rank {mesh.rank}: outside the {mesh.size}-rank mesh, idle")
             return {"history": [], "final_metrics": None, "params": params, "packing": None,
                     "stream": None, "hhe": None, "mesh": mesh_record(cfg, mesh),
                     "obs": _finish_run_obs(metrics_base, rounds=0)}
-        # Pad the federated arrays to the mesh once; the rounds take the
-        # real count (num_real_clients) and train their blocks of them.
-        xs, ys, num_real = pad_federated(xs, ys, client_mesh_size(mesh))
+        # A rank holds only the rows it trains (resident_rows); the rounds
+        # take the registry's size.
+        num_real = int(xs.shape[0])
         params = replicate_on(mesh, params)
-    xs_d, ys_d = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    several = mesh is not None and mesh.group is not None
+    prefetcher = RoundPrefetcher(device)
+
+    def rows_of(r: int):
+        """The clients this rank trains in round r (None: every client)."""
+        if mesh is None:
+            return None
+        if cfg.stream is not None:
+            return round_rows(cfg.stream, mesh, r, num_real)[0]
+        return client_block(mesh, num_real, pad_index(num_real, client_mesh_size(mesh)))[0]
     # The training backend, resolved once a run ("auto" times both on the
     # device here) and pinned for every round.
     train_cfg = dataclasses.replace(train_cfg, client_fusion=_lead_choice(
@@ -511,10 +520,16 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
             say(f"serve: auto-resuming from {cfg.checkpoint_path}")
 
     start_round = 0
+    resume = _lead_choice(mesh, resume)
     if resume:
         if not cfg.checkpoint_path:
             raise ValueError("resume=True requires checkpoint_path")
-        params, start_round, state, _ = load_checkpoint(cfg.checkpoint_path, params)
+        # The owner reads its checkpoint; the other ranks take its state.
+        state = None
+        if lead:
+            params, start_round, state, _ = load_checkpoint(cfg.checkpoint_path, params)
+        start_round, state = _lead_choice(mesh, (start_round, state))
+        params = replicate_on(mesh, params)
         gen.set_state(state)
         say(f"resumed from {cfg.checkpoint_path} at round {start_round}")
         obs_metrics.counter("checkpoint.resumes").inc()
@@ -539,10 +554,11 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
                 (os.path.dirname(cfg.checkpoint_path) or ".") if cfg.checkpoint_path else ".",
                 "journal.wal",
             )
-        if jp:
+        if jp and lead:
             # Construction IS recovery: a journal a crashed process left is
             # replayed here, its torn tail truncated, the carried uploads and
-            # the dedup window rebuilt.
+            # the dedup window rebuilt (the other ranks' engines adopt the
+            # rebuilt state at the next round's start).
             engine = server = AggregationServer(cfg.stream, cfg.faults, journal_path=jp,
                                                 fsync_policy=cfg.fsync_policy, crash=cfg.crash)
             rec = server.recovered
@@ -574,6 +590,12 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
         pois = sched.poison if sched is not None else None
         straggler_s = float(np.max(sched.straggler_s)) if sched is not None else 0.0
         k_round = _round_seed(gen)
+        # This round's rows on the card (the staged copy when the previous
+        # round prefetched it), then the next round's copy started.
+        resident = rows_of(r)
+        xs_d, ys_d = prefetcher.get(xs, ys, rows=resident)
+        if r + 1 < cfg.rounds:
+            prefetcher.prefetch(xs, ys, rows=rows_of(r + 1))
         attempt = 0
         while True:
             # A round whose execution dies (a device or runtime error, or a
@@ -603,7 +625,8 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
                             # consumes (no driver-side sleep).
                             ct_sum, metrics, overflow, smeta = engine.run_round(
                                 model, train_cfg, ctx, pk, params, xs_d, ys_d, round_gen, r,
-                                dp=dp_cfg, packing=pspec, hhe=cfg.hhe,
+                                dp=dp_cfg, packing=pspec, hhe=cfg.hhe, mesh=mesh,
+                                num_real_clients=num_real, resident_rows=resident,
                             )
                             meta = smeta.meta
                             if cfg.span_trace_path:
@@ -614,12 +637,13 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
                             ct_sum, metrics, overflow, meta = secure_fedavg_round(
                                 model, train_cfg, ctx, pk, params, xs_d, ys_d, round_gen,
                                 packing=pspec, dp=dp_cfg, participation=part, poison=pois,
-                                mesh=mesh, num_real_clients=num_real,
+                                mesh=mesh, num_real_clients=num_real, resident_rows=resident,
                             )
                         else:
                             ct_sum, metrics, overflow = secure_fedavg_round(
                                 model, train_cfg, ctx, pk, params, xs_d, ys_d, round_gen,
                                 packing=pspec, dp=dp_cfg, mesh=mesh, num_real_clients=num_real,
+                                resident_rows=resident,
                             )
                         if not streaming:
                             _straggler_wait(straggler_s, device)
@@ -654,18 +678,18 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
                             new_params, metrics, meta = fedavg_round(
                                 model, train_cfg, params, xs_d, ys_d, round_gen,
                                 participation=part, poison=pois, mesh=mesh,
-                                num_real_clients=num_real)
+                                num_real_clients=num_real, resident_rows=resident)
                         else:
                             new_params, metrics = fedavg_round(
                                 model, train_cfg, params, xs_d, ys_d, round_gen, mesh=mesh,
-                                num_real_clients=num_real)
+                                num_real_clients=num_real, resident_rows=resident)
                         _straggler_wait(straggler_s, device)
                 params = new_params
                 break
             except RuntimeError as e:
                 if isinstance(e, (SimulatedCrash, JournalError)) or (
                         attempt >= cfg.max_round_retries) or (
-                        n_dev > 1 and not isinstance(e, DeviceLost)):
+                        several and not isinstance(e, DeviceLost)):
                     obs_events.emit("round_failed", round=r, error=type(e).__name__,
                                     attempts=attempt + 1)
                     raise
@@ -794,7 +818,7 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
     if server is not None:
         server.close()
     span_trace = None
-    if cfg.span_trace_path and span_tracers:
+    if cfg.span_trace_path and span_tracers and lead:
         span_trace = obs_spans.export_chrome_trace(cfg.span_trace_path, span_tracers)
         say(f"span trace: {len(span_tracers)} round(s) -> {span_trace} (Chrome trace-viewer)")
         obs_events.emit("span_trace", path=span_trace, rounds=len(span_tracers))
@@ -821,14 +845,13 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
 
 
 def mesh_record(cfg: ExperimentConfig, mesh) -> dict:
-    """The run's round topology: the axes and their sizes (one device with
-    no process group), and in a process group the world and backend. With
-    `mesh_ct` > 1 the axes are ("clients", "ct"), ct of size 1: the round
-    is the 1-D one."""
-    axes = ["clients", "ct"] if cfg.mesh_ct > 1 else ["clients"]
+    """The run's round topology: the axes and their sizes, and in a process
+    group the world and backend. With no process group (`mesh` None) one
+    device is one block: `mesh_ct` > 1 names the two axes, ct of size 1."""
     if mesh is None:
+        axes = ["clients", "ct"] if cfg.mesh_ct > 1 else ["clients"]
         return {"axes": axes, "clients": 1, "ct": 1}
-    return {**mesh.record(), "axes": axes}
+    return mesh.record()
 
 
 def _lead_choice(mesh, choice):

@@ -1,11 +1,11 @@
 """Federated learning of the port: local training with Keras-callback
-semantics, the encrypted FedAvg round on one device (robust and private:
-`faults`, `dp`), the streaming aggregation service (`stream`, `journal`,
-`server`; flat or through the host tiers of `hierarchy`), and evaluation.
+semantics, the encrypted FedAvg round on one device or across the client
+mesh (robust and private: `faults`, `dp`), the streaming aggregation
+service (`stream`, `journal`, `server`; flat or through the host tiers of
+`hierarchy`, on one device or across the client mesh), and evaluation.
 
-Re-exports the names of `hefl_tpu.fl` that the port defines. The JAX
-package's `produce_uploads` has its counterpart in `secure.client_uploads`
-(a torch.Generator in place of a key, no mesh)."""
+Re-exports the names of `hefl_tpu.fl`; `produce_uploads` takes a
+torch.Generator in place of a key."""
 
 from hefl_tpu_torch.fl.client import local_train, train_centralized
 from hefl_tpu_torch.fl.config import HheConfig, PackingConfig, StreamConfig, TrainConfig
@@ -53,6 +53,7 @@ from hefl_tpu_torch.fl.stream import (
     StreamEngine,
     StreamRoundMeta,
     cohort_compare_record,
+    produce_uploads,
     quorum_count,
     sample_cohort,
 )
@@ -89,6 +90,7 @@ __all__ = [
     "StreamRoundMeta",
     "quorum_count",
     "sample_cohort",
+    "produce_uploads",
     "cohort_bucket",
     "cohort_compare_record",
     "local_train",

@@ -10,8 +10,10 @@ arrays, or "fused", `fusion.fused_train`.
 
 Across GPUs (`mesh=`, a `parallel.Mesh`, one rank a GPU): the clients are
 laid out on the mesh's client axes in blocks of cpd = C / ranks, rank d
-training clients d * cpd .. (d + 1) * cpd - 1 of the federated arrays
-every rank holds; FedAvg is `parallel.pmean_tree` of the block means. A
+training clients d * cpd .. (d + 1) * cpd - 1; FedAvg is
+`parallel.pmean_tree` of the block means. A rank holds either the whole
+federated arrays or only the rows it trains (`resident_rows=`, the rows a
+`data.RoundPrefetcher` staged on its card). A
 client count that does not divide the mesh is padded with masked-out
 slots that repeat client 0 (`pad_index`, `pad_federated`); the padded
 round runs the masked engine. Every rank draws all C clients' generators
@@ -135,6 +137,43 @@ def cohort_gather_index(cohort, bucket: int) -> np.ndarray:
     return idx
 
 
+def cohort_block(mesh, cohort, num_clients: int) -> tuple[np.ndarray, int]:
+    """This rank's block of a cohort's bucket -> (gather index into the
+    clients, count of real rows): the bucket (`cohort_bucket` at the
+    client mesh's rank count) is laid out on the client axes like the
+    registry, cpd = bucket / ranks slots a rank, the sampled clients first
+    and client 0's slot repeated for the padding, so a block's real rows
+    lead it. Off a mesh (None): the whole bucket."""
+    cohort = np.asarray(cohort, dtype=np.int64)
+    n_dev = 1 if mesh is None else client_mesh_size(mesh)
+    gidx = cohort_gather_index(cohort, cohort_bucket(len(cohort), num_clients, n_dev))
+    if mesh is None:
+        return gidx, len(cohort)
+    cpd = len(gidx) // n_dev
+    lo = client_index(mesh) * cpd
+    return gidx[lo: lo + cpd], int(np.clip(len(cohort) - lo, 0, cpd))
+
+
+def resident_index(gidx, resident_rows, device) -> torch.Tensor:
+    """Where the clients `gidx` sit in federated arrays holding the clients
+    `resident_rows` (None: the whole registry, where client c is row c) ->
+    int64 positions on `device`. A client that is not resident fails: a
+    rank trains only what was staged on its card."""
+    gidx = np.asarray(gidx, dtype=np.int64)
+    if resident_rows is None:
+        return torch.from_numpy(gidx).to(device)
+    resident = np.asarray(resident_rows, dtype=np.int64)
+    first = {}
+    for pos, c in enumerate(resident.tolist()):
+        first.setdefault(c, pos)
+    missing = sorted({int(c) for c in gidx} - set(first))
+    if missing:
+        raise ValueError(
+            f"clients {missing} are not among the rows resident on this rank "
+            f"({resident.tolist()}): stage them first (data.RoundPrefetcher)")
+    return torch.tensor([first[int(c)] for c in gidx], dtype=torch.int64, device=device)
+
+
 def pad_index(num_clients: int, n_dev: int) -> np.ndarray | None:
     """Client-axis gather index that pads `num_clients` up to the next
     multiple of `n_dev` by repeating client 0's slot (the padding slots
@@ -157,10 +196,19 @@ def pad_federated(xs, ys, n_dev: int):
     return xs[idx], ys[idx], num
 
 
-def _round_geometry(xs, n_dev: int, num_real_clients: int | None):
+def _round_geometry(xs, n_dev: int, num_real_clients: int | None, resident_rows=None):
     """-> (num_clients, pad_idx, prepadded). `num_real_clients` marks xs as
     padded by `pad_federated`; a row count that disagrees fails (averaging
-    padding rows as real clients must never happen)."""
+    padding rows as real clients must never happen). With `resident_rows`
+    (xs holds those clients only) `num_real_clients` is the registry's
+    size and is required."""
+    if resident_rows is not None:
+        if num_real_clients is None:
+            raise ValueError("resident_rows= needs num_real_clients=, the registry's size")
+        if len(resident_rows) != int(xs.shape[0]):
+            raise ValueError(f"resident_rows names {len(resident_rows)} clients, the "
+                             f"federated arrays hold {int(xs.shape[0])} rows")
+        return int(num_real_clients), pad_index(int(num_real_clients), n_dev), True
     if num_real_clients is None:
         num_clients = int(xs.shape[0])
         return num_clients, pad_index(num_clients, n_dev), False
@@ -288,7 +336,7 @@ def participation_mask(num_clients: int, participation=None) -> np.ndarray:
 def fedavg_round(
     model, cfg: TrainConfig, global_params: dict, xs, ys, gen: torch.Generator,
     streams=None, participation=None, poison=None, mesh=None,
-    num_real_clients: int | None = None,
+    num_real_clients: int | None = None, resident_rows=None,
 ):
     """One synchronous plaintext FedAvg round: every client trains from the
     global weights (its generator drawn from `gen`, as the encrypted round
@@ -308,17 +356,19 @@ def fedavg_round(
     this with the same arguments) trains this rank's block of clients and
     averages across the client axes; a count the mesh does not divide is
     padded (masked). `num_real_clients` marks xs/ys as padded by
-    `pad_federated`. The metrics come back for every client on every rank."""
+    `pad_federated`, `resident_rows` (with `num_real_clients`) as holding
+    those clients only (this rank's block: `client_block`'s index). The
+    metrics come back for every client on every rank."""
     n_dev = 1 if mesh is None else client_mesh_size(mesh)
-    num_clients, pad_idx, _ = _round_geometry(xs, n_dev, num_real_clients)
+    num_clients, pad_idx, _ = _round_geometry(xs, n_dev, num_real_clients, resident_rows)
     explicit = participation is not None or poison is not None
     masked = masked_mode(cfg, num_clients, n_dev, explicit)
     trivial = not masked or (pad_idx is None and cfg.max_update_norm <= 0
                              and _trivial_mask(participation, poison))
     gidx, rows = client_block(mesh, num_clients, pad_idx)
     gens = client_generators(gen, num_clients, xs.device, gidx)
-    if n_dev > 1:                            # this rank's block of the registry
-        idx = torch.from_numpy(gidx).to(xs.device)
+    if n_dev > 1 or resident_rows is not None:      # this rank's block of the registry
+        idx = resident_index(gidx, resident_rows, xs.device)
         xs, ys = xs.index_select(0, idx), ys.index_select(0, idx)
     part = participation_mask(num_clients, participation)[gidx]
     part[rows:] = 0                          # padding: scheduled out

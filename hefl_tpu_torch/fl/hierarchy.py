@@ -702,14 +702,16 @@ def dcn_compare_smoke_record(device=None) -> dict:
     """`dcn_compare_record` at one FIXED small geometry: 16 registered
     clients, a cohort of 8, 4 hosts (4 clients a host block), SmallCNN on
     mnist at N = 256 — a record of the fold topology, not of ring cost.
-    Runs on `device` (CUDA unless given)."""
+    The uploads are produced on `make_mesh(16)` (`fl.stream.produce_uploads`):
+    the ranks of the process group, every rank calling this alike, or one
+    device without one. Runs on `device` (CUDA unless given)."""
     from hefl_tpu_torch.ckks.keys import CkksContext, keygen
     from hefl_tpu_torch.data.partition import iid_contiguous, stack_federated
     from hefl_tpu_torch.data.synthetic import make_dataset
     from hefl_tpu_torch.fl.config import StreamConfig, TrainConfig
-    from hefl_tpu_torch.fl.secure import client_uploads
-    from hefl_tpu_torch.fl.stream import sample_cohort
+    from hefl_tpu_torch.fl.stream import produce_uploads, sample_cohort
     from hefl_tpu_torch.models import create_model
+    from hefl_tpu_torch.parallel import make_mesh
 
     device = resolve_device(device)
     model = create_model("smallcnn", gen=torch.Generator().manual_seed(7), device=device)
@@ -722,16 +724,19 @@ def dcn_compare_smoke_record(device=None) -> dict:
     cohort = sample_cohort(StreamConfig(cohort_size=8, num_hosts=4), 0, 16)
     part = np.zeros(16, np.int32)
     part[cohort] = 1
-    cts = client_uploads(model, cfg, ctx, pk, params, torch.from_numpy(xs).to(device),
-                         torch.from_numpy(ys).to(device), torch.Generator().manual_seed(78),
-                         participation=part, cohort=cohort)[0]
+    cts = produce_uploads(model, cfg, make_mesh(16, device=device), ctx, pk, params,
+                          torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device),
+                          torch.Generator().manual_seed(78), participation=part,
+                          cohort=cohort)[0]
     return dcn_compare_record(ctx.ntt.p, cts.c0, cts.c1, cohort, num_clients=16, num_hosts=4)
 
 
 def _main(argv: list[str] | None = None) -> int:
     """The BENCH_DCN writer: `python -m hefl_tpu_torch.fl.hierarchy [--out
     BENCH_TORCH_DCN.json] [--device D]`; exit 1 unless the tree is bitwise
-    the flat fold and the cross-region bytes ratio meets its floor."""
+    the flat fold and the cross-region bytes ratio meets its floor. Under
+    `torchrun` every rank produces its block of the uploads
+    (`parallel.init_mesh` joins the group) and rank 0 alone writes."""
     import argparse
     import json
 
@@ -743,8 +748,15 @@ def _main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default=None, help="where the uploads and folds run "
                                                    "(default: cuda)")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    import torch.distributed as dist
+
+    from hefl_tpu_torch.parallel import init_mesh
+
+    device = init_mesh(args.device)
     rec = dcn_compare_smoke_record(device=device)
+    ok = rec["bitwise_equal"] and rec["ratio_ok"]
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return 0 if ok else 1
     dev = device_record(device)
     artifact = {
         "platform": dev["platform"],
@@ -759,7 +771,7 @@ def _main(argv: list[str] | None = None) -> int:
           f"ratio={rec['bytes_ratio']} (floor {rec['ratio_floor']}) "
           f"bitwise_equal={rec['bitwise_equal']} on {dev['kind']} ({dev['power_limit']}) "
           f"-> {args.out}")
-    return 0 if (rec["bitwise_equal"] and rec["ratio_ok"]) else 1
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

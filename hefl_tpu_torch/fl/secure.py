@@ -21,9 +21,11 @@ fused-encrypt kernel launch on CUDA):
 
 The server's aggregation is the ciphertext sum mod p over the client axis;
 across the client mesh (`mesh=`, one rank a GPU) each rank sums its block
-and the partial sums are all-reduced mod p (`psum_ciphertext`), and the
-owner's encrypt and decrypt can split their rows over a ct mesh
-(`encrypt_params_sharded`, `decrypt_sharded`).
+and the partial sums are all-reduced mod p (`psum_ciphertext`); on a
+("clients", "ct") mesh the ct ranks of a client row split each client's
+encrypt rows (`ct_sharded_encrypt_core`); and the owner's encrypt and
+decrypt can split their rows over a ct mesh (`encrypt_params_sharded`,
+`decrypt_sharded`).
 Trust split: the round touches only the `PublicKey`; the `SecretKey`
 appears only in `decrypt_average`, the model owner's step.
 
@@ -68,6 +70,7 @@ from hefl_tpu_torch.fl.fedavg import (
     cohort_gather_index,
     gather_clients,
     masked_mean_tree,
+    resident_index,
     masked_mode,
     participation_mask,
     plain_mean,
@@ -76,7 +79,58 @@ from hefl_tpu_torch.fl.fedavg import (
 from hefl_tpu_torch.hhe import cipher
 from hefl_tpu_torch.obs import scopes
 from hefl_tpu_torch.obs.scopes import scoped
-from hefl_tpu_torch.parallel import client_axes, client_mesh_size, hierarchical_psum_mod, pmean_tree
+from hefl_tpu_torch.parallel import (
+    CT_AXIS, client_axes, client_mesh_size, ct_shard_count, hierarchical_psum_mod, pmean_tree,
+)
+
+
+def ct_sharded_encrypt_core(ctx: CkksContext, pk: PublicKey, m_res: torch.Tensor, u, e0, e1,
+                            mesh) -> Ciphertext:
+    """The stacked encrypt core [C, n_ct, L, N] with the ciphertext rows
+    (axis 1) split over the mesh's "ct" axis, the counterpart of the JAX
+    package's `_ct_sharded_encrypt_core`: the rows zero-padded to a
+    multiple of the ct size, this ct rank's `per = ceil(n_ct / ct)` rows
+    encrypted (one K3 launch at [C * per, L, N] on CUDA), the slices
+    all-gathered in ct order over the ct group and cut to n_ct. Every row's
+    math is the unsplit core's, so the result is bitwise it. Every ct rank
+    of a client row calls this alike; a mesh without a ct axis (or None)
+    runs the unsplit core."""
+    shards = 1 if mesh is None else ct_shard_count(mesh)
+    if shards <= 1:
+        return ops.encrypt_batch(ctx, pk, m_res, samples=(u, e0, e1))
+    group = mesh.groups.get(CT_AXIS)
+    if group is None:
+        raise ValueError("ct_sharded_encrypt_core: the ct split needs the mesh's process "
+                         "group (a layout-only mesh has none)")
+    n_ct = int(m_res.shape[1])
+    per = -(-n_ct // shards)
+    lo = mesh.coords[CT_AXIS] * per
+
+    def local(t):
+        pad = per * shards - n_ct
+        if pad:
+            t = torch.cat([t, t.new_zeros((t.shape[0], pad, *t.shape[2:]))], dim=1)
+        return t[:, lo: lo + per]
+
+    ct = ops.encrypt_batch(ctx, pk, local(m_res), samples=(local(u), local(e0), local(e1)))
+
+    def gather(blk):
+        parts = [torch.empty_like(blk) for _ in range(shards)]
+        dist.all_gather(parts, blk.contiguous(), group=group)
+        return torch.cat(parts, dim=1)[:, :n_ct]
+
+    return Ciphertext(c0=gather(ct.c0), c1=gather(ct.c1), scale=ct.scale)
+
+
+def _encrypt_rows(ctx: CkksContext, pk: PublicKey, m_res: torch.Tensor, enc_gens, samples,
+                  mesh) -> Ciphertext:
+    """The batched encrypt of residues [C, n_ct, L, N], split over the
+    mesh's ct axis when it has one (`ct_sharded_encrypt_core`): the samples
+    are drawn at the whole [n_ct] shape first, as the unsplit call draws
+    them."""
+    if samples is None:
+        samples = ops.batch_samples(ctx, enc_gens, int(m_res.shape[1]), m_res.device)
+    return ct_sharded_encrypt_core(ctx, pk, m_res, *samples, mesh)
 
 
 def encode_stack(ctx: CkksContext, p_out: list[dict]) -> torch.Tensor:
@@ -88,11 +142,12 @@ def encode_stack(ctx: CkksContext, p_out: list[dict]) -> torch.Tensor:
 
 @scoped(scopes.ENCRYPT)
 def encrypt_stack(
-    ctx: CkksContext, pk: PublicKey, p_out: list[dict], enc_gens=None, samples=None
+    ctx: CkksContext, pk: PublicKey, p_out: list[dict], enc_gens=None, samples=None, mesh=None
 ) -> Ciphertext:
     """Encrypt C clients' parameter dicts into one [C, n_ct, L, N] Ciphertext
-    (client c's randomness from `enc_gens[c]`, or the given `samples`)."""
-    return ops.encrypt_batch(ctx, pk, encode_stack(ctx, p_out), enc_gens, samples)
+    (client c's randomness from `enc_gens[c]`, or the given `samples`); on
+    a ("clients", "ct") `mesh` the rows split over its ct axis."""
+    return _encrypt_rows(ctx, pk, encode_stack(ctx, p_out), enc_gens, samples, mesh)
 
 
 def encrypt_params(
@@ -191,7 +246,7 @@ def _with_residual(out: tuple, packed: list[tuple], residual_blk) -> tuple:
 @scoped(scopes.ENCRYPT)
 def encrypt_stack_packed(
     ctx: CkksContext, pk: PublicKey, p_out: list[dict], base_params: dict, enc_gens,
-    spec: PackedSpec, samples=None, residual_blk: torch.Tensor | None = None,
+    spec: PackedSpec, samples=None, residual_blk: torch.Tensor | None = None, mesh=None,
 ) -> tuple:
     """The packed twin of `encrypt_stack`: each client's UPDATE (trained
     weights minus `base_params`, the round's global weights) quantized and
@@ -199,10 +254,11 @@ def encrypt_stack_packed(
     saturation int32[C], the packed analog of the encode overflow). With
     `residual_blk` (error feedback: float32[C, total] in `p_out`'s client
     order) each update is quantized through its residual row and the new
-    rows come back third, float32[C, total]; the wire geometry is the same."""
+    rows come back third, float32[C, total]; the wire geometry is the same.
+    On a ("clients", "ct") `mesh` the rows split over its ct axis."""
     packed = _pack_updates(p_out, base_params, spec, residual_blk)
     m_res = torch.stack([encoding.encode_packed(ctx.ntt, hi, lo) for hi, lo, *_ in packed])
-    ct = ops.encrypt_batch(ctx, pk, m_res, enc_gens, samples)
+    ct = _encrypt_rows(ctx, pk, m_res, enc_gens, samples, mesh)
     out = (Ciphertext(c0=ct.c0, c1=ct.c1, scale=spec.guard_scale),
            torch.stack([s for _, _, s, *_ in packed]))
     return _with_residual(out, packed, residual_blk)
@@ -280,7 +336,8 @@ def client_uploads(
     xs: torch.Tensor, ys: torch.Tensor, gen: torch.Generator, packing: PackedSpec | None = None,
     hhe_keys=None, round_index: int = 0, streams=None, dp: DpConfig | None = None,
     participation=None, poison=None, want_bits: bool = False, cohort=None,
-    ef_residual=None, block=None, num_real_clients: int | None = None,
+    ef_residual=None, block=None, num_real_clients: int | None = None, mesh=None,
+    resident_rows=None,
 ):
     """The client half of a round, in the JAX package's order: train ->
     DP-sanitize (`dp`, shares calibrated to `calibration_clients`) ->
@@ -314,20 +371,25 @@ def client_uploads(
     `cohort`) come back as a seventh output, for the streaming engine to
     scatter into its cross-round state.
 
-    `block` (a rank's `fedavg.client_block`: a gather index into the
-    clients and its count of real rows) trains and encrypts this rank's
-    block of the client mesh, as `cohort` does its cohort, with the
-    generators drawn at the full count; the padding rows are scheduled out
-    and KEPT (block-rowed outputs, cpd rows), as the JAX package keeps a
-    device's padding slots. `num_real_clients`: the client count when xs
-    is padded (`fedavg.pad_federated`).
+    `block` (a rank's `fedavg.client_block`, or with `cohort` its
+    `fedavg.cohort_block`: a gather index into the clients and its count of
+    real rows) trains and encrypts this rank's block of the client mesh,
+    with the generators drawn at the full count; the padding rows are
+    scheduled out and KEPT (block-rowed outputs, cpd rows), as the JAX
+    package keeps a device's padding slots. `num_real_clients`: the client
+    count when xs is padded (`fedavg.pad_federated`) or holds only the
+    clients `resident_rows` (a rank's staged rows). `mesh`: a ("clients",
+    "ct") mesh splits each client's encrypt rows over its ct axis
+    (`ct_sharded_encrypt_core`; the hybrid-HE upload runs no NTT and
+    ignores it).
 
     -> (Ciphertext [C, n_ct, L, N] or the (w_hi, w_lo) word pair,
     metrics float32[C, E, 4], overflow [C], uploaded params, enc_gens,
     exclusion bits int32[C] or None[, residual' float32[C, total]])."""
     num_clients = int(xs.shape[0]) if num_real_clients is None else int(num_real_clients)
-    if cohort is not None and block is not None:
-        raise ValueError("client_uploads: a cohort and a mesh block do not combine")
+    if resident_rows is not None and num_real_clients is None:
+        raise ValueError("client_uploads: resident_rows= needs num_real_clients=, the "
+                         "registry's size")
     ef_on = packing is not None and packing.error_feedback
     if ef_on and ef_residual is None:
         raise ValueError(
@@ -358,11 +420,13 @@ def client_uploads(
                 f"{cohort.max() if len(cohort) else 0}] does not fit the "
                 f"{num_clients} registered clients"
             )
-        if len(cohort) < num_clients:
+        if len(cohort) < num_clients and block is None:
             gidx = cohort_gather_index(cohort, cohort_bucket(len(cohort), num_clients))
             rows = len(cohort)
     if block is not None:
         gidx, rows = block
+    elif gidx is None and resident_rows is not None:
+        gidx = np.arange(num_clients)
     train_gens = client_generators(gen, num_clients, xs.device, gidx)
     enc_gens = client_generators(gen, num_clients, xs.device, gidx)
     dp_gens = client_generators(gen, num_clients, xs.device, gidx) if dp is not None else None
@@ -373,7 +437,7 @@ def client_uploads(
         if poison is not None:
             poison = np.asarray(poison).astype(np.int32).reshape(num_clients)[gidx].copy()
             poison[rows:] = 0
-        idx = torch.from_numpy(gidx).to(xs.device)
+        idx = resident_index(gidx, resident_rows, xs.device)
         xs, ys = xs.index_select(0, idx), ys.index_select(0, idx)
         if hhe_keys is not None:
             hhe_keys = np.asarray(hhe_keys)[gidx]
@@ -399,14 +463,14 @@ def client_uploads(
         cts = (w_hi, w_lo)
     elif packing is not None:
         cts, overflow, *ef = encrypt_stack_packed(ctx, pk, p_out, global_params, enc_gens,
-                                                  packing, residual_blk=ef_blk)
+                                                  packing, residual_blk=ef_blk, mesh=mesh)
     else:
         with torch.profiler.record_function(scopes.ENCRYPT):
             overflow = torch.stack([
                 encoding.encode_overflow_count(pack_params(prm, ctx.n), ctx.scale)
                 for prm in p_out
             ])
-        cts = encrypt_stack(ctx, pk, p_out, enc_gens)
+        cts = encrypt_stack(ctx, pk, p_out, enc_gens, mesh=mesh)
     bits = None
     if want_bits:
         with torch.profiler.record_function(scopes.SANITIZE):
@@ -442,6 +506,7 @@ def secure_fedavg_round(
     poison=None,
     mesh=None,
     num_real_clients: int | None = None,
+    resident_rows=None,
 ):
     """One encrypted FedAvg round on the device of `xs`.
 
@@ -479,8 +544,13 @@ def secure_fedavg_round(
     client axes (`parallel.hierarchical_psum_mod`): the sum is the
     one-device round's bit for bit, on every rank. A count the mesh does
     not divide is padded with masked-out slots; `num_real_clients` marks
-    xs/ys as padded by `fedavg.pad_federated`. Metrics, overflow and the
-    RoundMeta come back for every client on every rank.
+    xs/ys as padded by `fedavg.pad_federated`, `resident_rows` (with
+    `num_real_clients`) as holding only those clients (this rank's block).
+    Metrics, overflow and the RoundMeta come back for every client on
+    every rank. On a ("clients", "ct") mesh (`parallel.make_mesh_2d`)
+    every ct rank of a client row trains the row's block, the encrypt rows
+    split over the ct axis (`ct_sharded_encrypt_core`) and the sum reduces
+    over the client axis only: bitwise the 1-D round.
     """
     if packing is not None and packing.error_feedback:
         # One-shot round: nowhere to carry the residual, so an EF spec here
@@ -492,7 +562,7 @@ def secure_fedavg_round(
             "error_feedback"
         )
     n_dev = 1 if mesh is None else client_mesh_size(mesh)
-    num_clients, pad_idx, _ = _round_geometry(xs, n_dev, num_real_clients)
+    num_clients, pad_idx, _ = _round_geometry(xs, n_dev, num_real_clients, resident_rows)
     sanitizing = cfg.on_overflow == "exclude" or cfg.max_update_norm > 0
     explicit = participation is not None or poison is not None
     masked = masked_mode(cfg, num_clients, n_dev, explicit, secure=True)
@@ -504,7 +574,7 @@ def secure_fedavg_round(
         model, cfg, ctx, pk, global_params, xs, ys, gen, packing=packing, streams=streams,
         dp=dp, participation=participation if want_bits else None,
         poison=poison if want_bits else None, want_bits=want_bits, block=block,
-        num_real_clients=num_clients,
+        num_real_clients=num_clients, mesh=mesh, resident_rows=resident_rows,
     )
     keep = bits == 0 if want_bits else None
     if keep is not None:

@@ -45,9 +45,21 @@ the engine keeps one float32 residual row per registered client
 and committed with the rest of the cross-round state. As in the JAX
 package, the residual is not journaled.
 
-`num_real_clients` (the client mesh's padding) is refused: the engine
-runs on one rank; the streaming and hierarchical engines over the client
-mesh come in a later port slice.
+Across the client mesh (`run_round(mesh=)`, one rank a GPU, every member
+rank calling it alike): each rank trains and encrypts its block of the
+round's uploads (`produce_uploads`: the cohort's bucket, or the padded
+registry, laid out on the client axes; on a ("clients", "ct") mesh the
+encrypt rows split over ct), and the blocks are gathered in client order,
+so every rank then holds the round's uploads, metrics, overflow, exclusion
+bits and residual rows. The host half (arrivals, dedup, quorum, staleness,
+tier folds, the residual registry) runs on every rank from the same seeds
+and the virtual clock alone, so no carried upload or residual row is ever
+scattered. Rank 0 alone holds a journal session. At a round's start the
+ranks compare their cross-round state and adopt rank 0's when it differs
+(a recovering rank 0 rebuilt its state from the journal); at its end they
+exchange the outcome: a failure of one rank's host half (a crash, a
+replay mismatch) fails every rank, and ranks whose committed sum or
+cross-round state differ fail the run.
 """
 
 from __future__ import annotations
@@ -61,12 +73,22 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hefl_tpu_torch.analysis import ranges
 from hefl_tpu_torch.ckks.ops import Ciphertext
 from hefl_tpu_torch.fl.client import init_ef_residuals
 from hefl_tpu_torch.fl.config import HheConfig, StreamConfig, TrainConfig
 from hefl_tpu_torch.fl.dp import calibration_clients
+from hefl_tpu_torch.fl.fedavg import (
+    _round_geometry,
+    client_block,
+    client_generators,
+    cohort_block,
+    cohort_bucket,
+    gather_clients,
+    pad_index,
+)
 from hefl_tpu_torch.fl.faults import (
     EXCLUDED_HOST_STALE,
     EXCLUDED_HOST_TIMEOUT,
@@ -92,7 +114,7 @@ from hefl_tpu_torch.obs import metrics as obs_metrics
 from hefl_tpu_torch.obs import scopes as obs_scopes
 from hefl_tpu_torch.obs.scopes import scoped
 from hefl_tpu_torch.obs import spans as obs_spans
-from hefl_tpu_torch.parallel import host_of_clients
+from hefl_tpu_torch.parallel import client_mesh_size, ct_shard_count, host_of_clients
 
 # In-program sanitization causes: an upload whose bits carry any of these
 # ARRIVES but is rejected at the accumulator (the sanitizer's verdict is
@@ -114,6 +136,93 @@ def sample_cohort(stream: StreamConfig, round_index: int, num_clients: int) -> n
         return np.arange(num_clients)
     rng = np.random.default_rng([int(stream.seed), int(round_index), 2])
     return np.sort(rng.choice(num_clients, size, replace=False))
+
+
+def round_rows(stream: StreamConfig, mesh, round_index: int, num_clients: int):
+    """The clients a rank trains in a streaming round -> (gather index into
+    the clients, count of real rows): its block of the round's cohort
+    bucket under cohort-only training (`fedavg.cohort_block`), else its
+    block of the padded registry (`fedavg.client_block`). Off a mesh
+    (None): the whole bucket or registry. A driver stages these rows on the
+    rank's card ahead of the round (`data.RoundPrefetcher`)."""
+    cohort = sample_cohort(stream, round_index, num_clients)
+    return _block(mesh, cohort if stream.cohort_only else None, num_clients)
+
+
+def _block(mesh, cohort, num_clients: int):
+    """A rank's block of the cohort's bucket, or (no cohort, or a full one)
+    of the padded registry -> (gather index, real rows)."""
+    if cohort is not None and len(cohort) < num_clients:
+        return cohort_block(mesh, cohort, num_clients)
+    n_dev = 1 if mesh is None else client_mesh_size(mesh)
+    return client_block(mesh, num_clients, pad_index(num_clients, n_dev))
+
+
+def produce_uploads(model, cfg: TrainConfig, mesh, ctx, pk, global_params, xs, ys,
+                    gen: torch.Generator, participation=None, poison=None, dp=None,
+                    num_real_clients: int | None = None, packing=None, hhe_keys=None,
+                    round_index: int = 0, cohort=None, ef_residual=None, resident_rows=None):
+    """Train every client (or the `cohort`) and return its upload, per
+    client, with the sanitizer's verdicts: the counterpart of the JAX
+    package's `fl.stream.produce_uploads`, through `secure.client_uploads`.
+
+    -> (Ciphertext [rows, n_ct, L, N] or the (w_hi, w_lo) word pair with
+    `hhe_keys`, metrics [rows, E, 4], overflow int32[rows], bits
+    int32[rows][, residual' float32[rows, total] with
+    `packing.error_feedback`]), rows the cohort (cohort order) or every
+    client. On a `mesh` of several ranks (every member rank calls this
+    alike) each rank trains and encrypts its block (`round_rows`) and the
+    blocks are all-gathered in client order over the client axes: every
+    rank returns the one-device outputs, bit for bit under the per-client
+    loop. Generators are drawn at the full registry count and gathered,
+    so a client's upload does not depend on its rank or on who else was
+    sampled. `resident_rows` (with `num_real_clients`): xs/ys hold only
+    those clients."""
+    n_dev = 1 if mesh is None else client_mesh_size(mesh)
+    num_clients, _, _ = _round_geometry(xs, n_dev, num_real_clients, resident_rows)
+    if cohort is not None and len(cohort) >= num_clients:
+        cohort = None                   # a full cohort is the full-C path
+    kw = dict(packing=packing, hhe_keys=hhe_keys, round_index=round_index, dp=dp,
+              participation=participation, poison=poison, want_bits=True, cohort=cohort,
+              ef_residual=ef_residual, num_real_clients=num_clients, mesh=mesh,
+              resident_rows=resident_rows)
+    if mesh is None or mesh.group is None:
+        cts, mets, overflow, _, _, bits, *ef = client_uploads(
+            model, cfg, ctx, pk, global_params, xs, ys, gen, **kw)
+        return (cts, mets, overflow, bits, *ef)
+    cts, mets, overflow, _, _, bits, *ef = client_uploads(
+        model, cfg, ctx, pk, global_params, xs, ys, gen, **kw,
+        block=_block(mesh, cohort, num_clients))
+    rows = num_clients if cohort is None else len(cohort)
+    gather = lambda t: gather_clients(mesh, t, rows)  # noqa: E731
+    if hhe_keys is not None:
+        cts = (gather(cts[0]), gather(cts[1]))
+    else:
+        cts = Ciphertext(c0=gather(cts.c0), c1=gather(cts.c1), scale=cts.scale)
+    return (cts, gather(mets), gather(overflow), gather(bits), *(gather(e) for e in ef))
+
+
+def upload_enc_generators(snapshot: torch.Generator, num_clients: int, device, rows):
+    """The encryption generators of the upload rows `rows` (client indices)
+    from `snapshot`, a copy of the round's generator taken before its
+    uploads were produced: the second per-client draw of
+    `secure.client_uploads` (after the training draw), at the full registry
+    count. The server's keystream pads use them
+    (`hhe.transcipher.provision_pads`)."""
+    client_generators(snapshot, num_clients, device)           # the training draw
+    return client_generators(snapshot, num_clients, device, rows)
+
+
+class PeerRankFailed(RuntimeError):
+    """Another rank of the mesh failed the round's host half: this rank
+    stops too rather than go on alone."""
+
+
+def _exchange(mesh, value) -> list:
+    """Every member rank's `value`, in group rank order."""
+    box = [None] * mesh.size
+    dist.all_gather_object(box, value, group=mesh.group)
+    return box
 
 
 def quorum_count(stream: StreamConfig, cohort_size: int) -> int:
@@ -469,6 +578,9 @@ class StreamEngine:
     def __init__(self, stream: StreamConfig, faults=None):
         self.stream = stream
         self.faults = faults
+        # Set once a round's uploads are produced (its collectives done):
+        # from then on a failure is this rank's host half alone.
+        self._produced = False
         self._pending: list[PendingUpload] = []   # land next round
         # Sealed host partials that missed their round's ship, carried
         # under host_staleness_rounds.
@@ -521,20 +633,102 @@ class StreamEngine:
 
     def run_round(self, model, cfg: TrainConfig, ctx, pk, global_params, xs, ys,
                   gen: torch.Generator, round_index: int, dp=None, packing=None,
-                  num_real_clients=None, session=None, hhe: HheConfig | None = None):
+                  num_real_clients=None, session=None, hhe: HheConfig | None = None,
+                  mesh=None, resident_rows=None):
         """Traced entry point: installs one `obs.spans.SpanTracer` for the
-        round (kept as `self.last_spans`), then runs `_run_round_body`."""
+        round (kept as `self.last_spans`), then runs `_run_round_body`.
+
+        `mesh` (a `parallel.Mesh` of several ranks; every member rank calls
+        this with the same arguments, rank 0 alone with a `session`) runs
+        the round across the client mesh (the module docstring);
+        `num_real_clients` marks xs/ys as padded (`fedavg.pad_federated`)
+        or, with `resident_rows`, as holding only those clients (the rows
+        `round_rows` names for this rank)."""
         tracer = obs_spans.SpanTracer(int(round_index))
         self.last_spans = tracer
         with obs_spans.activate(tracer):
-            return self._run_round_body(
-                model, cfg, ctx, pk, global_params, xs, ys, gen, round_index, dp=dp,
-                packing=packing, num_real_clients=num_real_clients, session=session, hhe=hhe,
-            )
+            def body():
+                return self._run_round_body(
+                    model, cfg, ctx, pk, global_params, xs, ys, gen, round_index, dp=dp,
+                    packing=packing, num_real_clients=num_real_clients, session=session,
+                    hhe=hhe, mesh=mesh, resident_rows=resident_rows,
+                )
+            if mesh is None or mesh.group is None:
+                return body()
+            return self._round_on_ranks(mesh, body)
+
+    # -- the round across ranks --------------------------------------------
+
+    def _state(self) -> tuple:
+        """The cross-round state a recovering server rebuilds: carried
+        uploads, carried tier partials, the dedup window (host arrays)."""
+        def host(x):
+            return _residues(x, "cpu").numpy()
+        pend = [dataclasses.replace(up, c0=host(up.c0), c1=host(up.c1)) for up in self._pending]
+        tiers = [dataclasses.replace(tp, c0=host(tp.c0), c1=host(tp.c1))
+                 for tp in self._pending_tiers]
+        return pend, tiers, sorted(self._seen), self._seen.peak_entries
+
+    def _state_digest(self) -> str:
+        h = hashlib.sha256()
+        for up in self._pending:
+            h.update(repr((up.client, up.origin_round, tuple(up.nonce), float(up.lands_at),
+                           up.lateness, ct_hash(up.c0, up.c1))).encode())
+        for tp in self._pending_tiers:
+            h.update(repr((tp.host, tp.origin_round, tp.sha, tuple(tp.clients), tp.lateness,
+                           ct_hash(tp.c0, tp.c1))).encode())
+        h.update(repr((sorted(self._seen), self._seen.peak_entries)).encode())
+        return h.hexdigest()
+
+    def _round_on_ranks(self, mesh, body):
+        """One round on every member rank: adopt rank 0's cross-round state
+        if it differs (a recovering rank 0 rebuilt it from its journal), run
+        `body`, then exchange the outcome. A failure of a rank's host half
+        (after the uploads' collectives) fails every rank; a committed sum,
+        cross-round state or residual registry that differs between ranks
+        fails the run. A failure before the uploads are gathered leaves the
+        peers to their collectives' time limit
+        (`parallel.mesh.DEFAULT_TIMEOUT_S`)."""
+        lead = dist.get_global_rank(mesh.group, 0)
+        digests = _exchange(mesh, self._state_digest())
+        if len(set(digests)) > 1:
+            box = [self._state() if dist.get_rank() == lead else None]
+            dist.broadcast_object_list(box, src=lead, group=mesh.group)
+            if dist.get_rank() != lead:
+                pend, tiers, seen, peak = box[0]
+                self._pending, self._pending_tiers = pend, tiers
+                self._seen = DedupWindow(seen, peak=peak)
+        self._produced = False
+        try:
+            out = body()
+        except Exception as e:
+            if not self._produced:
+                raise
+            _exchange(mesh, (f"{type(e).__name__}: {e}", None))
+            raise
+        ct_sum, _, _, smeta = out
+        ef = self._ef_residual
+        digest = (self._state_digest(), ct_hash(ct_sum.c0, ct_sum.c1), smeta.committed,
+                  smeta.meta.surviving,
+                  None if ef is None else hashlib.sha256(
+                      ef.detach().cpu().numpy().tobytes()).hexdigest())
+        outcomes = _exchange(mesh, (None, digest))
+        failed = [(dist.get_global_rank(mesh.group, i), err)
+                  for i, (err, _) in enumerate(outcomes) if err is not None]
+        if failed:
+            raise PeerRankFailed(f"round {smeta.round_index}: rank(s) failed the round's host "
+                                 f"half: {failed}")
+        if len({d for _, d in outcomes}) > 1:
+            raise RuntimeError(
+                f"round {smeta.round_index}: the ranks' committed sums or cross-round state "
+                "(carried uploads, tier partials, dedup window, residual rows) diverged; "
+                "stopping rather than go on")
+        return out
 
     def _run_round_body(self, model, cfg: TrainConfig, ctx, pk, global_params, xs, ys,
                         gen: torch.Generator, round_index: int, dp=None, packing=None,
-                        num_real_clients=None, session=None, hhe=None):
+                        num_real_clients=None, session=None, hhe=None, mesh=None,
+                        resident_rows=None):
         """-> (Ciphertext sum, metrics [C, E, 4], overflow [C],
         StreamRoundMeta). meta.meta.surviving is the decode denominator; 0
         (or committed=False) means nothing was released this round and the
@@ -550,12 +744,8 @@ class StreamEngine:
         persists the symmetric words and replay re-transciphers them."""
         tracer = obs_spans.current()
         s = self.stream
-        if num_real_clients is not None:
-            raise ValueError(
-                "StreamEngine.run_round: num_real_clients= pads the client axis "
-                "onto the client mesh; the streaming engine over the mesh comes in a "
-                "later port slice (drop it: the engine runs on one rank)"
-            )
+        n_dev = 1 if mesh is None else client_mesh_size(mesh)
+        num_clients, _, _ = _round_geometry(xs, n_dev, num_real_clients, resident_rows)
         hhe_mode = s.upload_kind == "hhe"
         if hhe_mode and packing is None:
             raise ValueError(
@@ -615,7 +805,6 @@ class StreamEngine:
                 "accounting does not cover and breaking cohort-subsampling "
                 "amplification — drop error_feedback for dp runs"
             )
-        num_clients = int(xs.shape[0])
         device = xs.device
         cohort = sample_cohort(s, round_index, num_clients)
         in_cohort = np.zeros(num_clients, dtype=bool)
@@ -652,12 +841,18 @@ class StreamEngine:
                     or self._ef_residual.device != device):
                 self._ef_residual = init_ef_residuals(global_params, num_clients).to(device)
             ef_full = self._ef_residual
-        cts, mets_rows, overflow_rows, _, enc_gens, bits_rows, *ef_tail = client_uploads(
-            model, cfg, ctx, pk, global_params, xs, ys, gen, packing=packing,
-            hhe_keys=hhe_keys, round_index=round_index, dp=dp, participation=part,
-            poison=pois, want_bits=True, cohort=cohort if use_cohort else None,
-            ef_residual=ef_full,
+        snapshot = None
+        if hhe_mode:
+            snapshot = torch.Generator(device=gen.device)
+            snapshot.set_state(gen.get_state())
+        cts, mets_rows, overflow_rows, bits_rows, *ef_tail = produce_uploads(
+            model, cfg, mesh, ctx, pk, global_params, xs, ys, gen, participation=part,
+            poison=pois, dp=dp, num_real_clients=num_real_clients, packing=packing,
+            hhe_keys=hhe_keys, round_index=round_index,
+            cohort=cohort if use_cohort else None, ef_residual=ef_full,
+            resident_rows=resident_rows,
         )
+        self._produced = True
         rows = cohort if use_cohort else np.arange(num_clients)
         row_of = np.full(num_clients, -1, dtype=np.int64)
         row_of[rows] = np.arange(len(rows))
@@ -670,6 +865,7 @@ class StreamEngine:
             ef_next[torch.from_numpy(rows).to(device)] = ef_tail[0]
         hhe_rd = None
         if hhe_mode:
+            enc_gens = upload_enc_generators(snapshot, num_clients, device, rows)
             hhe_rd, cts = self._transcipher_round(
                 ctx, pk, packing, cts, enc_gens, round_index, num_clients, hhe,
                 journaled=session is not None, client_ids=rows if use_cohort else None,
@@ -1159,20 +1355,22 @@ class StreamEngine:
 
 def cohort_compare_record(
     model, cfg: TrainConfig, ctx, pk, global_params: dict, xs: torch.Tensor, ys: torch.Tensor,
-    key_seed: int, num_clients: int, cohort_size: int, seed: int = 0,
+    key_seed: int, num_clients: int, cohort_size: int, seed: int = 0, mesh=None,
 ) -> dict:
     """Timed full-C-vs-cohort-only upload producers (the JAX package's
     `cohort_compare_record`): both produce the SAME sampled cohort's
-    uploads through `secure.client_uploads`, the full-C run training every
+    uploads through `produce_uploads`, the full-C run training every
     registered client (the unsampled ones scheduled out), the cohort run
     gathering the cohort bucket first. Each producer run draws from a fresh
     generator seeded `key_seed`, so both see the same streams. Speedup is
     warm wall clock (`roofline.steady_seconds`); `bitwise_equal` folds the
     cohort's uploads from both producers into `OnlineAccumulator`s and
     compares the sums' `ct_hash`, with both runs under deterministic
-    algorithms (`experiment.deterministic_algorithms`)."""
+    algorithms (`experiment.deterministic_algorithms`). On a `mesh` of
+    several ranks (every member rank calls this alike) each producer trains
+    a rank's block and gathers the uploads; `bucket` and `devices_per_axis`
+    are the mesh's."""
     from hefl_tpu_torch.experiment import deterministic_algorithms
-    from hefl_tpu_torch.fl.fedavg import cohort_bucket
     from hefl_tpu_torch.utils.roofline import steady_seconds
 
     cohort = sample_cohort(StreamConfig(cohort_size=cohort_size, seed=seed), 0, num_clients)
@@ -1181,9 +1379,9 @@ def cohort_compare_record(
     last: dict = {}   # each producer's final uploads, for the hash gate
 
     def run(tag, cohort_arg):
-        last[tag] = client_uploads(model, cfg, ctx, pk, global_params, xs, ys,
-                                   torch.Generator().manual_seed(int(key_seed)),
-                                   participation=part, cohort=cohort_arg)[0]
+        last[tag] = produce_uploads(model, cfg, mesh, ctx, pk, global_params, xs, ys,
+                                    torch.Generator().manual_seed(int(key_seed)),
+                                    participation=part, cohort=cohort_arg)[0]
 
     with deterministic_algorithms():
         t_full = steady_seconds(lambda: run("full", None))
@@ -1193,14 +1391,16 @@ def cohort_compare_record(
     for i, c in enumerate(cohort):
         acc_full.fold((int(c), 0), full.c0[c], full.c1[c])
         acc_coh.fold((int(c), 0), coh.c0[i], coh.c1[i])
+    n_dev = 1 if mesh is None else client_mesh_size(mesh)
     return {
         "num_clients": int(num_clients),
         "cohort_size": int(len(cohort)),
-        "bucket": int(cohort_bucket(len(cohort), num_clients)),
+        "bucket": int(cohort_bucket(len(cohort), num_clients, n_dev)),
         "full_c_train_s": round(t_full, 6),
         "cohort_train_s": round(t_cohort, 6),
         "speedup": round(t_full / t_cohort, 3),
-        "devices_per_axis": {"clients": 1, "ct": 1},
+        "devices_per_axis": {"clients": int(n_dev),
+                             "ct": 1 if mesh is None else int(ct_shard_count(mesh))},
         "bitwise_equal": ct_hash(*acc_full.value()) == ct_hash(*acc_coh.value()),
     }
 
@@ -1208,11 +1408,13 @@ def cohort_compare_record(
 def cohort_compare_smoke_record(device=None) -> dict:
     """`cohort_compare_record` at the JAX package's FIXED geometry: 16
     registered clients, a cohort of 2, SmallCNN on mnist (64 train images)
-    at N = 256 — a record of training scaling, not of ring cost. Runs on
-    `device` (CUDA unless given); the per-client loop trains each client
-    alone ("vmap"), so both producers run the same kernels on the same
-    shapes."""
+    at N = 256 — a record of training scaling, not of ring cost — on
+    `make_mesh(16)`: the ranks of the process group (every rank calls this
+    alike), or one device without one. Runs on `device` (CUDA unless
+    given); the per-client loop trains each client alone ("vmap"), so both
+    producers run the same kernels on the same shapes."""
     from hefl_tpu_torch import resolve_device
+    from hefl_tpu_torch.parallel import make_mesh
     from hefl_tpu_torch.ckks.keys import CkksContext, keygen
     from hefl_tpu_torch.data.partition import iid_contiguous, stack_federated
     from hefl_tpu_torch.data.synthetic import make_dataset
@@ -1229,4 +1431,5 @@ def cohort_compare_smoke_record(device=None) -> dict:
                       client_fusion="vmap")
     return cohort_compare_record(
         model, cfg, ctx, pk, params, torch.from_numpy(xs).to(device),
-        torch.from_numpy(ys).to(device), 78, num_clients=16, cohort_size=2)
+        torch.from_numpy(ys).to(device), 78, num_clients=16, cohort_size=2,
+        mesh=make_mesh(16, device=device))

@@ -16,16 +16,10 @@ REPO = Path(__file__).resolve().parent.parent
 SUBPACKAGES = ("fl", "data", "utils", "obs", "models", "hhe")
 
 UNPORTED = {
-    "fl": {
-        "produce_uploads": "fl.secure.client_uploads is its counterpart (a torch.Generator "
-                           "in place of a jax.random key)",
-    },
     "data": {
         "Batcher": "data/batches.py: no driver path batches through it (ROADMAP, not queued)",
         "one_hot": "data/batches.py: the port calls torch.nn.functional.one_hot (ROADMAP, not "
                    "queued)",
-        "RoundPrefetcher": "data/prefetch.py: the driver copies a static dataset to the card "
-                           "once (ROADMAP, not queued)",
     },
 }
 

@@ -171,16 +171,22 @@ def test_client_blocks_tile_the_padded_registry(clients, n_dev):
 
 @pytest.mark.parametrize("mesh_ct", [0, 2])
 def test_a_process_group_runs_the_1d_mesh_whatever_mesh_ct(mesh_ct):
-    # The in-round ct split across ranks is not ported: ct ranks would train
-    # one block again, so the driver builds the 1-D mesh and records ct 1.
+    # In a process group mesh_ct > 1 builds the 2-D (clients, ct) mesh, whose
+    # ct ranks split a block's encrypt rows, and the record shows its real
+    # ct size; mesh_ct 0 the 1-D mesh. With no group one device is one
+    # block: the two axes named, ct of size 1.
     from hefl_tpu_torch import experiment
 
     cfg = experiment.ExperimentConfig(num_clients=4, mesh_ct=mesh_ct)
     axes = ["clients", "ct"] if mesh_ct > 1 else ["clients"]
-    assert experiment.mesh_record(cfg, parallel.make_mesh(4, world=4)) == {
-        "axes": axes, "clients": 4, "ct": 1, "world": 4, "backend": None}
+    mesh = (parallel.make_mesh_2d(4, mesh_ct, world=4) if mesh_ct > 1
+            else parallel.make_mesh(4, world=4))
+    assert experiment.mesh_record(cfg, mesh) == {
+        "axes": axes, "clients": 4 // max(mesh_ct, 1), "ct": max(mesh_ct, 1), "world": 4,
+        "backend": None}
     assert experiment.mesh_record(cfg, None) == {"axes": axes, "clients": 1, "ct": 1}
-    assert "make_mesh_2d" not in Path(experiment.__file__).read_text()
+    assert ("make_mesh_2d(cfg.num_clients, cfg.mesh_ct, device=device) if cfg.mesh_ct > 1"
+            in Path(experiment.__file__).read_text())
 
 
 def test_init_mesh_refuses_more_nccl_ranks_than_cards(monkeypatch):
