@@ -308,14 +308,34 @@ error:
      rank 0 recovers (24 torn bytes, round 1 open), its history and every
      rank's parameters bitwise the one-process run's; only rank 0 opens
      the journal.
-  Phases 3-17 each print their launches by (kernel, rows x N); phases 4-5
+  18. The augment's row-shift backends (`augment_runs`). Before phase 3
+     the script resolves the backend once on the card (`resolve_augment`:
+     "auto" times gather, fft and dft at the probe's [8, 256, 256, 3]
+     unless HEFL_AUG_SHIFT pins one) and hands the choice to every process
+     it starts (HEFL_AUG_SHIFT), so phases 3-17 train with it. (au) Each
+     backend's `random_augment` at [8, 256, 256, 3] and [32, 256, 256, 3]:
+     median and p95 of AUG_CALLS warm calls, kernels and device busy time
+     of one profiled call; the auto winner and its timings; the probe in a
+     fresh process (a temporary winners' file) against the cache hit in a
+     second one, and the first augment after each. (av) Each warp on the
+     card against the same call on the CPU within AUG_CPU_TOL, also under
+     deterministic algorithms; gather bitwise the default warp. (aw)
+     MedCNN at full width, phase 3's 2 clients of 96 images, 1 epoch,
+     through `secure_fedavg_round` (per-client loop, deterministic
+     algorithms): accum 2 at batch 16 bitwise accum 1 at batch 32, then
+     the round under fft and under dft, each decrypt within 5e-6 of its
+     plaintext mean; exactly K1 [3, 4096] x2, K3 [330 rows] x4, K4 [165
+     rows] x4. (ax) `run_experiment` on medical-8 (1 round x 1 epoch) with
+     the default backend: launches as phase 7's, the decrypt within 5e-6,
+     the record naming the script's choice and its timings.
+  Phases 3-18 each print their launches by (kernel, rows x N); phases 4-5
      also count the unhoisted twins' one K6 launch a baby step (S = 1).
-  18. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
-     3-17 launched, and not K6's kernel, spills registers, and that every
-     K3, K4, K6 and K7 launch of phases 3-17 fell on a shape phase 12
+  19. Check that no `ntt_kernel` instantiation of K1-K4 or K7 that phases
+     3-18 launched, and not K6's kernel, spills registers, and that every
+     K3, K4, K6 and K7 launch of phases 3-18 fell on a shape phase 12
      timed. Print one JSON line {"kernels": [...]}
      (phase 12's records; launches: the sum over the main-path runs of
-     phases 3-17, each counted from zero; every kernel carries one
+     phases 3-18, each counted from zero; every kernel carries one
      "shapes" entry per timed shape with the launches at that shape, K5's
      also its per-kernel "split"; the ranking launches x (ms - bound)
      prices each launch at its own shape)
@@ -4340,6 +4360,268 @@ def stream_mesh_runs() -> list[tuple[dict, dict]]:
     return runs
 
 
+# Phase 18: the augment's row-shift backends. (au): the shootout at the
+# auto probe's batch and at the flagship's training batch, steady calls of
+# `random_augment` (draws and warp) on the card.
+AUG_SHAPES = ((8, 256, 256, 3), (32, 256, 256, 3))
+AUG_CALLS = 20
+# (av): each warp on the card against the same call on the CPU (the JAX
+# package's dft/fft agreement for the spectral warps).
+AUG_CPU_TOL = 2e-5
+_AUG_PROCESS = """
+import json, sys, time, torch
+from pathlib import Path
+from hefl_tpu_torch.data import augment
+from hefl_tpu_torch.obs import metrics
+from hefl_tpu_torch.utils import autoselect
+autoselect.DEFAULT_DIR = Path(sys.argv[1])
+device = torch.device("cuda")
+torch.zeros(1, device=device)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+backend = augment.resolve_shift_backend(None, device)
+torch.cuda.synchronize()
+seconds = time.perf_counter() - t0
+# The first augment of a training batch after the choice: what a run pays
+# next, with whatever the probe warmed (or did not) still warm.
+gen = torch.Generator(device=device).manual_seed(0)
+x = torch.rand((32, 256, 256, 3), generator=gen, device=device)
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+augment.random_augment(gen, x)
+torch.cuda.synchronize()
+first_s = time.perf_counter() - t1
+snap = metrics.snapshot()
+print(json.dumps({"backend": backend, "report": augment.backend_report(), "seconds": seconds,
+                  "first_s": first_s, "probe": snap.get("autoselect.probe", 0),
+                  "cache": snap.get("autoselect.cache", 0)}))
+"""
+
+
+def resolve_augment(device) -> dict:
+    """The augment's backend for the whole script: "auto" (unless
+    HEFL_AUG_SHIFT pins one) resolved on the card once, before any phase
+    times a round. Every process the script starts afterwards (the ranks,
+    the gate, the subprocess checks) inherits the choice through
+    HEFL_AUG_SHIFT, so that all of them warp as this one does."""
+    import os
+
+    from hefl_tpu_torch.data import augment
+
+    t0 = time.perf_counter()
+    backend = augment.resolve_shift_backend(None, device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rep = augment.backend_report()
+    log(f"augment backend: {backend} in {seconds:.6f} s ({json.dumps(rep)}); the script's "
+        "processes inherit it")
+    os.environ["HEFL_AUG_SHIFT"] = backend
+    return {"backend": backend, "seconds": seconds, "report": rep}
+
+
+def kernel_profile(fn) -> tuple[int, float, float]:
+    """One warm call of `fn` under torch.profiler -> (kernels launched,
+    device busy ms, profiled wall ms). The window opens with
+    `obs.trace.PRIME_KERNELS` throwaway kernels (a window loses the events
+    of its first launches, `obs.trace.round_profiler`); only the kernels
+    that start inside the call's range count."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from hefl_tpu_torch.obs.trace import PRIME_KERNELS
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one = torch.ones(1, device="cuda")
+        for _ in range(PRIME_KERNELS):
+            one.add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function("chip_smoke.profiled_call"):
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    start = next(e for e in events if e.name == "chip_smoke.profiled_call").time_range.start
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")
+               and e.time_range.start >= start and e.time_range.elapsed_us() > 0]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3, wall_ms
+
+
+def augment_shootout(device, chosen: dict) -> None:
+    """Phase 18 (au): each backend's steady time at AUG_SHAPES, its kernels
+    and device busy time a call; the auto winner; the probe in a fresh
+    process against the cache hit in a second one."""
+    import tempfile
+
+    from hefl_tpu_torch.data import augment
+
+    for shape in AUG_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(0)
+        x = torch.rand(shape, generator=gen, device=device)
+        row = {}
+        for bk in augment.SHIFT_BACKENDS:
+            fn = lambda b=bk: augment.random_augment(gen, x, backend=b)  # noqa: E731
+            med, p95 = warm_latency(fn, AUG_CALLS)
+            kernels, busy, wall = kernel_profile(fn)
+            row[bk] = med * 1e3
+            log(f"  (au) random_augment[{bk}] at {list(shape)}: median {med * 1e3:.4f} ms, p95 "
+                f"{p95 * 1e3:.4f} ms over {AUG_CALLS} warm calls; one call profiled: {kernels} "
+                f"kernels, device busy {busy:.4f} ms of {wall:.4f} ms wall "
+                f"({100 * busy / wall:.1f} %)")
+        log(f"  (au) fastest at {list(shape)}: {min(row, key=row.get)} "
+            f"({json.dumps({k: round(v, 4) for k, v in row.items()})} ms)")
+    rep = chosen["report"]
+    log(f"  (au) the script's auto choice: {chosen['backend']} (probe timings at "
+        f"{list(augment._PROBE_SHAPE)}: {rep['auto_timings_ms']} ms, persisted "
+        f"{rep['auto_persisted']}, {chosen['seconds']:.6f} s)")
+    if chosen["backend"] not in augment.SHIFT_BACKENDS:
+        raise AssertionError(f"(au) resolved {chosen}")
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_") as tmp:
+        env = {"HEFL_AUTOSELECT_CACHE": "1", "HEFL_AUG_SHIFT": None}
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = port_process(["-c", _AUG_PROCESS, tmp], env)
+            runs.append({**json.loads(out.strip().splitlines()[-1]),
+                         "process_s": time.perf_counter() - t0})
+        stored = json.loads((Path(tmp) / "hefl_autoselect.json").read_text())
+    first, second = runs
+    log(f"  (au) augment 'auto', fresh process: {first['backend']} by probe in "
+        f"{first['seconds']:.6f} s (timings {first['report']['auto_timings_ms']} ms; process "
+        f"{first['process_s']:.3f} s); second process: {second['backend']} from the file in "
+        f"{second['seconds']:.6f} s (auto_persisted {second['report']['auto_persisted']}; "
+        f"process {second['process_s']:.3f} s); the first augment of a [32, 256, 256, 3] batch "
+        f"after it {first['first_s']:.6f} s against {second['first_s']:.6f} s; the file saves "
+        f"{first['seconds'] + first['first_s'] - second['seconds'] - second['first_s']:.6f} s a "
+        f"process; stored {json.dumps(stored)}")
+    if ((first["probe"], first["cache"], second["probe"], second["cache"]) != (1, 0, 0, 1)
+            or second["report"]["auto_persisted"] is not True
+            or first["report"]["auto_persisted"] is not False
+            or second["backend"] != first["backend"]
+            or set(first["report"]["auto_timings_ms"]) != set(augment.SHIFT_BACKENDS)):
+        raise AssertionError(f"(au) the augment winner did not persist: {runs}")
+
+
+def augment_card_vs_cpu(device) -> None:
+    """Phase 18 (av): each warp of a [8, 256, 256, 3] batch on the card
+    against the same call on the CPU (the spectral ones within AUG_CPU_TOL,
+    and under deterministic algorithms too); the gather warp bitwise the
+    default one."""
+    from hefl_tpu_torch.data import augment
+    from hefl_tpu_torch.experiment import deterministic_algorithms
+
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.random(AUG_SHAPES[0], dtype=np.float32))
+    aff = augment.draw_affine_params(torch.Generator().manual_seed(5), AUG_SHAPES[0][0],
+                                     0.2, 0.2, True)
+    card_in = (images.to(device), *(a.to(device) for a in aff))
+    for bk in augment.SHIFT_BACKENDS:
+        want = augment.apply_affine(images, *aff, backend=bk)
+        got = augment.apply_affine(*card_in, backend=bk)
+        with deterministic_algorithms():
+            det = augment.apply_affine(*card_in, backend=bk)
+        err = (got.cpu() - want).abs().max().item()
+        det_err = (det.cpu() - want).abs().max().item()
+        log(f"  (av) apply_affine[{bk}] card vs CPU: max abs err {err:.3e}, under deterministic "
+            f"algorithms {det_err:.3e}, bitwise {torch.equal(got.cpu(), want)}; the two card "
+            f"calls bitwise {torch.equal(got, det)} (limit {AUG_CPU_TOL})")
+        if not (err <= AUG_CPU_TOL and det_err <= AUG_CPU_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"(av) {bk} on the card is {err} / {det_err} off the CPU")
+    if not torch.equal(augment.apply_affine(*card_in), augment.apply_affine(*card_in, "gather")):
+        raise AssertionError("(av) the gather backend is not the default warp")
+
+
+def augment_rounds(device) -> tuple[dict, dict]:
+    """Phase 18 (aw): MedCNN at full width, phase 3's 2 clients of 96
+    `medical` images, 1 epoch, through `secure_fedavg_round` under the
+    per-client loop and deterministic algorithms: accum 2 at batch 16
+    bitwise accum 1 at batch 32, then the round with each spectral backend
+    pinned, each decrypted within ERR_LIMIT of its plaintext mean."""
+    from hefl_tpu_torch.ckks import cuda_ntt
+    from hefl_tpu_torch.ckks.packing import PackSpec
+    from hefl_tpu_torch.experiment import deterministic_algorithms
+    from hefl_tpu_torch.fl.config import TrainConfig
+    from hefl_tpu_torch.fl.secure import decrypt_average, secure_fedavg_round
+    from hefl_tpu_torch.data.partition import iid_contiguous, stack_federated
+    from hefl_tpu_torch.data.synthetic import make_dataset
+
+    (x, y), _, _ = make_dataset("medical", seed=0, n_train=192, n_test=8)
+    xs, ys = stack_federated(x, y, iid_contiguous(len(y), 2))
+    xs_d, ys_d = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    cfg = TrainConfig(epochs=1, num_classes=2, client_fusion="vmap")
+    cuda_ntt.reset_launch_counts()
+    model, params, ctx, sk, pk = _medcnn(device, 18)
+    spec = PackSpec.for_params(params, ctx.n)
+
+    def secure_round(label, tcfg):
+        t0 = time.perf_counter()
+        with deterministic_algorithms():
+            ct, mets, overflow, ref = secure_fedavg_round(
+                model, tcfg, ctx, pk, params, xs_d, ys_d, torch.Generator().manual_seed(19),
+                with_plain_reference=True)
+            avg = decrypt_average(ctx, sk, ct, 2, spec)
+        torch.cuda.synchronize()
+        err = max((avg[k] - ref[k]).abs().max().item() for k in ref)
+        log(f"  (aw) {label}: round + decrypt {time.perf_counter() - t0:.3f} s, decrypted "
+            f"average vs plaintext mean {err:.3e} (limit {ERR_LIMIT}), val_loss "
+            f"{mets[:, :, 0].tolist()}")
+        if not err <= ERR_LIMIT or int(overflow.sum()) or not torch.isfinite(mets).all():
+            raise AssertionError(f"(aw) {label}: decrypt {err}, overflow {overflow.tolist()}")
+        return ct, mets
+
+    ct_a, mets_a = secure_round("accum 2 at batch 16", dataclasses.replace(
+        cfg, batch_size=16, accum_steps=2))
+    ct_b, mets_b = secure_round("accum 1 at batch 32", dataclasses.replace(cfg, batch_size=32))
+    same = (torch.equal(ct_a.c0, ct_b.c0) and torch.equal(ct_a.c1, ct_b.c1)
+            and torch.equal(mets_a, mets_b))
+    log(f"  (aw) accum 2 at batch 16 == accum 1 at batch 32 bitwise (sum, metrics): {same}")
+    if not same:
+        raise AssertionError("(aw) accum 2 at batch 16 is not accum 1 at batch 32 bitwise")
+    for bk in ("fft", "dft"):
+        secure_round(f"aug_backend {bk}", dataclasses.replace(cfg, aug_backend=bk))
+    counts, shapes = cuda_ntt.launch_counts(), cuda_ntt.launch_rows()
+    log_launch_rows(shapes)
+    want = {("ntt_forward", 3, 4096): 2, ("encrypt_fused", 110 * 3, 4096): 4,
+            ("decrypt_fused", 55 * 3, 4096): 4}
+    if shapes != want:
+        raise AssertionError(f"(aw) launched {shapes}, expected exactly {want}")
+    return counts, shapes
+
+
+def augment_driver(device, chosen: dict) -> tuple[dict, dict]:
+    """Phase 18 (ax): `run_experiment` on medical-8 (1 round x 1 epoch) with
+    the default backend: its record names the script's auto winner and the
+    timings behind it."""
+    out, _, run, _ = drive("ax", cut("medical-8", 1, 1), 1, device, check_plain=True)
+    rec = out["augment_backend"]
+    log(f"  (ax) augment_backend record {json.dumps(rec)}")
+    if (rec["backend"] != chosen["backend"]
+            or rec["auto_timings_ms"] != chosen["report"]["auto_timings_ms"]):
+        raise AssertionError(f"(ax) the record {rec} does not name the choice {chosen}")
+    return run
+
+
+def augment_runs(device, chosen: dict) -> list[tuple[dict, dict]]:
+    """Phase 18: (au)-(ax)."""
+    t_phase = t = time.perf_counter()
+    augment_shootout(device, chosen)
+    log(f"  phase 18 (au) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    augment_card_vs_cpu(device)
+    log(f"  phase 18 (av) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    runs = [augment_rounds(device)]
+    log(f"  phase 18 (aw) wall time: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    with datasets_once():
+        runs.append(augment_driver(device, chosen))
+    log(f"  phase 18 (ax) wall time: {time.perf_counter() - t:.3f} s")
+    log(f"  phase 18 wall time: {time.perf_counter() - t_phase:.3f} s")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4364,6 +4646,7 @@ def main() -> int:
 
     log("phase 2: kernels vs plain versions")
     check_kernels(cuda_ntt, ntt_mod, device)
+    chosen = resolve_augment(device)
 
     log("phase 3: encrypted FedAvg round, MedCNN 256x256x3, N=4096 L=3, 2 clients")
     runs = [main_path(device)]
@@ -4423,13 +4706,18 @@ def main() -> int:
         "4 host tiers with b=4 error feedback (CKKS and hybrid-HE), the ct split, the resident "
         "bytes, the journaled driver crashed and recovered, in the gloo world")
     runs += stream_mesh_runs()
+    log("phase 18: the augment's row-shift backends: gather, fft and dft at [8, 256, 256, 3] "
+        "and [32, 256, 256, 3], the auto choice across two processes, each warp against the "
+        "CPU; MedCNN (256x256x3, N=4096 L=3, 2 clients) at accum 2 and under fft and dft; "
+        "run_experiment on medical-8 (1 round x 1 epoch) with the default backend")
+    runs += augment_runs(device, chosen)
     shapes = {}
     for _, run_shapes in runs:
         for key, count in run_shapes.items():
             shapes[key] = shapes.get(key, 0) + count
-    log("phases 3-17 together:")
+    log("phases 3-18 together:")
     log_launch_rows(shapes)
-    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-17
+    # The ntt_kernel instantiations K1-K4 and K7 ran in phases 3-18
     # (ntt_plan's cluster size at each launched shape) must not spill
     # registers.
     launched = {ntt_kernel_label(n.bit_length() - 1, cuda_ntt.ntt_plan(rows, n),

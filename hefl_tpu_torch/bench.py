@@ -84,6 +84,7 @@ def run(device=None, rounds: int = 5, seed: int = 0, smoke: bool = False) -> dic
     from hefl_tpu_torch.ckks.packing import PackedSpec, PackSpec, bytes_on_wire_record
     from hefl_tpu_torch.ckks.quantize import PackingConfig
     from hefl_tpu_torch.data import iid_contiguous, stack_federated
+    from hefl_tpu_torch.data.augment import resolve_shift_backend
     from hefl_tpu_torch.ckks.backend import he_backend_report
     from hefl_tpu_torch.experiment import augment_backend_record
     from hefl_tpu_torch.fl import hierarchy, stream
@@ -120,6 +121,8 @@ def run(device=None, rounds: int = 5, seed: int = 0, smoke: bool = False) -> dic
     # and pinned for every round, as run_experiment does.
     cfg = dataclasses.replace(cfg, client_fusion=resolve_fusion_backend(
         cfg.client_fusion, model, device))
+    if cfg.augment:                 # the augment's backend likewise
+        cfg = dataclasses.replace(cfg, aug_backend=resolve_shift_backend(cfg.aug_backend, device))
     he_backend = he_backend_report(device)
     sk, pk = keygen(ctx, flagship_keygen_gen(), device=device)
     pack = PackSpec.for_params(params, ctx.n)

@@ -55,13 +55,17 @@ def flat_params(params: dict[str, torch.Tensor]) -> torch.Tensor:
     ]).to(torch.float32)
 
 
-def pack_params(params: dict[str, torch.Tensor], n: int) -> torch.Tensor:
-    """Parameter dict -> coefficient blocks float32[n_ct, n], zero-padded."""
-    flat = flat_params(params)
+def pack_flat(flat: torch.Tensor, n: int) -> torch.Tensor:
+    """float[total] -> float[n_ct, n], zero-padded tail."""
     pad = (-flat.numel()) % n
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
     return flat.reshape(-1, n)
+
+
+def pack_params(params: dict[str, torch.Tensor], n: int) -> torch.Tensor:
+    """Parameter dict -> coefficient blocks float32[n_ct, n], zero-padded."""
+    return pack_flat(flat_params(params), n)
 
 
 def unpack_blocks(blocks: torch.Tensor, spec: PackSpec) -> dict[str, torch.Tensor]:

@@ -2,11 +2,12 @@
 partitioning and the image-folder loader (numpy copies of the JAX
 package's modules) and device-side augmentation (`data.augment`).
 
-Re-exports the names of `hefl_tpu.data` that the port defines;
-`Batcher`/`one_hot` are not ported. `RoundPrefetcher` (`data.prefetch`)
+Re-exports the names of `hefl_tpu.data`, `Batcher` and `one_hot`
+(`data.batches`) among them. `RoundPrefetcher` (`data.prefetch`)
 stages a round's federated arrays on the card, on the client mesh only a
 rank's own rows."""
 
+from hefl_tpu_torch.data.batches import Batcher, one_hot
 from hefl_tpu_torch.data.folder import (
     load_folder_splits,
     load_image_dataset,
@@ -34,4 +35,6 @@ __all__ = [
     "load_image_dataset",
     "load_folder_splits",
     "RoundPrefetcher",
+    "Batcher",
+    "one_hot",
 ]

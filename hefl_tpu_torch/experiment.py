@@ -80,6 +80,7 @@ from hefl_tpu_torch import analysis
 from hefl_tpu_torch.ckks.backend import he_backend_report
 from hefl_tpu_torch.ckks.keys import CkksContext, keygen
 from hefl_tpu_torch.ckks.packing import PackedSpec, PackSpec
+from hefl_tpu_torch.data.augment import backend_report, resolve_shift_backend
 from hefl_tpu_torch.data.folder import load_folder_splits
 from hefl_tpu_torch.data.partition import iid_contiguous, label_skew, stack_federated
 from hefl_tpu_torch.data.synthetic import make_dataset
@@ -489,6 +490,11 @@ def _run(cfg: ExperimentConfig, resume: bool, say, device,
     # device here) and pinned for every round.
     train_cfg = dataclasses.replace(train_cfg, client_fusion=_lead_choice(
         mesh, resolve_fusion_backend(train_cfg.client_fusion, model, device)))
+    # The augment's row-shift backend likewise, before any round is timed or
+    # profiled ("auto" times the three backends on the device here).
+    if train_cfg.augment:
+        train_cfg = dataclasses.replace(train_cfg, aug_backend=_lead_choice(
+            mesh, resolve_shift_backend(train_cfg.aug_backend, device)))
 
     ctx = cfg.he.build() if cfg.encrypted else None
     # A plaintext run has no HE phases: no pin to check, backend None.
@@ -887,10 +893,10 @@ def _share_keys(mesh, ctx: CkksContext, pk, gen: torch.Generator):
 
 
 def augment_backend_record() -> dict:
-    """The JAX record of the augment warp's backend: the port's one warp,
-    a gather."""
-    return {"requested": "gather", "backend": "gather", "auto_timings_ms": None,
-            "auto_persisted": False}
+    """The JAX record of the augment warp's backend (`data.augment.
+    backend_report`): requested, last resolved, the auto timings and
+    whether the auto winner came from the persisted file."""
+    return backend_report()
 
 
 def _straggler_wait(seconds: float, device) -> None:

@@ -36,7 +36,12 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from hefl_tpu_torch.data.augment import apply_affine, draw_affine_params, rescale
+from hefl_tpu_torch.data.augment import (
+    apply_affine,
+    draw_affine_params,
+    rescale,
+    resolve_shift_backend,
+)
 from hefl_tpu_torch.fl.config import TrainConfig
 from hefl_tpu_torch.fl.loss import accuracy, cross_entropy, loss_fn
 from hefl_tpu_torch.fl.optimizer import AdamState, adam_init, adam_update
@@ -44,14 +49,28 @@ from hefl_tpu_torch.obs import scopes
 
 
 def train_batch_geometry(cfg: TrainConfig, n_samples: int) -> tuple[int, int, int]:
-    """-> (n_tr, grp, steps): training samples, samples per step, steps per
-    epoch; (n_tr, 0, 0) when the client is too small to train."""
+    """-> (n_tr, grp, steps): training samples, samples per optimizer step
+    (batch_size x the clamped accum_steps) and optimizer steps per epoch;
+    (n_tr, 0, 0) when the client is too small to train. The single source
+    of the geometry: training and every FLOP and images-a-second numerator
+    read it."""
     n_val = max(int(n_samples * cfg.val_fraction), 1) if cfg.val_fraction > 0 else 0
     n_tr = n_samples - n_val
     if n_tr < 1:
         return n_tr, 0, 0
-    grp = min(cfg.batch_size, n_tr)
+    bs = min(cfg.batch_size, n_tr)
+    # Clamped so that a small client still takes a step an epoch.
+    accum = max(1, min(int(cfg.accum_steps), n_tr // bs))
+    grp = bs * accum
     return n_tr, grp, max(n_tr // grp, 1)
+
+
+def hoist_streams(cfg: TrainConfig, backend: str) -> bool:
+    """The JAX package's hoisted-streams predicate: the fused backend always
+    runs the flat layout, the per-client backend when `cfg.flat_scan`. The
+    port draws every stream ahead of training whatever the flag; the
+    predicate keeps the JAX refusal of a cohort gather without it."""
+    return backend == "fused" or bool(cfg.flat_scan)
 
 
 def epoch_index_streams(cfg: TrainConfig, gen: torch.Generator, n_samples: int):
@@ -182,13 +201,15 @@ def _require_trainable(cfg: TrainConfig, n_samples: int) -> None:
 
 
 def train_step(model, cfg: TrainConfig, params: dict, opt: AdamState, lr_scale, x_u8,
-               onehot, aug, anchor: dict) -> tuple[dict, AdamState]:
+               onehot, aug, anchor: dict, backend: str | None = None) -> tuple[dict, AdamState]:
     """One SGD step: rescale the uint8 batch, warp it (`aug` = one step's
-    (s, zx, zy, f), when `cfg.augment`), the loss gradient (FedProx against
-    `anchor`) and the Adam update at `lr_scale` -> (params, opt)."""
+    (s, zx, zy, f), when `cfg.augment`) with the row-shift `backend`
+    (resolved from `cfg.aug_backend` when None), the loss gradient (FedProx
+    against `anchor`) and the Adam update at `lr_scale` -> (params, opt)."""
     xb = rescale(x_u8)
     if cfg.augment:
-        xb = apply_affine(xb, *aug)
+        xb = apply_affine(xb, *aug, backend=backend or resolve_shift_backend(
+            cfg.aug_backend, x_u8.device))
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     loss, _ = loss_fn(model, leaves, xb, onehot, anchor, cfg.prox_mu)
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
@@ -226,6 +247,7 @@ def local_train_epochs(
     oh_tr = F.one_hot(y_tr.to(torch.int64), cfg.num_classes).to(torch.float32)
     oh_va = F.one_hot(y_va.to(torch.int64), cfg.num_classes).to(torch.float32)
     global_params = {k: v.detach() for k, v in global_params.items()}
+    bk = resolve_shift_backend(cfg.aug_backend, x.device) if cfg.augment else None
     params, opt = state.params, state.opt
     rows = []
     for perms, aug in epoch_streams:
@@ -239,7 +261,7 @@ def local_train_epochs(
                 idx = perms[step]
                 params, opt = train_step(
                     model, cfg, params, opt, state.lr_scale, x_tr[idx], oh_tr[idx],
-                    tuple(a[step] for a in aug) if cfg.augment else None, global_params)
+                    tuple(a[step] for a in aug) if cfg.augment else None, global_params, bk)
         with torch.profiler.record_function(scopes.VAL):
             # a stopped client evaluates the weights it keeps (its frozen ones)
             eval_params = state.params if state.stopped else params

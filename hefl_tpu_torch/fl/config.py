@@ -1,7 +1,7 @@
 """Configuration of the encrypted round: training, streaming, packing, HHE.
 
-The fields of the JAX package's `TrainConfig` (hefl_tpu/fl/config.py) that
-this path uses, with the same defaults, which reproduce the reference:
+Every field of the JAX package's `TrainConfig` (hefl_tpu/fl/config.py),
+with the same defaults, which reproduce the reference:
 Adam(lr=1e-3, decay=1e-4), 10 local epochs, batch 32,
 EarlyStopping(patience=5, restore_best_weights), ReduceLROnPlateau(
 patience=2, factor=0.3, min_lr=1e-6), validation_split=0.1, and the
@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 
 from hefl_tpu_torch.ckks.quantize import PackingConfig  # noqa: F401  (re-export)
+from hefl_tpu_torch.data.augment import SHIFT_BACKENDS
 from hefl_tpu_torch.hhe.cipher import HheConfig  # noqa: F401  (re-export)
 
 
@@ -39,7 +40,23 @@ class TrainConfig:
     aug_shear: float = 0.2
     aug_zoom: float = 0.2
     aug_flip: bool = True
+    # Row-shift backend of the augment affine ("gather" | "fft" | "dft");
+    # None defers to HEFL_AUG_SHIFT and then to the per-device auto choice
+    # (data.augment.resolve_shift_backend).
+    aug_backend: str | None = None
     num_classes: int = 2
+    # Micro-batch accumulation: each optimizer step runs ONE forward and
+    # backward over `accum_steps` micro-batches of `batch_size` (the mean
+    # loss over their union), so each GEMM is accum_steps times larger; the
+    # Adam schedule advances once a fused batch. Clamped so that a small
+    # client still takes a step an epoch (fl.client.train_batch_geometry).
+    # 1 reproduces the reference.
+    accum_steps: int = 1
+    # The JAX package's steps-major flattened scan (True) vs its nested
+    # scan-of-scans: an XLA layout choice. The port's eager loop is its one
+    # layout and both values train alike; False keeps the JAX refusal of a
+    # cohort gather under the per-client backend (fl.client.hoist_streams).
+    flat_scan: bool = True
     client_fusion: str = "auto"     # "fused" | "vmap" | "auto" (fl.fusion)
     # Encode saturation (encode_overflow > 0): "warn" aggregates and logs,
     # "raise" aborts the run, "exclude" drops the client from the round.
@@ -57,6 +74,13 @@ class TrainConfig:
                 f"client_fusion={self.client_fusion!r}: must be one of "
                 "'auto' | 'fused' | 'vmap'"
             )
+        if self.aug_backend is not None and self.aug_backend not in SHIFT_BACKENDS + ("auto",):
+            raise ValueError(
+                f"aug_backend={self.aug_backend!r}: must be None or one of "
+                f"{SHIFT_BACKENDS + ('auto',)}"
+            )
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps={self.accum_steps}: must be >= 1")
 
 
 @dataclasses.dataclass(frozen=True)

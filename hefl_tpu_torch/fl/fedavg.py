@@ -29,12 +29,14 @@ in, no poison, no sanitizing knob) takes the all-clients path bit for bit.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.func import functional_call
 
-from hefl_tpu_torch.data.augment import rescale
+from hefl_tpu_torch.data.augment import SHIFT_BACKENDS, rescale, resolve_shift_backend
 from hefl_tpu_torch.fl.client import local_train
 from hefl_tpu_torch.fl.config import TrainConfig
 from hefl_tpu_torch.fl.faults import RoundMeta, exclusion_bits, poison_tree
@@ -85,6 +87,21 @@ def train_block(
         return fused_train(model, cfg, global_params, xs, ys, gens=gens, streams=streams,
                            participation=participation)
     return train_clients(model, cfg, global_params, xs, ys, gens=gens, streams=streams)
+
+
+def agree_shift_backend(cfg: TrainConfig, mesh, device) -> TrainConfig:
+    """`cfg` with its augment backend resolved on rank 0 of `mesh` and
+    pinned on every member rank (a pickled broadcast): "auto" timed in each
+    rank's process could pick another backend, and the ranks must warp
+    alike for the round to be the one-device round. Unchanged off a process
+    group, without augmentation or with a backend pinned."""
+    if (not cfg.augment or cfg.aug_backend in SHIFT_BACKENDS
+            or mesh is None or mesh.group is None):
+        return cfg
+    box = [resolve_shift_backend(cfg.aug_backend, device)
+           if dist.get_rank(mesh.group) == 0 else None]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(mesh.group, 0), group=mesh.group)
+    return dataclasses.replace(cfg, aug_backend=box[0])
 
 
 def client_generators(gen: torch.Generator, count: int, device,
@@ -361,6 +378,7 @@ def fedavg_round(
     metrics come back for every client on every rank."""
     n_dev = 1 if mesh is None else client_mesh_size(mesh)
     num_clients, pad_idx, _ = _round_geometry(xs, n_dev, num_real_clients, resident_rows)
+    cfg = agree_shift_backend(cfg, mesh, xs.device)
     explicit = participation is not None or poison is not None
     masked = masked_mode(cfg, num_clients, n_dev, explicit)
     trivial = not masked or (pad_idx is None and cfg.max_update_norm <= 0

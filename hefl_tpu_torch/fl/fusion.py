@@ -46,14 +46,13 @@ and whether it came from the persisted file.
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from hefl_tpu_torch.data.augment import apply_affine, rescale
+from hefl_tpu_torch.data.augment import apply_affine, rescale, resolve_shift_backend
 from hefl_tpu_torch.fl.client import (
     _epoch_update,
     client_shipped_params,
@@ -66,6 +65,8 @@ from hefl_tpu_torch.fl.loss import cross_entropy
 from hefl_tpu_torch.fl.optimizer import AdamState, adam_init, adam_update
 from hefl_tpu_torch.models.folded import fold_clients, stack_params, unfold_clients
 from hefl_tpu_torch.obs import scopes
+from hefl_tpu_torch.utils.autoselect import device_name as _device_name
+from hefl_tpu_torch.utils.autoselect import time_backend as _time_backend
 
 FUSION_BACKENDS = ("fused", "vmap")
 
@@ -165,6 +166,7 @@ def fused_train(model, cfg: TrainConfig, global_params: dict, xs: torch.Tensor, 
     oh_tr = F.one_hot(y_tr.to(torch.int64), cfg.num_classes).to(torch.float32)
     oh_va = F.one_hot(y_va.to(torch.int64), cfg.num_classes).to(torch.float32)
     xva = fold_clients(rescale(x_va))
+    bk = resolve_shift_backend(cfg.aug_backend, dev) if cfg.augment else None
     if streams is None:
         if gens is None:
             raise TypeError("fused_train needs one generator or one stream pair per client")
@@ -186,7 +188,7 @@ def fused_train(model, cfg: TrainConfig, global_params: dict, xs: torch.Tensor, 
             idx = perms[:, step]                                             # [C, grp]
             xb = fold_clients(rescale(x_tr[rows_c, idx]))
             if cfg.augment:
-                xb = apply_affine(xb, *(a[:, step].reshape(-1) for a in aug))
+                xb = apply_affine(xb, *(a[:, step].reshape(-1) for a in aug), backend=bk)
             lr_scale = np.array([s.lr_scale for s in states], dtype=np.float32)
             params, opt = fused_step(model, cfg, params, opt, xb, oh_tr[rows_c, idx], lr_scale,
                                      gp, keep)
@@ -229,27 +231,6 @@ def fused_train(model, cfg: TrainConfig, global_params: dict, xs: torch.Tensor, 
 _PROBE_CLIENTS = 8
 _PROBE_BATCH = 8
 _PROBE_HW = 24
-
-
-def _device_name(device: torch.device) -> str:
-    return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
-
-
-def _time_backend(fn, device: torch.device) -> float:
-    """Best of 3 wall times of `fn` after one warm-up call, each ending in
-    a synchronize on a card."""
-    def run():
-        fn()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    run()
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run()
-        best = min(best, time.perf_counter() - t0)
-    return best
 
 
 def _autoselect_backend(device: torch.device) -> str:

@@ -58,12 +58,14 @@ from hefl_tpu_torch.ckks.packing import (
     unpack_blocks,
     unpack_quantized,
 )
+from hefl_tpu_torch.fl.client import hoist_streams
 from hefl_tpu_torch.fl.config import TrainConfig
 from hefl_tpu_torch.fl.dp import DpConfig, calibration_clients, dp_sanitize
 from hefl_tpu_torch.fl.faults import RoundMeta, exclusion_bits, poison_tree
 from hefl_tpu_torch.fl.fedavg import (
     _round_geometry,
     _trivial_mask,
+    agree_shift_backend,
     client_block,
     client_generators,
     cohort_bucket,
@@ -76,6 +78,7 @@ from hefl_tpu_torch.fl.fedavg import (
     plain_mean,
     train_block,
 )
+from hefl_tpu_torch.fl.fusion import resolve_fusion_backend
 from hefl_tpu_torch.hhe import cipher
 from hefl_tpu_torch.obs import scopes
 from hefl_tpu_torch.obs.scopes import scoped
@@ -409,9 +412,21 @@ def client_uploads(
             "the hybrid-HE upload ships the PACKED quantized update under the "
             "stream cipher; give a PackedSpec"
         )
+    cfg = agree_shift_backend(cfg, mesh, xs.device)
     gidx, rows = None, num_clients
     if cohort is not None:
         cohort = np.asarray(cohort, dtype=np.int64)
+        if len(cohort) < num_clients and not hoist_streams(
+                cfg, resolve_fusion_backend(cfg.client_fusion, model, xs.device)):
+            # The JAX package's refusal: its nested layout derives the
+            # shuffle inside the sharded region, where a cohort gather could
+            # diverge bitwise from the full-C reference.
+            raise ValueError(
+                "cohort-only training requires the hoisted shuffle streams "
+                "(TrainConfig.flat_scan=True, the default, or the fused backend); "
+                "set flat_scan=True or train the full registry with "
+                "StreamConfig.cohort_only=False (the CLI's --full-cohort-train)"
+            )
         if len(cohort) > num_clients or (
                 len(cohort) and (int(cohort.min()) < 0 or int(cohort.max()) >= num_clients)):
             raise ValueError(

@@ -54,7 +54,7 @@ def run(device=None, smoke: bool = False) -> dict:
     import torch.nn.functional as F
 
     from hefl_tpu_torch import device_record, resolve_device
-    from hefl_tpu_torch.data.augment import draw_affine_params
+    from hefl_tpu_torch.data.augment import draw_affine_params, resolve_shift_backend
     from hefl_tpu_torch.experiment import augment_backend_record
     from hefl_tpu_torch.fl.client import train_step
     from hefl_tpu_torch.fl.config import TrainConfig
@@ -71,6 +71,7 @@ def run(device=None, smoke: bool = False) -> dict:
     log(f"device: {dev['kind']} ({dev['power_limit']}), peak bf16 "
         f"{(peak or 0) / 1e12:.0f} TFLOP/s")
     cfg = TrainConfig()
+    backend = resolve_shift_backend(cfg.aug_backend, device)
     model = MedCNN(input_shape=(HW, HW, 3), **(SMOKE_WIDTH if smoke else {}))
     model.reset_parameters(torch.Generator().manual_seed(0))
     model = model.to(device)
@@ -92,11 +93,13 @@ def run(device=None, smoke: bool = False) -> dict:
         flops = 3.0 * roofline.model_flops(model, (bs, HW, HW, 3))
         p, o = params, adam_init(params)
         for _ in range(WARMUP):
-            p, o = train_step(model, cfg, p, o, np.float32(1.0), x_u8, onehot, aug, params)
+            p, o = train_step(model, cfg, p, o, np.float32(1.0), x_u8, onehot, aug, params,
+                              backend)
         sync()
         t0 = time.perf_counter()
         for _ in range(reps):
-            p, o = train_step(model, cfg, p, o, np.float32(1.0), x_u8, onehot, aug, params)
+            p, o = train_step(model, cfg, p, o, np.float32(1.0), x_u8, onehot, aug, params,
+                              backend)
         sync()
         dt = (time.perf_counter() - t0) / reps
         rows.append({"batch": bs, "step_ms": round(dt * 1e3, 3),

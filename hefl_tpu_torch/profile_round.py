@@ -33,8 +33,10 @@ CPU-sized one (mnist, 32 train images, SmallCNN, 1 epoch, batch 8, N = 256).
     python -m hefl_tpu_torch.profile_round [--profile [DIR]] [--smoke] [--device cpu]
 
 prints the markdown tables to stdout, then one JSON line
-`{"metric": "phase_attribution", ...}` with the root harness's keys (the
-augment row is `augment_gather_ms`, the port's one warp). Runs on CUDA
+`{"metric": "phase_attribution", ...}` with the root harness's keys (one
+`augment_<backend>_ms` row per row-shift backend: `random_augment` at the
+training batch of 256x256x3 images, and the resolved choice in
+`augment_backend`). Runs on CUDA
 unless `--device` says otherwise, and raises without a card.
 """
 
@@ -52,14 +54,14 @@ NUM_CLIENTS = 2
 # The root harness's packed geometry.
 PACKING = dict(bits=8, interleave=4, clip=0.5)
 ROUND_MODULE = "hefl.phase.train+encrypt+aggregate"
-# The root harness's record keys (its `att`) that the port fills; its
-# per-backend augment rows are the port's one warp, `augment_gather_ms`.
+# The root harness's record keys (its `att`) that the port fills.
 RECORD_KEYS = (
     "attribution_source", "trace_attribution", "full_round_s", "train_s", "he_in_round_s",
     "augment_s", "per_epoch_val_s", "sgd_core_s", "he_in_round_s_raw", "augment_s_raw",
     "per_epoch_val_s_raw", "sgd_core_s_raw", "attribution_unreliable", "standalone_encrypt_s",
     "standalone_aggregate_s", "decrypt_s", "decrypt_core_s", "evaluate_s", "augment_gather_ms",
-    "augment_backend", "client_fusion", "client_fusion_compare", "phase_roofline",
+    "augment_fft_ms", "augment_dft_ms", "augment_backend", "client_fusion",
+    "client_fusion_compare", "phase_roofline",
     "he_backend", "he_roofline", "packing", "bytes_on_wire", "cohort_compare", "obs_metrics",
     "device",
 )
@@ -149,7 +151,7 @@ def run(device=None, profile: str | None = None, smoke: bool = False, epochs: in
     from hefl_tpu_torch.ckks.packing import PackedSpec, PackSpec, bytes_on_wire_record
     from hefl_tpu_torch.ckks.quantize import PackingConfig
     from hefl_tpu_torch.data import iid_contiguous, stack_federated
-    from hefl_tpu_torch.data.augment import apply_affine, draw_affine_params
+    from hefl_tpu_torch.data.augment import SHIFT_BACKENDS, random_augment, resolve_shift_backend
     from hefl_tpu_torch.ckks.backend import he_backend_report
     from hefl_tpu_torch.experiment import augment_backend_record
     from hefl_tpu_torch.fl.client import train_batch_geometry
@@ -178,6 +180,8 @@ def run(device=None, profile: str | None = None, smoke: bool = False, epochs: in
     cfg = dataclasses.replace(cfg, client_fusion=resolve_fusion_backend(
         cfg.client_fusion, model, device))
     fusion = fusion_report()        # before the comparisons pin other backends
+    if cfg.augment:                 # "auto" times the backends here, outside every timed window
+        cfg = dataclasses.replace(cfg, aug_backend=resolve_shift_backend(cfg.aug_backend, device))
     he_backend = he_backend_report(device)
     sk, pk = keygen(ctx, flagship_keygen_gen(), device=device)
     pack = PackSpec.for_params(params, ctx.n)
@@ -255,13 +259,18 @@ def run(device=None, profile: str | None = None, smoke: bool = False, epochs: in
         f"{cohort_rec['full_c_train_s']:.3f}s vs cohort-only {cohort_rec['cohort_train_s']:.3f}s "
         f"= {cohort_rec['speedup']}x, bitwise_equal={cohort_rec['bitwise_equal']}")
 
-    # The augment warp at the training batch of the flagship's 256x256x3.
+    # The augment shootout at the training batch of the flagship's 256x256x3
+    # images: the race "auto" runs at its probe shape, here at this batch.
     batch = torch.from_numpy(np.random.default_rng(3).random(
         (cfg.batch_size, 256, 256, 3), np.float32)).to(device)
-    aff = draw_affine_params(torch.Generator(device=device).manual_seed(0), cfg.batch_size,
-                             cfg.aug_shear, cfg.aug_zoom, cfg.aug_flip)
-    t_aug = steady(lambda: apply_affine(batch, *aff), 10)
-    log(f"apply_affine per batch-{cfg.batch_size}: {t_aug * 1e3:.3f} ms")
+    aug_times = {}
+    for backend in SHIFT_BACKENDS:
+        aug_gen = torch.Generator(device=device).manual_seed(0)
+        aug_times[backend] = steady(
+            lambda b=backend, g=aug_gen: random_augment(g, batch, backend=b), 10)
+        log(f"random_augment[{backend}] per batch-{cfg.batch_size}: "
+            f"{aug_times[backend] * 1e3:.3f} ms")
+    chosen = resolve_shift_backend(cfg.aug_backend, device)
 
     full = times["full secure round (train+encrypt+aggregate)"]
     train_only = times["plain round (train+mean, no HE)"]
@@ -332,8 +341,8 @@ def run(device=None, profile: str | None = None, smoke: bool = False, epochs: in
         "decrypt_s": round(t_decrypt, 6),
         "decrypt_core_s": round(t_decrypt_core, 6),
         "evaluate_s": round(t_evaluate, 6),
-        "augment_gather_ms": round(t_aug * 1e3, 3),
-        "augment_backend": augment_backend_record(),
+        **{f"augment_{b}_ms": round(t * 1e3, 3) for b, t in aug_times.items()},
+        "augment_backend": {**augment_backend_record(), "backend": chosen},
         "client_fusion": fusion,
         "client_fusion_compare": roofline.backend_compare(
             fusion_times, flops=train_flops, device=device, images=train_images),
@@ -399,8 +408,10 @@ def print_tables(att: dict) -> None:
     tr = att["phase_roofline"]["train_only"]
     print(f"train-phase roofline: MFU {tr['mfu']} | {tr['images_per_s']} images/s")
     print()
-    print(f"| augment backend | ms / batch |\n|---|---|\n| gather (selected) | "
-          f"{att['augment_gather_ms']} |")
+    print("| augment backend (full warp) | ms / batch |\n|---|---|")
+    for b in ("gather", "fft", "dft"):
+        tag = " (selected)" if b == att["augment_backend"]["backend"] else ""
+        print(f"| {b}{tag} | {att[f'augment_{b}_ms']} |")
     print()
     print("| client-fusion backend (plain round) | seconds | MFU |")
     print("|---|---|---|")

@@ -25,10 +25,36 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from pathlib import Path
+
+import torch
 
 FILENAME = "hefl_autoselect.json"
 DEFAULT_DIR = Path(__file__).resolve().parent.parent / "_build"
+
+
+def device_name(device: torch.device) -> str:
+    """The key a winner is kept under: the card's CUDA name, or the device
+    type ("cpu")."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+
+
+def time_backend(fn, device: torch.device) -> float:
+    """A probe's reading of one candidate: the best of 3 wall times of `fn`
+    after one warm-up call, each ending in a synchronize on a card."""
+    def run():
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    run()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 def cache_file() -> str | None:

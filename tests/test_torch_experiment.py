@@ -42,7 +42,7 @@ from hefl_tpu.models import create_model as jcreate_model
 from hefl_tpu_torch import analysis, cli, convert, experiment, presets
 from hefl_tpu_torch.ckks import keys
 from hefl_tpu_torch.ckks.packing import PackSpec
-from hefl_tpu_torch.data import partition, synthetic
+from hefl_tpu_torch.data import augment, partition, synthetic
 from hefl_tpu_torch.data.augment import rescale
 from hefl_tpu_torch.fl import client, fedavg, loss, secure
 from hefl_tpu_torch.fl.config import TrainConfig
@@ -398,7 +398,11 @@ def test_run_experiment_matches_jax_schema(kind, request):
         # The HE layer's plain versions; a plaintext run has no HE phases
         # and reports none, as the JAX driver's record of one does.
         assert got["he_backend"]["backend"] == ("plain" if tcfg.encrypted else None)
-        assert got["augment_backend"]["backend"] == "gather"
+        # The augment record is the augment layer's report read after the
+        # run: the last resolved backend by name (None before any in this
+        # process; this config trains without augmentation).
+        assert got["augment_backend"] == augment.backend_report()
+        assert got["augment_backend"]["backend"] in augment.SHIFT_BACKENDS + (None,)
         assert got["client_fusion"]["backend"] in ("fused", "vmap")
     assert got["final_metrics"] is got["history"][-1]
     (x, y), _, _ = synthetic.make_dataset("mnist", seed=3, n_train=64, n_test=32)

@@ -260,7 +260,8 @@ def test_fused_train_matches_jax_fused_train_on_its_streams(block):
     streams = [(torch.from_numpy(np.asarray(perms[c]).astype(np.int64)),
                 tuple(torch.from_numpy(np.array(a[c])) for a in affines))
                for c in range(len(xs))]
-    pt, mt = fusion.fused_train(model, TrainConfig(**FUSE_KW), convert.from_flax(params),
+    pt, mt = fusion.fused_train(model, TrainConfig(**FUSE_KW, aug_backend="gather"),
+                                convert.from_flax(params),
                                 torch.from_numpy(xs), torch.from_numpy(ys), streams=streams)
     want = [convert.from_flax({k: jax.tree_util.tree_map(lambda a: np.asarray(a)[c], v)
                                for k, v in pj.items()}) for c in range(len(xs))]
@@ -292,7 +293,8 @@ def test_fused_participation_ships_global_weights_and_matches_jax(block):
         module, jcfg, p, jnp.asarray(xs), jnp.asarray(ys), keys,
         participation=jnp.asarray(part), streams_blk=streams_blk))(params)
     gp = convert.from_flax(params)
-    pt, mt = fusion.fused_train(model, TrainConfig(**FUSE_KW), gp, torch.from_numpy(xs),
+    pt, mt = fusion.fused_train(model, TrainConfig(**FUSE_KW, aug_backend="gather"), gp,
+                                torch.from_numpy(xs),
                                 torch.from_numpy(ys), streams=streams, participation=part)
     assert all(torch.equal(pt[1][k], gp[k]) for k in gp)
     want = [convert.from_flax({k: jax.tree_util.tree_map(lambda a: np.asarray(a)[c], v)

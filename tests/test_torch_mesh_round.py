@@ -112,12 +112,21 @@ def test_owner_side_encrypt_and_decrypt_over_the_ct_mesh(world2):
     assert world2.run(tasks.owner_he, N, 23) == [{"ct_equal": True, "avg_equal": True}] * 2
 
 
+def test_ranks_agree_on_rank_0s_augment_backend(world2):
+    # Each rank's environment names another backend: the unpinned config
+    # takes rank 0's everywhere, a pinned one keeps its pin.
+    assert world2.run(tasks.agreed_shift_backend, ["fft", "dft"]) == [["fft", "gather"]] * 2
+
+
 def test_driver_in_a_two_rank_world_is_the_one_device_run(world2, tmp_path):
     for sub in ("mesh", "one"):
         (tmp_path / sub).mkdir()
     cfg = experiment.ExperimentConfig(
         model="smallcnn", dataset="mnist", num_clients=4, rounds=2, n_train=64, n_test=16,
-        he=experiment.HEConfig(n=N), train=TrainConfig(epochs=1, batch_size=8, num_classes=10),
+        he=experiment.HEConfig(n=N),
+        # The world and this process each resolve the augment backend: pinned,
+        # so that an "auto" timed apart cannot pick two warps.
+        train=TrainConfig(epochs=1, batch_size=8, num_classes=10, aug_backend="gather"),
         checkpoint_path=str(tmp_path / "mesh" / "ckpt"),
         save_model_path=str(tmp_path / "mesh" / "model.npz"))
     got = world2.run(tasks.experiment_run, cfg, str(tmp_path))

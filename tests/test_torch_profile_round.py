@@ -17,15 +17,15 @@ from hefl_tpu_torch import profile_round
 from hefl_tpu_torch.fl import stream
 from hefl_tpu_torch.obs import trace
 
-# The root harness's `att` keys (profile_round.py) the port fills; its
-# per-backend augment rows are the port's one warp, `augment_gather_ms`.
+# The root harness's `att` keys (profile_round.py) the port fills, one
+# augment row per row-shift backend among them.
 PART_D_KEYS = (
     "attribution_source", "trace_attribution", "full_round_s", "train_s", "he_in_round_s",
     "augment_s", "per_epoch_val_s", "sgd_core_s", "he_in_round_s_raw", "augment_s_raw",
     "per_epoch_val_s_raw", "sgd_core_s_raw", "attribution_unreliable", "standalone_encrypt_s",
     "standalone_aggregate_s", "decrypt_s", "decrypt_core_s", "evaluate_s", "augment_gather_ms",
-    "augment_backend", "client_fusion", "client_fusion_compare", "phase_roofline",
-    "he_backend", "he_roofline", "packing", "bytes_on_wire", "cohort_compare", "obs_metrics",
+    "augment_fft_ms", "augment_dft_ms", "augment_backend", "client_fusion",
+    "client_fusion_compare", "phase_roofline", "he_backend", "he_roofline", "packing", "bytes_on_wire", "cohort_compare", "obs_metrics",
     "device",
 )
 COHORT = {"cohort_size": 2, "num_clients": 16, "bucket": 2, "full_c_train_s": 1.0,

@@ -228,3 +228,16 @@ def experiment_one_rank_fault(cfg, fail_rank: int) -> dict:
     finally:
         fedavg.train_block = real
     return {"ended": ended, "calls": len(calls)}
+
+
+def agreed_shift_backend(pins: list) -> list:
+    """Each rank's HEFL_AUG_SHIFT value from `pins` (rank 0 "fft", the
+    next "dft"...) -> [the backend `fedavg.agree_shift_backend` pins here
+    for an unpinned config, the one a pinned config keeps]."""
+    from hefl_tpu_torch.data import augment
+
+    augment._ENV_BACKEND = pins[rank()]
+    mesh = parallel.make_mesh(dist.get_world_size())
+    agreed = fedavg.agree_shift_backend(CFG, mesh, torch.device("cpu")).aug_backend
+    pinned = dataclasses.replace(CFG, aug_backend="gather")
+    return [agreed, fedavg.agree_shift_backend(pinned, mesh, torch.device("cpu")).aug_backend]
